@@ -1,0 +1,311 @@
+"""K-FAC second-order optimizer with composed-precision block inversion
+(counterpart of ``repro.core.kfac``, single device).
+
+Paper mapping (RePAST Sec. II-A, V-A):
+  SU  -> :func:`stats_grams` + :func:`update_factors` (factor Grams via
+         taps, EMA'd into the running factors);
+  INV -> :func:`refresh_inverses`, every diagonal block through the
+         ``neumann_inv`` kernel (``kernels.ops``) on the composed method;
+  WU  -> :func:`precondition` + :func:`apply_updates`
+         (``dW = A^{-1} (dL/dW) G^{-1}``, Eqn. 3), pooled over the WU
+         plan's tiles and, with ``use_kernel``, through the
+         ``fused_precond`` kernel.
+
+Factor gradients come from taps: zero tensors added to every factored
+linear's output whose gradients (``torch.autograd.grad``) are the
+per-token output gradients. Parameters, grads, factors and inverses are
+flat dicts keyed by parameter path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Mapping, Tuple
+
+import torch
+
+from repro_torch.core import quantize, soi
+from repro_torch.core.soi import LinearSpec
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class KFACConfig:
+    lr: float = 3e-2
+    momentum: float = 0.9
+    damping: float = 0.03           # relative Tikhonov (of mean block trace)
+    ema_decay: float = 0.95         # factor EMA
+    block_size: int = 1024          # paper's INV-crossbar group limit
+    stats_every: int = 10           # SU cadence (paper: 10 batches)
+    inv_every: int = 10             # inverse refresh cadence
+    stats_batch: int = 8            # SU subsample: sequences per pass
+    stats_seq: int = 1024           # SU subsample: tokens per sequence
+    kl_clip: float = 1.0            # trust-region scale clip
+    # "composed" = paper scheme (NS + Neumann + refine), "composed_fast"
+    # = without the Neumann stage, "exact" = linalg baseline
+    inv_method: str = "composed"
+    ns_iters: int = 20
+    taylor_terms: int = 4
+    refine_steps: int = 2
+    weight_decay: float = 0.0
+    precision: str = "fp32"         # WU einsum precision: fp32 | hilo
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+
+
+@dataclasses.dataclass
+class KFACState:
+    """Optimizer state. ``step`` is a host int (the cadence branches on
+    it without a device read). Moments exist per update path: factored
+    leaves carry heavy-ball ``momentum``, the others Adam's
+    ``adam_mu``/``adam_nu``."""
+
+    step: int
+    factors: Dict[str, Dict[str, torch.Tensor]]
+    inverses: Dict[str, Dict[str, torch.Tensor]]
+    momentum: Dict[str, torch.Tensor]
+    adam_mu: Dict[str, torch.Tensor]
+    adam_nu: Dict[str, torch.Tensor]
+
+
+def tree_order(names) -> list:
+    """Parameter paths in the reference's pytree order (sorted nested
+    dict keys), which fixes the trust-region dot's summation order."""
+    return sorted(names, key=lambda k: k.split("/"))
+
+
+def init(params: Mapping[str, torch.Tensor],
+         specs: Mapping[str, LinearSpec], cfg: KFACConfig) -> KFACState:
+    device = next(iter(params.values())).device
+    return KFACState(
+        step=0,
+        factors=soi.init_factors(specs, cfg.block_size, device=device),
+        inverses=soi.init_inverses(specs, cfg.block_size, device=device),
+        momentum={k: torch.zeros_like(p) for k, p in params.items()
+                  if k in specs},
+        adam_mu={k: torch.zeros_like(p) for k, p in params.items()
+                 if k not in specs},
+        adam_nu={k: torch.zeros_like(p) for k, p in params.items()
+                 if k not in specs},
+    )
+
+
+# ---------------------------------------------------------------------------
+# SU: factor statistics
+# ---------------------------------------------------------------------------
+
+def stats_grams(loss_with_taps: Callable, params, taps: Dict[str, torch.Tensor],
+                batch, specs: Mapping[str, LinearSpec], bs: int):
+    """One SU pass: ``(A_grams, G_grams, loss)``.
+
+    ``loss_with_taps(params, taps, batch) -> (loss, acts)`` where
+    ``acts[name]`` is the input activations (*stack, T, d_in) or an
+    already blocked Gram (*stack, nb, bs, bs). ``taps`` require grad."""
+    names = list(taps)
+    with torch.enable_grad():
+        loss, acts = loss_with_taps(params, taps, batch)
+        tap_grads = dict(zip(names, torch.autograd.grad(
+            loss, [taps[n] for n in names])))
+    a_grams, g_grams = {}, {}
+    for name, spec in specs.items():
+        g = tap_grads[name]                        # (*stack, T, d_out)
+        # Fisher convention: G = E_t[g g^T] * T
+        g_grams[name] = soi.blocked_gram(g, bs) * g.shape[-2]
+        if spec.share_a_with is None:
+            a = acts[name]
+            if (a.ndim == len(spec.stack) + 3
+                    and a.shape[-1] == a.shape[-2]):
+                a_grams[name] = a                  # already a blocked Gram
+            else:
+                a_grams[name] = soi.blocked_gram(a, bs)
+    return a_grams, g_grams, loss.detach()
+
+
+def update_factors(state: KFACState, a_grams: dict, g_grams: dict,
+                   cfg: KFACConfig) -> KFACState:
+    """EMA the new Grams into the running factors."""
+    d = cfg.ema_decay
+    new = {}
+    for name, f in state.factors.items():
+        nf = dict(f)
+        if "A" in f and name in a_grams:
+            nf["A"] = d * f["A"] + (1.0 - d) * a_grams[name]
+        if name in g_grams:
+            nf["G"] = d * f["G"] + (1.0 - d) * g_grams[name]
+        new[name] = nf
+    return dataclasses.replace(state, factors=new)
+
+
+# ---------------------------------------------------------------------------
+# INV: the paper's high-precision inversion of every diagonal block
+# ---------------------------------------------------------------------------
+
+def invert_blocks_flat(flat: torch.Tensor, lam: torch.Tensor,
+                       cfg: KFACConfig) -> torch.Tensor:
+    """Invert (N, bs, bs) blocks with per-block damping (N,).
+
+    The composed methods run the ``neumann_inv`` kernel (its plain
+    version for CPU tensors) at ``KFACConfig``'s counts."""
+    if cfg.inv_method == "exact":
+        eye = torch.eye(flat.shape[-1], dtype=flat.dtype, device=flat.device)
+        return torch.linalg.inv(flat + lam.reshape(-1, 1, 1) * eye)
+    if cfg.inv_method not in ("composed", "composed_fast"):
+        raise ValueError(f"unknown inv_method {cfg.inv_method!r}")
+    taylor = 1 if cfg.inv_method == "composed_fast" else cfg.taylor_terms
+    return ops.neumann_inv(flat.contiguous(), lam.reshape(-1),
+                           ns_iters=cfg.ns_iters, taylor_terms=taylor,
+                           refine_steps=cfg.refine_steps)
+
+
+def invert_factors(factors, cfg: KFACConfig) -> dict:
+    """``{name: {A|G: f}}`` -> ``{name: {A_inv|G_inv: inv}}``, one
+    batched inversion per factor leaf."""
+    out = {}
+    for name, f in factors.items():
+        d = {}
+        for side, leaf in f.items():
+            lam = soi.tikhonov_damping(leaf, cfg.damping).reshape(-1)
+            flat = leaf.reshape((-1,) + tuple(leaf.shape[-2:]))
+            d[side + "_inv"] = invert_blocks_flat(flat, lam, cfg).reshape(
+                leaf.shape)
+        out[name] = d
+    return out
+
+
+def refresh_inverses(state: KFACState, cfg: KFACConfig) -> KFACState:
+    return dataclasses.replace(state,
+                               inverses=invert_factors(state.factors, cfg))
+
+
+# ---------------------------------------------------------------------------
+# WU: preconditioning + parameter update
+# ---------------------------------------------------------------------------
+
+def inverse_pools(inverses, inv_plan) -> Dict[int, torch.Tensor]:
+    """Per-``bs`` flat pools ``{bs: (M, bs, bs)}`` in the plan's pooled
+    block order (the layout the WU plan's ``a_src``/``g_src`` index)."""
+    pools = {}
+    for g in inv_plan.groups:
+        parts = [inverses[name][side + "_inv"].reshape(-1, g.bs, g.bs)
+                 for name, side in g.leaves]
+        pools[g.bs] = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return pools
+
+
+def precondition_pooled(grads_by_name: Mapping[str, torch.Tensor],
+                        inverses, wu_plan, use_kernel: bool = False,
+                        precision: str = "fp32") -> dict:
+    """Pooled WU: every factored gradient tile of one ``(bi, bo)`` group
+    goes through one batched two-sided product, its A/G inverse blocks
+    gathered from the per-``bs`` pools.
+
+    ``use_kernel`` runs the pool through ``kernels.ops.fused_precond``
+    (the Hopper kernel on CUDA, its plain hi/lo version on the CPU);
+    its per-tile trust-region dots are discarded here, as in the
+    reference, since :func:`apply_updates` folds the dot per leaf.
+    Otherwise the tiles go through ``quantize.lowp_einsum`` at
+    ``precision``."""
+    quantize.precision_kind(precision)
+    pools = inverse_pools(inverses, wu_plan.inv_plan)
+    out = {}
+    for grp in wu_plan.groups:
+        tiles = [soi.gather_grad_tiles(grads_by_name[l.name], l.stack,
+                                       grp.bi, grp.bo)
+                 for l in grp.leaves]
+        g_pool = torch.cat(tiles).contiguous()
+        dev = g_pool.device
+        a_sel = pools[grp.bi][torch.as_tensor(grp.a_src, device=dev).long()]
+        g_sel = pools[grp.bo][torch.as_tensor(grp.g_src, device=dev).long()]
+        if use_kernel:
+            o, _dots = ops.fused_precond(a_sel, g_pool, g_sel)
+        else:
+            tmp = quantize.lowp_einsum("nab,nbc->nac", a_sel, g_pool,
+                                       precision=precision)
+            o = quantize.lowp_einsum("nac,ncd->nad", tmp, g_sel,
+                                     precision=precision)
+        ofs = 0
+        for l in grp.leaves:
+            out[l.name] = soi.scatter_grad_tiles(
+                o[ofs:ofs + l.n_tiles], l.stack, l.nb_i, l.nb_o, l.d_in,
+                l.d_out)
+            ofs += l.n_tiles
+    return out
+
+
+def precondition(grads: Mapping[str, torch.Tensor], state: KFACState,
+                 specs: Mapping[str, LinearSpec], cfg: KFACConfig,
+                 wu_plan=None, use_kernel: bool = False) -> dict:
+    """``A^{-1} g G^{-1}`` for every factored gradient; the others pass
+    through. With ``wu_plan`` the pooled route runs, else the per-leaf
+    einsum (the reference's legacy path, kept as the parity yardstick)."""
+    if wu_plan is not None:
+        pooled = precondition_pooled(
+            {k: g for k, g in grads.items() if k in specs},
+            state.inverses, wu_plan, use_kernel=use_kernel,
+            precision=cfg.precision)
+        missing = set(specs) & set(grads) - set(pooled)
+        if missing:
+            raise ValueError(
+                f"wu_plan does not cover factored leaves {sorted(missing)}; "
+                f"rebuild it with make_wu_plan for the current specs")
+        return {k: pooled.get(k, g) for k, g in grads.items()}
+    out = {}
+    for name, g in grads.items():
+        if name in specs:
+            a_name = specs[name].share_a_with or name
+            out[name] = soi.block_precondition(
+                g, state.inverses[a_name]["A_inv"],
+                state.inverses[name]["G_inv"], precision=cfg.precision)
+        else:
+            out[name] = g
+    return out
+
+
+def apply_updates(params: Mapping[str, torch.Tensor],
+                  grads: Mapping[str, torch.Tensor], state: KFACState,
+                  specs: Mapping[str, LinearSpec], cfg: KFACConfig,
+                  wu_plan=None, use_kernel: bool = False
+                  ) -> Tuple[dict, KFACState]:
+    """Trust-region-clipped update: factored params take the
+    preconditioned direction with heavy-ball momentum, the others Adam.
+
+    The clip scale ``nu = min(1, kl_clip / (lr |sum(d * g)|))`` sums
+    the factored leaves' dots in the reference's leaf order. Returns
+    new dicts; the inputs are not modified."""
+    pre = precondition(grads, state, specs, cfg, wu_plan=wu_plan,
+                       use_kernel=use_kernel)
+    dev = next(iter(params.values())).device
+    order = tree_order(params)
+    terms = [torch.sum(pre[k] * grads[k]) for k in order if k in specs]
+    dot = sum(terms) if terms else torch.zeros((), device=dev)
+    nu = torch.clamp(cfg.kl_clip / (cfg.lr * torch.abs(dot) + 1e-12),
+                     max=1.0)
+
+    step = state.step + 1
+    stepf = torch.tensor(float(step), dtype=torch.float32, device=dev)
+    bc1 = 1 - torch.tensor(cfg.adam_b1, dtype=torch.float32,
+                           device=dev) ** stepf
+    bc2 = 1 - torch.tensor(cfg.adam_b2, dtype=torch.float32,
+                           device=dev) ** stepf
+
+    new_p, new_m, new_mu, new_nu = {}, {}, {}, {}
+    for k in order:
+        p, d, g = params[k], pre[k], grads[k]
+        if k in specs:
+            m2 = cfg.momentum * state.momentum[k] + d * nu
+            upd = cfg.lr * m2 + cfg.lr * cfg.weight_decay * p
+            new_p[k] = p - upd
+            new_m[k] = m2
+        else:
+            mu2 = cfg.adam_b1 * state.adam_mu[k] + (1 - cfg.adam_b1) * g
+            nu2 = cfg.adam_b2 * state.adam_nu[k] \
+                + (1 - cfg.adam_b2) * g * g
+            mhat = mu2 / bc1
+            nhat = nu2 / bc2
+            new_p[k] = p - cfg.lr * mhat / (torch.sqrt(nhat) + cfg.adam_eps)
+            new_mu[k] = mu2
+            new_nu[k] = nu2
+    state2 = dataclasses.replace(state, step=step, momentum=new_m,
+                                 adam_mu=new_mu, adam_nu=new_nu)
+    return {k: new_p[k] for k in params}, state2

@@ -1,0 +1,71 @@
+"""Public kernel entry points: dispatch by the tensors' device.
+
+A tensor on the CPU takes the kernel's plain PyTorch version
+(:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the hand-written
+Hopper kernel (built at first use, :mod:`repro_torch.kernels.build`) or
+raises. There is no fallback from the card to the plain version.
+
+This is the wiring ``repro.kernels.ops`` describes for the TPU: the
+K-FAC INV stage (``core.kfac.invert_blocks_flat``) inverts through
+:func:`neumann_inv` and the pooled WU stage
+(``core.kfac.precondition_pooled``) through :func:`fused_precond`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels import fused_precond as _fused_precond
+from repro_torch.kernels import neumann_inv as _neumann_inv
+
+__all__ = ["neumann_inv", "fused_precond", "LIBRARIES", "build_all",
+           "launch_counts", "reset_launch_counts"]
+
+#: kernel name -> its CUDA library (launch counters live on these)
+LIBRARIES = {
+    "neumann_inv": _neumann_inv.LIB,
+    "fused_precond": _fused_precond.LIB,
+}
+
+
+def _route(*tensors: torch.Tensor) -> str:
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return "cpu"
+    if kinds == {"cuda"}:
+        return "cuda"
+    raise ValueError(f"kernel operands must all be on the CPU or all on "
+                     f"CUDA, got {sorted(kinds)}")
+
+
+def neumann_inv(a: torch.Tensor, damping, *, ns_iters: int = 14,
+                taylor_terms: int = 4, refine_steps: int = 1) -> torch.Tensor:
+    """Composed-precision inverse of ``a + damping I``, (nb, n, n)."""
+    kw = dict(ns_iters=ns_iters, taylor_terms=taylor_terms,
+              refine_steps=refine_steps)
+    if _route(a) == "cpu":
+        return ref.neumann_inv_ref(a, damping, **kw)
+    return _neumann_inv.neumann_inv(a, damping, **kw)
+
+
+def fused_precond(a_inv: torch.Tensor, g: torch.Tensor,
+                  g_inv: torch.Tensor):
+    """Pooled ``A_inv @ g @ G_inv`` (hi/lo) and per-tile TR dots."""
+    if _route(a_inv, g, g_inv) == "cpu":
+        return ref.fused_precond_ref(a_inv, g, g_inv)
+    return _fused_precond.fused_precond(a_inv, g, g_inv)
+
+
+def build_all() -> float:
+    """Build every kernel now (in parallel); returns the wall seconds."""
+    return build.build_all(list(LIBRARIES.values()))
+
+
+def launch_counts() -> dict:
+    return {name: lib.launches for name, lib in LIBRARIES.items()}
+
+
+def reset_launch_counts() -> None:
+    for lib in LIBRARIES.values():
+        lib.launches = 0

@@ -1,0 +1,77 @@
+"""Plain PyTorch versions of the port's kernels (counterpart of
+``repro.kernels.ref``).
+
+Each one runs the same algorithm as its CUDA kernel at the same working
+precision (hi/lo bf16 partial products, fp32 accumulation, identical
+iteration counts). The kernel wrappers use them for tensors on the CPU,
+and ``chip_smoke.py`` holds every kernel to them on the card.
+``exact_two_sided`` is the fp32 yardstick bounding the bit-sliced
+error.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quantize import hilo_matmul, hilo_matmul_exact_lhs
+
+
+def _damping_vector(damping, nb: int, device) -> torch.Tensor:
+    """Scalar or (nb,) damping -> (nb,) fp32 on ``device``."""
+    lam = torch.as_tensor(damping, dtype=torch.float32, device=device)
+    if lam.numel() == 1:
+        return lam.reshape(()).expand(nb)
+    if tuple(lam.shape) != (nb,):
+        raise ValueError(
+            f"damping must be a scalar or shape ({nb},) to match the "
+            f"{nb} blocks; got shape {tuple(lam.shape)}")
+    return lam
+
+
+def neumann_inv_ref(a: torch.Tensor, damping, *, ns_iters: int = 14,
+                    taylor_terms: int = 4,
+                    refine_steps: int = 1) -> torch.Tensor:
+    """Composed-precision inverse of ``a + damping I`` on (nb, n, n)
+    blocks, computed on n as given (no padding).
+
+    Split ``A+λI = A_H + A_L`` (bf16), ``X0 = A_H/(‖A_H‖₁‖A_H‖∞)``,
+    ``ns_iters`` Newton–Schulz steps on ``A_H``, ``taylor_terms-1``
+    Neumann terms over ``A_L``, ``refine_steps`` refinements against
+    the full block — every product a hi/lo bf16 partial-product sum."""
+    nb, n, _ = a.shape
+    lam = _damping_vector(damping, nb, a.device)
+    eye = torch.eye(n, dtype=torch.float32, device=a.device)
+    ad = a.to(torch.float32) + lam[:, None, None] * eye
+    a_hi16 = ad.to(torch.bfloat16)
+    a_hi = a_hi16.to(torch.float32)
+    a_lo16 = (ad - a_hi).to(torch.bfloat16)
+    n1 = a_hi.abs().sum(dim=-2).amax(dim=-1)
+    ninf = a_hi.abs().sum(dim=-1).amax(dim=-1)
+    x = a_hi / (n1 * ninf)[:, None, None]
+    for _ in range(ns_iters):
+        x = hilo_matmul(x, 2.0 * eye - hilo_matmul_exact_lhs(a_hi16, x))
+    m, t = x, x
+    for _ in range(max(taylor_terms - 1, 0)):
+        t = -hilo_matmul(x, hilo_matmul_exact_lhs(a_lo16, t))
+        m = m + t
+    for _ in range(refine_steps):
+        m = m + hilo_matmul(m, eye - hilo_matmul(ad, m))
+    return m
+
+
+def fused_precond_ref(a_inv: torch.Tensor, g: torch.Tensor,
+                      g_inv: torch.Tensor):
+    """``out[t] = hilo(hilo(A_inv[t], g[t]), G_inv[t])`` (left first)
+    and the per-tile trust-region dots ``sum(out[t] * g[t])``."""
+    g32 = g.to(torch.float32)
+    tmp = hilo_matmul(a_inv.to(torch.float32), g32)
+    out = hilo_matmul(tmp, g_inv.to(torch.float32))
+    return out, (out * g32).sum(dim=(-2, -1))
+
+
+def exact_two_sided(a_inv: torch.Tensor, g: torch.Tensor,
+                    g_inv: torch.Tensor) -> torch.Tensor:
+    """fp32 ``A_inv @ g @ G_inv`` (left first)."""
+    return torch.matmul(torch.matmul(a_inv.to(torch.float32),
+                                     g.to(torch.float32)),
+                        g_inv.to(torch.float32))

@@ -1,0 +1,119 @@
+"""Step builders for single-device K-FAC training (counterpart of the
+training half of ``repro.launch.steps``).
+
+  train_step   FP + BP + WU (precondition + update) every step
+  stats_step   SU: factor Grams on a token subsample, EMA'd into state
+  inv refresh  INV: composed-precision inverse of every factor block
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.core import kfac
+from repro_torch.core.kfac import KFACConfig, KFACState
+from repro_torch.models import lm
+from repro_torch.solve.partition import make_wu_plan
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Dict[str, torch.Tensor]
+    kfac: KFACState
+
+
+def make_wu_plan_for(cfg, state: TrainState):
+    """Pooled WU plan for this model, from the state's factor shapes."""
+    return make_wu_plan(lm.kfac_specs(cfg), state.kfac.factors)
+
+
+def _grads(cfg, params, batch) -> Tuple[torch.Tensor, dict]:
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        loss, _ = lm.loss_fn(cfg, p, batch)
+        grads = torch.autograd.grad(loss, list(p.values()))
+    return loss.detach(), dict(zip(p, grads))
+
+
+def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
+                    use_kernel: bool = False) -> Callable:
+    """One FP+BP+WU step ``(state, batch) -> (state, metrics)``.
+
+    ``cfg.train_accum > 1`` splits the batch rows into that many
+    microbatches and averages their loss and gradients. ``wu_plan``
+    routes the WU through the pooled program and ``use_kernel`` that
+    program through the ``fused_precond`` kernel."""
+    specs = lm.kfac_specs(cfg)
+    accum = max(cfg.train_accum, 1)
+
+    def train_step(state: TrainState, batch):
+        if accum == 1:
+            loss, grads = _grads(cfg, state.params, batch)
+        else:
+            b = batch["tokens"].shape[0]
+            if b % accum:
+                raise ValueError(f"batch {b} does not split into "
+                                 f"train_accum={accum} microbatches")
+            mb = b // accum
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for k, p in state.params.items()}
+            for i in range(accum):
+                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                l_i, g_i = _grads(cfg, state.params, part)
+                grads = {k: grads[k] + g_i[k].to(torch.float32) / accum
+                         for k in grads}
+                loss = loss + l_i / accum
+        params2, kstate2 = kfac.apply_updates(
+            state.params, grads, state.kfac, specs, kcfg, wu_plan=wu_plan,
+            use_kernel=use_kernel)
+        gnorm = torch.sqrt(sum(
+            torch.sum(torch.square(grads[k].to(torch.float32)))
+            for k in kfac.tree_order(grads)))
+        return TrainState(params2, kstate2), {"loss": loss,
+                                              "grad_norm": gnorm}
+
+    return train_step
+
+
+def make_stats_step(cfg, kcfg: KFACConfig) -> Callable:
+    """SU: factor Grams from one tapped fwd+bwd, EMA'd into the state.
+
+    The model collects its A-Grams at ``kcfg.block_size``, the factors'
+    block size. (The reference collects at ``cfg.soi_block`` and so
+    fails on any config whose ``soi_block`` exceeds the K-FAC block
+    size, e.g. the full qwen1.5-0.5b at ``--block-size 128``.)"""
+    specs = lm.kfac_specs(cfg)
+
+    def stats_step(state: TrainState, batch):
+        b, t = batch["tokens"].shape
+        taps = lm.build_taps(cfg, specs, b * t,
+                             device=batch["tokens"].device)
+
+        def loss_with_taps(p, tp, bt):
+            return lm.loss_fn(cfg, p, bt, taps=tp, collect=True,
+                              soi_block=kcfg.block_size)
+
+        a_grams, g_grams, loss = kfac.stats_grams(
+            loss_with_taps, state.params, taps, batch, specs,
+            kcfg.block_size)
+        kstate2 = kfac.update_factors(state.kfac, a_grams, g_grams, kcfg)
+        return dataclasses.replace(state, kfac=kstate2), {"stats_loss": loss}
+
+    return stats_step
+
+
+def make_inv_refresh(cfg, kcfg: KFACConfig) -> Callable:
+    """``factors -> inverses``: the paper's composed-precision INV of
+    every SOI block (the ``neumann_inv`` kernel on CUDA)."""
+    del cfg
+
+    def refresh(factors):
+        return kfac.invert_factors(factors, kcfg)
+
+    return refresh

@@ -1,0 +1,85 @@
+"""repro_torch's CUDA kernels against their plain PyTorch versions, on
+an NVIDIA GPU. Every test is marked ``cuda`` and skips inside the test
+when no GPU is present. The file imports neither jax nor ``repro``, so
+it runs on a machine with torch alone:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+
+(``--noconftest`` because ``tests/conftest.py`` bootstraps jax.)
+
+Tolerance: 1e-4 of the plain version's largest entry. The tensor cores
+sum the exact bf16 partial products in another order than the plain
+fp32 matmuls, and the inverse's iterations carry that rounding-level
+difference along (measured ~2e-5 relative on random SPD blocks).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+
+KW = dict(ns_iters=20, taylor_terms=4, refine_steps=2)   # KFACConfig counts
+
+
+def _damped(seed, nb, n):
+    r = np.random.default_rng(seed)
+    m = r.standard_normal((nb, n, n)).astype(np.float32)
+    a = (np.einsum("bij,bkj->bik", m, m) / n
+         + 1e-3 * np.eye(n, dtype=np.float32))
+    damp = (0.03 * np.trace(a, axis1=1, axis2=2) / n).astype(np.float32)
+    return a, damp
+
+
+def _tiles(seed, n, bi, bo):
+    r = np.random.default_rng(seed)
+    return tuple(r.standard_normal(s).astype(np.float32)
+                 for s in ((n, bi, bi), (n, bi, bo), (n, bo, bo)))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no "
+                    "CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,n", [(8, 128), (3, 32), (2, 100)])
+def test_neumann_inv_kernel_matches_plain(cuda_device, nb, n):
+    a, damp = _damped(nb + n, nb, n)
+    ta = torch.from_numpy(a).to(cuda_device)
+    td = torch.from_numpy(damp).to(cuda_device)
+    before = ops.launch_counts()["neumann_inv"]
+    got = ops.neumann_inv(ta, td, **KW)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["neumann_inv"] == before + 1
+    want = tref.neumann_inv_ref(ta, td, **KW)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 128, 128), (5, 32, 32),
+                                   (3, 100, 72)])
+def test_fused_precond_kernel_matches_plain(cuda_device, shape):
+    x = tuple(torch.from_numpy(v).to(cuda_device) for v in _tiles(5, *shape))
+    before = ops.launch_counts()["fused_precond"]
+    out, dots = ops.fused_precond(*x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_precond"] == before + 1
+    want_out, want_dots = tref.fused_precond_ref(*x)
+    assert (out - want_out).abs().max() <= 1e-4 * want_out.abs().max()
+    assert (dots - want_dots).abs().max() <= 1e-4 * want_dots.abs().max()
+
+
+@pytest.mark.cuda
+def test_neumann_inv_kernel_refuses_large_blocks(cuda_device):
+    a = torch.eye(130, device=cuda_device).expand(2, 130, 130).contiguous()
+    with pytest.raises(ValueError, match="n <= 128"):
+        ops.neumann_inv(a, 0.1, **KW)
