@@ -18,11 +18,24 @@ Phases, each printed as a JSON line:
                  steps with stats and inverse refresh every 2 steps,
                  through ``repro_torch.launch.train``; launch counters
                  zeroed just before and read just after
-  5. checks      finite losses, every kernel launched on the main path,
-                 the run's own inverses against the plain version on the
-                 same factor blocks and against float64 torch.linalg.inv
-                 (achieved bits); then the same four steps with
-                 torch.linalg.inv as the INV method, for comparison
+  5. checks      finite losses, both its kernels launched on the main
+                 path, the run's own inverses against the plain version
+                 on the same factor blocks and against float64
+                 torch.linalg.inv (achieved bits); then the same four
+                 steps with torch.linalg.inv as the INV method, for
+                 comparison
+  6. smw path    the incremental-SOI path (``--smw``): the same model and
+                 batch, four steps of one rank-64 SMW program each
+                 (drift budget 0.05) with the drift-gated full
+                 re-inversion; per step the phase seconds, drift,
+                 fallback flag and loss; launch counters zeroed just
+                 before and read just after (all three kernels must have
+                 run); then the first step without a fallback is
+                 updated again from its own inverses and batch: kernel
+                 against plain version, and the achieved bits of the
+                 run's, the kernel's, the plain version's, the fp32
+                 route's and float64 Woodbury's inverses, beside those of
+                 a full re-inversion of the same factors
 
 Then a JSON line of per-kernel results, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -47,9 +60,11 @@ SRC = os.path.join(HERE, "src")
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_FP32_FLOP_PER_S = 67e12
 
 MAIN = dict(arch="qwen1.5-0.5b", batch=8, seq=256, steps=4, stats_every=2,
             inv_every=2, block_size=128, seed=0)
+SMW = dict(steps=4, rank=64, drift_budget=0.05)
 KFAC_COUNTS = dict(ns_iters=20, taylor_terms=4, refine_steps=2)
 # a kernel agrees with its plain version when max|kernel - plain| is at
 # most this share of max|plain| (rounding-level: the tensor cores sum the
@@ -84,9 +99,12 @@ def time_ms(torch, fn, reps=5) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, flops: float):
+def bound(n_bytes: float, flops: float, fp32_flops: float = 0.0):
+    """Least ms for ``n_bytes`` of device memory traffic and ``flops``
+    bf16 tensor-core plus ``fp32_flops`` fp32 operations."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    t_ops = (flops / PEAK_BF16_FLOP_PER_S
+             + fp32_flops / PEAK_FP32_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -207,6 +225,74 @@ def main() -> int:
     check(err <= REL_TOL * scale, "fused_precond kernel vs plain (out)")
     check(d_err <= REL_TOL * d_scale, "fused_precond kernel vs plain (dots)")
     del a_inv, g, g_inv, out, dots
+
+    # smw_update at the SMW path's largest leaf: (528, 64, 128), with
+    # inverses of damped factor-like blocks at the A side's scale
+    # (c = 0.05/2048, as at 2048 subsample tokens) and the G side's
+    # (columns at 3e-4, inverse entries ~1e7, c = 0.05)
+    from repro_torch.kernels import smw_update as smw_kernel
+
+    ks = SMW["rank"]
+    decay = kfac.KFACConfig().ema_decay
+
+    def smw_case(scale):
+        v0 = torch.randn(nb_max, 2 * n, n, device=dev, generator=gen,
+                         dtype=torch.float64) * scale
+        f = v0.transpose(-1, -2) @ v0 / (2 * n)
+        lam = soi.tikhonov_damping(f, 0.03)
+        inv64 = torch.linalg.inv(f + lam[:, None, None]
+                                 * torch.eye(n, device=dev,
+                                             dtype=torch.float64))
+        v = torch.randn(nb_max, ks, n, device=dev, generator=gen) * scale
+        return inv64.float().contiguous(), v
+
+    smw_errs = {}
+    for side, scale, c in (("A", 1.0, (1 - decay) / (8 * 256)),
+                           ("G", 3e-4, 1 - decay)):
+        inv, v = smw_case(scale)
+        got = ops.smw_update(inv, v, decay=decay, cscale=c)
+        want = ref.smw_update_ref(inv, v, decay=decay, cscale=c)
+        smw_errs[side] = (float((got - want).abs().max()),
+                          float(want.abs().max()))
+        check(smw_errs[side][0] <= REL_TOL * smw_errs[side][1],
+              f"smw_update kernel vs plain ({side} side)")
+    # timed on the last (G-side) case. Bound: the function must read inv
+    # and v and write out; 3 hi/lo partials for each of V M, Y V^T and
+    # Y^T Z, and the fp32 solve (LU of k x k, two triangular solves on n
+    # columns). The design's own traffic adds Y, S and Z between passes.
+    y, s_cap = smw_kernel.smw_stats(inv, v, decay=decay, cscale=c)
+    z = torch.linalg.solve_ex(s_cap, y)[0].contiguous()
+    b_ms, b_by = bound(
+        4.0 * nb_max * (2 * n * n + ks * n),
+        2.0 * 3 * nb_max * (ks * n * n + ks * ks * n + n * n * ks),
+        nb_max * (2.0 / 3.0 * ks ** 3 + 2.0 * ks * ks * n))
+    design_ms, _ = bound(
+        4.0 * nb_max * (3 * n * n + 6 * ks * n + 2 * ks * ks), 0.0)
+    err_a, scale_a = smw_errs["A"]
+    err_g, scale_g = smw_errs["G"]
+    results["smw_update"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/smw_update.cu",
+        replaces="src/repro/kernels/smw_update.py:56,66",
+        shape=[nb_max, ks, n], max_abs_err=err_g, max_abs_plain=scale_g,
+        rel_err=err_g / scale_g, tol=REL_TOL * scale_g,
+        a_side=dict(max_abs_err=err_a, max_abs_plain=scale_a,
+                    rel_err=err_a / scale_a),
+        ms=time_ms(torch, lambda: ops.smw_update(inv, v, decay=decay,
+                                                 cscale=c)),
+        passes_ms=time_ms(torch, lambda: (
+            smw_kernel.smw_stats(inv, v, decay=decay, cscale=c),
+            smw_kernel.smw_apply(inv, y, z, decay=decay))),
+        pass1_ms=time_ms(torch, lambda: smw_kernel.smw_stats(
+            inv, v, decay=decay, cscale=c)),
+        solve_ms=time_ms(torch, lambda: torch.linalg.solve_ex(s_cap, y)),
+        pass2_ms=time_ms(torch, lambda: smw_kernel.smw_apply(
+            inv, y, z, decay=decay)),
+        plain_ms=time_ms(torch, lambda: ref.smw_update_ref(
+            inv, v, decay=decay, cscale=c)),
+        library_ms=time_ms(torch, lambda: ref.exact_smw_update(
+            inv, v, decay=decay, cscale=c)),
+        bound_ms=b_ms, bound_by=b_by, design_bytes_ms=design_ms)
+    del inv, v, got, want, y, s_cap, z
     for name, r in results.items():
         emit({"phase": "kernel", "name": name, **r})
     torch.cuda.empty_cache()
@@ -237,7 +323,7 @@ def main() -> int:
           "inv_blocks": wu.inv_plan.total_blocks,
           "wu_tiles": wu.total_tiles})
     check(all(math.isfinite(x) for x in losses), "finite losses")
-    for name in ops.LIBRARIES:
+    for name in ("neumann_inv", "fused_precond"):
         check(launches[name] > 0, f"{name} launched on the main path")
 
     # 5. the run's own inverses: kernel vs plain, and achieved bits -------
@@ -286,12 +372,140 @@ def main() -> int:
     check(all(math.isfinite(x) for x in ex_losses),
           "finite losses with exact inverses")
 
+    # 6. the SMW path ---------------------------------------------------
+    torch.cuda.empty_cache()
+    smw_prog = train_mod.KFACProgram(
+        cfg, kcfg, seed=MAIN["seed"], device="cuda", smw=True,
+        smw_drift_budget=SMW["drift_budget"], smw_rank=SMW["rank"])
+    kept = {}
+
+    def to_host(tree):
+        return {n: {k: t.cpu() for k, t in d.items()}
+                for n, d in tree.items()}
+
+    def keep_first_smw_step(st, rec):
+        # on the host, so that the path's peak memory is its own: the
+        # params and inverses entering the first step without a
+        # fallback, and that step's factors and inverses
+        if "factors" in kept:
+            return
+        if rec["smw_fallback"] == 0.0:
+            kept.update(step=rec["step"], factors=to_host(st.kfac.factors),
+                        inverses=to_host(st.kfac.inverses))
+        else:
+            kept.update(params={k: p.cpu() for k, p in st.params.items()},
+                        inverses0=to_host(st.kfac.inverses))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, smw_hist = train_mod.run(smw_prog, ds, SMW["steps"],
+                                on_step=keep_first_smw_step)
+    torch.cuda.synchronize(dev)
+    smw_wall = time.perf_counter() - t0
+    smw_launches = ops.launch_counts()
+    smw_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    smw_losses = [h["loss"] for h in smw_hist]
+    check(all(math.isfinite(x) for x in smw_losses), "finite SMW losses")
+    for name in ops.LIBRARIES:
+        check(smw_launches[name] > 0, f"{name} launched on the SMW path")
+    check("factors" in kept, "an SMW step without a fallback")
+
+    # that step's update again, from the inverses it started from and
+    # its own batch's columns: the kernel, its plain version, the fp32
+    # route and float64 Woodbury, each against float64 torch.linalg.inv
+    # of the step's damped factors (the last tells the algorithm's error
+    # from the rounding's), beside a full re-inversion of those factors
+    from repro_torch.data.pipeline import DataCursor
+    from repro_torch.solve import smw as smw_mod
+
+    def woodbury64(inv, v, *, decay, cscale):
+        inv, v = inv.double(), v.double()
+        m = (inv + inv.transpose(-1, -2)) * (0.5 / decay)
+        y = v @ m
+        s = y @ v.transpose(-1, -2) + torch.eye(
+            v.shape[-2], device=dev, dtype=torch.float64) / cscale
+        return m - y.transpose(-1, -2) @ torch.linalg.solve(s, y)
+
+    smw_bits = []
+    if "factors" in kept:
+        # stats_batch and stats_seq are the whole batch here
+        batch = ds.batch(DataCursor(kept["step"] - 1), device=dev)
+        n_tok = batch["tokens"].numel()
+        _, _, cols, _ = kfac.stats_rank_k(
+            lambda p, tp, bt: lm.loss_fn(cfg, p, bt, taps=tp,
+                                         collect="cols", soi_block=bs),
+            {k: p.to(dev) for k, p in kept["params"].items()},
+            lm.build_taps(cfg, specs, n_tok, device=dev),
+            batch, specs, bs)
+        for name, c_d in cols.items():
+            for side, v in c_d.items():
+                f = kept["factors"][name][side].to(dev)
+                flat = f.reshape(-1, bs, bs)
+                lam = soi.tikhonov_damping(flat, kcfg.damping)
+                exact = torch.linalg.inv(
+                    flat.double() + lam.double()[:, None, None]
+                    * torch.eye(bs, device=dev, dtype=torch.float64))
+                inv0 = kept["inverses0"][name][side + "_inv"].to(dev) \
+                    .reshape(-1, bs, bs).contiguous()
+                w = 1.0 / v.shape[-2] if side == "A" else 1.0
+                v = smw_mod._subsample_cols(v, SMW["rank"])
+                v = v.reshape(-1, *v.shape[-2:]).contiguous()
+                args = dict(decay=decay, cscale=(1.0 - decay) * w)
+                mine = ops.smw_update(inv0, v, **args)
+                plain = ref.smw_update_ref(inv0, v, **args)
+                run_inv = kept["inverses"][name][side + "_inv"].to(dev) \
+                    .reshape(-1, bs, bs)
+                full = ops.neumann_inv(flat.contiguous(), lam,
+                                       **KFAC_COUNTS)
+                err = float((mine - plain).abs().max())
+                scale = float(plain.abs().max())
+                row = dict(
+                    leaf=f"{name}/{side}", rel_err_vs_plain=err / scale,
+                    rel_diff_vs_run=float((mine - run_inv).abs().max())
+                    / scale,
+                    bits_smw=bits(run_inv, exact),
+                    bits_kernel=bits(mine, exact),
+                    bits_plain=bits(plain, exact),
+                    bits_fp32=bits(ref.exact_smw_update(inv0, v, **args),
+                                   exact),
+                    bits_woodbury64=bits(woodbury64(inv0, v, **args),
+                                         exact),
+                    bits_full_reinversion=bits(full, exact))
+                smw_bits.append(row)
+                check(err <= REL_TOL_RUN * scale,
+                      f"{row['leaf']} smw_update kernel vs plain (run)")
+                check(row["bits_kernel"] >= row["bits_plain"] - 1.0,
+                      f"{row['leaf']} smw_update as accurate as plain")
+                del exact, mine, plain, full
+        del cols
+
+    def lowest(key):
+        return min((r[key] for r in smw_bits), default=None)
+
+    emit({"phase": "smw_path", "arch": cfg.name, "layers": cfg.n_layers,
+          "block_size": bs, "batch": MAIN["batch"], "seq": MAIN["seq"],
+          **SMW, "losses": smw_losses,
+          "drift": [h["smw_drift"] for h in smw_hist],
+          "fallback": [h["smw_fallback"] for h in smw_hist],
+          "phase_s": [h["phase_s"] for h in smw_hist],
+          "wall_s": smw_wall, "launches": smw_launches,
+          "peak_mem_gb": smw_peak, "bits_step": kept.get("step"),
+          "bits": smw_bits,
+          **{"min_" + k: lowest(k) for k in (
+              "bits_smw", "bits_kernel", "bits_plain", "bits_fp32",
+              "bits_woodbury64", "bits_full_reinversion")}})
+    kept.clear()
+
     if failures:
         emit({"phase": "failed", "failures": failures})
         return 1
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [dict(name=name, launches=launches[name],
+    # each kernel's count from the path it belongs to: the K-FAC main
+    # path for neumann_inv and fused_precond, the SMW path for smw_update
+    path_launches = dict(launches, smw_update=smw_launches["smw_update"])
+    emit({"kernels": [dict(name=name, launches=path_launches[name],
                            **{k: r[k] for k in keys})
                       for name, r in results.items()]})
     print(smi, flush=True)

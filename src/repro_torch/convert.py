@@ -41,7 +41,7 @@ def _nest(flat: Mapping[str, Any]) -> dict:
     return out
 
 
-def to_tensor(x, device="cpu") -> torch.Tensor:
+def to_tensor(x, *, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
@@ -49,9 +49,10 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def params_from_jax(tree: Mapping, *, device="cpu") -> Dict[str, torch.Tensor]:
+def params_from_jax(tree: Mapping, *, device) -> Dict[str, torch.Tensor]:
     """Nested dicts of arrays -> the port's flat ``{path: tensor}``."""
-    return {k: to_tensor(v, device) for k, v in _flatten(tree).items()}
+    return {k: to_tensor(v, device=device)
+            for k, v in _flatten(tree).items()}
 
 
 def params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
@@ -59,9 +60,10 @@ def params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
     return _nest({k: to_numpy(v) for k, v in params.items()})
 
 
-def blocks_from_jax(tree: Mapping, *, device="cpu") -> dict:
+def blocks_from_jax(tree: Mapping, *, device) -> dict:
     """Factor or inverse tree ``{name: {side: array}}`` -> tensors."""
-    return {name: {side: to_tensor(v, device) for side, v in d.items()}
+    return {name: {side: to_tensor(v, device=device)
+                   for side, v in d.items()}
             for name, d in tree.items()}
 
 
@@ -70,10 +72,11 @@ def blocks_to_jax(tree: Mapping) -> dict:
             for name, d in tree.items()}
 
 
-def moments_from_jax(tree: Mapping, *, device="cpu") -> Dict[str, torch.Tensor]:
+def moments_from_jax(tree: Mapping, *, device) -> Dict[str, torch.Tensor]:
     """A params-shaped moment tree -> ``{path: tensor}`` without the
     zero-size placeholders of the unused update path."""
-    return {k: to_tensor(v, device) for k, v in _flatten(tree).items()
+    return {k: to_tensor(v, device=device)
+            for k, v in _flatten(tree).items()
             if np.size(v) or np.ndim(v) == 0}
 
 

@@ -3,7 +3,8 @@
 
 Paper mapping (RePAST Sec. II-A, V-A):
   SU  -> :func:`stats_grams` + :func:`update_factors` (factor Grams via
-         taps, EMA'd into the running factors);
+         taps, EMA'd into the running factors); :func:`stats_rank_k`
+         also returns the rank-k columns for the SMW refresh;
   INV -> :func:`refresh_inverses`, every diagonal block through the
          ``neumann_inv`` kernel (``kernels.ops``) on the composed method;
   WU  -> :func:`precondition` + :func:`apply_updates`
@@ -95,6 +96,17 @@ def init(params: Mapping[str, torch.Tensor],
 # SU: factor statistics
 # ---------------------------------------------------------------------------
 
+def _stats_pass(loss_with_taps: Callable, params,
+                taps: Dict[str, torch.Tensor], batch):
+    """The tapped fwd+bwd: ``(loss, acts, tap_grads)``."""
+    names = list(taps)
+    with torch.enable_grad():
+        loss, acts = loss_with_taps(params, taps, batch)
+        tap_grads = dict(zip(names, torch.autograd.grad(
+            loss, [taps[n] for n in names])))
+    return loss.detach(), acts, tap_grads
+
+
 def stats_grams(loss_with_taps: Callable, params, taps: Dict[str, torch.Tensor],
                 batch, specs: Mapping[str, LinearSpec], bs: int):
     """One SU pass: ``(A_grams, G_grams, loss)``.
@@ -102,11 +114,8 @@ def stats_grams(loss_with_taps: Callable, params, taps: Dict[str, torch.Tensor],
     ``loss_with_taps(params, taps, batch) -> (loss, acts)`` where
     ``acts[name]`` is the input activations (*stack, T, d_in) or an
     already blocked Gram (*stack, nb, bs, bs). ``taps`` require grad."""
-    names = list(taps)
-    with torch.enable_grad():
-        loss, acts = loss_with_taps(params, taps, batch)
-        tap_grads = dict(zip(names, torch.autograd.grad(
-            loss, [taps[n] for n in names])))
+    loss, acts, tap_grads = _stats_pass(loss_with_taps, params, taps,
+                                        batch)
     a_grams, g_grams = {}, {}
     for name, spec in specs.items():
         g = tap_grads[name]                        # (*stack, T, d_out)
@@ -119,7 +128,36 @@ def stats_grams(loss_with_taps: Callable, params, taps: Dict[str, torch.Tensor],
                 a_grams[name] = a                  # already a blocked Gram
             else:
                 a_grams[name] = soi.blocked_gram(a, bs)
-    return a_grams, g_grams, loss.detach()
+    return a_grams, g_grams, loss
+
+
+def stats_rank_k(loss_with_taps: Callable, params,
+                 taps: Dict[str, torch.Tensor], batch,
+                 specs: Mapping[str, LinearSpec], bs: int):
+    """SU pass that also returns the rank-k column factors:
+    ``(A_grams, G_grams, cols, loss)``.
+
+    The model must collect with ``collect="cols"``: ``acts[name]`` is
+    then ``soi.blocked_tokens`` (*stack, T, nb, bs). ``cols[name][side]``
+    is (*stack, nb, k, bs) with k the subsample's tokens, and each
+    block's Gram contribution is ``V^T V * w`` with ``w = 1/k`` for A
+    (token-mean Gram) and ``w = 1`` for G (Fisher sum over tokens),
+    the convention ``solve.smw`` relies on. The Grams are bitwise those
+    of :func:`stats_grams` on the same inputs, so the factor EMA does
+    not depend on which stats path ran."""
+    loss, acts, tap_grads = _stats_pass(loss_with_taps, params, taps,
+                                        batch)
+    a_grams, g_grams, cols = {}, {}, {}
+    for name, spec in specs.items():
+        g = soi.blocked_tokens(tap_grads[name], bs)   # (*stack,T,nb,bs)
+        g_grams[name] = soi.gram_from_tokens(g) * g.shape[-3]
+        entry = {"G": soi.cols_from_tokens(g)}
+        if spec.share_a_with is None:
+            a = acts[name]                 # blocked tokens (*stack,T,nb,bs)
+            a_grams[name] = soi.gram_from_tokens(a)
+            entry["A"] = soi.cols_from_tokens(a)
+        cols[name] = entry
+    return a_grams, g_grams, cols, loss
 
 
 def update_factors(state: KFACState, a_grams: dict, g_grams: dict,

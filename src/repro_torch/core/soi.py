@@ -72,14 +72,34 @@ def pad_to_blocks(x: torch.Tensor, axis: int, bs: int) -> torch.Tensor:
 
 def blocked_gram(a: torch.Tensor, cap: int) -> torch.Tensor:
     """(..., T, d) activations -> (..., nb, bs, bs) diagonal-block Gram
-    ``a_i^T a_i / T`` (fp32)."""
-    t = a.shape[-2]
+    ``a_i^T a_i / T`` (fp32). Computed as the Gram of
+    :func:`blocked_tokens`, so the cols-collecting SMW stats path gets
+    the same factors bitwise."""
+    return gram_from_tokens(blocked_tokens(a, cap))
+
+
+def blocked_tokens(a: torch.Tensor, cap: int) -> torch.Tensor:
+    """(..., T, d) activations -> (..., T, nb, bs) fp32 blocked token
+    columns, the rank-T square root of :func:`blocked_gram` that the
+    SMW incremental refresh (``repro_torch.solve.smw``) consumes."""
     bs = block_size_for(a.shape[-1], cap)
     a = pad_to_blocks(a.to(torch.float32), -1, bs)
     nb = a.shape[-1] // bs
-    a = a.reshape(a.shape[:-1] + (nb, bs))
-    gram = torch.einsum("...tib,...tic->...ibc", a, a)
+    return a.reshape(a.shape[:-1] + (nb, bs))
+
+
+def gram_from_tokens(bt: torch.Tensor) -> torch.Tensor:
+    """(..., T, nb, bs) blocked tokens -> (..., nb, bs, bs) Gram
+    ``cols^T cols / T``."""
+    t = bt.shape[-3]
+    gram = torch.einsum("...tib,...tic->...ibc", bt, bt)
     return gram / t
+
+
+def cols_from_tokens(bt: torch.Tensor) -> torch.Tensor:
+    """(..., T, nb, bs) blocked tokens -> (..., nb, T, bs) per-block
+    column factors ``V`` with Gram contribution ``V^T V / T`` (a view)."""
+    return torch.movedim(bt, -3, -2)
 
 
 def factor_shapes(spec: LinearSpec, cap: int) -> dict:

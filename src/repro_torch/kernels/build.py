@@ -1,6 +1,6 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C launch function,
+Each kernel is one ``csrc/*.cu`` file with plain C launch functions,
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
 ``kernels/build/`` (listed in ``.gitignore``). The library name carries
 a digest of the sources and flags, so an edited kernel is rebuilt and a
@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Sequence
+from typing import Mapping, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -36,22 +36,22 @@ def _nvcc() -> str:
 
 
 class CudaLibrary:
-    """One kernel's shared library, its C launch function and its count
+    """One kernel's shared library, its C launch functions and its count
     of launches.
 
-    ``launches`` is bumped by :meth:`launch` after the kernel was
-    enqueued without error, and nowhere else, so a run can show that
-    its main path went through the kernel."""
+    ``entries`` maps each C launch function to its ctypes argument
+    types. ``launches`` is bumped by :meth:`launch` after each kernel
+    was enqueued without error, and nowhere else, so a run can show
+    that its main path went through the kernel."""
 
-    def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence):
+    def __init__(self, name: str, source: str,
+                 entries: Mapping[str, Sequence]):
         self.name = name
         self.source = CSRC / source
-        self.symbol = symbol
-        self.argtypes = list(argtypes)
+        self.entries = {sym: list(types) for sym, types in entries.items()}
         self.launches = 0
         self.build_log = ""
-        self._fn = None
+        self._fns = None
         self._err_str = None
 
     def _digest(self) -> str:
@@ -89,25 +89,29 @@ class CudaLibrary:
                 f"(exit {proc.returncode}):\n{self.build_log}")
         os.replace(tmp, self.path)
 
-    def _load(self):
-        if self._fn is None:
+    def _load(self) -> dict:
+        if self._fns is None:
             self.finish_build(self.start_build())
             lib = ctypes.CDLL(str(self.path))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
+            fns = {}
+            for sym, argtypes in self.entries.items():
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[sym] = fn
             err_str = getattr(lib, self.name + "_error_string")
             err_str.argtypes = [ctypes.c_int]
             err_str.restype = ctypes.c_char_p
-            self._fn, self._err_str = fn, err_str
-        return self._fn
+            self._fns, self._err_str = fns, err_str
+        return self._fns
 
-    def launch(self, *args) -> None:
-        """Enqueue the kernel; raise if the launch was refused."""
-        err = self._load()(*args)
+    def launch(self, entry: str, *args) -> None:
+        """Enqueue a kernel through the C launch function ``entry``;
+        raise if the launch was refused."""
+        err = self._load()[entry](*args)
         if err != 0:
             raise RuntimeError(
-                f"{self.name} kernel launch failed: "
+                f"{self.name} kernel launch ({entry}) failed: "
                 f"{self._err_str(err).decode()} (cudaError {err})")
         self.launches += 1
 

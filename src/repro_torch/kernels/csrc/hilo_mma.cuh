@@ -92,6 +92,54 @@ __device__ __forceinline__ void gemm(Acc acc, const bf16* L, const bf16* R) {
   }
 }
 
+// acc += op(L) @ op(R) for a product of M x K by K x N inside the NP x NP
+// tiles, over the depth kd (a multiple of 16, at most NP). op(L) is L
+// (stored M x K) or, with LT, the transpose of L stored K x M; op(R) is R
+// (stored K x N) or, with RT, the transpose of R stored N x K. Either
+// transpose costs nothing: ldmatrix.trans (resp. plain ldmatrix) delivers
+// the same mma fragments from the other layout. Warps whose 32 output rows
+// start at or past mr, and 16-column slabs at or past nc, skip their
+// products (their accumulators stay as they were); all operand entries
+// outside mr x kd and kd x nc that are read must be zero.
+template <bool LT, bool RT>
+__device__ __forceinline__ void gemm_ex(Acc acc, const bf16* L, const bf16* R,
+                                        int kd, int mr, int nc) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp >> 1) * 32;
+  const int n0 = (warp & 1) * 64;
+  if (m0 >= mr || n0 >= nc) return;
+  // row / column offsets of this lane's ldmatrix address
+  const int r16 = lane & 15, c8 = (lane >> 4) * 8;                 // plain
+  const int r8 = (lane & 7) + ((lane >> 4) << 3);                  // swapped
+  const int s8 = ((lane >> 3) & 1) * 8;
+  for (int k0 = 0; k0 < kd; k0 += 16) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      if (LT)
+        ldmatrix_x4_trans(a[mi], L + (k0 + r8) * LDS + m0 + mi * 16 + s8);
+      else
+        ldmatrix_x4(a[mi], L + (m0 + mi * 16 + r16) * LDS + k0 + c8);
+    }
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const int n = n0 + nj * 16;
+      if (n >= nc) continue;
+      uint32_t b[4];
+      if (RT)
+        ldmatrix_x4(b, R + (n + r8) * LDS + k0 + s8);
+      else
+        ldmatrix_x4_trans(b, R + (k0 + r16) * LDS + n + c8);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        mma_16816(acc[mi][2 * nj], a[mi], b[0], b[1]);
+        mma_16816(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+      }
+    }
+  }
+}
+
 // f(row, col, value&) over this thread's accumulator elements.
 template <class F>
 __device__ __forceinline__ void for_each(Acc acc, F f) {

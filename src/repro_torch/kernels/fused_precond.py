@@ -19,11 +19,11 @@ from repro_torch.kernels.build import CudaLibrary
 #: largest tile side the kernel takes
 MAX_B = 128
 
-LIB = CudaLibrary(
-    "fused_precond", "fused_precond.cu", "fused_precond_launch",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p])
+LIB = CudaLibrary("fused_precond", "fused_precond.cu", {
+    "fused_precond_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]})
 
 
 def fused_precond(a_inv: torch.Tensor, g: torch.Tensor,
@@ -59,7 +59,7 @@ def fused_precond(a_inv: torch.Tensor, g: torch.Tensor,
     if n == 0:
         return out, dots
     with torch.cuda.device(g.device):
-        LIB.launch(a_inv.data_ptr(), g.data_ptr(), g_inv.data_ptr(),
-                   out.data_ptr(), dots.data_ptr(), n, bi, bo,
-                   torch.cuda.current_stream(g.device).cuda_stream)
+        LIB.launch("fused_precond_launch", a_inv.data_ptr(), g.data_ptr(),
+                   g_inv.data_ptr(), out.data_ptr(), dots.data_ptr(), n,
+                   bi, bo, torch.cuda.current_stream(g.device).cuda_stream)
     return out, dots

@@ -23,11 +23,11 @@ from repro_torch.kernels.ref import _damping_vector
 #: largest block side the kernel takes (one CTA holds the block on chip)
 MAX_N = 128
 
-LIB = CudaLibrary(
-    "neumann_inv", "neumann_inv.cu", "neumann_inv_launch",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p])
+LIB = CudaLibrary("neumann_inv", "neumann_inv.cu", {
+    "neumann_inv_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]})
 
 
 def neumann_inv(a: torch.Tensor, damping, *, ns_iters: int,
@@ -56,7 +56,8 @@ def neumann_inv(a: torch.Tensor, damping, *, ns_iters: int,
     if nb == 0:
         return out
     with torch.cuda.device(a.device):
-        LIB.launch(a.data_ptr(), lam.data_ptr(), out.data_ptr(), nb, n,
-                   ns_iters, taylor_terms, refine_steps,
+        LIB.launch("neumann_inv_launch", a.data_ptr(), lam.data_ptr(),
+                   out.data_ptr(), nb, n, ns_iters, taylor_terms,
+                   refine_steps,
                    torch.cuda.current_stream(a.device).cuda_stream)
     return out

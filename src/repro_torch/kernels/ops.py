@@ -7,8 +7,10 @@ raises. There is no fallback from the card to the plain version.
 
 This is the wiring ``repro.kernels.ops`` describes for the TPU: the
 K-FAC INV stage (``core.kfac.invert_blocks_flat``) inverts through
-:func:`neumann_inv` and the pooled WU stage
-(``core.kfac.precondition_pooled``) through :func:`fused_precond`.
+:func:`neumann_inv`, the pooled WU stage
+(``core.kfac.precondition_pooled``) runs :func:`fused_precond`, and the
+incremental SOI refresh (``solve.smw.smw_update_flat`` with
+``SMWConfig.use_kernel``) updates through :func:`smw_update`.
 """
 
 from __future__ import annotations
@@ -18,14 +20,16 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import fused_precond as _fused_precond
 from repro_torch.kernels import neumann_inv as _neumann_inv
+from repro_torch.kernels import smw_update as _smw_update
 
-__all__ = ["neumann_inv", "fused_precond", "LIBRARIES", "build_all",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["neumann_inv", "fused_precond", "smw_update", "LIBRARIES",
+           "build_all", "launch_counts", "reset_launch_counts"]
 
 #: kernel name -> its CUDA library (launch counters live on these)
 LIBRARIES = {
     "neumann_inv": _neumann_inv.LIB,
     "fused_precond": _fused_precond.LIB,
+    "smw_update": _smw_update.LIB,
 }
 
 
@@ -55,6 +59,15 @@ def fused_precond(a_inv: torch.Tensor, g: torch.Tensor,
     if _route(a_inv, g, g_inv) == "cpu":
         return ref.fused_precond_ref(a_inv, g, g_inv)
     return _fused_precond.fused_precond(a_inv, g, g_inv)
+
+
+def smw_update(inv: torch.Tensor, v: torch.Tensor, *, decay: float,
+               cscale: float) -> torch.Tensor:
+    """Rank-k Woodbury update of (N, bs, bs) cached inverses with
+    (N, k, bs) columns: inverses of ``decay * F + cscale * V^T V``."""
+    if _route(inv, v) == "cpu":
+        return ref.smw_update_ref(inv, v, decay=decay, cscale=cscale)
+    return _smw_update.smw_update(inv, v, decay=decay, cscale=cscale)
 
 
 def build_all() -> float:

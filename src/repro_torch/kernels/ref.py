@@ -5,12 +5,13 @@ Each one runs the same algorithm as its CUDA kernel at the same working
 precision (hi/lo bf16 partial products, fp32 accumulation, identical
 iteration counts). The kernel wrappers use them for tensors on the CPU,
 and ``chip_smoke.py`` holds every kernel to them on the card.
-``exact_two_sided`` is the fp32 yardstick bounding the bit-sliced
-error.
+``exact_two_sided`` and ``exact_smw_update`` are the fp32 yardsticks
+bounding the bit-sliced error.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.quantize import hilo_matmul, hilo_matmul_exact_lhs
@@ -75,3 +76,51 @@ def exact_two_sided(a_inv: torch.Tensor, g: torch.Tensor,
     return torch.matmul(torch.matmul(a_inv.to(torch.float32),
                                      g.to(torch.float32)),
                         g_inv.to(torch.float32))
+
+
+def smw_scalars(decay: float, cscale: float):
+    """``(0.5/decay, 1/c)`` as the fp32 values the update multiplies by
+    and adds to the capacitance diagonal (the reference's
+    ``jnp.float32(0.5 / decay)`` and ``eye / jnp.float32(cscale)``)."""
+    inv_decay = np.float32(0.5 / decay)
+    inv_c = np.float32(1.0) / np.float32(cscale)
+    return float(inv_decay), float(inv_c)
+
+
+def smw_update_ref(inv: torch.Tensor, v: torch.Tensor, *, decay: float,
+                   cscale: float) -> torch.Tensor:
+    """Batched Woodbury update ``M - (VM)^T (S + I/c)^-1 (VM)`` with
+    ``M = sym(inv) * 0.5/decay`` on (N, bs, bs) inverses and (N, k, bs)
+    columns, computed on (k, bs) as given (the TPU kernel pads both to
+    128, which is exact). ``Y = V M``, ``S = Y V^T`` and ``Y^T Z`` are
+    hi/lo partial-product sums; the k x k solve is
+    ``torch.linalg.solve_ex``, as the kernel's wrapper runs it: like
+    ``jnp.linalg.solve`` it checks nothing on the host (no device
+    sync), and a singular capacitance shows up as a non-finite drift,
+    which the SMW gate answers with a full re-inversion."""
+    inv_decay, inv_c = smw_scalars(decay, cscale)
+    inv = inv.to(torch.float32)
+    v = v.to(torch.float32)
+    k = v.shape[-2]
+    m = (inv + inv.transpose(-1, -2)) * inv_decay
+    y = hilo_matmul(v, m)
+    eye = torch.eye(k, dtype=torch.float32, device=v.device)
+    s = hilo_matmul(y, v.transpose(-1, -2)) + eye * inv_c
+    z = torch.linalg.solve_ex(s, y)[0]
+    return m - hilo_matmul(y.transpose(-1, -2), z)
+
+
+def exact_smw_update(inv: torch.Tensor, v: torch.Tensor, *, decay: float,
+                     cscale: float) -> torch.Tensor:
+    """fp32 Woodbury update (fp32 matmuls and ``torch.linalg.solve``),
+    the same math as ``solve.smw.smw_update_flat``'s einsum route."""
+    inv_decay, inv_c = smw_scalars(decay, cscale)
+    inv = inv.to(torch.float32)
+    v = v.to(torch.float32)
+    k = v.shape[-2]
+    m = (inv + inv.transpose(-1, -2)) * inv_decay
+    y = torch.matmul(v, m)
+    eye = torch.eye(k, dtype=torch.float32, device=v.device)
+    s = torch.matmul(y, v.transpose(-1, -2)) + eye * inv_c
+    z = torch.linalg.solve(s, y)
+    return m - torch.matmul(y.transpose(-1, -2), z)

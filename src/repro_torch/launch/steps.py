@@ -4,6 +4,8 @@ training half of ``repro.launch.steps``).
   train_step   FP + BP + WU (precondition + update) every step
   stats_step   SU: factor Grams on a token subsample, EMA'd into state
   inv refresh  INV: composed-precision inverse of every factor block
+  smw_step     SU with rank-k columns + factor EMA + SMW inverse update
+               + drift probe, the every-step program of ``--smw``
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from repro_torch.core import kfac
 from repro_torch.core.kfac import KFACConfig, KFACState
 from repro_torch.models import lm
+from repro_torch.solve import smw as smw_mod
 from repro_torch.solve.partition import make_wu_plan
 
 
@@ -106,6 +109,45 @@ def make_stats_step(cfg, kcfg: KFACConfig) -> Callable:
         return dataclasses.replace(state, kfac=kstate2), {"stats_loss": loss}
 
     return stats_step
+
+
+def make_smw_step(cfg, kcfg: KFACConfig,
+                  scfg: smw_mod.SMWConfig | None = None) -> Callable:
+    """SU + incremental INV in one step: rank-k stats, factor EMA, SMW
+    inverse update and the drift probe.
+
+    The taps are those of :func:`make_stats_step`, but the model
+    collects the blocked token columns (``collect="cols"``);
+    ``kfac.stats_rank_k`` keeps the factor EMA bitwise that of the
+    Gram path and exposes the columns the Woodbury update takes. As in
+    :func:`make_stats_step`, the columns are collected at
+    ``kcfg.block_size`` (the reference collects at ``cfg.soi_block``
+    and so fails on the full qwen1.5-0.5b at ``--block-size 128``).
+    Metrics carry ``smw_drift`` for the host gate
+    (``solve.async_refresh.SMWRefresher``)."""
+    scfg = scfg or smw_mod.SMWConfig()
+    specs = lm.kfac_specs(cfg)
+
+    def smw_step(state: TrainState, batch):
+        b, t = batch["tokens"].shape
+        taps = lm.build_taps(cfg, specs, b * t,
+                             device=batch["tokens"].device)
+
+        def loss_with_taps(p, tp, bt):
+            return lm.loss_fn(cfg, p, bt, taps=tp, collect="cols",
+                              soi_block=kcfg.block_size)
+
+        a_grams, g_grams, cols, loss = kfac.stats_rank_k(
+            loss_with_taps, state.params, taps, batch, specs,
+            kcfg.block_size)
+        kstate2 = kfac.update_factors(state.kfac, a_grams, g_grams, kcfg)
+        new_inv, drift = smw_mod.smw_refresh(
+            kstate2.inverses, kstate2.factors, cols, kcfg, scfg)
+        kstate2 = dataclasses.replace(kstate2, inverses=new_inv)
+        return (dataclasses.replace(state, kfac=kstate2),
+                {"stats_loss": loss, "smw_drift": drift})
+
+    return smw_step
 
 
 def make_inv_refresh(cfg, kcfg: KFACConfig) -> Callable:

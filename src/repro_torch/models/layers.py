@@ -14,7 +14,7 @@ once at the end as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -24,11 +24,14 @@ from repro_torch.core import soi
 
 @dataclasses.dataclass
 class Ctx:
-    """Per-layer forward context: this layer's tap slices and, when
-    ``collect`` is on, the input-side blocked Grams it records."""
+    """Per-layer forward context: this layer's tap slices and what the
+    factored linears record of their inputs. ``collect`` is False
+    (nothing), True (the blocked Gram) or ``"cols"`` (the blocked token
+    columns, ``soi.blocked_tokens``, whose Gram is the same statistic:
+    the SMW rank-k refresh needs the columns themselves)."""
 
     taps: Optional[Dict[str, torch.Tensor]] = None
-    collect: bool = False
+    collect: Union[bool, str] = False
     stats: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     soi_block: int = 1024
 
@@ -38,8 +41,9 @@ def dense(x: torch.Tensor, w: torch.Tensor, name: str,
           collect_gram: bool = True) -> torch.Tensor:
     """Tapped linear ``y = x @ w (+ b) (+ tap[name])`` in ``x.dtype``.
 
-    With ``ctx.collect`` the input's blocked Gram is recorded (skipped
-    with ``collect_gram=False`` for linears sharing a sibling's A)."""
+    With ``ctx.collect`` the input's blocked Gram, or with
+    ``collect="cols"`` its blocked tokens, is recorded (skipped with
+    ``collect_gram=False`` for linears sharing a sibling's A)."""
     dt = x.dtype
     y = torch.matmul(x.to(torch.float32), w.to(dt).to(torch.float32))
     if bias is not None:
@@ -47,7 +51,9 @@ def dense(x: torch.Tensor, w: torch.Tensor, name: str,
     if ctx is not None:
         if ctx.collect and collect_gram:
             a = x.detach().to(torch.float32).reshape(-1, x.shape[-1])
-            ctx.stats[name] = soi.blocked_gram(a, ctx.soi_block)
+            ctx.stats[name] = (soi.blocked_tokens(a, ctx.soi_block)
+                               if ctx.collect == "cols"
+                               else soi.blocked_gram(a, ctx.soi_block))
         if ctx.taps is not None and name in ctx.taps:
             y = y + ctx.taps[name].reshape(y.shape)
     return y.to(dt)

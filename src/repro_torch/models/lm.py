@@ -10,12 +10,13 @@ K-FAC integration: every factored linear goes through
 ``layers.dense`` under its parameter path; taps (zeros, one per
 factored linear, shape (L, tokens, d_out)) enter per layer and their
 gradients are the per-token output gradients; with ``collect`` the
-input-side blocked Grams come back stacked over layers.
+input-side blocked Grams (or, with ``collect="cols"``, blocked tokens)
+come back stacked over layers.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -126,13 +127,15 @@ def _logits(cfg, params, x):
     return logits
 
 
-def forward(cfg, params: Params, batch, taps=None, collect: bool = False,
+def forward(cfg, params: Params, batch, taps=None,
+            collect: Union[bool, str] = False,
             soi_block: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
     """Training forward. Returns ``(logits, stats)``: fp32 logits
     (B, T, vocab padded to 128) and, with ``collect``, the blocked
-    A-Grams ``{name: (L, nb, bs, bs)}`` at block cap ``soi_block``
-    (default ``cfg.soi_block``; the K-FAC stats pass passes its own
-    block size so the Grams match the factors)."""
+    A-Grams ``{name: (L, nb, bs, bs)}`` (with ``collect="cols"`` the
+    blocked tokens ``{name: (L, B*T, nb, bs)}``) at block cap
+    ``soi_block`` (default ``cfg.soi_block``; the K-FAC stats passes
+    give their own block size so the statistics match the factors)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
@@ -172,7 +175,8 @@ def loss_from_logits(cfg, logits: torch.Tensor, batch) -> torch.Tensor:
     return torch.mean(nll)
 
 
-def loss_fn(cfg, params: Params, batch, taps=None, collect: bool = False,
+def loss_fn(cfg, params: Params, batch, taps=None,
+            collect: Union[bool, str] = False,
             soi_block: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
     """Next-token cross-entropy. Returns ``(loss, stats)``."""
     logits, stats = forward(cfg, params, batch, taps=taps, collect=collect,

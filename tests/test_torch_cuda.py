@@ -10,8 +10,9 @@ it runs on a machine with torch alone:
 
 Tolerance: 1e-4 of the plain version's largest entry. The tensor cores
 sum the exact bf16 partial products in another order than the plain
-fp32 matmuls, and the inverse's iterations carry that rounding-level
-difference along (measured ~2e-5 relative on random SPD blocks).
+fp32 matmuls, and the inverse's iterations (for ``smw_update``, the
+k x k solve) carry that rounding-level difference along (measured
+~2e-5 relative on random SPD blocks).
 """
 
 from __future__ import annotations
@@ -83,3 +84,41 @@ def test_neumann_inv_kernel_refuses_large_blocks(cuda_device):
     a = torch.eye(130, device=cuda_device).expand(2, 130, 130).contiguous()
     with pytest.raises(ValueError, match="n <= 128"):
         ops.neumann_inv(a, 0.1, **KW)
+
+
+def _smw_case(seed, n, k, bs, scale):
+    """Inverses of damped factor-like blocks and new columns at
+    ``scale`` (3e-4 gives G-side inverse entries ~1e7)."""
+    r = np.random.default_rng(seed)
+    v0 = r.standard_normal((n, 2 * bs, bs)) * scale
+    f = np.einsum("ntb,ntc->nbc", v0, v0) / (2 * bs)
+    lam = 0.03 * np.trace(f, axis1=1, axis2=2) / bs + 1e-8
+    inv = np.linalg.inv(f + lam[:, None, None] * np.eye(bs))
+    v = r.standard_normal((n, k, bs)) * scale
+    return inv.astype(np.float32), v.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,bs,scale,c", [
+    (528, 64, 128, 1.0, 0.05 / 2048),    # main path, A side
+    (528, 64, 128, 3e-4, 0.05),          # main path, G side
+    (5, 24, 48, 1.0, 0.05),              # unaligned
+    (3, 5, 40, 3e-4, 0.05)])
+def test_smw_update_kernel_matches_plain(cuda_device, n, k, bs, scale, c):
+    inv, v = (torch.from_numpy(x).to(cuda_device)
+              for x in _smw_case(n + k, n, k, bs, scale))
+    before = ops.launch_counts()["smw_update"]
+    got = ops.smw_update(inv, v, decay=0.95, cscale=c)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["smw_update"] == before + 2  # one per pass
+    want = tref.smw_update_ref(inv, v, decay=0.95, cscale=c)
+    assert got.shape == want.shape == (n, bs, bs)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_smw_update_kernel_refuses_large_rank(cuda_device):
+    inv = torch.eye(32, device=cuda_device).expand(2, 32, 32).contiguous()
+    v = torch.zeros(2, 130, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="k <= 128|bs, k <= 128"):
+        ops.smw_update(inv, v, decay=0.95, cscale=0.05)

@@ -180,7 +180,15 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     x = tuple(torch.from_numpy(v) for v in _tiles(4, 3, 32, 16))
     for got, want in zip(ops.fused_precond(*x), tref.fused_precond_ref(*x)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert ops.launch_counts() == {"neumann_inv": 0, "fused_precond": 0}
+    inv = torch.linalg.inv(ta + 0.1 * torch.eye(32))
+    v = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 4, 32)).astype(np.float32))
+    torch.testing.assert_close(
+        ops.smw_update(inv, v, decay=0.95, cscale=0.05),
+        tref.smw_update_ref(inv, v, decay=0.95, cscale=0.05),
+        rtol=0, atol=0)
+    assert ops.launch_counts() == {"neumann_inv": 0, "fused_precond": 0,
+                                   "smw_update": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

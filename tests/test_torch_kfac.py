@@ -86,8 +86,9 @@ def _setup(seed=0, **kcfg):
     tparams = {k: torch.from_numpy(v) for k, v in flat.items()}
     tstate = tkfac.init(tparams, T_SPECS, tcfg)
     tstate = dataclasses.replace(
-        tstate, factors=convert.blocks_from_jax(factors),
-        inverses=convert.blocks_from_jax(jax.device_get(jstate.inverses)))
+        tstate, factors=convert.blocks_from_jax(factors, device="cpu"),
+        inverses=convert.blocks_from_jax(jax.device_get(jstate.inverses),
+                                          device="cpu"))
     return (jparams, convert._nest(grads), jstate, jcfg,
             tparams, {k: torch.from_numpy(v) for k, v in grads.items()},
             tstate, tcfg)
@@ -221,15 +222,18 @@ def test_convert_round_trips_params_blocks_and_moments():
     for k, v in convert._flatten(jax.device_get(jp)).items():
         np.testing.assert_array_equal(back[k], v)
     inv = jax.device_get(jstate.inverses)
-    again = convert.blocks_to_jax(convert.blocks_from_jax(inv))
+    again = convert.blocks_to_jax(convert.blocks_from_jax(inv,
+                                                          device="cpu"))
     for n, d in inv.items():
         for side, v in d.items():
             np.testing.assert_array_equal(again[n][side], v)
     # moments: the reference's params-shaped trees with (0,) placeholders
-    mom = convert.moments_from_jax(jax.device_get(jstate.momentum))
+    mom = convert.moments_from_jax(jax.device_get(jstate.momentum),
+                                   device="cpu")
     assert sorted(mom) == sorted(T_SPECS)
     tree = convert.moments_to_jax(mom, tp)
     for k, v in convert._flatten(jax.device_get(jstate.momentum)).items():
         np.testing.assert_array_equal(convert._flatten(tree)[k], v)
-    adam = convert.moments_from_jax(jax.device_get(jstate.adam_mu))
+    adam = convert.moments_from_jax(jax.device_get(jstate.adam_mu),
+                                   device="cpu")
     assert sorted(adam) == ["bias"] == sorted(tstate.adam_mu)

@@ -68,7 +68,7 @@ def _reference(cfg, params, toks):
 
 def _port(cfg, params, toks):
     tp = {k: v.requires_grad_() for k, v in
-          convert.params_from_jax(params).items()}
+          convert.params_from_jax(params, device="cpu").items()}
     tb = {"tokens": torch.from_numpy(toks)}
     loss, _ = tlm.loss_fn(cfg, tp, tb)
     grads = dict(zip(tp, torch.autograd.grad(loss, list(tp.values()))))
@@ -120,7 +120,7 @@ def test_stats_grams_match_reference(model_soi_block):
         params, jlm.kfac_specs(jcfg), kj))
     jstate, jm = jax.jit(jsteps.make_stats_step(jcfg, kj))(
         jstate, {"tokens": jnp.asarray(toks)})
-    tparams = convert.params_from_jax(params)
+    tparams = convert.params_from_jax(params, device="cpu")
     tstate = tsteps.TrainState(tparams, tkfac.init(
         tparams, tlm.kfac_specs(tcfg), kt))
     tstate, tm = tsteps.make_stats_step(tcfg, kt)(

@@ -94,7 +94,7 @@ def test_four_step_trajectory_matches_reference(use_kernel):
 
     program = ttrain.KFACProgram(tcfg, tkfac.KFACConfig(**common),
                                  device="cpu")
-    tparams = convert.params_from_jax(params)
+    tparams = convert.params_from_jax(params, device="cpu")
     state = tsteps.TrainState(tparams, tkfac.init(
         tparams, tlm.kfac_specs(tcfg), program.kcfg))
     step_fn = program.make_step(state)
@@ -153,7 +153,7 @@ def test_train_step_with_grad_accumulation_matches_reference():
                                               jk))
     js, jm = jax.jit(jsteps.make_train_step(jcfg, jk))(
         js, {"tokens": jnp.asarray(toks)})
-    tparams = convert.params_from_jax(params)
+    tparams = convert.params_from_jax(params, device="cpu")
     tk = tkfac.KFACConfig(block_size=32)
     ts = tsteps.TrainState(tparams, tkfac.init(
         tparams, tlm.kfac_specs(tcfg), tk))
@@ -218,5 +218,6 @@ def test_cli_smoke_runs_on_cpu(tmp_path):
     assert all(math.isfinite(l) for l in summary["losses"])
     assert summary["block_size"] == 32
     assert summary["kernel_launches"] == {"neumann_inv": 0,
-                                          "fused_precond": 0}
+                                          "fused_precond": 0,
+                                          "smw_update": 0}
     assert json.loads(out.read_text())["steps"] == 3
