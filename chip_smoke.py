@@ -29,13 +29,25 @@ Phases, each printed as a JSON line:
                  (drift budget 0.05) with the drift-gated full
                  re-inversion; per step the phase seconds, drift,
                  fallback flag and loss; launch counters zeroed just
-                 before and read just after (all three kernels must have
+                 before and read just after (its three kernels must have
                  run); then the first step without a fallback is
                  updated again from its own inverses and batch: kernel
                  against plain version, and the achieved bits of the
                  run's, the kernel's, the plain version's, the fp32
                  route's and float64 Woodbury's inverses, beside those of
                  a full re-inversion of the same factors
+  7. precision_inv  the composed-precision inversion library: the circuit
+                 model at the Fig. 5 toy and the production config
+                 (achieved bits, >= 16 asserted; cycle counts), the
+                 quickstart block (bf16 alone, circuit model, the port's
+                 composed inverse), then with launch counters zeroed just
+                 before and read just after: ``mxu_inv_apply`` (through
+                 bitslice_mm) on a damped 128-block with a 128 x 64
+                 right-hand side, and ``fused_gram_inv`` on the
+                 activations of the main path's first batch for every A
+                 leaf, each held to its plain version, the fused
+                 inverses also to the two-step route (Gram, then
+                 neumann_inv) and to float64 torch.linalg.inv
 
 Then a JSON line of per-kernel results, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -293,6 +305,61 @@ def main() -> int:
             inv, v, decay=decay, cscale=c)),
         bound_ms=b_ms, bound_by=b_by, design_bytes_ms=design_ms)
     del inv, v, got, want, y, s_cap, z
+
+    # bitslice_mm at the main path's MLP product: 8 x 256 tokens of
+    # d_model 1024 into d_ff 2816. Bound: 3 partials of 2MKN operations;
+    # bytes: each input read once, the output written once.
+    mm_m, mm_k, mm_n = MAIN["batch"] * MAIN["seq"], cfg.d_model, cfg.d_ff
+    x = torch.randn(mm_m, mm_k, device=dev, generator=gen)
+    w = torch.randn(mm_k, mm_n, device=dev, generator=gen)
+    got = ops.bitslice_mm(x, w)
+    want = ref.bitslice_mm_ref(x, w)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    b_ms, b_by = bound(4.0 * (mm_m * mm_k + mm_k * mm_n + mm_m * mm_n),
+                       2.0 * 3 * mm_m * mm_k * mm_n)
+    results["bitslice_mm"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/bitslice_mm.cu",
+        replaces="src/repro/kernels/bitslice_mm.py:39",
+        shape=[mm_m, mm_k, mm_n], max_abs_err=err, max_abs_plain=scale,
+        tol=REL_TOL * scale,
+        ms=time_ms(torch, lambda: ops.bitslice_mm(x, w)),
+        plain_ms=time_ms(torch, lambda: ref.bitslice_mm_ref(x, w)),
+        library_ms=time_ms(torch, lambda: torch.matmul(x, w)),
+        bound_ms=b_ms, bound_by=b_by)
+    check(err <= REL_TOL * scale, "bitslice_mm kernel vs plain")
+    del x, w, got, want
+
+    # fused_gram_inv at the main path's largest A leaf (24 layers x 22
+    # blocks of d_ff 2816: 528 blocks of 128) over its 2048 tokens, at
+    # the K-FAC counts. Bound: the Gram's 3 partials of 2Tn^2 and the
+    # inverse's partial GEMMs, per block; bytes: the activations read
+    # once, the inverses written once.
+    n_tok = MAIN["batch"] * MAIN["seq"]
+    damping = kfac.KFACConfig().damping
+    acts = torch.randn(n_tok, nb_max, n, device=dev, generator=gen)
+    fg_kw = dict(rel_damp=damping, **KFAC_COUNTS)
+    got = ops.fused_gram_inv(acts, **fg_kw)
+    want = ref.fused_gram_inv_ref(acts, **fg_kw)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    b_ms, b_by = bound(4.0 * nb_max * (n_tok * n + n * n),
+                       2.0 * nb_max * (3 * n_tok * n * n
+                                       + products * n ** 3))
+    results["fused_gram_inv"] = dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_gram_solve.cu",
+        replaces="src/repro/kernels/fused_gram_solve.py:64",
+        shape=[n_tok, nb_max, n], max_abs_err=err, max_abs_plain=scale,
+        tol=REL_TOL * scale,
+        ms=time_ms(torch, lambda: ops.fused_gram_inv(acts, **fg_kw)),
+        plain_ms=time_ms(torch, lambda: ref.fused_gram_inv_ref(
+            acts, **fg_kw)),
+        library_ms=time_ms(torch, lambda: ref.exact_gram_inv(acts,
+                                                             damping)),
+        bound_ms=b_ms, bound_by=b_by)
+    check(err <= REL_TOL * scale, "fused_gram_inv kernel vs plain")
+    del acts, got, want
     for name, r in results.items():
         emit({"phase": "kernel", "name": name, **r})
     torch.cuda.empty_cache()
@@ -407,7 +474,7 @@ def main() -> int:
     smw_peak = torch.cuda.max_memory_allocated(dev) / 1e9
     smw_losses = [h["loss"] for h in smw_hist]
     check(all(math.isfinite(x) for x in smw_losses), "finite SMW losses")
-    for name in ops.LIBRARIES:
+    for name in ("neumann_inv", "fused_precond", "smw_update"):
         check(smw_launches[name] > 0, f"{name} launched on the SMW path")
     check("factors" in kept, "an SMW step without a fallback")
 
@@ -496,6 +563,186 @@ def main() -> int:
               "bits_smw", "bits_kernel", "bits_plain", "bits_fp32",
               "bits_woodbury64", "bits_full_reinversion")}})
     kept.clear()
+    del smw_prog
+
+    # 7. the composed-precision inversion library -----------------------
+    # What examples/precision_inv_demo.py and examples/quickstart.py check,
+    # on the port; then the library's two kernels on their own paths:
+    # mxu_inv_apply (the composed inverse applied through bitslice_mm) and
+    # fused_gram_inv on the activations of the main path's first batch.
+    import numpy as np
+
+    from repro_torch.core import precision_inv as pinv
+
+    rng = np.random.default_rng(1)
+    toy = pinv.CircuitConfig(q_a=8, q_b=4, q_x=4, r_dac=2, r_adc=2, r_c=4,
+                             k=1, n_taylor=4)
+    m8 = rng.standard_normal((8, 8))
+    a8 = m8 @ m8.T / 8 + 0.3 * np.eye(8)
+    b8 = rng.standard_normal(8)
+    q_a, q_b = pinv.quantize_problem(a8, b8, toy)
+    toy_bits = pinv.achieved_bits(pinv.faithful_inv_apply(a8, b8, toy),
+                                  np.linalg.solve(q_a, q_b))
+    prod = pinv.CircuitConfig()
+    m128 = rng.standard_normal((128, 128))
+    a128 = m128 @ m128.T / 128
+    a128 += 0.03 * np.trace(a128) / 128 * np.eye(128)
+    b128 = rng.standard_normal(128)
+    q_a, q_b = pinv.quantize_problem(a128, b128, prod)
+    x_ref = np.linalg.solve(q_a, q_b)
+    x_c, trace = pinv.faithful_inv_apply(a128, b128, prod, return_trace=True)
+    prod_bits = pinv.achieved_bits(x_c, x_ref)
+    check(prod_bits >= 16.0, "circuit model, production config: >= 16 bits")
+
+    # quickstart's damped block (n = 256, seed 0)
+    rng = np.random.default_rng(0)
+    nq = 256
+    mq = rng.standard_normal((nq, nq))
+    a_q = mq @ mq.T / nq
+    a_q += 0.03 * np.trace(a_q) / nq * np.eye(nq)
+    b_q = rng.standard_normal(nq)
+    xq_ref = np.linalg.solve(a_q, b_q)
+    qcfg = pinv.CircuitConfig(n_taylor=26)
+    q_a, q_b = pinv.quantize_problem(a_q, b_q, qcfg)
+    bits_circuit = pinv.achieved_bits(pinv.faithful_inv_apply(a_q, b_q, qcfg),
+                                      np.linalg.solve(q_a, q_b))
+    a_bf16 = torch.from_numpy(a_q).to(torch.bfloat16).double().numpy()
+    bits_bf16 = pinv.achieved_bits(np.linalg.solve(a_bf16, b_q), xq_ref)
+    m_q = pinv.composed_inverse(torch.from_numpy(a_q).float().to(dev), 0.0,
+                                **KFAC_COUNTS).cpu().numpy()
+    bits_composed = pinv.achieved_bits(m_q @ b_q, xq_ref)
+    g_q = a_q @ rng.standard_normal(nq)
+    x_sgd = g_q / np.abs(np.linalg.eigvalsh(a_q)).max()
+    resid_sgd = np.linalg.norm(g_q - a_q @ x_sgd) / np.linalg.norm(g_q)
+    resid_pre = np.linalg.norm(g_q - a_q @ (m_q @ g_q)) / np.linalg.norm(g_q)
+    check(bits_circuit >= 16.0, "quickstart: circuit model >= 16 bits")
+    check(bits_composed > bits_bf16 + 4,
+          "quickstart: composed inverse beats bf16 by more than 4 bits")
+
+    # mxu_inv_apply's operands: a damped 128-block (the reference's
+    # test_mxu_inv_apply) and a 128 x 64 right-hand side
+    rng = np.random.default_rng(8)
+    f = rng.standard_normal((128, 4 * 128)) / np.sqrt(4 * 128)
+    a_m = f @ f.T
+    lam_m = 0.1 * np.trace(a_m) / 128
+    a_m32 = torch.from_numpy(a_m.astype(np.float32)).to(dev)
+    rhs = torch.from_numpy(rng.standard_normal((128, 64)).astype(
+        np.float32)).to(dev)
+
+    # the main path's first batch, through soi.blocked_tokens, for every
+    # A leaf (all of block width 128 here), as (T, nb, n)
+    params0 = train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"],
+                                    device="cuda").init_state().params
+    batch0 = ds.batch(DataCursor(0), device=dev)
+    n_tok = batch0["tokens"].numel()
+    _, _, cols0, _ = kfac.stats_rank_k(
+        lambda p, tp, bt: lm.loss_fn(cfg, p, bt, taps=tp, collect="cols",
+                                     soi_block=bs),
+        params0, lm.build_taps(cfg, specs, n_tok, device=dev), batch0,
+        specs, bs)
+    acts_run = {f"{name}/A": c["A"].movedim(-2, 0).reshape(
+        n_tok, -1, c["A"].shape[-1]).contiguous()
+        for name, c in cols0.items()
+        if "A" in c and c["A"].shape[-1] <= 128}
+    del params0, cols0
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    x_mxu = pinv.mxu_inv_apply(a_m32, rhs, lam_m, **KFAC_COUNTS)
+    fused = {leaf: ops.fused_gram_inv(x, **fg_kw)
+             for leaf, x in acts_run.items()}
+    torch.cuda.synchronize(dev)
+    pinv_wall = time.perf_counter() - t0
+    pinv_launches = ops.launch_counts()
+    for name in ("bitslice_mm", "fused_gram_inv"):
+        check(pinv_launches[name] > 0,
+              f"{name} launched on the precision_inv path")
+
+    x_plain = ref.bitslice_mm_ref(
+        pinv.composed_inverse(a_m32, lam_m, **KFAC_COUNTS), rhs)
+    mxu_err = float((x_mxu - x_plain).abs().max())
+    mxu_scale = float(x_plain.abs().max())
+    x_solve = np.linalg.solve(a_m + lam_m * np.eye(128),
+                              rhs.double().cpu().numpy())
+    mxu_rel_solve = float(np.max(np.abs(x_mxu.double().cpu().numpy()
+                                        - x_solve))
+                          / np.max(np.abs(x_solve)))
+    check(mxu_err <= REL_TOL * mxu_scale, "mxu_inv_apply kernel vs plain")
+    check(mxu_rel_solve < 2.0 ** -10, "mxu_inv_apply vs float64 solve")
+
+    # the fused kernel against its plain version and against the two-step
+    # route (gram_from_tokens, the K-FAC path's damping, neumann_inv), and
+    # each against float64 torch.linalg.inv. The two-step tolerance is the
+    # reference's cross-route one, atol 5e-3 on inverses with entries of
+    # order 1 (tests/test_kernels.py::test_fused_matches_composed_inverse_
+    # path), held relative to the largest entry where entries exceed 1.
+    # Both tolerances presume an iteration that has converged, which 20
+    # Newton-Schulz steps are not on ill-conditioned blocks: there the
+    # inverse moves with the rounding of its Gram. So each leaf also
+    # measures that: the plain route on the float64 Gram rounded to fp32,
+    # another equally valid rounding of the same Gram. A route may differ
+    # from the plain version by twice what that rounding alone moves it.
+    fused_report = []
+    for leaf, x in acts_run.items():
+        plain = ref.fused_gram_inv_ref(x, **fg_kw)
+        gram = soi.gram_from_tokens(x)
+        two_step = ops.neumann_inv(gram.contiguous(),
+                                   soi.tikhonov_damping(gram, damping),
+                                   **KFAC_COUNTS)
+        gram64 = soi.gram_from_tokens(x.double())
+        exact = torch.linalg.inv(
+            gram64 + soi.tikhonov_damping(gram64, damping)[:, None, None]
+            * torch.eye(gram.shape[-1], device=dev, dtype=torch.float64))
+        g_alt = gram64.float()
+        alt = ref.neumann_inv_ref(g_alt, soi.tikhonov_damping(g_alt, damping),
+                                  **KFAC_COUNTS)
+        mine = fused[leaf]
+        err = float((mine - plain).abs().max())
+        scale = float(plain.abs().max())
+        sens = float((alt - plain).abs().max())
+        gap = float((mine - two_step).abs().max())
+        two_scale = float(two_step.abs().max())
+        row = dict(leaf=leaf, shape=list(x.shape),
+                   rel_err_vs_plain=err / scale, max_abs_plain=scale,
+                   rel_rounding_sensitivity=sens / scale,
+                   max_abs_gap_two_step=gap,
+                   rel_gap_two_step=gap / two_scale,
+                   bits_fused=bits(mine, exact),
+                   bits_plain=bits(plain, exact),
+                   bits_two_step=bits(two_step, exact),
+                   bits_plain_f64_gram=bits(alt, exact))
+        fused_report.append(row)
+        check(err <= max(REL_TOL_RUN * scale, 2.0 * sens),
+              f"{leaf} fused_gram_inv kernel vs plain (run)")
+        check(row["bits_fused"] >= row["bits_plain"] - 1.0,
+              f"{leaf} fused_gram_inv as accurate as plain")
+        check(gap <= max(5e-3 * max(1.0, two_scale), 2.0 * sens),
+              f"{leaf} fused_gram_inv vs the two-step route")
+        del plain, gram, two_step, gram64, exact, g_alt, alt
+    emit({"phase": "precision_inv",
+          "fig5_toy": dict(bits=toy_bits, target=toy.q_x,
+                           loops=[toy.loops_b, toy.loops_x, toy.n_taylor],
+                           cycles_inv=toy.cycles_inv()),
+          "production": dict(bits=prod_bits,
+                             bits_per_loop_a=[pinv.achieved_bits(t, x_ref)
+                                              for t in trace],
+                             cycles_inv=prod.cycles_inv(),
+                             cycles_inv_fused=prod.cycles_inv_fused()),
+          "quickstart": dict(bits_bf16=bits_bf16,
+                             bits_circuit=bits_circuit,
+                             bits_composed=bits_composed,
+                             resid_sgd=float(resid_sgd),
+                             resid_preconditioned=float(resid_pre)),
+          "mxu_inv_apply": dict(shape=[128, 64], max_abs_err=mxu_err,
+                                max_abs_plain=mxu_scale,
+                                rel_err_vs_float64_solve=mxu_rel_solve),
+          "fused_gram_inv": fused_report,
+          "min_bits_fused": min(r["bits_fused"] for r in fused_report),
+          "min_bits_two_step": min(r["bits_two_step"]
+                                   for r in fused_report),
+          "wall_s": pinv_wall, "launches": pinv_launches})
+    del acts_run, fused
 
     if failures:
         emit({"phase": "failed", "failures": failures})
@@ -503,8 +750,11 @@ def main() -> int:
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     # each kernel's count from the path it belongs to: the K-FAC main
-    # path for neumann_inv and fused_precond, the SMW path for smw_update
-    path_launches = dict(launches, smw_update=smw_launches["smw_update"])
+    # path for neumann_inv and fused_precond, the SMW path for smw_update,
+    # the precision_inv path for bitslice_mm and fused_gram_inv
+    path_launches = dict(launches, smw_update=smw_launches["smw_update"],
+                         bitslice_mm=pinv_launches["bitslice_mm"],
+                         fused_gram_inv=pinv_launches["fused_gram_inv"])
     emit({"kernels": [dict(name=name, launches=path_launches[name],
                            **{k: r[k] for k in keys})
                       for name, r in results.items()]})

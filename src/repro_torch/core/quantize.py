@@ -1,5 +1,6 @@
 """hi/lo bf16 precision primitives (the production half of
-``repro.core.quantize``).
+``repro.core.quantize``) and :class:`CircuitConfig`, the parameters of
+the modelled ReRAM datapath.
 
 Every product below feeds the tensor cores bf16 operands only and
 accumulates in fp32: ``x = hi + lo`` with both halves bf16 recovers
@@ -14,6 +15,7 @@ the same arithmetic as JAX's ``preferred_element_type=float32``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -99,3 +101,39 @@ def lowp_einsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
     if precision_kind(precision) == "fp32":
         return torch.einsum(spec, a.to(torch.float32), b.to(torch.float32))
     return hilo_einsum(spec, a, b)
+
+
+@dataclasses.dataclass(frozen=True)
+class CircuitConfig:
+    """Parameters of the modeled RePAST datapath (paper Sec. III/VI-A)."""
+
+    q_a: int = 16       # bits of the SOI matrix A
+    q_b: int = 16       # bits of the rhs vector b
+    q_x: int = 16       # bits of the solution x
+    r_dac: int = 4      # DAC resolution (paper: 4-bit)
+    r_adc: int = 8      # ADC resolution (paper: 8-bit)
+    r_c: int = 4        # bits per ReRAM cell (paper: 4-bit)
+    k: int = 2          # chained INV crossbars -> A_H has k*r_c bits
+    n_taylor: int = 18  # Loop A iterations (paper Fig. 4(b): 18)
+
+    @property
+    def hi_bits(self) -> int:
+        return self.k * self.r_c
+
+    @property
+    def loops_x(self) -> int:
+        return -(-self.q_x // self.r_adc)
+
+    @property
+    def loops_b(self) -> int:
+        return -(-self.q_b // self.r_dac)
+
+    def cycles_inv(self) -> int:
+        """Paper Eqn. 10: cycles of one high-precision INV."""
+        return self.n_taylor * (
+            2 * self.loops_b * self.loops_x + -(-self.q_x // self.r_dac))
+
+    def cycles_inv_fused(self) -> int:
+        """Paper Eqn. 14: cycles of one fused MM+INV high-precision INV."""
+        return self.n_taylor * (
+            2 * self.loops_b * self.loops_x + 2 * -(-self.q_x // self.r_dac))

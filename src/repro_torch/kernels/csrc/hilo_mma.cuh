@@ -140,6 +140,64 @@ __device__ __forceinline__ void gemm_ex(Acc acc, const bf16* L, const bf16* R,
   }
 }
 
+// acc += op(LH) op(RH) + op(LH) op(RL) + op(LL) op(RH): the three hi/lo
+// partial products of one fp32 product, each fragment loaded once and used
+// for every partial it enters (three mma.sync per fragment pair). Layouts,
+// depth and masks as in gemm_ex; LDL and LDR are the row strides of the
+// L and R tiles (bf16 elements; rows 16-byte aligned).
+template <bool LT, bool RT, int LDL = LDS, int LDR = LDS>
+__device__ __forceinline__ void gemm3(Acc acc, const bf16* LH, const bf16* LL,
+                                      const bf16* RH, const bf16* RL, int kd,
+                                      int mr, int nc) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp >> 1) * 32;
+  const int n0 = (warp & 1) * 64;
+  if (m0 >= mr || n0 >= nc) return;
+  const int r16 = lane & 15, c8 = (lane >> 4) * 8;
+  const int r8 = (lane & 7) + ((lane >> 4) << 3);
+  const int s8 = ((lane >> 3) & 1) * 8;
+  for (int k0 = 0; k0 < kd; k0 += 16) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      if (LT) {
+        const int off = (k0 + r8) * LDL + m0 + mi * 16 + s8;
+        ldmatrix_x4_trans(ah[mi], LH + off);
+        ldmatrix_x4_trans(al[mi], LL + off);
+      } else {
+        const int off = (m0 + mi * 16 + r16) * LDL + k0 + c8;
+        ldmatrix_x4(ah[mi], LH + off);
+        ldmatrix_x4(al[mi], LL + off);
+      }
+    }
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const int n = n0 + nj * 16;
+      if (n >= nc) continue;
+      uint32_t bh[4], bl[4];
+      if (RT) {
+        const int off = (n + r8) * LDR + k0 + s8;
+        ldmatrix_x4(bh, RH + off);
+        ldmatrix_x4(bl, RL + off);
+      } else {
+        const int off = (k0 + r16) * LDR + n + c8;
+        ldmatrix_x4_trans(bh, RH + off);
+        ldmatrix_x4_trans(bl, RL + off);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        mma_16816(acc[mi][2 * nj], ah[mi], bh[0], bh[1]);
+        mma_16816(acc[mi][2 * nj + 1], ah[mi], bh[2], bh[3]);
+        mma_16816(acc[mi][2 * nj], ah[mi], bl[0], bl[1]);
+        mma_16816(acc[mi][2 * nj + 1], ah[mi], bl[2], bl[3]);
+        mma_16816(acc[mi][2 * nj], al[mi], bh[0], bh[1]);
+        mma_16816(acc[mi][2 * nj + 1], al[mi], bh[2], bh[3]);
+      }
+    }
+  }
+}
+
 // f(row, col, value&) over this thread's accumulator elements.
 template <class F>
 __device__ __forceinline__ void for_each(Acc acc, F f) {

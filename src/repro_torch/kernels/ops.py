@@ -8,28 +8,37 @@ raises. There is no fallback from the card to the plain version.
 This is the wiring ``repro.kernels.ops`` describes for the TPU: the
 K-FAC INV stage (``core.kfac.invert_blocks_flat``) inverts through
 :func:`neumann_inv`, the pooled WU stage
-(``core.kfac.precondition_pooled``) runs :func:`fused_precond`, and the
+(``core.kfac.precondition_pooled``) runs :func:`fused_precond`, the
 incremental SOI refresh (``solve.smw.smw_update_flat`` with
-``SMWConfig.use_kernel``) updates through :func:`smw_update`.
+``SMWConfig.use_kernel``) updates through :func:`smw_update`, and the
+composed-precision inversion library applies its inverses with
+:func:`bitslice_mm` (``core.precision_inv.mxu_inv_apply``) and inverts
+fresh activation Grams with :func:`fused_gram_inv`, which callers reach
+here.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bitslice_mm as _bitslice_mm
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import fused_gram_solve as _fused_gram_solve
 from repro_torch.kernels import fused_precond as _fused_precond
 from repro_torch.kernels import neumann_inv as _neumann_inv
 from repro_torch.kernels import smw_update as _smw_update
 
-__all__ = ["neumann_inv", "fused_precond", "smw_update", "LIBRARIES",
-           "build_all", "launch_counts", "reset_launch_counts"]
+__all__ = ["neumann_inv", "fused_precond", "smw_update", "bitslice_mm",
+           "fused_gram_inv", "LIBRARIES", "build_all", "launch_counts",
+           "reset_launch_counts"]
 
 #: kernel name -> its CUDA library (launch counters live on these)
 LIBRARIES = {
     "neumann_inv": _neumann_inv.LIB,
     "fused_precond": _fused_precond.LIB,
     "smw_update": _smw_update.LIB,
+    "bitslice_mm": _bitslice_mm.LIB,
+    "fused_gram_inv": _fused_gram_solve.LIB,
 }
 
 
@@ -68,6 +77,27 @@ def smw_update(inv: torch.Tensor, v: torch.Tensor, *, decay: float,
     if _route(inv, v) == "cpu":
         return ref.smw_update_ref(inv, v, decay=decay, cscale=cscale)
     return _smw_update.smw_update(inv, v, decay=decay, cscale=cscale)
+
+
+def bitslice_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32-accurate ``a @ b`` of (M, K) and (K, N) matrices from three
+    hi/lo bf16 partial products (fp32, fp16 or bf16 inputs)."""
+    if _route(a, b) == "cpu":
+        return ref.bitslice_mm_ref(a, b)
+    return _bitslice_mm.bitslice_mm(a, b)
+
+
+def fused_gram_inv(a: torch.Tensor, *, rel_damp: float = 0.03,
+                   ns_iters: int = 14, taylor_terms: int = 4,
+                   refine_steps: int = 1) -> torch.Tensor:
+    """(nb, n, n) inverses of ``a_i^T a_i / T + lam_i I`` for (T, nb, n)
+    activations, ``lam_i = rel_damp * tr / n + 1e-8``, the Gram formed
+    from hi/lo partial products and never stored."""
+    kw = dict(rel_damp=rel_damp, ns_iters=ns_iters,
+              taylor_terms=taylor_terms, refine_steps=refine_steps)
+    if _route(a) == "cpu":
+        return ref.fused_gram_inv_ref(a, **kw)
+    return _fused_gram_solve.fused_gram_inv(a, **kw)
 
 
 def build_all() -> float:

@@ -5,8 +5,8 @@ Each one runs the same algorithm as its CUDA kernel at the same working
 precision (hi/lo bf16 partial products, fp32 accumulation, identical
 iteration counts). The kernel wrappers use them for tensors on the CPU,
 and ``chip_smoke.py`` holds every kernel to them on the card.
-``exact_two_sided`` and ``exact_smw_update`` are the fp32 yardsticks
-bounding the bit-sliced error.
+``exact_two_sided``, ``exact_smw_update`` and ``exact_gram_inv`` are
+the fp32 yardsticks bounding the bit-sliced error.
 """
 
 from __future__ import annotations
@@ -14,7 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.quantize import hilo_matmul, hilo_matmul_exact_lhs
+from repro_torch.core.quantize import (
+    hilo_matmul,
+    hilo_matmul_exact_lhs,
+    split_hi_lo_bf16,
+)
 
 
 def _damping_vector(damping, nb: int, device) -> torch.Tensor:
@@ -27,6 +31,12 @@ def _damping_vector(damping, nb: int, device) -> torch.Tensor:
             f"damping must be a scalar or shape ({nb},) to match the "
             f"{nb} blocks; got shape {tuple(lam.shape)}")
     return lam
+
+
+def bitslice_mm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32-accurate ``a @ b`` as ``a_hi@b_hi + a_hi@b_lo + a_lo@b_hi``
+    of the fp32 upcasts (any input dtype)."""
+    return hilo_matmul(a.to(torch.float32), b.to(torch.float32))
 
 
 def neumann_inv_ref(a: torch.Tensor, damping, *, ns_iters: int = 14,
@@ -58,6 +68,43 @@ def neumann_inv_ref(a: torch.Tensor, damping, *, ns_iters: int = 14,
     for _ in range(refine_steps):
         m = m + hilo_matmul(m, eye - hilo_matmul(ad, m))
     return m
+
+
+def _gram_damping(gram: torch.Tensor, rel_damp: float) -> torch.Tensor:
+    """Per-block ``rel_damp * tr / n + 1e-8`` in the order the reference
+    computes it (n as given: padding columns are zero)."""
+    tr = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1)
+    return rel_damp * tr / gram.shape[-1] + 1e-8
+
+
+def fused_gram_inv_ref(a: torch.Tensor, *, rel_damp: float = 0.03,
+                       ns_iters: int = 14, taylor_terms: int = 4,
+                       refine_steps: int = 1) -> torch.Tensor:
+    """``(a_i^T a_i / T + lam_i I)^{-1}`` per feature block of (T, nb, n)
+    activations: the hi/lo Gram from the same three partial products as
+    the kernel, ``lam_i = rel_damp * tr_i / n + 1e-8``, then
+    :func:`neumann_inv_ref`'s iteration; any n."""
+    t = a.shape[0]
+    a_hi, a_lo = split_hi_lo_bf16(a.to(torch.float32))
+
+    def mm_t(x, y):
+        return torch.einsum("tbn,tbm->bnm", x.to(torch.float32),
+                            y.to(torch.float32))
+
+    gram = (mm_t(a_hi, a_hi) + mm_t(a_hi, a_lo) + mm_t(a_lo, a_hi)) / t
+    return neumann_inv_ref(gram, _gram_damping(gram, rel_damp),
+                           ns_iters=ns_iters, taylor_terms=taylor_terms,
+                           refine_steps=refine_steps)
+
+
+def exact_gram_inv(a: torch.Tensor, rel_damp: float = 0.03) -> torch.Tensor:
+    """fp32 Gram and ``torch.linalg.inv``: the algorithmic yardstick of
+    :func:`fused_gram_inv_ref`."""
+    a32 = a.to(torch.float32)
+    gram = torch.einsum("tbn,tbm->bnm", a32, a32) / a.shape[0]
+    eye = torch.eye(gram.shape[-1], dtype=torch.float32, device=a.device)
+    lam = _gram_damping(gram, rel_damp)
+    return torch.linalg.inv(gram + lam[:, None, None] * eye)
 
 
 def fused_precond_ref(a_inv: torch.Tensor, g: torch.Tensor,

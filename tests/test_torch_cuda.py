@@ -11,8 +11,9 @@ it runs on a machine with torch alone:
 Tolerance: 1e-4 of the plain version's largest entry. The tensor cores
 sum the exact bf16 partial products in another order than the plain
 fp32 matmuls, and the inverse's iterations (for ``smw_update``, the
-k x k solve) carry that rounding-level difference along (measured
-~2e-5 relative on random SPD blocks).
+k x k solve; for ``fused_gram_inv``, the Gram's rounding too) carry that
+rounding-level difference along (measured ~2e-5 relative on random SPD
+blocks).
 """
 
 from __future__ import annotations
@@ -122,3 +123,48 @@ def test_smw_update_kernel_refuses_large_rank(cuda_device):
     v = torch.zeros(2, 130, 32, device=cuda_device)
     with pytest.raises(ValueError, match="k <= 128|bs, k <= 128"):
         ops.smw_update(inv, v, decay=0.95, cscale=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (1, 257, 33), (33, 1, 257),
+                                   (257, 33, 1), (257, 257, 257),
+                                   (300, 200, 130)])
+def test_bitslice_mm_kernel_matches_plain(cuda_device, m, k, n, dtype):
+    r = np.random.default_rng(m * 1000 + k * 10 + n)
+    a = torch.from_numpy(r.standard_normal((m, k))).to(cuda_device, dtype)
+    b = torch.from_numpy(r.standard_normal((k, n))).to(cuda_device, dtype)
+    before = ops.launch_counts()["bitslice_mm"]
+    got = ops.bitslice_mm(a, b)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bitslice_mm"] == before + 1
+    want = tref.bitslice_mm_ref(a, b)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,nb,n", [(700, 3, 33), (1030, 2, 100),
+                                    (700, 2, 128), (1030, 1, 128),
+                                    (128, 4, 64), (13, 3, 8)])
+def test_fused_gram_inv_kernel_matches_plain(cuda_device, t, nb, n, dtype):
+    r = np.random.default_rng(t + nb + n)
+    a = torch.from_numpy(r.standard_normal((t, nb, n))).to(cuda_device,
+                                                           dtype)
+    kw = dict(rel_damp=0.05, **KW)
+    before = ops.launch_counts()["fused_gram_inv"]
+    got = ops.fused_gram_inv(a, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_gram_inv"] == before + 1
+    want = tref.fused_gram_inv_ref(a, **kw)
+    assert got.shape == want.shape == (nb, n, n)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_fused_gram_inv_kernel_refuses_large_blocks(cuda_device):
+    a = torch.ones(64, 2, 130, device=cuda_device)
+    with pytest.raises(ValueError, match="n <= 128"):
+        ops.fused_gram_inv(a, rel_damp=0.05, **KW)

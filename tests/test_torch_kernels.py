@@ -17,6 +17,13 @@ Tolerances and why:
   * fused_precond plain vs ``ref.fused_precond_ref``: 1e-5 relative
     (summation order); vs ``exact_two_sided`` below 1e-4 relative, the
     bound ``tests/test_wu_fusion.py`` puts on the kernel.
+  * bitslice_mm plain vs ``ref.bitslice_mm_ref`` and the Pallas kernel:
+    atol 1e-4, the reference's own (``tests/test_kernels.py``).
+  * fused_gram_inv plain vs ``ref.fused_gram_inv_ref`` and the Pallas
+    kernel: atol 2e-4 at counts 20/4/2 and 5e-4 at 14/3/1, the
+    reference's own; vs ``exact_gram_inv`` and the two-step route
+    (materialised Gram, then ``composed_inverse``) as the reference
+    holds its kernel.
 """
 
 from __future__ import annotations
@@ -27,10 +34,14 @@ import pytest
 import torch
 
 from repro.core import precision_inv as jpi
+from repro.kernels import bitslice_mm as j_bitslice_mm
+from repro.kernels import fused_gram_inv as j_fused_gram_inv
 from repro.kernels import fused_precond as j_fused_precond
 from repro.kernels import neumann_inv as j_neumann_inv
 from repro.kernels import ref as jref
 from repro_torch.core import precision_inv as tpi
+from repro_torch.kernels import bitslice_mm as t_bitslice_mm
+from repro_torch.kernels import fused_gram_solve as t_fused_gram_solve
 from repro_torch.kernels import fused_precond as t_fused_precond
 from repro_torch.kernels import neumann_inv as t_neumann_inv
 from repro_torch.kernels import ops
@@ -167,6 +178,122 @@ def test_fused_precond_dot_is_trust_region_mass():
 
 
 # ---------------------------------------------------------------------------
+# bitslice_mm
+# ---------------------------------------------------------------------------
+
+def _mats(seed, m, k, n, dtype=np.float32):
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((m, k)).astype(dtype),
+            r.standard_normal((k, n)).astype(dtype))
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 384, 128),
+                                   (300, 200, 130), (64, 64, 64),
+                                   (1, 257, 5)])
+def test_bitslice_mm_plain_matches_reference(m, k, n):
+    a, b = _mats(m * 1000 + k * 10 + n, m, k, n)
+    got = tref.bitslice_mm_ref(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), jref.bitslice_mm_ref(a, b),
+                               rtol=0, atol=1e-4)
+    if m % 128 or n % 128:   # the Pallas kernel where it pads
+        np.testing.assert_allclose(
+            got.numpy(), j_bitslice_mm(a, b, bm=128, bn=128, bk=128),
+            rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("m,k,n", [(96, 192, 64), (200, 64, 320),
+                                   (33, 129, 257)])
+def test_bitslice_mm_plain_dtypes_match_reference(m, k, n, dtype):
+    """fp32, bf16 and fp16 inputs, each upcast to fp32 at entry."""
+    r = np.random.default_rng(m + k + n)
+    a = jnp.asarray(r.standard_normal((m, k)), jnp.dtype(dtype))
+    b = jnp.asarray(r.standard_normal((k, n)), jnp.dtype(dtype))
+    tdt = getattr(torch, dtype)
+    ta = torch.from_numpy(np.array(a, np.float32)).to(tdt)
+    tb = torch.from_numpy(np.array(b, np.float32)).to(tdt)
+    got = ops.bitslice_mm(ta, tb)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), jref.bitslice_mm_ref(a, b),
+                               rtol=0, atol=1e-4)
+
+
+def test_bitslice_mm_plain_matches_pallas_kernel_fp16():
+    a, b = _mats(7, 130, 96, 70, np.float16)
+    got = ops.bitslice_mm(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(
+        got.numpy(), j_bitslice_mm(a, b, bm=128, bn=128, bk=128),
+        rtol=0, atol=1e-4)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    assert np.max(np.abs(got.numpy() - exact)) / np.max(np.abs(exact)) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# fused_gram_inv
+# ---------------------------------------------------------------------------
+
+def _acts(seed, t, nb, n):
+    return np.random.default_rng(seed).standard_normal(
+        (t, nb, n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("t,nb,n,bt", [(512, 1, 128, 256), (700, 2, 100, 256),
+                                       (128, 3, 64, 128),
+                                       (1030, 1, 130, 512)])
+def test_fused_gram_inv_plain_matches_reference(t, nb, n, bt):
+    a = _acts(t + nb + n, t, nb, n)
+    kw = dict(rel_damp=0.05, ns_iters=20, taylor_terms=4, refine_steps=2)
+    got = ops.fused_gram_inv(torch.from_numpy(a), **kw)
+    assert got.shape == (nb, n, n)
+    np.testing.assert_allclose(got.numpy(), jref.fused_gram_inv_ref(a, **kw),
+                               rtol=0, atol=2e-4)
+    if n % 128:     # the Pallas kernel (interpret mode) where it pads n
+        np.testing.assert_allclose(got.numpy(),
+                                   j_fused_gram_inv(a, bt=bt, **kw),
+                                   rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,nb,n", [(384, 2, 48), (500, 3, 96), (260, 4, 33)])
+def test_fused_gram_inv_plain_dtypes_match_reference(t, nb, n, dtype):
+    r = np.random.default_rng(t + 10 * nb + n)
+    a = jnp.asarray(r.standard_normal((t, nb, n)), jnp.dtype(dtype))
+    kw = dict(rel_damp=0.05, ns_iters=14, taylor_terms=3, refine_steps=1)
+    ta = torch.from_numpy(np.array(a, np.float32)).to(getattr(torch, dtype))
+    got = ops.fused_gram_inv(ta, **kw)
+    np.testing.assert_allclose(
+        got.numpy(), jref.fused_gram_inv_ref(a.astype(jnp.float32), **kw),
+        rtol=0, atol=5e-4)
+
+
+def test_fused_gram_inv_plain_matches_exact():
+    a = _acts(5, 600, 2, 96)
+    got = ops.fused_gram_inv(torch.from_numpy(a), rel_damp=0.05,
+                             ns_iters=22, taylor_terms=5, refine_steps=2)
+    exact = tref.exact_gram_inv(torch.from_numpy(a), 0.05)
+    np.testing.assert_allclose(exact.numpy(), jref.exact_gram_inv(a, 0.05),
+                               rtol=1e-5, atol=1e-5)
+    assert float((got - exact).abs().max() / exact.abs().max()) < 1e-4
+
+
+def test_fused_gram_inv_plain_matches_two_step_route():
+    """Fused and two-step (materialised Gram, then the composed inverse)
+    are one algorithm on differently formed Grams: the reference's
+    cross-route tolerance, and both invert the damped Gram to 1e-4."""
+    a = _acts(9, 512, 1, 128)
+    kw = dict(ns_iters=14, taylor_terms=4, refine_steps=1)
+    out_k = ops.fused_gram_inv(torch.from_numpy(a), rel_damp=0.05,
+                               **kw)[0].numpy()
+    gram = np.einsum("tbn,tbm->bnm", a, a)[0] / a.shape[0]
+    lam = float(0.05 * np.trace(gram) / 128 + 1e-8)
+    out_c = tpi.composed_inverse(torch.from_numpy(gram), lam, **kw).numpy()
+    np.testing.assert_allclose(out_k, out_c, rtol=0, atol=5e-3)
+    ad = gram + lam * np.eye(128, dtype=np.float32)
+    for m in (out_k, out_c):
+        assert np.max(np.abs(m @ ad - np.eye(128))) < 1e-4
+
+
+# ---------------------------------------------------------------------------
 # dispatch and wrappers
 # ---------------------------------------------------------------------------
 
@@ -187,8 +314,16 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
         ops.smw_update(inv, v, decay=0.95, cscale=0.05),
         tref.smw_update_ref(inv, v, decay=0.95, cscale=0.05),
         rtol=0, atol=0)
+    ma, mb = (torch.from_numpy(x) for x in _mats(6, 5, 7, 3))
+    torch.testing.assert_close(ops.bitslice_mm(ma, mb),
+                               tref.bitslice_mm_ref(ma, mb), rtol=0, atol=0)
+    acts = torch.from_numpy(_acts(7, 40, 2, 16))
+    torch.testing.assert_close(
+        ops.fused_gram_inv(acts, rel_damp=0.05, **KW),
+        tref.fused_gram_inv_ref(acts, rel_damp=0.05, **KW), rtol=0, atol=0)
     assert ops.launch_counts() == {"neumann_inv": 0, "fused_precond": 0,
-                                   "smw_update": 0}
+                                   "smw_update": 0, "bitslice_mm": 0,
+                                   "fused_gram_inv": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -199,6 +334,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x = tuple(torch.from_numpy(v) for v in _tiles(4, 3, 32, 16))
     with pytest.raises(ValueError, match="CUDA"):
         t_fused_precond.fused_precond(*x)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_bitslice_mm.bitslice_mm(*(torch.from_numpy(m)
+                                    for m in _mats(6, 5, 7, 3)))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_fused_gram_solve.fused_gram_inv(
+            torch.from_numpy(_acts(7, 40, 2, 16)), rel_damp=0.05, **KW)
 
 
 def test_mixed_devices_are_refused():

@@ -478,7 +478,9 @@ def test_cli_smw_runs_on_cpu_and_defaults_to_cuda(monkeypatch):
     assert summary["smw_fallback"][0] == 1.0
     assert summary["kernel_launches"] == {"neumann_inv": 0,
                                           "fused_precond": 0,
-                                          "smw_update": 0}
+                                          "smw_update": 0,
+                                          "bitslice_mm": 0,
+                                          "fused_gram_inv": 0}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrain.main(args)

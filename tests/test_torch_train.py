@@ -219,5 +219,7 @@ def test_cli_smoke_runs_on_cpu(tmp_path):
     assert summary["block_size"] == 32
     assert summary["kernel_launches"] == {"neumann_inv": 0,
                                           "fused_precond": 0,
-                                          "smw_update": 0}
+                                          "smw_update": 0,
+                                          "bitslice_mm": 0,
+                                          "fused_gram_inv": 0}
     assert json.loads(out.read_text())["steps"] == 3
