@@ -12,30 +12,36 @@ Phases, each printed as a JSON line:
                  card at the main path's shapes, with its time (CUDA
                  events, warm, median of 5), the plain version's time,
                  one PyTorch call computing the same function, and the
-                 least time the card could take (bound)
+                 least time the card could take (bound); fused_precond
+                 in both forms on the main path's own WU plan (pool
+                 indexed by a_src/g_src, as the main path calls it, and
+                 gathered), beside the route the indexed form replaces
+                 (gather, then a gathered call); smw_update on both
+                 sides against float64 Woodbury too
   4. main path   full-width qwen1.5-0.5b (24 layers, d 1024, d_ff 2816,
                  vocab 151936), K-FAC block 128, batch 8 x seq 256, four
                  steps with stats and inverse refresh every 2 steps,
                  through ``repro_torch.launch.train``; launch counters
                  zeroed just before and read just after
   5. checks      finite losses, both its kernels launched on the main
-                 path, the run's own inverses against the plain version
-                 on the same factor blocks and against float64
-                 torch.linalg.inv (achieved bits); then the same four
-                 steps with torch.linalg.inv as the INV method, for
-                 comparison
+                 path (fused_precond once a step), the run's own
+                 inverses against the plain version on the same factor
+                 blocks and against float64 torch.linalg.inv (achieved
+                 bits); then the same four steps with torch.linalg.inv
+                 as the INV method, for comparison
   6. smw path    the incremental-SOI path (``--smw``): the same model and
                  batch, four steps of one rank-64 SMW program each
                  (drift budget 0.05) with the drift-gated full
                  re-inversion; per step the phase seconds, drift,
                  fallback flag and loss; launch counters zeroed just
                  before and read just after (its three kernels must have
-                 run); then the first step without a fallback is
-                 updated again from its own inverses and batch: kernel
-                 against plain version, and the achieved bits of the
-                 run's, the kernel's, the plain version's, the fp32
-                 route's and float64 Woodbury's inverses, beside those of
-                 a full re-inversion of the same factors
+                 run, smw_update once a leaf a step); then the first
+                 step without a fallback is updated again from its own
+                 inverses and batch: kernel against plain version, and
+                 the achieved bits of the run's, the kernel's, the plain
+                 version's, the fp32 route's and float64 Woodbury's
+                 inverses, beside those of a full re-inversion of the
+                 same factors
   7. precision_inv  the composed-precision inversion library: the circuit
                  model at the Fig. 5 toy and the production config
                  (achieved bits, >= 16 asserted; cycle counts), the
@@ -48,6 +54,11 @@ Phases, each printed as a JSON line:
                  leaf, each held to its plain version, the fused
                  inverses also to the two-step route (Gram, then
                  neumann_inv) and to float64 torch.linalg.inv
+  8. trace       the main path's four steps again, the fourth under
+                 torch.profiler (kernels only): the device's busy time
+                 against the step's wall time, and the top kernels; last,
+                 so that the profiler session cannot perturb the phases
+                 timed before it
 
 Then a JSON line of per-kernel results, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -209,41 +220,84 @@ def main() -> int:
     check(err <= REL_TOL * scale, "neumann_inv kernel vs plain")
     del m, a, lam, got, want
 
+    # fused_precond on the main path's own WU plan: its 18816 tiles read
+    # their inverse blocks from one pool of 3120 random 128-blocks by the
+    # plan's a_src/g_src (the indexed form the main path runs), and the
+    # same tiles with the blocks gathered first (the gathered form, and
+    # the route the indexed form replaces: gather, then a gathered call).
+    # Bounds: each input read once, each output written once; the indexed
+    # form reads each distinct pool block once.
+    import numpy as np
+
     nt, bi, bo = grp.n_tiles, grp.bi, grp.bo
-    a_inv = torch.randn(nt, bi, bi, device=dev, generator=gen)
+    pool = torch.randn(wu.inv_plan.total_blocks, bs, bs, device=dev,
+                       generator=gen)
     g = torch.randn(nt, bi, bo, device=dev, generator=gen)
-    g_inv = torch.randn(nt, bo, bo, device=dev, generator=gen)
-    out, dots = ops.fused_precond(a_inv, g, g_inv)
-    p_out, p_dots = ref.fused_precond_ref(a_inv, g, g_inv)
-    err = float((out - p_out).abs().max())
-    scale = float(p_out.abs().max())
-    d_err = float((dots - p_dots).abs().max())
-    d_scale = float(p_dots.abs().max())
-    del p_out, p_dots
-    b_ms, b_by = bound(4.0 * nt * (bi * bi + 2 * bi * bo + bo * bo + 1),
-                       2.0 * nt * 3 * (bi * bi * bo + bi * bo * bo))
+    a_src = torch.as_tensor(grp.a_src, device=dev)
+    g_src = torch.as_tensor(grp.g_src, device=dev)
+    a_idx, g_idx = a_src.long(), g_src.long()
+    a_sel, g_sel = pool[a_idx], pool[g_idx]
+    flops = 2.0 * nt * 3 * (bi * bi * bo + bi * bo * bo)
+
+    def held(got, want):
+        err = float((got - want).abs().max())
+        return err, float(want.abs().max())
+
+    out, dots = ops.fused_precond(pool, g, pool, a_src, g_src)
+    p_out, p_dots = ref.fused_precond_ref(pool, g, pool, a_src, g_src)
+    err, scale = held(out, p_out)
+    d_err, d_scale = held(dots, p_dots)
+    del out, dots, p_out, p_dots
+    distinct = int(np.unique(grp.a_src).size + np.unique(grp.g_src).size)
+    b_ms, b_by = bound(4.0 * (2 * nt * bi * bo + nt + distinct * bs * bs),
+                       flops)
+    check(err <= REL_TOL * scale, "fused_precond indexed vs plain (out)")
+    check(d_err <= REL_TOL * d_scale, "fused_precond indexed vs plain (dots)")
+
+    out, dots = ops.fused_precond(a_sel, g, g_sel)
+    p_out, p_dots = ref.fused_precond_ref(a_sel, g, g_sel)
+    gerr, gscale = held(out, p_out)
+    gd_err, gd_scale = held(dots, p_dots)
+    del out, dots, p_out, p_dots
+    gb_ms, gb_by = bound(4.0 * nt * (bi * bi + 2 * bi * bo + bo * bo + 1),
+                         flops)
+    check(gerr <= REL_TOL * gscale, "fused_precond gathered vs plain (out)")
+    check(gd_err <= REL_TOL * gd_scale,
+          "fused_precond gathered vs plain (dots)")
     results["fused_precond"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/fused_precond.cu",
         replaces="src/repro/kernels/fused_precond.py:53",
-        shape=[nt, bi, bo], max_abs_err=err, max_abs_plain=scale,
+        shape=[nt, bi, bo], pool_blocks=pool.shape[0],
+        distinct_blocks=distinct, max_abs_err=err, max_abs_plain=scale,
         tol=REL_TOL * scale, dots_max_abs_err=d_err,
         dots_max_abs_plain=d_scale,
-        ms=time_ms(torch, lambda: ops.fused_precond(a_inv, g, g_inv)),
+        ms=time_ms(torch, lambda: ops.fused_precond(pool, g, pool, a_src,
+                                                    g_src)),
+        replaced_route_ms=time_ms(torch, lambda: ops.fused_precond(
+            pool[a_idx], g, pool[g_idx])),
         plain_ms=time_ms(torch, lambda: ref.fused_precond_ref(
-            a_inv, g, g_inv)),
+            pool, g, pool, a_src, g_src)),
         library_ms=time_ms(torch, lambda: torch.matmul(
-            torch.matmul(a_inv, g), g_inv)),
-        bound_ms=b_ms, bound_by=b_by)
-    check(err <= REL_TOL * scale, "fused_precond kernel vs plain (out)")
-    check(d_err <= REL_TOL * d_scale, "fused_precond kernel vs plain (dots)")
-    del a_inv, g, g_inv, out, dots
+            torch.matmul(pool[a_idx], g), pool[g_idx])),
+        library_gathered_ms=time_ms(torch, lambda: torch.matmul(
+            torch.matmul(a_sel, g), g_sel)),
+        bound_ms=b_ms, bound_by=b_by,
+        gathered=dict(
+            max_abs_err=gerr, max_abs_plain=gscale, dots_max_abs_err=gd_err,
+            dots_max_abs_plain=gd_scale,
+            ms=time_ms(torch, lambda: ops.fused_precond(a_sel, g, g_sel)),
+            plain_ms=time_ms(torch, lambda: ref.fused_precond_ref(
+                a_sel, g, g_sel)),
+            library_ms=time_ms(torch, lambda: torch.matmul(
+                torch.matmul(a_sel, g), g_sel)),
+            bound_ms=gb_ms, bound_by=gb_by))
+    del pool, g, a_sel, g_sel, a_src, g_src, a_idx, g_idx
+    torch.cuda.empty_cache()
 
     # smw_update at the SMW path's largest leaf: (528, 64, 128), with
     # inverses of damped factor-like blocks at the A side's scale
     # (c = 0.05/2048, as at 2048 subsample tokens) and the G side's
     # (columns at 3e-4, inverse entries ~1e7, c = 0.05)
-    from repro_torch.kernels import smw_update as smw_kernel
-
     ks = SMW["rank"]
     decay = kfac.KFACConfig().ema_decay
 
@@ -258,53 +312,58 @@ def main() -> int:
         v = torch.randn(nb_max, ks, n, device=dev, generator=gen) * scale
         return inv64.float().contiguous(), v
 
-    smw_errs = {}
+    def woodbury64(inv, v, *, decay, cscale):
+        inv, v = inv.double(), v.double()
+        m = (inv + inv.transpose(-1, -2)) * (0.5 / decay)
+        y = v @ m
+        s = y @ v.transpose(-1, -2) + torch.eye(
+            v.shape[-2], device=dev, dtype=torch.float64) / cscale
+        return m - y.transpose(-1, -2) @ torch.linalg.solve(s, y), s
+
+    # each side: kernel and plain version against each other, and both
+    # against float64 Woodbury, with the capacitance's condition number
+    smw_sides = {}
     for side, scale, c in (("A", 1.0, (1 - decay) / (8 * 256)),
                            ("G", 3e-4, 1 - decay)):
         inv, v = smw_case(scale)
         got = ops.smw_update(inv, v, decay=decay, cscale=c)
         want = ref.smw_update_ref(inv, v, decay=decay, cscale=c)
-        smw_errs[side] = (float((got - want).abs().max()),
-                          float(want.abs().max()))
-        check(smw_errs[side][0] <= REL_TOL * smw_errs[side][1],
-              f"smw_update kernel vs plain ({side} side)")
+        w64, s64 = woodbury64(inv, v, decay=decay, cscale=c)
+        err, mx = held(got, want)
+        w_scale = float(w64.abs().max())
+        smw_sides[side] = dict(
+            max_abs_err=err, max_abs_plain=mx, rel_err=err / mx,
+            kernel_rel_to_woodbury64=float((got.double() - w64).abs().max())
+            / w_scale,
+            plain_rel_to_woodbury64=float((want.double() - w64).abs().max())
+            / w_scale,
+            max_cond_s=float(torch.linalg.cond(s64).max()))
+        check(err <= REL_TOL * mx, f"smw_update kernel vs plain ({side} side)")
+        del got, want, w64, s64
     # timed on the last (G-side) case. Bound: the function must read inv
     # and v and write out; 3 hi/lo partials for each of V M, Y V^T and
     # Y^T Z, and the fp32 solve (LU of k x k, two triangular solves on n
-    # columns). The design's own traffic adds Y, S and Z between passes.
-    y, s_cap = smw_kernel.smw_stats(inv, v, decay=decay, cscale=c)
-    z = torch.linalg.solve_ex(s_cap, y)[0].contiguous()
+    # columns). The design's own traffic reads inv twice.
     b_ms, b_by = bound(
         4.0 * nb_max * (2 * n * n + ks * n),
         2.0 * 3 * nb_max * (ks * n * n + ks * ks * n + n * n * ks),
         nb_max * (2.0 / 3.0 * ks ** 3 + 2.0 * ks * ks * n))
-    design_ms, _ = bound(
-        4.0 * nb_max * (3 * n * n + 6 * ks * n + 2 * ks * ks), 0.0)
-    err_a, scale_a = smw_errs["A"]
-    err_g, scale_g = smw_errs["G"]
+    design_ms, _ = bound(4.0 * nb_max * (3 * n * n + ks * n), 0.0)
+    g_side = smw_sides["G"]
     results["smw_update"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/smw_update.cu",
         replaces="src/repro/kernels/smw_update.py:56,66",
-        shape=[nb_max, ks, n], max_abs_err=err_g, max_abs_plain=scale_g,
-        rel_err=err_g / scale_g, tol=REL_TOL * scale_g,
-        a_side=dict(max_abs_err=err_a, max_abs_plain=scale_a,
-                    rel_err=err_a / scale_a),
+        shape=[nb_max, ks, n], max_abs_err=g_side["max_abs_err"],
+        max_abs_plain=g_side["max_abs_plain"], rel_err=g_side["rel_err"],
+        tol=REL_TOL * g_side["max_abs_plain"], sides=smw_sides,
         ms=time_ms(torch, lambda: ops.smw_update(inv, v, decay=decay,
                                                  cscale=c)),
-        passes_ms=time_ms(torch, lambda: (
-            smw_kernel.smw_stats(inv, v, decay=decay, cscale=c),
-            smw_kernel.smw_apply(inv, y, z, decay=decay))),
-        pass1_ms=time_ms(torch, lambda: smw_kernel.smw_stats(
-            inv, v, decay=decay, cscale=c)),
-        solve_ms=time_ms(torch, lambda: torch.linalg.solve_ex(s_cap, y)),
-        pass2_ms=time_ms(torch, lambda: smw_kernel.smw_apply(
-            inv, y, z, decay=decay)),
         plain_ms=time_ms(torch, lambda: ref.smw_update_ref(
             inv, v, decay=decay, cscale=c)),
         library_ms=time_ms(torch, lambda: ref.exact_smw_update(
             inv, v, decay=decay, cscale=c)),
         bound_ms=b_ms, bound_by=b_by, design_bytes_ms=design_ms)
-    del inv, v, got, want, y, s_cap, z
+    del inv, v
 
     # bitslice_mm at the main path's MLP product: 8 x 256 tokens of
     # d_model 1024 into d_ff 2816. Bound: 3 partials of 2MKN operations;
@@ -392,6 +451,8 @@ def main() -> int:
     check(all(math.isfinite(x) for x in losses), "finite losses")
     for name in ("neumann_inv", "fused_precond"):
         check(launches[name] > 0, f"{name} launched on the main path")
+    check(launches["fused_precond"] == MAIN["steps"] * len(wu.groups),
+          "fused_precond: one launch per WU group a step")
 
     # 5. the run's own inverses: kernel vs plain, and achieved bits -------
     def bits(x, ref64):
@@ -477,6 +538,9 @@ def main() -> int:
     for name in ("neumann_inv", "fused_precond", "smw_update"):
         check(smw_launches[name] > 0, f"{name} launched on the SMW path")
     check("factors" in kept, "an SMW step without a fallback")
+    n_leaves = sum(len(d) for d in meta.values())
+    check(smw_launches["smw_update"] == n_leaves * SMW["steps"],
+          "smw_update: one launch per leaf a step")
 
     # that step's update again, from the inverses it started from and
     # its own batch's columns: the kernel, its plain version, the fp32
@@ -485,14 +549,6 @@ def main() -> int:
     # from the rounding's), beside a full re-inversion of those factors
     from repro_torch.data.pipeline import DataCursor
     from repro_torch.solve import smw as smw_mod
-
-    def woodbury64(inv, v, *, decay, cscale):
-        inv, v = inv.double(), v.double()
-        m = (inv + inv.transpose(-1, -2)) * (0.5 / decay)
-        y = v @ m
-        s = y @ v.transpose(-1, -2) + torch.eye(
-            v.shape[-2], device=dev, dtype=torch.float64) / cscale
-        return m - y.transpose(-1, -2) @ torch.linalg.solve(s, y)
 
     smw_bits = []
     if "factors" in kept:
@@ -536,7 +592,7 @@ def main() -> int:
                     bits_plain=bits(plain, exact),
                     bits_fp32=bits(ref.exact_smw_update(inv0, v, **args),
                                    exact),
-                    bits_woodbury64=bits(woodbury64(inv0, v, **args),
+                    bits_woodbury64=bits(woodbury64(inv0, v, **args)[0],
                                          exact),
                     bits_full_reinversion=bits(full, exact))
                 smw_bits.append(row)
@@ -570,8 +626,6 @@ def main() -> int:
     # on the port; then the library's two kernels on their own paths:
     # mxu_inv_apply (the composed inverse applied through bitslice_mm) and
     # fused_gram_inv on the activations of the main path's first batch.
-    import numpy as np
-
     from repro_torch.core import precision_inv as pinv
 
     rng = np.random.default_rng(1)
@@ -743,6 +797,54 @@ def main() -> int:
                                    for r in fused_report),
           "wall_s": pinv_wall, "launches": pinv_launches})
     del acts_run, fused
+
+    # 8. trace: the main path's fourth step (FP, BP and WU only) under
+    # torch.profiler, kernels only, last, so that the profiler session
+    # cannot perturb the phases timed before it: the device's busy time
+    # (the union of the kernels' intervals) against the step's host wall
+    # time, and the kernels that fill it
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def profile_last_step(st, rec):
+        if rec["step"] == MAIN["steps"] - 1:
+            prof.start()
+        elif rec["step"] == MAIN["steps"]:
+            torch.cuda.synchronize(dev)
+            prof.stop()
+
+    torch.cuda.empty_cache()
+    _, tr_hist = train_mod.run(
+        train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"], device="cuda"),
+        ds, MAIN["steps"], on_step=profile_last_step)
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t0_us, t1_us = e.time_range.start, e.time_range.end
+        spans.append((t0_us, t1_us))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (t1_us - t0_us)
+    busy_us, end_us = 0.0, -math.inf
+    for t0_us, t1_us in sorted(spans):
+        busy_us += max(0.0, t1_us - max(t0_us, end_us))
+        end_us = max(end_us, t1_us)
+    span_ms = (end_us - min(t for t, _ in spans)) / 1e3 if spans else 0.0
+    step_ms = tr_hist[-1]["phase_s"]["train"] * 1e3
+    emit({"phase": "trace", "step": MAIN["steps"],
+          "train_ms_profiled": step_ms,
+          "train_ms_unprofiled": history[-1]["phase_s"]["train"] * 1e3,
+          "kernel_launches": len(spans), "device_busy_ms": busy_us / 1e3,
+          "device_span_ms": span_ms,
+          "idle_share_of_span": 1.0 - busy_us / 1e3 / span_ms
+          if span_ms else None,
+          "fused_precond_ms": sum(us for k, us in by_name.items()
+                                  if "fused_precond" in k) / 1e3,
+          "top": [dict(name=k[:80], ms=us / 1e3) for k, us in sorted(
+              by_name.items(), key=lambda x: -x[1])[:10]]})
+    check(bool(spans), "the profiled step ran kernels on the device")
+    del prof
 
     if failures:
         emit({"phase": "failed", "failures": failures})

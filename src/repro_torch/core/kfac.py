@@ -239,9 +239,11 @@ def precondition_pooled(grads_by_name: Mapping[str, torch.Tensor],
     gathered from the per-``bs`` pools.
 
     ``use_kernel`` runs the pool through ``kernels.ops.fused_precond``
-    (the Hopper kernel on CUDA, its plain hi/lo version on the CPU);
-    its per-tile trust-region dots are discarded here, as in the
-    reference, since :func:`apply_updates` folds the dot per leaf.
+    (the Hopper kernel on CUDA, its plain hi/lo version on the CPU),
+    which reads each tile's inverse blocks from the pools by the plan's
+    ``a_src``/``g_src``: no gathered copy per tile. Its per-tile
+    trust-region dots are discarded here, as in the reference, since
+    :func:`apply_updates` folds the dot per leaf.
     Otherwise the tiles go through ``quantize.lowp_einsum`` at
     ``precision``."""
     quantize.precision_kind(precision)
@@ -252,12 +254,13 @@ def precondition_pooled(grads_by_name: Mapping[str, torch.Tensor],
                                        grp.bi, grp.bo)
                  for l in grp.leaves]
         g_pool = torch.cat(tiles).contiguous()
-        dev = g_pool.device
-        a_sel = pools[grp.bi][torch.as_tensor(grp.a_src, device=dev).long()]
-        g_sel = pools[grp.bo][torch.as_tensor(grp.g_src, device=dev).long()]
+        a_src, g_src = grp.src_on(g_pool.device)
         if use_kernel:
-            o, _dots = ops.fused_precond(a_sel, g_pool, g_sel)
+            o, _dots = ops.fused_precond(pools[grp.bi], g_pool,
+                                         pools[grp.bo], a_src, g_src)
         else:
+            a_sel = pools[grp.bi][a_src.long()]
+            g_sel = pools[grp.bo][g_src.long()]
             tmp = quantize.lowp_einsum("nab,nbc->nac", a_sel, g_pool,
                                        precision=precision)
             o = quantize.lowp_einsum("nac,ncd->nad", tmp, g_sel,

@@ -198,6 +198,55 @@ __device__ __forceinline__ void gemm3(Acc acc, const bf16* LH, const bf16* LL,
   }
 }
 
+// gemm3 over the full NP depth with no masks (operands zero-padded): the
+// same products added in the same order, with the k loop unrolled and the
+// next k-step's L fragments loaded while this step's products run.
+__device__ __forceinline__ void gemm3_full(Acc acc, const bf16* LH,
+                                           const bf16* LL, const bf16* RH,
+                                           const bf16* RL) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp >> 1) * 32;
+  const int n0 = (warp & 1) * 64;
+  const int r16 = lane & 15, c8 = (lane >> 4) * 8;
+  uint32_t ah[2][2][4], al[2][2][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int off = (m0 + mi * 16 + r16) * LDS + c8;
+    ldmatrix_x4(ah[0][mi], LH + off);
+    ldmatrix_x4(al[0][mi], LL + off);
+  }
+#pragma unroll
+  for (int ks = 0; ks < NP / 16; ++ks) {
+    const int cur = ks & 1;
+    const int k0 = ks * 16;
+    if (ks + 1 < NP / 16) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int off = (m0 + mi * 16 + r16) * LDS + k0 + 16 + c8;
+        ldmatrix_x4(ah[cur ^ 1][mi], LH + off);
+        ldmatrix_x4(al[cur ^ 1][mi], LL + off);
+      }
+    }
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      uint32_t bh[4], bl[4];
+      const int off = (k0 + r16) * LDS + n0 + nj * 16 + c8;
+      ldmatrix_x4_trans(bh, RH + off);
+      ldmatrix_x4_trans(bl, RL + off);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        mma_16816(acc[mi][2 * nj], ah[cur][mi], bh[0], bh[1]);
+        mma_16816(acc[mi][2 * nj + 1], ah[cur][mi], bh[2], bh[3]);
+        mma_16816(acc[mi][2 * nj], ah[cur][mi], bl[0], bl[1]);
+        mma_16816(acc[mi][2 * nj + 1], ah[cur][mi], bl[2], bl[3]);
+        mma_16816(acc[mi][2 * nj], al[cur][mi], bh[0], bh[1]);
+        mma_16816(acc[mi][2 * nj + 1], al[cur][mi], bh[2], bh[3]);
+      }
+    }
+  }
+}
+
 // f(row, col, value&) over this thread's accumulator elements.
 template <class F>
 __device__ __forceinline__ void for_each(Acc acc, F f) {
@@ -261,6 +310,169 @@ __device__ __forceinline__ void load_split(const float* src, int rows,
     H[i * LDS + j] = h;
     L[i * LDS + j] = l;
   }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 operands staged through shared memory by cp.async (sm_80+ async copies
+// from device memory straight into shared memory, no registers on the way).
+// A staging tile holds NP rows at a stride of STG words: rows stay 16-byte
+// aligned for 16-byte copies, and a warp's float2 accesses in the mma
+// accumulator layout (8 rows x 4 column pairs) land on distinct banks.
+
+constexpr int STG = NP + 4;
+constexpr int STAGE_BYTES = NP * STG * 4;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(a), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(a), "l"(src) : "memory");
+}
+
+// Wait until at most N of this thread's copy groups (one a stage_async) are
+// still in flight; a __syncthreads must follow before other threads read
+// what they wrote.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Start copying the fp32 rows x cols row-major matrix src (leading dimension
+// cols) into the staging tile st, in 16-byte pieces when vec (cols % 4 == 0
+// and src 16-byte aligned), else in 4-byte ones, as one copy group; returns
+// at once.
+__device__ __forceinline__ void stage_async(const float* src, int rows,
+                                            int cols, bool vec, float* st) {
+  if (vec) {
+    const int q = cols >> 2;
+    for (int idx = threadIdx.x; idx < rows * q; idx += THREADS) {
+      const int i = idx / q;
+      const int j = (idx - i * q) << 2;
+      cp_async16(st + i * STG + j, src + i * cols + j);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * cols; idx += THREADS) {
+      const int i = idx / cols;
+      cp_async4(st + i * STG + idx - i * cols, src + idx);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// split() of two values with one packed conversion for each slice (the
+// same round-to-nearest-even results), as packed bf16 pairs.
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __float22bfloat162_rn(make_float2(a, b));
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l =
+      __float22bfloat162_rn(make_float2(a - hf.x, b - hf.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Split the staged rows x cols matrix into hi/lo slices in the NP x NP
+// tiles H and L, zero outside rows x cols (whatever the staging tile holds
+// there): float4 reads, 8-byte stores.
+__device__ __forceinline__ void split_staged(const float* st, int rows,
+                                             int cols, bf16* H, bf16* L) {
+  for (int idx = threadIdx.x; idx < NP * NP / 4; idx += THREADS) {
+    const int i = idx / (NP / 4);
+    const int j = (idx % (NP / 4)) * 4;
+    const float4 q = *reinterpret_cast<const float4*>(st + i * STG + j);
+    const bool in = i < rows;
+    uint32_t h[2], l[2];
+    split2(in && j < cols ? q.x : 0.f, in && j + 1 < cols ? q.y : 0.f,
+           h[0], l[0]);
+    split2(in && j + 2 < cols ? q.z : 0.f, in && j + 3 < cols ? q.w : 0.f,
+           h[1], l[1]);
+    *reinterpret_cast<uint2*>(H + i * LDS + j) = make_uint2(h[0], h[1]);
+    *reinterpret_cast<uint2*>(L + i * LDS + j) = make_uint2(l[0], l[1]);
+  }
+}
+
+// store_split with two values a conversion: the same slices.
+__device__ __forceinline__ void store_split2(Acc acc, bf16* H, bf16* L) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp >> 1) * 32 + (lane >> 2);
+  const int n0 = (warp & 1) * 64 + (lane & 3) * 2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int off = (m0 + mi * 16 + h * 8) * LDS + n0 + ni * 8;
+        uint32_t hi, lo;
+        split2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(H + off) = hi;
+        *reinterpret_cast<uint32_t*>(L + off) = lo;
+      }
+}
+
+// v = the staged matrix at this thread's accumulator positions (the layout
+// for_each walks), 0 outside rows x cols.
+__device__ __forceinline__ void load_acc_layout(const float* st, int rows,
+                                                int cols, Acc v) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp >> 1) * 32 + (lane >> 2);
+  const int n0 = (warp & 1) * 64 + (lane & 3) * 2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + mi * 16 + h * 8;
+        const int c = n0 + ni * 8;
+        const float2 q = *reinterpret_cast<const float2*>(st + r * STG + c);
+        v[mi][ni][2 * h] = r < rows && c < cols ? q.x : 0.f;
+        v[mi][ni][2 * h + 1] = r < rows && c + 1 < cols ? q.y : 0.f;
+      }
+}
+
+// Write this thread's accumulators to the rows x cols row-major dst
+// (leading dimension cols): each lane pair swaps one row's column pair
+// (a shuffle), so that each lane holds four consecutive columns of one row
+// and writes them in one 16-byte store when vec (cols % 4 == 0, dst 16-byte
+// aligned) and the four lie inside; else entry by entry, masked.
+__device__ __forceinline__ void store_acc_global(Acc acc, float* dst,
+                                                 int rows, int cols,
+                                                 bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool odd = lane & 1;
+  const int m0 = (warp >> 1) * 32 + (lane >> 2) + (odd ? 8 : 0);
+  const int n0 = (warp & 1) * 64 + (lane & 2) * 2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const float* a = acc[mi][ni];
+      const float q0 = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[2], 1);
+      const float q1 = __shfl_xor_sync(0xffffffffu, odd ? a[1] : a[3], 1);
+      const float4 v = odd ? make_float4(q0, q1, a[2], a[3])
+                           : make_float4(a[0], a[1], q0, q1);
+      const int r = m0 + mi * 16;
+      const int c = n0 + ni * 8;
+      if (r >= rows) continue;
+      float* d = dst + r * cols + c;
+      if (vec && c + 3 < cols) {
+        *reinterpret_cast<float4*>(d) = v;
+      } else {
+        if (c < cols) d[0] = v.x;
+        if (c + 1 < cols) d[1] = v.y;
+        if (c + 2 < cols) d[2] = v.z;
+        if (c + 3 < cols) d[3] = v.w;
+      }
+    }
 }
 
 }  // namespace hilo

@@ -63,11 +63,14 @@ def neumann_inv(a: torch.Tensor, damping, *, ns_iters: int = 14,
 
 
 def fused_precond(a_inv: torch.Tensor, g: torch.Tensor,
-                  g_inv: torch.Tensor):
-    """Pooled ``A_inv @ g @ G_inv`` (hi/lo) and per-tile TR dots."""
+                  g_inv: torch.Tensor, a_src: torch.Tensor | None = None,
+                  g_src: torch.Tensor | None = None):
+    """Pooled ``A_inv @ g @ G_inv`` (hi/lo) and per-tile TR dots; with
+    int32 ``a_src``/``g_src`` the inverses are pools indexed per tile."""
     if _route(a_inv, g, g_inv) == "cpu":
-        return ref.fused_precond_ref(a_inv, g, g_inv)
-    return _fused_precond.fused_precond(a_inv, g, g_inv)
+        _fused_precond.check_indices(a_inv, g_inv, g.shape[0], a_src, g_src)
+        return ref.fused_precond_ref(a_inv, g, g_inv, a_src, g_src)
+    return _fused_precond.fused_precond(a_inv, g, g_inv, a_src, g_src)
 
 
 def smw_update(inv: torch.Tensor, v: torch.Tensor, *, decay: float,

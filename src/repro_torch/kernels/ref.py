@@ -108,9 +108,17 @@ def exact_gram_inv(a: torch.Tensor, rel_damp: float = 0.03) -> torch.Tensor:
 
 
 def fused_precond_ref(a_inv: torch.Tensor, g: torch.Tensor,
-                      g_inv: torch.Tensor):
+                      g_inv: torch.Tensor, a_src: torch.Tensor | None = None,
+                      g_src: torch.Tensor | None = None):
     """``out[t] = hilo(hilo(A_inv[t], g[t]), G_inv[t])`` (left first)
-    and the per-tile trust-region dots ``sum(out[t] * g[t])``."""
+    and the per-tile trust-region dots ``sum(out[t] * g[t])``. With
+    ``a_src``/``g_src`` the inverses are pools and tile t takes
+    ``a_inv[a_src[t]]`` and ``g_inv[g_src[t]]``: the gather, then the
+    same computation, so the indexed call is bitwise the gathered one."""
+    if a_src is not None:
+        a_inv = a_inv[a_src.long()]
+    if g_src is not None:
+        g_inv = g_inv[g_src.long()]
     g32 = g.to(torch.float32)
     tmp = hilo_matmul(a_inv.to(torch.float32), g32)
     out = hilo_matmul(tmp, g_inv.to(torch.float32))
@@ -141,10 +149,11 @@ def smw_update_ref(inv: torch.Tensor, v: torch.Tensor, *, decay: float,
     columns, computed on (k, bs) as given (the TPU kernel pads both to
     128, which is exact). ``Y = V M``, ``S = Y V^T`` and ``Y^T Z`` are
     hi/lo partial-product sums; the k x k solve is
-    ``torch.linalg.solve_ex``, as the kernel's wrapper runs it: like
-    ``jnp.linalg.solve`` it checks nothing on the host (no device
-    sync), and a singular capacitance shows up as a non-finite drift,
-    which the SMW gate answers with a full re-inversion."""
+    ``torch.linalg.solve_ex`` (LU with partial pivoting, as the kernel
+    factors in its CTA): like ``jnp.linalg.solve`` it checks nothing on
+    the host (no device sync), and a singular capacitance shows up as a
+    non-finite drift, which the SMW gate answers with a full
+    re-inversion."""
     inv_decay, inv_c = smw_scalars(decay, cscale)
     inv = inv.to(torch.float32)
     v = v.to(torch.float32)

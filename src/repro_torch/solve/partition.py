@@ -15,6 +15,7 @@ import math
 from typing import Any, Mapping, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.soi import LinearSpec, leaf_block_count
 
@@ -93,10 +94,22 @@ class WUGroupPlan:
     leaves: Tuple[WULeaf, ...]
     a_src: np.ndarray
     g_src: np.ndarray
+    _on_device: dict = dataclasses.field(default_factory=dict, compare=False,
+                                         repr=False)
 
     @property
     def n_tiles(self) -> int:
         return int(sum(l.n_tiles for l in self.leaves))
+
+    def src_on(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(a_src, g_src)`` as int32 tensors on ``device``, copied once
+        per device: a copy from the host each step would stall the
+        stream's work behind a synchronise."""
+        key = str(torch.device(device))
+        if key not in self._on_device:
+            self._on_device[key] = (torch.as_tensor(self.a_src, device=device),
+                                    torch.as_tensor(self.g_src, device=device))
+        return self._on_device[key]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,4 +168,12 @@ def make_wu_plan(specs: Mapping[str, LinearSpec],
                     a_src=np.concatenate(pools[(bi, bo)]["a"]),
                     g_src=np.concatenate(pools[(bi, bo)]["g"]))
         for bi, bo in sorted(pools))
+    # the fused_precond kernel reads the pools by these indices unchecked
+    # on the card (a check there would sync); hold them in range here
+    sizes = {g.bs: g.n_blocks for g in plan.groups}
+    for grp in groups:
+        for src, bs in ((grp.a_src, grp.bi), (grp.g_src, grp.bo)):
+            if src.size and (src.min() < 0 or src.max() >= sizes[bs]):
+                raise ValueError(f"WU plan indexes outside the {bs}-block "
+                                 f"pool of {sizes[bs]} blocks")
     return WUPlan(inv_plan=plan, groups=groups)

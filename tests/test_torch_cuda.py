@@ -81,6 +81,39 @@ def test_fused_precond_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,bi,bo,ma,mg", [(18816, 128, 128, 3120, 3120),
+                                           (37, 100, 72, 5, 9),
+                                           (9, 32, 32, 2, 3),
+                                           (7, 30, 18, 3, 4)])
+def test_fused_precond_indexed_kernel_matches_plain(cuda_device, n, bi, bo,
+                                                    ma, mg):
+    """Pools indexed per tile (repeated, out of order; at the main
+    path's size, the plan's own pattern: runs of one A block cycling
+    through a few G blocks), against the plain version's gather."""
+    r = np.random.default_rng(n + bi)
+    pa = torch.from_numpy(r.standard_normal((ma, bi, bi)).astype(
+        np.float32)).to(cuda_device)
+    pg = torch.from_numpy(r.standard_normal((mg, bo, bo)).astype(
+        np.float32)).to(cuda_device)
+    g = torch.from_numpy(r.standard_normal((n, bi, bo)).astype(
+        np.float32)).to(cuda_device)
+    if n == 18816:
+        t = np.arange(n)
+        a_src, g_src = (t // 8) % ma, (t // 64) * 8 % mg + t % 8
+    else:
+        a_src, g_src = r.integers(0, ma, n), r.integers(0, mg, n)
+    a_src, g_src = (torch.from_numpy(x.astype(np.int32)).to(cuda_device)
+                    for x in (a_src, g_src))
+    before = ops.launch_counts()["fused_precond"]
+    out, dots = ops.fused_precond(pa, g, pg, a_src, g_src)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_precond"] == before + 1
+    want_out, want_dots = tref.fused_precond_ref(pa, g, pg, a_src, g_src)
+    assert (out - want_out).abs().max() <= 1e-4 * want_out.abs().max()
+    assert (dots - want_dots).abs().max() <= 1e-4 * want_dots.abs().max()
+
+
+@pytest.mark.cuda
 def test_neumann_inv_kernel_refuses_large_blocks(cuda_device):
     a = torch.eye(130, device=cuda_device).expand(2, 130, 130).contiguous()
     with pytest.raises(ValueError, match="n <= 128"):
@@ -111,10 +144,42 @@ def test_smw_update_kernel_matches_plain(cuda_device, n, k, bs, scale, c):
     before = ops.launch_counts()["smw_update"]
     got = ops.smw_update(inv, v, decay=0.95, cscale=c)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["smw_update"] == before + 2  # one per pass
+    assert ops.launch_counts()["smw_update"] == before + 1  # one a call
     want = tref.smw_update_ref(inv, v, decay=0.95, cscale=c)
     assert got.shape == want.shape == (n, bs, bs)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_smw_update_kernel_with_indefinite_inverses(cuda_device):
+    """sym(inv) indefinite (unconverged cached inverses can be), so S is
+    not SPD: the kernel's pivoted LU stays finite where a Cholesky would
+    not, and agrees with the plain version's solve."""
+    r = np.random.default_rng(11)
+    n, k, bs = 6, 16, 64
+    q = np.linalg.qr(r.standard_normal((n, bs, bs)))[0]
+    ev = r.uniform(0.5, 2.0, (n, bs)) * np.where(np.arange(bs) % 3, 1, -1)
+    inv = np.einsum("nij,nj,nkj->nik", q, ev, q).astype(np.float32)
+    v = r.standard_normal((n, k, bs)).astype(np.float32)
+    tinv, tv = (torch.from_numpy(x).to(cuda_device) for x in (inv, v))
+    got = ops.smw_update(tinv, tv, decay=0.95, cscale=0.05)
+    want = tref.smw_update_ref(tinv, tv, decay=0.95, cscale=0.05)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_smw_update_kernel_singular_capacitance_is_non_finite(cuda_device):
+    """Two equal rows of V and cscale = inf (1/c = 0): S = Y V^T is
+    exactly singular, and kernel and plain version both return
+    non-finite blocks (the SMW gate's fallback signal)."""
+    inv, v = _smw_case(3, 2, 8, 32, 1.0)
+    v[:, 5] = v[:, 2]
+    tinv, tv = (torch.from_numpy(x).to(cuda_device) for x in (inv, v))
+    got = ops.smw_update(tinv, tv, decay=0.95, cscale=float("inf"))
+    want = tref.smw_update_ref(tinv, tv, decay=0.95, cscale=float("inf"))
+    assert not torch.isfinite(got).all()
+    assert not torch.isfinite(want).all()
 
 
 @pytest.mark.cuda

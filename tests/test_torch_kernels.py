@@ -170,6 +170,72 @@ def test_fused_precond_plain_matches_pallas_kernel():
                                rtol=1e-4, atol=1e-2)
 
 
+def _pools(seed, n, bi, bo, ma, mg, pattern):
+    """Pools of (ma, bi, bi) and (mg, bo, bo) blocks, (n, bi, bo) tiles
+    and int32 per-tile indices: ``plan`` is the WU plan's own pattern
+    (runs of one A block, cycling G blocks), ``shuffled`` repeated and
+    out of order."""
+    r = np.random.default_rng(seed)
+    pa = r.standard_normal((ma, bi, bi)).astype(np.float32)
+    g = r.standard_normal((n, bi, bo)).astype(np.float32)
+    pg = r.standard_normal((mg, bo, bo)).astype(np.float32)
+    if pattern == "plan":
+        t = np.arange(n)
+        a_src, g_src = t // 2 % ma, t % mg
+    else:
+        a_src, g_src = r.integers(0, ma, n), r.integers(0, mg, n)
+    return pa, g, pg, a_src.astype(np.int32), g_src.astype(np.int32)
+
+
+POOL_CASES = [(6, 128, 128, 3, 2, "plan"),        # aligned
+              (5, 100, 72, 2, 3, "plan"),         # unaligned
+              (9, 32, 16, 4, 5, "shuffled")]      # repeated, out of order
+
+
+@pytest.mark.parametrize("n,bi,bo,ma,mg,pattern", POOL_CASES)
+def test_fused_precond_plain_indexed_is_the_gathered_call(n, bi, bo, ma, mg,
+                                                          pattern):
+    pa, g, pg, a_src, g_src = (torch.from_numpy(x) for x in _pools(
+        n, n, bi, bo, ma, mg, pattern))
+    got = tref.fused_precond_ref(pa, g, pg, a_src, g_src)
+    want = tref.fused_precond_ref(pa[a_src.long()], g, pg[g_src.long()])
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,bi,bo,ma,mg,pattern", POOL_CASES)
+def test_fused_precond_indexed_matches_reference_ops(n, bi, bo, ma, mg,
+                                                     pattern):
+    """``ops.fused_precond`` with pool indices on the CPU against the
+    reference's ``kernels.ops.fused_precond`` (the Pallas kernel in
+    interpret mode) on the gathered pools."""
+    from repro.kernels import ops as jops
+
+    pa, g, pg, a_src, g_src = _pools(n + 1, n, bi, bo, ma, mg, pattern)
+    out, dots = ops.fused_precond(*(torch.from_numpy(x)
+                                    for x in (pa, g, pg, a_src, g_src)))
+    want_out, want_dots = jops.fused_precond(
+        jnp.asarray(pa[a_src]), jnp.asarray(g), jnp.asarray(pg[g_src]))
+    _assert_rel(out.numpy(), want_out, 1e-5)
+    np.testing.assert_allclose(dots.numpy(), np.asarray(want_dots),
+                               rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda a, b: (a.long(), b), "int32"),
+    (lambda a, b: (a, b.to(torch.int16)), "int32"),
+    (lambda a, b: (a[:-1], b), "shape"),
+    (lambda a, b: (a, b[None]), "shape"),
+    (lambda a, b: (a, None), "both"),
+    (lambda a, b: (a * 0 + 3, b), "outside"),
+    (lambda a, b: (a, b * 0 - 1), "outside")])
+def test_fused_precond_refuses_bad_indices(bad, match):
+    pa, g, pg, a_src, g_src = (torch.from_numpy(x) for x in _pools(
+        3, 4, 16, 8, 3, 2, "shuffled"))
+    with pytest.raises(ValueError, match=match):
+        ops.fused_precond(pa, g, pg, *bad(a_src, g_src))
+
+
 def test_fused_precond_dot_is_trust_region_mass():
     a, g, gi = (torch.from_numpy(x) for x in _tiles(2, 4, 16, 16))
     out, dots = tref.fused_precond_ref(a, g, gi)

@@ -208,6 +208,54 @@ def test_apply_updates_matches_reference(use_plan):
         _close(tree["bias"], want["bias"], 1e-5, 1e-9, name)
 
 
+def test_pooled_kernel_route_reads_the_pools_by_index(monkeypatch):
+    """``use_kernel=True`` hands ``fused_precond`` the per-bs pools and
+    the plan's int32 ``a_src``/``g_src`` (no gathered copy per tile),
+    and its output is bitwise the gathered call's."""
+    from repro_torch.kernels import ops, ref
+
+    _, _, _, _, tp, tg, tstate, tcfg = _setup(8)
+    twu = t_make_wu_plan(T_SPECS, tstate.factors)
+    pools = tkfac.inverse_pools(tstate.inverses, twu.inv_plan)
+    calls = []
+    real = ops.fused_precond
+
+    def spy(a_inv, g, g_inv, a_src=None, g_src=None):
+        calls.append((a_inv, g_inv, a_src, g_src))
+        got = real(a_inv, g, g_inv, a_src, g_src)
+        want = ref.fused_precond_ref(a_inv[a_src.long()], g,
+                                     g_inv[g_src.long()])
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+        return got
+
+    monkeypatch.setattr(ops, "fused_precond", spy)
+    tkfac.precondition(tg, tstate, T_SPECS, tcfg, wu_plan=twu,
+                       use_kernel=True)
+    assert len(calls) == len(twu.groups)
+    for (a_inv, g_inv, a_src, g_src), grp in zip(calls, twu.groups):
+        assert torch.equal(a_inv, pools[grp.bi])
+        assert torch.equal(g_inv, pools[grp.bo])
+        assert a_src.dtype == g_src.dtype == torch.int32
+        np.testing.assert_array_equal(a_src.numpy(), grp.a_src)
+        np.testing.assert_array_equal(g_src.numpy(), grp.g_src)
+
+
+def test_wu_plan_refuses_indices_outside_the_pools():
+    """The kernel reads the pools by the plan's indices unchecked on the
+    card, so the plan holds them in range where they are built."""
+    from repro_torch.solve.partition import Plan, make_plan
+
+    _, _, _, _, _, _, tstate, _ = _setup(9)
+    plan = make_plan(tstate.factors)
+    short = Plan(groups=tuple(
+        dataclasses.replace(g, leaf_counts=g.leaf_counts[:-1]
+                            + (g.leaf_counts[-1] - 1,))
+        for g in plan.groups))
+    with pytest.raises(ValueError, match="outside"):
+        t_make_wu_plan(T_SPECS, tstate.factors, inv_plan=short)
+
+
 def test_precondition_rejects_a_stale_plan():
     _, _, _, _, tp, tg, tstate, tcfg = _setup(6)
     twu = t_make_wu_plan({k: v for k, v in T_SPECS.items()
