@@ -12,7 +12,12 @@ Phases, each printed as a JSON line:
                  card at the main path's shapes, with its time (CUDA
                  events, warm, median of 5), the plain version's time,
                  one PyTorch call computing the same function, and the
-                 least time the card could take (bound); fused_precond
+                 least time the card could take (bound); neumann_inv at
+                 both leaf sizes (528 and 192 blocks) and over a refresh
+                 of the main path's 11 leaves, one grouped launch against
+                 11 launches (bitwise equal); fused_gram_inv on fp32 and
+                 bf16 activations, at the K-FAC counts and at 0/1/0 (the
+                 Gram and X0 only); fused_precond
                  in both forms on the main path's own WU plan (pool
                  indexed by a_src/g_src, as the main path calls it, and
                  gathered), beside the route the indexed form replaces
@@ -24,7 +29,8 @@ Phases, each printed as a JSON line:
                  through ``repro_torch.launch.train``; launch counters
                  zeroed just before and read just after
   5. checks      finite losses, both its kernels launched on the main
-                 path (fused_precond once a step), the run's own
+                 path (fused_precond once a step, neumann_inv once a
+                 block side a refresh), the run's own
                  inverses against the plain version on the same factor
                  blocks and against float64 torch.linalg.inv (achieved
                  bits); then the same four steps with torch.linalg.inv
@@ -35,7 +41,8 @@ Phases, each printed as a JSON line:
                  re-inversion; per step the phase seconds, drift,
                  fallback flag and loss; launch counters zeroed just
                  before and read just after (its three kernels must have
-                 run, smw_update once a leaf a step); then the first
+                 run, smw_update once a leaf a step, neumann_inv once a
+                 block side a fallback); then the first
                  step without a fallback is updated again from its own
                  inverses and batch: kernel against plain version, and
                  the achieved bits of the run's, the kernel's, the plain
@@ -174,7 +181,7 @@ def main() -> int:
     build_s = ops.build_all()
     emit({"phase": "build", "seconds": build_s,
           "ptxas": {name: [l.strip() for l in lib.build_log.splitlines()
-                           if "registers" in l or "spill" in l]
+                           if "Used" in l or "spill" in l or "C7511" in l]
                     for name, lib in ops.LIBRARIES.items()}})
 
     # the main path's shapes, from its own plan (shapes only)
@@ -193,19 +200,29 @@ def main() -> int:
     # 3. kernel checks ----------------------------------------------------
     results = {}
     n = bs
-    m = torch.randn(nb_max, n, 2 * n, device=dev, generator=gen)
-    a = m @ m.transpose(-1, -2) / (2 * n)
-    lam = soi.tikhonov_damping(a, 0.03)
     eye = torch.eye(n, device=dev)
+    products = (5 * KFAC_COUNTS["ns_iters"]
+                + 5 * (KFAC_COUNTS["taylor_terms"] - 1)
+                + 6 * KFAC_COUNTS["refine_steps"])
+
+    def damped_blocks(nb):
+        m = torch.randn(nb, n, 2 * n, device=dev, generator=gen)
+        a = m @ m.transpose(-1, -2) / (2 * n)
+        return a, soi.tikhonov_damping(a, 0.03)
+
+    def inv_bound(nb):
+        # each block read once, its inverse written once, the damping read
+        return bound(4.0 * (2 * nb * n * n + nb),
+                     2.0 * n ** 3 * products * nb)
+
+    # neumann_inv at the main path's largest leaf (528 blocks) and at its
+    # other leaf size (192)
+    a, lam = damped_blocks(nb_max)
     got = ops.neumann_inv(a, lam, **KFAC_COUNTS)
     want = ref.neumann_inv_ref(a, lam, **KFAC_COUNTS)
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    products = (5 * KFAC_COUNTS["ns_iters"]
-                + 5 * (KFAC_COUNTS["taylor_terms"] - 1)
-                + 6 * KFAC_COUNTS["refine_steps"])
-    b_ms, b_by = bound(4.0 * (2 * nb_max * n * n + nb_max),
-                       2.0 * n ** 3 * products * nb_max)
+    b_ms, b_by = inv_bound(nb_max)
     results["neumann_inv"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/neumann_inv.cu",
         replaces="src/repro/kernels/neumann_inv.py:73",
@@ -218,7 +235,46 @@ def main() -> int:
             a + lam[:, None, None] * eye)),
         bound_ms=b_ms, bound_by=b_by)
     check(err <= REL_TOL * scale, "neumann_inv kernel vs plain")
-    del m, a, lam, got, want
+    del a, lam, got, want
+    leaf_nb = sorted({math.prod(t.shape[:-2]) for d in meta.values()
+                      for t in d.values()})
+    nb_small = leaf_nb[0]
+    a, lam = damped_blocks(nb_small)
+    got = ops.neumann_inv(a, lam, **KFAC_COUNTS)
+    want = ref.neumann_inv_ref(a, lam, **KFAC_COUNTS)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    b_ms, b_by = inv_bound(nb_small)
+    results["neumann_inv"]["small_leaf"] = dict(
+        shape=[nb_small, n, n], max_abs_err=err, max_abs_plain=scale,
+        ms=time_ms(torch, lambda: ops.neumann_inv(a, lam, **KFAC_COUNTS)),
+        bound_ms=b_ms, bound_by=b_by)
+    check(err <= REL_TOL * scale, "neumann_inv kernel vs plain (small leaf)")
+    del a, lam, got, want
+
+    # a refresh of the main path's own 11 factor leaves (3120 blocks): one
+    # grouped launch, bitwise the 11 launches of one leaf each
+    leaves = [damped_blocks(math.prod(t.shape[:-2]))
+              for d in meta.values() for t in d.values()]
+    blocks, lams = [x for x, _ in leaves], [y for _, y in leaves]
+    before = ops.launch_counts()["neumann_inv"]
+    grouped = ops.neumann_inv_grouped(blocks, lams, **KFAC_COUNTS)
+    grouped_launches = ops.launch_counts()["neumann_inv"] - before
+    per_leaf = [ops.neumann_inv(x, y, **KFAC_COUNTS) for x, y in leaves]
+    bitwise = all(torch.equal(x, y) for x, y in zip(grouped, per_leaf))
+    total = sum(x.shape[0] for x in blocks)
+    b_ms, b_by = inv_bound(total)
+    results["neumann_inv"]["refresh"] = dict(
+        leaves=len(blocks), blocks=total, launches=grouped_launches,
+        bitwise_equal_per_leaf=bitwise,
+        ms=time_ms(torch, lambda: ops.neumann_inv_grouped(
+            blocks, lams, **KFAC_COUNTS)),
+        per_leaf_ms=time_ms(torch, lambda: [
+            ops.neumann_inv(x, y, **KFAC_COUNTS) for x, y in leaves]),
+        bound_ms=b_ms, bound_by=b_by)
+    check(bitwise, "neumann_inv grouped bitwise the per-leaf launches")
+    check(grouped_launches == 1, "neumann_inv: one launch for the refresh")
+    del leaves, blocks, lams, grouped, per_leaf
 
     # fused_precond on the main path's own WU plan: its 18816 tiles read
     # their inverse blocks from one pool of 3120 random 128-blocks by the
@@ -391,34 +447,55 @@ def main() -> int:
 
     # fused_gram_inv at the main path's largest A leaf (24 layers x 22
     # blocks of d_ff 2816: 528 blocks of 128) over its 2048 tokens, at
-    # the K-FAC counts. Bound: the Gram's 3 partials of 2Tn^2 and the
-    # inverse's partial GEMMs, per block; bytes: the activations read
-    # once, the inverses written once.
+    # the K-FAC counts, in fp32 and in bf16, and at counts 0/1/0 (the Gram
+    # and X0 only). Bound: the Gram's partials of 2Tn^2 (3, or 1 for bf16
+    # input, whose lo slice is zero) and the inverse's partial GEMMs, per
+    # block; bytes: the activations read once, the inverses written once.
+    # At 0/1/0 the output is A_H / (|A_H|_1 |A_H|_inf): one bf16 rounding
+    # of the Gram, which the kernel's summation order can move by one bf16
+    # step (at most 2^-7 of the entry), so there it is held to 2^-6 of the
+    # plain version's largest entry, which leaves room for the norms' own
+    # rounding.
     n_tok = MAIN["batch"] * MAIN["seq"]
     damping = kfac.KFACConfig().damping
-    acts = torch.randn(n_tok, nb_max, n, device=dev, generator=gen)
+    acts32 = torch.randn(n_tok, nb_max, n, device=dev, generator=gen)
+    gram_only = dict(ns_iters=0, taylor_terms=1, refine_steps=0)
+    fg = {}
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        acts = acts32.to(dtype)
+        partials = 3 if dtype == torch.float32 else 1
+        for counts, ctag, prods, tol in ((KFAC_COUNTS, "20_4_2", products,
+                                          REL_TOL),
+                                         (gram_only, "0_1_0", 0, 2.0 ** -6)):
+            kw = dict(rel_damp=damping, **counts)
+            got = ops.fused_gram_inv(acts, **kw)
+            want = ref.fused_gram_inv_ref(acts, **kw)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            b_ms, b_by = bound(
+                acts.element_size() * nb_max * n_tok * n
+                + 4.0 * nb_max * n * n,
+                2.0 * nb_max * (partials * n_tok * n * n + prods * n ** 3))
+            fg[f"{tag}_{ctag}"] = dict(
+                max_abs_err=err, max_abs_plain=scale, tol=tol * scale,
+                ms=time_ms(torch, lambda: ops.fused_gram_inv(acts, **kw)),
+                bound_ms=b_ms, bound_by=b_by)
+            check(err <= tol * scale,
+                  f"fused_gram_inv kernel vs plain ({tag}, {ctag})")
+            del got, want
+    main_fg = fg.pop("fp32_20_4_2")
     fg_kw = dict(rel_damp=damping, **KFAC_COUNTS)
-    got = ops.fused_gram_inv(acts, **fg_kw)
-    want = ref.fused_gram_inv_ref(acts, **fg_kw)
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    b_ms, b_by = bound(4.0 * nb_max * (n_tok * n + n * n),
-                       2.0 * nb_max * (3 * n_tok * n * n
-                                       + products * n ** 3))
     results["fused_gram_inv"] = dict(
         route="cuda",
         source="src/repro_torch/kernels/csrc/fused_gram_solve.cu",
         replaces="src/repro/kernels/fused_gram_solve.py:64",
-        shape=[n_tok, nb_max, n], max_abs_err=err, max_abs_plain=scale,
-        tol=REL_TOL * scale,
-        ms=time_ms(torch, lambda: ops.fused_gram_inv(acts, **fg_kw)),
+        shape=[n_tok, nb_max, n], **main_fg,
         plain_ms=time_ms(torch, lambda: ref.fused_gram_inv_ref(
-            acts, **fg_kw)),
-        library_ms=time_ms(torch, lambda: ref.exact_gram_inv(acts,
+            acts32, **fg_kw)),
+        library_ms=time_ms(torch, lambda: ref.exact_gram_inv(acts32,
                                                              damping)),
-        bound_ms=b_ms, bound_by=b_by)
-    check(err <= REL_TOL * scale, "fused_gram_inv kernel vs plain")
-    del acts, got, want
+        variants=fg)
+    del acts32, acts
     for name, r in results.items():
         emit({"phase": "kernel", "name": name, **r})
     torch.cuda.empty_cache()
@@ -453,6 +530,11 @@ def main() -> int:
         check(launches[name] > 0, f"{name} launched on the main path")
     check(launches["fused_precond"] == MAIN["steps"] * len(wu.groups),
           "fused_precond: one launch per WU group a step")
+    # INV: one grouped launch per block side a refresh
+    sides = {t.shape[-1] for d in meta.values() for t in d.values()}
+    refreshes = sum("inv" in h["phase_s"] for h in history)
+    check(launches["neumann_inv"] == refreshes * len(sides),
+          "neumann_inv: one launch per block side a refresh")
 
     # 5. the run's own inverses: kernel vs plain, and achieved bits -------
     def bits(x, ref64):
@@ -541,6 +623,9 @@ def main() -> int:
     n_leaves = sum(len(d) for d in meta.values())
     check(smw_launches["smw_update"] == n_leaves * SMW["steps"],
           "smw_update: one launch per leaf a step")
+    check(smw_launches["neumann_inv"]
+          == sum(h["smw_fallback"] for h in smw_hist) * len(sides),
+          "neumann_inv: one launch per block side a gate fallback")
 
     # that step's update again, from the inverses it started from and
     # its own batch's columns: the kernel, its plain version, the fp32

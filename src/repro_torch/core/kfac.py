@@ -6,7 +6,8 @@ Paper mapping (RePAST Sec. II-A, V-A):
          taps, EMA'd into the running factors); :func:`stats_rank_k`
          also returns the rank-k columns for the SMW refresh;
   INV -> :func:`refresh_inverses`, every diagonal block through the
-         ``neumann_inv`` kernel (``kernels.ops``) on the composed method;
+         ``neumann_inv`` kernel (``kernels.ops``) on the composed method,
+         one launch for all the blocks of one side;
   WU  -> :func:`precondition` + :func:`apply_updates`
          (``dW = A^{-1} (dL/dW) G^{-1}``, Eqn. 3), pooled over the WU
          plan's tiles and, with ``use_kernel``, through the
@@ -179,35 +180,38 @@ def update_factors(state: KFACState, a_grams: dict, g_grams: dict,
 # INV: the paper's high-precision inversion of every diagonal block
 # ---------------------------------------------------------------------------
 
-def invert_blocks_flat(flat: torch.Tensor, lam: torch.Tensor,
-                       cfg: KFACConfig) -> torch.Tensor:
-    """Invert (N, bs, bs) blocks with per-block damping (N,).
+def invert_blocks_grouped(flats, lams, cfg: KFACConfig) -> list:
+    """Invert leaves of (N_i, bs_i, bs_i) blocks with per-block damping
+    (N_i blocks' worth, any shape), in the order given.
 
     The composed methods run the ``neumann_inv`` kernel (its plain
-    version for CPU tensors) at ``KFACConfig``'s counts."""
+    version for CPU tensors) at ``KFACConfig``'s counts in one grouped
+    call: one launch for all the leaves of one block side."""
     if cfg.inv_method == "exact":
-        eye = torch.eye(flat.shape[-1], dtype=flat.dtype, device=flat.device)
-        return torch.linalg.inv(flat + lam.reshape(-1, 1, 1) * eye)
+        return [torch.linalg.inv(
+            f + lam.reshape(-1, 1, 1) * torch.eye(
+                f.shape[-1], dtype=f.dtype, device=f.device))
+            for f, lam in zip(flats, lams)]
     if cfg.inv_method not in ("composed", "composed_fast"):
         raise ValueError(f"unknown inv_method {cfg.inv_method!r}")
     taylor = 1 if cfg.inv_method == "composed_fast" else cfg.taylor_terms
-    return ops.neumann_inv(flat.contiguous(), lam.reshape(-1),
-                           ns_iters=cfg.ns_iters, taylor_terms=taylor,
-                           refine_steps=cfg.refine_steps)
+    return ops.neumann_inv_grouped(
+        [f.contiguous() for f in flats], [lam.reshape(-1) for lam in lams],
+        ns_iters=cfg.ns_iters, taylor_terms=taylor,
+        refine_steps=cfg.refine_steps)
 
 
 def invert_factors(factors, cfg: KFACConfig) -> dict:
-    """``{name: {A|G: f}}`` -> ``{name: {A_inv|G_inv: inv}}``, one
-    batched inversion per factor leaf."""
-    out = {}
-    for name, f in factors.items():
-        d = {}
-        for side, leaf in f.items():
-            lam = soi.tikhonov_damping(leaf, cfg.damping).reshape(-1)
-            flat = leaf.reshape((-1,) + tuple(leaf.shape[-2:]))
-            d[side + "_inv"] = invert_blocks_flat(flat, lam, cfg).reshape(
-                leaf.shape)
-        out[name] = d
+    """``{name: {A|G: f}}`` -> ``{name: {A_inv|G_inv: inv}}``: every
+    factor leaf's blocks in one grouped inversion."""
+    keys = [(name, side) for name, f in factors.items() for side in f]
+    leaves = [factors[name][side] for name, side in keys]
+    invs = invert_blocks_grouped(
+        [leaf.reshape((-1,) + tuple(leaf.shape[-2:])) for leaf in leaves],
+        [soi.tikhonov_damping(leaf, cfg.damping) for leaf in leaves], cfg)
+    out = {name: {} for name in factors}
+    for (name, side), leaf, inv in zip(keys, leaves, invs):
+        out[name][side + "_inv"] = inv.reshape(leaf.shape)
     return out
 
 

@@ -1,4 +1,7 @@
-// Shared building blocks of the port's hi/lo bf16 kernels (sm_90a).
+// Shared building blocks of the port's mma.sync hi/lo bf16 kernels (sm_90a):
+// fused_precond.cu, smw_update.cu and bitslice_mm.cu. The composed inverse
+// (composed_inv.cuh, for neumann_inv.cu and fused_gram_solve.cu) runs on
+// wgmma (wgmma.cuh) and takes only split2 and the cp.async helpers from here.
 //
 // One CTA of 8 warps owns one square problem of at most NP x NP = 128 x 128
 // and computes every product of it on the tensor cores with mma.sync
@@ -61,35 +64,6 @@ __device__ __forceinline__ void zero(Acc acc) {
     for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-}
-
-// acc += L @ R over the full NP depth; L and R are NP x NP bf16 tiles
-// (row-major, stride LDS). L fragments come from ldmatrix, R fragments
-// from ldmatrix.trans (R is stored k-major, the mma wants it n-major).
-__device__ __forceinline__ void gemm(Acc acc, const bf16* L, const bf16* R) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int m0 = (warp >> 1) * 32;
-  const int n0 = (warp & 1) * 64;
-  const int lrow = lane & 15;
-  const int lcol = (lane >> 4) * 8;
-#pragma unroll 2
-  for (int k0 = 0; k0 < NP; k0 += 16) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      ldmatrix_x4(a[mi], L + (m0 + mi * 16 + lrow) * LDS + k0 + lcol);
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, R + (k0 + lrow) * LDS + n0 + nj * 16 + lcol);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        mma_16816(acc[mi][2 * nj], a[mi], b[0], b[1]);
-        mma_16816(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
-      }
-    }
-  }
 }
 
 // acc += op(L) @ op(R) for a product of M x K by K x N inside the NP x NP

@@ -6,8 +6,9 @@ Hopper kernel (built at first use, :mod:`repro_torch.kernels.build`) or
 raises. There is no fallback from the card to the plain version.
 
 This is the wiring ``repro.kernels.ops`` describes for the TPU: the
-K-FAC INV stage (``core.kfac.invert_blocks_flat``) inverts through
-:func:`neumann_inv`, the pooled WU stage
+K-FAC INV stage (``core.kfac.invert_blocks_grouped``) inverts every
+factor leaf through one :func:`neumann_inv_grouped` call (one launch a
+block side), the pooled WU stage
 (``core.kfac.precondition_pooled``) runs :func:`fused_precond`, the
 incremental SOI refresh (``solve.smw.smw_update_flat`` with
 ``SMWConfig.use_kernel``) updates through :func:`smw_update`, and the
@@ -28,9 +29,9 @@ from repro_torch.kernels import fused_precond as _fused_precond
 from repro_torch.kernels import neumann_inv as _neumann_inv
 from repro_torch.kernels import smw_update as _smw_update
 
-__all__ = ["neumann_inv", "fused_precond", "smw_update", "bitslice_mm",
-           "fused_gram_inv", "LIBRARIES", "build_all", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["neumann_inv", "neumann_inv_grouped", "fused_precond",
+           "smw_update", "bitslice_mm", "fused_gram_inv", "LIBRARIES",
+           "build_all", "launch_counts", "reset_launch_counts"]
 
 #: kernel name -> its CUDA library (launch counters live on these)
 LIBRARIES = {
@@ -60,6 +61,26 @@ def neumann_inv(a: torch.Tensor, damping, *, ns_iters: int = 14,
     if _route(a) == "cpu":
         return ref.neumann_inv_ref(a, damping, **kw)
     return _neumann_inv.neumann_inv(a, damping, **kw)
+
+
+def neumann_inv_grouped(blocks, dampings, *, ns_iters: int = 14,
+                        taylor_terms: int = 4,
+                        refine_steps: int = 1) -> list:
+    """:func:`neumann_inv` of each (nb_i, n_i, n_i) leaf with its (nb_i,)
+    or scalar damping: on CUDA one launch for each block side (up to 32
+    leaves a launch), each block computed as in a launch of its leaf
+    alone."""
+    if len(blocks) != len(dampings):
+        raise ValueError(f"{len(blocks)} leaves but {len(dampings)} "
+                         f"dampings")
+    if not blocks:
+        return []
+    kw = dict(ns_iters=ns_iters, taylor_terms=taylor_terms,
+              refine_steps=refine_steps)
+    if _route(*blocks) == "cpu":
+        return [ref.neumann_inv_ref(a, d, **kw)
+                for a, d in zip(blocks, dampings)]
+    return _neumann_inv.neumann_inv_grouped(blocks, dampings, **kw)
 
 
 def fused_precond(a_inv: torch.Tensor, g: torch.Tensor,

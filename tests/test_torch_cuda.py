@@ -53,7 +53,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,n", [(8, 128), (3, 32), (2, 100)])
+@pytest.mark.parametrize("nb,n", [(8, 128), (3, 32), (2, 100), (4, 1),
+                                  (3, 16), (5, 65)])
 def test_neumann_inv_kernel_matches_plain(cuda_device, nb, n):
     a, damp = _damped(nb + n, nb, n)
     ta = torch.from_numpy(a).to(cuda_device)
@@ -64,6 +65,82 @@ def test_neumann_inv_kernel_matches_plain(cuda_device, nb, n):
     assert ops.launch_counts()["neumann_inv"] == before + 1
     want = tref.neumann_inv_ref(ta, td, **KW)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def _ill_conditioned(seed, n=128, cond=2600.0):
+    """A factor-like SPD block whose damped condition number (damping
+    0.03 tr / n, as K-FAC's) is ``cond``: one large eigenvalue over a
+    geometric tail, as on the main path's own factors."""
+    r = np.random.default_rng(seed)
+    q = np.linalg.qr(r.standard_normal((n, n)))[0]
+    tail = np.geomspace(1.0, 1e-7, n - 1)
+    ev = np.concatenate([[0.0], tail / tail.sum() * n])
+    delta = 0.03 * ev.sum() / n
+    # (top + delta) / (min + delta) = cond, with the top in the trace
+    top = (cond * (ev[1:].min() + delta) - delta
+           - 0.03 * cond * ev[1:].min() / n) / (1 - 0.03 * cond / n)
+    ev[0] = top
+    a = (q * ev) @ q.T
+    damp = 0.03 * np.trace(a) / n
+    evd = np.linalg.eigvalsh(a + damp * np.eye(n))
+    return a[None].astype(np.float32), np.float32([damp]), evd[-1] / evd[0]
+
+
+@pytest.mark.cuda
+def test_neumann_inv_kernel_ill_conditioned_block(cuda_device):
+    """Condition number ~2600 after damping, as on the run's factors: the
+    iteration is unconverged at 20 Newton-Schulz steps and carries the
+    rounding-level difference up, so the run-data tolerance of
+    chip_smoke.py (1e-3 of the plain version's largest entry) holds."""
+    a, damp, cond = _ill_conditioned(17)
+    assert 2000 < cond < 3200
+    ta = torch.from_numpy(a).to(cuda_device)
+    td = torch.from_numpy(damp).to(cuda_device)
+    got = ops.neumann_inv(ta, td, **KW)
+    want = tref.neumann_inv_ref(ta, td, **KW)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_neumann_inv_grouped_kernel_is_the_per_leaf_launches(cuda_device):
+    """One launch over leaves of different nb (one above the card's 132
+    SMs), each block bitwise what a launch of its leaf alone gives; a
+    list with a second block side takes one more launch."""
+    leaves = [_damped(40 + k, nb, 128) for k, nb in enumerate((5, 150, 33))]
+    blocks = [torch.from_numpy(a).to(cuda_device) for a, _ in leaves]
+    damps = [torch.from_numpy(d).to(cuda_device) for _, d in leaves]
+    before = ops.launch_counts()["neumann_inv"]
+    got = ops.neumann_inv_grouped(blocks, damps, **KW)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["neumann_inv"] == before + 1
+    for a, d, g in zip(blocks, damps, got):
+        assert torch.equal(g, ops.neumann_inv(a, d, **KW))
+        want = tref.neumann_inv_ref(a, d, **KW)
+        assert (g - want).abs().max() <= 1e-4 * want.abs().max()
+    a64, d64 = (torch.from_numpy(x).to(cuda_device) for x in _damped(50, 7, 64))
+    before = ops.launch_counts()["neumann_inv"]
+    mixed = ops.neumann_inv_grouped(blocks + [a64], damps + [d64], **KW)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["neumann_inv"] == before + 2
+    for g, h in zip(got, mixed):
+        assert torch.equal(g, h)
+    assert torch.equal(mixed[-1], ops.neumann_inv(a64, d64, **KW))
+
+
+@pytest.mark.cuda
+def test_neumann_inv_grouped_kernel_splits_long_lists(cuda_device):
+    """40 leaves take two launches (32 leaves a table), each block
+    bitwise its leaf's own launch."""
+    leaves = [_damped(60 + k, 1 + k % 3, 16) for k in range(40)]
+    blocks = [torch.from_numpy(a).to(cuda_device) for a, _ in leaves]
+    damps = [torch.from_numpy(d).to(cuda_device) for _, d in leaves]
+    before = ops.launch_counts()["neumann_inv"]
+    got = ops.neumann_inv_grouped(blocks, damps, **KW)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["neumann_inv"] == before + 2
+    for a, d, g in zip(blocks, damps, got):
+        assert torch.equal(g, ops.neumann_inv(a, d, **KW))
 
 
 @pytest.mark.cuda

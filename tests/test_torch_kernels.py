@@ -133,6 +133,86 @@ def test_neumann_inv_is_accurate_inverse():
     assert rel < 2.0 ** -13
 
 
+# leaves of one refresh: (nb, n, damping form); an empty leaf, per-block
+# and scalar dampings, and (second case) two block sides
+GROUPED_CASES = [
+    [(3, 32, "vec"), (1, 32, "scalar"), (5, 32, "vec"), (0, 32, "scalar")],
+    [(2, 48, "vec"), (3, 16, "vec"), (1, 48, "scalar"), (4, 16, "scalar")],
+]
+
+
+def _grouped_leaves(case):
+    blocks, damps = [], []
+    for k, (nb, n, form) in enumerate(case):
+        a, d = _damped(100 + k, nb, n)
+        blocks.append(torch.from_numpy(a))
+        damps.append(torch.from_numpy(d) if form == "vec" else 0.05 * (k + 1))
+    return blocks, damps
+
+
+@pytest.mark.parametrize("case", GROUPED_CASES)
+def test_neumann_inv_grouped_plain_route_is_the_per_leaf_call(case):
+    """The grouped entry on CPU tensors returns, leaf by leaf, exactly
+    what ``ops.neumann_inv`` returns, and launches nothing."""
+    ops.reset_launch_counts()
+    blocks, damps = _grouped_leaves(case)
+    got = ops.neumann_inv_grouped(blocks, damps, **KW)
+    assert len(got) == len(blocks)
+    for a, d, g in zip(blocks, damps, got):
+        assert g.shape == a.shape
+        torch.testing.assert_close(g, ops.neumann_inv(a, d, **KW), rtol=0,
+                                   atol=0)
+    assert ops.launch_counts()["neumann_inv"] == 0
+
+
+@pytest.mark.parametrize("case", GROUPED_CASES)
+def test_neumann_inv_grouped_plain_matches_reference_oracle(case):
+    blocks, damps = _grouped_leaves(case)
+    got = ops.neumann_inv_grouped(blocks, damps, **KW)
+    for a, d, g in zip(blocks, damps, got):
+        if a.shape[0] == 0:
+            continue
+        d = np.broadcast_to(np.asarray(d, np.float32), a.shape[:1])
+        want = jref.neumann_inv_ref(jnp.asarray(a.numpy()), jnp.asarray(d),
+                                    **KW)
+        _assert_rel(g.numpy(), want, 5e-5)
+
+
+def test_neumann_inv_leaf_tables_split_long_lists():
+    """The CUDA wrapper's launch tables (host side): leaves without
+    blocks dropped, at most MAX_LEAVES a launch, the leaves' pointers in
+    order and ``start`` the prefix sums of their block counts."""
+    counts = [3, 0, 528, 192] * 20
+    blocks = [torch.empty(c, 4, 4) for c in counts]
+    lams = [torch.empty(c) for c in counts]
+    outs = [torch.empty_like(b) for b in blocks]
+    tables = t_neumann_inv.leaf_tables(blocks, lams, outs)
+    live = [i for i, c in enumerate(counts) if c]
+    assert [t.count for t in tables] == [t_neumann_inv.MAX_LEAVES,
+                                         len(live) - t_neumann_inv.MAX_LEAVES]
+    k = 0
+    for t in tables:
+        assert t.start[0] == 0
+        for j in range(t.count):
+            i = live[k]
+            k += 1
+            assert t.a[j] == blocks[i].data_ptr()
+            assert t.damping[j] == lams[i].data_ptr()
+            assert t.out[j] == outs[i].data_ptr()
+            assert t.start[j + 1] - t.start[j] == counts[i]
+    assert k == len(live)
+
+
+def test_neumann_inv_grouped_refuses_bad_lists():
+    a, d = _damped(3, 2, 16)
+    ta = torch.from_numpy(a)
+    with pytest.raises(ValueError, match="dampings"):
+        ops.neumann_inv_grouped([ta, ta], [torch.from_numpy(d)], **KW)
+    assert ops.neumann_inv_grouped([], [], **KW) == []
+    with pytest.raises(ValueError, match="CUDA"):
+        t_neumann_inv.neumann_inv_grouped([ta], [0.1], **KW)
+
+
 # ---------------------------------------------------------------------------
 # fused_precond
 # ---------------------------------------------------------------------------

@@ -75,8 +75,8 @@ def _setup(seed=0, **kcfg):
             for k, s in SHAPES.items()}
     grads = {k: r.standard_normal(s).astype(np.float32)
              for k, s in SHAPES.items()}
-    jcfg = JKFACConfig(**KCFG_ARGS, **kcfg)
-    tcfg = tkfac.KFACConfig(**KCFG_ARGS, **kcfg)
+    jcfg = JKFACConfig(**{**KCFG_ARGS, **kcfg})
+    tcfg = tkfac.KFACConfig(**{**KCFG_ARGS, **kcfg})
     jparams = convert._nest({k: jnp.asarray(v) for k, v in flat.items()})
     jstate = jkfac.init(jparams, J_SPECS, jcfg)
     factors = jax.tree.map(lambda x: _spd(r, x.shape), jstate.factors)
@@ -157,6 +157,35 @@ def test_refresh_inverses_matches_reference(method):
     for n, d in want.items():
         for s, v in d.items():
             v = np.asarray(v)
+            err = np.max(np.abs(got[n][s].numpy() - v))
+            assert err <= 5e-5 * np.max(np.abs(v)), (n, s, err)
+
+
+def test_invert_factors_is_one_grouped_call_over_all_sides(monkeypatch):
+    """At K-FAC block 32 the factor leaves have sides 32, 20 and 16: the
+    refresh hands every leaf to one ``ops.neumann_inv_grouped`` call (on
+    the card one launch a side), and still matches the reference's
+    ``refresh_inverses`` at the tolerance above."""
+    from repro_torch.kernels import ops
+
+    _, _, jstate, _, _, _, tstate, tcfg = _setup(9, block_size=32)
+    leaves = [f for d in tstate.factors.values() for f in d.values()]
+    assert {f.shape[-1] for f in leaves} == {16, 20, 32}
+    calls = []
+    real = ops.neumann_inv_grouped
+
+    def spy(blocks, dampings, **kw):
+        calls.append([tuple(b.shape) for b in blocks])
+        return real(blocks, dampings, **kw)
+
+    monkeypatch.setattr(ops, "neumann_inv_grouped", spy)
+    got = tkfac.refresh_inverses(tstate, tcfg).inverses
+    assert calls == [[tuple(f.reshape(-1, *f.shape[-2:]).shape)
+                      for f in leaves]]
+    for n, d in jstate.inverses.items():
+        for s, v in d.items():
+            v = np.asarray(v)
+            assert got[n][s].shape == v.shape
             err = np.max(np.abs(got[n][s].numpy() - v))
             assert err <= 5e-5 * np.max(np.abs(v)), (n, s, err)
 
