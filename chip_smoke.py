@@ -22,7 +22,10 @@ Phases, each printed as a JSON line:
                  indexed by a_src/g_src, as the main path calls it, and
                  gathered), beside the route the indexed form replaces
                  (gather, then a gathered call); smw_update on both
-                 sides against float64 Woodbury too
+                 sides against float64 Woodbury too; bitslice_mm at the
+                 MLP product and at the precision_inv path's (128, 128) @
+                 (128, 64), one call and 20 back to back, beside fp32
+                 torch.matmul, with the L2 read rate of its tiles
   4. main path   full-width qwen1.5-0.5b (24 layers, d 1024, d_ff 2816,
                  vocab 151936), K-FAC block 128, batch 8 x seq 256, four
                  steps with stats and inverse refresh every 2 steps,
@@ -91,6 +94,9 @@ SRC = os.path.join(HERE, "src")
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
 PEAK_FP32_FLOP_PER_S = 67e12
+# the output tile of csrc/bitslice_mm.cu (rows, columns): what its L2 reads
+# are counted from
+BITSLICE_TILE = (128, 192)
 
 MAIN = dict(arch="qwen1.5-0.5b", batch=8, seq=256, steps=4, stats_every=2,
             inv_every=2, block_size=128, seed=0)
@@ -113,8 +119,9 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(torch, fn, reps=5) -> float:
-    """Median of ``reps`` warm runs, timed with CUDA events."""
+def time_ms(torch, fn, reps=5, launches=1) -> float:
+    """Median of ``reps`` warm runs of ``launches`` calls back to back,
+    timed with CUDA events; ms a call."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -122,10 +129,11 @@ def time_ms(torch, fn, reps=5) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -422,28 +430,49 @@ def main() -> int:
     del inv, v
 
     # bitslice_mm at the main path's MLP product: 8 x 256 tokens of
-    # d_model 1024 into d_ff 2816. Bound: 3 partials of 2MKN operations;
-    # bytes: each input read once, the output written once.
-    mm_m, mm_k, mm_n = MAIN["batch"] * MAIN["seq"], cfg.d_model, cfg.d_ff
-    x = torch.randn(mm_m, mm_k, device=dev, generator=gen)
-    w = torch.randn(mm_k, mm_n, device=dev, generator=gen)
-    got = ops.bitslice_mm(x, w)
-    want = ref.bitslice_mm_ref(x, w)
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    b_ms, b_by = bound(4.0 * (mm_m * mm_k + mm_k * mm_n + mm_m * mm_n),
-                       2.0 * 3 * mm_m * mm_k * mm_n)
+    # d_model 1024 into d_ff 2816, and at the precision_inv path's own shape,
+    # (128, 128) @ (128, 64) (mxu_inv_apply). Bound: 3 partials of 2MKN
+    # operations; bytes: each input read once, the output written once. The
+    # kernel's 128 x 192 tiles read a's rows once for each column tile and
+    # b's columns once for each row tile from the L2, as fp32: their rate is
+    # those bytes over the kernel's time. Times of one call (ms, as for the
+    # other kernels) and of 20 calls back to back (loop20_ms, a call's
+    # share), which hides the wrapper's host time behind the kernel.
+    def l2_read_bytes(m, k, n):
+        return 4.0 * (m * k * -(-n // BITSLICE_TILE[1])
+                      + k * n * -(-m // BITSLICE_TILE[0]))
+
+    mm = {}
+    for mm_m, mm_k, mm_n in ((MAIN["batch"] * MAIN["seq"], cfg.d_model,
+                              cfg.d_ff), (128, 128, 64)):
+        x = torch.randn(mm_m, mm_k, device=dev, generator=gen)
+        w = torch.randn(mm_k, mm_n, device=dev, generator=gen)
+        got = ops.bitslice_mm(x, w)
+        want = ref.bitslice_mm_ref(x, w)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        b_ms, b_by = bound(4.0 * (mm_m * mm_k + mm_k * mm_n + mm_m * mm_n),
+                           2.0 * 3 * mm_m * mm_k * mm_n)
+        ms = time_ms(torch, lambda: ops.bitslice_mm(x, w))
+        loop_ms = time_ms(torch, lambda: ops.bitslice_mm(x, w), launches=20)
+        mm[(mm_m, mm_k, mm_n)] = dict(
+            shape=[mm_m, mm_k, mm_n], max_abs_err=err, max_abs_plain=scale,
+            tol=REL_TOL * scale, ms=ms, loop20_ms=loop_ms,
+            plain_ms=time_ms(torch, lambda: ref.bitslice_mm_ref(x, w)),
+            library_ms=time_ms(torch, lambda: torch.matmul(x, w)),
+            library_loop20_ms=time_ms(torch, lambda: torch.matmul(x, w),
+                                      launches=20),
+            bound_ms=b_ms, bound_by=b_by,
+            l2_read_bytes=l2_read_bytes(mm_m, mm_k, mm_n),
+            l2_read_tb_per_s=l2_read_bytes(mm_m, mm_k, mm_n) / loop_ms / 1e9)
+        check(err <= REL_TOL * scale,
+              f"bitslice_mm kernel vs plain at {(mm_m, mm_k, mm_n)}")
+        del x, w, got, want
+    main_mm, path_mm = mm.values()
     results["bitslice_mm"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/bitslice_mm.cu",
-        replaces="src/repro/kernels/bitslice_mm.py:39",
-        shape=[mm_m, mm_k, mm_n], max_abs_err=err, max_abs_plain=scale,
-        tol=REL_TOL * scale,
-        ms=time_ms(torch, lambda: ops.bitslice_mm(x, w)),
-        plain_ms=time_ms(torch, lambda: ref.bitslice_mm_ref(x, w)),
-        library_ms=time_ms(torch, lambda: torch.matmul(x, w)),
-        bound_ms=b_ms, bound_by=b_by)
-    check(err <= REL_TOL * scale, "bitslice_mm kernel vs plain")
-    del x, w, got, want
+        replaces="src/repro/kernels/bitslice_mm.py:39", **main_mm,
+        path_shape=path_mm)
 
     # fused_gram_inv at the main path's largest A leaf (24 layers x 22
     # blocks of d_ff 2816: 528 blocks of 128) over its 2048 tokens, at

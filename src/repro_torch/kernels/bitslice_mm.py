@@ -25,9 +25,6 @@ _ARGS = [_P, _P, _P, _I, _I, _I, _P]
 _ENTRY = {torch.float32: "bitslice_mm_f32_launch",
           torch.float16: "bitslice_mm_f16_launch",
           torch.bfloat16: "bitslice_mm_bf16_launch"}
-#: most rows of ``a`` (the grid's y extent is at most 65535 tiles of 128)
-MAX_M = 65535 * 128
-
 LIB = CudaLibrary("bitslice_mm", "bitslice_mm.cu",
                   {sym: _ARGS for sym in _ENTRY.values()})
 
@@ -55,9 +52,6 @@ def bitslice_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if k != k2:
         raise ValueError(f"bitslice_mm shapes disagree: a {tuple(a.shape)}, "
                          f"b {tuple(b.shape)}")
-    if m > MAX_M:
-        raise ValueError(f"bitslice_mm kernel takes at most {MAX_M} rows, "
-                         f"got {m}")
     if a.dtype != b.dtype:
         a, b = a.to(torch.float32), b.to(torch.float32)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)

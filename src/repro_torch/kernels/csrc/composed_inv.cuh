@@ -1,8 +1,8 @@
 // The composed-precision inverse of one damped block, as a CTA-wide device
 // function shared by neumann_inv.cu and fused_gram_solve.cu, on wgmma
-// (wgmma.cuh). The other kernels (fused_precond.cu, smw_update.cu,
-// bitslice_mm.cu) keep the mma.sync helpers of hilo_mma.cuh; this file takes
-// only split2 and the cp.async helpers from there.
+// (wgmma.cuh). fused_precond.cu and smw_update.cu keep the mma.sync helpers
+// of hilo_mma.cuh; this file takes only split2 and the cp.async helpers from
+// there.
 //
 // On entry the A_H / A_L tiles hold the hi/lo bf16 slices of the damped
 // block Ad = A + lam I (zero outside n x n) and the CTA is synchronised.

@@ -1,7 +1,8 @@
 // Shared building blocks of the port's mma.sync hi/lo bf16 kernels (sm_90a):
-// fused_precond.cu, smw_update.cu and bitslice_mm.cu. The composed inverse
-// (composed_inv.cuh, for neumann_inv.cu and fused_gram_solve.cu) runs on
-// wgmma (wgmma.cuh) and takes only split2 and the cp.async helpers from here.
+// fused_precond.cu and smw_update.cu. The composed inverse (composed_inv.cuh,
+// for neumann_inv.cu and fused_gram_solve.cu) runs on wgmma (wgmma.cuh) and
+// takes only split2 and the cp.async helpers from here; bitslice_mm.cu runs
+// on wgmma too and takes only split2.
 //
 // One CTA of 8 warps owns one square problem of at most NP x NP = 128 x 128
 // and computes every product of it on the tensor cores with mma.sync

@@ -270,9 +270,15 @@ def test_smw_update_kernel_refuses_large_rank(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (1, 257, 33), (33, 1, 257),
-                                   (257, 33, 1), (257, 257, 257),
-                                   (300, 200, 130)])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 1, 1), (1, 257, 33), (33, 1, 257), (257, 33, 1), (257, 257, 257),
+    (300, 200, 130),
+    (2048, 1024, 2816),    # the timed shape (chip_smoke.py phase 3)
+    (1000, 300, 1030),     # ragged in M, N and K
+    (1800, 300, 2900),     # 240 ragged tiles: the persistent walk wraps
+    (64, 8, 200),          # K under one k-step of 16
+    (70, 12, 66),          # K 16-byte rows in fp32 only, N in neither
+    (130, 36, 100)])       # K and N 16-byte rows in fp32 only
 def test_bitslice_mm_kernel_matches_plain(cuda_device, m, k, n, dtype):
     r = np.random.default_rng(m * 1000 + k * 10 + n)
     a = torch.from_numpy(r.standard_normal((m, k))).to(cuda_device, dtype)
@@ -284,6 +290,46 @@ def test_bitslice_mm_kernel_matches_plain(cuda_device, m, k, n, dtype):
     want = tref.bitslice_mm_ref(a, b)
     assert got.dtype == torch.float32 and got.shape == (m, n)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_bitslice_mm_kernel_unaligned_base(cuda_device, dtype):
+    """Contiguous operands whose data start one element past a 16-byte
+    boundary (views at storage offset 1): element-wise copies in the
+    same kernel, one launch."""
+    m, k, n = 200, 64, 320
+    r = np.random.default_rng(5)
+    a = torch.from_numpy(r.standard_normal(m * k + 1)).to(
+        cuda_device, dtype)[1:].view(m, k)
+    b = torch.from_numpy(r.standard_normal(k * n + 1)).to(
+        cuda_device, dtype)[1:].view(k, n)
+    assert a.is_contiguous() and a.data_ptr() % 16
+    before = ops.launch_counts()["bitslice_mm"]
+    got = ops.bitslice_mm(a, b)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bitslice_mm"] == before + 1
+    want = tref.bitslice_mm_ref(a, b)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_bitslice_mm_kernel_bf16_one_partial(cuda_device):
+    """bf16 input runs a_hi b_hi alone; its lo slices are zero, so it is
+    the plain version's three partials and the fp32 kernel's on the
+    upcast values (whose two lo partials add exact zeros)."""
+    r = np.random.default_rng(6)
+    a = torch.from_numpy(r.standard_normal((300, 520))).to(
+        cuda_device, torch.bfloat16)
+    b = torch.from_numpy(r.standard_normal((520, 400))).to(
+        cuda_device, torch.bfloat16)
+    got = ops.bitslice_mm(a, b)
+    three = ops.bitslice_mm(a.float(), b.float())
+    want = tref.bitslice_mm_ref(a, b)
+    scale = want.abs().max()
+    assert (got - want).abs().max() <= 1e-4 * scale
+    assert (got - three).abs().max() <= 1e-6 * scale
 
 
 @pytest.mark.cuda

@@ -14,7 +14,14 @@ Tolerances and why:
     logits atol 0.03, gradients within 5% of each leaf's largest
     entry. The two frameworks round to bf16 at different points of the
     backward pass (one bf16 ulp is 0.4%), measured: loss 3e-5 relative,
-    logits 8e-3, gradients <= 1.3% of the leaf scale.
+    logits 8e-3, gradients <= 1.3% of the leaf scale. qwen2.5-32b's head
+    is untied (d^-1/2 weights against 0.02 embeddings), which makes its
+    loss 10-300x more sensitive to bf16 rounding: the reference's own
+    bf16 loss is 3.5e-4 from its fp32 loss there (9.5e-7 on qwen1.5),
+    and the port's 1.7e-4 from the reference's (measured); its logits
+    are ~7x larger, and the port's differ by up to 0.044. So the bf16
+    loss and logits are held to 1e-4 and 0.03, or to the reference's
+    own bf16-to-fp32 gap where that is larger.
   * stats Grams (float32): rtol 1e-4 with atol 1e-6 of the factor's
     largest entry; the G side squares tap gradients, doubling their
     relative difference.
@@ -43,11 +50,15 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.models import lm as tlm
 
 ARCH = "qwen1.5-0.5b"
+# the dense archs the port runs: MHA (qwen1.5), GQA with 2 kv heads of 4
+# at smoke size (the other three; qwen2's smoke d_model 56 is not a
+# multiple of its soi_block 32)
+ARCHS = ["qwen1.5-0.5b", "qwen2-0.5b", "llama3.2-1b", "qwen2.5-32b"]
 
 
-def _cfgs(dtype):
-    return (dataclasses.replace(get_smoke_config(ARCH), dtype=dtype),
-            dataclasses.replace(t_get_smoke_config(ARCH), dtype=dtype))
+def _cfgs(dtype, arch=ARCH):
+    return (dataclasses.replace(get_smoke_config(arch), dtype=dtype),
+            dataclasses.replace(t_get_smoke_config(arch), dtype=dtype))
 
 
 def _inputs(cfg, seq=80, batch=2):
@@ -77,8 +88,9 @@ def _port(cfg, params, toks):
     return float(loss.detach()), logits.numpy(), grads
 
 
-def test_loss_logits_and_grads_match_reference_fp32():
-    jcfg, tcfg = _cfgs("float32")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_logits_and_grads_match_reference_fp32(arch):
+    jcfg, tcfg = _cfgs("float32", arch)
     params, toks = _inputs(jcfg)
     jl, jlog, jg = _reference(jcfg, params, toks)
     tl, tlog, tg = _port(tcfg, params, toks)
@@ -91,27 +103,35 @@ def test_loss_logits_and_grads_match_reference_fp32():
                                    atol=1e-6, err_msg=k)
 
 
-def test_loss_logits_and_grads_match_reference_bf16():
-    jcfg, tcfg = _cfgs("bfloat16")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_logits_and_grads_match_reference_bf16(arch):
+    jcfg, tcfg = _cfgs("bfloat16", arch)
     params, toks = _inputs(jcfg)
     jl, jlog, jg = _reference(jcfg, params, toks)
     tl, tlog, tg = _port(tcfg, params, toks)
-    np.testing.assert_allclose(tl, jl, rtol=1e-4)
-    np.testing.assert_allclose(tlog, jlog, rtol=0, atol=0.03)
+    # the reference's own bf16 rounding: its fp32 loss and logits
+    jcfg32 = _cfgs("float32", arch)[0]
+    jb = {"tokens": jnp.asarray(toks)}
+    jl32 = float(jlm.loss_fn(jcfg32, params, jb)[0])
+    jlog32 = np.asarray(jlm.forward(jcfg32, params, jb, train=True)[0])
+    np.testing.assert_allclose(tl, jl, rtol=max(1e-4, abs(jl - jl32) / jl))
+    np.testing.assert_allclose(tlog, jlog, rtol=0, atol=max(
+        0.03, float(np.max(np.abs(jlog - jlog32)))))
     for k in jg:
         want = np.asarray(jg[k], np.float32)
         err = np.max(np.abs(tg[k].numpy() - want))
         assert err <= 0.05 * np.max(np.abs(want)), (k, err)
 
 
-@pytest.mark.parametrize("model_soi_block", [32, 64])
-def test_stats_grams_match_reference(model_soi_block):
+@pytest.mark.parametrize("model_soi_block,arch",
+                         [(32, a) for a in ARCHS] + [(64, ARCH)])
+def test_stats_grams_match_reference(model_soi_block, arch):
     """At 64 the config's soi_block exceeds the K-FAC block size (32),
     as the full qwen1.5-0.5b (1024) does at --block-size 128: the
     reference's stats step fails there on mismatched Gram shapes, so
     its Grams are taken from the config at 32, which the port must
     reproduce."""
-    jcfg, tcfg = _cfgs("float32")
+    jcfg, tcfg = _cfgs("float32", arch)
     tcfg = dataclasses.replace(tcfg, soi_block=model_soi_block)
     params, toks = _inputs(jcfg, seq=32)
     kj = JKFACConfig(block_size=jcfg.soi_block)

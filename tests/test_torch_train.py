@@ -19,6 +19,18 @@ Tolerances and why (all measured on this config):
     reach 7e7 and ``A^-1 g G^-1`` cancels heavily: the inverses'
     ~1e-4 relative difference becomes up to 7e-4 in the preconditioned
     direction of step 0, and the K-FAC steps move the weights by ~0.3.
+
+Over the other dense archs (GQA at smoke size) the same checks hold,
+with one difference: llama3.2-1b's ``wo`` A factor is worse conditioned,
+so the 1.8e-4 relative difference its step-2 factors reach on the
+diverged weights becomes 1.1% in their inverse, beyond the 1% above.
+That gap is the reference's own: its composed inverse of the port's
+step-2 factors lies exactly as far from its inverse of its own factors
+(measured equal to three digits on every leaf of every arch). So the
+inverses are also held, on every arch, to the reference's composed
+inverse of the port's own factors at 1e-3 of the largest entry, and
+their distance to the reference run may exceed 1% only by as much as
+the reference's inverse moves between the two runs' factors (+5%).
 """
 
 from __future__ import annotations
@@ -52,6 +64,10 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import lm as tlm
 
 ARCH = "qwen1.5-0.5b"
+# the dense archs the port runs (GQA in the last three at smoke size)
+ARCHS = ["qwen1.5-0.5b", "qwen2-0.5b", "llama3.2-1b", "qwen2.5-32b"]
+# the main path on qwen1.5-0.5b; the fp32-einsum WU route on every arch
+TRAJECTORIES = [("qwen1.5-0.5b", True)] + [(a, False) for a in ARCHS]
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 
 
@@ -72,23 +88,23 @@ def _reference_run(cfg, kcfg, params, ds, n_steps):
                 inverses=refresh(state.kfac.factors)))
         state, m = train(state, batch)
         losses.append(float(m["loss"]))
-    return losses, state
+    return losses, state, refresh
 
 
-@pytest.mark.parametrize("use_kernel", [True, False])
-def test_four_step_trajectory_matches_reference(use_kernel):
+@pytest.mark.parametrize("arch,use_kernel", TRAJECTORIES)
+def test_four_step_trajectory_matches_reference(use_kernel, arch):
     """``use_kernel=True`` is the main path (``KFACProgram``);
     ``False`` swaps only the WU product for the fp32 einsum, which shows
     that the parameter gap comes from the inverses, not the WU kernel
     route (measured: 0.51% and 0.34% of a leaf's largest entry)."""
     b, t, n_steps = 2, 32, 4
-    jcfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
-    tcfg = dataclasses.replace(t_get_smoke_config(ARCH), dtype="float32")
+    jcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    tcfg = dataclasses.replace(t_get_smoke_config(arch), dtype="float32")
     common = dict(stats_every=2, inv_every=2,
                   block_size=min(128, jcfg.soi_block), stats_batch=b,
                   stats_seq=t)
     params = jax.device_get(jlm.init(jcfg, jax.random.PRNGKey(0)))
-    j_losses, j_state = _reference_run(
+    j_losses, j_state, j_refresh = _reference_run(
         jcfg, JKFACConfig(**common), params,
         JTokens(jcfg.vocab, t, b, seed=0), n_steps)
 
@@ -124,10 +140,19 @@ def test_four_step_trajectory_matches_reference(use_kernel):
         assert phases == [["inv", "stats", "train"], ["train"]] * 2
     assert state.kfac.step == int(j_state.kfac.step) == n_steps
     np.testing.assert_allclose(t_losses, j_losses, rtol=1e-5)
+    # the reference's composed inverse of the port's own step-2 factors
+    j_of_t = jax.device_get(j_refresh({
+        n: {s: jnp.asarray(f.numpy()) for s, f in d.items()}
+        for n, d in state.kfac.factors.items()}))
     for n, d in jax.device_get(j_state.kfac.inverses).items():
         for side, v in d.items():
-            err = np.max(np.abs(state.kfac.inverses[n][side].numpy() - v))
-            assert err <= 1e-2 * np.max(np.abs(v)), (n, side, err)
+            got = state.kfac.inverses[n][side].numpy()
+            scale = np.max(np.abs(v))
+            own = np.max(np.abs(got - j_of_t[n][side]))
+            assert own <= 1e-3 * scale, (n, side, own)
+            err = np.max(np.abs(got - v))
+            moved = np.max(np.abs(j_of_t[n][side] - v))
+            assert err <= max(1e-2 * scale, 1.05 * moved), (n, side, err)
     for k, v in convert._flatten(jax.device_get(j_state.params)).items():
         err = np.max(np.abs(state.params[k].numpy() - v))
         assert err <= 1e-2 * np.max(np.abs(v)), (k, err)
