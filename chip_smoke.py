@@ -52,7 +52,24 @@ Phases, each printed as a JSON line:
                  version's, the fp32 route's and float64 Woodbury's
                  inverses, beside those of a full re-inversion of the
                  same factors
-  7. precision_inv  the composed-precision inversion library: the circuit
+  7. loop       the K-FAC CLI (``repro_torch.launch.train.main``) on the
+                 main path's configuration through ``runtime.TrainLoop``:
+                 6 steps, a checkpoint every 3 (about 4.75 GB each, the
+                 free disk reckoned first), a device loss injected at
+                 step 4, the telemetry spine on; recovery once, the
+                 losses of the steps the main path also ran bitwise its
+                 own, both kernels launched as the cadence from the
+                 restored step gives, the three obs artifacts; the
+                 checkpoint bytes, save dispatch, write and restore
+                 seconds, and peak memory
+  8. sgd        the same CLI with ``--optimizer sgd``, 4 steps on the same
+                 batches: finite losses, no kernel launched
+  9. precision  the same CLI at ``--precision int8``, 2 steps: the pooled
+                 einsum WU route (no fused_precond), neumann_inv on the
+                 refresh, the WU seconds and peak memory; then
+                 ``lowp.parity.update_parity`` at hilo and int8 on the
+                 card, >= 16 bits
+  10. precision_inv  the composed-precision inversion library: the circuit
                  model at the Fig. 5 toy and the production config
                  (achieved bits, >= 16 asserted; cycle counts), the
                  quickstart block (bf16 alone, circuit model, the port's
@@ -64,7 +81,7 @@ Phases, each printed as a JSON line:
                  leaf, each held to its plain version, the fused
                  inverses also to the two-step route (Gram, then
                  neumann_inv) and to float64 torch.linalg.inv
-  8. trace       the main path's four steps again, the fourth under
+  11. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
                  so that the profiler session cannot perturb the phases
@@ -78,13 +95,17 @@ without the repository's ``src/repro_torch``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -145,6 +166,21 @@ def bound(n_bytes: float, flops: float, fp32_flops: float = 0.0):
              + fp32_flops / PEAK_FP32_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of the tensors in a tree of dicts, lists, tuples and
+    dataclasses."""
+    if hasattr(tree, "element_size"):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return sum(tensor_bytes(getattr(tree, f.name))
+                   for f in dataclasses.fields(tree))
+    return 0
 
 
 def main() -> int:
@@ -596,6 +632,8 @@ def main() -> int:
     emit({"phase": "inverse_checks", "leaves": inv_report,
           "min_bits_kernel": min(r["bits_kernel"] for r in inv_report),
           "min_bits_plain": min(r["bits_plain"] for r in inv_report)})
+    # what one checkpoint of this state holds (the loop phase's disk)
+    state_bytes = tensor_bytes(state)
 
     # the same run with float64-accurate inverses (torch.linalg.inv),
     # to tell the composed inverse's share of the loss curve apart
@@ -735,7 +773,155 @@ def main() -> int:
     kept.clear()
     del smw_prog
 
-    # 7. the composed-precision inversion library -----------------------
+    # 7-9. the training CLI through runtime.TrainLoop ---------------------
+    # main() prints its own summary; the phases emit one line each instead
+    def cli(args):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return train_mod.main(args)
+
+    cli_main = ["--arch", MAIN["arch"], "--batch", str(MAIN["batch"]),
+                "--seq", str(MAIN["seq"]), "--block-size", str(bs),
+                "--stats-every", str(MAIN["stats_every"]),
+                "--inv-every", str(MAIN["inv_every"]),
+                "--seed", str(MAIN["seed"])]
+
+    def trace_spans(path, name):
+        with open(path) as f:
+            return [e["dur"] / 1e6 for e in json.load(f)["traceEvents"]
+                    if e["name"] == name]
+
+    # 7. loop: checkpoints every 3 steps, a device loss at step 4; the
+    # restore from the step-3 checkpoint replays step 3. Two checkpoints
+    # stay on disk (the loop keeps 3), so twice the state's bytes must
+    # be free before the run.
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        ck_dir, obs_dir = os.path.join(tmp, "ck"), os.path.join(tmp, "obs")
+        free_disk = shutil.disk_usage(tmp).free
+        check(free_disk > 2.2 * state_bytes,
+              f"free disk for two checkpoints of {state_bytes} bytes")
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loop_sum = cli(cli_main + [
+            "--steps", "6", "--ckpt-dir", ck_dir, "--ckpt-every", "3",
+            "--inject-failure-at", "4", "--obs-dir", obs_dir])
+        torch.cuda.synchronize(dev)
+        loop_wall = time.perf_counter() - t0
+        loop_launches = ops.launch_counts()
+        loop_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        loop_hist = loop_sum["history"]
+        ckpt_files = {name: os.path.getsize(os.path.join(ck_dir, name,
+                                                         "arrays.npz"))
+                      for name in sorted(os.listdir(ck_dir))}
+        with open(os.path.join(obs_dir, "events.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        trace_json = os.path.join(obs_dir, "trace.json")
+        dispatch_s = trace_spans(trace_json, "ckpt_save_dispatch")
+        restore_s = trace_spans(trace_json, "ckpt_restore")
+        phase_spans = [n for n in ("stats", "inv", "train", "wu")
+                       if trace_spans(trace_json, f"phase:{n}")]
+        artifacts = sorted(os.listdir(obs_dir))
+    finally:
+        shutil.rmtree(tmp)
+    executed = [h["step"] for h in loop_hist]
+    check(loop_sum["recoveries"] == 1 and loop_sum["steps"] == 6,
+          "loop: one recovery, 6 steps")
+    check(executed == [0, 1, 2, 3, 3, 4, 5],
+          "loop: steps 0-3, the replay of 3 from the step-3 checkpoint, 4-5")
+    same = [h["loss"] == losses[h["step"]] for h in loop_hist
+            if h["step"] < MAIN["steps"]]
+    check(len(same) == 5 and all(same),
+          "loop: losses bitwise the main path's at the steps both ran")
+    refreshes_due = sum(s % MAIN["inv_every"] == 0 for s in executed)
+    check([("inv" in h["phase_s"]) for h in loop_hist]
+          == [s % MAIN["inv_every"] == 0 for s in executed],
+          "loop: the refresh cadence follows the restored KFACState.step")
+    check(loop_launches["neumann_inv"] == refreshes_due * len(sides),
+          "loop: neumann_inv once a block side a refresh")
+    check(loop_launches["fused_precond"] == len(executed) * len(wu.groups),
+          "loop: fused_precond once a WU group an executed step")
+    check(artifacts == ["events.jsonl", "metrics.prom", "trace.json"],
+          "loop: the three obs artifacts")
+    check(sum(e["kind"] == "train_step" for e in events) == len(executed),
+          "loop: one train_step row an executed step")
+    check(sum(e["kind"] == "recovery" for e in events) == 1,
+          "loop: a recovery event")
+    check(phase_spans == ["stats", "inv", "train", "wu"],
+          "loop: phase spans in trace.json")
+    check(len(ckpt_files) == 2, "loop: two checkpoints written")
+    emit({"phase": "loop", "arch": cfg.name, "steps": loop_sum["steps"],
+          "executed_steps": executed, "recoveries": loop_sum["recoveries"],
+          "stragglers": loop_sum["stragglers"],
+          "losses": [h["loss"] for h in loop_hist],
+          "main_path_losses": losses,
+          "phase_s": [h["phase_s"] for h in loop_hist],
+          "wall_s": loop_wall, "loop_wall_s": loop_sum["wall_s"],
+          "launches": loop_launches, "peak_mem_gb": loop_peak,
+          "state_bytes": state_bytes, "free_disk_bytes": free_disk,
+          "checkpoint_bytes": ckpt_files,
+          "save_dispatch_s": dispatch_s,
+          "save_write_s": loop_sum["ckpt_write_s"],
+          "restore_s": restore_s, "obs_artifacts": artifacts,
+          "train_step_rows": sum(e["kind"] == "train_step" for e in events)})
+
+    # 8. sgd: the first-order baseline on the same weights and batches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sgd_sum = cli(cli_main + ["--optimizer", "sgd", "--steps", "4"])
+    torch.cuda.synchronize(dev)
+    sgd_wall = time.perf_counter() - t0
+    sgd_launches = ops.launch_counts()
+    check(all(math.isfinite(x) for x in sgd_sum["losses"])
+          and len(sgd_sum["losses"]) == 4, "sgd: 4 finite losses")
+    check(set(sgd_launches.values()) == {0}, "sgd: no kernel launched")
+    emit({"phase": "sgd", "arch": cfg.name, "lr": 3e-2,
+          "losses": sgd_sum["losses"], "kfac_losses": losses,
+          "phase_s": [h["phase_s"] for h in sgd_sum["history"]],
+          "wall_s": sgd_wall, "launches": sgd_launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+
+    # 9. precision: --precision int8 takes the pooled einsum WU route
+    # (the fused_precond kernel is the hi/lo scheme); INV stays on
+    # neumann_inv. Then the update-parity budget on the card.
+    from repro_torch.lowp import parity as lowp_parity
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    int8_sum = cli(cli_main + ["--precision", "int8", "--steps", "2"])
+    torch.cuda.synchronize(dev)
+    int8_wall = time.perf_counter() - t0
+    int8_launches = ops.launch_counts()
+    int8_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(all(math.isfinite(x) for x in int8_sum["losses"])
+          and len(int8_sum["losses"]) == 2, "int8: 2 finite losses")
+    check(int8_sum["wu_route"] == "einsum", "int8: the einsum WU route")
+    check(int8_launches["neumann_inv"] > 0, "int8: neumann_inv launched")
+    check(int8_launches["fused_precond"] == 0,
+          "int8: fused_precond not launched")
+    parity = {p: lowp_parity.update_parity(p, device="cuda")
+              for p in ("hilo", "int8")}
+    for p, r in parity.items():
+        check(r["min_bits"] >= 16.0, f"update_parity({p}) >= 16 bits")
+    emit({"phase": "precision", "arch": cfg.name,
+          "int8": dict(losses=int8_sum["losses"], kfac_losses=losses[:2],
+                       wu_route=int8_sum["wu_route"],
+                       wu_s=[h["phase_s"]["wu"] for h in int8_sum["history"]],
+                       fp32_kernel_wu_s=[h["phase_s"]["wu"]
+                                         for h in loop_hist[:2]],
+                       phase_s=[h["phase_s"] for h in int8_sum["history"]],
+                       wall_s=int8_wall, launches=int8_launches,
+                       peak_mem_gb=int8_peak),
+          "update_parity": {p: dict(min_bits=r["min_bits"],
+                                    mean_bits=r["mean_bits"])
+                            for p, r in parity.items()}})
+
+    # 10. the composed-precision inversion library ----------------------
     # What examples/precision_inv_demo.py and examples/quickstart.py check,
     # on the port; then the library's two kernels on their own paths:
     # mxu_inv_apply (the composed inverse applied through bitslice_mm) and
@@ -912,7 +1098,7 @@ def main() -> int:
           "wall_s": pinv_wall, "launches": pinv_launches})
     del acts_run, fused
 
-    # 8. trace: the main path's fourth step (FP, BP and WU only) under
+    # 11. trace: the main path's fourth step (FP, BP and WU only) under
     # torch.profiler, kernels only, last, so that the profiler session
     # cannot perturb the phases timed before it: the device's busy time
     # (the union of the kernels' intervals) against the step's host wall

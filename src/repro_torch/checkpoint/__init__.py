@@ -1,0 +1,6 @@
+from repro_torch.checkpoint.store import (  # noqa: F401
+    CheckpointManager,
+    latest_step,
+    restore,
+    save,
+)

@@ -50,7 +50,9 @@ class KFACConfig:
     taylor_terms: int = 4
     refine_steps: int = 2
     weight_decay: float = 0.0
-    precision: str = "fp32"         # WU einsum precision: fp32 | hilo
+    # WU product precision (quantize.precision_kind): fp32 | hilo |
+    # int8 | int<T>b<S>
+    precision: str = "fp32"
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
@@ -249,8 +251,15 @@ def precondition_pooled(grads_by_name: Mapping[str, torch.Tensor],
     trust-region dots are discarded here, as in the reference, since
     :func:`apply_updates` folds the dot per leaf.
     Otherwise the tiles go through ``quantize.lowp_einsum`` at
-    ``precision``."""
-    quantize.precision_kind(precision)
+    ``precision``. The kernel *is* the hi/lo scheme, so ``use_kernel``
+    takes "fp32" and "hilo" only, and an integer-sliced precision
+    raises, as in the reference."""
+    kind = quantize.precision_kind(precision)
+    if use_kernel and kind not in ("fp32", "hilo"):
+        raise ValueError(
+            f"use_kernel supports precision 'fp32'/'hilo' (the "
+            f"fused_precond kernel is the hi/lo scheme), not "
+            f"{precision!r}")
     pools = inverse_pools(inverses, wu_plan.inv_plan)
     out = {}
     for grp in wu_plan.groups:

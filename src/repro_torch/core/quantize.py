@@ -1,27 +1,113 @@
-"""hi/lo bf16 precision primitives (the production half of
-``repro.core.quantize``) and :class:`CircuitConfig`, the parameters of
-the modelled ReRAM datapath.
+"""Fixed-point quantization, bit-slicing and hi/lo bf16 precision
+primitives, and :class:`CircuitConfig`, the parameters of the modelled
+ReRAM datapath (counterpart of ``repro.core.quantize``).
 
-Every product below feeds the tensor cores bf16 operands only and
-accumulates in fp32: ``x = hi + lo`` with both halves bf16 recovers
-~16 mantissa bits, the MXU/tensor-core image of programming ``A_H``
-into INV crossbars and ``A_L`` into VMM crossbars (paper Sec. III-A.3).
+The integer half models the digital view of the ReRAM datapath: a value
+``v`` with ``bits`` fractional bits on scale ``s`` is represented as
+``v ≈ s * round(v / s * 2**bits) * 2**-bits``, every quantizer symmetric
+and saturating; DAC inputs are ``R_DAC``-bit slices of those codes
+(paper Eqn. 6, "Loop b").
+
+In the hi/lo half every product feeds the tensor cores bf16 operands
+only and accumulates in fp32: ``x = hi + lo`` with both halves bf16
+recovers ~16 mantissa bits, the MXU/tensor-core image of programming
+``A_H`` into INV crossbars and ``A_L`` into VMM crossbars (paper Sec.
+III-A.3).
 
 torch's ``bf16 @ bf16`` returns bf16, so the plain versions here upcast
 each slice to fp32 before the matmul: a product of two bf16 values is
 exact in fp32, and with TF32 off the fp32 matmul accumulates in fp32 —
-the same arithmetic as JAX's ``preferred_element_type=float32``.
+the same arithmetic as JAX's ``preferred_element_type=float32``. The
+integer slices are small integers held in fp32, so their products are
+exact in fp32 too, and so are the sums while they stay under 2**24.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Tuple
 
 import torch
 
-#: ``--precision`` values whose WU products the port runs.
-PRECISIONS = ("fp32", "hilo")
+
+def amax_scale(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """Symmetric max-abs scale (never zero)."""
+    s = (torch.amax(torch.abs(x)) if dim is None
+         else torch.amax(torch.abs(x), dim=dim, keepdim=True))
+    return torch.where(s == 0, torch.ones_like(s), s)
+
+
+def quantize_int(x: torch.Tensor, bits: int, scale) -> torch.Tensor:
+    """Quantize to signed integer grid codes in [-(2**bits - 1),
+    2**bits - 1] (held in ``x``'s float dtype).
+
+    The clip is symmetric: the two's-complement endpoint ``-2**bits``
+    would need ``bits + 1`` magnitude bits, which the sign/magnitude
+    slice decomposition (:func:`bit_slices_fixed`, ``ceil(bits/slice)``
+    slices) cannot carry — it would silently drop the top bit and
+    reconstruct 0 for exactly the saturated-negative input."""
+    step = scale * (2.0 ** (-bits))
+    q = torch.round(x / step)
+    return torch.clamp(q, -(2.0 ** bits - 1), 2.0 ** bits - 1)
+
+
+def quantize_fixed(x: torch.Tensor, bits: int, scale) -> torch.Tensor:
+    """Quantize ``x`` onto a ``bits``-fractional-bit grid of ``scale``;
+    returns the *dequantized* value, clipped to (-scale, scale)."""
+    step = scale * (2.0 ** (-bits))
+    return quantize_int(x, bits, scale) * step
+
+
+def split_hi_lo_fixed(x: torch.Tensor, total_bits: int, hi_bits: int,
+                      scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split a ``total_bits`` fixed-point value into hi/lo parts:
+    ``x_q = x_hi + x_lo * 2**-hi_bits``, ``x_hi`` the top ``hi_bits``
+    fractional bits and ``x_lo`` the rest pre-shifted to ``scale``'s
+    magnitude (paper: ``A_L = (A - A_H) * 2**(k*R_c)``)."""
+    xq = quantize_fixed(x, total_bits, scale)
+    step_hi = scale * (2.0 ** (-hi_bits))
+    hi = torch.floor(xq / step_hi) * step_hi
+    lo = (xq - hi) * (2.0 ** hi_bits)
+    return hi, lo
+
+
+def bit_slices_fixed(x: torch.Tensor, total_bits: int, slice_bits: int,
+                     scale) -> list:
+    """Decompose a quantized value into ``ceil(total/slice)`` slices,
+    LSB-first, each a float holding an integer in ``[0, 2**slice_bits)``
+    times the value's sign (sign/magnitude: the analog driver applies
+    the sign by swapping the differential pair), such that
+    ``sum_i slices[i] * 2**(i*slice_bits - total_bits) * scale``
+    reconstructs the value."""
+    n = -(-total_bits // slice_bits)
+    q = quantize_int(x, total_bits, scale)
+    sign = torch.sign(q)
+    mag = torch.abs(q)
+    base = 2.0 ** slice_bits
+    out = []
+    for _ in range(n):
+        # jnp.mod's floored remainder; mag >= 0, so fmod is the same
+        out.append(sign * torch.fmod(mag, base))
+        mag = torch.floor(mag / base)
+    return out
+
+
+def reconstruct_slices(slices: list, total_bits: int, slice_bits: int,
+                       scale) -> torch.Tensor:
+    """Inverse of :func:`bit_slices_fixed` (the digital S+A unit)."""
+    acc = torch.zeros_like(slices[0])
+    for i, s in enumerate(slices):
+        acc = acc + s * (2.0 ** (i * slice_bits))
+    return acc * scale * (2.0 ** (-total_bits))
+
+
+#: The ``--precision`` knob values.
+PRECISIONS = ("fp32", "hilo", "int8")
+
+# "int<total>b<slice>": an integer-sliced product with <total>-bit codes
+# composed from <slice>-bit slices (e.g. "int16b4")
+_INT_SPEC = re.compile(r"^int(\d+)b(\d+)$")
 
 
 def split_hi_lo_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -54,16 +140,29 @@ def hilo_matmul_exact_lhs(a16: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _mm(a16, b_hi) + _mm(a16, b_lo)
 
 
-def precision_kind(precision) -> str:
-    """Parse a precision spec: ``'fp32' | 'hilo'``. The integer-sliced
-    modes of the reference are not ported yet and raise."""
+def precision_kind(precision):
+    """Parse a precision spec into ``'fp32' | 'hilo' | (total, slice)``.
+
+    ``"int8"`` means 8-bit *hardware operands*: 24-bit fixed-point codes
+    composed from three 8-bit slices per side, the ISAAC-style exact
+    bit-sliced VMM. ``"int<T>b<S>"`` spells any other rung."""
     if precision in (None, "fp32"):
         return "fp32"
     if precision == "hilo":
         return "hilo"
+    if precision == "int8":
+        return (24, 8)
+    m = _INT_SPEC.match(str(precision))
+    if m:
+        total, sl = int(m.group(1)), int(m.group(2))
+        if not (1 <= sl <= total):
+            raise ValueError(
+                f"precision {precision!r}: need 1 <= slice bits "
+                f"<= total bits, got total={total} slice={sl}")
+        return (total, sl)
     raise ValueError(
-        f"precision {precision!r} is not supported by repro_torch; "
-        f"expected one of {PRECISIONS}")
+        f"unknown precision {precision!r}; expected one of "
+        f"{PRECISIONS} or 'int<total>b<slice>' (e.g. 'int16b4')")
 
 
 def split_limbs_bf16(x: torch.Tensor, limbs: int = 3) -> list:
@@ -94,13 +193,45 @@ def hilo_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def int_slice_einsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
+                     total_bits: int = 24,
+                     slice_bits: int = 8) -> torch.Tensor:
+    """Exact bit-sliced ``einsum(spec, a, b)`` of the quantized operands.
+
+    Each operand is quantized to ``total_bits``-bit codes on its
+    per-tensor amax scale and cut into ``ceil(total/slice)``
+    sign/magnitude slices; every pairwise slice product runs as its own
+    fp32 einsum (the crossbar pass: small integers, exact while a sum
+    stays under 2**24) and is shift-added with weight
+    ``2**((i+j)*slice)`` (the digital S+A unit). The only error is the
+    operand quantization (~2**-total relative)."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    sa = amax_scale(a)
+    sb = amax_scale(b)
+    a_sl = bit_slices_fixed(a, total_bits, slice_bits, sa)
+    b_sl = bit_slices_fixed(b, total_bits, slice_bits, sb)
+    acc = None
+    for i, asl in enumerate(a_sl):
+        for j, bsl in enumerate(b_sl):
+            part = torch.einsum(spec, asl, bsl)
+            part = part * (2.0 ** ((i + j) * slice_bits))
+            acc = part if acc is None else acc + part
+    return acc * (sa * sb) * (2.0 ** (-2 * total_bits))
+
+
 def lowp_einsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
                 precision: str = "fp32") -> torch.Tensor:
     """The WU graph's matmul routing point: ``"fp32"`` is the plain fp32
-    einsum, ``"hilo"`` the bf16-limb product."""
-    if precision_kind(precision) == "fp32":
+    einsum, ``"hilo"`` the bf16-limb product, ``"int8"`` and
+    ``"int<T>b<S>"`` the sliced integer product."""
+    kind = precision_kind(precision)
+    if kind == "fp32":
         return torch.einsum(spec, a.to(torch.float32), b.to(torch.float32))
-    return hilo_einsum(spec, a, b)
+    if kind == "hilo":
+        return hilo_einsum(spec, a, b)
+    total, sl = kind
+    return int_slice_einsum(spec, a, b, total_bits=total, slice_bits=sl)
 
 
 @dataclasses.dataclass(frozen=True)

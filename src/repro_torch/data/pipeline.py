@@ -17,12 +17,20 @@ import torch
 
 @dataclasses.dataclass
 class DataCursor:
-    """Stream position: the data is a pure function of it."""
+    """Stream position: the data is a pure function of it, so a
+    checkpoint stores only this (``to_json`` in its manifest)."""
 
     step: int = 0
 
     def advance(self) -> "DataCursor":
         return DataCursor(self.step + 1)
+
+    def to_json(self) -> dict:
+        return {"step": self.step}
+
+    @staticmethod
+    def from_json(d: dict) -> "DataCursor":
+        return DataCursor(int(d["step"]))
 
 
 def _philox(seed: int, step: int):

@@ -4,8 +4,10 @@ training half of ``repro.launch.steps``).
   train_step   FP + BP + WU (precondition + update) every step
   stats_step   SU: factor Grams on a token subsample, EMA'd into state
   inv refresh  INV: composed-precision inverse of every factor block
+               (``make_inv_step``: the same on a whole state)
   smw_step     SU with rank-k columns + factor EMA + SMW inverse update
                + drift probe, the every-step program of ``--smw``
+  sgd_step     FP + BP + heavy-ball SGD, the first-order baseline
 """
 
 from __future__ import annotations
@@ -42,15 +44,18 @@ def _grads(cfg, params, batch) -> Tuple[torch.Tensor, dict]:
 
 
 def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
-                    use_kernel: bool = False) -> Callable:
+                    use_kernel: bool = False,
+                    timer: Callable | None = None) -> Callable:
     """One FP+BP+WU step ``(state, batch) -> (state, metrics)``.
 
     ``cfg.train_accum > 1`` splits the batch rows into that many
     microbatches and averages their loss and gradients. ``wu_plan``
     routes the WU through the pooled program and ``use_kernel`` that
-    program through the ``fused_precond`` kernel."""
+    program through the ``fused_precond`` kernel. ``timer(name, fn)``,
+    if given, runs the WU as ``timer("wu", fn)``."""
     specs = lm.kfac_specs(cfg)
     accum = max(cfg.train_accum, 1)
+    timer = timer or (lambda name, fn: fn())
 
     def train_step(state: TrainState, batch):
         if accum == 1:
@@ -72,9 +77,9 @@ def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
                 grads = {k: grads[k] + g_i[k].to(torch.float32) / accum
                          for k in grads}
                 loss = loss + l_i / accum
-        params2, kstate2 = kfac.apply_updates(
+        params2, kstate2 = timer("wu", lambda: kfac.apply_updates(
             state.params, grads, state.kfac, specs, kcfg, wu_plan=wu_plan,
-            use_kernel=use_kernel)
+            use_kernel=use_kernel))
         gnorm = torch.sqrt(sum(
             torch.sum(torch.square(grads[k].to(torch.float32)))
             for k in kfac.tree_order(grads)))
@@ -159,3 +164,31 @@ def make_inv_refresh(cfg, kcfg: KFACConfig) -> Callable:
         return kfac.invert_factors(factors, kcfg)
 
     return refresh
+
+
+def make_inv_step(cfg, kcfg: KFACConfig) -> Callable:
+    """``state -> state`` with every inverse refreshed from the state's
+    factors (:func:`make_inv_refresh` on a whole state)."""
+    refresh = make_inv_refresh(cfg, kcfg)
+
+    def inv_step(state: TrainState) -> TrainState:
+        kst = state.kfac
+        return dataclasses.replace(state, kfac=dataclasses.replace(
+            kst, inverses=refresh(kst.factors)))
+
+    return inv_step
+
+
+def make_sgd_step(cfg, lr: float = 1e-2, momentum: float = 0.9) -> Callable:
+    """First-order baseline (the paper's GPU-1st / PipeLayer side):
+    heavy-ball SGD on the whole batch, ``state = (params, momentum)``,
+    ``m <- momentum m + g`` and ``p <- p - lr m``."""
+
+    def sgd_step(state, batch):
+        params, mom = state
+        loss, grads = _grads(cfg, params, batch)
+        mom2 = {k: momentum * mom[k] + grads[k] for k in params}
+        params2 = {k: params[k] - lr * mom2[k] for k in params}
+        return (params2, mom2), {"loss": loss}
+
+    return sgd_step

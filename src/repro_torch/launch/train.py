@@ -1,4 +1,6 @@
-"""K-FAC training driver on one GPU (counterpart of ``repro.launch.train``).
+"""End-to-end training driver on one GPU: K-FAC (or the SGD baseline),
+the fault-tolerant loop with checkpoints, and synthetic data
+(counterpart of ``repro.launch.train``).
 
   python -m repro_torch.launch.train --arch qwen1.5-0.5b --steps 4 \\
       --batch 8 --seq 256 --stats-every 2 --inv-every 2
@@ -8,8 +10,12 @@ reduced config on the CPU. The cadence follows the paper (Fig. 8): every
 step runs FP/BP/WU; the SU stage (factor statistics) runs every
 ``--stats-every`` steps and the INV stage (composed-precision block
 inverses) every ``--inv-every`` steps, in the order stats, inv, train.
-INV goes through the ``neumann_inv`` kernel and the pooled WU through
-the ``fused_precond`` kernel; on the card they cannot be turned off.
+INV goes through the ``neumann_inv`` kernel in every mode. The pooled WU
+goes through the ``fused_precond`` kernel at ``--precision fp32|hilo``;
+the kernel is the hi/lo scheme, so the integer-sliced precisions
+(``int8``) take the pooled ``quantize.lowp_einsum`` route instead, and
+``--no-fused-wu`` the per-leaf einsums. On the card the kernels cannot
+be turned off.
 
 ``--smw`` replaces the stats/inv cadence with the incremental SOI path:
 every step runs one rank-k program (SU with column factors, factor EMA,
@@ -17,9 +23,11 @@ Woodbury inverse update through the ``smw_update`` kernel, drift probe)
 and a host gate re-inverts fully through ``neumann_inv`` on the first
 step and whenever the lagged drift exceeds ``--smw-drift-budget``.
 
-Checkpointing, the step watchdog and elastic recovery of the reference's
-``runtime.TrainLoop`` are not ported yet; a plain step loop drives the
-program.
+Every step runs inside ``runtime.TrainLoop``: a checkpoint every
+``--ckpt-every`` steps when ``--ckpt-dir`` is given, a step watchdog,
+and recovery from the last checkpoint with an exactly-once replay of the
+data (drill it with ``--inject-failure-at N``). ``--obs``/``--obs-dir``
+turn on the telemetry spine (``repro_torch.obs``).
 """
 
 from __future__ import annotations
@@ -27,19 +35,22 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import time
 from typing import Any, Callable
 
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core import kfac
+from repro_torch.core import kfac, quantize
 from repro_torch.core.kfac import KFACConfig
 from repro_torch.data.pipeline import DataCursor, SyntheticTokens
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.steps import TrainState
 from repro_torch.models import lm
+from repro_torch.runtime import DeviceLoss, LoopConfig, TrainLoop
 from repro_torch.solve.async_refresh import SMWRefresher
 from repro_torch.solve.smw import SMWConfig
 
@@ -60,18 +71,56 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
+def _phase_timer(device: torch.device, obs, phase_s: dict) -> Callable:
+    """``timed(name, fn)``: run ``fn`` as one phase of a step. Its wall
+    seconds, between a device synchronise before and one after (so they
+    are device times too, and a phase nested in another times its own
+    work only), go into ``phase_s[name]``; with obs on, also a
+    ``phase:<name>`` span and a ``train_phase_s`` sample."""
+    hist = obs.histogram(
+        "train_phase_s",
+        "per-phase wall, fenced (stats/inv/smw/train, and wu in train)") \
+        if obs.enabled else None
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        with obs.span(f"phase:{name}", cat="compute"):
+            out = fn()
+            sync()
+        dt = time.perf_counter() - t0
+        phase_s[name] = dt
+        if hist is not None:
+            hist.observe(dt, phase=name)
+        return out
+
+    return timed
+
+
 @dataclasses.dataclass
 class KFACProgram:
-    """Single-device K-FAC program: pooled WU through ``fused_precond``
-    and INV through ``neumann_inv`` (the kernels' plain versions when
-    ``device`` is the CPU).
+    """Single-device K-FAC program: INV through ``neumann_inv`` and the
+    WU on :attr:`wu_route` (the kernels' plain versions when ``device``
+    is the CPU).
+
+    ``fused_wu``: the pooled WU plan (default); ``False`` runs the
+    per-leaf einsums. With the plan, ``kcfg.precision`` chooses the
+    route: the ``fused_precond`` kernel at fp32 and hilo, the pooled
+    ``lowp_einsum`` at the integer-sliced precisions, which the kernel
+    cannot compute.
 
     ``smw``: incremental SOI. The stats/inv cadences are replaced by one
     rank-k program per step (``steps.make_smw_step``, its Woodbury
     update through the ``smw_update`` kernel) gated by
     :class:`SMWRefresher`, which re-inverts fully on the first step and
     whenever the lagged drift exceeds ``smw_drift_budget``;
-    ``smw_rank`` caps the columns per update."""
+    ``smw_rank`` caps the columns per update.
+
+    ``obs``: phase spans and the ``train_phase_s`` histogram."""
 
     cfg: Any
     kcfg: KFACConfig
@@ -80,11 +129,25 @@ class KFACProgram:
     smw: bool = False
     smw_drift_budget: float = 0.05
     smw_rank: int = 64
+    fused_wu: bool = True
+    obs: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(str(self.device))
+        if self.obs is None:
+            self.obs = obs_mod.NULL
+        quantize.precision_kind(self.kcfg.precision)   # raises if unknown
         fp32_matmuls()
         self._smw = None
+
+    @property
+    def wu_route(self) -> str:
+        """``"fused_precond"`` (the kernel), ``"einsum"`` (pooled
+        ``lowp_einsum``) or ``"per_leaf"``."""
+        if not self.fused_wu:
+            return "per_leaf"
+        kind = quantize.precision_kind(self.kcfg.precision)
+        return "fused_precond" if kind in ("fp32", "hilo") else "einsum"
 
     def init_state(self) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -94,25 +157,20 @@ class KFACProgram:
 
     def make_step(self, state: TrainState):
         """``step_fn(state, batch) -> (state, metrics)``; metrics carry
-        the loss and ``phase_s``, each phase's wall seconds (ended by a
-        device synchronise, so they are device times too): ``stats``,
-        ``inv`` and ``train``, or with ``smw`` ``smw``, ``inv`` (on a
-        fallback) and ``train``."""
-        kcfg, dev = self.kcfg, self.device
-        wu_plan = steps_mod.make_wu_plan_for(self.cfg, state)
-        train = steps_mod.make_train_step(self.cfg, kcfg, wu_plan=wu_plan,
-                                          use_kernel=True)
+        the loss and ``phase_s``, each phase's fenced wall seconds:
+        ``stats``, ``inv`` and ``train``, or with ``smw`` ``smw``,
+        ``inv`` (on a fallback) and ``train``; ``wu``, the WU inside
+        ``train``, in both."""
+        kcfg = self.kcfg
+        phase_s: dict = {}
+        timed = _phase_timer(self.device, self.obs, phase_s)
+        wu_plan = (steps_mod.make_wu_plan_for(self.cfg, state)
+                   if self.fused_wu else None)
+        train = steps_mod.make_train_step(
+            self.cfg, kcfg, wu_plan=wu_plan,
+            use_kernel=self.wu_route == "fused_precond", timer=timed)
         stats = steps_mod.make_stats_step(self.cfg, kcfg)
         refresh = steps_mod.make_inv_refresh(self.cfg, kcfg)
-        phase_s: dict = {}
-
-        def timed(name, fn):
-            t0 = time.perf_counter()
-            out = fn()
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            phase_s[name] = time.perf_counter() - t0
-            return out
 
         self._smw = None
         if self.smw:
@@ -122,7 +180,7 @@ class KFACProgram:
             self._smw = SMWRefresher(
                 lambda st, b: timed("smw", lambda: smw_step(st, b)),
                 lambda factors: timed("inv", lambda: refresh(factors)),
-                drift_budget=self.smw_drift_budget)
+                drift_budget=self.smw_drift_budget, obs=self.obs)
         smw_ref = self._smw
 
         def subsample(batch):
@@ -154,17 +212,65 @@ class KFACProgram:
 
         return step_fn
 
+    # -- lifecycle hooks of runtime.TrainLoop --------------------------------
+
+    def flush_async(self, state: TrainState) -> TrainState:
+        """The state to checkpoint. Nothing runs in the background on
+        this program (the reference's ``--async-inv`` refresher is not
+        ported yet), so it is the state itself."""
+        return state
+
     def reset_async(self) -> None:
-        """Elastic-recovery hook of the reference: force the SMW gate's
-        next step to fall back (a restored inverse tree is un-probed)."""
+        """Recovery hook: force the SMW gate's next step to fall back (a
+        restored inverse tree is un-probed)."""
         if self._smw is not None:
             self._smw.reset()
 
 
+@dataclasses.dataclass
+class SGDProgram:
+    """First-order baseline (the paper's GPU-1st / PipeLayer side):
+    heavy-ball SGD on the whole model, state ``(params, momentum)``,
+    the same initial weights as :class:`KFACProgram` for a seed. Its
+    ``phase_s`` has the one phase ``train``."""
+
+    cfg: Any
+    lr: float = 1e-2
+    seed: int = 0
+    device: str = "cuda"
+    obs: Any = None
+
+    def __post_init__(self):
+        self.device = resolve_device(str(self.device))
+        if self.obs is None:
+            self.obs = obs_mod.NULL
+        fp32_matmuls()
+
+    def init_state(self):
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        params = lm.init(self.cfg, generator=gen, device=self.device)
+        return params, {k: torch.zeros_like(p) for k, p in params.items()}
+
+    def make_step(self, state):
+        del state
+        phase_s: dict = {}
+        timed = _phase_timer(self.device, self.obs, phase_s)
+        sgd = steps_mod.make_sgd_step(self.cfg, self.lr)
+
+        def step_fn(state, batch):
+            phase_s.clear()
+            state, metrics = timed("train", lambda: sgd(state, batch))
+            metrics["phase_s"] = dict(phase_s)
+            return state, metrics
+
+        return step_fn
+
+
 def run(program: KFACProgram, ds: SyntheticTokens, n_steps: int,
         on_step: Callable[[TrainState, dict], None] | None = None):
-    """Init the state and take ``n_steps`` steps on ``ds``; returns the
-    final state and one history record per step (loss, grad norm,
+    """The plain driver, without ``runtime.TrainLoop``'s checkpoints,
+    watchdog and recovery: init the state and take ``n_steps`` steps on
+    ``ds``; returns the final state and one history record per step (loss, grad norm,
     per-phase seconds, and on the SMW path the drift and fallback
     flag). ``on_step(state, record)`` is called after each step."""
     state = program.init_state()
@@ -186,6 +292,7 @@ def run(program: KFACProgram, ds: SyntheticTokens, n_steps: int,
 
 
 def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -196,11 +303,19 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--optimizer", choices=("kfac", "sgd"),
+                    default="kfac")
     ap.add_argument("--lr", type=float, default=3e-2)
     ap.add_argument("--damping", type=float, default=0.03)
     ap.add_argument("--stats-every", type=int, default=10)
     ap.add_argument("--inv-every", type=int, default=10)
     ap.add_argument("--block-size", type=int, default=128)
+    ap.add_argument("--fused-wu", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="pooled WU plan: one batched two-sided product "
+                         "per block pool (the fused_precond kernel at "
+                         "fp32/hilo); --no-fused-wu runs per-leaf "
+                         "einsums")
     ap.add_argument("--smw", action=argparse.BooleanOptionalAction,
                     default=False,
                     help="incremental SOI: rank-k SMW inverse update "
@@ -212,46 +327,106 @@ def main(argv=None):
     ap.add_argument("--smw-rank", type=int, default=64,
                     help="max rank per SMW update; larger token sets are "
                          "strided down to this many columns")
+    ap.add_argument("--precision", default="fp32",
+                    choices=quantize.PRECISIONS,
+                    help="WU product precision: fp32; hilo = bf16 limb "
+                         "products; int8 = exact bit-sliced integer "
+                         "products (24-bit codes in 8-bit slices), on "
+                         "the pooled einsum route")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory; a run resumes from the "
+                         "latest checkpoint in it. None (the default) "
+                         "writes no checkpoints, and a recovery restarts "
+                         "from the initial state")
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--inject-failure-at", type=int, default=-1,
+                    help="fault drill: raise DeviceLoss at this step")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
-                    help="write the run summary JSON here")
+                    help="write the run summary JSON (with the per-step "
+                         "history) here")
+    ap.add_argument("--obs", action="store_true",
+                    help="enable the telemetry spine: phase spans, "
+                         "step metrics, recovery/straggler events")
+    ap.add_argument("--obs-dir", default=None,
+                    help="write JSONL events + Prometheus snapshot + "
+                         "Chrome trace here (implies --obs)")
+    ap.add_argument("--obs-annotate", action="store_true",
+                    help="also enter torch.profiler.record_function for "
+                         "every span")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    obs = obs_mod.from_args(args)
     kcfg = KFACConfig(
         lr=args.lr, damping=args.damping,
         stats_every=args.stats_every, inv_every=args.inv_every,
         block_size=min(args.block_size, cfg.soi_block),
-        stats_batch=args.batch, stats_seq=args.seq)
-    program = KFACProgram(cfg, kcfg, seed=args.seed, device=device,
-                          smw=args.smw,
-                          smw_drift_budget=args.smw_drift_budget,
-                          smw_rank=args.smw_rank)
+        stats_batch=args.batch, stats_seq=args.seq,
+        precision=args.precision)
+    if args.optimizer == "kfac":
+        program = KFACProgram(cfg, kcfg, seed=args.seed, device=device,
+                              smw=args.smw,
+                              smw_drift_budget=args.smw_drift_budget,
+                              smw_rank=args.smw_rank,
+                              fused_wu=args.fused_wu, obs=obs)
+    else:
+        program = SGDProgram(cfg, lr=args.lr, seed=args.seed,
+                             device=device, obs=obs)
     ds = SyntheticTokens(vocab=cfg.vocab, seq_len=args.seq,
                          global_batch=args.batch, seed=args.seed)
 
-    t0 = time.perf_counter()
-    _, history = run(program, ds, args.steps)
+    fired = []
+
+    def inject(step):
+        if step == args.inject_failure_at and not fired:
+            fired.append(step)
+            raise DeviceLoss(0, "injected failure drill")
+
+    # On the CPU the kernels' plain versions make a refresh step tens of
+    # times slower than a plain one, on cores other processes share: a
+    # deadline relative to the median step would trip on healthy steps.
+    loop = TrainLoop(
+        LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                   ckpt_every=args.ckpt_every,
+                   hang_factor=10.0 if device.type == "cuda" else None),
+        program, ds,
+        inject=inject if args.inject_failure_at >= 0 else None, obs=obs)
+    result = loop.run()
+    history = result["history"]
     summary = {
-        "arch": cfg.name, "device": str(device),
+        "arch": cfg.name, "optimizer": args.optimizer,
+        "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
-        "steps": args.steps, "batch": args.batch, "seq": args.seq,
-        "block_size": kcfg.block_size, "smw": args.smw,
-        "wall_s": time.perf_counter() - t0,
+        "batch": args.batch, "seq": args.seq,
+        "block_size": kcfg.block_size, "precision": args.precision,
+        **({"wu_route": program.wu_route, "smw": args.smw}
+           if args.optimizer == "kfac" else {}),
+        **{k: v for k, v in result.items() if k != "history"},
         "losses": [h["loss"] for h in history],
         "kernel_launches": ops.launch_counts(),
-        "history": history,
     }
-    if args.smw:
+    if args.smw and args.optimizer == "kfac":
         summary["smw_drift"] = [h["smw_drift"] for h in history]
         summary["smw_fallback"] = [h["smw_fallback"] for h in history]
-    print(json.dumps({k: v for k, v in summary.items() if k != "history"},
-                     indent=1))
+    print(json.dumps(summary, indent=1))
+    if summary["losses"]:
+        print(f"loss: first={summary['losses'][0]:.4f} "
+              f"last={summary['losses'][-1]:.4f}")
+    summary["history"] = history
     if args.out:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)
+    if obs.enabled:
+        paths = obs.flush(summary={
+            "kind": "train_summary",
+            **{k: v for k, v in summary.items() if k != "history"}})
+        print(obs.console("train summary"))
+        if paths:
+            print(json.dumps({"obs_artifacts": paths}, indent=1))
+        obs.close()
     return summary
 
 

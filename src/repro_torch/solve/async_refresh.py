@@ -29,10 +29,14 @@ class SMWRefresher:
 
     A drift that is NaN also falls back, and a drift measured on
     inverses that a fallback just replaced is discarded. ``peek``,
-    ``flush`` and ``reset`` keep the reference's hook surface."""
+    ``flush`` and ``reset`` keep the reference's hook surface. With an
+    enabled ``obs`` (``repro_torch.obs``) the gate reports the drift it
+    read (gauge ``solve_smw_drift``) and every fallback (counter
+    ``solve_smw_fallback_total`` and an ``smw_fallback`` event)."""
 
     def __init__(self, smw_step: Callable[[Any, Any], Any],
-                 refresh: Callable[[Any], Any], drift_budget: float):
+                 refresh: Callable[[Any], Any], drift_budget: float,
+                 obs: Any = None):
         self.smw_step = smw_step
         self.refresh = refresh
         self.drift_budget = float(drift_budget)
@@ -40,6 +44,15 @@ class SMWRefresher:
         self.n_steps = 0
         self.n_fallbacks = 0
         self.last_drift = float("nan")
+        self._obs = obs
+        self._g_drift = self._c_fallback = None
+        if obs is not None and obs.enabled:
+            self._g_drift = obs.gauge(
+                "solve_smw_drift", "lagged SMW probe residual (gate input)")
+            self._c_fallback = obs.counter(
+                "solve_smw_fallback_total",
+                "full re-inversions triggered by the drift gate "
+                "(incl. the seeding step-0 fallback)")
 
     def step(self, state, batch):
         """One step's refresh: the SMW program, then the lagged gate.
@@ -49,6 +62,8 @@ class SMWRefresher:
         if self._drift is not None:
             d = float(self._drift)       # waits on the last step only
             self.last_drift = d
+            if self._g_drift is not None:
+                self._g_drift.set(d)
             if not d <= self.drift_budget:     # NaN must trigger
                 fallback = True
         self._drift = metrics.get("smw_drift")
@@ -58,6 +73,10 @@ class SMWRefresher:
             state = dataclasses.replace(state, kfac=dataclasses.replace(
                 kst, inverses=self.refresh(kst.factors)))
             self.n_fallbacks += 1
+            if self._c_fallback is not None:
+                self._c_fallback.inc()
+                self._obs.event("smw_fallback", step=self.n_steps - 1,
+                                drift=self.last_drift)
             # this drift was measured on the inverses just replaced
             self._drift = None
         metrics["smw_fallback"] = 1.0 if fallback else 0.0

@@ -88,7 +88,11 @@ def test_lowp_einsum_matches_reference(precision):
 
 
 def test_precision_kind_rejects_unported_modes():
+    """Every mode of the reference is ported (the integer-sliced ones
+    too); a mode neither package has raises."""
     assert tq.precision_kind(None) == "fp32"
     assert tq.precision_kind("hilo") == "hilo"
-    with pytest.raises(ValueError, match="not supported"):
-        tq.precision_kind("int8")
+    assert tq.precision_kind("int8") == (24, 8)
+    for bad in ("bf16", "fp8", "int8b16"):
+        with pytest.raises(ValueError, match="precision"):
+            tq.precision_kind(bad)

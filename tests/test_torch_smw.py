@@ -441,8 +441,8 @@ def test_smw_four_step_trajectory_matches_reference():
                        m["smw_fallback"]))
         phases.append(sorted(m["phase_s"]))
 
-    assert phases[0] == ["inv", "smw", "train"]
-    assert all(p in (["inv", "smw", "train"], ["smw", "train"])
+    assert phases[0] == ["inv", "smw", "train", "wu"]
+    assert all(p in (["inv", "smw", "train", "wu"], ["smw", "train", "wu"])
                for p in phases)
     assert state.kfac.step == n_steps
     np.testing.assert_allclose([h[0] for h in t_hist],

@@ -137,7 +137,8 @@ def test_four_step_trajectory_matches_reference(use_kernel, arch):
         t_losses.append(float(m["loss"]))
         phases.append(sorted(m["phase_s"]))
     if use_kernel:
-        assert phases == [["inv", "stats", "train"], ["train"]] * 2
+        assert phases == [["inv", "stats", "train", "wu"],
+                          ["train", "wu"]] * 2
     assert state.kfac.step == int(j_state.kfac.step) == n_steps
     np.testing.assert_allclose(t_losses, j_losses, rtol=1e-5)
     # the reference's composed inverse of the port's own step-2 factors
@@ -215,7 +216,9 @@ def test_package_imports_neither_jax_nor_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "print(bad)\n"
-        "assert 'repro_torch.launch.train' in sys.modules\n"
+        "for m in ('launch.train', 'runtime.loop', 'checkpoint.store', "
+        "'obs.trace', 'obs.taps', 'lowp.parity', 'optim.first_order'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     out = subprocess.run([sys.executable, "-c", code], env=env,
