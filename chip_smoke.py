@@ -81,7 +81,28 @@ Phases, each printed as a JSON line:
                  leaf, each held to its plain version, the fused
                  inverses also to the two-step route (Gram, then
                  neumann_inv) and to float64 torch.linalg.inv
-  11. trace      the main path's four steps again, the fourth under
+  11. async_inv  the K-FAC CLI with ``--async-inv``, 6 steps (triggers at
+                 0, 2, 4; swaps at 2 and 4): finite losses, 3 dispatched
+                 and 2 swapped, neumann_inv once a trigger and every
+                 launch on a stream other than the main one, fused_precond
+                 once a step; ``launch.train.run`` of the same program,
+                 each step's inverses bitwise a synchronous refresh of the
+                 factors of the trigger before the last (identities before
+                 the first swap), and how long each trigger's refresh ran
+                 on past the main stream; steps 2-3 of a third run under
+                 torch.profiler: the side stream's neumann_inv interval
+                 and the main-stream kernel time inside it, the stream
+                 priority used; the CLI with a checkpoint every 3 steps
+                 and a device loss at step 4: the step-3 checkpoint holds
+                 the pending inverses bitwise, the restore completes;
+                 ``--dist-inv``, 4 steps, losses bitwise the main path's;
+                 on the main path's factors, ``invert_factor_tree``
+                 through plans of 1 and 4 devices bitwise the replicated
+                 path, pdiv at a cap of 64 against the direct kernel route
+                 (achieved bits, ms), Gauss-Newton's G refresh through the
+                 solver bitwise; the factors of one stats step at block
+                 256 through pdiv at a cap of 128 (bits, ms)
+  12. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
                  so that the profiler session cannot perturb the phases
@@ -634,6 +655,11 @@ def main() -> int:
           "min_bits_plain": min(r["bits_plain"] for r in inv_report)})
     # what one checkpoint of this state holds (the loop phase's disk)
     state_bytes = tensor_bytes(state)
+    # the factors after step 2 (the last stats step), on the host until
+    # the async_inv phase's solver checks, so that no phase between
+    # carries them in its peak memory
+    main_factors = {n: {k: t.cpu() for k, t in d.items()}
+                    for n, d in state.kfac.factors.items()}
 
     # the same run with float64-accurate inverses (torch.linalg.inv),
     # to tell the composed inverse's share of the loss curve apart
@@ -1098,13 +1124,363 @@ def main() -> int:
           "wall_s": pinv_wall, "launches": pinv_launches})
     del acts_run, fused
 
-    # 11. trace: the main path's fourth step (FP, BP and WU only) under
+    # 11. async_inv: the staleness-tolerant double-buffered refresh on a
+    # side stream (--async-inv), --dist-inv, and the solver API on the
+    # card -----------------------------------------------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import gauss_newton
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.solve import invert_factor_tree, make_plan
+    from repro_torch.solve.async_refresh import lowest_stream_priority
+
+    main_stream = torch.cuda.current_stream(dev).cuda_stream
+    async_steps = 6
+
+    # the CLI: triggers at steps 0, 2, 4, swaps at 2 and 4
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    as_sum = cli(cli_main + ["--steps", str(async_steps), "--async-inv"])
+    torch.cuda.synchronize(dev)
+    as_wall = time.perf_counter() - t0
+    as_launches = ops.launch_counts()
+    nv_streams = ops.launch_streams()["neumann_inv"]
+    as_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    as_losses = as_sum["losses"]
+    check(len(as_losses) == async_steps
+          and all(math.isfinite(x) for x in as_losses),
+          "async_inv: 6 finite losses")
+    check(as_losses[0] == losses[0], "async_inv: step 0's loss is the "
+          "main path's (the weights have not moved yet)")
+    check((as_sum["n_dispatched"], as_sum["n_swapped"]) == (3, 2),
+          "async_inv: 3 refreshes dispatched, 2 swapped in")
+    triggers = sum(s % MAIN["inv_every"] == 0 for s in range(async_steps))
+    check(as_launches["neumann_inv"] == triggers * len(sides),
+          "async_inv: neumann_inv once a block side a trigger")
+    check(main_stream not in nv_streams
+          and sum(nv_streams.values()) == as_launches["neumann_inv"],
+          "async_inv: every neumann_inv launch on a side stream")
+    check(as_launches["fused_precond"] == async_steps * len(wu.groups),
+          "async_inv: fused_precond once a WU group a step")
+
+    # staleness, bitwise: launch.train.run of the same program, the
+    # factors of each trigger and the inverses of each step kept; step N
+    # must hold a synchronous refresh of the factors of the trigger
+    # before the last one, steps 0 and 1 the initial identities. After
+    # each step the host also waits for the side stream: how long the
+    # refresh ran on past the main stream's work
+    def clone(tree):
+        return {n: {k: t.clone() for k, t in d.items()}
+                for n, d in tree.items()}
+
+    snaps, used, side_wait = {}, [], []
+
+    def keep_async_step(st, rec):
+        t = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        side_wait.append(time.perf_counter() - t)
+        i = rec["step"] - 1
+        if i % MAIN["inv_every"] == 0:
+            snaps[i] = clone(st.kfac.factors)
+        used.append(clone(st.kfac.inverses))
+
+    torch.cuda.empty_cache()
+    a_prog = train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"],
+                                   device="cuda", async_inv=True)
+    a_hist = train_mod.run(a_prog, ds, async_steps,
+                           on_step=keep_async_step)[1]
+    a_stream = a_prog.refresher.stream
+    prio_range = torch.cuda.Stream.priority_range()
+    init_inv = soi.init_inverses(specs, bs, device=dev)
+    stale_equal = []
+    for n_step, inv in enumerate(used):
+        want = init_inv if n_step < 2 else kfac.invert_factors(
+            snaps[n_step - n_step % MAIN["inv_every"] - 2], kcfg)
+        stale_equal.append(all(torch.equal(inv[a][b], t)
+                               for a, d in want.items()
+                               for b, t in d.items()))
+        del want
+    check(all(stale_equal), "async_inv: every step's inverses bitwise a "
+          "synchronous refresh of the factors two steps back")
+    check([h["loss"] for h in a_hist] == as_losses,
+          "async_inv: run() losses bitwise the CLI's")
+    swapped_at_4 = {n: {k: t.cpu() for k, t in d.items()}
+                    for n, d in used[4].items()}
+    del snaps, used, init_inv, a_prog
+    trigger_rows = []
+    for i in range(MAIN["inv_every"], async_steps, MAIN["inv_every"]):
+        ph = a_hist[i]["phase_s"]
+        trigger_rows.append(dict(
+            step=i, stats_s=ph["stats"], inv_dispatch_s=ph["inv"],
+            train_s=ph["train"], side_wait_s=side_wait[i],
+            inv_train_s=ph["inv"] + ph["train"] + side_wait[i]))
+    sync_ph = history[2]["phase_s"]
+    sync_inv_train_s = sync_ph["inv"] + sync_ph["train"]
+
+    # overlap, measured: steps 4 (a trigger) and 5 of another run under
+    # torch.profiler, kernels only; the side stream's neumann_inv
+    # interval against the other streams' kernels; and the unprofiled
+    # trigger step 2's inv + train, with the host's wait for the side
+    # stream after it. The side stream runs at the lowest priority, which
+    # is the default stream's; a second run (not the CLI's path) puts the
+    # training on a stream of the highest priority, to see what a main
+    # stream that outranks the refresh gains
+    def overlap_profile(main_priority):
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        wait = {}
+
+        def profile_trigger(st, rec):
+            if rec["step"] == 3:
+                t = time.perf_counter()
+                torch.cuda.synchronize(dev)
+                wait["s"] = time.perf_counter() - t
+            elif rec["step"] == 4:
+                torch.cuda.synchronize(dev)
+                prof.start()
+            elif rec["step"] == 6:
+                torch.cuda.synchronize(dev)
+                prof.stop()
+
+        torch.cuda.empty_cache()
+        prog = train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"],
+                                     device="cuda", async_inv=True)
+        stream = (torch.cuda.current_stream(dev) if main_priority is None
+                  else torch.cuda.Stream(dev, priority=main_priority))
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            hist = train_mod.run(prog, ds, async_steps,
+                                 on_step=profile_trigger)[1]
+        torch.cuda.synchronize(dev)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_") as ptmp:
+            ppath = os.path.join(ptmp, "trace.json")
+            prof.export_chrome_trace(ppath)
+            with open(ppath) as f:
+                kev = [e for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+        del prof, prog
+        torch.cuda.empty_cache()
+        inv_ev = [e for e in kev if "neumann_inv" in e["name"]]
+        side_ids = {e["args"].get("stream") for e in inv_ev}
+        main_iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in kev
+                         if e["args"].get("stream") not in side_ids)
+        rows = []
+        for e in inv_ev:
+            lo, hi = e["ts"], e["ts"] + e["dur"]
+            covered, end = 0.0, lo
+            for a_, b_ in main_iv:
+                a_, b_ = max(a_, end), min(b_, hi)
+                if b_ > a_:
+                    covered += b_ - a_
+                    end = b_
+            rows.append(dict(stream=e["args"].get("stream"),
+                             ms=e["dur"] / 1e3,
+                             main_kernels_overlap_ms=covered / 1e3))
+        check(len(inv_ev) == len(sides) and side_ids
+              and not side_ids & {e["args"].get("stream") for e in kev
+                                  if "fused_precond" in e["name"]},
+              "async_inv: the profiled refresh ran on a stream of its own")
+        return dict(main_stream_priority=stream.priority,
+                    side_stream_priority=None if main_priority is None
+                    else lowest_stream_priority(),
+                    neumann_inv=rows,
+                    trigger_phase_s=hist[2]["phase_s"],
+                    trigger_side_wait_s=wait["s"],
+                    trigger_inv_train_s=hist[2]["phase_s"]["inv"]
+                    + hist[2]["phase_s"]["train"] + wait["s"])
+
+    overlap = overlap_profile(None)
+    overlap["side_stream_priority"] = a_stream.priority
+    overlap_high = overlap_profile(min(prio_range))
+
+    # a checkpoint with a refresh in flight: the CLI with checkpoints
+    # every 3 steps and a device loss at step 4. The step-3 checkpoint
+    # (the state after step 2) must hold the refresh dispatched at step
+    # 2, not yet swapped in: bitwise a refresh of its own factors, and
+    # bitwise what the run above swapped in at step 4
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    try:
+        ck_dir = os.path.join(tmp, "ck")
+        check(shutil.disk_usage(tmp).free > 2.2 * state_bytes,
+              "async_inv: free disk for two checkpoints")
+        ck_sum = cli(cli_main + [
+            "--steps", str(async_steps), "--async-inv", "--ckpt-dir",
+            ck_dir, "--ckpt-every", "3", "--inject-failure-at", "4"])
+        arrays = np.load(os.path.join(ck_dir, f"step_{3:010d}",
+                                      "arrays.npz"))
+        saved = {"factors": {}, "inverses": {}}
+        for key in arrays.files:
+            for part in saved:
+                head = f".kfac|.{part}|"
+                if key.startswith(head):
+                    name, side = key[len(head):].rsplit("|", 1)
+                    saved[part].setdefault(name, {})[side] = arrays[key]
+        del arrays
+    finally:
+        shutil.rmtree(tmp)
+    ck_refresh = kfac.invert_factors(
+        {n: {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+         for n, d in saved["factors"].items()}, kcfg)
+    ck_pending = all(
+        np.array_equal(saved["inverses"][n][k], t.cpu().numpy())
+        and np.array_equal(saved["inverses"][n][k],
+                           swapped_at_4[n][k].numpy())
+        for n, d in ck_refresh.items() for k, t in d.items())
+    del ck_refresh, swapped_at_4
+    ck_hist = ck_sum["history"]
+    check(ck_pending, "async_inv: the checkpoint holds the pending "
+          "inverses bitwise")
+    check(ck_sum["recoveries"] == 1
+          and [h["step"] for h in ck_hist] == [0, 1, 2, 3, 3, 4, 5]
+          and all(math.isfinite(h["loss"]) for h in ck_hist),
+          "async_inv: the restore from the step-3 checkpoint completes "
+          "with finite losses")
+
+    # --dist-inv on one device: the replicated refresh, bitwise
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist_sum = cli(cli_main + ["--steps", "4", "--dist-inv"])
+    dist_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(dist_sum["losses"] == losses,
+          "dist_inv: losses bitwise the main path's")
+
+    # the solver on the main path's factors after step 2: the pooled
+    # program (plans of 1 and 4 devices) bitwise the replicated one,
+    # pdiv at a cap of 64 (halves of 64 on neumann_inv) against the
+    # direct route, each against float64 torch.linalg.inv
+    torch.cuda.empty_cache()
+    mf = {n: {k: t.to(dev) for k, t in d.items()}
+          for n, d in main_factors.items()}
+    repl = invert_factor_tree(mf, kcfg)
+    pooled_equal = {}
+    for nd in (1, 4):
+        got = invert_factor_tree(mf, kcfg, plan=make_plan(mf, nd, kcfg))
+        pooled_equal[nd] = all(torch.equal(got[n][k], t)
+                               for n, d in repl.items()
+                               for k, t in d.items())
+    check(all(pooled_equal.values()),
+          "solver: pooled (1 and 4 devices) bitwise the replicated path")
+    plan4 = make_plan(mf, 4, kcfg)
+    plan64 = make_plan(mf, 1, kcfg, pdiv_cap_bs=64)
+    pd64 = invert_factor_tree(mf, kcfg, plan=plan64)
+
+    def damped64(f, damp):
+        flat = f.reshape(-1, f.shape[-1], f.shape[-1]).double()
+        lam = soi.tikhonov_damping(flat, damp)
+        return flat + lam[:, None, None] * torch.eye(
+            flat.shape[-1], device=dev, dtype=torch.float64)
+
+    def route_bits(routes, factors, damp):
+        rows = []
+        for n, d in factors.items():
+            for side, f in d.items():
+                exact = torch.linalg.inv(damped64(f, damp))
+                rows.append(dict(leaf=f"{n}/{side}", **{
+                    k: bits(r[n][side + "_inv"].reshape(exact.shape),
+                            exact) for k, r in routes.items()}))
+                del exact
+        return rows
+
+    rows64 = route_bits({"bits_direct": repl, "bits_pdiv64": pd64}, mf,
+                        kcfg.damping)
+    solver = dict(
+        pooled_bitwise=pooled_equal,
+        plan4_device_blocks=list(plan4.device_blocks),
+        direct_ms=time_ms(torch, lambda: invert_factor_tree(mf, kcfg)),
+        pooled4_ms=time_ms(torch, lambda: invert_factor_tree(
+            mf, kcfg, plan=plan4)),
+        pdiv64_ms=time_ms(torch, lambda: invert_factor_tree(
+            mf, kcfg, plan=plan64)),
+        pdiv64_depth=sorted({e.depth for e in plan64.pdiv}),
+        min_bits_direct=min(r["bits_direct"] for r in rows64),
+        min_bits_pdiv64=min(r["bits_pdiv64"] for r in rows64),
+        bits=rows64)
+    check(all(math.isfinite(r["bits_pdiv64"]) for r in rows64),
+          "solver: pdiv at 64 finite")
+
+    # Gauss-Newton: the G-only tree through the solver (a 4-device plan),
+    # bitwise the replicated G inverses
+    g_tree = {n: {"G": d["G"]} for n, d in mf.items()}
+    gn_inv = gauss_newton.refresh_inverses(
+        kfac.KFACState(0, g_tree, {}, {}, {}, {}), kcfg,
+        plan=make_plan(g_tree, 4, kcfg)).inverses
+    gn_equal = all(torch.equal(gn_inv[n]["G_inv"], repl[n]["G_inv"])
+                   for n in g_tree)
+    check(gn_equal, "gauss_newton: G refresh through the solver bitwise "
+          "the replicated G inverses")
+    del mf, repl, pd64, gn_inv, g_tree
+
+    # blocks of 256 (--block-size 256): the factors of one stats step,
+    # through pdiv at a cap of 128 (the reference's route for blocks the
+    # card's neumann_inv cannot take), against float64 torch.linalg.inv,
+    # beside fp32 torch.linalg.inv
+    torch.cuda.empty_cache()
+    kcfg256 = dataclasses.replace(kcfg, block_size=256)
+    prog256 = train_mod.KFACProgram(cfg, kcfg256, seed=MAIN["seed"],
+                                    device="cuda")
+    st256 = prog256.init_state()
+    st256, _ = steps_mod.make_stats_step(cfg, kcfg256)(
+        st256, ds.batch(DataCursor(0), device=dev))
+    f256 = st256.kfac.factors
+    del st256, prog256
+    torch.cuda.empty_cache()
+    plan128 = make_plan(f256, 1, kcfg256, pdiv_cap_bs=128)
+    pd128 = invert_factor_tree(f256, kcfg256, plan=plan128)
+    fp32_inv = {n: {k + "_inv": torch.linalg.inv(
+        damped64(t, kcfg.damping).float()).reshape(t.shape)
+        for k, t in d.items()} for n, d in f256.items()}
+    rows256 = route_bits({"bits_pdiv128": pd128, "bits_fp32_inv": fp32_inv},
+                         f256, kcfg.damping)
+    solver["block_256"] = dict(
+        leaf_bs=sorted({t.shape[-1] for d in f256.values()
+                        for t in d.values()}),
+        pdiv=[dict(leaf=f"{e.name}/{e.side}", bs=e.bs, depth=e.depth)
+              for e in plan128.pdiv][:3],
+        n_pdiv_leaves=len(plan128.pdiv),
+        pdiv128_ms=time_ms(torch, lambda: invert_factor_tree(
+            f256, kcfg256, plan=plan128)),
+        min_bits_pdiv128=min(r["bits_pdiv128"] for r in rows256),
+        min_bits_fp32_inv=min(r["bits_fp32_inv"] for r in rows256),
+        bits=rows256)
+    check(len(plan128.pdiv) == sum(len(d) for d in f256.values())
+          and all(math.isfinite(r["bits_pdiv128"]) for r in rows256),
+          "solver: every 256-block leaf inverted through pdiv, finite")
+    del f256, pd128, fp32_inv
+
+    emit({"phase": "async_inv", "arch": cfg.name, "block_size": bs,
+          "steps": async_steps, "losses": as_losses,
+          "main_path_losses": losses,
+          "n_dispatched": as_sum["n_dispatched"],
+          "n_swapped": as_sum["n_swapped"],
+          "phase_s": [h["phase_s"] for h in a_hist],
+          "wall_s": as_wall, "launches": as_launches,
+          "neumann_inv_streams": {str(k): v for k, v in nv_streams.items()},
+          "main_stream": main_stream, "peak_mem_gb": as_peak,
+          "stream_priority": a_stream.priority,
+          "priority_range": list(prio_range),
+          "staleness_bitwise": stale_equal,
+          "trigger_steps": trigger_rows,
+          "sync_inv_train_s": sync_inv_train_s,
+          "overlap": overlap,
+          "overlap_main_high_priority": overlap_high,
+          "checkpoint": dict(pending_bitwise=ck_pending,
+                             recoveries=ck_sum["recoveries"],
+                             executed=[h["step"] for h in ck_hist],
+                             losses=[h["loss"] for h in ck_hist]),
+          "dist_inv_losses": dist_sum["losses"],
+          "dist_inv_peak_mem_gb": dist_peak,
+          "gauss_newton_bitwise": gn_equal,
+          "solver": solver})
+    torch.cuda.empty_cache()
+
+    # 12. trace: the main path's fourth step (FP, BP and WU only) under
     # torch.profiler, kernels only, last, so that the profiler session
     # cannot perturb the phases timed before it: the device's busy time
     # (the union of the kernels' intervals) against the step's host wall
     # time, and the kernels that fill it
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CUDA])
 

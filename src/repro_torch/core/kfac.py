@@ -182,42 +182,76 @@ def update_factors(state: KFACState, a_grams: dict, g_grams: dict,
 # INV: the paper's high-precision inversion of every diagonal block
 # ---------------------------------------------------------------------------
 
-def invert_blocks_grouped(flats, lams, cfg: KFACConfig) -> list:
+def invert_blocks_grouped(flats, lams, cfg: KFACConfig, *,
+                          out=None) -> list:
     """Invert leaves of (N_i, bs_i, bs_i) blocks with per-block damping
     (N_i blocks' worth, any shape), in the order given.
 
     The composed methods run the ``neumann_inv`` kernel (its plain
     version for CPU tensors) at ``KFACConfig``'s counts in one grouped
-    call: one launch for all the leaves of one block side."""
+    call: one launch for all the leaves of one block side. ``out``: one
+    preallocated fp32 buffer per leaf, shaped like it, which receives
+    the inverses (and is returned)."""
     if cfg.inv_method == "exact":
-        return [torch.linalg.inv(
+        invs = [torch.linalg.inv(
             f + lam.reshape(-1, 1, 1) * torch.eye(
                 f.shape[-1], dtype=f.dtype, device=f.device))
             for f, lam in zip(flats, lams)]
+        if out is None:
+            return invs
+        for o, inv in zip(out, invs):
+            o.copy_(inv)
+        return list(out)
     if cfg.inv_method not in ("composed", "composed_fast"):
         raise ValueError(f"unknown inv_method {cfg.inv_method!r}")
     taylor = 1 if cfg.inv_method == "composed_fast" else cfg.taylor_terms
     return ops.neumann_inv_grouped(
         [f.contiguous() for f in flats], [lam.reshape(-1) for lam in lams],
         ns_iters=cfg.ns_iters, taylor_terms=taylor,
-        refine_steps=cfg.refine_steps)
+        refine_steps=cfg.refine_steps, out=out)
 
 
-def invert_factors(factors, cfg: KFACConfig) -> dict:
+def invert_blocks_flat(flat: torch.Tensor, lam: torch.Tensor,
+                       cfg: KFACConfig) -> torch.Tensor:
+    """Invert a flat batch of damped blocks, (N, bs, bs) with per-block
+    damping (N,): the reference's single inversion primitive, here one
+    leaf of :func:`invert_blocks_grouped`, so every path (replicated,
+    pooled, pdiv) inverts through the same grouped call."""
+    return invert_blocks_grouped([flat], [lam], cfg)[0]
+
+
+def invert_factors(factors, cfg: KFACConfig, *, out=None) -> dict:
     """``{name: {A|G: f}}`` -> ``{name: {A_inv|G_inv: inv}}``: every
-    factor leaf's blocks in one grouped inversion."""
+    factor leaf's blocks in one grouped inversion. ``out``: an inverse
+    tree of the same layout (contiguous fp32 leaves) to write into; the
+    returned tree holds its tensors."""
     keys = [(name, side) for name, f in factors.items() for side in f]
     leaves = [factors[name][side] for name, side in keys]
+    flats = [leaf.reshape((-1,) + tuple(leaf.shape[-2:])) for leaf in leaves]
+    bufs = None if out is None else [
+        out[name][side + "_inv"].view(flat.shape)
+        for (name, side), flat in zip(keys, flats)]
     invs = invert_blocks_grouped(
-        [leaf.reshape((-1,) + tuple(leaf.shape[-2:])) for leaf in leaves],
-        [soi.tikhonov_damping(leaf, cfg.damping) for leaf in leaves], cfg)
-    out = {name: {} for name in factors}
+        flats, [soi.tikhonov_damping(leaf, cfg.damping) for leaf in leaves],
+        cfg, out=bufs)
+    res = {name: {} for name in factors}
     for (name, side), leaf, inv in zip(keys, leaves, invs):
-        out[name][side + "_inv"] = inv.reshape(leaf.shape)
-    return out
+        res[name][side + "_inv"] = (inv.reshape(leaf.shape) if out is None
+                                    else out[name][side + "_inv"])
+    return res
 
 
-def refresh_inverses(state: KFACState, cfg: KFACConfig) -> KFACState:
+def refresh_inverses(state: KFACState, cfg: KFACConfig, *,
+                     plan=None) -> KFACState:
+    """Every inverse refreshed from the state's factors. With ``plan``
+    (a ``solve.partition.Plan``) through the pooled solver
+    (``solve.block_solver.invert_factor_tree``), bitwise the same on
+    the composed methods."""
+    if plan is not None:
+        from repro_torch.solve.block_solver import invert_factor_tree
+
+        return dataclasses.replace(state, inverses=invert_factor_tree(
+            state.factors, cfg, plan=plan))
     return dataclasses.replace(state,
                                inverses=invert_factors(state.factors, cfg))
 
@@ -316,17 +350,82 @@ def precondition(grads: Mapping[str, torch.Tensor], state: KFACState,
     return out
 
 
+def _pooled_chain(keys, leaves_by_slot, fn, n_out):
+    """Run one elementwise update chain over many leaves at once.
+
+    ``keys``: the participating leaves; ``leaves_by_slot``: per input
+    slot a dict key -> leaf (p, d, m, ...); ``fn(vec...) -> vecs`` runs
+    on flat vectors. The leaves are raveled and concatenated per dtype,
+    the chain runs once per dtype, and the results are split back:
+    elementwise operations do not depend on position, so every output
+    leaf is bitwise what the per-leaf loop computes. Returns ``n_out``
+    dicts key -> updated leaf."""
+    outs = [dict() for _ in range(n_out)]
+    by_dtype: dict = {}
+    for k in keys:
+        by_dtype.setdefault(leaves_by_slot[0][k].dtype, []).append(k)
+    for ks in by_dtype.values():
+        vecs = [torch.cat([ins[k].reshape(-1) for k in ks])
+                if len(ks) > 1 else ins[ks[0]].reshape(-1)
+                for ins in leaves_by_slot]
+        res = fn(*vecs)
+        ofs = 0
+        for k in ks:
+            ref = leaves_by_slot[0][k]
+            for slot in range(n_out):
+                outs[slot][k] = res[slot][ofs:ofs + ref.numel()].reshape(
+                    ref.shape)
+            ofs += ref.numel()
+    return outs
+
+
+def _apply_updates_pooled(params, pre, grads, state: KFACState, specs,
+                          cfg: KFACConfig, order, nu, bc1, bc2):
+    """The pooled elementwise tail: one momentum chain over every
+    factored leaf, one Adam chain over every other leaf."""
+    fact = [k for k in order if k in specs]
+    adam = [k for k in order if k not in specs]
+    new_p, new_m, new_mu, new_nu = {}, {}, {}, {}
+    if fact:
+        def mom_chain(p, d, m):
+            m2 = cfg.momentum * m + d * nu
+            upd = cfg.lr * m2 + cfg.lr * cfg.weight_decay * p
+            return p - upd, m2
+
+        new_p, new_m = _pooled_chain(
+            fact, (params, pre, state.momentum), mom_chain, 2)
+    if adam:
+        def adam_chain(p, g, mu, nvu):
+            mu2 = cfg.adam_b1 * mu + (1 - cfg.adam_b1) * g
+            nu2 = cfg.adam_b2 * nvu + (1 - cfg.adam_b2) * g * g
+            mhat = mu2 / bc1
+            nhat = nu2 / bc2
+            return p - cfg.lr * mhat / (torch.sqrt(nhat) + cfg.adam_eps), \
+                mu2, nu2
+
+        got_p, new_mu, new_nu = _pooled_chain(
+            adam, (params, grads, state.adam_mu, state.adam_nu),
+            adam_chain, 3)
+        new_p.update(got_p)
+    return new_p, new_m, new_mu, new_nu
+
+
 def apply_updates(params: Mapping[str, torch.Tensor],
                   grads: Mapping[str, torch.Tensor], state: KFACState,
                   specs: Mapping[str, LinearSpec], cfg: KFACConfig,
-                  wu_plan=None, use_kernel: bool = False
+                  wu_plan=None, use_kernel: bool = False,
+                  pool_elementwise: bool = False
                   ) -> Tuple[dict, KFACState]:
     """Trust-region-clipped update: factored params take the
     preconditioned direction with heavy-ball momentum, the others Adam.
 
     The clip scale ``nu = min(1, kl_clip / (lr |sum(d * g)|))`` sums
-    the factored leaves' dots in the reference's leaf order. Returns
-    new dicts; the inputs are not modified."""
+    the factored leaves' dots in the reference's leaf order. With
+    ``wu_plan``, ``pool_elementwise`` runs the momentum and Adam updates
+    as one chain each over the concatenated leaves (bitwise the per-leaf
+    loop; off by default, as in the reference: the concatenation costs
+    about four more passes over the moments). Returns new dicts; the
+    inputs are not modified."""
     pre = precondition(grads, state, specs, cfg, wu_plan=wu_plan,
                        use_kernel=use_kernel)
     dev = next(iter(params.values())).device
@@ -342,6 +441,16 @@ def apply_updates(params: Mapping[str, torch.Tensor],
                            device=dev) ** stepf
     bc2 = 1 - torch.tensor(cfg.adam_b2, dtype=torch.float32,
                            device=dev) ** stepf
+
+    if wu_plan is not None and pool_elementwise:
+        new_p, new_m, new_mu, new_nu = _apply_updates_pooled(
+            params, pre, grads, state, specs, cfg, order, nu, bc1, bc2)
+        state2 = dataclasses.replace(
+            state, step=step,
+            momentum={k: new_m[k] for k in order if k in specs},
+            adam_mu={k: new_mu[k] for k in order if k not in specs},
+            adam_nu={k: new_nu[k] for k in order if k not in specs})
+        return {k: new_p[k] for k in params}, state2
 
     new_p, new_m, new_mu, new_nu = {}, {}, {}, {}
     for k in order:

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Mapping, Sequence
 
@@ -40,9 +41,11 @@ class CudaLibrary:
     of launches.
 
     ``entries`` maps each C launch function to its ctypes argument
-    types. ``launches`` is bumped by :meth:`launch` after each kernel
-    was enqueued without error, and nowhere else, so a run can show
-    that its main path went through the kernel."""
+    types; every launch function takes the CUDA stream it enqueues on as
+    its last argument. ``launches`` is bumped by :meth:`launch` after
+    each kernel was enqueued without error, and nowhere else, so a run
+    can show that its main path went through the kernel;
+    ``stream_launches`` counts the same launches by stream handle."""
 
     def __init__(self, name: str, source: str,
                  entries: Mapping[str, Sequence]):
@@ -50,6 +53,7 @@ class CudaLibrary:
         self.source = CSRC / source
         self.entries = {sym: list(types) for sym, types in entries.items()}
         self.launches = 0
+        self.stream_launches: Counter = Counter()
         self.build_log = ""
         self._fns = None
         self._err_str = None
@@ -114,6 +118,7 @@ class CudaLibrary:
                 f"{self.name} kernel launch ({entry}) failed: "
                 f"{self._err_str(err).decode()} (cudaError {err})")
         self.launches += 1
+        self.stream_launches[args[-1]] += 1
 
 
 def build_all(libraries: Sequence[CudaLibrary]) -> float:

@@ -86,12 +86,25 @@ def _check(a: torch.Tensor) -> None:
         raise ValueError("neumann_inv kernel needs a contiguous tensor")
 
 
+def check_out(blocks: Sequence[torch.Tensor], out) -> None:
+    """``out`` must hold one contiguous fp32 buffer per leaf, shaped
+    like it and on its device."""
+    for a, o in zip(blocks, out):
+        if (o.shape != a.shape or o.dtype != torch.float32
+                or o.device != a.device or not o.is_contiguous()):
+            raise ValueError(
+                f"neumann_inv out= needs a contiguous float32 buffer of "
+                f"{tuple(a.shape)} on {a.device}, got {tuple(o.shape)} "
+                f"{o.dtype} on {o.device}")
+
+
 def neumann_inv_grouped(blocks: Sequence[torch.Tensor], dampings, *,
                         ns_iters: int, taylor_terms: int,
-                        refine_steps: int) -> list:
+                        refine_steps: int, out=None) -> list:
     """``(a_i + damping_i I)^{-1}`` for leaves of (nb_i, n_i, n_i) fp32
     CUDA blocks, n_i <= 128, each with (nb_i,) or scalar damping: one
-    launch for each block side and each :data:`MAX_LEAVES` leaves of it."""
+    launch for each block side and each :data:`MAX_LEAVES` leaves of it,
+    on the current stream. ``out``: the output buffers (else new ones)."""
     if len(blocks) != len(dampings):
         raise ValueError(f"{len(blocks)} leaves but {len(dampings)} "
                          f"dampings")
@@ -101,7 +114,14 @@ def neumann_inv_grouped(blocks: Sequence[torch.Tensor], dampings, *,
         raise ValueError("neumann_inv leaves must be on one device")
     if min(ns_iters, taylor_terms, refine_steps) < 0:
         raise ValueError("iteration counts must be >= 0")
-    outs = [torch.empty_like(a) for a in blocks]
+    if out is None:
+        outs = [torch.empty_like(a) for a in blocks]
+    else:
+        if len(out) != len(blocks):
+            raise ValueError(f"{len(blocks)} leaves but {len(out)} "
+                             f"outputs")
+        check_out(blocks, out)
+        outs = list(out)
     if not blocks:
         return outs
     lams = [_damping_vector(d, a.shape[0], a.device).contiguous()

@@ -31,7 +31,8 @@ from repro_torch.kernels import smw_update as _smw_update
 
 __all__ = ["neumann_inv", "neumann_inv_grouped", "fused_precond",
            "smw_update", "bitslice_mm", "fused_gram_inv", "LIBRARIES",
-           "build_all", "launch_counts", "reset_launch_counts"]
+           "build_all", "launch_counts", "launch_streams",
+           "reset_launch_counts"]
 
 #: kernel name -> its CUDA library (launch counters live on these)
 LIBRARIES = {
@@ -64,23 +65,33 @@ def neumann_inv(a: torch.Tensor, damping, *, ns_iters: int = 14,
 
 
 def neumann_inv_grouped(blocks, dampings, *, ns_iters: int = 14,
-                        taylor_terms: int = 4,
-                        refine_steps: int = 1) -> list:
+                        taylor_terms: int = 4, refine_steps: int = 1,
+                        out=None) -> list:
     """:func:`neumann_inv` of each (nb_i, n_i, n_i) leaf with its (nb_i,)
     or scalar damping: on CUDA one launch for each block side (up to 32
     leaves a launch), each block computed as in a launch of its leaf
-    alone."""
+    alone. ``out``: one preallocated contiguous fp32 buffer per leaf,
+    shaped like it, that receives the inverses and is returned (a
+    refresh writes into the inverse tree it retires)."""
     if len(blocks) != len(dampings):
         raise ValueError(f"{len(blocks)} leaves but {len(dampings)} "
                          f"dampings")
+    if out is not None and len(out) != len(blocks):
+        raise ValueError(f"{len(blocks)} leaves but {len(out)} outputs")
     if not blocks:
         return []
     kw = dict(ns_iters=ns_iters, taylor_terms=taylor_terms,
               refine_steps=refine_steps)
     if _route(*blocks) == "cpu":
-        return [ref.neumann_inv_ref(a, d, **kw)
+        invs = [ref.neumann_inv_ref(a, d, **kw)
                 for a, d in zip(blocks, dampings)]
-    return _neumann_inv.neumann_inv_grouped(blocks, dampings, **kw)
+        if out is None:
+            return invs
+        _neumann_inv.check_out(blocks, out)
+        for o, inv in zip(out, invs):
+            o.copy_(inv)
+        return list(out)
+    return _neumann_inv.neumann_inv_grouped(blocks, dampings, out=out, **kw)
 
 
 def fused_precond(a_inv: torch.Tensor, g: torch.Tensor,
@@ -133,6 +144,13 @@ def launch_counts() -> dict:
     return {name: lib.launches for name, lib in LIBRARIES.items()}
 
 
+def launch_streams() -> dict:
+    """kernel name -> {CUDA stream handle: launches on it}."""
+    return {name: dict(lib.stream_launches)
+            for name, lib in LIBRARIES.items()}
+
+
 def reset_launch_counts() -> None:
     for lib in LIBRARIES.values():
         lib.launches = 0
+        lib.stream_launches.clear()

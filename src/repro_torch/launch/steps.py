@@ -4,7 +4,8 @@ training half of ``repro.launch.steps``).
   train_step   FP + BP + WU (precondition + update) every step
   stats_step   SU: factor Grams on a token subsample, EMA'd into state
   inv refresh  INV: composed-precision inverse of every factor block
-               (``make_inv_step``: the same on a whole state)
+               through the solver (``make_inv_step``: the same on a
+               whole state)
   smw_step     SU with rank-k columns + factor EMA + SMW inverse update
                + drift probe, the every-step program of ``--smw``
   sgd_step     FP + BP + heavy-ball SGD, the first-order baseline
@@ -21,7 +22,8 @@ from repro_torch.core import kfac
 from repro_torch.core.kfac import KFACConfig, KFACState
 from repro_torch.models import lm
 from repro_torch.solve import smw as smw_mod
-from repro_torch.solve.partition import make_wu_plan
+from repro_torch.solve.block_solver import invert_factor_tree
+from repro_torch.solve.partition import Plan, make_wu_plan
 
 
 @dataclasses.dataclass
@@ -155,21 +157,35 @@ def make_smw_step(cfg, kcfg: KFACConfig,
     return smw_step
 
 
-def make_inv_refresh(cfg, kcfg: KFACConfig) -> Callable:
-    """``factors -> inverses``: the paper's composed-precision INV of
-    every SOI block (the ``neumann_inv`` kernel on CUDA)."""
-    del cfg
+def make_inv_refresh(cfg, kcfg: KFACConfig, *, distributed: bool = False,
+                     plan: Plan | None = None,
+                     pdiv_cap_bs: int | None = None) -> Callable:
+    """``refresh(factors, out=None) -> inverses``: the paper's
+    composed-precision INV of every SOI block through
+    ``solve.block_solver.invert_factor_tree`` (the ``neumann_inv`` kernel
+    on CUDA, one launch a block side); ``out`` is an inverse tree to
+    write into.
 
-    def refresh(factors):
-        return kfac.invert_factors(factors, kcfg)
+    ``distributed`` asks for the block-parallel solver, and
+    ``pdiv_cap_bs`` for the cap of the plan it builds. As in the
+    reference, that plan is built for a mesh of several devices only, so
+    on one device (the port's only) the refresh is the replicated one.
+    ``plan`` routes the refresh through a plan the caller built, such as
+    ``make_plan(factors, 1, kcfg, pdiv_cap_bs=128)``, which sends blocks
+    above the kernel's 128 through ``solve.pdiv``."""
+    del cfg, distributed, pdiv_cap_bs
+
+    def refresh(factors, out=None):
+        return invert_factor_tree(factors, kcfg, plan=plan, out=out)
 
     return refresh
 
 
-def make_inv_step(cfg, kcfg: KFACConfig) -> Callable:
+def make_inv_step(cfg, kcfg: KFACConfig, *,
+                  distributed: bool = False) -> Callable:
     """``state -> state`` with every inverse refreshed from the state's
     factors (:func:`make_inv_refresh` on a whole state)."""
-    refresh = make_inv_refresh(cfg, kcfg)
+    refresh = make_inv_refresh(cfg, kcfg, distributed=distributed)
 
     def inv_step(state: TrainState) -> TrainState:
         kst = state.kfac

@@ -17,6 +17,13 @@ the kernel is the hi/lo scheme, so the integer-sliced precisions
 ``--no-fused-wu`` the per-leaf einsums. On the card the kernels cannot
 be turned off.
 
+``--async-inv`` makes the refresh staleness-tolerant and double-buffered
+(``solve.AsyncInverseRefresher``): step N preconditions with the inverses
+of the factors as of step N - ``--inv-every``, and each refresh runs on a
+side CUDA stream beside the following steps. ``--dist-inv`` routes the
+refresh through the block-parallel solver, which on one device is the
+replicated refresh.
+
 ``--smw`` replaces the stats/inv cadence with the incremental SOI path:
 every step runs one rank-k program (SU with column factors, factor EMA,
 Woodbury inverse update through the ``smw_update`` kernel, drift probe)
@@ -51,7 +58,8 @@ from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.steps import TrainState
 from repro_torch.models import lm
 from repro_torch.runtime import DeviceLoss, LoopConfig, TrainLoop
-from repro_torch.solve.async_refresh import SMWRefresher
+from repro_torch.solve.async_refresh import (AsyncInverseRefresher,
+                                             SMWRefresher)
 from repro_torch.solve.smw import SMWConfig
 
 
@@ -71,27 +79,41 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
-def _phase_timer(device: torch.device, obs, phase_s: dict) -> Callable:
+def _phase_timer(device: torch.device, obs, phase_s: dict,
+                 async_inv: bool = False) -> Callable:
     """``timed(name, fn)``: run ``fn`` as one phase of a step. Its wall
     seconds, between a device synchronise before and one after (so they
     are device times too, and a phase nested in another times its own
     work only), go into ``phase_s[name]``; with obs on, also a
-    ``phase:<name>`` span and a ``train_phase_s`` sample."""
+    ``phase:<name>`` span and a ``train_phase_s`` sample.
+
+    With ``async_inv`` the fences wait for the current stream only, not
+    for the refresh on its side stream, and the ``inv`` phase is timed
+    as dispatch (no fence): fencing it would serialise the overlap it
+    exists for, as the reference's dispatch-timed phases say."""
     hist = obs.histogram(
         "train_phase_s",
         "per-phase wall, fenced (stats/inv/smw/train, and wu in train)") \
         if obs.enabled else None
 
     def sync():
-        if device.type == "cuda":
+        if device.type != "cuda":
+            return
+        if async_inv:
+            torch.cuda.current_stream(device).synchronize()
+        else:
             torch.cuda.synchronize(device)
 
     def timed(name, fn):
-        sync()
-        t0 = time.perf_counter()
-        with obs.span(f"phase:{name}", cat="compute"):
-            out = fn()
+        fenced = not (async_inv and name == "inv")
+        if fenced:
             sync()
+        t0 = time.perf_counter()
+        with obs.span(f"phase:{name}",
+                      cat="compute" if fenced else "dispatch"):
+            out = fn()
+            if fenced:
+                sync()
         dt = time.perf_counter() - t0
         phase_s[name] = dt
         if hist is not None:
@@ -120,6 +142,16 @@ class KFACProgram:
     whenever the lagged drift exceeds ``smw_drift_budget``;
     ``smw_rank`` caps the columns per update.
 
+    ``async_inv``: the staleness-tolerant double-buffered refresh
+    (:class:`AsyncInverseRefresher`): at each inv trigger step N swaps in
+    the inverses of the factors as of step N - ``inv_every`` and
+    dispatches the next refresh, which on the card runs on a side stream
+    beside the following steps. Excludes ``smw``.
+
+    ``dist_inv``: the refresh through the block-parallel solver
+    (``steps.make_inv_refresh(distributed=True)``); on one device that is
+    the replicated refresh, as in the reference.
+
     ``obs``: phase spans and the ``train_phase_s`` histogram."""
 
     cfg: Any
@@ -130,15 +162,22 @@ class KFACProgram:
     smw_drift_budget: float = 0.05
     smw_rank: int = 64
     fused_wu: bool = True
+    async_inv: bool = False
+    dist_inv: bool = False
     obs: Any = None
 
     def __post_init__(self):
+        if self.smw and self.async_inv:
+            raise ValueError(
+                "--smw refreshes the inverses inside every step; there "
+                "is no inv cadence left for --async-inv to overlap")
         self.device = resolve_device(str(self.device))
         if self.obs is None:
             self.obs = obs_mod.NULL
         quantize.precision_kind(self.kcfg.precision)   # raises if unknown
         fp32_matmuls()
         self._smw = None
+        self._refresher = None
 
     @property
     def wu_route(self) -> str:
@@ -160,17 +199,32 @@ class KFACProgram:
         the loss and ``phase_s``, each phase's fenced wall seconds:
         ``stats``, ``inv`` and ``train``, or with ``smw`` ``smw``,
         ``inv`` (on a fallback) and ``train``; ``wu``, the WU inside
-        ``train``, in both."""
+        ``train``, in both. With ``async_inv``, ``inv`` is the dispatch
+        of the refresh."""
         kcfg = self.kcfg
         phase_s: dict = {}
-        timed = _phase_timer(self.device, self.obs, phase_s)
+        timed = _phase_timer(self.device, self.obs, phase_s,
+                             async_inv=self.async_inv)
         wu_plan = (steps_mod.make_wu_plan_for(self.cfg, state)
                    if self.fused_wu else None)
         train = steps_mod.make_train_step(
             self.cfg, kcfg, wu_plan=wu_plan,
             use_kernel=self.wu_route == "fused_precond", timer=timed)
         stats = steps_mod.make_stats_step(self.cfg, kcfg)
-        refresh = steps_mod.make_inv_refresh(self.cfg, kcfg)
+        refresh = steps_mod.make_inv_refresh(self.cfg, kcfg,
+                                             distributed=self.dist_inv)
+
+        self._refresher = None
+        if self.async_inv:
+            # the spare seeds the double buffer: the first dispatch (step
+            # 0, inside the watchdog's warm-up) already writes into
+            # buffers it is given, as every later one does
+            spare = {n: {k: torch.zeros_like(t) for k, t in d.items()}
+                     for n, d in state.kfac.inverses.items()}
+            self._refresher = AsyncInverseRefresher(
+                refresh_into=lambda factors, buf: refresh(factors, out=buf),
+                spare_buffers=spare, obs=self.obs)
+        refresher = self._refresher
 
         self._smw = None
         if self.smw:
@@ -200,7 +254,10 @@ class KFACProgram:
                     state, m = timed("stats", lambda: stats(
                         state, subsample(batch)))
                     metrics.update(m)
-                if i % kcfg.inv_every == 0:
+                if i % kcfg.inv_every == 0 and refresher is not None:
+                    state = dataclasses.replace(state, kfac=timed(
+                        "inv", lambda: refresher.step(state.kfac)))
+                elif i % kcfg.inv_every == 0:
                     kst = state.kfac
                     inv = timed("inv", lambda: refresh(kst.factors))
                     state = dataclasses.replace(
@@ -212,17 +269,30 @@ class KFACProgram:
 
         return step_fn
 
+    @property
+    def refresher(self):
+        """The :class:`AsyncInverseRefresher` of the last
+        :meth:`make_step` (``async_inv``), else None."""
+        return self._refresher
+
     # -- lifecycle hooks of runtime.TrainLoop --------------------------------
 
     def flush_async(self, state: TrainState) -> TrainState:
-        """The state to checkpoint. Nothing runs in the background on
-        this program (the reference's ``--async-inv`` refresher is not
-        ported yet), so it is the state itself."""
-        return state
+        """The state to checkpoint: with ``async_inv`` the in-flight
+        refresh folded in (``peek``: the live refresher keeps its swap,
+        so the checkpoint cadence never changes the trajectory), else
+        the state itself."""
+        if self._refresher is None:
+            return state
+        return dataclasses.replace(state,
+                                   kfac=self._refresher.peek(state.kfac))
 
     def reset_async(self) -> None:
-        """Recovery hook: force the SMW gate's next step to fall back (a
-        restored inverse tree is un-probed)."""
+        """Recovery hook: drop the in-flight refresh (the restored
+        factors are not what it inverts), and force the SMW gate's next
+        step to fall back (a restored inverse tree is un-probed)."""
+        if self._refresher is not None:
+            self._refresher.reset()
         if self._smw is not None:
             self._smw.reset()
 
@@ -310,6 +380,15 @@ def main(argv=None):
     ap.add_argument("--stats-every", type=int, default=10)
     ap.add_argument("--inv-every", type=int, default=10)
     ap.add_argument("--block-size", type=int, default=128)
+    ap.add_argument("--dist-inv", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="block-parallel SOI inversion through the "
+                         "solver; on one device the replicated refresh")
+    ap.add_argument("--async-inv", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="staleness-tolerant double-buffered inverse "
+                         "refresh on a side CUDA stream, overlapping the "
+                         "train steps")
     ap.add_argument("--fused-wu", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="pooled WU plan: one batched two-sided product "
@@ -370,7 +449,9 @@ def main(argv=None):
                               smw=args.smw,
                               smw_drift_budget=args.smw_drift_budget,
                               smw_rank=args.smw_rank,
-                              fused_wu=args.fused_wu, obs=obs)
+                              fused_wu=args.fused_wu,
+                              async_inv=args.async_inv,
+                              dist_inv=args.dist_inv, obs=obs)
     else:
         program = SGDProgram(cfg, lr=args.lr, seed=args.seed,
                              device=device, obs=obs)
@@ -402,8 +483,12 @@ def main(argv=None):
                         if device.type == "cuda" else "cpu"),
         "batch": args.batch, "seq": args.seq,
         "block_size": kcfg.block_size, "precision": args.precision,
-        **({"wu_route": program.wu_route, "smw": args.smw}
+        **({"wu_route": program.wu_route, "smw": args.smw,
+            "async_inv": args.async_inv, "dist_inv": args.dist_inv}
            if args.optimizer == "kfac" else {}),
+        **({"n_dispatched": program.refresher.n_dispatched,
+            "n_swapped": program.refresher.n_swapped}
+           if args.optimizer == "kfac" and args.async_inv else {}),
         **{k: v for k, v in result.items() if k != "history"},
         "losses": [h["loss"] for h in history],
         "kernel_launches": ops.launch_counts(),

@@ -15,7 +15,9 @@ wants compute attribution. The tracer makes the choice explicit:
   region) on every CUDA device the target lives on — a tensor, a
   ``torch.device``, or dicts, lists, tuples and dataclasses of them —
   so the span covers dispatch + device completion: honest compute
-  attribution, at the price of a sync. A target on the CPU needs no
+  attribution, at the price of a sync. A ``torch.cuda.Stream`` target
+  waits for that stream alone (what ``TrainLoop`` passes when the
+  program overlaps a side stream). A target on the CPU needs no
   fence. ``cat`` defaults to ``"compute"``. A thunk fence
   (``fence=lambda: state``) resolves at exit, for state rebound
   during the span.
@@ -45,7 +47,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
-__all__ = ["Tracer"]
+__all__ = ["Tracer", "wait_for"]
 
 
 def _cuda_devices(target: Any, out: set) -> set:
@@ -69,8 +71,13 @@ def _cuda_devices(target: Any, out: set) -> set:
     return out
 
 
-def _fence(target: Any) -> None:
-    """Wait for every CUDA device ``target`` lives on."""
+def wait_for(target: Any) -> None:
+    """Wait for ``target``: a ``torch.cuda.Stream`` alone (work on other
+    streams, such as an asynchronous inverse refresh, runs on), else
+    every CUDA device the target lives on."""
+    if isinstance(target, torch.cuda.Stream):
+        target.synchronize()
+        return
     for dev in _cuda_devices(target, set()):
         torch.cuda.synchronize(dev)
 
@@ -122,7 +129,7 @@ class Tracer:
             raise
         finally:
             if err is None and fence is not None:
-                _fence(fence() if callable(fence) else fence)
+                wait_for(fence() if callable(fence) else fence)
             if annot is not None:
                 annot.__exit__(None, None, None)
             ev_args = dict(args or {})

@@ -42,6 +42,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager, latest_step, restore
 from repro_torch.data import DataCursor, SyntheticTokens
 from repro_torch.obs import NULL as NULL_OBS, Observability, TapBuffer
+from repro_torch.obs.trace import wait_for
 from repro_torch.runtime.elastic import DeviceLoss
 from repro_torch.runtime.watchdog import StepDeadlineExceeded, StepWatchdog
 
@@ -51,7 +52,9 @@ log = logging.getLogger("repro_torch.runtime")
 class Program(Protocol):
     """Optional hooks (duck-typed, used when present): ``flush_async
     (state) -> state`` folds in-flight background work into the state
-    before a checkpoint; ``reset_async()`` drops it on recovery."""
+    before a checkpoint; ``reset_async()`` drops it on recovery; a true
+    ``async_inv`` says that work runs on a side stream, so the step
+    fence waits for the current stream only."""
 
     device: Any
 
@@ -134,7 +137,7 @@ class TrainLoop:
 
     def _restore(self):
         like = self.program.init_state()      # structure donor
-        with self.obs.span("ckpt_restore", fence=self.device):
+        with self.obs.span("ckpt_restore", fence=self._fence_target()):
             state, manifest = restore(self.cfg.ckpt_dir, like)
         cursor = DataCursor.from_json(manifest["meta"]["cursor"])
         log.info("restored step %d onto %s", manifest["step"], self.device)
@@ -148,9 +151,18 @@ class TrainLoop:
             state, cursor = self.program.init_state(), DataCursor(0)
         return state, cursor, self.program.make_step(state)
 
+    def _fence_target(self):
+        """What a step waits for: the device, or with a program that
+        overlaps a side stream (``async_inv``) the current stream only,
+        as the reference's step fence blocks on the train state, never
+        on the independent refresh."""
+        if self.device.type == "cuda" \
+                and getattr(self.program, "async_inv", False):
+            return torch.cuda.current_stream(self.device)
+        return self.device
+
     def _fence(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        wait_for(self._fence_target())
 
     # -- main --------------------------------------------------------------
 

@@ -18,6 +18,8 @@ blocks).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -126,6 +128,77 @@ def test_neumann_inv_grouped_kernel_is_the_per_leaf_launches(cuda_device):
     for g, h in zip(got, mixed):
         assert torch.equal(g, h)
     assert torch.equal(mixed[-1], ops.neumann_inv(a64, d64, **KW))
+
+
+@pytest.mark.cuda
+def test_neumann_inv_grouped_out_writes_what_it_returns(cuda_device):
+    """``out=`` fills the given buffers, bitwise the fresh result, with
+    the same one launch a block side."""
+    leaves = [_damped(70 + k, nb, n) for k, (nb, n) in
+              enumerate(((6, 128), (9, 128), (4, 64)))]
+    blocks = [torch.from_numpy(a).to(cuda_device) for a, _ in leaves]
+    damps = [torch.from_numpy(d).to(cuda_device) for _, d in leaves]
+    want = ops.neumann_inv_grouped(blocks, damps, **KW)
+    out = [torch.full_like(a, float("nan")) for a in blocks]
+    before = ops.launch_counts()["neumann_inv"]
+    got = ops.neumann_inv_grouped(blocks, damps, out=out, **KW)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["neumann_inv"] == before + 2
+    for g, o, w in zip(got, out, want):
+        assert g is o and torch.equal(o, w)
+    with pytest.raises(ValueError, match="out="):
+        ops.neumann_inv_grouped(blocks[:1], damps[:1],
+                                out=[out[0].transpose(1, 2)], **KW)
+
+
+@pytest.mark.cuda
+def test_async_refresh_survives_the_allocators_reuse(cuda_device):
+    """The refresh on the side stream stays bitwise a synchronous one
+    when the main stream drops the factors right after the dispatch and
+    fills fresh allocations of their sizes before the swap: the factors
+    are marked as in use by the side stream, so the caching allocator
+    cannot hand their memory to the main stream's fills while the
+    refresh reads them. Every launch of the refresh is on the side
+    stream."""
+    from repro_torch.core import kfac
+    from repro_torch.solve import AsyncInverseRefresher
+
+    cfg = kfac.KFACConfig(**KW)
+    r = np.random.default_rng(5)
+
+    def factors():
+        return {f"l{i}": {"A": torch.from_numpy(_damped(
+            int(r.integers(1 << 30)), 96, 128)[0]).to(cuda_device)}
+            for i in range(12)}
+
+    fac = factors()
+    want = kfac.invert_factors({n: {k: v.clone() for k, v in d.items()}
+                                for n, d in fac.items()}, cfg)
+    zeros = {n: {"A_inv": torch.zeros_like(d["A_inv"])}
+             for n, d in want.items()}
+    refresher = AsyncInverseRefresher(
+        refresh_into=lambda f, buf: kfac.invert_factors(f, cfg, out=buf),
+        spare_buffers=zeros)
+    st = kfac.KFACState(0, fac, {n: {"A_inv": torch.eye(128, device=cuda_device)
+                                     .expand(96, 128, 128).contiguous()}
+                                 for n in fac}, {}, {}, {})
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    st = refresher.step(st)
+    shapes = [v.shape for d in fac.values() for v in d.values()]
+    st = dataclasses.replace(st, factors=None)
+    del fac
+    junk = [torch.empty(s, device=cuda_device).fill_(float("nan"))
+            for s in shapes for _ in range(2)]
+    st = refresher.flush(st)
+    torch.cuda.synchronize()
+    del junk
+    for n, d in want.items():
+        assert torch.equal(st.inverses[n]["A_inv"], d["A_inv"]), n
+    main = torch.cuda.current_stream(cuda_device).cuda_stream
+    streams = ops.launch_streams()["neumann_inv"]
+    assert sum(streams.values()) == 1 and main not in streams
+    assert refresher.stream.cuda_stream in streams
 
 
 @pytest.mark.cuda

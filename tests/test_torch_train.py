@@ -217,7 +217,8 @@ def test_package_imports_neither_jax_nor_repro():
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "print(bad)\n"
         "for m in ('launch.train', 'runtime.loop', 'checkpoint.store', "
-        "'obs.trace', 'obs.taps', 'lowp.parity', 'optim.first_order'):\n"
+        "'obs.trace', 'obs.taps', 'lowp.parity', 'optim.first_order', "
+        "'solve.block_solver', 'solve.pdiv', 'core.gauss_newton'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=SRC)
