@@ -102,7 +102,24 @@ Phases, each printed as a JSON line:
                  (achieved bits, ms), Gauss-Newton's G refresh through the
                  solver bitwise; the factors of one stats step at block
                  256 through pdiv at a cap of 128 (bits, ms)
-  12. trace      the main path's four steps again, the fourth under
+  12. families   the other decoder families on the main path's batch,
+                 block and cadence: moonshot-v1-16b-a3b (moe, 2 of 48
+                 layers), falcon-mamba-7b (ssm, 8 of 64) and qwen2-vl-7b
+                 (vlm, 3 of 28, with (8, 256, 1280) image embeddings and
+                 (3, 8, 256) M-RoPE positions) at their published widths,
+                 and recurrentgemma-9b at its smoke config (hybrid: one
+                 unit and an unstacked tail); each 4 K-FAC steps of
+                 ``launch.train.run`` with the launch counters zeroed
+                 just before and read just after (fused_precond once a WU
+                 group a step, neumann_inv once a block side and 32
+                 leaves a refresh), finite losses, the run's inverses
+                 against the plain version, one fused_precond call on the
+                 family's own WU plan and the refresh of its largest
+                 block side against their plain versions and timed
+                 (beside the library call and the bound), phase seconds
+                 and peak memory; then one ``--optimizer sgd`` step of the
+                 same config through the CLI, no kernel launched
+  13. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
                  so that the profiler session cannot perturb the phases
@@ -143,6 +160,17 @@ BITSLICE_TILE = (128, 192)
 MAIN = dict(arch="qwen1.5-0.5b", batch=8, seq=256, steps=4, stats_every=2,
             inv_every=2, block_size=128, seed=0)
 SMW = dict(steps=4, rank=64, drift_budget=0.05)
+# the other decoder families on the main path's batch and cadence: the
+# published widths and vocabularies, depth cut to fit one card (layers;
+# None keeps the config's own), recurrentgemma at its smoke config (its
+# untied 256000 x 4096 embedding and head alone fill the card)
+FAMILIES = (
+    dict(family="moe", arch="moonshot-v1-16b-a3b", layers=2),
+    dict(family="ssm", arch="falcon-mamba-7b", layers=8),
+    dict(family="vlm", arch="qwen2-vl-7b", layers=3),
+    dict(family="hybrid", arch="recurrentgemma-9b", layers=None,
+         smoke=True),
+)
 KFAC_COUNTS = dict(ns_iters=20, taylor_terms=4, refine_steps=2)
 # a kernel agrees with its plain version when max|kernel - plain| is at
 # most this share of max|plain| (rounding-level: the tensor cores sum the
@@ -202,6 +230,242 @@ def tensor_bytes(tree) -> int:
         return sum(tensor_bytes(getattr(tree, f.name))
                    for f in dataclasses.fields(tree))
     return 0
+
+
+class WithImages:
+    """The VLM's batch: the token dataset's rows plus ``img_embeds``
+    (B, n_img, vision_dim) and M-RoPE positions (3, B, T), made once
+    from the seed on the card (the image tokens on a 16 x 16 grid, any
+    text after them counting on in all three streams)."""
+
+    def __init__(self, torch, ds, cfg, seed, device):
+        g = torch.Generator(device=device).manual_seed(seed)
+        b, t, n = ds.global_batch, ds.seq_len, cfg.n_img_tokens
+        self.ds = ds
+        self.img = torch.randn((b, n, cfg.vision_dim), generator=g,
+                               device=device)
+        side = math.isqrt(n - 1) + 1
+        i = torch.arange(n, device=device)
+        grid = torch.stack([torch.zeros_like(i), i // side, i % side])
+        text = side + torch.arange(t - n, device=device)
+        pos = torch.cat([grid, text.expand(3, t - n)], dim=1)
+        self.pos = pos[:, None, :].expand(3, b, t).to(torch.int32) \
+            .contiguous()
+
+    def batch(self, cursor, *, device):
+        out = self.ds.batch(cursor, device=device)
+        out.update(img_embeds=self.img, positions=self.pos)
+        return out
+
+
+def families_phase(torch, dev, check, cli):
+    """Phase ``families``: each entry of :data:`FAMILIES` trains 4 K-FAC
+    steps through ``launch.train.run`` with the launch counters zeroed
+    just before and read just after; finite losses, ``fused_precond``
+    once a WU group a step and ``neumann_inv`` once a block side (and
+    32 leaves) a refresh; the run's inverses against the plain version
+    on the same factor blocks; one ``fused_precond`` call on the
+    family's own WU plan (the run's inverse pools, random tiles) and the
+    refresh of its largest block side, each against its plain version
+    and timed; then one ``--optimizer sgd`` step of the same config
+    through the CLI, with no kernel launched. Returns one record a
+    family."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import kfac, soi
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.neumann_inv import MAX_LEAVES
+    from repro_torch.launch import train as train_mod
+
+    import gc
+
+    import numpy as np
+
+    rows = []
+    for fam in FAMILIES:
+        t_phase = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        held_gb = torch.cuda.memory_allocated(dev) / 1e9
+        cfg = (get_smoke_config if fam.get("smoke") else get_config)(
+            fam["arch"])
+        full_layers = cfg.n_layers
+        if fam["layers"]:
+            cfg = dataclasses.replace(cfg, n_layers=fam["layers"])
+        bs = min(MAIN["block_size"], cfg.soi_block)
+        kcfg = kfac.KFACConfig(
+            stats_every=MAIN["stats_every"], inv_every=MAIN["inv_every"],
+            block_size=bs, stats_batch=MAIN["batch"], stats_seq=MAIN["seq"])
+        ds = SyntheticTokens(vocab=cfg.vocab, seq_len=MAIN["seq"],
+                             global_batch=MAIN["batch"], seed=MAIN["seed"])
+        if cfg.family == "vlm":
+            ds = WithImages(torch, ds, cfg, MAIN["seed"], dev)
+        program = train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"],
+                                        device="cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = train_mod.run(program, ds, MAIN["steps"])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        name = cfg.name
+        losses = [h["loss"] for h in hist]
+        check(all(math.isfinite(x) for x in losses),
+              f"{name}: finite losses")
+        wu = train_mod.steps_mod.make_wu_plan_for(cfg, state)
+        check(launches["fused_precond"] == MAIN["steps"] * len(wu.groups),
+              f"{name}: fused_precond once a WU group a step")
+        by_side = {}
+        for d in state.kfac.factors.values():
+            for t in d.values():
+                by_side[t.shape[-1]] = by_side.get(t.shape[-1], 0) + 1
+        per_refresh = sum(-(-c // MAX_LEAVES) for c in by_side.values())
+        refreshes = sum("inv" in h["phase_s"] for h in hist)
+        check(launches["neumann_inv"] == refreshes * per_refresh,
+              f"{name}: neumann_inv once a block side a refresh")
+
+        # the run's inverses against the plain version on its factors
+        worst = dict(rel_err=0.0, leaf=None)
+        leaves = []
+        for lname, d in state.kfac.factors.items():
+            for side, f in d.items():
+                flat = f.reshape(-1, f.shape[-1], f.shape[-1])
+                lam = soi.tikhonov_damping(flat, kcfg.damping)
+                leaves.append((flat, lam))
+                mine = state.kfac.inverses[lname][side + "_inv"].reshape(
+                    flat.shape)
+                plain = ref.neumann_inv_ref(flat, lam, **KFAC_COUNTS)
+                rel = float((mine - plain).abs().max()
+                            / plain.abs().max())
+                if rel > worst["rel_err"]:
+                    worst = dict(rel_err=rel, leaf=f"{lname}/{side}")
+                check(rel <= REL_TOL_RUN, f"{name}: {lname}/{side} "
+                      f"neumann_inv kernel vs plain (run)")
+                del mine, plain
+
+        # the refresh of the largest block side, timed: one grouped call
+        n_big = max(by_side)
+        big = [(x, y) for x, y in leaves if x.shape[-1] == n_big]
+        blocks, lams = [x for x, _ in big], [y for _, y in big]
+        nb = sum(x.shape[0] for x in blocks)
+        prods = (5 * KFAC_COUNTS["ns_iters"]
+                 + 5 * (KFAC_COUNTS["taylor_terms"] - 1)
+                 + 6 * KFAC_COUNTS["refine_steps"])
+        inv_b_ms, inv_b_by = bound(4.0 * (2 * nb * n_big * n_big + nb),
+                                   2.0 * n_big ** 3 * prods * nb)
+        cat = torch.cat(blocks)
+        cat_lam = torch.cat(lams)
+        eye = torch.eye(n_big, device=dev)
+        refresh_row = dict(
+            block_side=n_big, leaves=len(blocks), blocks=nb,
+            launches=-(-len(blocks) // MAX_LEAVES),
+            ms=time_ms(torch, lambda: ops.neumann_inv_grouped(
+                blocks, lams, **KFAC_COUNTS)),
+            plain_ms=time_ms(torch, lambda: [ref.neumann_inv_ref(
+                x, y, **KFAC_COUNTS) for x, y in big]),
+            library_ms=time_ms(torch, lambda: torch.linalg.inv(
+                cat + cat_lam[:, None, None] * eye)),
+            bound_ms=inv_b_ms, bound_by=inv_b_by)
+        del cat, cat_lam, leaves, big, blocks, lams
+
+        # one fused_precond call on the family's own WU plan: its largest
+        # group, the run's inverse pools, random gradient tiles; the
+        # plain version in chunks of 8192 tiles (the tiles are
+        # independent: the same function with a bounded footprint)
+        grp = max(wu.groups, key=lambda g: g.n_tiles)
+        pools = kfac.inverse_pools(state.kfac.inverses, wu.inv_plan)
+        pa, pg = pools[grp.bi], pools[grp.bo]
+        n_params = sum(p.numel() for p in state.params.values())
+        del state, program, pools
+        gc.collect()
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(MAIN["seed"])
+        g = torch.randn(grp.n_tiles, grp.bi, grp.bo, device=dev,
+                        generator=gen)
+        a_src, g_src = grp.src_on(dev)
+
+        def plain():
+            parts = [ref.fused_precond_ref(pa, g[lo:lo + 8192], pg,
+                                           a_src[lo:lo + 8192],
+                                           g_src[lo:lo + 8192])
+                     for lo in range(0, g.shape[0], 8192)]
+            return (torch.cat([o for o, _ in parts]),
+                    torch.cat([d for _, d in parts]))
+
+        out, dots = ops.fused_precond(pa, g, pg, a_src, g_src)
+        p_out, p_dots = plain()
+        err = float((out - p_out).abs().max())
+        scale = float(p_out.abs().max())
+        d_err = float((dots - p_dots).abs().max())
+        d_scale = float(p_dots.abs().max())
+        check(err <= REL_TOL * scale, f"{name}: fused_precond vs plain")
+        check(d_err <= REL_TOL * d_scale,
+              f"{name}: fused_precond vs plain (dots)")
+        nt, bi, bo = grp.n_tiles, grp.bi, grp.bo
+        # each input read once (each distinct pool block once), each
+        # output written once
+        n_a, n_g = np.unique(grp.a_src).size, np.unique(grp.g_src).size
+        wu_b_ms, wu_b_by = bound(
+            4.0 * (2 * nt * bi * bo + nt + n_a * bi * bi + n_g * bo * bo),
+            2.0 * nt * 3 * (bi * bi * bo + bi * bo * bo))
+        a_idx, g_idx = a_src.long(), g_src.long()
+        precond_row = dict(
+            shape=[nt, bi, bo], groups=len(wu.groups), rel_err=err / scale,
+            dots_rel_err=d_err / d_scale,
+            ms=time_ms(torch, lambda: ops.fused_precond(pa, g, pg, a_src,
+                                                        g_src)),
+            plain_ms=time_ms(torch, plain),
+            library_ms=time_ms(torch, lambda: torch.matmul(
+                torch.matmul(pa[a_idx], g), pg[g_idx])),
+            bound_ms=wu_b_ms, bound_by=wu_b_by)
+        del out, dots, p_out, p_dots, pa, pg, g, a_idx, g_idx
+        torch.cuda.empty_cache()
+
+        # one first-order step of the same config through the CLI (the
+        # CLI's --arch names the published depth: the cut config is
+        # handed to it for this call)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        get_cfg = train_mod.get_smoke_config if fam.get("smoke") \
+            else train_mod.get_config
+        attr = get_cfg.__name__
+        setattr(train_mod, attr, lambda arch, _c=cfg: _c)
+        try:
+            sgd_sum = cli(["--arch", fam["arch"], "--optimizer", "sgd",
+                           "--steps", "1", "--batch", str(MAIN["batch"]),
+                           "--seq", str(MAIN["seq"]),
+                           "--seed", str(MAIN["seed"])]
+                          + (["--smoke"] if fam.get("smoke") else []))
+        finally:
+            setattr(train_mod, attr, get_cfg)
+        sgd_launches = ops.launch_counts()
+        sgd_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        check(len(sgd_sum["losses"]) == 1
+              and math.isfinite(sgd_sum["losses"][0]),
+              f"{name}: one finite sgd step")
+        check(set(sgd_launches.values()) == {0},
+              f"{name}: sgd launches no kernel")
+        torch.cuda.empty_cache()
+        rows.append(dict(
+            family=fam["family"], arch=name, layers=cfg.n_layers,
+            held_at_start_gb=held_gb,
+            published_layers=full_layers, d_model=cfg.d_model,
+            vocab=cfg.vocab, params=n_params, block_size=bs,
+            batch=MAIN["batch"], seq=MAIN["seq"],
+            train_accum=cfg.train_accum, steps=MAIN["steps"],
+            losses=losses, phase_s=[h["phase_s"] for h in hist],
+            wall_s=wall, peak_mem_gb=peak, launches=launches,
+            neumann_inv_per_refresh=per_refresh,
+            inv_blocks=wu.inv_plan.total_blocks, wu_tiles=wu.total_tiles,
+            worst_inverse=worst, refresh=refresh_row,
+            fused_precond=precond_row, sgd_losses=sgd_sum["losses"],
+            sgd_peak_mem_gb=sgd_peak,
+            sgd_phase_s=[h["phase_s"] for h in sgd_sum["history"]],
+            phase_seconds=time.perf_counter() - t_phase))
+    return rows
 
 
 def main() -> int:
@@ -1475,7 +1739,15 @@ def main() -> int:
           "solver": solver})
     torch.cuda.empty_cache()
 
-    # 12. trace: the main path's fourth step (FP, BP and WU only) under
+    # 12. families: moe, ssm, vlm at full width (depth cut) and the
+    # hybrid at its smoke config, each through launch.train.run and the
+    # CLI's sgd path
+    t0 = time.perf_counter()
+    fam_rows = families_phase(torch, dev, check, cli)
+    emit({"phase": "families", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi, "runs": fam_rows})
+
+    # 13. trace: the main path's fourth step (FP, BP and WU only) under
     # torch.profiler, kernels only, last, so that the profiler session
     # cannot perturb the phases timed before it: the device's busy time
     # (the union of the kernels' intervals) against the step's host wall

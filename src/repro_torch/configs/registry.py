@@ -1,8 +1,9 @@
 """Architecture registry (counterpart of ``repro.configs.registry``).
 
-The port runs the dense decoder family. The other families keep their
-names here so that ``--arch`` spells the same ids as the reference,
-but asking for one raises until its models are ported.
+The port runs the decoder families: dense, moe, ssm, hybrid and vlm.
+The audio encoder-decoder (whisper) keeps its name here so that
+``--arch`` spells the same ids as the reference, but asking for it
+raises until its model is ported.
 """
 
 from __future__ import annotations
@@ -25,12 +26,7 @@ ARCHS = (
 
 # archs whose model family the port cannot run yet -> that family
 UNPORTED = {
-    "moonshot-v1-16b-a3b": "moe",
-    "phi3.5-moe-42b-a6.6b": "moe",
-    "recurrentgemma-9b": "hybrid",
     "whisper-tiny": "audio",
-    "qwen2-vl-7b": "vlm",
-    "falcon-mamba-7b": "ssm",
 }
 
 
@@ -43,7 +39,7 @@ def _module(name: str):
     if arch in UNPORTED:
         raise NotImplementedError(
             f"arch {arch!r} is of the {UNPORTED[arch]!r} family, which "
-            f"repro_torch does not run yet (dense only)")
+            f"repro_torch does not run yet (decoder families only)")
     return importlib.import_module("repro_torch.configs." + norm)
 
 

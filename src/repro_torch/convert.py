@@ -3,8 +3,9 @@ the port's tensors, through numpy.
 
 The reference keeps parameters as nested dicts whose leaf paths
 (``dist.api.path_key``) are names like ``layers/attn/wq`` with shape
-(L, d, h*hd); the port keeps the same arrays in a flat dict under those
-names. Factors and inverses are ``{name: {"A"|"G": ...}}`` and
+(L, d, h*hd), ``layers/moe/wg`` (L, e, d, f), ``units/sub0/rec/w_a``
+(n_units, lw, lw) or ``tail/sub0/mlp/wd`` (f, d); the port keeps the
+same arrays in a flat dict under those names, for every family. Factors and inverses are ``{name: {"A"|"G": ...}}`` and
 ``{name: {"A_inv"|"G_inv": ...}}`` in both. The reference allocates its
 optimizer moments as trees shaped like the parameters with zero-size
 placeholders on the unused path; the port keeps only the used side.

@@ -38,11 +38,25 @@ def make_wu_plan_for(cfg, state: TrainState):
 
 
 def _grads(cfg, params, batch) -> Tuple[torch.Tensor, dict]:
+    """Loss and gradients; a parameter the batch does not reach (the
+    VLM's ``img_proj`` without ``img_embeds``) gets a zero gradient, as
+    in JAX."""
     p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
         loss, _ = lm.loss_fn(cfg, p, batch)
-        grads = torch.autograd.grad(loss, list(p.values()))
-    return loss.detach(), dict(zip(p, grads))
+        grads = torch.autograd.grad(loss, list(p.values()),
+                                    allow_unused=True)
+    return loss.detach(), {
+        k: torch.zeros_like(v) if g is None else g
+        for (k, v), g in zip(p.items(), grads)}
+
+
+def batch_rows(batch: dict, lo: int, hi: int) -> dict:
+    """Rows ``lo:hi`` of every batch leaf: the batch dim is the first
+    one, except for M-RoPE ``positions`` (3, B, T), where it is the
+    second."""
+    return {k: (v[:, lo:hi] if k == "positions" and v.ndim == 3
+                else v[lo:hi]) for k, v in batch.items()}
 
 
 def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
@@ -74,7 +88,7 @@ def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
                                     device=p.device)
                      for k, p in state.params.items()}
             for i in range(accum):
-                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                part = batch_rows(batch, i * mb, (i + 1) * mb)
                 l_i, g_i = _grads(cfg, state.params, part)
                 grads = {k: grads[k] + g_i[k].to(torch.float32) / accum
                          for k in grads}

@@ -238,9 +238,16 @@ class KFACProgram:
         smw_ref = self._smw
 
         def subsample(batch):
+            # the SU's sequences and tokens, and the VLM's image rows
+            # and M-RoPE positions with them
             sb = min(batch["tokens"].shape[0], kcfg.stats_batch)
             ss = min(batch["tokens"].shape[1], kcfg.stats_seq)
-            return {"tokens": batch["tokens"][:sb, :ss]}
+            out = {"tokens": batch["tokens"][:sb, :ss]}
+            if "img_embeds" in batch:
+                out["img_embeds"] = batch["img_embeds"][:sb]
+            if "positions" in batch:
+                out["positions"] = batch["positions"][:, :sb, :ss]
+            return out
 
         def step_fn(state: TrainState, batch):
             i = state.kfac.step
@@ -364,7 +371,10 @@ def run(program: KFACProgram, ds: SyntheticTokens, n_steps: int,
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="architecture id (configs.ARCHS): the dense, moe, "
+                         "ssm, hybrid and vlm families; whisper-tiny is not "
+                         "ported")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--device", default="cuda",

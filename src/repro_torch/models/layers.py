@@ -1,6 +1,7 @@
 """Model primitives for training (counterpart of ``repro.models.layers``):
-norms, RoPE, chunked GQA attention, SwiGLU and the tapped dense layer
-that feeds K-FAC its statistics.
+norms, RoPE and M-RoPE, chunked and windowed GQA attention, SwiGLU,
+GELU, the causal depthwise convolution, and the tapped dense layers
+(plain and stacked) that feed K-FAC its statistics.
 
 Conventions follow the reference: parameters are fp32, compute casts to
 the config's dtype, and every dense product accumulates in fp32. torch
@@ -14,7 +15,7 @@ once at the end as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +60,26 @@ def dense(x: torch.Tensor, w: torch.Tensor, name: str,
     return y.to(dt)
 
 
+def dense_stacked(x: torch.Tensor, w: torch.Tensor, name: str,
+                  ctx: Optional[Ctx] = None,
+                  collect_gram: bool = True) -> torch.Tensor:
+    """Batched tapped linear for stacked weights (the MoE experts):
+    ``x`` (S..., T, d_in), ``w`` (S..., d_in, d_out) with matching
+    leading stack dims. Collected Grams (or tokens) keep the stack dims:
+    (S..., nb, bs, bs)."""
+    dt = x.dtype
+    y = torch.matmul(x.to(torch.float32), w.to(dt).to(torch.float32))
+    if ctx is not None:
+        if ctx.collect and collect_gram:
+            xf = x.detach().to(torch.float32)
+            ctx.stats[name] = (soi.blocked_tokens(xf, ctx.soi_block)
+                               if ctx.collect == "cols"
+                               else soi.blocked_gram(xf, ctx.soi_block))
+        if ctx.taps is not None and name in ctx.taps:
+            y = y + ctx.taps[name].reshape(y.shape)
+    return y.to(dt)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -71,12 +92,24 @@ def rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** (ar / hd))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Rotary embedding; ``x`` (B, T, H, hd), ``positions`` (B, T)."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """Rotary embedding; ``x`` (B, T, H, hd), ``positions`` (B, T), or
+    (3, B, T) for M-RoPE (qwen2-vl), where ``sections`` splits the hd/2
+    frequency channels between the temporal, height and width streams."""
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)
-    ang = positions[..., None].to(torch.float32) * freqs
+    if positions.ndim == 3 and sections:
+        parts, start = [], 0
+        for s, sec in enumerate(sections):
+            parts.append(positions[s][..., None].to(torch.float32)
+                         * freqs[start:start + sec])
+            start += sec
+        ang = torch.cat(parts, dim=-1)
+    else:
+        if positions.ndim == 3:
+            positions = positions[0]
+        ang = positions[..., None].to(torch.float32) * freqs
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
@@ -99,9 +132,11 @@ def _gqa_scores_to_out(q, k, v, mask, dt):
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q_pos: torch.Tensor, kv_pos: torch.Tensor,
-              chunk: int = 0) -> torch.Tensor:
+              chunk: int = 0, window: int = 0) -> torch.Tensor:
     """Causal GQA attention; queries are processed in chunks of
     ``chunk`` when ``T > chunk`` to bound the (chunk x S) score tensor.
+    ``window`` > 0 keeps only the keys less than ``window`` positions
+    back (the hybrid family's local layers).
 
     q (B, T, H, hd); k/v (B, S, Hkv, hd); positions (B, T), (B, S)."""
     B, T, H, hd = q.shape
@@ -110,7 +145,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(B, T, hkv, H // hkv, hd)
 
     def mask_for(qp):
-        return qp[:, :, None] >= kv_pos[:, None, :]
+        m = qp[:, :, None] >= kv_pos[:, None, :]
+        if window:
+            m = m & (kv_pos[:, None, :] > qp[:, :, None] - window)
+        return m
 
     if chunk and T > chunk:
         pad = (-T) % chunk
@@ -128,3 +166,78 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.to(torch.float32)).to(gate.dtype) * up
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation, in fp32."""
+    return F.gelu(x.to(torch.float32), approximate="tanh").to(x.dtype)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, ``log(1 + exp(x))`` as ``logaddexp(x, 0)``
+    (``F.softplus`` turns into the identity above its threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal convolution along time, training form (no
+    carried state): ``x`` (B, T, C), ``w`` (C, W); fp32 sums over the
+    W taps in the reference's order, cast back to ``x.dtype``."""
+    W = w.shape[-1]
+    T = x.shape[1]
+    xin = F.pad(x, (0, 0, W - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(W):
+        out = out + xin[:, i:i + T, :].to(torch.float32) \
+            * w[:, i].to(torch.float32)
+    if b is not None:
+        out = out + b.to(torch.float32)
+    return out.to(x.dtype)
+
+
+#: steps in a chunk of :func:`linear_scan`
+SCAN_CHUNK = 16
+
+
+def linear_scan(decay: torch.Tensor, inp: torch.Tensor) -> torch.Tensor:
+    """Every state ``h_t = decay_t h_{t-1} + inp_t`` from ``h_{-1} = 0``
+    along dim 1 of (B, T, ...) fp32 tensors (the recurrences the
+    reference runs as ``jax.lax.associative_scan``; the sums run in
+    another order).
+
+    In two levels over chunks of :data:`SCAN_CHUNK` steps: every chunk's
+    local scan from a zero state, all chunks at once, with the running
+    decay products; then the states entering the chunks, one chunk a
+    step; then each local state plus its decay product times the state
+    entering its chunk. About ``2 c + T / c`` steps of small kernels in
+    place of T, and four (B, T, ...) tensors kept for the backward pass
+    (decay, local states, decay products, states), where a log-depth
+    scan keeps two a level."""
+    B, T = decay.shape[:2]
+    c = min(SCAN_CHUNK, T)
+    K = -(-T // c)
+    pad = K * c - T
+    rest = decay.shape[2:]
+    if pad:
+        widths = (0, 0) * len(rest) + (0, pad)
+        decay = F.pad(decay, widths, value=1.0)
+        inp = F.pad(inp, widths)
+    dec = decay.reshape((B, K, c) + rest)
+    x = inp.reshape((B, K, c) + rest)
+    # a copy: a view would keep all of ``inp`` alive for the backward
+    h = x[:, :, 0].clone()
+    p = dec[:, :, 0]
+    hs, ps = [h], [p]
+    for j in range(1, c):
+        h = dec[:, :, j] * h + x[:, :, j]
+        p = dec[:, :, j] * p
+        hs.append(h)
+        ps.append(p)
+    enter = [torch.zeros_like(h[:, 0])]
+    for k in range(1, K):
+        enter.append(hs[-1][:, k - 1] + ps[-1][:, k - 1] * enter[-1])
+    enter = torch.stack(enter, dim=1)
+    out = torch.stack([hj + pj * enter for hj, pj in zip(hs, ps)], dim=2)
+    return out.reshape((B, K * c) + rest)[:, :T]

@@ -1,17 +1,30 @@
-"""Dense decoder LM (the dense family of ``repro.models.lm``).
+"""Decoder LM families of ``repro.models.lm``, training path: dense,
+moe, ssm, hybrid and vlm.
+
+  dense, vlm : global attention + SwiGLU MLP (vlm: M-RoPE and a stubbed
+               vision frontend, ``img_proj`` of precomputed patch
+               embeddings into the first token slots)
+  moe        : global attention + top-k MoE FFN (``models.moe``)
+  ssm        : Mamba-1 mixer only (``models.ssm``)
+  hybrid     : RecurrentGemma pattern units (rec, rec, local attention),
+               each sub-layer followed by a SwiGLU MLP, then a tail of
+               the ``n_layers % len(pattern)`` sub-layers left over
 
 Parameters are a flat dict keyed by the reference's parameter paths
-(``embed``, ``final_norm``, ``layers/attn/wq`` ...), with the layer
-stack as a leading (L, ...) dim exactly as in the JAX tree, so K-FAC
-specs, factors and converted weights address the same names. Where the
-reference scans over layers, a Python loop walks the unbound stack.
+(``embed``, ``layers/attn/wq``, ``units/sub0/rec/w_a``,
+``tail/sub0/mlp/wd`` ...), with the layer (or pattern-unit) stack as a
+leading dim exactly as in the JAX tree (MoE experts add a second one,
+``(L, e, ...)``; the hybrid tail has none), so K-FAC specs, factors and
+converted weights address the same names. Where the reference scans
+over layers, a Python loop walks the unbound stack.
 
 K-FAC integration: every factored linear goes through
-``layers.dense`` under its parameter path; taps (zeros, one per
-factored linear, shape (L, tokens, d_out)) enter per layer and their
-gradients are the per-token output gradients; with ``collect`` the
-input-side blocked Grams (or, with ``collect="cols"``, blocked tokens)
-come back stacked over layers.
+``layers.dense`` / ``dense_stacked`` under its parameter path; taps
+(zeros, one per factored linear, shape ``(*stack, tokens, d_out)``,
+tokens being the expert capacity for MoE experts) enter per layer and
+their gradients are the per-token output gradients; with ``collect``
+the input-side blocked Grams (or, with ``collect="cols"``, blocked
+tokens) come back stacked like the taps.
 """
 
 from __future__ import annotations
@@ -22,6 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.soi import LinearSpec
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     Ctx,
     apply_rope,
@@ -34,6 +50,8 @@ from repro_torch.models.layers import (
 Params = Dict[str, torch.Tensor]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+#: the families this port runs (the audio encoder-decoder is not ported)
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -41,17 +59,106 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"repro_torch runs the dense family only, not {cfg.family!r}")
+            f"repro_torch runs the {', '.join(FAMILIES)} families, not "
+            f"{cfg.family!r}")
+
+
+def layer_plan(cfg) -> Tuple[str, ...]:
+    """Per-layer kind sequence."""
+    if cfg.family in ("dense", "vlm"):
+        return ("attn",) * cfg.n_layers
+    if cfg.family == "moe":
+        return ("moe",) * cfg.n_layers
+    if cfg.family == "ssm":
+        return ("mamba",) * cfg.n_layers
+    if cfg.family == "hybrid":
+        return tuple(cfg.pattern[i % len(cfg.pattern)]
+                     for i in range(cfg.n_layers))
+    raise ValueError(cfg.family)
+
+
+def _hybrid_split(cfg) -> Tuple[int, Tuple[str, ...]]:
+    """``(n_units, tail kinds)`` of the hybrid pattern."""
+    unit = tuple(cfg.pattern)
+    return cfg.n_layers // len(unit), unit[: cfg.n_layers % len(unit)]
+
+
+def _stacks(cfg):
+    """``[(prefix, kind, stack)]``: every sub-layer parameter group with
+    its stack dims (one group of ``L`` layers outside the hybrid)."""
+    if cfg.family == "hybrid":
+        n_units, tail = _hybrid_split(cfg)
+        return ([(f"units/sub{i}", k, (n_units,))
+                 for i, k in enumerate(cfg.pattern)]
+                + [(f"tail/sub{i}", k, ()) for i, k in enumerate(tail)])
+    return [("layers", layer_plan(cfg)[0], (cfg.n_layers,))]
+
+
+def _init_layer(cfg, kind, prefix, st, normal, zeros) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p: Params = {f"{prefix}/ln1": zeros(st + (d,))}
+    if kind in ("attn", "local", "moe", "rec"):
+        p[f"{prefix}/ln2"] = zeros(st + (d,))
+    if kind in ("attn", "local", "moe"):
+        p[f"{prefix}/attn/wq"] = normal(st + (d, h * hd), d ** -0.5)
+        p[f"{prefix}/attn/wk"] = normal(st + (d, kv * hd), d ** -0.5)
+        p[f"{prefix}/attn/wv"] = normal(st + (d, kv * hd), d ** -0.5)
+        p[f"{prefix}/attn/wo"] = normal(st + (h * hd, d), (h * hd) ** -0.5)
+    if kind == "rec":
+        lw = cfg.lru_width_
+        p[f"{prefix}/rec/in_x"] = normal(st + (d, lw), d ** -0.5)
+        p[f"{prefix}/rec/in_gate"] = normal(st + (d, lw), d ** -0.5)
+        p[f"{prefix}/rec/conv_w"] = normal(st + (lw, cfg.ssm_conv), 0.1)
+        p[f"{prefix}/rec/conv_b"] = zeros(st + (lw,))
+        p[f"{prefix}/rec/w_a"] = normal(st + (lw, lw), lw ** -0.5)
+        p[f"{prefix}/rec/w_x"] = normal(st + (lw, lw), lw ** -0.5)
+        lam = torch.log(torch.expm1(torch.linspace(
+            0.9, 4.0, lw, dtype=torch.float32)))   # softplus^-1 spread
+        p[f"{prefix}/rec/lam"] = lam.to(zeros(()).device).expand(
+            st + (lw,)).contiguous()
+        p[f"{prefix}/rec/out"] = normal(st + (lw, d), lw ** -0.5)
+    if kind in ("attn", "local", "rec"):
+        p[f"{prefix}/mlp/wg"] = normal(st + (d, f), d ** -0.5)
+        p[f"{prefix}/mlp/wu"] = normal(st + (d, f), d ** -0.5)
+        p[f"{prefix}/mlp/wd"] = normal(st + (f, d), f ** -0.5)
+    if kind == "moe":
+        e = cfg.n_experts
+        p[f"{prefix}/moe/router"] = normal(st + (d, e), d ** -0.5)
+        p[f"{prefix}/moe/wg"] = normal(st + (e, d, f), d ** -0.5)
+        p[f"{prefix}/moe/wu"] = normal(st + (e, d, f), d ** -0.5)
+        p[f"{prefix}/moe/wd"] = normal(st + (e, f, d), f ** -0.5)
+    if kind == "mamba":
+        di, n, dr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
+        p[f"{prefix}/mamba/in_proj"] = normal(st + (d, 2 * di), d ** -0.5)
+        p[f"{prefix}/mamba/conv_w"] = normal(st + (di, cfg.ssm_conv), 0.1)
+        p[f"{prefix}/mamba/conv_b"] = zeros(st + (di,))
+        p[f"{prefix}/mamba/x_proj"] = normal(st + (di, dr + 2 * n),
+                                             di ** -0.5)
+        p[f"{prefix}/mamba/dt_proj"] = normal(st + (dr, di), dr ** -0.5)
+        # softplus^-1(0.01), and A = -[1..n] per channel
+        p[f"{prefix}/mamba/dt_bias"] = zeros(st + (di,)) + float(
+            torch.log(torch.expm1(torch.tensor(0.01))))
+        p[f"{prefix}/mamba/A_log"] = torch.log(
+            torch.arange(1, n + 1, dtype=torch.float32,
+                         device=zeros(()).device)).expand(
+                st + (di, n)).contiguous()
+        p[f"{prefix}/mamba/D"] = zeros(st + (di,)) + 1.0
+        p[f"{prefix}/mamba/out_proj"] = normal(st + (di, d), di ** -0.5)
+    if kind in ("attn", "local", "moe") and cfg.qkv_bias:
+        p[f"{prefix}/attn/bq"] = zeros(st + (h * hd,))
+        p[f"{prefix}/attn/bk"] = zeros(st + (kv * hd,))
+        p[f"{prefix}/attn/bv"] = zeros(st + (kv * hd,))
+    return p
 
 
 def init(cfg, *, generator: torch.Generator, device) -> Params:
     """Random fp32 parameters with the reference's distributions (the
     values differ: torch and jax generators give different numbers)."""
     _check_family(cfg)
-    L, d, v, f = cfg.n_layers, cfg.d_model, cfg.vocab, cfg.d_ff
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    d, v = cfg.d_model, cfg.vocab
 
     def normal(shape, scale):
         return torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -60,29 +167,24 @@ def init(cfg, *, generator: torch.Generator, device) -> Params:
     def zeros(shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
-    p = {
-        "embed": normal((v, d), 0.02),
-        "final_norm": zeros((d,)),
-        "layers/ln1": zeros((L, d)),
-        "layers/ln2": zeros((L, d)),
-        "layers/attn/wq": normal((L, d, h * hd), d ** -0.5),
-        "layers/attn/wk": normal((L, d, kv * hd), d ** -0.5),
-        "layers/attn/wv": normal((L, d, kv * hd), d ** -0.5),
-        "layers/attn/wo": normal((L, h * hd, d), (h * hd) ** -0.5),
-        "layers/mlp/wg": normal((L, d, f), d ** -0.5),
-        "layers/mlp/wu": normal((L, d, f), d ** -0.5),
-        "layers/mlp/wd": normal((L, f, d), f ** -0.5),
-    }
-    if cfg.qkv_bias:
-        p["layers/attn/bq"] = zeros((L, h * hd))
-        p["layers/attn/bk"] = zeros((L, kv * hd))
-        p["layers/attn/bv"] = zeros((L, kv * hd))
+    p = {"embed": normal((v, d), 0.02), "final_norm": zeros((d,))}
+    for prefix, kind, st in _stacks(cfg):
+        p.update(_init_layer(cfg, kind, prefix, st, normal, zeros))
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((d, v), d ** -0.5)
+    if cfg.family == "vlm" and cfg.vision_dim:
+        p["img_proj"] = normal((cfg.vision_dim, d), cfg.vision_dim ** -0.5)
     return p
 
 
-def _attn_block(cfg, p, x, positions, ctx, prefix):
+def _sub(p: Params, group: str) -> Params:
+    """The ``group/`` entries of a layer's parameters, prefix dropped."""
+    n = len(group) + 1
+    return {k[n:]: v for k, v in p.items() if k.startswith(group + "/")}
+
+
+def _attn_block(cfg, p, x, positions, ctx, prefix, *, window=0,
+                mrope=False):
     B, T, _ = x.shape
     hd = cfg.hd
     xin = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -95,10 +197,13 @@ def _attn_block(cfg, p, x, positions, ctx, prefix):
     q = q.reshape(B, T, -1, hd)
     k = k.reshape(B, T, -1, hd)
     v = v.reshape(B, T, -1, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    out = attention(q, k, v, positions, positions,
-                    chunk=cfg.attn_chunk if T > cfg.attn_chunk else 0)
+    sections = cfg.mrope_sections if mrope else ()
+    q = apply_rope(q, positions, cfg.rope_theta, sections)
+    k = apply_rope(k, positions, cfg.rope_theta, sections)
+    q_pos = positions[0] if positions.ndim == 3 else positions
+    out = attention(q, k, v, q_pos, q_pos,
+                    chunk=cfg.attn_chunk if T > cfg.attn_chunk else 0,
+                    window=window)
     out = dense(out.reshape(B, T, -1), p["attn/wo"], f"{prefix}/attn/wo",
                 ctx)
     return x + out
@@ -109,6 +214,43 @@ def _mlp_block(cfg, p, x, ctx, prefix):
     g = dense(xin, p["mlp/wg"], f"{prefix}/mlp/wg", ctx)
     u = dense(xin, p["mlp/wu"], f"{prefix}/mlp/wu", ctx, collect_gram=False)
     return x + dense(swiglu(g, u), p["mlp/wd"], f"{prefix}/mlp/wd", ctx)
+
+
+def _layer_apply(cfg, kind, p, x, positions, ctx, prefix):
+    """One decoder sub-layer of the given kind; ``p`` holds its
+    parameters without the ``prefix/``."""
+    if kind in ("attn", "local"):
+        x = _attn_block(cfg, p, x, positions, ctx, prefix,
+                        window=cfg.window if kind == "local" else 0,
+                        mrope=(cfg.family == "vlm"))
+        return _mlp_block(cfg, p, x, ctx, prefix)
+    if kind == "moe":
+        x = _attn_block(cfg, p, x, positions, ctx, prefix)
+        xin = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + moe_mod.moe_ffn(cfg, _sub(p, "moe"), xin, ctx,
+                                   f"{prefix}/moe")
+    if kind == "mamba":
+        xin = rms_norm(x, p["ln1"], cfg.norm_eps)
+        return x + ssm_mod.mamba_mixer(cfg, _sub(p, "mamba"), xin, ctx,
+                                       f"{prefix}/mamba")
+    if kind == "rec":
+        xin = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = x + rglru_mod.rglru_mixer(cfg, _sub(p, "rec"), xin, ctx,
+                                      f"{prefix}/rec")
+        return _mlp_block(cfg, p, x, ctx, prefix)
+    raise ValueError(kind)
+
+
+def _embed(cfg, params, batch, dt):
+    x = params["embed"].to(dt)[batch["tokens"]]
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        # stubbed vision frontend: precomputed patch embeddings projected
+        # into the first n_img token slots
+        img = torch.matmul(batch["img_embeds"].to(dt).to(torch.float32),
+                           params["img_proj"].to(dt).to(torch.float32))
+        img = img.to(dt)
+        x = x + F.pad(img, (0, 0, 0, x.shape[1] - img.shape[1]))
+    return x
 
 
 def _logits(cfg, params, x):
@@ -132,32 +274,57 @@ def forward(cfg, params: Params, batch, taps=None,
             soi_block: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
     """Training forward. Returns ``(logits, stats)``: fp32 logits
     (B, T, vocab padded to 128) and, with ``collect``, the blocked
-    A-Grams ``{name: (L, nb, bs, bs)}`` (with ``collect="cols"`` the
-    blocked tokens ``{name: (L, B*T, nb, bs)}``) at block cap
+    A-Grams ``{name: (*stack, nb, bs, bs)}`` (with ``collect="cols"``
+    the blocked tokens ``{name: (*stack, tokens, nb, bs)}``) at block cap
     ``soi_block`` (default ``cfg.soi_block``; the K-FAC stats passes
-    give their own block size so the statistics match the factors)."""
+    give their own block size so the statistics match the factors).
+
+    ``batch``: ``tokens`` (B, T), and for the vlm family optionally
+    ``img_embeds`` (B, n_img, vision_dim) and M-RoPE ``positions``
+    (3, B, T)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
     dt = compute_dtype(cfg)
-    positions = torch.arange(T, dtype=torch.int32,
-                             device=tokens.device)[None].expand(B, T)
-    x = params["embed"].to(dt)[tokens]
-    layer = {k[len("layers/"):]: v.unbind(0) for k, v in params.items()
-             if k.startswith("layers/")}
-    tap_l = {k: v.unbind(0) for k, v in (taps or {}).items()}
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(T, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, T)
+    x = _embed(cfg, params, batch, dt)
+    block = soi_block or cfg.soi_block
+    taps = taps or {}
     stats: Dict[str, list] = {}
-    for i in range(cfg.n_layers):
-        p_l = {k: v[i] for k, v in layer.items()}
-        ctx = Ctx(taps={k: v[i] for k, v in tap_l.items()} or None,
-                  collect=collect, soi_block=soi_block or cfg.soi_block)
-        x = _attn_block(cfg, p_l, x, positions, ctx, "layers")
-        x = _mlp_block(cfg, p_l, x, ctx, "layers")
-        for name, s in ctx.stats.items():
-            stats.setdefault(name, []).append(s)
+    out_stats: Dict[str, torch.Tensor] = {}
+    stacks = _stacks(cfg)
+    stacked = [(pfx, kind) for pfx, kind, st in stacks if st]
+    if stacked:
+        n = stacks[0][2][0]
+        group = stacked[0][0].split("/")[0]     # "layers" or "units"
+        unb = {k: v.unbind(0) for k, v in params.items()
+               if k.startswith(group + "/")}
+        tap_l = {k: v.unbind(0) for k, v in taps.items()
+                 if k.startswith(group + "/")}
+        for i in range(n):
+            for pfx, kind in stacked:
+                ctx = Ctx(taps={k: v[i] for k, v in tap_l.items()} or None,
+                          collect=collect, soi_block=block)
+                p_l = {k[len(pfx) + 1:]: v[i] for k, v in unb.items()
+                       if k.startswith(pfx + "/")}
+                x = _layer_apply(cfg, kind, p_l, x, positions, ctx, pfx)
+                for name, s in ctx.stats.items():
+                    stats.setdefault(name, []).append(s)
+    for pfx, kind, st in stacks:
+        if st:
+            continue
+        # the hybrid tail: unstacked parameters, taps and statistics
+        ctx = Ctx(taps=taps or None, collect=collect, soi_block=block)
+        x = _layer_apply(cfg, kind, _sub(params, pfx), x, positions, ctx,
+                         pfx)
+        out_stats.update(ctx.stats)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(cfg, params, x)
-    return logits, {k: torch.stack(v) for k, v in stats.items()}
+    out_stats.update({k: torch.stack(v) for k, v in stats.items()})
+    return logits, out_stats
 
 
 def loss_from_logits(cfg, logits: torch.Tensor, batch) -> torch.Tensor:
@@ -185,30 +352,67 @@ def loss_fn(cfg, params: Params, batch, taps=None,
 
 
 def kfac_specs(cfg) -> Dict[str, LinearSpec]:
-    """Every factored linear of the dense family, by parameter path."""
+    """Every factored linear by parameter path (the reference's
+    registry): MoE experts stack ``(L, e)`` over capacity tokens, the
+    hybrid's tail linears have no stack."""
     _check_family(cfg)
     d, f = cfg.d_model, cfg.d_ff
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    st = (cfg.n_layers,)
-    return {
-        "layers/attn/wq": LinearSpec(d, h * hd, st),
-        "layers/attn/wk": LinearSpec(d, kv * hd, st,
-                                     share_a_with="layers/attn/wq"),
-        "layers/attn/wv": LinearSpec(d, kv * hd, st,
-                                     share_a_with="layers/attn/wq"),
-        "layers/attn/wo": LinearSpec(h * hd, d, st),
-        "layers/mlp/wg": LinearSpec(d, f, st),
-        "layers/mlp/wu": LinearSpec(d, f, st, share_a_with="layers/mlp/wg"),
-        "layers/mlp/wd": LinearSpec(f, d, st),
-    }
+    specs: Dict[str, LinearSpec] = {}
+
+    def attn(prefix, st):
+        specs[f"{prefix}/attn/wq"] = LinearSpec(d, h * hd, st)
+        specs[f"{prefix}/attn/wk"] = LinearSpec(
+            d, kv * hd, st, share_a_with=f"{prefix}/attn/wq")
+        specs[f"{prefix}/attn/wv"] = LinearSpec(
+            d, kv * hd, st, share_a_with=f"{prefix}/attn/wq")
+        specs[f"{prefix}/attn/wo"] = LinearSpec(h * hd, d, st)
+
+    def mlp(prefix, st):
+        specs[f"{prefix}/mlp/wg"] = LinearSpec(d, f, st)
+        specs[f"{prefix}/mlp/wu"] = LinearSpec(
+            d, f, st, share_a_with=f"{prefix}/mlp/wg")
+        specs[f"{prefix}/mlp/wd"] = LinearSpec(f, d, st)
+
+    def rec(prefix, st):
+        lw = cfg.lru_width_
+        specs[f"{prefix}/rec/in_x"] = LinearSpec(d, lw, st)
+        specs[f"{prefix}/rec/in_gate"] = LinearSpec(
+            d, lw, st, share_a_with=f"{prefix}/rec/in_x")
+        specs[f"{prefix}/rec/w_a"] = LinearSpec(lw, lw, st)
+        specs[f"{prefix}/rec/w_x"] = LinearSpec(
+            lw, lw, st, share_a_with=f"{prefix}/rec/w_a")
+        specs[f"{prefix}/rec/out"] = LinearSpec(lw, d, st)
+
+    for prefix, kind, st in _stacks(cfg):
+        if kind in ("attn", "local", "moe"):
+            attn(prefix, st)
+        if kind == "rec":
+            rec(prefix, st)
+        if kind in ("attn", "local", "rec"):
+            mlp(prefix, st)
+        if kind == "moe":
+            es = st + (cfg.n_experts,)
+            specs[f"{prefix}/moe/wg"] = LinearSpec(d, f, es, cap_tokens=True)
+            specs[f"{prefix}/moe/wu"] = LinearSpec(
+                d, f, es, share_a_with=f"{prefix}/moe/wg", cap_tokens=True)
+            specs[f"{prefix}/moe/wd"] = LinearSpec(f, d, es, cap_tokens=True)
+        if kind == "mamba":
+            di, n, dr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
+            specs[f"{prefix}/mamba/in_proj"] = LinearSpec(d, 2 * di, st)
+            specs[f"{prefix}/mamba/x_proj"] = LinearSpec(di, dr + 2 * n, st)
+            specs[f"{prefix}/mamba/dt_proj"] = LinearSpec(dr, di, st)
+            specs[f"{prefix}/mamba/out_proj"] = LinearSpec(di, d, st)
+    return specs
 
 
 def build_taps(cfg, specs: Dict[str, LinearSpec], n_tokens: int, *,
                device) -> Dict[str, torch.Tensor]:
-    """Zero taps for a stats pass over ``n_tokens`` tokens, ready to
-    take gradients."""
-    del cfg
-    return {name: torch.zeros(s.stack + (n_tokens, s.d_out),
-                              dtype=torch.float32, device=device,
-                              requires_grad=True)
-            for name, s in specs.items()}
+    """Zero taps for a stats pass over ``n_tokens`` tokens (the expert
+    capacity for ``cap_tokens`` linears), ready to take gradients."""
+    out = {}
+    for name, s in specs.items():
+        t = moe_mod.capacity(cfg, n_tokens) if s.cap_tokens else n_tokens
+        out[name] = torch.zeros(s.stack + (t, s.d_out), dtype=torch.float32,
+                                device=device, requires_grad=True)
+    return out

@@ -429,3 +429,69 @@ def test_fused_gram_inv_kernel_refuses_large_blocks(cuda_device):
     a = torch.ones(64, 2, 130, device=cuda_device)
     with pytest.raises(ValueError, match="n <= 128"):
         ops.fused_gram_inv(a, rel_damp=0.05, **KW)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stack", [(2, 3), ()])
+def test_fused_precond_kernel_on_stacked_and_unstacked_leaves(cuda_device,
+                                                              stack):
+    """The pooled WU through the kernel on leaves stacked like MoE
+    experts, (L, e), and unstacked like the hybrid's tail, with a padded
+    last block on both sides (176 = 128 + 48), against the same WU on
+    the CPU (the kernel's plain version)."""
+    from repro_torch.core import kfac, soi
+    from repro_torch.core.soi import LinearSpec
+    from repro_torch.solve.partition import make_wu_plan
+
+    specs = {"moe/wg": LinearSpec(256, 176, stack),
+             "moe/wu": LinearSpec(256, 176, stack, share_a_with="moe/wg"),
+             "moe/wd": LinearSpec(176, 256, stack)}
+    r = np.random.default_rng(len(stack))
+    shapes = {n: soi.factor_shapes(s, 128) for n, s in specs.items()}
+    inv = {n: {k + "_inv": torch.from_numpy(r.standard_normal(shp).astype(
+        np.float32)) for k, shp in d.items()} for n, d in shapes.items()}
+    grads = {n: torch.from_numpy(r.standard_normal(
+        s.stack + (s.d_in, s.d_out)).astype(np.float32))
+        for n, s in specs.items()}
+    plan = make_wu_plan(specs, {n: {k: torch.empty(shp, device="meta")
+                                    for k, shp in d.items()}
+                                for n, d in shapes.items()})
+    want = kfac.precondition_pooled(grads, inv, plan, use_kernel=True)
+    before = ops.launch_counts()["fused_precond"]
+    got = kfac.precondition_pooled(
+        {n: g.to(cuda_device) for n, g in grads.items()},
+        {n: {k: t.to(cuda_device) for k, t in d.items()}
+         for n, d in inv.items()}, plan, use_kernel=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_precond"] == before + len(plan.groups)
+    for n, w in want.items():
+        assert got[n].shape == w.shape == stack + grads[n].shape[-2:]
+        assert (got[n].cpu() - w).abs().max() <= 1e-4 * w.abs().max(), n
+
+
+@pytest.mark.cuda
+def test_neumann_inv_grouped_on_a_padded_288_wide_factor(cuda_device):
+    """Mamba's x_proj G factor at the published widths: 288 outputs in
+    three 128-blocks, the last holding 32 and zero padding, for a stack
+    of 2 layers, grouped with an unpadded leaf; each against the plain
+    version on the same blocks, with K-FAC's damping."""
+    from repro_torch.core import soi
+
+    r = np.random.default_rng(288)
+    g = torch.from_numpy(r.standard_normal((2, 512, 288)).astype(
+        np.float32))
+    padded = (soi.blocked_gram(g, 128) * 512).reshape(-1, 128, 128)
+    assert padded.shape == (6, 128, 128)
+    assert float(padded[2, 32:].abs().max()) == 0.0
+    full = torch.from_numpy(_damped(7, 4, 128)[0])
+    blocks = [padded.contiguous(), full]
+    damps = [soi.tikhonov_damping(b, 0.03) for b in blocks]
+    before = ops.launch_counts()["neumann_inv"]
+    got = ops.neumann_inv_grouped([b.to(cuda_device) for b in blocks],
+                                  [d.to(cuda_device) for d in damps], **KW)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["neumann_inv"] == before + 1
+    for b, d, x in zip(blocks, damps, got):
+        want = tref.neumann_inv_ref(b.to(cuda_device), d.to(cuda_device),
+                                    **KW)
+        assert (x - want).abs().max() <= 1e-4 * want.abs().max()

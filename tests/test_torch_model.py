@@ -188,8 +188,9 @@ def test_init_is_reproducible_from_the_seed():
 
 def test_unported_family_raises():
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="moe"):
-        get_config("moonshot-v1-16b-a3b")
-    moe_like = dataclasses.replace(t_get_smoke_config(ARCH), family="moe")
-    with pytest.raises(NotImplementedError, match="dense"):
-        tlm.kfac_specs(moe_like)
+    with pytest.raises(NotImplementedError, match="audio"):
+        get_config("whisper-tiny")
+    audio_like = dataclasses.replace(t_get_smoke_config(ARCH),
+                                     family="audio")
+    with pytest.raises(NotImplementedError, match="audio"):
+        tlm.kfac_specs(audio_like)
