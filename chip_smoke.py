@@ -119,13 +119,39 @@ Phases, each printed as a JSON line:
                  (beside the library call and the bound), phase seconds
                  and peak memory; then one ``--optimizer sgd`` step of the
                  same config through the CLI, no kernel launched
-  13. trace      the main path's four steps again, the fourth under
+  13. whisper    whisper-tiny (audio encoder-decoder, 4 + 4 layers, d
+                 384, vocab 51865) at its published widths: 4 K-FAC steps
+                 of ``launch.train.run`` on 8 x 448 decoder tokens with
+                 448 seeded frames, block 128, the same cadence; launch
+                 counters zeroed just before and read just after
+                 (neumann_inv 2, fused_precond 4), finite losses, the
+                 run's inverses and one fused_precond call on its WU
+                 plan against their plain versions (timed, beside the
+                 library call and the bound); one SGD step; one static
+                 serve (batch 8, a 4-token prompt, 32 tokens, greedy)
+  14. serve      the serving path on qwen1.5-0.5b at full width: the
+                 static path (batch 8, prompt 256, 32 tokens, greedy);
+                 the engine on ``synthetic_trace`` (16 requests, prompts
+                 of 256-512, up to 64 tokens, 8 slots of 1024 columns,
+                 decode chunks of 8); each request held to the static
+                 path's greedy decode of its prompt (first tokens agree;
+                 a later divergence only where the static run's top two
+                 logits lie within SERVE_GAP_TOL, counted); one decode
+                 chunk of 8 live slots under
+                 ``torch.cuda.set_sync_debug_mode("error")``; then
+                 falcon-mamba-7b (8 of 64 layers) and recurrentgemma's
+                 smoke config through the engine, each held to its
+                 static path; prefill and decode seconds, decode tokens
+                 a second, each request's time to first token, resident
+                 bytes, peak memory; no kernel launched (checked)
+  15. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
                  so that the profiler session cannot perturb the phases
                  timed before it
 
-Then a JSON line of per-kernel results, the nvidia-smi line, and last
+Then a JSON line of per-kernel results (with whisper's launches and the
+serve phase's, none), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 without the ``ok`` line; so does a machine without CUDA, or a directory
 without the repository's ``src/repro_torch``.
@@ -171,6 +197,30 @@ FAMILIES = (
     dict(family="hybrid", arch="recurrentgemma-9b", layers=None,
          smoke=True),
 )
+# whisper-tiny at its published widths: 8 sequences of its 448 decoder
+# tokens (max_target_positions) with 448 seeded frames, the main path's
+# block and cadence
+WHISPER = dict(batch=8, seq=448, steps=4, stats_every=2, inv_every=2,
+               block_size=128, seed=0)
+# the serving path on the main path's model: the static batch, the
+# engine's synthetic trace, and the recurrent families (falcon-mamba-7b
+# at its published widths with depth cut as in FAMILIES, recurrentgemma
+# at its smoke config)
+SERVE = dict(arch="qwen1.5-0.5b", seed=0, static_batch=8, static_prompt=256,
+             static_gen=32, requests=16, prompt_len=512, gen=64,
+             max_slots=8, max_len=1024, decode_chunk=8,
+             recurrent=(
+                 dict(arch="falcon-mamba-7b", layers=8, requests=4,
+                      prompt_len=64, gen=16, max_slots=2),
+                 dict(arch="recurrentgemma-9b", smoke=True, requests=4,
+                      prompt_len=24, gen=8, max_slots=2)))
+# a greedy divergence between the engine and the static path must start
+# where the static run's top two logits lie within this: both compute in
+# bf16 but round differently (the engine prefills a padded bucket and
+# attends over its 1024 columns), and random weights give near-flat
+# logits (15 of 16 requests diverged, at gaps of 0.0035-0.0167, on an
+# H100 80GB HBM3 at 700 W)
+SERVE_GAP_TOL = 0.05
 KFAC_COUNTS = dict(ns_iters=20, taylor_terms=4, refine_steps=2)
 # a kernel agrees with its plain version when max|kernel - plain| is at
 # most this share of max|plain| (rounding-level: the tensor cores sum the
@@ -258,6 +308,146 @@ class WithImages:
         return out
 
 
+def kfac_launch_checks(check, name, state, hist, launches, wu) -> int:
+    """A K-FAC run's launches: ``fused_precond`` once a WU group a step,
+    ``neumann_inv`` once a block side (and 32 leaves) a refresh. Returns
+    the launches a refresh makes."""
+    from repro_torch.kernels.neumann_inv import MAX_LEAVES
+
+    check(launches["fused_precond"] == len(hist) * len(wu.groups),
+          f"{name}: fused_precond once a WU group a step")
+    by_side = {}
+    for d in state.kfac.factors.values():
+        for t in d.values():
+            by_side[t.shape[-1]] = by_side.get(t.shape[-1], 0) + 1
+    per_refresh = sum(-(-c // MAX_LEAVES) for c in by_side.values())
+    refreshes = sum("inv" in h["phase_s"] for h in hist)
+    check(launches["neumann_inv"] == refreshes * per_refresh,
+          f"{name}: neumann_inv once a block side a refresh")
+    return per_refresh
+
+
+def kfac_kernel_checks(torch, dev, check, name, box, kcfg, wu):
+    """The kernels of a K-FAC run held to their plain versions and
+    timed: the run's inverses (``box["state"]``, popped so that its
+    memory can go before the WU's tiles are made) against the plain
+    ``neumann_inv`` on the same factor blocks; the refresh of the
+    largest block side, one grouped call; and one ``fused_precond``
+    call on the WU plan ``wu``'s largest group (the run's inverse pools,
+    random tiles), each beside its library call and its bound. Returns
+    ``(worst inverse, refresh row, fused_precond row)``."""
+    from repro_torch.core import kfac, soi
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.neumann_inv import MAX_LEAVES
+
+    import gc
+
+    import numpy as np
+
+    state = box.pop("state")
+    by_side = {}
+    for d in state.kfac.factors.values():
+        for t in d.values():
+            by_side[t.shape[-1]] = by_side.get(t.shape[-1], 0) + 1
+    # the run's inverses against the plain version on its factors
+    worst = dict(rel_err=0.0, leaf=None)
+    leaves = []
+    for lname, d in state.kfac.factors.items():
+        for side, f in d.items():
+            flat = f.reshape(-1, f.shape[-1], f.shape[-1])
+            lam = soi.tikhonov_damping(flat, kcfg.damping)
+            leaves.append((flat, lam))
+            mine = state.kfac.inverses[lname][side + "_inv"].reshape(
+                flat.shape)
+            plain = ref.neumann_inv_ref(flat, lam, **KFAC_COUNTS)
+            rel = float((mine - plain).abs().max()
+                        / plain.abs().max())
+            if rel > worst["rel_err"]:
+                worst = dict(rel_err=rel, leaf=f"{lname}/{side}")
+            check(rel <= REL_TOL_RUN, f"{name}: {lname}/{side} "
+                  f"neumann_inv kernel vs plain (run)")
+            del mine, plain
+
+    # the refresh of the largest block side, timed: one grouped call
+    n_big = max(by_side)
+    big = [(x, y) for x, y in leaves if x.shape[-1] == n_big]
+    blocks, lams = [x for x, _ in big], [y for _, y in big]
+    nb = sum(x.shape[0] for x in blocks)
+    prods = (5 * KFAC_COUNTS["ns_iters"]
+             + 5 * (KFAC_COUNTS["taylor_terms"] - 1)
+             + 6 * KFAC_COUNTS["refine_steps"])
+    inv_b_ms, inv_b_by = bound(4.0 * (2 * nb * n_big * n_big + nb),
+                               2.0 * n_big ** 3 * prods * nb)
+    cat = torch.cat(blocks)
+    cat_lam = torch.cat(lams)
+    eye = torch.eye(n_big, device=dev)
+    refresh_row = dict(
+        block_side=n_big, leaves=len(blocks), blocks=nb,
+        launches=-(-len(blocks) // MAX_LEAVES),
+        ms=time_ms(torch, lambda: ops.neumann_inv_grouped(
+            blocks, lams, **KFAC_COUNTS)),
+        plain_ms=time_ms(torch, lambda: [ref.neumann_inv_ref(
+            x, y, **KFAC_COUNTS) for x, y in big]),
+        library_ms=time_ms(torch, lambda: torch.linalg.inv(
+            cat + cat_lam[:, None, None] * eye)),
+        bound_ms=inv_b_ms, bound_by=inv_b_by)
+    del cat, cat_lam, leaves, big, blocks, lams
+
+    # one fused_precond call on the family's own WU plan: its largest
+    # group, the run's inverse pools, random gradient tiles; the
+    # plain version in chunks of 8192 tiles (the tiles are
+    # independent: the same function with a bounded footprint)
+    grp = max(wu.groups, key=lambda g: g.n_tiles)
+    pools = kfac.inverse_pools(state.kfac.inverses, wu.inv_plan)
+    pa, pg = pools[grp.bi], pools[grp.bo]
+    del state, pools
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(MAIN["seed"])
+    g = torch.randn(grp.n_tiles, grp.bi, grp.bo, device=dev,
+                    generator=gen)
+    a_src, g_src = grp.src_on(dev)
+
+    def plain():
+        parts = [ref.fused_precond_ref(pa, g[lo:lo + 8192], pg,
+                                       a_src[lo:lo + 8192],
+                                       g_src[lo:lo + 8192])
+                 for lo in range(0, g.shape[0], 8192)]
+        return (torch.cat([o for o, _ in parts]),
+                torch.cat([d for _, d in parts]))
+
+    out, dots = ops.fused_precond(pa, g, pg, a_src, g_src)
+    p_out, p_dots = plain()
+    err = float((out - p_out).abs().max())
+    scale = float(p_out.abs().max())
+    d_err = float((dots - p_dots).abs().max())
+    d_scale = float(p_dots.abs().max())
+    check(err <= REL_TOL * scale, f"{name}: fused_precond vs plain")
+    check(d_err <= REL_TOL * d_scale,
+          f"{name}: fused_precond vs plain (dots)")
+    nt, bi, bo = grp.n_tiles, grp.bi, grp.bo
+    # each input read once (each distinct pool block once), each
+    # output written once
+    n_a, n_g = np.unique(grp.a_src).size, np.unique(grp.g_src).size
+    wu_b_ms, wu_b_by = bound(
+        4.0 * (2 * nt * bi * bo + nt + n_a * bi * bi + n_g * bo * bo),
+        2.0 * nt * 3 * (bi * bi * bo + bi * bo * bo))
+    a_idx, g_idx = a_src.long(), g_src.long()
+    precond_row = dict(
+        shape=[nt, bi, bo], groups=len(wu.groups), rel_err=err / scale,
+        dots_rel_err=d_err / d_scale,
+        ms=time_ms(torch, lambda: ops.fused_precond(pa, g, pg, a_src,
+                                                    g_src)),
+        plain_ms=time_ms(torch, plain),
+        library_ms=time_ms(torch, lambda: torch.matmul(
+            torch.matmul(pa[a_idx], g), pg[g_idx])),
+        bound_ms=wu_b_ms, bound_by=wu_b_by)
+    del out, dots, p_out, p_dots, pa, pg, g, a_idx, g_idx
+    torch.cuda.empty_cache()
+
+    return worst, refresh_row, precond_row
+
+
 def families_phase(torch, dev, check, cli):
     """Phase ``families``: each entry of :data:`FAMILIES` trains 4 K-FAC
     steps through ``launch.train.run`` with the launch counters zeroed
@@ -271,15 +461,12 @@ def families_phase(torch, dev, check, cli):
     through the CLI, with no kernel launched. Returns one record a
     family."""
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.core import kfac, soi
+    from repro_torch.core import kfac
     from repro_torch.data.pipeline import SyntheticTokens
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.neumann_inv import MAX_LEAVES
+    from repro_torch.kernels import ops
     from repro_torch.launch import train as train_mod
 
     import gc
-
-    import numpy as np
 
     rows = []
     for fam in FAMILIES:
@@ -316,113 +503,13 @@ def families_phase(torch, dev, check, cli):
         check(all(math.isfinite(x) for x in losses),
               f"{name}: finite losses")
         wu = train_mod.steps_mod.make_wu_plan_for(cfg, state)
-        check(launches["fused_precond"] == MAIN["steps"] * len(wu.groups),
-              f"{name}: fused_precond once a WU group a step")
-        by_side = {}
-        for d in state.kfac.factors.values():
-            for t in d.values():
-                by_side[t.shape[-1]] = by_side.get(t.shape[-1], 0) + 1
-        per_refresh = sum(-(-c // MAX_LEAVES) for c in by_side.values())
-        refreshes = sum("inv" in h["phase_s"] for h in hist)
-        check(launches["neumann_inv"] == refreshes * per_refresh,
-              f"{name}: neumann_inv once a block side a refresh")
-
-        # the run's inverses against the plain version on its factors
-        worst = dict(rel_err=0.0, leaf=None)
-        leaves = []
-        for lname, d in state.kfac.factors.items():
-            for side, f in d.items():
-                flat = f.reshape(-1, f.shape[-1], f.shape[-1])
-                lam = soi.tikhonov_damping(flat, kcfg.damping)
-                leaves.append((flat, lam))
-                mine = state.kfac.inverses[lname][side + "_inv"].reshape(
-                    flat.shape)
-                plain = ref.neumann_inv_ref(flat, lam, **KFAC_COUNTS)
-                rel = float((mine - plain).abs().max()
-                            / plain.abs().max())
-                if rel > worst["rel_err"]:
-                    worst = dict(rel_err=rel, leaf=f"{lname}/{side}")
-                check(rel <= REL_TOL_RUN, f"{name}: {lname}/{side} "
-                      f"neumann_inv kernel vs plain (run)")
-                del mine, plain
-
-        # the refresh of the largest block side, timed: one grouped call
-        n_big = max(by_side)
-        big = [(x, y) for x, y in leaves if x.shape[-1] == n_big]
-        blocks, lams = [x for x, _ in big], [y for _, y in big]
-        nb = sum(x.shape[0] for x in blocks)
-        prods = (5 * KFAC_COUNTS["ns_iters"]
-                 + 5 * (KFAC_COUNTS["taylor_terms"] - 1)
-                 + 6 * KFAC_COUNTS["refine_steps"])
-        inv_b_ms, inv_b_by = bound(4.0 * (2 * nb * n_big * n_big + nb),
-                                   2.0 * n_big ** 3 * prods * nb)
-        cat = torch.cat(blocks)
-        cat_lam = torch.cat(lams)
-        eye = torch.eye(n_big, device=dev)
-        refresh_row = dict(
-            block_side=n_big, leaves=len(blocks), blocks=nb,
-            launches=-(-len(blocks) // MAX_LEAVES),
-            ms=time_ms(torch, lambda: ops.neumann_inv_grouped(
-                blocks, lams, **KFAC_COUNTS)),
-            plain_ms=time_ms(torch, lambda: [ref.neumann_inv_ref(
-                x, y, **KFAC_COUNTS) for x, y in big]),
-            library_ms=time_ms(torch, lambda: torch.linalg.inv(
-                cat + cat_lam[:, None, None] * eye)),
-            bound_ms=inv_b_ms, bound_by=inv_b_by)
-        del cat, cat_lam, leaves, big, blocks, lams
-
-        # one fused_precond call on the family's own WU plan: its largest
-        # group, the run's inverse pools, random gradient tiles; the
-        # plain version in chunks of 8192 tiles (the tiles are
-        # independent: the same function with a bounded footprint)
-        grp = max(wu.groups, key=lambda g: g.n_tiles)
-        pools = kfac.inverse_pools(state.kfac.inverses, wu.inv_plan)
-        pa, pg = pools[grp.bi], pools[grp.bo]
+        per_refresh = kfac_launch_checks(check, name, state, hist,
+                                         launches, wu)
         n_params = sum(p.numel() for p in state.params.values())
-        del state, program, pools
-        gc.collect()
-        torch.cuda.empty_cache()
-        gen = torch.Generator(device=dev).manual_seed(MAIN["seed"])
-        g = torch.randn(grp.n_tiles, grp.bi, grp.bo, device=dev,
-                        generator=gen)
-        a_src, g_src = grp.src_on(dev)
-
-        def plain():
-            parts = [ref.fused_precond_ref(pa, g[lo:lo + 8192], pg,
-                                           a_src[lo:lo + 8192],
-                                           g_src[lo:lo + 8192])
-                     for lo in range(0, g.shape[0], 8192)]
-            return (torch.cat([o for o, _ in parts]),
-                    torch.cat([d for _, d in parts]))
-
-        out, dots = ops.fused_precond(pa, g, pg, a_src, g_src)
-        p_out, p_dots = plain()
-        err = float((out - p_out).abs().max())
-        scale = float(p_out.abs().max())
-        d_err = float((dots - p_dots).abs().max())
-        d_scale = float(p_dots.abs().max())
-        check(err <= REL_TOL * scale, f"{name}: fused_precond vs plain")
-        check(d_err <= REL_TOL * d_scale,
-              f"{name}: fused_precond vs plain (dots)")
-        nt, bi, bo = grp.n_tiles, grp.bi, grp.bo
-        # each input read once (each distinct pool block once), each
-        # output written once
-        n_a, n_g = np.unique(grp.a_src).size, np.unique(grp.g_src).size
-        wu_b_ms, wu_b_by = bound(
-            4.0 * (2 * nt * bi * bo + nt + n_a * bi * bi + n_g * bo * bo),
-            2.0 * nt * 3 * (bi * bi * bo + bi * bo * bo))
-        a_idx, g_idx = a_src.long(), g_src.long()
-        precond_row = dict(
-            shape=[nt, bi, bo], groups=len(wu.groups), rel_err=err / scale,
-            dots_rel_err=d_err / d_scale,
-            ms=time_ms(torch, lambda: ops.fused_precond(pa, g, pg, a_src,
-                                                        g_src)),
-            plain_ms=time_ms(torch, plain),
-            library_ms=time_ms(torch, lambda: torch.matmul(
-                torch.matmul(pa[a_idx], g), pg[g_idx])),
-            bound_ms=wu_b_ms, bound_by=wu_b_by)
-        del out, dots, p_out, p_dots, pa, pg, g, a_idx, g_idx
-        torch.cuda.empty_cache()
+        box = {"state": state}
+        del state, program
+        worst, refresh_row, precond_row = kfac_kernel_checks(
+            torch, dev, check, name, box, kcfg, wu)
 
         # one first-order step of the same config through the CLI (the
         # CLI's --arch names the published depth: the cut config is
@@ -466,6 +553,308 @@ def families_phase(torch, dev, check, cli):
             sgd_phase_s=[h["phase_s"] for h in sgd_sum["history"]],
             phase_seconds=time.perf_counter() - t_phase))
     return rows
+
+
+class WithFrames:
+    """Whisper's batch: the token dataset's rows plus ``enc_embeds``
+    (B, ``steps.enc_len_for(seq)``, d_model) frame embeddings, made once
+    from the seed on the card (the reference's token stream makes none;
+    its tests build them by hand)."""
+
+    def __init__(self, torch, ds, cfg, seed, device):
+        from repro_torch.launch.steps import enc_len_for
+
+        g = torch.Generator(device=device).manual_seed(seed)
+        self.ds = ds
+        self.frames = torch.randn(
+            (ds.global_batch, enc_len_for(cfg, ds.seq_len), cfg.d_model),
+            generator=g, device=device)
+
+    def batch(self, cursor, *, device):
+        out = self.ds.batch(cursor, device=device)
+        out["enc_embeds"] = self.frames
+        return out
+
+
+def whisper_phase(torch, dev, check):
+    """Phase ``whisper``: whisper-tiny at its published widths (4 + 4
+    layers, d 384, vocab 51865), weights from the seed, 4 K-FAC steps of
+    ``launch.train.run`` on :data:`WHISPER`'s batch with seeded frames,
+    the launch counters zeroed just before and read just after: finite
+    losses, ``neumann_inv`` once a refresh and ``fused_precond`` once a
+    step, the run's inverses and one WU call against their plain
+    versions (timed, beside library call and bound); one SGD step; then
+    one static serve (greedy). Returns the phase's record."""
+    from argparse import Namespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import kfac
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config("whisper-tiny")
+    name = cfg.name
+    kcfg = kfac.KFACConfig(
+        stats_every=WHISPER["stats_every"], inv_every=WHISPER["inv_every"],
+        block_size=WHISPER["block_size"], stats_batch=WHISPER["batch"],
+        stats_seq=WHISPER["seq"])
+    ds = WithFrames(torch, SyntheticTokens(
+        vocab=cfg.vocab, seq_len=WHISPER["seq"],
+        global_batch=WHISPER["batch"], seed=WHISPER["seed"]),
+        cfg, WHISPER["seed"], dev)
+    program = train_mod.KFACProgram(cfg, kcfg, seed=WHISPER["seed"],
+                                    device="cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist = train_mod.run(program, ds, WHISPER["steps"])
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses), f"{name}: finite losses")
+    wu = train_mod.steps_mod.make_wu_plan_for(cfg, state)
+    per_refresh = kfac_launch_checks(check, name, state, hist, launches,
+                                     wu)
+    check(launches["neumann_inv"] == 2 and launches["fused_precond"] == 4,
+          f"{name}: 2 neumann_inv and 4 fused_precond launches")
+    n_params = sum(p.numel() for p in state.params.values())
+    frames = ds.frames.shape
+    box = {"state": state}
+    del state, program
+    worst, refresh_row, precond_row = kfac_kernel_checks(
+        torch, dev, check, name, box, kcfg, wu)
+
+    # one first-order step (the CLI refuses whisper: its token stream
+    # makes no frames, as the reference's does not)
+    sgd = train_mod.SGDProgram(cfg, seed=WHISPER["seed"], device="cuda")
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sgd_state = sgd.init_state()
+    _, sgd_m = sgd.make_step(sgd_state)(
+        sgd_state, ds.batch(train_mod.DataCursor(), device=dev))
+    sgd_loss = float(sgd_m["loss"])
+    sgd_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(math.isfinite(sgd_loss), f"{name}: one finite sgd step")
+    check(set(ops.launch_counts().values()) == {0},
+          f"{name}: sgd launches no kernel")
+    del sgd_state
+
+    # one static serve through the serving CLI's function
+    args = serve_mod.build_parser().parse_args(
+        ["--arch", name, "--static", "--batch", "8", "--prompt-len", "4",
+         "--gen", "32", "--seed", str(WHISPER["seed"])])
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        serve_sum, gen = serve_mod.serve_static(cfg, args, dev)
+    serve_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(gen.shape == (8, 32) and bool(((gen >= 0) & (gen < cfg.vocab))
+                                        .all()),
+          f"{name}: static serve tokens in the vocabulary")
+    check(set(ops.launch_counts().values()) == {0},
+          f"{name}: serving launches no kernel")
+    torch.cuda.empty_cache()
+    return dict(
+        arch=name, enc_layers=cfg.n_enc_layers, dec_layers=cfg.n_dec_layers,
+        d_model=cfg.d_model, vocab=cfg.vocab, params=n_params,
+        frames=list(frames), **WHISPER, losses=losses,
+        phase_s=[h["phase_s"] for h in hist], wall_s=wall,
+        peak_mem_gb=peak, launches=launches,
+        neumann_inv_per_refresh=per_refresh,
+        inv_blocks=wu.inv_plan.total_blocks, wu_tiles=wu.total_tiles,
+        worst_inverse=worst, refresh=refresh_row, fused_precond=precond_row,
+        sgd_loss=sgd_loss, sgd_peak_mem_gb=sgd_peak,
+        sgd_phase_s=sgd_m["phase_s"], serve=serve_sum,
+        serve_peak_mem_gb=serve_peak,
+        phase_seconds=time.perf_counter() - t_phase)
+
+
+def held_to_static(torch, cfg, params, prompt, got, dev):
+    """The engine's tokens ``got`` for ``prompt`` against the static
+    path's greedy decode of it (batch 1, the exact prompt), step by step
+    until the first divergence: the first tokens must agree, and a later
+    divergence must start where the static run's top two logits lie
+    within :data:`SERVE_GAP_TOL` (past it the two runs decode different
+    text). Returns ``(ok, step of the divergence or None, top-2 gap
+    there)``."""
+    from repro_torch.launch import steps as steps_mod
+
+    mod = steps_mod.model_module(cfg)
+    cache = mod.init_cache(cfg, 1, len(prompt) + len(got), device=dev)
+    logits, cache = mod.prefill(
+        cfg, params, {"tokens": torch.from_numpy(prompt[None]).to(dev)},
+        cache)
+    for i, t in enumerate(got):
+        top = torch.topk(logits[0].float(), 2).values
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        if int(tok) != t:
+            gap = float(top[0] - top[1])
+            return i > 0 and gap <= SERVE_GAP_TOL, i, gap
+        if i < len(got) - 1:
+            logits, cache = mod.decode_step(cfg, params, tok, cache)
+    return True, None, None
+
+
+def hold_to_static(torch, cfg, params, done, reqs, dev):
+    """Every request of a trace held to the static path
+    (:func:`held_to_static`). Returns ``(all held, divergences [(rid,
+    step, gap)])``."""
+    ok, div = True, []
+    for r in reqs:
+        got = done[r.rid].tokens
+        ok_r, j, gap = held_to_static(torch, cfg, params, r.prompt, got,
+                                      dev)
+        ok &= ok_r and len(got) == r.max_new_tokens
+        if j is not None:
+            div.append((r.rid, j, gap))
+    return ok, div
+
+
+def serve_phase(torch, dev, check):
+    """Phase ``serve``: the serving path of :data:`SERVE`'s model at full
+    width, weights from the seed: the static path; the engine on
+    ``synthetic_trace``, held to the static path (greedy) request by
+    request; one decode chunk under ``set_sync_debug_mode("error")``;
+    then the recurrent families through the engine, each held to its
+    static path. No kernel is launched (checked). Returns the phase's
+    record."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve import EngineConfig, ServeEngine, synthetic_trace
+
+    t_phase = time.perf_counter()
+    parse = serve_mod.build_parser().parse_args
+    cfg = get_config(SERVE["arch"])
+    name = cfg.name
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = dict(arch=name)
+    with torch.no_grad():
+        params = serve_mod.init_params(cfg, SERVE["seed"], dev)
+        st_args = parse(["--arch", name, "--static",
+                         "--batch", str(SERVE["static_batch"]),
+                         "--prompt-len", str(SERVE["static_prompt"]),
+                         "--gen", str(SERVE["static_gen"]),
+                         "--seed", str(SERVE["seed"])])
+        st_sum, st_gen = serve_mod.serve_static(cfg, st_args, dev,
+                                                params=params)
+        check(st_gen.shape == (SERVE["static_batch"], SERVE["static_gen"])
+              and bool(((st_gen >= 0) & (st_gen < cfg.vocab)).all()),
+              f"{name}: static tokens in the vocabulary")
+        en_args = parse(["--arch", name,
+                         "--requests", str(SERVE["requests"]),
+                         "--prompt-len", str(SERVE["prompt_len"]),
+                         "--gen", str(SERVE["gen"]),
+                         "--max-slots", str(SERVE["max_slots"]),
+                         "--max-len", str(SERVE["max_len"]),
+                         "--decode-chunk", str(SERVE["decode_chunk"]),
+                         "--seed", str(SERVE["seed"])])
+        en_sum, done = serve_mod.serve_engine(cfg, en_args, dev,
+                                              params=params)
+        reqs, _ = synthetic_trace(cfg.vocab, SERVE["requests"],
+                                  SERVE["prompt_len"], SERVE["gen"],
+                                  SERVE["max_slots"], seed=SERVE["seed"])
+        check(sorted(done) == [r.rid for r in reqs]
+              and all(len(done[r.rid].tokens) == r.max_new_tokens
+                      for r in reqs),
+              f"{name}: every request served its budget")
+        t0 = time.perf_counter()
+        ok, div = hold_to_static(torch, cfg, params, done, reqs, dev)
+        check(ok, f"{name}: engine vs static (first tokens agree, "
+              f"divergences at top-2 gaps <= {SERVE_GAP_TOL})")
+        static_ref_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+
+        # one decode chunk with every slot live, under the sync check
+        eng = ServeEngine(cfg, params, EngineConfig(
+            max_slots=SERVE["max_slots"], max_len=SERVE["max_len"],
+            decode_chunk=SERVE["decode_chunk"]))
+        for r in reqs[:SERVE["max_slots"]]:
+            eng.submit(r)
+        eng._do_admissions()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            toks, emitted = eng.decode_chunk()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        dispatch_s = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        chunk_s = time.perf_counter() - t0
+        toks, emitted = toks.cpu().numpy(), emitted.cpu().numpy()
+        chunk_ok = bool(emitted.all())
+        for slot, st in eng._slots.items():
+            chunk_ok &= held_to_static(
+                torch, cfg, params, st.req.prompt,
+                st.tokens + toks[:, slot].tolist(), dev)[0]
+        check(chunk_ok, f"{name}: the sync-checked chunk held to the "
+              f"static path")
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(
+            layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+            static=st_sum, engine=en_sum, peak_mem_gb=peak,
+            divergences=[dict(rid=a, step=b, top2_gap=c) for a, b, c in div],
+            n_divergences=len(div), gap_tol=SERVE_GAP_TOL,
+            static_reference_s=static_ref_s,
+            sync_checked_chunk=dict(tokens=int(emitted.sum()),
+                                    dispatch_s=dispatch_s,
+                                    wall_s=chunk_s))
+
+        # the recurrent families through the engine, each held to its
+        # static path
+        rec_rows = []
+        for fam in SERVE["recurrent"]:
+            rcfg = (get_smoke_config if fam.get("smoke") else get_config)(
+                fam["arch"])
+            if fam.get("layers"):
+                rcfg = dataclasses.replace(rcfg, n_layers=fam["layers"])
+            torch.cuda.reset_peak_memory_stats(dev)
+            rp = serve_mod.init_params(rcfg, SERVE["seed"], dev)
+            args = parse(["--arch", fam["arch"],
+                          "--requests", str(fam["requests"]),
+                          "--prompt-len", str(fam["prompt_len"]),
+                          "--gen", str(fam["gen"]),
+                          "--max-slots", str(fam["max_slots"]),
+                          "--decode-chunk", str(SERVE["decode_chunk"]),
+                          "--seed", str(SERVE["seed"])])
+            r_sum, r_done = serve_mod.serve_engine(rcfg, args, dev,
+                                                   params=rp)
+            r_reqs, _ = synthetic_trace(rcfg.vocab, fam["requests"],
+                                        fam["prompt_len"], fam["gen"],
+                                        fam["max_slots"], seed=SERVE["seed"])
+            r_ok, r_div = hold_to_static(torch, rcfg, rp, r_done, r_reqs,
+                                         dev)
+            check(r_ok, f"{rcfg.name}: engine vs static")
+            rec_rows.append(dict(
+                arch=rcfg.name, family=rcfg.family, layers=rcfg.n_layers,
+                d_model=rcfg.d_model, engine=r_sum,
+                divergences=[dict(rid=a, step=b, top2_gap=c)
+                             for a, b, c in r_div],
+                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9))
+            del rp
+            gc.collect()
+            torch.cuda.empty_cache()
+    launches = ops.launch_counts()
+    check(set(launches.values()) == {0}, "serve: no kernel launched")
+    out.update(recurrent=rec_rows, launches=launches,
+               phase_seconds=time.perf_counter() - t_phase)
+    return out
 
 
 def main() -> int:
@@ -1747,7 +2136,17 @@ def main() -> int:
     emit({"phase": "families", "seconds": time.perf_counter() - t0,
           "nvidia_smi": smi, "runs": fam_rows})
 
-    # 13. trace: the main path's fourth step (FP, BP and WU only) under
+    # 13. whisper: the audio encoder-decoder's K-FAC run at published
+    # widths, one SGD step and a static serve
+    whisper_row = whisper_phase(torch, dev, check)
+    emit({"phase": "whisper", "nvidia_smi": smi, **whisper_row})
+
+    # 14. serve: the serving path (static, engine, a sync-checked chunk,
+    # the recurrent families); no kernel
+    serve_row = serve_phase(torch, dev, check)
+    emit({"phase": "serve", "nvidia_smi": smi, **serve_row})
+
+    # 15. trace: the main path's fourth step (FP, BP and WU only) under
     # torch.profiler, kernels only, last, so that the profiler session
     # cannot perturb the phases timed before it: the device's busy time
     # (the union of the kernels' intervals) against the step's host wall
@@ -1805,8 +2204,12 @@ def main() -> int:
     path_launches = dict(launches, smw_update=smw_launches["smw_update"],
                          bitslice_mm=pinv_launches["bitslice_mm"],
                          fused_gram_inv=pinv_launches["fused_gram_inv"])
+    # whisper's launches beside them, and the serving phase's (none:
+    # the serving path runs no TPU kernel's counterpart)
     emit({"kernels": [dict(name=name, launches=path_launches[name],
-                           **{k: r[k] for k in keys})
+                           **{k: r[k] for k in keys},
+                           whisper_launches=whisper_row["launches"][name],
+                           serve_launches=serve_row["launches"][name])
                       for name, r in results.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,6 @@
-"""Architecture registry (counterpart of ``repro.configs.registry``).
-
-The port runs the decoder families: dense, moe, ssm, hybrid and vlm.
-The audio encoder-decoder (whisper) keeps its name here so that
-``--arch`` spells the same ids as the reference, but asking for it
-raises until its model is ported.
+"""Architecture registry (counterpart of ``repro.configs.registry``):
+the same ids, every one of them runnable (the decoder families through
+``models.lm``, the audio encoder-decoder through ``models.whisper``).
 """
 
 from __future__ import annotations
@@ -25,9 +22,7 @@ ARCHS = (
 )
 
 # archs whose model family the port cannot run yet -> that family
-UNPORTED = {
-    "whisper-tiny": "audio",
-}
+UNPORTED: dict = {}
 
 
 def _module(name: str):
@@ -39,7 +34,7 @@ def _module(name: str):
     if arch in UNPORTED:
         raise NotImplementedError(
             f"arch {arch!r} is of the {UNPORTED[arch]!r} family, which "
-            f"repro_torch does not run yet (decoder families only)")
+            f"repro_torch does not run yet")
     return importlib.import_module("repro_torch.configs." + norm)
 
 

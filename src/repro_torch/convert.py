@@ -5,11 +5,18 @@ The reference keeps parameters as nested dicts whose leaf paths
 (``dist.api.path_key``) are names like ``layers/attn/wq`` with shape
 (L, d, h*hd), ``layers/moe/wg`` (L, e, d, f), ``units/sub0/rec/w_a``
 (n_units, lw, lw) or ``tail/sub0/mlp/wd`` (f, d); the port keeps the
-same arrays in a flat dict under those names, for every family. Factors and inverses are ``{name: {"A"|"G": ...}}`` and
-``{name: {"A_inv"|"G_inv": ...}}`` in both. The reference allocates its
+same arrays in a flat dict under those names, for every family
+(whisper's ``enc/attn/wq``, ``enc/ln1/b``, ``dec/cross/bv``,
+``enc_ln_f/w`` ... too). Factors and inverses are
+``{name: {"A"|"G": ...}}`` and ``{name: {"A_inv"|"G_inv": ...}}`` in
+both. The reference allocates its
 optimizer moments as trees shaped like the parameters with zero-size
 placeholders on the unused path; the port keeps only the used side.
 Weights cross this way because torch cannot reproduce ``jax.random``.
+
+Decode caches cross to the reference's layout for comparison: its
+recurrent states are ``(h, conv)`` tuples, which the port keys
+``.../h`` and ``.../conv``.
 """
 
 from __future__ import annotations
@@ -88,3 +95,20 @@ def moments_to_jax(moments: Mapping[str, torch.Tensor],
     return _nest({k: (to_numpy(moments[k]) if k in moments
                       else np.zeros((0,), np.float32))
                   for k in params})
+
+
+_STATE = ("h", "conv")
+
+
+def cache_to_jax(cache: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's flat cache -> ``{reference path: numpy array}``, the
+    reference's tree flattened as ``dist.api.path_key`` spells it (state
+    tuples by position: ``.../0`` is ``h``, ``.../1`` is ``conv``)."""
+    out = {}
+    for k, v in cache.items():
+        base = k.rsplit("/", 1)
+        if len(base) == 2 and base[1] in _STATE:
+            k = f"{base[0]}/{_STATE.index(base[1])}"
+        out[k] = (to_numpy(v.float() if v.dtype == torch.bfloat16 else v)
+                  if torch.is_tensor(v) else np.asarray(v))
+    return out

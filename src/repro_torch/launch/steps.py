@@ -1,5 +1,5 @@
-"""Step builders for single-device K-FAC training (counterpart of the
-training half of ``repro.launch.steps``).
+"""Step builders for single-device K-FAC training and serving
+(counterpart of ``repro.launch.steps``).
 
   train_step   FP + BP + WU (precondition + update) every step
   stats_step   SU: factor Grams on a token subsample, EMA'd into state
@@ -9,6 +9,11 @@ training half of ``repro.launch.steps``).
   smw_step     SU with rank-k columns + factor EMA + SMW inverse update
                + drift probe, the every-step program of ``--smw``
   sgd_step     FP + BP + heavy-ball SGD, the first-order baseline
+  prefill_step, decode_step   the serving programs
+
+Every builder takes any family: :func:`model_module` is
+``models.whisper`` for the audio encoder-decoder and ``models.lm`` for
+the rest.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 
 from repro_torch.core import kfac
 from repro_torch.core.kfac import KFACConfig, KFACState
-from repro_torch.models import lm
+from repro_torch.models import lm, whisper
 from repro_torch.solve import smw as smw_mod
 from repro_torch.solve.block_solver import invert_factor_tree
 from repro_torch.solve.partition import Plan, make_wu_plan
@@ -32,9 +37,48 @@ class TrainState:
     kfac: KFACState
 
 
+def model_module(cfg):
+    return whisper if cfg.family == "audio" else lm
+
+
+def kfac_specs(cfg):
+    return model_module(cfg).kfac_specs(cfg)
+
+
+def enc_len_for(cfg, seq: int) -> int:
+    """Whisper's frame count for a decoder length ``seq`` (the real
+    model takes 1500 frames; the assigned seq is kept on the decoder
+    side)."""
+    del cfg
+    return min(1500, seq)
+
+
+def init_params(cfg, *, generator: torch.Generator, device):
+    return model_module(cfg).init(cfg, generator=generator, device=device)
+
+
 def make_wu_plan_for(cfg, state: TrainState):
     """Pooled WU plan for this model, from the state's factor shapes."""
-    return make_wu_plan(lm.kfac_specs(cfg), state.kfac.factors)
+    return make_wu_plan(kfac_specs(cfg), state.kfac.factors)
+
+
+def build_taps(cfg, specs, batch) -> Dict[str, torch.Tensor]:
+    """Zero taps for one stats batch, ready to take gradients. The audio
+    family counts rows per name: the encoder's taps and the
+    cross-attention's ``wk``/``wv`` (their outputs are over the encoder's
+    frames) see ``b x t_enc`` rows, the decoder's other taps ``b x t``.
+    (The reference sizes every ``dec/`` tap ``b x t``, which agrees only
+    while ``t_enc == t``.)"""
+    b, t = batch["tokens"].shape
+    device = batch["tokens"].device
+    if cfg.family != "audio":
+        return lm.build_taps(cfg, specs, b * t, device=device)
+    te = batch["enc_embeds"].shape[1]
+    frames = ("enc/", "dec/cross/wk", "dec/cross/wv")
+    return {name: torch.zeros(
+        s.stack + (b * (te if name.startswith(frames) else t), s.d_out),
+        dtype=torch.float32, device=device, requires_grad=True)
+        for name, s in specs.items()}
 
 
 def _grads(cfg, params, batch) -> Tuple[torch.Tensor, dict]:
@@ -43,7 +87,7 @@ def _grads(cfg, params, batch) -> Tuple[torch.Tensor, dict]:
     in JAX."""
     p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
-        loss, _ = lm.loss_fn(cfg, p, batch)
+        loss, _ = model_module(cfg).loss_fn(cfg, p, batch)
         grads = torch.autograd.grad(loss, list(p.values()),
                                     allow_unused=True)
     return loss.detach(), {
@@ -69,7 +113,7 @@ def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
     routes the WU through the pooled program and ``use_kernel`` that
     program through the ``fused_precond`` kernel. ``timer(name, fn)``,
     if given, runs the WU as ``timer("wu", fn)``."""
-    specs = lm.kfac_specs(cfg)
+    specs = kfac_specs(cfg)
     accum = max(cfg.train_accum, 1)
     timer = timer or (lambda name, fn: fn())
 
@@ -112,16 +156,15 @@ def make_stats_step(cfg, kcfg: KFACConfig) -> Callable:
     block size. (The reference collects at ``cfg.soi_block`` and so
     fails on any config whose ``soi_block`` exceeds the K-FAC block
     size, e.g. the full qwen1.5-0.5b at ``--block-size 128``.)"""
-    specs = lm.kfac_specs(cfg)
+    specs = kfac_specs(cfg)
+    mod = model_module(cfg)
 
     def stats_step(state: TrainState, batch):
-        b, t = batch["tokens"].shape
-        taps = lm.build_taps(cfg, specs, b * t,
-                             device=batch["tokens"].device)
+        taps = build_taps(cfg, specs, batch)
 
         def loss_with_taps(p, tp, bt):
-            return lm.loss_fn(cfg, p, bt, taps=tp, collect=True,
-                              soi_block=kcfg.block_size)
+            return mod.loss_fn(cfg, p, bt, taps=tp, collect=True,
+                               soi_block=kcfg.block_size)
 
         a_grams, g_grams, loss = kfac.stats_grams(
             loss_with_taps, state.params, taps, batch, specs,
@@ -147,16 +190,15 @@ def make_smw_step(cfg, kcfg: KFACConfig,
     Metrics carry ``smw_drift`` for the host gate
     (``solve.async_refresh.SMWRefresher``)."""
     scfg = scfg or smw_mod.SMWConfig()
-    specs = lm.kfac_specs(cfg)
+    specs = kfac_specs(cfg)
+    mod = model_module(cfg)
 
     def smw_step(state: TrainState, batch):
-        b, t = batch["tokens"].shape
-        taps = lm.build_taps(cfg, specs, b * t,
-                             device=batch["tokens"].device)
+        taps = build_taps(cfg, specs, batch)
 
         def loss_with_taps(p, tp, bt):
-            return lm.loss_fn(cfg, p, bt, taps=tp, collect="cols",
-                              soi_block=kcfg.block_size)
+            return mod.loss_fn(cfg, p, bt, taps=tp, collect="cols",
+                               soi_block=kcfg.block_size)
 
         a_grams, g_grams, cols, loss = kfac.stats_rank_k(
             loss_with_taps, state.params, taps, batch, specs,
@@ -222,3 +264,23 @@ def make_sgd_step(cfg, lr: float = 1e-2, momentum: float = 0.9) -> Callable:
         return (params2, mom2), {"loss": loss}
 
     return sgd_step
+
+
+def make_prefill_step(cfg) -> Callable:
+    """``prefill_step(params, batch, cache) -> (logits, cache)``."""
+    mod = model_module(cfg)
+
+    def prefill_step(params, batch, cache):
+        return mod.prefill(cfg, params, batch, cache)
+
+    return prefill_step
+
+
+def make_decode_step(cfg) -> Callable:
+    """``decode_step(params, token, cache) -> (logits, cache)``."""
+    mod = model_module(cfg)
+
+    def decode_step(params, token, cache):
+        return mod.decode_step(cfg, params, token, cache)
+
+    return decode_step

@@ -56,7 +56,6 @@ from repro_torch.data.pipeline import DataCursor, SyntheticTokens
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.steps import TrainState
-from repro_torch.models import lm
 from repro_torch.runtime import DeviceLoss, LoopConfig, TrainLoop
 from repro_torch.solve.async_refresh import (AsyncInverseRefresher,
                                              SMWRefresher)
@@ -190,9 +189,10 @@ class KFACProgram:
 
     def init_state(self) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        params = lm.init(self.cfg, generator=gen, device=self.device)
+        params = steps_mod.init_params(self.cfg, generator=gen,
+                                       device=self.device)
         return TrainState(params, kfac.init(
-            params, lm.kfac_specs(self.cfg), self.kcfg))
+            params, steps_mod.kfac_specs(self.cfg), self.kcfg))
 
     def make_step(self, state: TrainState):
         """``step_fn(state, batch) -> (state, metrics)``; metrics carry
@@ -238,13 +238,15 @@ class KFACProgram:
         smw_ref = self._smw
 
         def subsample(batch):
-            # the SU's sequences and tokens, and the VLM's image rows
-            # and M-RoPE positions with them
+            # the SU's sequences and tokens, and the VLM's image rows,
+            # whisper's frames (all of them) and M-RoPE positions with
+            # them
             sb = min(batch["tokens"].shape[0], kcfg.stats_batch)
             ss = min(batch["tokens"].shape[1], kcfg.stats_seq)
             out = {"tokens": batch["tokens"][:sb, :ss]}
-            if "img_embeds" in batch:
-                out["img_embeds"] = batch["img_embeds"][:sb]
+            for k in ("img_embeds", "enc_embeds"):
+                if k in batch:
+                    out[k] = batch[k][:sb]
             if "positions" in batch:
                 out["positions"] = batch["positions"][:, :sb, :ss]
             return out
@@ -325,7 +327,8 @@ class SGDProgram:
 
     def init_state(self):
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        params = lm.init(self.cfg, generator=gen, device=self.device)
+        params = steps_mod.init_params(self.cfg, generator=gen,
+                                       device=self.device)
         return params, {k: torch.zeros_like(p) for k, p in params.items()}
 
     def make_step(self, state):
@@ -372,9 +375,10 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True,
-                    help="architecture id (configs.ARCHS): the dense, moe, "
-                         "ssm, hybrid and vlm families; whisper-tiny is not "
-                         "ported")
+                    help="architecture id (configs.ARCHS); whisper-tiny "
+                         "needs frame embeddings, which the synthetic "
+                         "token stream does not make (as in the "
+                         "reference's CLI): it trains through run()")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--device", default="cuda",
@@ -447,6 +451,12 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{args.arch} trains on frame embeddings (enc_embeds), which "
+            f"the CLI's synthetic token stream does not make (nor does "
+            f"the reference's); drive launch.train.run with a dataset "
+            f"that adds them")
     obs = obs_mod.from_args(args)
     kcfg = KFACConfig(
         lr=args.lr, damping=args.damping,

@@ -1,7 +1,9 @@
-"""Model primitives for training (counterpart of ``repro.models.layers``):
-norms, RoPE and M-RoPE, chunked and windowed GQA attention, SwiGLU,
-GELU, the causal depthwise convolution, and the tapped dense layers
-(plain and stacked) that feed K-FAC its statistics.
+"""Model primitives (counterpart of ``repro.models.layers``): norms
+(RMS and LayerNorm), RoPE and M-RoPE, chunked, windowed and
+bidirectional GQA attention, SwiGLU, GELU, the causal depthwise
+convolution with its carried decode state, the tapped dense layers
+(plain and stacked) that feed K-FAC its statistics, and the serving
+caches' column writes (:func:`kv_cache_update`, :func:`pos_cache_update`).
 
 Conventions follow the reference: parameters are fp32, compute casts to
 the config's dtype, and every dense product accumulates in fp32. torch
@@ -21,6 +23,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import soi
+
+#: far-future sentinel position: the causal mask (q_pos >= kv_pos)
+#: excludes cache columns carrying it
+UNWRITTEN_POS = 2 ** 30
 
 
 @dataclasses.dataclass
@@ -87,6 +93,18 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     return out.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with bias over the last dim, in fp32 (biased variance,
+    as ``jnp.var``)."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * w.to(torch.float32) \
+        + b.to(torch.float32)
+    return out.to(x.dtype)
+
+
 def rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
     ar = torch.arange(0, hd, 2, dtype=torch.float32, device=device)
     return 1.0 / (theta ** (ar / hd))
@@ -132,8 +150,10 @@ def _gqa_scores_to_out(q, k, v, mask, dt):
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q_pos: torch.Tensor, kv_pos: torch.Tensor,
-              chunk: int = 0, window: int = 0) -> torch.Tensor:
-    """Causal GQA attention; queries are processed in chunks of
+              chunk: int = 0, window: int = 0,
+              causal: bool = True) -> torch.Tensor:
+    """GQA attention, causal unless ``causal=False`` (whisper's encoder
+    and cross-attention); queries are processed in chunks of
     ``chunk`` when ``T > chunk`` to bound the (chunk x S) score tensor.
     ``window`` > 0 keeps only the keys less than ``window`` positions
     back (the hybrid family's local layers).
@@ -145,7 +165,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(B, T, hkv, H // hkv, hd)
 
     def mask_for(qp):
-        m = qp[:, :, None] >= kv_pos[:, None, :]
+        m = (qp[:, :, None] >= kv_pos[:, None, :] if causal else
+             torch.ones((B, qp.shape[1], k.shape[1]), dtype=torch.bool,
+                        device=q.device))
         if window:
             m = m & (kv_pos[:, None, :] > qp[:, :, None] - window)
         return m
@@ -162,6 +184,63 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         out = _gqa_scores_to_out(qg, k, v, mask_for(q_pos), dt)
     return out.reshape(B, T, H, hd)
+
+
+def _check_columns(idx: int, t: int, S: int) -> None:
+    if idx < 0 or idx + t > S:
+        raise ValueError(
+            f"cache write of {t} columns at column {idx} overruns the "
+            f"cache's {S} columns (the reference's dynamic_update_slice "
+            f"would clamp the start and write elsewhere)")
+
+
+def _row_write(cache: torch.Tensor, new: torch.Tensor,
+               idx: torch.Tensor) -> None:
+    """``cache[b, idx[b]] = new[b]`` in place for the rows whose
+    ``idx[b] < S``; the other rows are left bitwise as they were (the
+    reference's ``mode="drop"`` scatter). An out-of-range index is a
+    device assert on CUDA, so every row writes a column in range, the
+    dropped rows their own old values back."""
+    S = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    keep = idx < S
+    col = torch.clamp(idx, max=S - 1).long()
+    old = cache[rows, col]
+    keep = keep.reshape((-1,) + (1,) * (old.ndim - 1))
+    cache[rows, col] = torch.where(keep, new.to(cache.dtype), old)
+
+
+def kv_cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor, idx):
+    """Write k/v (B, t, Hkv, hd) into the caches (B, S, Hkv, hd) in
+    place at column ``idx`` and return them.
+
+    ``idx`` is an int or a 0-d tensor (every row writes columns idx ..
+    idx + t - 1, the static decode path; a write past the last column
+    raises), or a (B,) tensor of per-row columns with t == 1 (the slot
+    pool, every slot at its own position), where rows with
+    ``idx >= S`` write nothing."""
+    if torch.is_tensor(idx) and idx.ndim == 1:
+        _row_write(cache_k, k[:, 0], idx)
+        _row_write(cache_v, v[:, 0], idx)
+        return cache_k, cache_v
+    i, t = int(idx), k.shape[1]
+    _check_columns(i, t, cache_k.shape[1])
+    cache_k[:, i:i + t] = k.to(cache_k.dtype)
+    cache_v[:, i:i + t] = v.to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def pos_cache_update(cache_pos: torch.Tensor, q_pos: torch.Tensor, idx):
+    """Write positions (B, t) into the (B, S) position track in place,
+    with :func:`kv_cache_update`'s ``idx`` contract."""
+    if torch.is_tensor(idx) and idx.ndim == 1:
+        _row_write(cache_pos, q_pos[:, 0], idx)
+        return cache_pos
+    i, t = int(idx), q_pos.shape[1]
+    _check_columns(i, t, cache_pos.shape[1])
+    cache_pos[:, i:i + t] = q_pos.to(cache_pos.dtype)
+    return cache_pos
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -181,20 +260,46 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
-                  b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Depthwise causal convolution along time, training form (no
-    carried state): ``x`` (B, T, C), ``w`` (C, W); fp32 sums over the
-    W taps in the reference's order, cast back to ``x.dtype``."""
+                  b: Optional[torch.Tensor] = None,
+                  state: Optional[torch.Tensor] = None,
+                  length: Optional[torch.Tensor] = None):
+    """Depthwise causal convolution along time: ``x`` (B, T, C), ``w``
+    (C, W); fp32 sums over the W taps in the reference's order, cast
+    back to ``x.dtype``. Returns ``(out, new_state)``.
+
+    ``state`` (B, W-1, C), in decode, is the left context; the new state
+    is the last W-1 input columns. ``length`` (B,) marks each row's
+    valid prefix of a right-padded prefill: the state is then the
+    window ending at column ``length - 1``, so padding never reaches
+    decode (the outputs need no mask: column c sees columns <= c). With
+    neither (training) no state is carried: ``new_state`` is None."""
     W = w.shape[-1]
     T = x.shape[1]
-    xin = F.pad(x, (0, 0, W - 1, 0))
+    if state is not None:
+        xin = torch.cat([state.to(x.dtype), x], dim=1)
+    else:
+        xin = F.pad(x, (0, 0, W - 1, 0))
+    if state is None and length is None:
+        new_state = None
+    elif W > 1 and length is not None:
+        # xin column length + i holds position length - W + 1 + i: the
+        # left context of the first decode step after the prefill
+        cols = length.long()[:, None] + torch.arange(W - 1,
+                                                     device=x.device)
+        new_state = torch.gather(
+            xin, 1, cols[:, :, None].expand(-1, -1, xin.shape[-1])).to(
+                state.dtype if state is not None else x.dtype)
+    elif W > 1:
+        new_state = xin[:, -(W - 1):, :]
+    else:
+        new_state = state
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(W):
         out = out + xin[:, i:i + T, :].to(torch.float32) \
             * w[:, i].to(torch.float32)
     if b is not None:
         out = out + b.to(torch.float32)
-    return out.to(x.dtype)
+    return out.to(x.dtype), new_state
 
 
 #: steps in a chunk of :func:`linear_scan`

@@ -1,5 +1,5 @@
-"""Decoder LM families of ``repro.models.lm``, training path: dense,
-moe, ssm, hybrid and vlm.
+"""Decoder LM families of ``repro.models.lm``: dense, moe, ssm, hybrid
+and vlm, for training and serving.
 
   dense, vlm : global attention + SwiGLU MLP (vlm: M-RoPE and a stubbed
                vision frontend, ``img_proj`` of precomputed patch
@@ -25,6 +25,18 @@ tokens being the expert capacity for MoE experts) enter per layer and
 their gradients are the per-token output gradients; with ``collect``
 the input-side blocked Grams (or, with ``collect="cols"``, blocked
 tokens) come back stacked like the taps.
+
+Serving: :func:`init_cache` makes a decode cache, a flat dict keyed like
+the parameters: ``layers/k``, ``layers/v`` (L, B, S, kv, hd) and
+``layers/pos`` (L, B, S) for attention layers (the hybrid's windowed
+layers hold ``S = min(seq_len, window)`` columns written as a ring),
+``layers/h`` and ``layers/conv`` for the ssm and RG-LRU states, the
+hybrid's under ``units/sub<i>/`` and ``tail/sub<i>/``, and ``idx``: an
+int (static decode: every row at the same column) or a (B,) tensor of
+per-slot lengths (the serving pool, ``repro_torch.serve.pool``).
+:func:`prefill` and :func:`decode_step` write the cache's tensors in
+place (the reference donates its cache) and return it with ``idx``
+advanced.
 """
 
 from __future__ import annotations
@@ -39,10 +51,13 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
+    UNWRITTEN_POS,
     Ctx,
     apply_rope,
     attention,
     dense,
+    kv_cache_update,
+    pos_cache_update,
     rms_norm,
     swiglu,
 )
@@ -50,7 +65,8 @@ from repro_torch.models.layers import (
 Params = Dict[str, torch.Tensor]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-#: the families this port runs (the audio encoder-decoder is not ported)
+#: the families of this module (the audio encoder-decoder is
+#: ``models.whisper``)
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
@@ -61,8 +77,8 @@ def compute_dtype(cfg) -> torch.dtype:
 def _check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"repro_torch runs the {', '.join(FAMILIES)} families, not "
-            f"{cfg.family!r}")
+            f"models.lm runs the {', '.join(FAMILIES)} families, not "
+            f"{cfg.family!r} (the audio family is models.whisper)")
 
 
 def layer_plan(cfg) -> Tuple[str, ...]:
@@ -184,7 +200,10 @@ def _sub(p: Params, group: str) -> Params:
 
 
 def _attn_block(cfg, p, x, positions, ctx, prefix, *, window=0,
-                mrope=False):
+                mrope=False, cache=None, idx=None):
+    """Pre-norm attention sub-layer. ``cache``: this layer's ``k``,
+    ``v``, ``pos`` tensors (written in place at column ``idx``; a ring
+    of ``S`` columns with a ``window``), or None."""
     B, T, _ = x.shape
     hd = cfg.hd
     xin = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -201,7 +220,24 @@ def _attn_block(cfg, p, x, positions, ctx, prefix, *, window=0,
     q = apply_rope(q, positions, cfg.rope_theta, sections)
     k = apply_rope(k, positions, cfg.rope_theta, sections)
     q_pos = positions[0] if positions.ndim == 3 else positions
-    out = attention(q, k, v, q_pos, q_pos,
+    k_all, v_all, kv_pos = k, v, q_pos
+    if cache is not None:
+        S = cache["k"].shape[1]
+        if T > 1 and window and T > S:
+            # a windowed prefill longer than the ring: attend within the
+            # sequence, then keep the last S tokens rolled to their ring
+            # columns (position p lives at column p % S)
+            shift = (idx + T) % S
+            cache["k"].copy_(torch.roll(k[:, -S:], shift, dims=1))
+            cache["v"].copy_(torch.roll(v[:, -S:], shift, dims=1))
+            cache["pos"].copy_(torch.roll(q_pos[:, -S:], shift, dims=1))
+        else:
+            col = idx % S if window else idx
+            kv_cache_update(cache["k"], cache["v"], k, v, col)
+            pos_cache_update(cache["pos"], q_pos, col)
+            k_all, v_all = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+            kv_pos = cache["pos"]
+    out = attention(q, k_all, v_all, q_pos, kv_pos,
                     chunk=cfg.attn_chunk if T > cfg.attn_chunk else 0,
                     window=window)
     out = dense(out.reshape(B, T, -1), p["attn/wo"], f"{prefix}/attn/wo",
@@ -216,29 +252,60 @@ def _mlp_block(cfg, p, x, ctx, prefix):
     return x + dense(swiglu(g, u), p["mlp/wd"], f"{prefix}/mlp/wd", ctx)
 
 
-def _layer_apply(cfg, kind, p, x, positions, ctx, prefix):
+def _write_state(cache, new) -> None:
+    """Copy a mixer's new ``(h, conv)`` into the cache's state tensors,
+    in their declared dtype (the conv state comes back in the compute
+    dtype)."""
+    for dst, src in zip(cache, new):
+        dst.copy_(src)
+
+
+def _layer_apply(cfg, kind, p, x, positions, ctx, prefix, cache=None,
+                 idx=None, state_len=None):
     """One decoder sub-layer of the given kind; ``p`` holds its
-    parameters without the ``prefix/``."""
+    parameters without the ``prefix/``. ``cache``: the layer's
+    attention cache dict or recurrent ``(h, conv)`` state, written in
+    place; ``state_len`` (B,), the valid prefix of a right-padded
+    prefill, where the recurrent mixers take their carried state."""
     if kind in ("attn", "local"):
         x = _attn_block(cfg, p, x, positions, ctx, prefix,
                         window=cfg.window if kind == "local" else 0,
-                        mrope=(cfg.family == "vlm"))
+                        mrope=(cfg.family == "vlm"), cache=cache, idx=idx)
         return _mlp_block(cfg, p, x, ctx, prefix)
     if kind == "moe":
-        x = _attn_block(cfg, p, x, positions, ctx, prefix)
+        x = _attn_block(cfg, p, x, positions, ctx, prefix, cache=cache,
+                        idx=idx)
         xin = rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + moe_mod.moe_ffn(cfg, _sub(p, "moe"), xin, ctx,
                                    f"{prefix}/moe")
     if kind == "mamba":
         xin = rms_norm(x, p["ln1"], cfg.norm_eps)
-        return x + ssm_mod.mamba_mixer(cfg, _sub(p, "mamba"), xin, ctx,
-                                       f"{prefix}/mamba")
+        y, new = ssm_mod.mamba_mixer(cfg, _sub(p, "mamba"), xin, ctx,
+                                     f"{prefix}/mamba", state=cache,
+                                     length=state_len)
+        if cache is not None:
+            _write_state(cache, new)
+        return x + y
     if kind == "rec":
         xin = rms_norm(x, p["ln1"], cfg.norm_eps)
-        x = x + rglru_mod.rglru_mixer(cfg, _sub(p, "rec"), xin, ctx,
-                                      f"{prefix}/rec")
-        return _mlp_block(cfg, p, x, ctx, prefix)
+        y, new = rglru_mod.rglru_mixer(cfg, _sub(p, "rec"), xin, ctx,
+                                       f"{prefix}/rec", state=cache,
+                                       length=state_len)
+        if cache is not None:
+            _write_state(cache, new)
+        return _mlp_block(cfg, p, x + y, ctx, prefix)
     raise ValueError(kind)
+
+
+def _layer_cache(cache, pfx, kind, i=None):
+    """The cache of sub-layer ``pfx`` (layer ``i`` of its stack): views
+    into the stacked tensors, so that writes land in ``cache``."""
+    if cache is None:
+        return None
+    pick = (lambda t: t) if i is None else (lambda t: t[i])
+    if kind in ("mamba", "rec"):
+        return (pick(cache[f"{pfx}/h"]), pick(cache[f"{pfx}/conv"]))
+    return {n: pick(cache[f"{pfx}/{n}"]) for n in ("k", "v", "pos")}
 
 
 def _embed(cfg, params, batch, dt):
@@ -271,25 +338,41 @@ def _logits(cfg, params, x):
 
 def forward(cfg, params: Params, batch, taps=None,
             collect: Union[bool, str] = False,
-            soi_block: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
-    """Training forward. Returns ``(logits, stats)``: fp32 logits
-    (B, T, vocab padded to 128) and, with ``collect``, the blocked
-    A-Grams ``{name: (*stack, nb, bs, bs)}`` (with ``collect="cols"``
-    the blocked tokens ``{name: (*stack, tokens, nb, bs)}``) at block cap
-    ``soi_block`` (default ``cfg.soi_block``; the K-FAC stats passes
-    give their own block size so the statistics match the factors).
+            soi_block: Optional[int] = None, cache=None,
+            last_only: bool = False,
+            last_pos: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, dict]:
+    """Returns ``(logits, stats)``: fp32 logits (B, T, vocab padded to
+    128) and, with ``collect``, the blocked A-Grams ``{name: (*stack,
+    nb, bs, bs)}`` (with ``collect="cols"`` the blocked tokens ``{name:
+    (*stack, tokens, nb, bs)}``) at block cap ``soi_block`` (default
+    ``cfg.soi_block``; the K-FAC stats passes give their own block size
+    so the statistics match the factors).
 
     ``batch``: ``tokens`` (B, T), and for the vlm family optionally
     ``img_embeds`` (B, n_img, vision_dim) and M-RoPE ``positions``
-    (3, B, T)."""
+    (3, B, T).
+
+    Serving: ``cache`` (:func:`init_cache`) is written in place at its
+    ``idx``, which also offsets the positions; the caller advances
+    ``idx``. ``last_only`` projects only the last position onto the
+    vocabulary, ``last_pos`` (B,) each row's own (a right-padded
+    prefill, whose recurrent mixers then take their state there)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
     dt = compute_dtype(cfg)
+    idx = cache["idx"] if cache is not None else None
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(B, T)
+                                 device=tokens.device)[None]
+        if idx is not None:
+            positions = positions + (idx[:, None] if torch.is_tensor(idx)
+                                     and idx.ndim == 1 else idx)
+        positions = positions.expand(B, T).to(torch.int32)
+    state_len = (last_pos + 1 if cache is not None and last_pos is not None
+                 and T > 1 else None)
     x = _embed(cfg, params, batch, dt)
     block = soi_block or cfg.soi_block
     taps = taps or {}
@@ -310,7 +393,9 @@ def forward(cfg, params: Params, batch, taps=None,
                           collect=collect, soi_block=block)
                 p_l = {k[len(pfx) + 1:]: v[i] for k, v in unb.items()
                        if k.startswith(pfx + "/")}
-                x = _layer_apply(cfg, kind, p_l, x, positions, ctx, pfx)
+                x = _layer_apply(cfg, kind, p_l, x, positions, ctx, pfx,
+                                 cache=_layer_cache(cache, pfx, kind, i),
+                                 idx=idx, state_len=state_len)
                 for name, s in ctx.stats.items():
                     stats.setdefault(name, []).append(s)
     for pfx, kind, st in stacks:
@@ -319,9 +404,14 @@ def forward(cfg, params: Params, batch, taps=None,
         # the hybrid tail: unstacked parameters, taps and statistics
         ctx = Ctx(taps=taps or None, collect=collect, soi_block=block)
         x = _layer_apply(cfg, kind, _sub(params, pfx), x, positions, ctx,
-                         pfx)
+                         pfx, cache=_layer_cache(cache, pfx, kind),
+                         idx=idx, state_len=state_len)
         out_stats.update(ctx.stats)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
+    elif last_pos is not None:
+        x = x[torch.arange(B, device=x.device), last_pos.long()][:, None]
     logits = _logits(cfg, params, x)
     out_stats.update({k: torch.stack(v) for k, v in stats.items()})
     return logits, out_stats
@@ -349,6 +439,86 @@ def loss_fn(cfg, params: Params, batch, taps=None,
     logits, stats = forward(cfg, params, batch, taps=taps, collect=collect,
                             soi_block=soi_block)
     return loss_from_logits(cfg, logits, batch), stats
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def _state_leaves(cfg, kind, st, batch, device):
+    """Zero ``(h, conv)`` of a recurrent sub-layer kind, stacked."""
+    init = (ssm_mod.init_mamba_state if kind == "mamba"
+            else rglru_mod.init_rglru_state)
+    h, conv = init(cfg, batch, device=device)
+    return {"h": h.expand(st + h.shape).contiguous(),
+            "conv": conv.expand(st + conv.shape).contiguous()}
+
+
+def _attn_leaves(cfg, st, batch, S, dtype, device):
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    # unwritten columns carry a far-future position: the causal mask
+    # excludes them
+    return {"k": torch.zeros(st + (batch, S, kv, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros(st + (batch, S, kv, hd), dtype=dtype,
+                             device=device),
+            "pos": torch.full(st + (batch, S), UNWRITTEN_POS,
+                              dtype=torch.int32, device=device)}
+
+
+def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, *,
+               device) -> dict:
+    """A decode cache of ``batch`` rows and ``seq_len`` columns (the
+    hybrid's windowed layers ``min(seq_len, window)``, written as a
+    ring), at ``idx`` 0; recurrent states are fp32 zeros."""
+    _check_family(cfg)
+    S = min(seq_len, cfg.window or seq_len) if cfg.family == "hybrid" \
+        else seq_len
+    cache = {}
+    for pfx, kind, st in _stacks(cfg):
+        leaves = (_state_leaves(cfg, kind, st, batch, device)
+                  if kind in ("mamba", "rec")
+                  else _attn_leaves(cfg, st, batch, S, dtype, device))
+        cache.update({f"{pfx}/{k}": v for k, v in leaves.items()})
+    cache["idx"] = 0
+    return cache
+
+
+def _advance(cache, T: int) -> dict:
+    return {**cache, "idx": cache["idx"] + T}
+
+
+def prefill(cfg, params: Params, batch, cache, length=None):
+    """Process a prompt into ``cache``; returns ``(last-token logits
+    (B, vocab padded), cache)``. ``length`` (B,): each row's real prompt
+    length when the prompts are right-padded to a bucket (the serving
+    engine): the logits, and the recurrent states, are taken at the last
+    real token."""
+    logits, _ = forward(cfg, params, batch, cache=cache,
+                        last_only=length is None,
+                        last_pos=None if length is None else length - 1)
+    return logits[:, -1], _advance(cache, batch["tokens"].shape[1])
+
+
+def decode_step(cfg, params: Params, token, cache):
+    """One decode step; ``token`` (B, 1) int. Returns ``(logits,
+    cache)``."""
+    logits, _ = forward(cfg, params, {"tokens": token}, cache=cache)
+    return logits[:, -1], _advance(cache, token.shape[1])
+
+
+def cache_write_slot(cache, slot, row_cache, length):
+    """Insert a single-request prefill cache into slot ``slot`` of a
+    serving pool (``repro_torch.serve.pool``)."""
+    from repro_torch.serve.pool import write_slot
+    return write_slot(cache, slot, row_cache, length)
+
+
+def cache_reset_slot(cache, slot):
+    """Free slot ``slot``: length 0, positions to the far-future
+    sentinel, recurrent states to 0 (``repro_torch.serve.pool``)."""
+    from repro_torch.serve.pool import reset_slot
+    return reset_slot(cache, slot)
 
 
 def kfac_specs(cfg) -> Dict[str, LinearSpec]:

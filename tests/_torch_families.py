@@ -1,6 +1,6 @@
-"""Shared parity checks of the port's decoder families (moe, ssm,
-hybrid, vlm) against the JAX reference, used by
-``tests/test_torch_{moe,ssm,hybrid,vlm}.py``. Weights come from the
+"""Shared parity checks of the port's model families (moe, ssm,
+hybrid, vlm; whisper's trajectory) against the JAX reference, used by
+``tests/test_torch_{moe,ssm,hybrid,vlm,whisper}.py``. Weights come from the
 reference's ``init`` and cross through ``repro_torch.convert``; batches
 are made from a seed with numpy.
 
@@ -223,12 +223,13 @@ def check_stats(arch, *, seq=32, extras=False, atol_rel=1e-6, **over):
     return tstate
 
 
-def check_params(t_state, j_state, specs, *, lr, n_steps, bound):
+def check_params(t_state, j_state, specs, *, lr, n_steps, bound,
+                 mu_rtol=1e-2):
     """The port's weights after ``n_steps`` against the reference's:
     each leaf within ``bound(reference leaf)``. On an Adam leaf the
-    first moment is held too, within 1% of its largest entry (it is
-    linear in the gradients), and the weights' entries whose gradients
-    are rounding-level (|mu| under 1e-3 of the leaf's largest) within
+    first moment is held too, within ``mu_rtol`` (1%) of its largest
+    entry (it is linear in the gradients), and the weights' entries
+    whose gradients are rounding-level (|mu| under 1e-3 of the leaf's largest) within
     2 lr a step instead: Adam's step lr * mu / (sqrt(nu) + eps) is about
     lr whatever the gradient's size, and there its sign is rounding, so
     the two runs can step apart."""
@@ -240,7 +241,7 @@ def check_params(t_state, j_state, specs, *, lr, n_steps, bound):
             continue
         mu = j_mu[k]
         mu_err = np.max(np.abs(t_state.kfac.adam_mu[k].numpy() - mu))
-        assert mu_err <= 1e-2 * np.max(np.abs(mu)), (k, "adam_mu", mu_err)
+        assert mu_err <= mu_rtol * np.max(np.abs(mu)), (k, "adam_mu", mu_err)
         tiny = np.abs(mu) <= 1e-3 * np.max(np.abs(mu))
         assert np.max(err, where=~tiny, initial=0.0) <= bound(v), \
             (k, err.max())
@@ -257,7 +258,7 @@ class ConvertedProgram(ttrain.KFACProgram):
     def init_state(self):
         params = {k: v.clone() for k, v in self.params.items()}
         return tsteps.TrainState(params, tkfac.init(
-            params, tlm.kfac_specs(self.cfg), self.kcfg))
+            params, tsteps.kfac_specs(self.cfg), self.kcfg))
 
 
 class WithExtras:
@@ -275,12 +276,14 @@ class WithExtras:
 
 
 def check_trajectory(arch, *, n_steps=4, b=2, t=32, extras=False,
-                     param_rtol=1e-2, **over):
+                     param_rtol=1e-2, more=None, **over):
     """4 K-FAC steps of ``launch.train.run`` (the port's main path: the
     neumann_inv and fused_precond routes, their plain versions here)
     against the reference's ``KFACProgram`` on a 1-device mesh with Auto
     axes, from the same weights and batches, stats and refresh every 2
-    steps. Returns the port's history and final state."""
+    steps. ``more``: numpy batch keys added to every step (default: the
+    VLM's :func:`vlm_extras` with ``extras``). Returns the port's
+    history and final state."""
     from repro.launch.train import KFACProgram as JProgram
 
     jcfg, tcfg = cfgs(arch, "float32", **over)
@@ -288,7 +291,8 @@ def check_trajectory(arch, *, n_steps=4, b=2, t=32, extras=False,
                   block_size=min(128, jcfg.soi_block), stats_batch=b,
                   stats_seq=t)
     ds = JTokens(jcfg.vocab, t, b, seed=0)
-    more = vlm_extras(jcfg, b, t, seed=0) if extras else {}
+    if more is None:
+        more = vlm_extras(jcfg, b, t, seed=0) if extras else {}
     kj = JKFACConfig(**common)
     jprog = JProgram(jcfg, kj, seed=0)
     # a 1-device (data, model) mesh with Auto axes, as the reference's
@@ -333,7 +337,8 @@ def check_trajectory(arch, *, n_steps=4, b=2, t=32, extras=False,
             err = np.max(np.abs(got - v))
             moved = np.max(np.abs(j_of_t[n][side] - v))
             assert err <= max(1e-2 * scale, 1.05 * moved), (n, side, err)
-    check_params(state, j_state, tlm.kfac_specs(tcfg), lr=kj.lr,
+    check_params(state, j_state, tsteps.kfac_specs(tcfg), lr=kj.lr,
                  n_steps=n_steps,
-                 bound=lambda v: param_rtol * np.max(np.abs(v)))
+                 bound=lambda v: param_rtol * np.max(np.abs(v)),
+                 mu_rtol=max(1e-2, param_rtol))
     return hist, state

@@ -228,7 +228,7 @@ def test_six_step_async_trajectory_matches_reference():
     program = ttrain.KFACProgram(tcfg, kcfg, device="cpu", async_inv=True)
     tparams = convert.params_from_jax(params, device="cpu")
     state = tsteps.TrainState(tparams, tkfac.init(
-        tparams, ttrain.lm.kfac_specs(tcfg), kcfg))
+        tparams, ttrain.steps_mod.kfac_specs(tcfg), kcfg))
     init_inv = _clone(state.kfac.inverses)
     step_fn = program.make_step(state)
     ds = TTokens(tcfg.vocab, T, B, seed=0)

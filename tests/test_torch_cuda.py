@@ -495,3 +495,56 @@ def test_neumann_inv_grouped_on_a_padded_288_wide_factor(cuda_device):
         want = tref.neumann_inv_ref(b.to(cuda_device), d.to(cuda_device),
                                     **KW)
         assert (x - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_engine_decode_chunk_matches_static_on_the_card(cuda_device):
+    """One decode chunk of the serving engine on the card, with no host
+    synchronisation inside it (``set_sync_debug_mode("error")`` raises on
+    one), gives the static path's greedy tokens for the same prompt; an
+    idle slot rides along. qwen2-0.5b's smoke config in fp32, weights
+    from seed 0; the serving path launches no custom kernel."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              dtype="float32")
+    mod = tsteps.model_module(cfg)
+    params = tsteps.init_params(
+        cfg, generator=torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device)
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab, size=13).astype(np.int32)
+    gen = 9
+    with torch.no_grad():
+        cache = mod.init_cache(cfg, 1, len(prompt) + gen,
+                               device=cuda_device)
+        logits, cache = mod.prefill(
+            cfg, params,
+            {"tokens": torch.from_numpy(prompt[None]).to(cuda_device)},
+            cache)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        want = [tok]
+        for _ in range(gen - 1):
+            logits, cache = mod.decode_step(cfg, params, tok, cache)
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            want.append(tok)
+        want = torch.cat(want, 1)[0].tolist()
+
+        eng = ServeEngine(cfg, params, EngineConfig(
+            max_slots=2, max_len=32, decode_chunk=gen - 1))
+        eng.submit(Request(0, prompt, max_new_tokens=gen))
+        eng._do_admissions()
+        (slot, st), = eng._slots.items()
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            toks, emitted = eng.decode_chunk()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert ops.launch_counts() == before
+        got = st.tokens + toks[emitted[:, slot], slot].tolist()
+    assert got == want
+    assert not bool(eng._active[slot])

@@ -68,7 +68,7 @@ def test_rglru_mixer_matches_reference():
         (2, 40, jcfg.d_model)).astype(np.float32)
     want, _ = jax.jit(lambda p, x: jrglru.rglru_mixer(
         jcfg, p, x, None, "r"))(p, jnp.asarray(x))
-    got = trglru.rglru_mixer(tcfg, {k: torch.from_numpy(np.array(v))
+    got, _ = trglru.rglru_mixer(tcfg, {k: torch.from_numpy(np.array(v))
                                     for k, v in p.items()},
                              torch.from_numpy(x), None, "r")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,

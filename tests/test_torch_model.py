@@ -186,10 +186,18 @@ def test_init_is_reproducible_from_the_seed():
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
 
 
-def test_unported_family_raises():
-    from repro_torch.configs import get_config
+def test_unported_family_raises(monkeypatch):
+    """Every id is ported now (whisper-tiny through models.whisper); the
+    registry's error path for a family still to port stays, as does the
+    one for an unknown id, and models.lm refuses the audio family."""
+    from repro_torch.configs import get_config, registry
+    assert registry.UNPORTED == {}
+    assert get_config("whisper-tiny").family == "audio"
+    monkeypatch.setitem(registry.UNPORTED, "whisper-tiny", "audio")
     with pytest.raises(NotImplementedError, match="audio"):
         get_config("whisper-tiny")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("whisper-huge")
     audio_like = dataclasses.replace(t_get_smoke_config(ARCH),
                                      family="audio")
     with pytest.raises(NotImplementedError, match="audio"):

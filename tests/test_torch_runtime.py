@@ -340,8 +340,8 @@ class _ConvertedKFAC(ttrain.KFACProgram):
 
     def init_state(self):
         p = convert.params_from_jax(self.params, device="cpu")
-        return tsteps.TrainState(p, tkfac.init(p, ttrain.lm.kfac_specs(
-            self.cfg), self.kcfg))
+        return tsteps.TrainState(p, tkfac.init(
+            p, ttrain.steps_mod.kfac_specs(self.cfg), self.kcfg))
 
 
 def _kfac_loop(tmp_path, params, inject=None, **kw):

@@ -218,7 +218,8 @@ def test_package_imports_neither_jax_nor_repro():
         "print(bad)\n"
         "for m in ('launch.train', 'runtime.loop', 'checkpoint.store', "
         "'obs.trace', 'obs.taps', 'lowp.parity', 'optim.first_order', "
-        "'solve.block_solver', 'solve.pdiv', 'core.gauss_newton'):\n"
+        "'solve.block_solver', 'solve.pdiv', 'core.gauss_newton', "
+        "'models.whisper', 'serve.engine', 'launch.serve'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=SRC)
