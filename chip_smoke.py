@@ -144,14 +144,39 @@ Phases, each printed as a JSON line:
                  static path; prefill and decode seconds, decode tokens
                  a second, each request's time to first token, resident
                  bytes, peak memory; no kernel launched (checked)
-  15. trace      the main path's four steps again, the fourth under
+  15. paged      the block-paged pool, the prefix cache and int8 serving
+                 on the same model, weights from the same seed: P1 the
+                 paged engine (8 slots, 512 blocks of 16) on the serve
+                 phase's trace, tokens equal to the slot engine's there,
+                 the host ledger equal to the device's tables and free
+                 stack; P2 64 requests of 80-token prompts and 32 tokens
+                 at step 0 through the slot engine (8 x 1024 columns) and
+                 the paged one (64 slots, 512 blocks: the same k/v/pos
+                 bytes), peak sessions >= 4x, tok/s, p99 TTFT, prefill
+                 tokens; P3 the same trace on 256 blocks (preemptions,
+                 every budget served, ledger = device); P4 16 requests
+                 on one 512-token system prompt without and with the
+                 prefix cache (15 hits, >= 2x fewer prefill tokens, the
+                 store's 32 blocks held after); P5 the int8 slot engine
+                 on P1's trace (resident reductions gated, greedy match
+                 and margins reported), ``serve_greedy_parity`` at its
+                 smoke config and paged + int8 against slot int8 on its
+                 trained weights (decided requests all match); P6 one
+                 paged and one int8 paged chunk of 8 live slots under
+                 the sync check; P7 no kernel launched. Tokens that may
+                 round differently (other slot counts, a prefix-hit
+                 prefill, a resumed preemption) are held by the gap rule
+                 (a divergence where the top two logits of one forward
+                 over the prompt and the reference tokens lie within
+                 SERVE_GAP_TOL)
+  16. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
                  so that the profiler session cannot perturb the phases
                  timed before it
 
 Then a JSON line of per-kernel results (with whisper's launches and the
-serve phase's, none), the nvidia-smi line, and last
+serve and paged phases', none), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 without the ``ok`` line; so does a machine without CUDA, or a directory
 without the repository's ``src/repro_torch``.
@@ -214,6 +239,16 @@ SERVE = dict(arch="qwen1.5-0.5b", seed=0, static_batch=8, static_prompt=256,
                       prompt_len=64, gen=16, max_slots=2),
                  dict(arch="recurrentgemma-9b", smoke=True, requests=4,
                       prompt_len=24, gen=8, max_slots=2)))
+# the block-paged pool, the prefix cache and int8 serving on SERVE's
+# model: P2/P3's short requests all offered at step 0 (as the reference's
+# benchmarks/serve_scale.py), P4's shared system prompt, two arrivals a
+# step; the smoke config's int8 parity harness trains this many steps
+PAGED = dict(block_len=16, n_blocks=512, under_blocks=256,
+             short=dict(requests=64, prompt_len=80, gen=32, seed=0,
+                        paged_slots=64),
+             prefix=dict(requests=16, sys_len=512, sfx_len=8, gen=16,
+                         seed=3),
+             parity_steps=30, parity_arch="qwen2-0.5b")
 # a greedy divergence between the engine and the static path must start
 # where the static run's top two logits lie within this: both compute in
 # bf16 but round differently (the engine prefills a padded bucket and
@@ -716,6 +751,27 @@ def hold_to_static(torch, cfg, params, done, reqs, dev):
     return ok, div
 
 
+def sync_checked_chunk(torch, eng, dev):
+    """One decode chunk of ``eng`` (after its pre-chunk host work) under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on a host
+    synchronisation. Returns the chunk's tokens and emitted flags (host
+    arrays) and its record: tokens emitted, dispatch and wall seconds."""
+    eng._pre_decode()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, emitted = eng.decode_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    dispatch_s = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    toks, emitted = toks.cpu().numpy(), emitted.cpu().numpy()
+    return toks, emitted, dict(tokens=int(emitted.sum()),
+                               dispatch_s=dispatch_s, wall_s=wall_s)
+
+
 def serve_phase(torch, dev, check):
     """Phase ``serve``: the serving path of :data:`SERVE`'s model at full
     width, weights from the seed: the static path; the engine on
@@ -723,7 +779,8 @@ def serve_phase(torch, dev, check):
     request; one decode chunk under ``set_sync_debug_mode("error")``;
     then the recurrent families through the engine, each held to its
     static path. No kernel is launched (checked). Returns the phase's
-    record."""
+    record, with the engine's tokens ``{rid: tokens}`` under
+    ``engine_tokens`` (for the paged phase, not printed)."""
     import gc
 
     import numpy as np
@@ -785,17 +842,7 @@ def serve_phase(torch, dev, check):
         for r in reqs[:SERVE["max_slots"]]:
             eng.submit(r)
         eng._do_admissions()
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            toks, emitted = eng.decode_chunk()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        dispatch_s = time.perf_counter() - t0
-        torch.cuda.synchronize(dev)
-        chunk_s = time.perf_counter() - t0
-        toks, emitted = toks.cpu().numpy(), emitted.cpu().numpy()
+        toks, emitted, chunk_row = sync_checked_chunk(torch, eng, dev)
         chunk_ok = bool(emitted.all())
         for slot, st in eng._slots.items():
             chunk_ok &= held_to_static(
@@ -812,9 +859,7 @@ def serve_phase(torch, dev, check):
             divergences=[dict(rid=a, step=b, top2_gap=c) for a, b, c in div],
             n_divergences=len(div), gap_tol=SERVE_GAP_TOL,
             static_reference_s=static_ref_s,
-            sync_checked_chunk=dict(tokens=int(emitted.sum()),
-                                    dispatch_s=dispatch_s,
-                                    wall_s=chunk_s))
+            sync_checked_chunk=chunk_row)
 
         # the recurrent families through the engine, each held to its
         # static path
@@ -853,6 +898,348 @@ def serve_phase(torch, dev, check):
     launches = ops.launch_counts()
     check(set(launches.values()) == {0}, "serve: no kernel launched")
     out.update(recurrent=rec_rows, launches=launches,
+               phase_seconds=time.perf_counter() - t_phase,
+               engine_tokens={rid: f.tokens for rid, f in done.items()})
+    return out
+
+
+def gap_held(torch, cfg, params, prompt, got, ref, dev,
+             first_may_differ=False):
+    """Tokens ``got`` held to ``ref`` for the same ``prompt`` by the gap
+    rule: equal, or equal up to a divergence where the top two logits of
+    one forward pass over the prompt and ``ref``'s tokens before it lie
+    within :data:`SERVE_GAP_TOL`, and not at the first token unless
+    ``first_may_differ`` (the two runs prefilled differently). Returns
+    ``(ok, step of the divergence or None, top-2 gap there)``."""
+    import numpy as np
+
+    from repro_torch.launch import steps as steps_mod
+
+    if len(got) != len(ref):
+        return False, None, None
+    j = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b), None)
+    if j is None:
+        return True, None, None
+    toks = np.concatenate([prompt, np.asarray(ref[:j], np.int32)])
+    logits, _ = steps_mod.model_module(cfg).forward(
+        cfg, params, {"tokens": torch.from_numpy(toks[None]).to(dev)},
+        last_only=True)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    gap = float(top[0] - top[1])
+    return (j > 0 or first_may_differ) and gap <= SERVE_GAP_TOL, j, gap
+
+
+def hold_by_gap(torch, cfg, params, got, ref, reqs, dev,
+                first_may_differ=False):
+    """Every request's tokens in ``got`` held to ``ref``'s by
+    :func:`gap_held`, each served to its whole budget. Returns ``(all held,
+    divergences [dict(rid, step, top2_gap)])``."""
+    ok, div = True, []
+    for r in reqs:
+        if r.rid not in got:
+            ok = False
+            continue
+        g, want = got[r.rid].tokens, ref[r.rid].tokens
+        ok_r, j, gap = gap_held(torch, cfg, params, r.prompt, g, want, dev,
+                                first_may_differ)
+        ok &= ok_r and len(g) == r.max_new_tokens
+        if j is not None:
+            div.append(dict(rid=r.rid, step=j, top2_gap=gap))
+    return ok, div
+
+
+def ledger_matches_device(torch, eng) -> bool:
+    """The paged engine's host ledger against the device's tables,
+    mapped counts, free stack and stack top, in one read."""
+    import numpy as np
+
+    pool, led = eng._pool, eng._ledger
+    dev = torch.cat([pool["table"].flatten(), pool["n_mapped"],
+                     pool["free"], pool["free_top"][None]]).cpu().numpy()
+    want = np.concatenate([led.table.flatten(), led.n_mapped, led.free,
+                           [led.top]])
+    return bool(np.array_equal(dev, want))
+
+
+def drive(torch, eng, reqs, arrivals, dev):
+    """Run a trace step by step (as the reference's
+    ``benchmarks/serve_scale.py``): the finished requests, the peak of
+    concurrent sessions after a step, tok/s over the wall and the p99
+    of the requests' TTFT."""
+    import numpy as np
+
+    pending = sorted(zip(arrivals, range(len(reqs))))
+    done, peak, step_i = {}, 0, 0
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    while pending or eng.scheduler.n_queued or eng._slots:
+        while pending and pending[0][0] <= step_i:
+            eng.submit(reqs[pending.pop(0)[1]])
+        for fin in eng.step():
+            done[fin.rid] = fin
+        peak = max(peak, eng.n_active)
+        step_i += 1
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(f.tokens) for f in done.values())
+    return done, dict(
+        requests=len(reqs), peak_sessions=peak, wall_s=wall,
+        tok_per_s=n_tok / max(wall, 1e-9),
+        p99_ttft_s=float(np.percentile(
+            [f.ttft_s for f in done.values()], 99)),
+        prefill_tokens=eng.stats["prefill_tokens"], steps=step_i)
+
+
+def kv_bytes(pool) -> dict:
+    """A pool's cache-leaf bytes (k, v, pos and int8 scales) and its
+    bookkeeping bytes (lengths, table, free stack) apart."""
+    cache = sum(t.numel() * t.element_size() for k, t in pool.items()
+                if "/" in k)
+    rest = sum(t.numel() * t.element_size() for k, t in pool.items()
+               if "/" not in k and hasattr(t, "numel"))
+    return dict(kv=cache, bookkeeping=rest)
+
+
+def paged_phase(torch, dev, check, serve_tokens):
+    """Phase ``paged``: the block-paged pool, the prefix cache and int8
+    serving on :data:`SERVE`'s model at full width, weights from its
+    seed (checks P1-P7 of the module docstring). ``serve_tokens`` are the
+    serve phase's engine tokens ``{rid: tokens}``. Returns the phase's
+    record."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.lowp import serve_parity
+    from repro_torch.serve import (EngineConfig, PagedConfig,
+                                   PagedServeEngine, Request, ServeEngine,
+                                   synthetic_trace)
+
+    t_phase = time.perf_counter()
+    parse = serve_mod.build_parser().parse_args
+    cfg = get_config(SERVE["arch"])
+    name, bl = cfg.name, PAGED["block_len"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    out = dict(arch=name, block_len=bl)
+    secs = {}
+    with torch.no_grad():
+        params = serve_mod.init_params(cfg, SERVE["seed"], dev)
+        en_args = ["--arch", name, "--requests", str(SERVE["requests"]),
+                   "--prompt-len", str(SERVE["prompt_len"]),
+                   "--gen", str(SERVE["gen"]),
+                   "--max-slots", str(SERVE["max_slots"]),
+                   "--max-len", str(SERVE["max_len"]),
+                   "--decode-chunk", str(SERVE["decode_chunk"]),
+                   "--seed", str(SERVE["seed"])]
+        reqs, _ = synthetic_trace(cfg.vocab, SERVE["requests"],
+                                  SERVE["prompt_len"], SERVE["gen"],
+                                  SERVE["max_slots"], seed=SERVE["seed"])
+
+        # P1: paged = slot on the serve phase's trace, 512 blocks of 16
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        p1_args = parse(en_args + ["--paged", "--block-len", str(bl),
+                                   "--kv-blocks", "0"])
+        eng = serve_mod.build_engine(cfg, p1_args, params)
+        p1_sum, p1_done = serve_mod.serve_engine(cfg, p1_args, dev,
+                                                 engine=eng)
+        p1_tokens = {r.rid: p1_done[r.rid].tokens for r in reqs}
+        check(p1_tokens == serve_tokens,
+              "paged P1: tokens equal to the slot engine's")
+        check(eng._n_blocks == PAGED["n_blocks"]
+              and ledger_matches_device(torch, eng),
+              "paged P1: the ledger equals the device state")
+        fp_bytes = eng.resident_bytes()
+        out["p1"] = dict(engine=p1_sum, n_blocks=eng._n_blocks,
+                         equal_tokens=p1_tokens == serve_tokens,
+                         n_differing=sum(p1_tokens[k] != serve_tokens.get(k)
+                                         for k in p1_tokens),
+                         kv_bytes=kv_bytes(eng._pool),
+                         peak_mem_gb=torch.cuda.max_memory_allocated(dev)
+                         / 1e9)
+        del eng
+        secs["p1"] = time.perf_counter() - t0
+
+        # P2: sessions at equal KV bytes; P3: the pool undersubscribed
+        t0 = time.perf_counter()
+        sh = PAGED["short"]
+        rng = np.random.default_rng(sh["seed"])
+        short = [Request(i, rng.integers(0, cfg.vocab, sh["prompt_len"])
+                         .astype(np.int32), max_new_tokens=sh["gen"])
+                 for i in range(sh["requests"])]
+        arr0 = [0] * len(short)
+        common = dict(max_len=SERVE["max_len"],
+                      decode_chunk=SERVE["decode_chunk"])
+        slot = ServeEngine(cfg, params, EngineConfig(
+            max_slots=SERVE["max_slots"], **common))
+        s_done, s_row = drive(torch, slot, short, arr0, dev)
+        s_row["kv_bytes"] = kv_bytes(slot._pool)
+        del slot
+        runs = {}
+        for key, nb in (("p2", PAGED["n_blocks"]),
+                        ("p3", PAGED["under_blocks"])):
+            eng = PagedServeEngine(cfg, params, PagedConfig(
+                max_slots=sh["paged_slots"], block_len=bl, n_blocks=nb,
+                **common))
+            done, row = drive(torch, eng, short, arr0, dev)
+            ok, div = hold_by_gap(torch, cfg, params, done, s_done, short,
+                                  dev)
+            row.update(kv_bytes=kv_bytes(eng._pool), n_blocks=nb,
+                       preemptions=eng.stats["preemptions"],
+                       ledger_ok=ledger_matches_device(torch, eng),
+                       gap_ok=ok, divergences=div,
+                       free_blocks_low_watermark=eng._ledger.low_watermark)
+            check(ok, f"paged {key}: tokens held to the slot engine's")
+            check(row["ledger_ok"], f"paged {key}: ledger = device")
+            runs[key] = row
+            del eng
+        p2, p3 = runs["p2"], runs["p3"]
+        check(p2["kv_bytes"]["kv"] == s_row["kv_bytes"]["kv"],
+              "paged P2: equal k/v/pos bytes")
+        check(p2["peak_sessions"] >= 4 * s_row["peak_sessions"],
+              "paged P2: >= 4x the slot engine's concurrent sessions")
+        check(p3["preemptions"] >= 1, "paged P3: preemptions")
+        out.update(p2=dict(slot=s_row, paged=p2,
+                           session_gain=p2["peak_sessions"]
+                           / max(s_row["peak_sessions"], 1)), p3=p3)
+        secs["p2_p3"] = time.perf_counter() - t0
+
+        # P4: the prefix cache
+        t0 = time.perf_counter()
+        pf = PAGED["prefix"]
+        rng = np.random.default_rng(pf["seed"])
+        sys_p = rng.integers(0, cfg.vocab, pf["sys_len"]).astype(np.int32)
+        pre = [Request(i, np.concatenate(
+            [sys_p, rng.integers(0, cfg.vocab, pf["sfx_len"])
+             .astype(np.int32)]), max_new_tokens=pf["gen"])
+            for i in range(pf["requests"])]
+        arr = [i // 2 for i in range(len(pre))]
+        rows, dones = {}, {}
+        for cache in (False, True):
+            eng = PagedServeEngine(cfg, params, PagedConfig(
+                max_slots=SERVE["max_slots"], block_len=bl,
+                n_blocks=PAGED["n_blocks"], prefix_cache=cache, **common))
+            dones[cache], rows[cache] = drive(torch, eng, pre, arr, dev)
+            rows[cache].update({k: eng.stats[k] for k in (
+                "prefix_hits", "prefix_hit_tokens", "evictions")})
+            if cache:
+                led = eng._ledger
+                n_sys = pf["sys_len"] // bl
+                check(eng.stats["prefix_hits"] == len(pre) - 1
+                      and eng.stats["prefix_hit_tokens"]
+                      == (len(pre) - 1) * pf["sys_len"],
+                      "paged P4: 15 prefix hits of the system prompt")
+                check(len(eng._store) == n_sys
+                      and led.top == led.n_blocks - n_sys
+                      and ledger_matches_device(torch, eng),
+                      "paged P4: the store's blocks held, the rest free")
+                rows[cache]["store_blocks"] = len(eng._store)
+            del eng
+        check(rows[False]["prefill_tokens"]
+              >= 2 * rows[True]["prefill_tokens"],
+              "paged P4: prefill tokens cut >= 2x")
+        ok, div = hold_by_gap(torch, cfg, params, dones[True], dones[False],
+                              pre, dev, first_may_differ=True)
+        check(ok, "paged P4: prefix-cache tokens held to the uncached run's")
+        out["p4"] = dict(no_cache=rows[False], cache=rows[True],
+                         prefill_cut=rows[False]["prefill_tokens"]
+                         / max(rows[True]["prefill_tokens"], 1),
+                         divergences=div)
+        secs["p4"] = time.perf_counter() - t0
+
+        # P5: int8 at full width, then the smoke contract
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        q_args = parse(en_args + ["--quant", "int8"])
+        q_eng = serve_mod.build_engine(cfg, q_args, params)
+        q_sum, q_done = serve_mod.serve_engine(cfg, q_args, dev,
+                                               engine=q_eng)
+        q_bytes = q_eng.resident_bytes()
+        q_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        del q_eng
+        margins = [dict(rid=r.rid,
+                        match=q_done[r.rid].tokens == serve_tokens[r.rid],
+                        fp_margin=serve_parity.greedy_margin(
+                            cfg, params, r.prompt, serve_tokens[r.rid]))
+                   for r in reqs]
+        p_red = fp_bytes["params"] / q_bytes["params"]
+        k_red = fp_bytes["pool"] / q_bytes["pool"]
+        check(p_red > 1.5 and k_red > 1.3,
+              "paged P5: int8 resident reductions (> 1.5x weights, "
+              "> 1.3x pool)")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        par = serve_parity.serve_greedy_parity(
+            PAGED["parity_arch"], train_steps=PAGED["parity_steps"],
+            device=dev)
+        check(par["decided_matched"] == par["decided_total"] >= 2,
+              "paged P5: serve_greedy_parity's smoke contract")
+        scfg = get_smoke_config(PAGED["parity_arch"])
+        tp, ds = serve_parity.trained_params(
+            scfg, steps=PAGED["parity_steps"], device=dev)
+        preq = [Request(i, ds.batch_slice(100 + i, 0, 1)[0, :12].astype(
+            np.int32), max_new_tokens=8) for i in range(6)]
+        parr = list(np.arange(6) // 2)
+        small = dict(max_slots=2, max_len=48, decode_chunk=3,
+                     buckets=(16,), quant="int8")
+        ps_out = ServeEngine(scfg, tp, EngineConfig(**small)).run(preq, parr)
+        pp_out = PagedServeEngine(scfg, tp, PagedConfig(
+            block_len=16, n_blocks=6, **small)).run(preq, parr)
+        decided = [r.rid for r in preq if serve_parity.greedy_margin(
+            scfg, tp, r.prompt, ps_out[r.rid].tokens)
+            >= serve_parity.MARGIN_FLOOR]
+        check(len(decided) >= 2 and all(
+            ps_out[i].tokens == pp_out[i].tokens for i in decided),
+            "paged P5: paged int8 = slot int8 on decided requests")
+        out["p5"] = dict(
+            engine=q_sum, resident_fp=fp_bytes, resident_int8=q_bytes,
+            param_reduction=p_red, pool_reduction=k_red,
+            peak_mem_gb=q_peak,
+            greedy_matched=sum(m["match"] for m in margins),
+            margins=margins,
+            parity={k: par[k] for k in (
+                "matched", "total", "decided_matched", "decided_total",
+                "param_reduction", "pool_reduction")},
+            parity_margins=[rec["margin"] for rec in par["records"]],
+            paged_int8_decided=len(decided),
+            paged_int8_matched=sum(ps_out[i].tokens == pp_out[i].tokens
+                                   for i in decided))
+        del tp
+        secs["p5"] = time.perf_counter() - t0
+
+        # P6: a paged chunk and an int8 paged chunk of 8 live slots under
+        # the sync check
+        t0 = time.perf_counter()
+        params = serve_mod.init_params(cfg, SERVE["seed"], dev)
+        sync_rows = {}
+        for quant in ("none", "int8"):
+            eng = PagedServeEngine(cfg, params, PagedConfig(
+                max_slots=SERVE["max_slots"], block_len=bl,
+                n_blocks=PAGED["n_blocks"], quant=quant, **common))
+            for r in reqs[:SERVE["max_slots"]]:
+                eng.submit(r)
+            eng._do_admissions()
+            _, emitted, sync_rows[quant] = sync_checked_chunk(torch, eng,
+                                                              dev)
+            check(bool(emitted.all()) and ledger_matches_device(torch, eng),
+                  f"paged P6: the sync-checked {quant} chunk")
+            del eng
+        out["p6"] = sync_rows
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["p6"] = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(set(launches.values()) == {0}, "paged P7: no kernel launched")
+    out.update(launches=launches, seconds=secs,
                phase_seconds=time.perf_counter() - t_phase)
     return out
 
@@ -2144,9 +2531,15 @@ def main() -> int:
     # 14. serve: the serving path (static, engine, a sync-checked chunk,
     # the recurrent families); no kernel
     serve_row = serve_phase(torch, dev, check)
+    serve_tokens = serve_row.pop("engine_tokens")
     emit({"phase": "serve", "nvidia_smi": smi, **serve_row})
 
-    # 15. trace: the main path's fourth step (FP, BP and WU only) under
+    # 15. paged: the block-paged pool, the prefix cache and int8 serving
+    # (P1-P7); no kernel
+    paged_row = paged_phase(torch, dev, check, serve_tokens)
+    emit({"phase": "paged", "nvidia_smi": smi, **paged_row})
+
+    # 16. trace: the main path's fourth step (FP, BP and WU only) under
     # torch.profiler, kernels only, last, so that the profiler session
     # cannot perturb the phases timed before it: the device's busy time
     # (the union of the kernels' intervals) against the step's host wall
@@ -2204,12 +2597,13 @@ def main() -> int:
     path_launches = dict(launches, smw_update=smw_launches["smw_update"],
                          bitslice_mm=pinv_launches["bitslice_mm"],
                          fused_gram_inv=pinv_launches["fused_gram_inv"])
-    # whisper's launches beside them, and the serving phase's (none:
+    # whisper's launches beside them, and the serving phases' (none:
     # the serving path runs no TPU kernel's counterpart)
     emit({"kernels": [dict(name=name, launches=path_launches[name],
                            **{k: r[k] for k in keys},
                            whisper_launches=whisper_row["launches"][name],
-                           serve_launches=serve_row["launches"][name])
+                           serve_launches=serve_row["launches"][name],
+                           paged_launches=paged_row["launches"][name])
                       for name, r in results.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -14,13 +14,25 @@ reduced config on the CPU:
   python -m repro_torch.launch.serve --arch whisper-tiny --smoke \\
       --device cpu --batch 2 --prompt-len 4 --gen 8
 
+The engine path serves on the contiguous slot pool, or with
+``--paged`` on the block-paged pool (``serve.paged``: ``--block-len``
+positions a block, ``--kv-blocks`` blocks, 0 for the slot pool's
+bytes; dense and moe), with ``--prefix-cache`` sharing the full blocks
+of repeated prompt prefixes (it implies ``--paged``):
+
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke \\
+      --device cpu --paged --block-len 16 --kv-blocks 12 --prefix-cache
+
+``--quant int8`` keeps the engine's weights and KV pool resident as
+int8 codes with fp32 scales (``lowp.serve_quant``), on either pool; on
+the static path it serves the int8 weights' dequantization (the static
+cache stays bf16).
+
 Both paths sample on the device (greedy by default; ``--no-greedy``
 samples with ``--temperature``/``--top-k`` from a generator seeded by
 ``--seed``) and run once before the timed run (``--warmup``). Weights
-are random, from ``--seed``. Not ported yet, and refused: ``--paged``
-and ``--prefix-cache`` (the block-paged pool, ``serve/paged.py``),
-``--quant int8`` (``lowp/serve_quant.py``), both ROADMAP Queue 1 item
-7, and ``--model-parallel`` above 1 (multi-GPU, item 8).
+are random, from ``--seed``. ``--model-parallel`` above 1 (multi-GPU,
+ROADMAP Queue 1 item 8) is refused.
 """
 
 from __future__ import annotations
@@ -37,8 +49,9 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.train import fp32_matmuls, resolve_device
-from repro_torch.serve import (EngineConfig, Request, ServeEngine,
-                               synthetic_trace)
+from repro_torch.lowp import serve_quant
+from repro_torch.serve import (EngineConfig, PagedConfig, PagedServeEngine,
+                               Request, ServeEngine, synthetic_trace)
 from repro_torch.serve.sampling import make_sampler
 
 
@@ -72,8 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run each path once before timing")
     # engine path
     ap.add_argument("--quant", choices=("none", "int8"), default="none",
-                    help="resident weight and KV precision; int8 is not "
-                         "ported yet")
+                    help="resident weight and KV precision (int8: "
+                         "per-channel weight scales, per-position KV "
+                         "scales)")
     ap.add_argument("--requests", type=int, default=8,
                     help="engine path: synthetic trace size")
     ap.add_argument("--max-slots", type=int, default=4)
@@ -81,10 +95,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-len", type=int, default=0,
                     help="engine pool columns (0: prompt-len + gen)")
     ap.add_argument("--paged", action="store_true",
-                    help="block-paged KV pool (not ported yet)")
+                    help="block-paged KV pool (dense and moe)")
+    ap.add_argument("--block-len", type=int, default=16,
+                    help="--paged: positions a KV block (the column "
+                         "budget is rounded up to a multiple)")
+    ap.add_argument("--kv-blocks", type=int, default=0,
+                    help="--paged: blocks in the pool (0: max-slots * "
+                         "max-len / block-len, the slot pool's bytes)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="shared-prefix cache on the paged pool (not "
-                         "ported yet)")
+                    help="shared-prefix cache on the paged pool (implies "
+                         "--paged)")
     # observability (repro_torch.obs)
     ap.add_argument("--obs", action="store_true",
                     help="enable the telemetry spine: TTFT/TPOT/queue/"
@@ -101,15 +121,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Refuse the options whose code is not ported yet, naming where it
     waits; nothing falls back."""
-    if args.paged or args.prefix_cache:
-        raise NotImplementedError(
-            "--paged/--prefix-cache: the block-paged pool "
-            "(serve/paged.py, layers.paged_kv_read/write) and its prefix "
-            "cache are not ported yet: ROADMAP Queue 1 item 7")
-    if args.quant == "int8":
-        raise NotImplementedError(
-            "--quant int8: int8 serving (lowp/serve_quant.py) is not "
-            "ported yet: ROADMAP Queue 1 item 7")
     if args.model_parallel > 1:
         raise NotImplementedError(
             "--model-parallel > 1 needs several GPUs: ROADMAP Queue 1 "
@@ -133,17 +144,35 @@ def init_params(cfg, seed: int, device):
     return steps_mod.init_params(cfg, generator=gen, device=device)
 
 
-def serve_engine(cfg, args, device, obs=None, params=None):
-    """The engine on :func:`serve.synthetic_trace`; returns ``(summary,
-    {rid: FinishedRequest})``."""
-    obs = obs if obs is not None else obs_mod.NULL
+def build_engine(cfg, args, params):
+    """The engine the arguments describe, on ``params``' device: the
+    slot pool's, or with ``--paged``/``--prefix-cache`` the block pool's,
+    whose column budget is rounded up to a block multiple."""
     max_len = args.max_len or (args.prompt_len + args.gen)
-    params = params if params is not None else init_params(
-        cfg, args.seed, device)
-    eng = ServeEngine(cfg, params, EngineConfig(
-        max_slots=args.max_slots, max_len=max_len,
-        decode_chunk=args.decode_chunk, seed=args.seed,
-        quant=args.quant, **sampling_args(args)))
+    common = dict(max_slots=args.max_slots, max_len=max_len,
+                  decode_chunk=args.decode_chunk, seed=args.seed,
+                  quant=args.quant, **sampling_args(args))
+    if not (args.paged or args.prefix_cache):
+        return ServeEngine(cfg, params, EngineConfig(**common))
+    bl = args.block_len
+    common["max_len"] = (max_len + bl - 1) // bl * bl
+    return PagedServeEngine(cfg, params, PagedConfig(
+        block_len=bl, n_blocks=args.kv_blocks,
+        prefix_cache=args.prefix_cache, **common))
+
+
+def serve_engine(cfg, args, device, obs=None, params=None, engine=None):
+    """The engine (``engine``, or :func:`build_engine`'s) on
+    :func:`serve.synthetic_trace`; returns ``(summary, {rid:
+    FinishedRequest})``."""
+    obs = obs if obs is not None else obs_mod.NULL
+    if engine is None:
+        params = params if params is not None else init_params(
+            cfg, args.seed, device)
+        engine = build_engine(cfg, args, params)
+    eng = engine
+    paged = isinstance(eng, PagedServeEngine)
+    max_len = eng.ecfg.max_len
     reqs, arrivals = synthetic_trace(cfg.vocab, args.requests,
                                      args.prompt_len, args.gen,
                                      args.max_slots, seed=args.seed)
@@ -184,6 +213,19 @@ def serve_engine(cfg, args, device, obs=None, params=None):
         "ttft_s": {rid: f.ttft_s for rid, f in sorted(done.items())},
         "sample_tokens": done[0].tokens[:8] if 0 in done else [],
     }
+    if paged:
+        summary.update({
+            "mode": "engine-paged",
+            "block_len": args.block_len,
+            "kv_blocks": eng._n_blocks,
+            "prefill_tokens": st["prefill_tokens"],
+            "prefix_hits": st["prefix_hits"],
+            "prefix_hit_tokens": st["prefix_hit_tokens"],
+            "preemptions": st["preemptions"],
+            "evictions": st["evictions"],
+            "free_blocks": eng.free_blocks,
+            "free_blocks_low_watermark": eng._ledger.low_watermark,
+        })
     if obs.enabled:
         rb = summary["resident_bytes"]
         obs.gauge("serve_resident_params_bytes",
@@ -225,6 +267,11 @@ def serve_static(cfg, args, device, params=None):
     sampler = make_sampler(**sampling_args(args))
     params = params if params is not None else init_params(
         cfg, args.seed, device)
+    if args.quant == "int8":
+        # the int8 weights' values (the engine dequantizes them each
+        # call; the static path once)
+        params = serve_quant.dequantize_params(
+            serve_quant.quantize_params(params))
     batch = static_batch(cfg, args, device)
     prefill = steps_mod.make_prefill_step(cfg)
     decode = steps_mod.make_decode_step(cfg)
@@ -264,7 +311,8 @@ def serve_static(cfg, args, device, params=None):
     summary = {
         "schema": 1, "kind": "serve_summary", "arch": cfg.name,
         "mode": "static", "device": str(device),
-        "sampling": sampling_args(args)["method"], "batch": args.batch,
+        "sampling": sampling_args(args)["method"], "quant": args.quant,
+        "batch": args.batch,
         "prompt_len": args.prompt_len, "generated": args.gen,
         "warmup_s": t_warmup, "prefill_s": t_prefill,
         "decode_s": t_decode,

@@ -243,6 +243,86 @@ def pos_cache_update(cache_pos: torch.Tensor, q_pos: torch.Tensor, idx):
     return cache_pos
 
 
+# ---------------------------------------------------------------------------
+# Paged KV (block-table indirection for the serving pool)
+# ---------------------------------------------------------------------------
+#
+# The paged pool keeps KV in fixed-size position blocks, k/v
+# (n_blocks, block_len, Hkv, hd) and pos (n_blocks, block_len), and each
+# batch row a block table (B, nbps) of physical block ids, entry j
+# covering positions [j*bl, (j+1)*bl). The id ``n_blocks`` marks an
+# unmapped entry, as in the reference, whose reads fill and whose writes
+# drop out of range; here every device index is clamped into range and
+# the result masked. Column c of the gathered cache is position c, the
+# slot pool's column order, so paged decode is bitwise the slot decode.
+
+def paged_kv_read(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                  cache_pos: torch.Tensor, table: torch.Tensor):
+    """Gather each row's virtual cache from the block pool: k/v
+    (B, nbps*bl, Hkv, hd) and positions (B, nbps*bl). Unmapped entries
+    read k/v 0 and positions ``UNWRITTEN_POS`` (masked), whatever block
+    the clamped index lands on."""
+    B, nbps = table.shape
+    n_blocks, bl = cache_k.shape[:2]
+    mapped = table < n_blocks
+    ids = torch.clamp(table, max=n_blocks - 1).long()
+    m = mapped.reshape(B, nbps, 1, 1, 1)
+    kg = torch.where(m, cache_k[ids], torch.zeros((), dtype=cache_k.dtype,
+                                                  device=cache_k.device))
+    vg = torch.where(m, cache_v[ids], torch.zeros((), dtype=cache_v.dtype,
+                                                  device=cache_v.device))
+    pg = torch.where(mapped[..., None], cache_pos[ids],
+                     torch.full((), UNWRITTEN_POS, dtype=cache_pos.dtype,
+                                device=cache_pos.device))
+    return (kg.reshape(B, nbps * bl, *cache_k.shape[2:]),
+            vg.reshape(B, nbps * bl, *cache_v.shape[2:]),
+            pg.reshape(B, nbps * bl))
+
+
+def _paged_row_write(cache: torch.Tensor, new: torch.Tensor,
+                     live: torch.Tensor, blk: torch.Tensor,
+                     off: torch.Tensor, anchor: torch.Tensor) -> None:
+    """``cache[blk[b], off[b]] = new[b]`` in place for the ``live`` rows
+    only. A dropped row's clamped target may be a live row's, and which
+    of two different values ``index_put_`` keeps at one index is not
+    defined on CUDA; so every dropped row writes the ``anchor`` row's
+    target with the anchor's value: the first live row's new value, or,
+    with no live row, the old value there (every row then writes the
+    same value to one place)."""
+    a_live = live[anchor].reshape((1,) + (1,) * (new.ndim - 1))
+    a_val = torch.where(a_live, new[anchor].to(cache.dtype),
+                        cache[blk[anchor], off[anchor]])
+    keep = live.reshape((-1,) + (1,) * (new.ndim - 1))
+    cache[torch.where(live, blk, blk[anchor]),
+          torch.where(live, off, off[anchor])] = torch.where(
+              keep, new.to(cache.dtype), a_val)
+
+
+def paged_kv_write(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                   cache_pos: torch.Tensor, table: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+                   idx: torch.Tensor):
+    """Per-row decode write (t == 1) into the block pool, in place:
+    k/v (B, 1, Hkv, hd), q_pos (B, 1), idx (B,) positions. A row whose
+    table entry for ``idx`` is unmapped, or whose ``idx`` lies past the
+    table (the engine's idle rows, at ``max_len``), writes nothing, as
+    the slot pool's rows at ``idx >= S``. Returns the three caches."""
+    n_blocks, bl = cache_k.shape[:2]
+    nbps = table.shape[1]
+    rows = torch.arange(table.shape[0], device=table.device)
+    col = idx.long() // bl
+    blk = table[rows, torch.clamp(col, max=nbps - 1)]
+    live = (col < nbps) & (blk < n_blocks)
+    blk = torch.clamp(blk, max=n_blocks - 1).long()
+    off = idx.long() % bl
+    # a (1,) index, not a 0-d one, which indexing would read on the host
+    anchor = torch.argmax(live.to(torch.int32)).reshape(1)
+    _paged_row_write(cache_k, k[:, 0], live, blk, off, anchor)
+    _paged_row_write(cache_v, v[:, 0], live, blk, off, anchor)
+    _paged_row_write(cache_pos, q_pos[:, 0], live, blk, off, anchor)
+    return cache_k, cache_v, cache_pos
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.to(torch.float32)).to(gate.dtype) * up
 

@@ -33,7 +33,11 @@ layers hold ``S = min(seq_len, window)`` columns written as a ring),
 ``layers/h`` and ``layers/conv`` for the ssm and RG-LRU states, the
 hybrid's under ``units/sub<i>/`` and ``tail/sub<i>/``, and ``idx``: an
 int (static decode: every row at the same column) or a (B,) tensor of
-per-slot lengths (the serving pool, ``repro_torch.serve.pool``).
+per-slot lengths (the serving pool, ``repro_torch.serve.pool``). A
+``table`` (B, nbps) entry switches the attention leaves to the
+block-paged layout of ``repro_torch.serve.paged``: ``(L, n_blocks,
+block_len, ...)`` pools read and written through each row's block table
+(decode only).
 :func:`prefill` and :func:`decode_step` write the cache's tensors in
 place (the reference donates its cache) and return it with ``idx``
 advanced.
@@ -57,6 +61,8 @@ from repro_torch.models.layers import (
     attention,
     dense,
     kv_cache_update,
+    paged_kv_read,
+    paged_kv_write,
     pos_cache_update,
     rms_norm,
     swiglu,
@@ -200,10 +206,12 @@ def _sub(p: Params, group: str) -> Params:
 
 
 def _attn_block(cfg, p, x, positions, ctx, prefix, *, window=0,
-                mrope=False, cache=None, idx=None):
+                mrope=False, cache=None, idx=None, table=None):
     """Pre-norm attention sub-layer. ``cache``: this layer's ``k``,
     ``v``, ``pos`` tensors (written in place at column ``idx``; a ring
-    of ``S`` columns with a ``window``), or None."""
+    of ``S`` columns with a ``window``), or None. With ``table``
+    (B, nbps) they are block pools (n_blocks, block_len, ...) read and
+    written through the table (``serve.paged``)."""
     B, T, _ = x.shape
     hd = cfg.hd
     xin = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -221,7 +229,25 @@ def _attn_block(cfg, p, x, positions, ctx, prefix, *, window=0,
     k = apply_rope(k, positions, cfg.rope_theta, sections)
     q_pos = positions[0] if positions.ndim == 3 else positions
     k_all, v_all, kv_pos = k, v, q_pos
-    if cache is not None:
+    if cache is not None and table is not None:
+        # block-paged decode: a per-row write into the block pool, then
+        # the table's gather of a virtual (B, nbps*bl) cache whose column
+        # c is position c, the slot pool's order, so that attention is
+        # bitwise the slot path's
+        if T != 1:
+            raise NotImplementedError(
+                "the paged cache is decode-only (T == 1); a prefill runs "
+                "on a dense row, which serve.paged.paged_write_slot "
+                "scatters in")
+        if window:
+            raise NotImplementedError(
+                "the paged cache does not support windowed rings")
+        paged_kv_write(cache["k"], cache["v"], cache["pos"], table, k, v,
+                       q_pos, idx)
+        k_all, v_all, kv_pos = paged_kv_read(cache["k"], cache["v"],
+                                             cache["pos"], table)
+        k_all, v_all = k_all.to(q.dtype), v_all.to(q.dtype)
+    elif cache is not None:
         S = cache["k"].shape[1]
         if T > 1 and window and T > S:
             # a windowed prefill longer than the ring: attend within the
@@ -261,20 +287,22 @@ def _write_state(cache, new) -> None:
 
 
 def _layer_apply(cfg, kind, p, x, positions, ctx, prefix, cache=None,
-                 idx=None, state_len=None):
+                 idx=None, state_len=None, table=None):
     """One decoder sub-layer of the given kind; ``p`` holds its
     parameters without the ``prefix/``. ``cache``: the layer's
     attention cache dict or recurrent ``(h, conv)`` state, written in
     place; ``state_len`` (B,), the valid prefix of a right-padded
-    prefill, where the recurrent mixers take their carried state."""
+    prefill, where the recurrent mixers take their carried state;
+    ``table``, the paged pool's block table (attention only)."""
     if kind in ("attn", "local"):
         x = _attn_block(cfg, p, x, positions, ctx, prefix,
                         window=cfg.window if kind == "local" else 0,
-                        mrope=(cfg.family == "vlm"), cache=cache, idx=idx)
+                        mrope=(cfg.family == "vlm"), cache=cache, idx=idx,
+                        table=table)
         return _mlp_block(cfg, p, x, ctx, prefix)
     if kind == "moe":
         x = _attn_block(cfg, p, x, positions, ctx, prefix, cache=cache,
-                        idx=idx)
+                        idx=idx, table=table)
         xin = rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + moe_mod.moe_ffn(cfg, _sub(p, "moe"), xin, ctx,
                                    f"{prefix}/moe")
@@ -355,14 +383,17 @@ def forward(cfg, params: Params, batch, taps=None,
 
     Serving: ``cache`` (:func:`init_cache`) is written in place at its
     ``idx``, which also offsets the positions; the caller advances
-    ``idx``. ``last_only`` projects only the last position onto the
-    vocabulary, ``last_pos`` (B,) each row's own (a right-padded
-    prefill, whose recurrent mixers then take their state there)."""
+    ``idx``. ``cache["table"]``, if present, switches attention to the
+    block-paged layout (``serve.paged``). ``last_only`` projects only
+    the last position onto the vocabulary, ``last_pos`` (B,) each row's
+    own (a right-padded prefill, whose recurrent mixers then take their
+    state there)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
     dt = compute_dtype(cfg)
     idx = cache["idx"] if cache is not None else None
+    table = cache.get("table") if cache is not None else None
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32,
@@ -395,7 +426,7 @@ def forward(cfg, params: Params, batch, taps=None,
                        if k.startswith(pfx + "/")}
                 x = _layer_apply(cfg, kind, p_l, x, positions, ctx, pfx,
                                  cache=_layer_cache(cache, pfx, kind, i),
-                                 idx=idx, state_len=state_len)
+                                 idx=idx, state_len=state_len, table=table)
                 for name, s in ctx.stats.items():
                     stats.setdefault(name, []).append(s)
     for pfx, kind, st in stacks:

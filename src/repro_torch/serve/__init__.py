@@ -1,6 +1,7 @@
-"""Continuous-batching serving on the contiguous slot pool (counterpart
-of ``repro.serve``, without the block-paged pool and the prefix cache):
-``serve.engine`` (scheduler, engine), ``serve.pool`` (slot writes),
+"""Continuous-batching serving (counterpart of ``repro.serve``):
+``serve.engine`` (scheduler, engine on the contiguous slot pool, int8
+residency), ``serve.pool`` (slot writes), ``serve.paged`` (the
+block-paged pool, the shared-prefix cache and their engine),
 ``serve.sampling`` (on-device samplers)."""
 
 from repro_torch.serve.engine import (
@@ -11,6 +12,13 @@ from repro_torch.serve.engine import (
     ServeEngine,
     default_buckets,
     synthetic_trace,
+)
+from repro_torch.serve.paged import (
+    BlockLedger,
+    PagedConfig,
+    PagedServeEngine,
+    PrefixStore,
+    init_paged_pool,
 )
 from repro_torch.serve.pool import (
     UNWRITTEN_POS,
@@ -23,8 +31,9 @@ from repro_torch.serve.pool import (
 from repro_torch.serve.sampling import make_sampler
 
 __all__ = [
-    "EngineConfig", "FinishedRequest", "Request", "Scheduler",
+    "BlockLedger", "EngineConfig", "FinishedRequest", "PagedConfig",
+    "PagedServeEngine", "PrefixStore", "Request", "Scheduler",
     "ServeEngine", "UNWRITTEN_POS", "default_buckets", "empty_row_like",
-    "init_pool", "make_sampler", "reset_slot", "slot_dim",
+    "init_paged_pool", "init_pool", "make_sampler", "reset_slot", "slot_dim",
     "synthetic_trace", "write_slot",
 ]

@@ -14,9 +14,17 @@
   admits queued ones. (The reference compiles the chunk as one
   ``lax.scan`` program.)
 
+``EngineConfig(quant="int8")`` keeps the weights and the KV pool
+resident as int8 codes with fp32 scales (``lowp.serve_quant``): each
+prefill and each decode chunk dequantizes them in fp32, an admitted row
+is quantized into the pool, and after a chunk the pool is requantized
+(for dense and moe only the slots active at the chunk's entry; the
+others carry their codes bitwise).
+
 Token-only prompt families: dense, moe, ssm, hybrid. The vlm and audio
 families need modality inputs at prefill and serve on the static path
-(``launch.serve --static``), as in the reference.
+(``launch.serve --static``), as in the reference. The block-paged pool
+and the prefix cache are ``serve.paged``, a subclass.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.lowp import serve_quant
 from repro_torch.obs import NULL as NULL_OBS
 from repro_torch.serve import pool as pool_mod
 from repro_torch.serve.sampling import make_sampler
@@ -120,11 +129,18 @@ class Scheduler:
     def submit(self, req: Request) -> None:
         self.queue.append(req)
 
-    def admit(self) -> List[Tuple[int, Request]]:
+    def admit(self, can_admit=None, limit: Optional[int] = None
+              ) -> List[Tuple[int, Request]]:
         """Pop ``(slot, request)`` pairs, FIFO, while a free slot and a
-        queued request exist."""
+        queued request exist, at most ``limit``. ``can_admit(req)`` adds
+        a condition beyond the free slot (the paged engine's free
+        blocks); a queue head that fails it blocks the queue (no
+        bypass)."""
         out = []
-        while self.queue and self.free:
+        while self.queue and self.free and (limit is None
+                                            or len(out) < limit):
+            if can_admit is not None and not can_admit(self.queue[0]):
+                break
             out.append((self.free.pop(), self.queue.popleft()))
         return out
 
@@ -154,15 +170,9 @@ class EngineConfig:
     top_k: int = 0
     buckets: Optional[Tuple[int, ...]] = None
     seed: int = 0
-    # "int8" (resident int8 weights and KV cache) is not ported yet:
-    # ROADMAP Queue 1 item 7, lowp/serve_quant
+    # "int8": resident weights and KV cache as int8 codes with fp32
+    # scales (lowp.serve_quant), dequantized by each prefill and chunk
     quant: str = "none"
-
-
-def tree_bytes(tree) -> int:
-    """Bytes of the tensors in a flat dict."""
-    return sum(t.numel() * t.element_size() for t in tree.values()
-               if torch.is_tensor(t))
 
 
 class ServeEngine:
@@ -176,11 +186,7 @@ class ServeEngine:
                 f"{cfg.family} requests need modality inputs at prefill; "
                 "the continuous-batching engine serves token-only prompt "
                 "families (dense/moe/ssm/hybrid)")
-        if ecfg.quant == "int8":
-            raise NotImplementedError(
-                "int8 serving (resident int8 weights and KV cache) is not "
-                "ported yet: ROADMAP Queue 1 item 7, lowp/serve_quant")
-        if ecfg.quant != "none":
+        if ecfg.quant not in ("none", "int8"):
             raise ValueError(f"unknown quant mode {ecfg.quant!r}; "
                              "one of ('none', 'int8')")
         if mesh is not None:
@@ -190,13 +196,15 @@ class ServeEngine:
 
         self.cfg = cfg
         self.ecfg = ecfg
-        self.params = params
         self.mod = steps_mod.model_module(cfg)
         self.device = next(iter(params.values())).device
+        self._quant = ecfg.quant == "int8"
+        # resident weights: int8 codes and per-channel scales
+        self.params = serve_quant.quantize_params(params) if self._quant \
+            else params
         dev = self.device
         B = ecfg.max_slots
-        self._pool = pool_mod.init_pool(cfg, B, ecfg.max_len, device=dev)
-        self._empty = pool_mod.empty_row_like(self._pool)
+        self._pool = self._build_pool()
         self._tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
         self._active = torch.zeros((B,), dtype=torch.bool, device=dev)
         self._remaining = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -248,6 +256,24 @@ class ServeEngine:
         self._g_occ = o.gauge(
             "serve_slot_occupancy", "active slots / max_slots")
 
+    def _build_pool(self) -> dict:
+        """The resident KV pool (a hook: the paged engine builds a block
+        pool instead) and the empty row a released slot takes."""
+        pool = pool_mod.init_pool(self.cfg, self.ecfg.max_slots,
+                                  self.ecfg.max_len, device=self.device)
+        if self._quant:
+            # int8 codes with *_scale siblings, which the pool's slot
+            # writes and resets address like their parents
+            pool = serve_quant.quantize_kv(pool)
+        self._empty = pool_mod.empty_row_like(pool)
+        return pool
+
+    def _float_params(self) -> dict:
+        """The weights a prefill or chunk computes with: the resident
+        ones, or in int8 mode their fp32 dequantization."""
+        return serve_quant.dequantize_params(self.params) if self._quant \
+            else self.params
+
     def reset_stats(self) -> None:
         """Zero the counters (after a warm-up, so that timed numbers are
         steady-state only)."""
@@ -264,8 +290,8 @@ class ServeEngine:
                                     device=self.device)
         length_t = torch.full((1,), length, dtype=torch.int32,
                               device=self.device)
-        return self.mod.prefill(self.cfg, self.params, {"tokens": tokens},
-                                cache, length=length_t)
+        return self.mod.prefill(self.cfg, self._float_params(),
+                                {"tokens": tokens}, cache, length=length_t)
 
     def decode_chunk(self):
         """``decode_chunk`` model steps with sampling and termination,
@@ -276,20 +302,20 @@ class ServeEngine:
         diverted past the last column (``idx`` -> ``max_len``) and
         dropped, so idle slots' columns stay bitwise untouched; the
         hybrid's ring and the recurrent states of idle slots are
-        rewritten by the next ``write_slot``."""
-        cfg, mod, params = self.cfg, self.mod, self.params
-        max_len = self.ecfg.max_len
-        mask_idle = cfg.family in ("dense", "moe")
-        pool, tok = self._pool, self._tok
+        rewritten by the next ``write_slot``.
+
+        In int8 mode the chunk runs on the fp32 dequantization of the
+        weights and the pool, and the pool is requantized at its end:
+        for dense and moe only the slots active at the chunk's entry
+        (the only ones written), the others keeping their codes and
+        scales bitwise; for ssm and hybrid the whole pool."""
+        params = self._float_params()
+        tok = self._tok
         active, remaining = self._active, self._remaining
+        pool, dirty = self._chunk_pool()
         toks, emitted = [], []
         for _ in range(self.ecfg.decode_chunk):
-            step_pool = pool
-            if mask_idle:
-                step_pool = {**pool, "idx": torch.where(
-                    active, pool["idx"], max_len).to(torch.int32)}
-            logits, new_pool = mod.decode_step(cfg, params, tok, step_pool)
-            pool = {**pool, "idx": new_pool["idx"].to(torch.int32)}
+            logits, pool = self._decode_step(params, tok, pool, active)
             nxt = self._sampler(logits, self._gen)
             nxt = torch.where(active, nxt, tok[:, 0])
             emitted.append(active)
@@ -298,16 +324,43 @@ class ServeEngine:
             active = active & (remaining > 0) & ~hit_eos
             tok = nxt[:, None]
             toks.append(nxt)
+        if self._quant:
+            pool = serve_quant.requantize_kv(pool, like=self._pool,
+                                             dirty=dirty)
         self._pool, self._tok = pool, tok
         self._active, self._remaining = active, remaining
         return torch.stack(toks), torch.stack(emitted)
 
+    def _chunk_pool(self):
+        """The pool a chunk's steps run on (fp32 in int8 mode) and the
+        ``dirty`` mask of the entries they can write along axis 1 of the
+        KV leaves: the chunk-entry active slots for dense and moe, None
+        (all) otherwise. (A hook: the paged engine grows its tables
+        here.)"""
+        dirty = self._active if self.cfg.family in ("dense", "moe") \
+            else None
+        pool = serve_quant.dequantize_kv(self._pool) if self._quant \
+            else self._pool
+        return pool, dirty
+
+    def _decode_step(self, params, tok, pool, active):
+        """One model step of the chunk; returns ``(logits, pool)``. Dense
+        and moe idle slots write at ``max_len`` (dropped)."""
+        step_pool = pool
+        if self.cfg.family in ("dense", "moe"):
+            step_pool = {**pool, "idx": torch.where(
+                active, pool["idx"], self.ecfg.max_len).to(torch.int32)}
+        logits, new_pool = self.mod.decode_step(self.cfg, params, tok,
+                                                step_pool)
+        return logits, {**pool, "idx": new_pool["idx"].to(torch.int32)}
+
     # -- public API --------------------------------------------------------
 
     def resident_bytes(self) -> Dict[str, int]:
-        """Bytes of the resident weights and KV pool."""
-        return {"params": tree_bytes(self.params),
-                "pool": tree_bytes(self._pool)}
+        """Bytes of the resident weights and KV pool (in int8 mode the
+        codes and their scales)."""
+        return {"params": serve_quant.tree_bytes(self.params),
+                "pool": serve_quant.tree_bytes(self._pool)}
 
     def submit(self, req: Request) -> None:
         tp = len(req.prompt)
@@ -346,13 +399,11 @@ class ServeEngine:
             logits, row = self._prefill(
                 torch.from_numpy(toks).to(self.device), tp)
             first = self._sampler(logits, self._gen)[0]
+            if self._quant:
+                row = serve_quant.quantize_kv(row)
             pool_mod.write_slot(self._pool, slot, row, tp)
-            self._tok[slot, 0] = first
-            alive = (req.max_new_tokens > 1) & ~(
-                (first == req.eos_id) & (req.eos_id >= 0))
-            self._active[slot] = alive
-            self._remaining[slot] = req.max_new_tokens - 1
-            self._eos[slot] = req.eos_id
+            self._admit_state(slot, first, req.max_new_tokens - 1,
+                              req.eos_id)
             first = int(first)
             now = time.monotonic()
             ttft = now - self._t_submit.pop(req.rid, t0)
@@ -363,6 +414,16 @@ class ServeEngine:
             if self._obs.enabled:
                 self._h_prefill.observe(now - t0)
                 self._h_ttft.observe(ttft)
+
+    def _admit_state(self, slot: int, first: torch.Tensor,
+                     n_remaining: int, eos_id: int) -> None:
+        """An admitted slot's device state: its first token, budget, EOS
+        id, and active unless the budget is spent or ``first`` is EOS."""
+        self._tok[slot, 0] = first
+        self._active[slot] = (n_remaining > 0) & ~(
+            (first == eos_id) & (eos_id >= 0))
+        self._remaining[slot] = n_remaining
+        self._eos[slot] = eos_id
 
     def _release_slot(self, slot: int) -> None:
         pool_mod.reset_slot(self._pool, slot, self._empty)
@@ -391,6 +452,10 @@ class ServeEngine:
                     "n_tokens": len(st.tokens)})
         return done
 
+    def _pre_decode(self) -> None:
+        """Run before each chunk is issued (a hook: the paged engine
+        grows its block tables here, with backpressure)."""
+
     def step(self) -> List[FinishedRequest]:
         """One engine iteration: admit, decode one chunk, harvest.
         Returns the requests that finished in it."""
@@ -401,6 +466,9 @@ class ServeEngine:
         done = self._harvest()
         if not self._slots:
             return done
+        self._pre_decode()
+        if not self._slots:      # backpressure may have preempted all
+            return done + self._harvest()
         t0 = time.monotonic()
         chunk = self.ecfg.decode_chunk
         with self._obs.span("decode_chunk", cat="serve"):

@@ -1,6 +1,8 @@
 """repro_torch's CUDA kernels against their plain PyTorch versions, on
-an NVIDIA GPU. Every test is marked ``cuda`` and skips inside the test
-when no GPU is present. The file imports neither jax nor ``repro``, so
+an NVIDIA GPU, and the serving path's decode chunks on the card (no host
+synchronisation inside one; the paged write where idle rows' clamped
+targets meet a live row's). Every test is marked ``cuda`` and skips
+inside the test when no GPU is present. The file imports neither jax nor ``repro``, so
 it runs on a machine with torch alone:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
@@ -548,3 +550,124 @@ def test_engine_decode_chunk_matches_static_on_the_card(cuda_device):
         got = st.tokens + toks[emitted[:, slot], slot].tolist()
     assert got == want
     assert not bool(eng._active[slot])
+
+
+def _serve_setup(cuda_device, dtype="float32"):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps as tsteps
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"), dtype=dtype)
+    params = tsteps.init_params(
+        cfg, generator=torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device)
+    return cfg, params
+
+
+def _sync_checked_chunk(eng):
+    """One decode chunk (after the engine's pre-chunk host work) under
+    ``set_sync_debug_mode("error")``, which raises on a host sync; no
+    custom kernel launches."""
+    eng._pre_decode()
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, emitted = eng.decode_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.launch_counts() == before
+    return toks, emitted
+
+
+@pytest.mark.cuda
+def test_paged_write_shared_target_lands_on_the_card(cuda_device):
+    """The duplicate-index hazard of the paged decode write: idle rows'
+    clamped targets (an all-unmapped table, ``idx`` past it: block
+    n_blocks - 1, column 0) are a live row's target. Every one of 200
+    writes of fresh values must leave the live row's value there,
+    bitwise; then the same in an engine's decode chunk, whose live slot
+    grows into block n_blocks - 1 and writes its column 0 while seven
+    idle slots aim there, against the slot engine's column."""
+    from repro_torch.models import layers as tlayers
+    from repro_torch.serve import (EngineConfig, PagedConfig,
+                                   PagedServeEngine, Request, ServeEngine)
+
+    nb, bl, B, nbps = 8, 16, 64, 4
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    ck = torch.randn((nb, bl, 2, 64), generator=g, device=cuda_device)
+    cv, cp = ck.clone(), torch.zeros((nb, bl), dtype=torch.int32,
+                                     device=cuda_device)
+    table = torch.full((B, nbps), nb, dtype=torch.int32, device=cuda_device)
+    table[B // 2, 0] = nb - 1
+    idx = torch.full((B,), nbps * bl, dtype=torch.int32, device=cuda_device)
+    idx[B // 2] = 0
+    for i in range(200):
+        k = torch.randn((B, 1, 2, 64), generator=g, device=cuda_device)
+        qp = torch.full((B, 1), i, dtype=torch.int32, device=cuda_device)
+        tlayers.paged_kv_write(ck, cv, cp, table, k, k, qp, idx)
+        assert torch.equal(ck[nb - 1, 0], k[B // 2, 0]), i
+        assert int(cp[nb - 1, 0]) == i
+    assert torch.equal(ck[:nb - 1], cv[:nb - 1])
+
+    cfg, params = _serve_setup(cuda_device)
+    prompt = np.random.default_rng(2).integers(
+        0, cfg.vocab, size=bl).astype(np.int32)
+    other = np.random.default_rng(3).integers(
+        0, cfg.vocab, size=5).astype(np.int32)
+    ecfg = dict(max_slots=8, max_len=64, decode_chunk=4)
+    with torch.no_grad():
+        eng = PagedServeEngine(cfg, params, PagedConfig(
+            block_len=bl, **ecfg))
+        n_blocks = eng._n_blocks
+        # a one-token request takes block n_blocks - 1 and frees it at
+        # once: the live request's first decode block is that one
+        eng.submit(Request(0, other, max_new_tokens=1))
+        eng.submit(Request(1, prompt, max_new_tokens=5))
+        eng._do_admissions()
+        eng._harvest()
+        (slot, st), = eng._slots.items()
+        toks, emitted = _sync_checked_chunk(eng)
+        assert int(eng._pool["table"][slot, 1]) == n_blocks - 1
+        ref = ServeEngine(cfg, params, EngineConfig(**ecfg))
+        ref.submit(Request(1, prompt, max_new_tokens=5))
+        ref._do_admissions()
+        (rslot, rst), = ref._slots.items()
+        rtoks, _ = ref.decode_chunk()
+    assert st.tokens + toks[emitted[:, slot], slot].tolist() == \
+        rst.tokens + rtoks[:, rslot].tolist()
+    for key in ("layers/k", "layers/v", "layers/pos"):
+        assert torch.equal(eng._pool[key][:, n_blocks - 1, 0],
+                           ref._pool[key][:, rslot, bl]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged,quant", [(True, "none"), (False, "int8"),
+                                         (True, "int8")])
+def test_serve_chunk_has_no_host_sync_on_the_card(cuda_device, paged,
+                                                  quant):
+    """A paged chunk (table growth, paged steps) and an int8 chunk on
+    either pool (fp32 dequantization, the dirty requant) with four live
+    slots, under ``set_sync_debug_mode("error")``; every live slot emits
+    every step."""
+    from repro_torch.serve import (EngineConfig, PagedConfig,
+                                   PagedServeEngine, Request, ServeEngine)
+
+    cfg, params = _serve_setup(cuda_device, "bfloat16")
+    ecfg = dict(max_slots=6, max_len=64, decode_chunk=8, quant=quant)
+    with torch.no_grad():
+        eng = (PagedServeEngine(cfg, params, PagedConfig(**ecfg))
+               if paged else ServeEngine(cfg, params, EngineConfig(**ecfg)))
+        for i in range(4):
+            eng.submit(Request(i, np.random.default_rng(i).integers(
+                0, cfg.vocab, size=10 + 3 * i).astype(np.int32),
+                max_new_tokens=20))
+        eng._do_admissions()
+        toks, emitted = _sync_checked_chunk(eng)
+    live = sorted(eng._slots)
+    assert bool(emitted[:, live].all()) and not bool(
+        emitted[:, [s for s in range(6) if s not in live]].any())
+    assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
+    if paged:
+        led = eng._ledger
+        assert int(eng._pool["free_top"]) == led.top
+        assert np.array_equal(eng._pool["table"].cpu().numpy(), led.table)

@@ -618,8 +618,7 @@ def test_engine_validates_requests():
         eng.submit(Request(0, _prompt(tcfg.vocab, 4), max_new_tokens=0))
     with pytest.raises(NotImplementedError):
         ServeEngine(t_get_smoke_config("whisper-tiny"), tp, EngineConfig())
-    with pytest.raises(NotImplementedError, match="serve_quant"):
-        ServeEngine(tcfg, tp, EngineConfig(quant="int8"))
+    assert ServeEngine(tcfg, tp, EngineConfig(quant="int8"))._quant
     with pytest.raises(ValueError):
         ServeEngine(tcfg, tp, EngineConfig(quant="int4"))
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -698,8 +697,6 @@ def test_serve_cli_runs_on_cpu(static):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--paged"], "item 7"), (["--prefix-cache"], "item 7"),
-    (["--quant", "int8"], "serve_quant"),
     (["--model-parallel", "2"], "item 8")])
 def test_serve_cli_refuses_unported(flags, item):
     from repro_torch.launch import serve as tserve
@@ -707,6 +704,49 @@ def test_serve_cli_refuses_unported(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         tserve.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu"]
                     + flags)
+
+
+PAGED_KEYS = ("block_len", "kv_blocks", "prefill_tokens", "prefix_hits",
+              "prefix_hit_tokens", "preemptions", "evictions", "free_blocks",
+              "free_blocks_low_watermark")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--paged"], ["--prefix-cache"], ["--quant", "int8"],
+    ["--static", "--quant", "int8"], ["--paged", "--quant", "int8"],
+    ["--paged", "--prefix-cache", "--kv-blocks", "6"]])
+def test_serve_cli_paged_and_int8_on_cpu(flags):
+    """The block-paged pool (``--prefix-cache`` implies it; a 19-token
+    column budget rounds up to 32, two blocks of 16), the prefix cache
+    and int8 residency through the CLI: a summary with the paged keys,
+    int8 resident bytes below the fp32 run's."""
+    from repro_torch.launch import serve as tserve
+
+    args = ["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
+            "--prompt-len", "12", "--gen", "7", "--requests", "3",
+            "--max-slots", "2", "--batch", "2"]
+    summary, out = tserve.main(args + flags)
+    assert summary["quant"] == ("int8" if "int8" in flags else "none")
+    if "--static" in flags:
+        assert summary["mode"] == "static" and out.shape == (2, 7)
+        return
+    assert summary["requests"] == 3
+    assert summary["generated_tokens"] == sum(
+        len(f.tokens) for f in out.values())
+    paged = "--paged" in flags or "--prefix-cache" in flags
+    assert summary["mode"] == ("engine-paged" if paged else "engine")
+    assert all((k in summary) == paged for k in PAGED_KEYS)
+    if paged:
+        assert summary["max_len"] == 32 and summary["block_len"] == 16
+        blocks = int(flags[-1]) if "--kv-blocks" in flags else 2 * 2
+        assert summary["kv_blocks"] == blocks
+    if "int8" in flags:
+        fp32, _ = tserve.main(args + [f for f in flags if f not in
+                                      ("--quant", "int8")])
+        assert summary["resident_bytes"]["params"] \
+            < fp32["resident_bytes"]["params"]
+        assert summary["resident_bytes"]["pool"] \
+            < fp32["resident_bytes"]["pool"]
 
 
 def test_serve_cli_defaults_to_cuda():

@@ -219,7 +219,8 @@ def test_package_imports_neither_jax_nor_repro():
         "for m in ('launch.train', 'runtime.loop', 'checkpoint.store', "
         "'obs.trace', 'obs.taps', 'lowp.parity', 'optim.first_order', "
         "'solve.block_solver', 'solve.pdiv', 'core.gauss_newton', "
-        "'models.whisper', 'serve.engine', 'launch.serve'):\n"
+        "'models.whisper', 'serve.engine', 'launch.serve', "
+        "'serve.paged', 'lowp.serve_quant', 'lowp.serve_parity'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=SRC)
