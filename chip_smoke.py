@@ -169,14 +169,38 @@ Phases, each printed as a JSON line:
                  (a divergence where the top two logits of one forward
                  over the prompt and the reference tokens lie within
                  SERVE_GAP_TOL)
-  16. trace      the main path's four steps again, the fourth under
+  16. paper      the paper's tables and the single-device benchmarks
+                 (``repro_torch.benchmarks``): (a) the pimsim model's
+                 Tables I-II and Figs. 10-13 beside the paper's values
+                 (the model's numbers, from the paper's ReRAM and V100
+                 constants, not the card's; headlines held to
+                 PIMSIM_HEADLINES); (b) Fig. 3 and Fig. 4(b) (NumPy, n
+                 256, 20 samples); (c) kernel_bench's accuracy ladder
+                 (20/1/0, 20/4/0, 20/4/2) through the CUDA neumann_inv,
+                 each stage held to the plain version, bits against
+                 float64, wall ms; (d) kfac_convergence's quadratic probe
+                 and its 60-step smoke LM probe on the card (both kernels
+                 launched); (e) the main path's losses beside its
+                 inv_method="exact" run's (phase 5): whether the loss
+                 rise is INV's accuracy or lr and damping; (f) paper Sec.
+                 VI-C at full width: the main path's model and traffic,
+                 60 steps through ``launch.train.run`` of K-FAC with the
+                 probe's hyperparameters (composed: neumann_inv once a
+                 refresh, fused_precond once a step; exact: no
+                 neumann_inv) and of SGD (no kernel), each arm's losses,
+                 steps to the probe's target, first non-finite step,
+                 median phase seconds and peak memory (which arm wins is
+                 reported, not checked), the composed arm's last refresh
+                 through the run-data kernel checks
+  17. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
                  so that the profiler session cannot perturb the phases
                  timed before it
 
-Then a JSON line of per-kernel results (with whisper's launches and the
-serve and paged phases', none), the nvidia-smi line, and last
+Then a JSON line of per-kernel results (with whisper's launches, the
+serve and paged phases' (none) and the paper phase's), the nvidia-smi
+line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 without the ``ok`` line; so does a machine without CUDA, or a directory
 without the repository's ``src/repro_torch``.
@@ -256,6 +280,26 @@ PAGED = dict(block_len=16, n_blocks=512, under_blocks=256,
 # logits (15 of 16 requests diverged, at gaps of 0.0035-0.0167, on an
 # H100 80GB HBM3 at 700 W)
 SERVE_GAP_TOL = 0.05
+# phase paper (f), paper Sec. VI-C at full width: the main path's model,
+# traffic, seed and block, 60 steps of each arm; the K-FAC arms with
+# kfac_convergence.lm_probe's hyperparameters (lr, damping, stats and
+# refresh cadence, factor EMA) and KFAC_COUNTS, SGD at the probe's lr with
+# momentum 0.9
+PAPER = dict(steps=60, cadence=5, lr=0.08, damping=0.1, ema_decay=0.8,
+             sgd_lr=0.3)
+# the pimsim model's headlines (the paper's ReRAM and V100 constants, not
+# a card's), as tests/test_torch_benchmarks.py holds them to the
+# reference's on the CPU
+PIMSIM_HEADLINES = {
+    "table2_chip_area_mm2": 87.2, "fig10_best_vmm_per_inv": 32,
+    "fig11_speedup_vs_gpu2_mean": 176.6,
+    "fig11_speedup_vs_pipelayer_mean": 7.3,
+    "fig11_speedup_vs_pipelayer_large_nets_mean": 2.2,
+    "fig11_epoch_overhead_vs_pipelayer_pct_mean": 8.2,
+    "fig12_energy_vs_pipelayer_mean": 12.8,
+    "fig12_energy_vs_gpu2_mean": 4575.0,
+    "fig13b_write_reduction_mean_pct": 60.2,
+}
 KFAC_COUNTS = dict(ns_iters=20, taylor_terms=4, refine_steps=2)
 # a kernel agrees with its plain version when max|kernel - plain| is at
 # most this share of max|plain| (rounding-level: the tensor cores sum the
@@ -1239,6 +1283,208 @@ def paged_phase(torch, dev, check, serve_tokens):
         secs["p6"] = time.perf_counter() - t0
     launches = ops.launch_counts()
     check(set(launches.values()) == {0}, "paged P7: no kernel launched")
+    out.update(launches=launches, seconds=secs,
+               phase_seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def paper_phase(torch, dev, check, main_losses, exact_losses):
+    """Phase ``paper``: (a) the pimsim model's tables and headlines
+    (host; the paper's ReRAM and V100 constants, not the card's),
+    headlines held to :data:`PIMSIM_HEADLINES`; (b) ``soi_precision``
+    and ``inv_convergence`` at the reference's sizes (host); (c)
+    ``kernel_bench``'s accuracy ladder on the card, each stage's CUDA
+    inverse held to the plain version; (d) ``kfac_convergence``'s
+    quadratic probe and ``lm_probe()`` at its defaults on the card; (e)
+    the main path's losses beside those of its ``inv_method="exact"``
+    run; (f) paper Sec. VI-C at full width: :data:`PAPER`'s arms through
+    ``launch.train.run`` on the main path's model and traffic, each with
+    its losses, steps to the probe's target, first non-finite step,
+    median phase seconds and peak memory, the composed arm's last
+    refresh through :func:`kfac_kernel_checks`. Which arm wins is
+    reported, not checked. ``launches``: each driven run's kernel
+    launches, counters zeroed just before it and read just after (the
+    checks' own calls excluded)."""
+    from repro_torch.benchmarks import (area, dse, energy, inv_convergence,
+                                        kernel_bench, kfac_convergence,
+                                        mapping_impact, soi_precision,
+                                        soi_sizes, speedup)
+    from repro_torch.configs import get_config
+    from repro_torch.core import kfac
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as train_mod
+
+    import gc
+    import types
+
+    t_phase = time.perf_counter()
+    secs, launches = {}, {}
+
+    def counted(tag, fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        launches[tag] = ops.launch_counts()
+        return out
+
+    # (a) the pimsim model: host arithmetic, bitwise the reference's
+    t0 = time.perf_counter()
+    heads = [area.headline(), dse.headline(), *speedup.headline(),
+             *energy.headline(), mapping_impact.headline()]
+    check({h["name"]: h["value"] for h in heads} == PIMSIM_HEADLINES,
+          "paper: pimsim headlines equal the CPU test's")
+    out = {"pimsim": dict(
+        source="the pimsim model (the paper's ReRAM and V100 "
+               "constants), not a measurement of this card",
+        headlines=heads, table1=soi_sizes.rows(), table2=area.rows(),
+        fig10=dse.rows(), fig11=speedup.rows(), fig12=energy.rows(),
+        fig13a=mapping_impact.rows_blocksize(),
+        fig13b=mapping_impact.rows_writes())}
+    secs["pimsim"] = time.perf_counter() - t0
+
+    # (b) Fig. 3 and Fig. 4(b): NumPy on the host, n 256, 20 samples
+    t0 = time.perf_counter()
+    fig3 = soi_precision.rows()
+    fig4b = inv_convergence.rows()
+    out["host_studies"] = dict(
+        fig3=fig3, fig3_headline=soi_precision.headline(fig3),
+        fig4b_at_18=[r for r in fig4b if r["loop_a_iters"] == 18],
+        fig4b_headline=inv_convergence.headline(fig4b))
+    secs["host_studies"] = time.perf_counter() - t0
+
+    # (c) kernel_bench on the card: the ladder's inverses against the
+    # plain version on the same block
+    t0 = time.perf_counter()
+    invs = {}
+    ladder = counted("kernel_bench", lambda: kernel_bench.accuracy_ladder(
+        device=dev, out=invs))
+    a, damp, _ = kernel_bench.ladder_problem()
+    a_t, d_t = torch.from_numpy(a).to(dev), torch.from_numpy(damp).to(dev)
+    for row, (tag, kw) in zip(ladder, kernel_bench.STAGES):
+        plain = ref.neumann_inv_ref(a_t, d_t, **kw)
+        err = float((invs[tag] - plain).abs().max())
+        scale = float(plain.abs().max())
+        row.update(counts=kw, max_abs_err=err, max_abs_plain=scale,
+                   tol=REL_TOL * scale)
+        check(err <= REL_TOL * scale,
+              f"paper: kernel_bench {tag}: CUDA inverse vs plain")
+    # a warm-up and one timed call a stage
+    check(launches["kernel_bench"]["neumann_inv"]
+          == 2 * len(kernel_bench.STAGES),
+          "paper: kernel_bench launches neumann_inv for every stage")
+    out["kernel_bench"] = dict(ladder=ladder,
+                               traffic_model=kernel_bench.traffic_model())
+    secs["kernel_bench"] = time.perf_counter() - t0
+
+    # (d) kfac_convergence on the card
+    t0 = time.perf_counter()
+    quad = kfac_convergence.quadratic_probe(device=dev)
+    probe = counted("lm_probe", lambda: kfac_convergence.lm_probe(
+        device=dev))
+    n = len(probe["kfac_losses"])
+    check(all(math.isfinite(x) for x in
+              probe["kfac_losses"] + probe["sgd_losses"]),
+          "paper: lm_probe finite losses")
+    # the same number of launches at each of its 12 refreshes (one a block
+    # side) and at each of its 60 steps (one a WU group)
+    nv, fp = (launches["lm_probe"][k] for k in ("neumann_inv",
+                                                 "fused_precond"))
+    check(nv > 0 and nv % -(-n // 5) == 0 and fp > 0 and fp % n == 0,
+          "paper: lm_probe's K-FAC arm launches both kernels")
+    out["kfac_convergence"] = dict(quadratic=quad, lm_probe=probe)
+    secs["kfac_convergence"] = time.perf_counter() - t0
+
+    # (e) Queue 3's open check: the main path's 4 steps with the
+    # composed inverse and with float64-accurate ones (phase 5's run)
+    rises = exact_losses[-1] > exact_losses[0]
+    out["open_check"] = dict(
+        composed=main_losses, exact=exact_losses, exact_rises=rises,
+        cause=("lr and damping: the float64-accurate inverse's run rises "
+               "too" if rises else "INV accuracy: the float64-accurate "
+               "inverse's run does not rise"))
+
+    # (f) Sec. VI-C at full width
+    cfg = get_config(MAIN["arch"])
+    bs = min(MAIN["block_size"], cfg.soi_block)
+    ds = SyntheticTokens(vocab=cfg.vocab, seq_len=MAIN["seq"],
+                         global_batch=MAIN["batch"], seed=MAIN["seed"])
+    kcfg = kfac.KFACConfig(
+        lr=PAPER["lr"], damping=PAPER["damping"],
+        ema_decay=PAPER["ema_decay"], stats_every=PAPER["cadence"],
+        inv_every=PAPER["cadence"], block_size=bs,
+        stats_batch=MAIN["batch"], stats_seq=MAIN["seq"], **KFAC_COUNTS)
+    arms = dict(
+        composed=lambda: train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"],
+                                               device="cuda"),
+        exact=lambda: train_mod.KFACProgram(
+            cfg, dataclasses.replace(kcfg, inv_method="exact"),
+            seed=MAIN["seed"], device="cuda"),
+        sgd=lambda: train_mod.SGDProgram(cfg, lr=PAPER["sgd_lr"],
+                                         seed=MAIN["seed"], device="cuda"))
+    snap = {}
+
+    def keep_refresh(state, rec):
+        # the composed arm's last refresh at a finite loss (a diverging
+        # run's later factors are not finite): its factors and inverses
+        if "inv" in rec["phase_s"] and math.isfinite(rec["loss"]):
+            snap["kfac"] = types.SimpleNamespace(
+                factors=state.kfac.factors, inverses=state.kfac.inverses)
+
+    runs = {}
+    for arm, make in arms.items():
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        program = make()
+        state, hist = counted(arm, lambda: train_mod.run(
+            program, ds, PAPER["steps"],
+            on_step=keep_refresh if arm == "composed" else None))
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        losses = [h["loss"] for h in hist]
+        phases = sorted({k for h in hist for k in h["phase_s"]})
+        runs[arm] = dict(
+            losses=losses,
+            first_nonfinite_step=next((i for i, x in enumerate(losses)
+                                       if not math.isfinite(x)), None),
+            median_phase_s={p: statistics.median(
+                h["phase_s"][p] for h in hist if p in h["phase_s"])
+                for p in phases},
+            peak_mem_gb=peak, launches=launches[arm])
+        if arm == "composed":
+            wu = train_mod.steps_mod.make_wu_plan_for(cfg, state)
+            del state, program
+            check("kfac" in snap, "paper: the composed arm refreshed")
+            worst, refresh_row, precond_row = kfac_kernel_checks(
+                torch, dev, check, "paper/composed",
+                {"state": types.SimpleNamespace(kfac=snap.pop("kfac"))},
+                kcfg, wu)
+            runs[arm].update(worst_inverse=worst, refresh=refresh_row,
+                             fused_precond=precond_row)
+        else:
+            del state, program
+        runs[arm]["seconds"] = time.perf_counter() - t0
+    refreshes = -(-PAPER["steps"] // PAPER["cadence"])
+    check(launches["composed"]["neumann_inv"] == refreshes
+          and launches["composed"]["fused_precond"] == PAPER["steps"],
+          "paper: composed arm, neumann_inv once a refresh and "
+          "fused_precond once a step")
+    check(launches["exact"]["neumann_inv"] == 0
+          and launches["exact"]["fused_precond"] == PAPER["steps"],
+          "paper: exact arm, no neumann_inv and fused_precond once a step")
+    check(set(launches["sgd"].values()) == {0},
+          "paper: sgd arm launches no kernel")
+    target, firsts = kfac_convergence.steps_to_target(
+        *(runs[arm]["losses"] for arm in arms))
+    for arm, first in zip(arms, firsts):
+        runs[arm]["steps_to_target"] = first
+    out["sec6c"] = dict(
+        arch=cfg.name, layers=cfg.n_layers, batch=MAIN["batch"],
+        seq=MAIN["seq"], block_size=bs, steps=PAPER["steps"],
+        target=target, target_rule="70% of the best drop below the "
+        "composed arm's first loss", **runs)
+    torch.cuda.empty_cache()
     out.update(launches=launches, seconds=secs,
                phase_seconds=time.perf_counter() - t_phase)
     return out
@@ -2539,7 +2785,13 @@ def main() -> int:
     paged_row = paged_phase(torch, dev, check, serve_tokens)
     emit({"phase": "paged", "nvidia_smi": smi, **paged_row})
 
-    # 16. trace: the main path's fourth step (FP, BP and WU only) under
+    # 16. paper: the pimsim tables, the Fig. 3/4(b) studies, kernel_bench
+    # and kfac_convergence on the card, the open check's answer, and Sec.
+    # VI-C at full width (composed, exact and SGD arms, 60 steps each)
+    paper_row = paper_phase(torch, dev, check, losses, ex_losses)
+    emit({"phase": "paper", "nvidia_smi": smi, **paper_row})
+
+    # 17. trace: the main path's fourth step (FP, BP and WU only) under
     # torch.profiler, kernels only, last, so that the profiler session
     # cannot perturb the phases timed before it: the device's busy time
     # (the union of the kernels' intervals) against the step's host wall
@@ -2597,13 +2849,17 @@ def main() -> int:
     path_launches = dict(launches, smw_update=smw_launches["smw_update"],
                          bitslice_mm=pinv_launches["bitslice_mm"],
                          fused_gram_inv=pinv_launches["fused_gram_inv"])
-    # whisper's launches beside them, and the serving phases' (none:
-    # the serving path runs no TPU kernel's counterpart)
+    # whisper's launches beside them, the serving phases' (none: the
+    # serving path runs no TPU kernel's counterpart) and the paper
+    # phase's (its driven runs together)
     emit({"kernels": [dict(name=name, launches=path_launches[name],
                            **{k: r[k] for k in keys},
                            whisper_launches=whisper_row["launches"][name],
                            serve_launches=serve_row["launches"][name],
-                           paged_launches=paged_row["launches"][name])
+                           paged_launches=paged_row["launches"][name],
+                           paper_launches=sum(
+                               c[name] for c in
+                               paper_row["launches"].values()))
                       for name, r in results.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

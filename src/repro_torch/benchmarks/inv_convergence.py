@@ -1,0 +1,88 @@
+"""Paper Fig. 4(b): fraction of samples reaching 16-bit-accurate
+inversion vs Loop-A iteration count, on Tikhonov-damped matrices.
+
+The paper's setup: 1024x1024 16-bit-quantized matrices at ResNet-50
+training damping levels; >99% of 10^6 vectors reach 16-bit accuracy
+within 18 Loop-A iterations. We run the faithful fixed-point circuit
+model (CPU-sized: 256x256 matrices — the contraction rate of the
+Neumann series depends on the damped condition number, not the size —
+and fewer samples), and report the CDF.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.precision_inv import (
+    CircuitConfig,
+    achieved_bits,
+    faithful_inv_apply,
+    quantize_problem,
+)
+from repro_torch.benchmarks.common import print_csv
+
+
+def _damped_spd(rng, n: int, damp_rel: float = 0.03):
+    m = rng.standard_normal((n, n))
+    a = m @ m.T / n
+    lam = damp_rel * np.trace(a) / n
+    return a + lam * np.eye(n)
+
+
+def rows(n: int = 256, n_samples: int = 20, seed: int = 0):
+    """CDF of Loop-A iterations to 16-bit accuracy, across damping
+    levels. The paper's ensemble is "Tikhonov Normalization of the
+    same level of ResNet 50 training" (damped condition number not
+    published); the Neumann contraction rate is a pure function of
+    kappa(A_damped), so we sweep the practical K-FAC damping range and
+    report the CDF per level — 0.1 is the ResNet-50 K-FAC practice
+    ([36]-style trace-normalized damping)."""
+    cfg = CircuitConfig(n_taylor=24)
+    out = []
+    for damp_rel in (0.03, 0.1, 0.3):
+        rng = np.random.default_rng(seed)
+        reached_at = []
+        for i in range(n_samples):
+            a = _damped_spd(rng, n, damp_rel)
+            b = rng.standard_normal(n)
+            aq, bq = quantize_problem(a, b, cfg)
+            x_ref = np.linalg.solve(aq, bq)
+            _, trace = faithful_inv_apply(a, b, cfg, return_trace=True)
+            hit = None
+            for it, x in enumerate(trace):
+                if achieved_bits(x, x_ref) >= 16.0:
+                    hit = it + 1
+                    break
+            reached_at.append(hit if hit is not None
+                              else cfg.n_taylor + 1)
+        reached_at = np.asarray(reached_at)
+        for it in range(1, cfg.n_taylor + 1):
+            out.append({"damp_rel": damp_rel, "loop_a_iters": it,
+                        "frac_16bit": float(np.mean(reached_at <= it))})
+    return out
+
+
+def headline(rs=None):
+    rs = rs or rows()
+    at = lambda d, it: next(
+        r for r in rs if r["damp_rel"] == d and r["loop_a_iters"] == it)
+    return [
+        {"name": "fig4b_frac_16bit_at_18_iters_damp0.1",
+         "value": at(0.1, 18)["frac_16bit"], "paper": 0.99},
+        {"name": "fig4b_frac_16bit_at_18_iters_damp0.03",
+         "value": at(0.03, 18)["frac_16bit"],
+         "paper": "harsher-than-paper ensemble; the paper's knob "
+                  "(more Loop-A iterations, Sec. III-A.3) applies"},
+        {"name": "fig4b_frac_16bit_at_24_iters_damp0.03",
+         "value": at(0.03, 24)["frac_16bit"], "paper": "-"},
+    ]
+
+
+def main():
+    rs = rows()
+    print_csv("fig4b_inv_convergence", rs)
+    print_csv("fig4b_headline", headline(rs))
+
+
+if __name__ == "__main__":
+    main()

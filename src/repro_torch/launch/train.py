@@ -346,13 +346,16 @@ class SGDProgram:
         return step_fn
 
 
-def run(program: KFACProgram, ds: SyntheticTokens, n_steps: int,
+def run(program: KFACProgram | SGDProgram, ds: SyntheticTokens,
+        n_steps: int,
         on_step: Callable[[TrainState, dict], None] | None = None):
     """The plain driver, without ``runtime.TrainLoop``'s checkpoints,
     watchdog and recovery: init the state and take ``n_steps`` steps on
-    ``ds``; returns the final state and one history record per step (loss, grad norm,
-    per-phase seconds, and on the SMW path the drift and fallback
-    flag). ``on_step(state, record)`` is called after each step."""
+    ``ds`` with a :class:`KFACProgram` or an :class:`SGDProgram`; returns
+    the final state and one history record per step (loss, per-phase
+    seconds, K-FAC's grad norm, and on the SMW path the drift and
+    fallback flag). ``on_step(state, record)`` is called after each
+    step."""
     state = program.init_state()
     step_fn = program.make_step(state)
     cursor = DataCursor()
@@ -361,7 +364,9 @@ def run(program: KFACProgram, ds: SyntheticTokens, n_steps: int,
         state, m = step_fn(state, ds.batch(cursor, device=program.device))
         cursor = cursor.advance()
         rec = {"step": cursor.step, "loss": float(m["loss"]),
-               "grad_norm": float(m["grad_norm"]), "phase_s": m["phase_s"]}
+               "phase_s": m["phase_s"]}
+        if "grad_norm" in m:
+            rec["grad_norm"] = float(m["grad_norm"])
         if "smw_drift" in m:
             rec["smw_drift"] = float(m["smw_drift"])
             rec["smw_fallback"] = m["smw_fallback"]

@@ -71,6 +71,22 @@ def test_neumann_inv_kernel_matches_plain(cuda_device, nb, n):
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("taylor,refine", [(1, 0), (4, 0)])
+@pytest.mark.parametrize("nb,n", [(1, 128), (3, 65)])
+def test_neumann_inv_kernel_ladder_stages(cuda_device, taylor, refine, nb,
+                                          n):
+    """``benchmarks.kernel_bench``'s ladder settings besides KW's 20/4/2:
+    20/1/0 (Newton-Schulz only) and 20/4/0 (no refinement)."""
+    a, damp = _damped(nb + n + taylor, nb, n)
+    ta = torch.from_numpy(a).to(cuda_device)
+    td = torch.from_numpy(damp).to(cuda_device)
+    kw = dict(ns_iters=20, taylor_terms=taylor, refine_steps=refine)
+    got = ops.neumann_inv(ta, td, **kw)
+    want = tref.neumann_inv_ref(ta, td, **kw)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
 def _ill_conditioned(seed, n=128, cond=2600.0):
     """A factor-like SPD block whose damped condition number (damping
     0.03 tr / n, as K-FAC's) is ``cond``: one large eigenvalue over a

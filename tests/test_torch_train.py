@@ -214,13 +214,16 @@ def test_package_imports_neither_jax_nor_repro():
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
-        "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "k.startswith('jax.') or k == 'repro' or k.startswith('repro.') "
+        "or k == 'benchmarks' or k.startswith('benchmarks.'))\n"
         "print(bad)\n"
         "for m in ('launch.train', 'runtime.loop', 'checkpoint.store', "
         "'obs.trace', 'obs.taps', 'lowp.parity', 'optim.first_order', "
         "'solve.block_solver', 'solve.pdiv', 'core.gauss_newton', "
         "'models.whisper', 'serve.engine', 'launch.serve', "
-        "'serve.paged', 'lowp.serve_quant', 'lowp.serve_parity'):\n"
+        "'serve.paged', 'lowp.serve_quant', 'lowp.serve_parity', "
+        "'pimsim.perf', 'benchmarks.run', 'benchmarks.kernel_bench', "
+        "'benchmarks.kfac_convergence'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=SRC)
