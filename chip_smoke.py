@@ -192,15 +192,44 @@ Phases, each printed as a JSON line:
                  median phase seconds and peak memory (which arm wins is
                  reported, not checked), the composed arm's last refresh
                  through the run-data kernel checks
-  17. trace      the main path's four steps again, the fourth under
+  17. tooling    the reference's single-device benchmarks and examples
+                 through the port: (a) ``precision_ladder`` at the
+                 reference's sizes (five rungs, 4-step trajectories, 40
+                 training steps for int8 serving; int8 and hilo updates
+                 >= 16 bits, decided greedy requests all matched); (b)
+                 ``wu_fusion`` on its three smoke archs at block 16 and
+                 on the main path's model at full width, block 128 (18816
+                 tiles): per variant (per_leaf, fused, fused+ew_pool,
+                 fused+kernel) paired-median wall ms and the kernel
+                 launches, product calls and ATen calls of profiled
+                 calls (host records); fused bitwise per_leaf, fewer product calls fused,
+                 the kernel route within KERNEL_TOL, fused_precond
+                 launched; (c) ``serve_engine`` and (d) ``serve_scale``
+                 on qwen2-0.5b at published widths with the reference's
+                 traffic (serve_scale's session, byte and prefill counts
+                 gated); (e) ``obs_overhead``, the train step on the main
+                 path's model and decode on qwen2-0.5b, 60/20 paired
+                 rounds, the obs variant's JSONL rows; (f) the examples:
+                 quickstart, precision_inv_demo (its CUDA neumann_inv vs
+                 plain), serve_batched, train_kfac_100m --smoke (24
+                 steps, then a device loss at step 12), its own block 256
+                 raising the kernels' ValueError, and its ~100M model 200
+                 steps at block 128 with a checkpoint every 25 and a
+                 device loss at step 100 (one recovery, the last loss
+                 below the first, both kernels launched). Wall-clock
+                 guards (wu_fusion's paired guard, serve_engine's
+                 engine >= static, obs_overhead's 2% budget) are printed
+                 with their verdicts, not gated; launch counters zeroed
+                 just before each sub-phase and read just after
+  18. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
                  so that the profiler session cannot perturb the phases
                  timed before it
 
-Then a JSON line of per-kernel results (with whisper's launches, the
-serve and paged phases' (none) and the paper phase's), the nvidia-smi
-line, and last
+Then the script's seconds, a JSON line of per-kernel results (with
+whisper's launches, the serve and paged phases' (none), the paper
+phase's and the tooling phase's), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 without the ``ok`` line; so does a machine without CUDA, or a directory
 without the repository's ``src/repro_torch``.
@@ -300,6 +329,19 @@ PIMSIM_HEADLINES = {
     "fig12_energy_vs_gpu2_mean": 4575.0,
     "fig13b_write_reduction_mean_pct": 60.2,
 }
+# phase tooling: the reference's single-device benchmarks and examples.
+# wu_fusion's full-width case is the main path's model and block (its
+# 18816 WU tiles); serve_engine, serve_scale and obs_overhead's decode run
+# qwen2-0.5b at its published widths with each module's own traffic, and
+# obs_overhead's train step the main path's model; train_kfac_100m's ~100M
+# model takes 200 steps at block 128 (its own 256 is above the CUDA
+# kernels' 128, ROADMAP Queue 2 item 2), a device loss at step 100
+TOOLING = dict(wu_full=dict(arch="qwen1.5-0.5b", block_size=128,
+                            n_tiles=18816),
+               obs_reps=(60, 20),
+               k100=dict(steps=200, batch=8, seq=128, block_size=128,
+                         inject_at=100, keep=3),
+               smoke_inject_at=12)
 KFAC_COUNTS = dict(ns_iters=20, taylor_terms=4, refine_steps=2)
 # a kernel agrees with its plain version when max|kernel - plain| is at
 # most this share of max|plain| (rounding-level: the tensor cores sum the
@@ -798,9 +840,12 @@ def hold_to_static(torch, cfg, params, done, reqs, dev):
 def sync_checked_chunk(torch, eng, dev):
     """One decode chunk of ``eng`` (after its pre-chunk host work) under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises on a host
-    synchronisation. Returns the chunk's tokens and emitted flags (host
-    arrays) and its record: tokens emitted, dispatch and wall seconds."""
+    synchronisation (the chunk's program is built before it: a CUDA
+    graph's capture synchronises, its replays do not). Returns the
+    chunk's tokens and emitted flags (host arrays) and its record:
+    tokens emitted, dispatch and wall seconds."""
     eng._pre_decode()
+    eng.build_chunk()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
@@ -1490,7 +1535,277 @@ def paper_phase(torch, dev, check, main_losses, exact_losses):
     return out
 
 
+def tooling_phase(torch, dev, check):
+    """Phase ``tooling``: the reference's single-device benchmarks and
+    its examples, ported (``repro_torch.benchmarks``,
+    ``repro_torch.examples``). (a) ``precision_ladder.main`` at the
+    reference's sizes; (b) ``wu_fusion`` on the reference's three smoke
+    archs at block 16 and on the main path's model at full width, block
+    128; (c) ``serve_engine`` and (d) ``serve_scale`` on qwen2-0.5b at its
+    published widths; (e) ``obs_overhead`` (the train step on the main
+    path's model, decode on qwen2-0.5b, both at full width); (f) the four
+    examples, ``train_kfac_100m``'s ~100M model 200 steps at block 128.
+    Gated: correctness and counts (the modules' own asserts on bits,
+    bitwise flags, product counts, sessions and prefill tokens; the
+    kernel route against per-leaf; launches). Wall-clock guards
+    (wu_fusion's paired guard, serve_engine's ratio, the obs budget) are
+    printed with their verdicts, not gated. ``launches``: each driven
+    sub-phase's, counters zeroed just before it and read just after."""
+    from repro_torch.benchmarks import (obs_overhead, precision_ladder,
+                                        serve_engine, serve_scale,
+                                        wu_fusion)
+    from repro_torch.examples import (precision_inv_demo, quickstart,
+                                      serve_batched, train_kfac_100m)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as train_mod
+
+    import gc
+
+    t_phase = time.perf_counter()
+    secs, launches, out = {}, {}, {}
+
+    def counted(tag, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        launches[tag] = ops.launch_counts()
+        secs[tag] = time.perf_counter() - t0
+        return res
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tooling_")
+    try:
+        # (a) the precision ladder, every rung, 4-step trajectories, 40
+        # training steps for the int8 serving parity
+        data = counted("precision_ladder", lambda: precision_ladder.main(
+            ["--device", str(dev), "--out",
+             os.path.join(tmp, "BENCH_precision.json")]))
+        upd = {r["precision"]: r["min_bits"] for r in data["update"]}
+        sv = data["serve"][0]
+        check(upd["int8"] >= 16 and upd["hilo"] >= 16,
+              "tooling: precision_ladder int8 and hilo updates >= 16 bits")
+        check(sv["decided_matched"] == sv["decided_total"] > 0,
+              "tooling: precision_ladder decided greedy requests match")
+        check(launches["precision_ladder"]["neumann_inv"] > 0,
+              "tooling: precision_ladder refreshes through neumann_inv")
+        out["precision_ladder"] = dict(
+            update=data["update"], trajectory=data["trajectory"],
+            serve=data["serve"], headline=precision_ladder.headline(data),
+            block_final=[r for r in data["block"]
+                         if r["loop_a_iter"] == 12])
+
+        # (b) wu_fusion: the reference's smoke archs, then full width
+        cases = []
+        for arch in wu_fusion.ARCHS + wu_fusion.EXTRA_ARCHS:
+            cases.append(counted(f"wu_fusion/{arch}", lambda: (
+                wu_fusion._wu_case(arch, device=dev))))
+        full = TOOLING["wu_full"]
+        cases.append(counted("wu_fusion/full", lambda: wu_fusion._wu_case(
+            full["arch"], smoke=False, block_size=full["block_size"],
+            device=dev)))
+        check(cases[-1]["n_tiles"] == full["n_tiles"],
+              "tooling: wu_fusion full width on the main path's plan")
+        wu_rows = []
+        for c, tag in zip(cases, [f"wu_fusion/{a}" for a in wu_fusion.ARCHS
+                                  + wu_fusion.EXTRA_ARCHS]
+                          + ["wu_fusion/full"]):
+            name = f"tooling: {tag}"
+            v = c["variants"]
+            check(all(c["bitwise_equal"].values()),
+                  f"{name}: fused and fused+ew_pool bitwise per_leaf")
+            if c["arch"] in wu_fusion.ARCHS:
+                check(v["fused"]["gemms"] < v["per_leaf"]["gemms"],
+                      f"{name}: fewer product calls fused than per leaf")
+            check(c["kernel_max_rel_err"] <= wu_fusion.KERNEL_TOL,
+                  f"{name}: fused+kernel within KERNEL_TOL of per_leaf")
+            check(launches[tag]["fused_precond"] > 0,
+                  f"{name}: fused_precond launched")
+            wu_rows.append(dict(
+                c, launches=launches[tag], wall_guard=wu_fusion.wall_guard(c),
+                wall_guard_rule="paired diff >= -0.15 x per_leaf wall "
+                                "(reported, not gated)"))
+        out["wu_fusion"] = wu_rows
+
+        # (c) serve_engine at published widths, the reference's traffic
+        rows = counted("serve_engine", lambda: serve_engine.rows(
+            smoke=False, device=dev))
+        out["serve_engine"] = dict(
+            rows=rows, speedup=serve_engine.speedup(rows),
+            reference_guard="engine >= static (reported, not gated)",
+            guard_holds=serve_engine.speedup(rows) >= 1.0)
+
+        # (d) serve_scale at published widths: its asserts are counts
+        try:
+            rows = counted("serve_scale", lambda: serve_scale.rows(
+                smoke=False, device=dev))
+            out["serve_scale"] = dict(rows=rows,
+                                      headline=serve_scale.headline(rows))
+        except AssertionError as e:
+            check(False, f"tooling: serve_scale: {e}")
+
+        # (e) obs_overhead: both hot paths at full width
+        obs_dir = os.path.join(tmp, "obs")
+        reps_train, reps_decode = TOOLING["obs_reps"]
+        rows = counted("obs_overhead", lambda: obs_overhead.rows(
+            reps_train, reps_decode, smoke=False, device=dev,
+            out_dir=obs_dir))
+        with open(os.path.join(obs_dir, "train", "events.jsonl")) as f:
+            obs_rows = [json.loads(line) for line in f]
+        check([r["case"] for r in rows] == ["train_step", "decode_chunk"]
+              and all(r["off_us_med"] > 0 and r["obs_us_med"] > 0
+                      for r in rows),
+              "tooling: obs_overhead both variants ran")
+        check(len(obs_rows) == 1 + 10 * ((reps_train - 1) // 10)
+              and all(r["kind"] == "train_step"
+                      and math.isfinite(r["loss"]) for r in obs_rows),
+              "tooling: obs_overhead's obs variant wrote its rows")
+        out["obs_overhead"] = dict(
+            rows=rows, jsonl_rows=len(obs_rows),
+            budget=[dict(case=r["case"], budget_us=obs_overhead.budget_us(r),
+                         within=r["paired_diff_med_us"]
+                         <= obs_overhead.budget_us(r)) for r in rows],
+            budget_rule="paired diff <= max(2% of bare, 100 us) (reported, "
+                        "not gated)")
+
+        # (f) the examples
+        qs = counted("quickstart", lambda: quickstart.main(
+            ["--device", str(dev)]))
+        demo = counted("precision_inv_demo", lambda: precision_inv_demo.main(
+            ["--device", str(dev)]))
+        plain = ref.neumann_inv_ref(demo["blocks"], demo["damping"],
+                                    **KFAC_COUNTS)
+        err = float((demo["inverse"] - plain).abs().max())
+        check(err <= REL_TOL * float(plain.abs().max()),
+              "tooling: precision_inv_demo's CUDA inverse vs plain")
+        check(launches["precision_inv_demo"]["neumann_inv"] == 1,
+              "tooling: precision_inv_demo launches neumann_inv once")
+        out["examples"] = dict(
+            quickstart=qs,
+            precision_inv_demo=dict(
+                {k: v for k, v in demo.items()
+                 if k not in ("inverse", "blocks", "damping")},
+                max_abs_err_vs_plain=err))
+        sb = counted("serve_batched", lambda: serve_batched.main(
+            ["--device", str(dev)]))
+        out["examples"]["serve_batched"] = dict(
+            engine=sb["engine"][0], static=sb["static"][0])
+
+        # --smoke's run (the example's main() without its asserts:
+        # "last below first" compares one batch's loss with another's,
+        # and the seed decides it: the reference's own run fails it on
+        # seeds 2 and 4 of 0-5, the port's on seed 0, while on the
+        # reference's weights the port's run drops as the reference's
+        # does; tests/test_torch_examples.py holds both. Reported, not
+        # gated)
+        smoke_runs = {}
+        cfg_s = train_kfac_100m.config_smoke()
+        for tag, inject_at in (("smoke", -1),
+                               ("smoke_inject", TOOLING["smoke_inject_at"])):
+            s = counted(f"train_kfac_100m/{tag}",
+                        lambda: train_kfac_100m.train(
+                            cfg_s, train_kfac_100m.kfac_config(cfg_s, 4, 32),
+                            steps=24, batch=4, seq=32,
+                            ckpt_dir=os.path.join(tmp, f"ck_{tag}"),
+                            inject_at=inject_at, device=dev))
+            losses = [h["loss"] for h in s["history"]]
+            check(all(math.isfinite(x) for x in losses),
+                  f"tooling: train_kfac_100m {tag} finite losses")
+            smoke_runs[tag] = dict(
+                losses=losses, recoveries=s["recoveries"], wall_s=s["wall_s"],
+                last_below_first=losses[-1] < losses[0],
+                launches=launches[f"train_kfac_100m/{tag}"])
+        check(smoke_runs["smoke_inject"]["recoveries"] == 1,
+              "tooling: train_kfac_100m --smoke: one recovery")
+
+        # the example's own configuration: block 256 raises the kernels'
+        # ValueError on the card (no fallback)
+        k100 = TOOLING["k100"]
+        cfg = train_kfac_100m.config_100m()
+        own = train_kfac_100m.kfac_config(cfg, k100["batch"], k100["seq"])
+        try:
+            train_kfac_100m.train(
+                cfg, own, steps=1, batch=k100["batch"], seq=k100["seq"],
+                ckpt_dir=None, device=dev)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(own.block_size == 256 and raised is not None,
+              "tooling: train_kfac_100m's own block 256 raises on the card")
+
+        # the ~100M model, 200 steps at block 128, a device loss at 100
+        kcfg = dataclasses.replace(own, block_size=k100["block_size"])
+        prog = train_mod.KFACProgram(cfg, kcfg, device=dev)
+        like = prog.init_state()
+        state_bytes = tensor_bytes(like)
+        ck_dir = os.path.join(tmp, "ck100m")
+        free_disk = shutil.disk_usage(tmp).free
+        check(free_disk > (k100["keep"] + 0.5) * state_bytes,
+              f"free disk for {k100['keep']} checkpoints of "
+              f"{state_bytes} bytes")
+        torch.cuda.reset_peak_memory_stats(dev)
+        s = counted("train_kfac_100m", lambda: train_kfac_100m.train(
+            cfg, kcfg, steps=k100["steps"], batch=k100["batch"],
+            seq=k100["seq"], ckpt_dir=ck_dir, inject_at=k100["inject_at"],
+            device=dev))
+        hist = s["history"]
+        losses = [h["loss"] for h in hist]
+        executed = [h["step"] for h in hist]
+        replayed = len(executed) - k100["steps"]
+        l100 = launches["train_kfac_100m"]
+        check(all(math.isfinite(x) for x in losses),
+              "tooling: train_kfac_100m finite losses")
+        check(losses[-1] < losses[0],
+              "tooling: train_kfac_100m's last loss below its first")
+        check(s["recoveries"] == 1 and s["steps"] == k100["steps"],
+              "tooling: train_kfac_100m one recovery, every step")
+        check(l100["neumann_inv"] > 0 and l100["fused_precond"] > 0,
+              "tooling: train_kfac_100m launches both kernels")
+        by_step = {}
+        for h in hist:
+            by_step.setdefault(h["step"], []).append(h["loss"])
+        step_s = [h["phase_s"]["train"] for h in hist
+                  if set(h["phase_s"]) == {"train", "wu"}]
+        # what the recovery paid beside its lost steps: one restore of a
+        # checkpoint of this state
+        from repro_torch.checkpoint import restore
+
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        restored, _ = restore(ck_dir, like)
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t0
+        del restored, like, prog
+        out["examples"]["train_kfac_100m"] = dict(
+            cut="block_size 128, example's own 256 waits for ROADMAP "
+                "Queue 2 item 2",
+            own_block_256_error=raised,
+            params=cfg.param_count(), state_bytes=state_bytes,
+            smoke=smoke_runs, steps=k100["steps"], batch=k100["batch"],
+            seq=k100["seq"], executed_steps=len(executed),
+            replayed_steps=replayed, recoveries=s["recoveries"],
+            loss_first=losses[0], loss_last=losses[-1],
+            losses_every_25=[by_step[i][-1] for i in range(0, k100["steps"],
+                                                           25)],
+            replay_bitwise=all(len(set(v)) == 1 for v in by_step.values()),
+            train_s_median=statistics.median(step_s),
+            refresh_step_s_median=statistics.median(
+                sum(v for k, v in h["phase_s"].items() if k != "wu")
+                for h in hist if "inv" in h["phase_s"]),
+            restore_s=restore_s,
+            loop_wall_s=s["wall_s"], ckpt_write_s=s.get("ckpt_write_s"),
+            peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    finally:
+        shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+    out.update(launches=launches, seconds=secs,
+               phase_seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2791,7 +3106,14 @@ def main() -> int:
     paper_row = paper_phase(torch, dev, check, losses, ex_losses)
     emit({"phase": "paper", "nvidia_smi": smi, **paper_row})
 
-    # 17. trace: the main path's fourth step (FP, BP and WU only) under
+    # 17. tooling: the reference's single-device benchmarks and examples
+    # (precision_ladder, wu_fusion, serve_engine, serve_scale,
+    # obs_overhead; quickstart, precision_inv_demo, serve_batched,
+    # train_kfac_100m)
+    tooling_row = tooling_phase(torch, dev, check)
+    emit({"phase": "tooling", "nvidia_smi": smi, **tooling_row})
+
+    # 18. trace: the main path's fourth step (FP, BP and WU only) under
     # torch.profiler, kernels only, last, so that the profiler session
     # cannot perturb the phases timed before it: the device's busy time
     # (the union of the kernels' intervals) against the step's host wall
@@ -2838,6 +3160,8 @@ def main() -> int:
     check(bool(spans), "the profiled step ran kernels on the device")
     del prof
 
+    emit({"phase": "timing", "script_seconds": time.perf_counter() - t_script,
+          "tooling_seconds": tooling_row["phase_seconds"]})
     if failures:
         emit({"phase": "failed", "failures": failures})
         return 1
@@ -2859,7 +3183,10 @@ def main() -> int:
                            paged_launches=paged_row["launches"][name],
                            paper_launches=sum(
                                c[name] for c in
-                               paper_row["launches"].values()))
+                               paper_row["launches"].values()),
+                           tooling_launches=sum(
+                               c[name] for c in
+                               tooling_row["launches"].values()))
                       for name, r in results.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

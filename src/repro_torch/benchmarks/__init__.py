@@ -10,7 +10,10 @@ Each module exposes ``rows()`` (or ``rows_blocksize()`` and
 
 The pimsim-backed modules (``soi_sizes``, ``area``, ``dse``, ``speedup``,
 ``energy``, ``mapping_impact``) print the model's numbers; ``soi_precision``
-and ``inv_convergence`` are NumPy; ``kernel_bench`` and
-``kfac_convergence`` run on the device they are given, the CUDA kernels
-on the card.
+and ``inv_convergence`` are NumPy; ``kernel_bench``, ``kfac_convergence``,
+``precision_ladder``, ``wu_fusion``, ``serve_engine``, ``serve_scale`` and
+``obs_overhead`` run on the device they are given (``--device``), the
+CUDA kernels on the card. A module's ``main(argv)`` writes its artifact
+to ``--out`` (default ``bench_out/BENCH_<name>.json``), never to the
+repository root.
 """

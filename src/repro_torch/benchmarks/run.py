@@ -2,7 +2,8 @@
 ``benchmarks/run.py``).
 
   python -m repro_torch.benchmarks.run                # on the card
-  python -m repro_torch.benchmarks.run --fast         # no LM probe
+  python -m repro_torch.benchmarks.run --fast         # no LM probe,
+                                                      # shorter sweeps
   python -m repro_torch.benchmarks.run --device cpu   # plain versions
 
 ``--device`` defaults to ``cuda`` and raises when CUDA is not available;
@@ -15,6 +16,10 @@ reproduction scorecard under the reference's contract:
   ``skipped`` and its note names the ROADMAP item that ports it;
 * headline value rows (``paper`` against ``ours``) follow for the
   modules that ran and have a ``headline()``.
+
+A module that raises is ``failed``, its note the exception (the
+time guards of ``wu_fusion``, ``serve_engine`` and ``obs_overhead`` are
+asserts in their ``main()``, as in the reference).
 
 Every file the runner writes goes under ``--out-dir`` (default
 ``bench_out/``): the device-measured modules' rows as
@@ -40,8 +45,6 @@ SUMMARY_SCHEMA = 1
 
 #: the reference's modules not yet ported -> the ROADMAP item porting them
 UNPORTED = {
-    "wu_fusion": "9a", "serve_engine": "9a", "obs_overhead": "9a",
-    "serve_scale": "9a", "precision_ladder": "9a",
     "dist_inverse": "8", "pipeline_bench": "8",
     "grad_compression_dcn": "8",
     "roofline": "9b",
@@ -103,7 +106,9 @@ def write_summary(directory):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--fast", action="store_true",
-                    help="skip the LM probe of sec6c_kfac_convergence")
+                    help="skip the LM probe of sec6c_kfac_convergence; "
+                         "the --fast sweeps of obs_overhead, serve_scale "
+                         "and precision_ladder")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without CUDA) or cpu")
     ap.add_argument("--out-dir", default="bench_out")
@@ -122,9 +127,14 @@ def main(argv=None):
         kernel_bench,
         kfac_convergence,
         mapping_impact,
+        obs_overhead,
+        precision_ladder,
+        serve_engine,
+        serve_scale,
         soi_precision,
         soi_sizes,
         speedup,
+        wu_fusion,
     )
 
     scorecard = []
@@ -143,11 +153,11 @@ def main(argv=None):
             print(f"# [{name}] done in {time.monotonic() - t0:.1f}s\n")
             scorecard.append({"metric": name, "status": "ok",
                               "note": note})
-        except Exception:
+        except Exception as e:
             failures += 1
             print(f"# [{name}] FAILED:\n{traceback.format_exc()}\n")
             scorecard.append({"metric": name, "status": "failed",
-                              "note": ""})
+                              "note": f"{type(e).__name__}: {e}"})
 
     def score(entries):
         if isinstance(entries, dict):
@@ -182,9 +192,30 @@ def main(argv=None):
     score(mapping_impact.headline())
     run("kernel_bench", lambda: measured(
         "kernel_bench", kernel_bench.rows(device=device)))
-    for name in ("wu_fusion", "serve_engine", "obs_overhead",
-                 "serve_scale", "precision_ladder", "dist_inverse",
-                 "pipeline_bench", "grad_compression_dcn"):
+    dev = ["--device", str(device)]
+    fast = ["--fast"] if args.fast else []
+
+    def out(name):
+        return ["--out", os.path.join(args.out_dir, f"BENCH_{name}.json")]
+
+    # fused vs per-leaf WU; BENCH_wu_fusion.json
+    run("wu_fusion", lambda: wu_fusion.main(dev + out("wu_fusion")))
+    # continuous-batching engine vs static decode
+    run("serve_engine", lambda: serve_engine.main(
+        dev + out("serve_engine")))
+    # the telemetry spine's overhead on the train-step and decode-chunk
+    # hot paths (interleaved paired medians, <= 2% budget); BENCH_obs.json
+    run("obs_overhead", lambda: obs_overhead.main(fast + dev + out("obs")))
+    # the paged pool and the prefix cache against the slot pool at equal
+    # cache bytes
+    run("serve_scale", lambda: score(serve_scale.headline(
+        serve_scale.main(fast + dev + out("serve_scale")))))
+    # the precision ladder (Fig. 4(b) -> full trajectories and int8
+    # serving); --fast drops the int4b4/int16b4 rungs and shortens the
+    # trajectories
+    run("precision_ladder", lambda: score(precision_ladder.headline(
+        precision_ladder.main(fast + dev + out("precision")))))
+    for name in ("dist_inverse", "pipeline_bench", "grad_compression_dcn"):
         unported(name)
     run("sec6c_kfac_convergence", lambda: measured(
         "kfac_convergence", kfac_convergence.rows(fast=args.fast,

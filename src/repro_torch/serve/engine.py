@@ -11,8 +11,9 @@
   sampling, per-slot termination (token budget and EOS) and an active
   mask, launched back to back with no host read inside the chunk; the
   host reads the chunk's tokens once, harvests finished requests and
-  admits queued ones. (The reference compiles the chunk as one
-  ``lax.scan`` program.)
+  admits queued ones. With greedy sampling the chunk is captured once
+  and replayed (a CUDA graph on the card, a TorchScript trace on the
+  CPU), as the reference compiles it as one ``lax.scan`` program.
 
 ``EngineConfig(quant="int8")`` keeps the weights and the KV pool
 resident as int8 codes with fp32 scales (``lowp.serve_quant``): each
@@ -160,6 +161,52 @@ class Scheduler:
 # Engine
 # ---------------------------------------------------------------------------
 
+def _capture(fn, state, n_fixed: int):
+    """``fn(*state)`` as one captured program, replayed on the same
+    ``state`` tensors at every call; ``fn`` writes its new state into
+    ``state[n_fixed:]`` and returns its outputs. It is built on a copy
+    of those, so the first replay is the first call that counts. On the
+    card a CUDA graph (warmed up once on the copy); on the CPU a
+    TorchScript trace. Either holds ``fn``'s shapes fixed, and ``fn``
+    must read nothing back to the host: the graph's capture refuses a
+    sync, and a trace would keep the value it read as a constant (its
+    warnings, silenced here, are the models' shape tests)."""
+    import warnings
+
+    warm = state[:n_fixed] + tuple(t.clone() for t in state[n_fixed:])
+    if state[-1].is_cuda:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*warm)
+        torch.cuda.current_stream().wait_stream(side)
+        del warm
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = fn(*state)
+
+        def replay(*args):
+            if any(a is not b for a, b in zip(args[n_fixed:],
+                                              state[n_fixed:])):
+                raise RuntimeError("a captured chunk replays on the "
+                                   "tensors it was captured on")
+            graph.replay()
+            return tuple(o.clone() for o in outs)
+
+        return replay
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        traced = torch.jit.trace(fn, warm, check_trace=False)
+
+    def run(*args):
+        # the graph as traced: the executor's optimizing passes take
+        # longer than the chunks of a short run and speed none of them
+        with torch.jit.optimized_execution(False):
+            return traced(*args)
+
+    return run
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     max_slots: int = 8
@@ -202,6 +249,8 @@ class ServeEngine:
         # resident weights: int8 codes and per-channel scales
         self.params = serve_quant.quantize_params(params) if self._quant \
             else params
+        self._weights = [t for p in self.params.values() for t in
+                         (p if isinstance(p, serve_quant.QTensor) else (p,))]
         dev = self.device
         B = ecfg.max_slots
         self._pool = self._build_pool()
@@ -222,6 +271,7 @@ class ServeEngine:
         self._t_submit: Dict[int, float] = {}
         self._sampler = make_sampler(ecfg.method, ecfg.temperature,
                                      ecfg.top_k)
+        self._program = None         # the chunk, built at its first call
         self.stats: Dict[str, Any] = {}
         self.reset_stats()
         self._obs = obs if obs is not None else NULL_OBS
@@ -297,22 +347,65 @@ class ServeEngine:
         """``decode_chunk`` model steps with sampling and termination,
         issued back to back with no host read: returns the chunk's
         tokens and which of them each slot emitted, both
-        (chunk, max_slots) on the device. Inactive slots keep stepping
-        on their last token; for dense and moe their cache writes are
-        diverted past the last column (``idx`` -> ``max_len``) and
-        dropped, so idle slots' columns stay bitwise untouched; the
-        hybrid's ring and the recurrent states of idle slots are
-        rewritten by the next ``write_slot``.
+        (chunk, max_slots) on the device, and leaves the engine's
+        resident state (pool, last tokens, active mask, budgets) updated
+        in place. Inactive slots keep stepping on their last token; for
+        dense and moe their cache writes are diverted past the last
+        column (``idx`` -> ``max_len``) and dropped, so idle slots'
+        columns stay bitwise untouched; the hybrid's ring and the
+        recurrent states of idle slots are rewritten by the next
+        ``write_slot``.
 
         In int8 mode the chunk runs on the fp32 dequantization of the
         weights and the pool, and the pool is requantized at its end:
         for dense and moe only the slots active at the chunk's entry
         (the only ones written), the others keeping their codes and
-        scales bitwise; for ssm and hybrid the whole pool."""
-        params = self._float_params()
-        tok = self._tok
-        active, remaining = self._active, self._remaining
-        pool, dirty = self._chunk_pool()
+        scales bitwise; for ssm and hybrid the whole pool.
+
+        With greedy sampling the chunk runs as one captured program,
+        built at its first call on the resident state: a CUDA graph on
+        the card, a TorchScript trace on the CPU. So a chunk is one
+        dispatch, as the reference's compiled chunk is, and computes
+        what the op-by-op chunk computes. The stochastic samplers draw
+        from a ``torch.Generator``, which neither capture replays: they
+        issue the chunk op by op."""
+        self.build_chunk()
+        with torch.no_grad():
+            return self._program(*self._state())
+
+    def build_chunk(self) -> None:
+        """Build the chunk's program on the resident state now (the
+        first :meth:`decode_chunk` does otherwise): a capture may
+        synchronise the card, a replay does not."""
+        if self._program is not None:
+            return
+        with torch.no_grad():
+            self._program = _capture(
+                self._chunk_program, self._state(), len(self._weights)) \
+                if self.ecfg.method == "greedy" else self._chunk_program
+
+    def _state(self) -> tuple:
+        """The chunk's inputs, flat: the resident weights (an int8
+        weight as its codes and scale), the pool's leaves, then the last
+        tokens, active mask, budgets and EOS ids (the same tensors at
+        every call: the chunk writes them in place)."""
+        return (*self._weights, *self._pool.values(), self._tok,
+                self._active, self._remaining, self._eos)
+
+    def _chunk_program(self, *state):
+        """The chunk on the flat ``state`` of :meth:`_state`; writes the
+        new state into it and returns ``(toks, emitted)``."""
+        n_p, n_c = len(self._weights), len(self._pool)
+        leaves, params = iter(state[:n_p]), {}
+        for key, p in self.params.items():
+            params[key] = serve_quant.QTensor(next(leaves), next(leaves)) \
+                if isinstance(p, serve_quant.QTensor) else next(leaves)
+        pool_in = dict(zip(self._pool, state[n_p:n_p + n_c]))
+        tok_in, active_in, remaining_in, eos = state[n_p + n_c:]
+        if self._quant:
+            params = serve_quant.dequantize_params(params)
+        tok, active, remaining = tok_in, active_in, remaining_in
+        pool, dirty = self._chunk_pool(pool_in, active)
         toks, emitted = [], []
         for _ in range(self.ecfg.decode_chunk):
             logits, pool = self._decode_step(params, tok, pool, active)
@@ -320,27 +413,32 @@ class ServeEngine:
             nxt = torch.where(active, nxt, tok[:, 0])
             emitted.append(active)
             remaining = remaining - active.to(torch.int32)
-            hit_eos = (nxt == self._eos) & (self._eos >= 0)
+            hit_eos = (nxt == eos) & (eos >= 0)
             active = active & (remaining > 0) & ~hit_eos
             tok = nxt[:, None]
             toks.append(nxt)
         if self._quant:
-            pool = serve_quant.requantize_kv(pool, like=self._pool,
+            pool = serve_quant.requantize_kv(pool, like=pool_in,
                                              dirty=dirty)
-        self._pool, self._tok = pool, tok
-        self._active, self._remaining = active, remaining
-        return torch.stack(toks), torch.stack(emitted)
+        # stacked before the write-back: emitted[0] is the entry mask
+        out = torch.stack(toks), torch.stack(emitted)
+        for key, buf in pool_in.items():
+            if pool[key] is not buf:
+                buf.copy_(pool[key])
+        tok_in.copy_(tok)
+        active_in.copy_(active)
+        remaining_in.copy_(remaining)
+        return out
 
-    def _chunk_pool(self):
+    def _chunk_pool(self, pool, active):
         """The pool a chunk's steps run on (fp32 in int8 mode) and the
         ``dirty`` mask of the entries they can write along axis 1 of the
         KV leaves: the chunk-entry active slots for dense and moe, None
         (all) otherwise. (A hook: the paged engine grows its tables
         here.)"""
-        dirty = self._active if self.cfg.family in ("dense", "moe") \
-            else None
-        pool = serve_quant.dequantize_kv(self._pool) if self._quant \
-            else self._pool
+        dirty = active if self.cfg.family in ("dense", "moe") else None
+        if self._quant:
+            pool = serve_quant.dequantize_kv(pool)
         return pool, dirty
 
     def _decode_step(self, params, tok, pool, active):

@@ -533,12 +533,11 @@ class PagedServeEngine(ServeEngine):
         return self.mod.prefill(cfg, self._float_params(),
                                 {"tokens": tokens}, cache, length=length)
 
-    def _chunk_pool(self):
+    def _chunk_pool(self, pool, active):
         """Grow the tables for the chunk's write range, and mark the
         blocks it writes (those covering each active slot's
         ``[idx, idx + chunk)``: the dirty set of the int8 requant,
         exact because idle rows' writes drop)."""
-        pool, active = self._pool, self._active
         chunk, bl, nbps = self.ecfg.decode_chunk, self._bl, self._nbps
         n_blocks = self._n_blocks
         grow_tables(pool, active, chunk)

@@ -44,6 +44,7 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 if ROOT not in sys.path:            # benchmarks/ has no __init__.py
     sys.path.insert(0, ROOT)
 
+from _torch_families import one_thread  # noqa: E402,F401 (autouse)
 import benchmarks.area as j_area  # noqa: E402
 import benchmarks.dse as j_dse  # noqa: E402
 import benchmarks.energy as j_energy  # noqa: E402
@@ -199,6 +200,15 @@ def _root_bench_hashes():
 
 
 def test_run_cpu_fast_scorecard_and_out_dir(tmp_path, monkeypatch, capsys):
+    """The runner's 19 status rows, every ported module ``ok``, and its
+    files, only under --out-dir. obs_overhead's ``--fast`` paired rounds
+    are raised to 200 train steps and 26 chunks (the most its trace
+    allows): its 2% guard is a median of paired differences, and with
+    20 rounds the suite's other processes move that median past the
+    budget (296 µs against 269 µs, once in a whole run)."""
+    from repro_torch.benchmarks import obs_overhead
+
+    monkeypatch.setattr(obs_overhead, "FAST_REPS", (200, 26))
     before = _root_bench_hashes()
     assert before                      # the reference's artifacts
     cwd = tmp_path / "cwd"
@@ -209,7 +219,8 @@ def test_run_cpu_fast_scorecard_and_out_dir(tmp_path, monkeypatch, capsys):
                          str(out_dir)])
     assert failures == 0
     rows = _scorecard(capsys.readouterr().out)
-    status = [r for r in rows if r["metric"]]
+    # status rows; headline rows carry the paper's value
+    status = [r for r in rows if r["metric"] and not r["paper"]]
     assert [r["metric"] for r in status] == MODULES
     for r in status:
         if r["metric"] in run.UNPORTED:
@@ -218,11 +229,16 @@ def test_run_cpu_fast_scorecard_and_out_dir(tmp_path, monkeypatch, capsys):
         else:
             assert r["status"] == "ok", r
     assert {r["name"] for r in rows if not r["metric"]} >= {
-        "table2_chip_area_mm2", "fig11_speedup_vs_gpu2_mean"}
+        "table2_chip_area_mm2", "fig11_speedup_vs_gpu2_mean",
+        "lowp_update_min_bits_int8", "int8_serve_decided_greedy_match"}
+    assert {r["metric"] for r in rows if r["paper"] and r["metric"]} == {
+        "serve_sessions_paged_vs_slot", "serve_prefill_cut_prefix"}
     assert sorted(os.listdir(cwd)) == []
     assert sorted(os.listdir(out_dir)) == [
         "BENCH_kernel_bench.json", "BENCH_kfac_convergence.json",
-        "BENCH_summary.json"]
+        "BENCH_obs.json", "BENCH_precision.json",
+        "BENCH_serve_engine.json", "BENCH_serve_scale.json",
+        "BENCH_summary.json", "BENCH_wu_fusion.json"]
     assert _root_bench_hashes() == before
 
 

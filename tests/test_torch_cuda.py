@@ -596,6 +596,47 @@ def _sync_checked_chunk(eng):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_engine_graph_chunk_matches_op_by_op_on_the_card(
+        cuda_device, quant, paged, monkeypatch):
+    """A greedy engine's decode chunk runs on the card as one CUDA graph:
+    over a trace whose requests join and leave between chunks (the paged
+    engine sharing a prefix), its tokens and its pool are bitwise those
+    of the chunk issued op by op, the same kernels on the same
+    inputs."""
+    from repro_torch.serve import (EngineConfig, PagedConfig,
+                                   PagedServeEngine, Request, ServeEngine)
+    from repro_torch.serve import engine as tengine
+
+    cfg, params = _serve_setup(cuda_device)
+    kw = dict(max_slots=3, max_len=48, decode_chunk=4, quant=quant)
+    rng = np.random.default_rng(5)
+    head = rng.integers(0, cfg.vocab, size=16).astype(np.int32)
+    reqs = [Request(i, np.concatenate([head, rng.integers(
+        0, cfg.vocab, size=4 + i).astype(np.int32)]),
+        max_new_tokens=6 + i % 5) for i in range(8)]
+
+    def drive():
+        eng = PagedServeEngine(cfg, params, PagedConfig(
+            block_len=8, prefix_cache=True, **kw)) if paged else \
+            ServeEngine(cfg, params, EngineConfig(**kw))
+        with torch.no_grad():
+            done = eng.run(reqs, arrivals=[i // 2 for i in range(8)])
+        return ({rid: f.tokens for rid, f in done.items()},
+                {k: v.clone() for k, v in eng._pool.items()}, eng)
+
+    toks, pool, eng = drive()
+    assert eng._program != eng._chunk_program
+    monkeypatch.setattr(tengine, "_capture", lambda fn, state, n: fn)
+    want_toks, want_pool, eng = drive()
+    assert toks == want_toks
+    assert all(len(toks[r.rid]) == r.max_new_tokens for r in reqs)
+    for k, v in want_pool.items():
+        assert torch.equal(pool[k], v), k
+
+
+@pytest.mark.cuda
 def test_paged_write_shared_target_lands_on_the_card(cuda_device):
     """The duplicate-index hazard of the paged decode write: idle rows'
     clamped targets (an all-unmapped table, ``idx`` past it: block
@@ -687,3 +728,36 @@ def test_serve_chunk_has_no_host_sync_on_the_card(cuda_device, paged,
         led = eng._ledger
         assert int(eng._pool["free_top"]) == led.top
         assert np.array_equal(eng._pool["table"].cpu().numpy(), led.table)
+
+
+@pytest.mark.cuda
+def test_wu_fusion_kernel_route_matches_per_leaf_on_the_card(cuda_device):
+    """``benchmarks.wu_fusion`` on the card at smoke size: ``fused`` and
+    ``fused+ew_pool`` bitwise ``per_leaf``, fewer product kernels fused,
+    and ``fused+kernel`` (the ``fused_precond`` kernel) within
+    ``KERNEL_TOL`` of ``per_leaf``'s momentum."""
+    from repro_torch.benchmarks import wu_fusion
+
+    before = ops.launch_counts()["fused_precond"]
+    c = wu_fusion._wu_case("qwen1.5-0.5b", device=cuda_device, reps=3)
+    assert ops.launch_counts()["fused_precond"] > before
+    assert c["bitwise_equal"] == {"fused": True, "fused+ew_pool": True}
+    v = c["variants"]
+    assert v["fused"]["gemms"] < v["per_leaf"]["gemms"]
+    assert all(x["kernels"] > 0 for x in v.values())
+    assert c["kernel_max_rel_err"] <= wu_fusion.KERNEL_TOL
+
+
+@pytest.mark.cuda
+def test_precision_inv_demo_kernel_inverse_matches_plain(cuda_device):
+    """``examples.precision_inv_demo``'s 128-block through the CUDA
+    ``neumann_inv`` at 20/4/2: the plain version's inverse within the
+    file's tolerance, and the example's residual bound."""
+    from repro_torch.examples import precision_inv_demo
+
+    before = ops.launch_counts()["neumann_inv"]
+    out = precision_inv_demo.run(cuda_device)
+    assert ops.launch_counts()["neumann_inv"] == before + 1
+    want = tref.neumann_inv_ref(out["blocks"], out["damping"], **KW)
+    assert (out["inverse"] - want).abs().max() <= 1e-4 * want.abs().max()
+    assert out["resid"] < 1e-3 and out["final_bits"] >= 16.0

@@ -628,3 +628,43 @@ def test_all_at_once_admission_serves_every_request_where_reference_drops():
     assert _ledger_matches_device(eng)
     want = jpaged.PagedServeEngine(jcfg, params, jpaged.PagedConfig(**ecfg))
     assert sorted(want.run(_jreqs(reqs))) == [0, 1, 2]
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True])
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_paged_captured_chunk_bitwise_op_by_op(quant, prefix_cache,
+                                               monkeypatch):
+    """The paged engine's greedy chunk (table growth, the paged step, the
+    dirty-block requant) runs as one captured program: over a trace
+    that shares a prefix and frees and maps blocks between chunks, its
+    tokens, pool and block tables are bitwise the chunk's op by op."""
+    from repro_torch.serve import engine as tengine
+
+    _, tcfg, _, tp = _params()
+    ecfg = PagedConfig(max_slots=3, max_len=48, decode_chunk=4,
+                       block_len=8, quant=quant, prefix_cache=prefix_cache)
+    rng = np.random.default_rng(5)
+    head = rng.integers(0, tcfg.vocab, size=16).astype(np.int32)
+    reqs = [Request(i, np.concatenate([head, rng.integers(
+        0, tcfg.vocab, size=4 + i).astype(np.int32)]),
+        max_new_tokens=6 + i % 5) for i in range(8)]
+
+    def drive():
+        eng = PagedServeEngine(tcfg, tp, ecfg)
+        with torch.no_grad():
+            done = eng.run(reqs, arrivals=[i // 2 for i in range(8)])
+        return ({rid: f.tokens for rid, f in done.items()},
+                {k: v.clone() for k, v in eng._pool.items()}, eng)
+
+    toks, pool, eng = drive()
+    assert eng._program != eng._chunk_program
+    monkeypatch.setattr(tengine, "_capture", lambda fn, state, n: fn)
+    want_toks, want_pool, eng = drive()
+    assert eng._program == eng._chunk_program
+    assert (eng.stats["prefix_hits"] > 0) == prefix_cache
+    assert toks == want_toks
+    assert all(len(t) == r.max_new_tokens
+               for t, r in zip((toks[r.rid] for r in reqs), reqs))
+    assert sorted(pool) == sorted(want_pool)
+    for k, v in want_pool.items():
+        assert torch.equal(pool[k], v), k

@@ -756,3 +756,52 @@ def test_serve_cli_defaults_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tserve.main(["--arch", "qwen2-0.5b", "--smoke"])
+
+
+# ---------------------------------------------------------------------------
+# the captured decode chunk
+# ---------------------------------------------------------------------------
+
+def _drive(tcfg, tp, ecfg, engine_cls=ServeEngine):
+    """A mixed trace (requests joining and leaving mid-run) through a
+    fresh engine: its tokens by request and its pool afterwards."""
+    eng = engine_cls(tcfg, tp, ecfg)
+    reqs, arrivals = synthetic_trace(tcfg.vocab, 10, 24, 12, 3, seed=3)
+    with torch.no_grad():
+        done = eng.run(reqs, arrivals=arrivals)
+    assert all(len(done[r.rid].tokens) == r.max_new_tokens for r in reqs)
+    return ({rid: f.tokens for rid, f in done.items()},
+            {k: v.clone() for k, v in eng._pool.items()}, eng)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_captured_chunk_bitwise_op_by_op(arch, quant, monkeypatch):
+    """A greedy engine's decode chunk runs as one captured program (a
+    TorchScript trace on the CPU): over a trace whose requests join and
+    leave between chunks, its tokens and its pool are bitwise those of
+    the chunk issued op by op."""
+    from repro_torch.serve import engine as tengine
+
+    _, tcfg, _, tp = _params(arch)
+    ecfg = EngineConfig(max_slots=3, max_len=48, decode_chunk=4,
+                        quant=quant)
+    toks, pool, eng = _drive(tcfg, tp, ecfg)
+    assert eng._program != eng._chunk_program
+    monkeypatch.setattr(tengine, "_capture", lambda fn, state, n: fn)
+    want_toks, want_pool, eng = _drive(tcfg, tp, ecfg)
+    assert eng._program == eng._chunk_program
+    assert toks == want_toks
+    assert sorted(pool) == sorted(want_pool)
+    for k, v in want_pool.items():
+        assert torch.equal(pool[k], v), k
+
+
+def test_stochastic_chunk_is_not_captured():
+    """A sampler drawing from the engine's ``torch.Generator`` issues the
+    chunk op by op (neither capture replays the generator's draws)."""
+    _, tcfg, _, tp = _params("qwen2-0.5b")
+    eng = ServeEngine(tcfg, tp, EngineConfig(
+        max_slots=2, max_len=32, decode_chunk=4, method="temperature"))
+    eng.build_chunk()
+    assert eng._program == eng._chunk_program

@@ -223,7 +223,11 @@ def test_package_imports_neither_jax_nor_repro():
         "'models.whisper', 'serve.engine', 'launch.serve', "
         "'serve.paged', 'lowp.serve_quant', 'lowp.serve_parity', "
         "'pimsim.perf', 'benchmarks.run', 'benchmarks.kernel_bench', "
-        "'benchmarks.kfac_convergence'):\n"
+        "'benchmarks.kfac_convergence', 'benchmarks.precision_ladder', "
+        "'benchmarks.wu_fusion', 'benchmarks.serve_engine', "
+        "'benchmarks.serve_scale', 'benchmarks.obs_overhead', "
+        "'examples.quickstart', 'examples.precision_inv_demo', "
+        "'examples.serve_batched', 'examples.train_kfac_100m'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=SRC)
