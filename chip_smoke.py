@@ -212,16 +212,35 @@ Phases, each printed as a JSON line:
                  rounds, the obs variant's JSONL rows; (f) the examples:
                  quickstart, precision_inv_demo (its CUDA neumann_inv vs
                  plain), serve_batched, train_kfac_100m --smoke (24
-                 steps, then a device loss at step 12), its own block 256
-                 raising the kernels' ValueError, and its ~100M model 200
-                 steps at block 128 with a checkpoint every 25 and a
-                 device loss at step 100 (one recovery, the last loss
-                 below the first, both kernels launched). Wall-clock
+                 steps, then a device loss at step 12), and its ~100M
+                 model 200 steps at its own block 256 (the kernels' large
+                 route) with a checkpoint every 25 and a device loss at
+                 step 100 (one recovery, the last loss below the first,
+                 both kernels launched, every launch at block 256).
+                 Wall-clock
                  guards (wu_fusion's paired guard, serve_engine's
                  engine >= static, obs_overhead's 2% budget) are printed
                  with their verdicts, not gated; launch counters zeroed
                  just before each sub-phase and read just after
-  18. trace      the main path's four steps again, the fourth under
+  18. large_blocks  the kernels' route for block and tile sides of
+                 129..1024 (``csrc/hilo_bmm.cuh``): (a) neumann_inv at
+                 129, 176, 256, 512 and 1024 (2-8 blocks) and fused_precond
+                 indexed and gathered at (256, 256), (256, 176), (176,
+                 256), (1024, 176), (176, 1024) and (130, 200), each
+                 against its plain version (float64 inv too), launches,
+                 bitwise its repeat, timed beside its plain version, its
+                 library call and its bound; a grouped call over leaves
+                 of 128, 176 and 256 bitwise the per-leaf calls; (b) the
+                 main path's model and traffic at block 256 (sides 256 and
+                 176), 4 steps of ``launch.train.run`` with the launch
+                 counters zeroed just before and read just after (both
+                 kernels on every side and tile shape, the counts of the
+                 plans), the whole refresh timed with its workspace and
+                 peak memory, the run's inverses and its largest WU group
+                 against the plain versions; (c) one step at the
+                 reference's default block 1024 (sides 1024 and 176)
+                 through the same checks
+  19. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
                  so that the profiler session cannot perturb the phases
@@ -229,7 +248,8 @@ Phases, each printed as a JSON line:
 
 Then the script's seconds, a JSON line of per-kernel results (with
 whisper's launches, the serve and paged phases' (none), the paper
-phase's and the tooling phase's), the nvidia-smi line, and last
+phase's and the tooling phase's, and the large route's at block 256),
+the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 without the ``ok`` line; so does a machine without CUDA, or a directory
 without the repository's ``src/repro_torch``.
@@ -334,15 +354,28 @@ PIMSIM_HEADLINES = {
 # 18816 WU tiles); serve_engine, serve_scale and obs_overhead's decode run
 # qwen2-0.5b at its published widths with each module's own traffic, and
 # obs_overhead's train step the main path's model; train_kfac_100m's ~100M
-# model takes 200 steps at block 128 (its own 256 is above the CUDA
-# kernels' 128, ROADMAP Queue 2 item 2), a device loss at step 100
+# model takes 200 steps at the example's own block (256), a device loss
+# at step 100
 TOOLING = dict(wu_full=dict(arch="qwen1.5-0.5b", block_size=128,
                             n_tiles=18816),
                obs_reps=(60, 20),
-               k100=dict(steps=200, batch=8, seq=128, block_size=128,
-                         inject_at=100, keep=3),
+               k100=dict(steps=200, batch=8, seq=128, inject_at=100,
+                         keep=3),
                smoke_inject_at=12)
 KFAC_COUNTS = dict(ns_iters=20, taylor_terms=4, refine_steps=2)
+# phase large_blocks: the kernels' large route (sides of 129..1024). (a)
+# neumann_inv at these (blocks, side), a grouped call over leaves of
+# mixed sides, fused_precond at these (tiles, bi, bo), each tile's pools
+# as a WU plan makes them (runs of POOL_RUN tiles on one A block, the G
+# blocks cycling); (b) the main path's model at block 256 (sides 256 and
+# 176); (c) one step at the reference's default block 1024 (sides 1024
+# and 176)
+LARGE = dict(
+    sides=((8, 129), (8, 176), (8, 256), (4, 512), (2, 1024)),
+    grouped=((5, 256), (3, 128), (6, 176), (2, 256), (4, 128), (0, 176)),
+    tiles=((1536, 256, 256), (3072, 256, 176), (1536, 176, 256),
+           (768, 1024, 176), (384, 176, 1024), (512, 130, 200)),
+    pool_run=8, block_size=256, default_block=1024)
 # a kernel agrees with its plain version when max|kernel - plain| is at
 # most this share of max|plain| (rounding-level: the tensor cores sum the
 # exact bf16 partial products in another order than the plain matmuls)
@@ -429,26 +462,39 @@ class WithImages:
         return out
 
 
-def kfac_launch_checks(check, name, state, hist, launches, wu) -> int:
-    """A K-FAC run's launches: ``fused_precond`` once a WU group a step,
-    ``neumann_inv`` once a block side (and 32 leaves) a refresh. Returns
-    the launches a refresh makes."""
-    from repro_torch.kernels.neumann_inv import MAX_LEAVES
-
-    check(launches["fused_precond"] == len(hist) * len(wu.groups),
-          f"{name}: fused_precond once a WU group a step")
-    by_side = {}
-    for d in state.kfac.factors.values():
+def leaves_by_side(factors) -> dict:
+    """{block side: [blocks of each leaf of that side]} of a factor tree."""
+    sides = {}
+    for d in factors.values():
         for t in d.values():
-            by_side[t.shape[-1]] = by_side.get(t.shape[-1], 0) + 1
-    per_refresh = sum(-(-c // MAX_LEAVES) for c in by_side.values())
+            sides.setdefault(t.shape[-1], []).append(
+                math.prod(t.shape[:-2]))
+    return sides
+
+
+def kfac_launch_checks(check, name, state, hist, launches, wu) -> int:
+    """A K-FAC run's launches: ``fused_precond`` once a WU group a step
+    where the group's tiles are at most 128 a side (else the large
+    route's three a chunk), ``neumann_inv`` once a block side (and 32
+    leaves) a refresh up to 128 (else the large route's sequence a
+    chunk: ``kernels.neumann_inv.expected_launches``). Returns the
+    launches a refresh makes."""
+    from repro_torch.kernels import fused_precond as kf
+    from repro_torch.kernels import neumann_inv as kn
+
+    per_step = sum(kf.expected_launches(g.n_tiles, g.bi, g.bo)
+                   for g in wu.groups)
+    check(launches["fused_precond"] == len(hist) * per_step,
+          f"{name}: fused_precond once a WU group (or chunk) a step")
+    per_refresh = kn.expected_launches(leaves_by_side(state.kfac.factors),
+                                       **KFAC_COUNTS)
     refreshes = sum("inv" in h["phase_s"] for h in hist)
     check(launches["neumann_inv"] == refreshes * per_refresh,
-          f"{name}: neumann_inv once a block side a refresh")
+          f"{name}: neumann_inv once a block side (or chunk) a refresh")
     return per_refresh
 
 
-def kfac_kernel_checks(torch, dev, check, name, box, kcfg, wu):
+def kfac_kernel_checks(torch, dev, check, name, box, kcfg, wu, reps=5):
     """The kernels of a K-FAC run held to their plain versions and
     timed: the run's inverses (``box["state"]``, popped so that its
     memory can go before the WU's tiles are made) against the plain
@@ -456,20 +502,18 @@ def kfac_kernel_checks(torch, dev, check, name, box, kcfg, wu):
     largest block side, one grouped call; and one ``fused_precond``
     call on the WU plan ``wu``'s largest group (the run's inverse pools,
     random tiles), each beside its library call and its bound. Returns
-    ``(worst inverse, refresh row, fused_precond row)``."""
+    ``(worst inverse, refresh row, fused_precond row)``; ``reps``: the
+    timed runs a median is taken of."""
     from repro_torch.core import kfac, soi
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.neumann_inv import MAX_LEAVES
+    from repro_torch.kernels import neumann_inv as kn
 
     import gc
 
     import numpy as np
 
     state = box.pop("state")
-    by_side = {}
-    for d in state.kfac.factors.values():
-        for t in d.values():
-            by_side[t.shape[-1]] = by_side.get(t.shape[-1], 0) + 1
+    by_side = leaves_by_side(state.kfac.factors)
     # the run's inverses against the plain version on its factors
     worst = dict(rel_err=0.0, leaf=None)
     leaves = []
@@ -504,13 +548,14 @@ def kfac_kernel_checks(torch, dev, check, name, box, kcfg, wu):
     eye = torch.eye(n_big, device=dev)
     refresh_row = dict(
         block_side=n_big, leaves=len(blocks), blocks=nb,
-        launches=-(-len(blocks) // MAX_LEAVES),
+        launches=kn.expected_launches(
+            {n_big: [x.shape[0] for x in blocks]}, **KFAC_COUNTS),
         ms=time_ms(torch, lambda: ops.neumann_inv_grouped(
-            blocks, lams, **KFAC_COUNTS)),
+            blocks, lams, **KFAC_COUNTS), reps),
         plain_ms=time_ms(torch, lambda: [ref.neumann_inv_ref(
-            x, y, **KFAC_COUNTS) for x, y in big]),
+            x, y, **KFAC_COUNTS) for x, y in big], reps),
         library_ms=time_ms(torch, lambda: torch.linalg.inv(
-            cat + cat_lam[:, None, None] * eye)),
+            cat + cat_lam[:, None, None] * eye), reps),
         bound_ms=inv_b_ms, bound_by=inv_b_by)
     del cat, cat_lam, leaves, big, blocks, lams
 
@@ -558,10 +603,10 @@ def kfac_kernel_checks(torch, dev, check, name, box, kcfg, wu):
         shape=[nt, bi, bo], groups=len(wu.groups), rel_err=err / scale,
         dots_rel_err=d_err / d_scale,
         ms=time_ms(torch, lambda: ops.fused_precond(pa, g, pg, a_src,
-                                                    g_src)),
-        plain_ms=time_ms(torch, plain),
+                                                    g_src), reps),
+        plain_ms=time_ms(torch, plain, reps),
         library_ms=time_ms(torch, lambda: torch.matmul(
-            torch.matmul(pa[a_idx], g), pg[g_idx])),
+            torch.matmul(pa[a_idx], g), pg[g_idx]), reps),
         bound_ms=wu_b_ms, bound_by=wu_b_by)
     del out, dots, p_out, p_dots, pa, pg, g, a_idx, g_idx
     torch.cuda.empty_cache()
@@ -1544,7 +1589,8 @@ def tooling_phase(torch, dev, check):
     128; (c) ``serve_engine`` and (d) ``serve_scale`` on qwen2-0.5b at its
     published widths; (e) ``obs_overhead`` (the train step on the main
     path's model, decode on qwen2-0.5b, both at full width); (f) the four
-    examples, ``train_kfac_100m``'s ~100M model 200 steps at block 128.
+    examples, ``train_kfac_100m``'s ~100M model 200 steps at its own
+    block 256.
     Gated: correctness and counts (the modules' own asserts on bits,
     bitwise flags, product counts, sessions and prefill tokens; the
     kernel route against per-leaf; launches). Wall-clock guards
@@ -1719,23 +1765,14 @@ def tooling_phase(torch, dev, check):
         check(smoke_runs["smoke_inject"]["recoveries"] == 1,
               "tooling: train_kfac_100m --smoke: one recovery")
 
-        # the example's own configuration: block 256 raises the kernels'
-        # ValueError on the card (no fallback)
+        # the ~100M model at the example's own configuration (block
+        # min(256, soi_block) = 256: the kernels' large route), 200 steps,
+        # a device loss at 100
         k100 = TOOLING["k100"]
         cfg = train_kfac_100m.config_100m()
-        own = train_kfac_100m.kfac_config(cfg, k100["batch"], k100["seq"])
-        try:
-            train_kfac_100m.train(
-                cfg, own, steps=1, batch=k100["batch"], seq=k100["seq"],
-                ckpt_dir=None, device=dev)
-            raised = None
-        except ValueError as e:
-            raised = str(e)
-        check(own.block_size == 256 and raised is not None,
-              "tooling: train_kfac_100m's own block 256 raises on the card")
-
-        # the ~100M model, 200 steps at block 128, a device loss at 100
-        kcfg = dataclasses.replace(own, block_size=k100["block_size"])
+        kcfg = train_kfac_100m.kfac_config(cfg, k100["batch"], k100["seq"])
+        check(kcfg.block_size == 256,
+              "tooling: train_kfac_100m's own block is 256")
         prog = train_mod.KFACProgram(cfg, kcfg, device=dev)
         like = prog.init_state()
         state_bytes = tensor_bytes(like)
@@ -1762,6 +1799,11 @@ def tooling_phase(torch, dev, check):
               "tooling: train_kfac_100m one recovery, every step")
         check(l100["neumann_inv"] > 0 and l100["fused_precond"] > 0,
               "tooling: train_kfac_100m launches both kernels")
+        keys100 = ops.launch_keys()
+        check(set(keys100["neumann_inv"]) == {"n256"}
+              and all("256" in k and "128" not in k
+                      for k in keys100["fused_precond"]),
+              "tooling: train_kfac_100m's launches all at block 256")
         by_step = {}
         for h in hist:
             by_step.setdefault(h["step"], []).append(h["loss"])
@@ -1778,9 +1820,7 @@ def tooling_phase(torch, dev, check):
         restore_s = time.perf_counter() - t0
         del restored, like, prog
         out["examples"]["train_kfac_100m"] = dict(
-            cut="block_size 128, example's own 256 waits for ROADMAP "
-                "Queue 2 item 2",
-            own_block_256_error=raised,
+            block_size=kcfg.block_size, launch_keys=keys100,
             params=cfg.param_count(), state_bytes=state_bytes,
             smoke=smoke_runs, steps=k100["steps"], batch=k100["batch"],
             seq=k100["seq"], executed_steps=len(executed),
@@ -1802,6 +1842,248 @@ def tooling_phase(torch, dev, check):
     out.update(launches=launches, seconds=secs,
                phase_seconds=time.perf_counter() - t_phase)
     return out
+
+
+def large_blocks_phase(torch, dev, check):
+    """Phase ``large_blocks``: the kernels' route for sides of 129..1024
+    (``csrc/hilo_bmm.cuh``). (a) ``neumann_inv`` at :data:`LARGE`'s
+    sides and ``fused_precond`` (indexed, as the WU calls it, and
+    gathered) at its tile shapes against their plain versions, each
+    timed (CUDA events, warm, median of 5) beside its plain version, its
+    library call and its bound, and a grouped call over leaves of mixed
+    sides bitwise the per-leaf calls; (b) the main path's model and
+    traffic at block 256 (sides 256 and 176): 4 steps of
+    ``launch.train.run`` with the launch counters zeroed just before and
+    read just after (both kernels on both sides, the counts the plans
+    give), finite losses, phase seconds and peak memory, the whole
+    refresh of its last stats step timed, the run's inverses and its
+    largest WU group against the plain versions (``kfac_kernel_checks``);
+    (c) one step at the reference's default block 1024 (sides 1024 and
+    176): its refresh and WU through the same checks, peak memory.
+    Returns the phase's record."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import kfac, soi
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import fused_precond as kf
+    from repro_torch.kernels import neumann_inv as kn
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as train_mod
+
+    import gc
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(MAIN["seed"])
+    prods = (5 * KFAC_COUNTS["ns_iters"]
+             + 5 * (KFAC_COUNTS["taylor_terms"] - 1)
+             + 6 * KFAC_COUNTS["refine_steps"])
+
+    def damped(nb, n):
+        m = torch.randn(nb, n, 2 * n, device=dev, generator=gen)
+        a = m @ m.transpose(-1, -2) / (2 * n)
+        return a, soi.tikhonov_damping(a, 0.03)
+
+    def inv_bound(nb, n):
+        # each block read once, its inverse written once, the damping read
+        return bound(4.0 * (2 * nb * n * n + nb), 2.0 * n ** 3 * prods * nb)
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    # (a) the kernels against their plain versions
+    inv_rows = []
+    for nb, n in LARGE["sides"]:
+        a, lam = damped(nb, n)
+        eye = torch.eye(n, device=dev)
+        ops.reset_launch_counts()
+        got = ops.neumann_inv(a, lam, **KFAC_COUNTS)
+        torch.cuda.synchronize(dev)
+        launches = ops.launch_counts()["neumann_inv"]
+        want = ref.neumann_inv_ref(a, lam, **KFAC_COUNTS)
+        exact = torch.linalg.inv(a.double() + lam.double()[:, None, None]
+                                 * eye.double())
+        b_ms, b_by = inv_bound(nb, n)
+        row = dict(
+            blocks=nb, n=n, rel_err=rel(got, want),
+            max_abs_err=float((got - want).abs().max()),
+            plain_rel_to_float64=rel(want.double(), exact),
+            kernel_rel_to_float64=rel(got.double(), exact),
+            launches=launches,
+            repeat_bitwise=torch.equal(got, ops.neumann_inv(
+                a, lam, **KFAC_COUNTS)),
+            ms=time_ms(torch, lambda: ops.neumann_inv(a, lam,
+                                                      **KFAC_COUNTS)),
+            plain_ms=time_ms(torch, lambda: ref.neumann_inv_ref(
+                a, lam, **KFAC_COUNTS)),
+            library_ms=time_ms(torch, lambda: torch.linalg.inv(
+                a + lam[:, None, None] * eye)),
+            bound_ms=b_ms, bound_by=b_by)
+        inv_rows.append(row)
+        check(row["rel_err"] <= REL_TOL,
+              f"large_blocks: neumann_inv n={n} vs plain")
+        check(launches == kn.expected_launches({n: [nb]}, **KFAC_COUNTS),
+              f"large_blocks: neumann_inv n={n} launches")
+        check(row["repeat_bitwise"],
+              f"large_blocks: neumann_inv n={n} bitwise its repeat")
+        del a, lam, got, want, exact
+
+    leaves = [damped(nb, n) for nb, n in LARGE["grouped"]]
+    blocks, lams = [x for x, _ in leaves], [y for _, y in leaves]
+    sides = {}
+    for nb, n in LARGE["grouped"]:
+        sides.setdefault(n, []).append(nb)
+    ops.reset_launch_counts()
+    grouped = ops.neumann_inv_grouped(blocks, lams, **KFAC_COUNTS)
+    torch.cuda.synchronize(dev)
+    g_launches, g_keys = ops.launch_counts()["neumann_inv"], \
+        ops.launch_keys()["neumann_inv"]
+    per_leaf = [ops.neumann_inv(x, y, **KFAC_COUNTS) for x, y in leaves]
+    grouped_row = dict(
+        leaves=[[nb, n] for nb, n in LARGE["grouped"]],
+        launches=g_launches, launch_keys=g_keys,
+        bitwise_equal_per_leaf=all(torch.equal(x, y)
+                                   for x, y in zip(grouped, per_leaf)))
+    check(grouped_row["bitwise_equal_per_leaf"],
+          "large_blocks: grouped mixed sides bitwise the per-leaf calls")
+    check(g_launches == kn.expected_launches(sides, **KFAC_COUNTS),
+          "large_blocks: grouped launches")
+    del leaves, blocks, lams, grouped, per_leaf
+
+    wu_rows = []
+    run = LARGE["pool_run"]
+    for nt, bi, bo in LARGE["tiles"]:
+        na = -(-nt // run)
+        ng = max(1, min(run, nt))
+        pa = torch.randn(na, bi, bi, device=dev, generator=gen)
+        pg = torch.randn(ng, bo, bo, device=dev, generator=gen)
+        g = torch.randn(nt, bi, bo, device=dev, generator=gen)
+        t = torch.arange(nt, device=dev)
+        a_src = (t // run).to(torch.int32)
+        g_src = (t % ng).to(torch.int32)
+        a_idx, g_idx = a_src.long(), g_src.long()
+        a_sel, g_sel = pa[a_idx], pg[g_idx]
+        ops.reset_launch_counts()
+        out, dots = ops.fused_precond(pa, g, pg, a_src, g_src)
+        torch.cuda.synchronize(dev)
+        launches = ops.launch_counts()["fused_precond"]
+        p_out, p_dots = ref.fused_precond_ref(pa, g, pg, a_src, g_src)
+        gout, gdots = ops.fused_precond(a_sel, g, g_sel)
+        flops = 2.0 * nt * 3 * (bi * bi * bo + bi * bo * bo)
+        b_ms, b_by = bound(4.0 * (2 * nt * bi * bo + nt + na * bi * bi
+                                  + ng * bo * bo), flops)
+        gb_ms, gb_by = bound(4.0 * nt * (bi * bi + 2 * bi * bo + bo * bo
+                                         + 1), flops)
+        row = dict(
+            shape=[nt, bi, bo], pool_blocks=[na, ng], rel_err=rel(out, p_out),
+            max_abs_err=float((out - p_out).abs().max()),
+            dots_rel_err=rel(dots, p_dots), launches=launches,
+            gathered_bitwise=torch.equal(out, gout)
+            and torch.equal(dots, gdots),
+            ms=time_ms(torch, lambda: ops.fused_precond(pa, g, pg, a_src,
+                                                        g_src)),
+            plain_ms=time_ms(torch, lambda: ref.fused_precond_ref(
+                pa, g, pg, a_src, g_src)),
+            library_ms=time_ms(torch, lambda: torch.matmul(
+                torch.matmul(pa[a_idx], g), pg[g_idx])),
+            bound_ms=b_ms, bound_by=b_by,
+            gathered_ms=time_ms(torch, lambda: ops.fused_precond(
+                a_sel, g, g_sel)),
+            gathered_library_ms=time_ms(torch, lambda: torch.matmul(
+                torch.matmul(a_sel, g), g_sel)),
+            gathered_bound_ms=gb_ms, gathered_bound_by=gb_by)
+        wu_rows.append(row)
+        check(row["rel_err"] <= REL_TOL and row["dots_rel_err"] <= REL_TOL,
+              f"large_blocks: fused_precond {bi}x{bo} vs plain")
+        check(row["gathered_bitwise"],
+              f"large_blocks: fused_precond {bi}x{bo} indexed bitwise "
+              f"gathered")
+        check(launches == kf.expected_launches(nt, bi, bo),
+              f"large_blocks: fused_precond {bi}x{bo} launches")
+        del pa, pg, g, out, dots, p_out, p_dots, gout, gdots, a_sel, g_sel
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the main path's model at block 256, (c) one step at block 1024
+    cfg = get_config(MAIN["arch"])
+    ds = SyntheticTokens(vocab=cfg.vocab, seq_len=MAIN["seq"],
+                         global_batch=MAIN["batch"], seed=MAIN["seed"])
+    runs = {}
+    for tag, block, steps in (("block_256", LARGE["block_size"],
+                               MAIN["steps"]),
+                              ("block_1024", LARGE["default_block"], 1)):
+        t_run = time.perf_counter()
+        bs = min(block, cfg.soi_block)
+        kcfg = kfac.KFACConfig(
+            stats_every=MAIN["stats_every"], inv_every=MAIN["inv_every"],
+            block_size=bs, stats_batch=MAIN["batch"], stats_seq=MAIN["seq"])
+        program = train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"],
+                                        device=dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = train_mod.run(program, ds, steps)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches, keys = ops.launch_counts(), ops.launch_keys()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        losses = [h["loss"] for h in hist]
+        name = f"large_blocks {tag}"
+        check(all(math.isfinite(x) for x in losses), f"{name}: finite losses")
+        wu = train_mod.steps_mod.make_wu_plan_for(cfg, state)
+        per_refresh = kfac_launch_checks(check, name, state, hist,
+                                         launches, wu)
+        sides = leaves_by_side(state.kfac.factors)
+        check({f"n{n}" for n in sides} == set(keys["neumann_inv"]),
+              f"{name}: neumann_inv launched on every side")
+        check({f"{g.bi}x{g.bo}" for g in wu.groups}
+              == set(keys["fused_precond"]),
+              f"{name}: fused_precond launched on every tile shape")
+        check(min(sides) > 128,
+              f"{name}: every side takes the large route")
+        # the whole refresh of the run's last factors, one grouped call
+        flats, lams = [], []
+        for d in state.kfac.factors.values():
+            for f in d.values():
+                flat = f.reshape(-1, f.shape[-1], f.shape[-1])
+                flats.append(flat)
+                lams.append(soi.tikhonov_damping(flat, kcfg.damping))
+        nbs = {n: sum(v) for n, v in sides.items()}
+        ops_total = sum(2.0 * n ** 3 * prods * nb for n, nb in nbs.items())
+        bytes_total = sum(4.0 * (2 * nb * n * n + nb)
+                          for n, nb in nbs.items())
+        b_ms, b_by = bound(bytes_total, ops_total)
+        torch.cuda.reset_peak_memory_stats(dev)
+        whole_ms = time_ms(torch, lambda: ops.neumann_inv_grouped(
+            flats, lams, **KFAC_COUNTS), 3)
+        refresh_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        refresh_all = dict(
+            sides={str(n): nb for n, nb in nbs.items()},
+            launches=per_refresh, ms=whole_ms, bound_ms=b_ms,
+            bound_by=b_by, peak_mem_gb=refresh_peak,
+            workspace_gb={str(n): max(w for _, _, w in kn.large_plan(v, n))
+                          / 1e9 for n, v in sides.items()})
+        del flats, lams
+        box = {"state": state}
+        del state, program
+        worst, refresh_row, precond_row = kfac_kernel_checks(
+            torch, dev, check, name, box, kcfg, wu,
+            reps=5 if block <= 256 else 3)
+        runs[tag] = dict(
+            block_size=bs, steps=steps, losses=losses,
+            phase_s=[h["phase_s"] for h in hist], wall_s=wall,
+            peak_mem_gb=peak, launches=launches, launch_keys=keys,
+            neumann_inv_per_refresh=per_refresh,
+            wu_groups=[[g.n_tiles, g.bi, g.bo] for g in wu.groups],
+            inv_blocks=wu.inv_plan.total_blocks, wu_tiles=wu.total_tiles,
+            refresh_all=refresh_all, worst_inverse=worst,
+            refresh=refresh_row, fused_precond=precond_row,
+            seconds=time.perf_counter() - t_run)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(neumann_inv=inv_rows, grouped=grouped_row,
+                fused_precond=wu_rows, **runs,
+                phase_seconds=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -3113,7 +3395,14 @@ def main() -> int:
     tooling_row = tooling_phase(torch, dev, check)
     emit({"phase": "tooling", "nvidia_smi": smi, **tooling_row})
 
-    # 18. trace: the main path's fourth step (FP, BP and WU only) under
+    # 18. large_blocks: the kernels' route for sides of 129..1024: the
+    # kernels against their plain versions, the main path's model at
+    # block 256, one step at the reference's default block 1024
+    t0 = time.perf_counter()
+    large_row = large_blocks_phase(torch, dev, check)
+    emit({"phase": "large_blocks", "nvidia_smi": smi, **large_row})
+
+    # 19. trace: the main path's fourth step (FP, BP and WU only) under
     # torch.profiler, kernels only, last, so that the profiler session
     # cannot perturb the phases timed before it: the device's busy time
     # (the union of the kernels' intervals) against the step's host wall
@@ -3161,7 +3450,8 @@ def main() -> int:
     del prof
 
     emit({"phase": "timing", "script_seconds": time.perf_counter() - t_script,
-          "tooling_seconds": tooling_row["phase_seconds"]})
+          "tooling_seconds": tooling_row["phase_seconds"],
+          "large_blocks_seconds": large_row["phase_seconds"]})
     if failures:
         emit({"phase": "failed", "failures": failures})
         return 1
@@ -3173,10 +3463,25 @@ def main() -> int:
     path_launches = dict(launches, smw_update=smw_launches["smw_update"],
                          bitslice_mm=pinv_launches["bitslice_mm"],
                          fused_gram_inv=pinv_launches["fused_gram_inv"])
+    # the large route at the main path's model and block 256 (phase
+    # large_blocks (b): its launches; the whole refresh and the largest
+    # WU group, timed)
+    b256 = large_row["block_256"]
+    large_route = {
+        "neumann_inv": dict(
+            launches=b256["launches"]["neumann_inv"],
+            refresh_ms=b256["refresh_all"]["ms"],
+            refresh_bound_ms=b256["refresh_all"]["bound_ms"],
+            largest_side=b256["refresh"]),
+        "fused_precond": dict(
+            launches=b256["launches"]["fused_precond"],
+            largest_group=b256["fused_precond"])}
     # whisper's launches beside them, the serving phases' (none: the
     # serving path runs no TPU kernel's counterpart) and the paper
     # phase's (its driven runs together)
     emit({"kernels": [dict(name=name, launches=path_launches[name],
+                           large_blocks_launches=b256["launches"][name],
+                           large_route=large_route.get(name),
                            **{k: r[k] for k in keys},
                            whisper_launches=whisper_row["launches"][name],
                            serve_launches=serve_row["launches"][name],

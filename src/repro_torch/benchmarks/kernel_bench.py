@@ -11,9 +11,11 @@
     every matmul streams its operands, against one that keeps the block
     resident in on-chip memory (one read and one write), per SOI block
     size. The arithmetic is the reference's. On an H100 a block of up to
-    128 fits one CTA's shared memory (``neumann_inv`` takes n <= 128);
+    128 fits one CTA's shared memory (``neumann_inv``'s one-CTA route);
     the rows above 128 are not realisable in one CTA there (a 256 block
-    in fp32 is 256 KB, against 228 KB of shared memory per SM).
+    in fp32 is 256 KB, against 228 KB of shared memory per SM), and
+    ``neumann_inv`` takes them on its large route, whose batched
+    products stream every operand through device memory and L2.
 """
 
 from __future__ import annotations

@@ -7,9 +7,8 @@ and a mid-run injected failure with recovery from the last checkpoint
 The ~100M model is a llama3.2-family config (GQA + SwiGLU) at short
 sequence length; ``--smoke`` takes a ~2M stand-in. The K-FAC block size
 is ``min(256, cfg.soi_block)``, as in the reference: 256 for the 100M
-model, above the 128 that the CUDA kernels take (ROADMAP Queue 2 item
-2), so on the card its own configuration raises their ``ValueError``;
-:func:`train` with a ``KFACConfig`` of block 128 runs it there.
+model, which the CUDA kernels take on their large route (sides of
+129..1024).
 
   python -m repro_torch.examples.train_kfac_100m [--smoke] \\
       [--steps 200] [--seq 128] [--batch 8] [--device cuda|cpu]

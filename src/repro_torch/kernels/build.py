@@ -45,7 +45,9 @@ class CudaLibrary:
     its last argument. ``launches`` is bumped by :meth:`launch` after
     each kernel was enqueued without error, and nowhere else, so a run
     can show that its main path went through the kernel;
-    ``stream_launches`` counts the same launches by stream handle."""
+    ``stream_launches`` counts the same launches by stream handle and
+    ``key_launches`` by the label the wrapper gives (its block or tile
+    shape)."""
 
     def __init__(self, name: str, source: str,
                  entries: Mapping[str, Sequence]):
@@ -54,6 +56,7 @@ class CudaLibrary:
         self.entries = {sym: list(types) for sym, types in entries.items()}
         self.launches = 0
         self.stream_launches: Counter = Counter()
+        self.key_launches: Counter = Counter()
         self.build_log = ""
         self._fns = None
         self._err_str = None
@@ -109,9 +112,10 @@ class CudaLibrary:
             self._fns, self._err_str = fns, err_str
         return self._fns
 
-    def launch(self, entry: str, *args) -> None:
+    def launch(self, entry: str, *args, key: str | None = None) -> None:
         """Enqueue a kernel through the C launch function ``entry``;
-        raise if the launch was refused."""
+        raise if the launch was refused. ``key`` labels the launch in
+        ``key_launches``."""
         err = self._load()[entry](*args)
         if err != 0:
             raise RuntimeError(
@@ -119,6 +123,8 @@ class CudaLibrary:
                 f"{self._err_str(err).decode()} (cudaError {err})")
         self.launches += 1
         self.stream_launches[args[-1]] += 1
+        if key is not None:
+            self.key_launches[key] += 1
 
 
 def build_all(libraries: Sequence[CudaLibrary]) -> float:

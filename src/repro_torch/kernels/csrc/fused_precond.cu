@@ -49,6 +49,22 @@
 // products on mma.sync and the four fp32 -> hi/lo splits run on the same
 // warps one after another; wgmma and splits on warps of their own are the
 // next step.
+//
+// Tiles with a side of 129..1024 (the reference's whole domain) take a
+// second route on the batched product of hilo_bmm.cuh, whose operand
+// tiles no longer need to hold a whole tile on chip: per chunk of tiles,
+//   fused_precond_product (FULL, STORE)  tmp = hilo(A[a_src[t]], g[t]) into
+//                                        an fp32 workspace the caller
+//                                        allocates (split again on load:
+//                                        bitwise a stored hi/lo split),
+//   fused_precond_product (FULL, DOT)    out[t] = hilo(tmp, G[g_src[t]]),
+//                                        each 64 x 64 tile's sum of
+//                                        out * g into a partial,
+//   fused_precond_dots                   dots[t] = the tile's partials
+//                                        summed in order (no atomics).
+// The pools are read by index as on the one-CTA route; tmp makes one round
+// trip through device memory (bi x bo fp32 a tile).
+#include "hilo_bmm.cuh"
 #include "hilo_mma.cuh"
 
 using namespace hilo;
@@ -177,6 +193,43 @@ extern "C" int fused_precond_launch(const float* a_inv, const float* g,
   fused_precond_kernel<<<grid, THREADS, SMEM_BYTES,
                          static_cast<cudaStream_t>(stream)>>>(
       a_inv, g, g_inv, a_src, g_src, out, dots, n_tiles, bi, bo, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// dots[t] = sum over q of part[t * per + q], in order
+__global__ void dots_kernel(const float* __restrict__ part, int per,
+                            float* __restrict__ dots, int n) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  float s = 0.f;
+  for (int q = 0; q < per; ++q) s += part[static_cast<size_t>(t) * per + q];
+  dots[t] = s;
+}
+
+}  // namespace
+
+// Large route: one of the two products (mode FULL; epi STORE for tmp, DOT
+// for out and the partial dots). Returns the cudaError_t (0 = success).
+extern "C" int fused_precond_product(const bmm::Params* p, int mode, int epi,
+                                     void* stream) {
+  if (!bmm::valid(*p) || mode != bmm::FULL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (epi == bmm::STORE) return bmm::launch<bmm::FULL, bmm::STORE>(*p, s);
+  if (epi == bmm::DOT && p->E && p->part)
+    return bmm::launch<bmm::FULL, bmm::DOT>(*p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Large route: dots[t] for t < n from `per` partials a tile.
+extern "C" int fused_precond_dots(const float* part, int per, float* dots,
+                                  int n, void* stream) {
+  if (!part || !dots || per < 1 || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dots_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      part, per, dots, n);
   return static_cast<int>(cudaGetLastError());
 }
 

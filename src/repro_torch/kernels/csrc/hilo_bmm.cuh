@@ -1,0 +1,313 @@
+// Batched, tiled hi/lo product on the tensor cores with fused epilogues:
+// the large-block route of neumann_inv.cu and fused_precond.cu (blocks and
+// tiles of 129..1024), where one block no longer fits one CTA's shared
+// memory (a 256 block's hi/lo pair is 256 KB against 227 KB a CTA may have).
+//
+// One launch computes, for every batch entry b and every 64 x 64 tile of
+// the M x N result,
+//   acc = sum over the partials of Lp[b] Rp[b]   (M x K times K x N)
+// and writes epilogue(acc) into C[b]. Operands are fp32 in device memory
+// (row-major, any leading dimension, block b at base + idx[b] * stride, or
+// b * stride without an index array) and are split into bf16 hi/lo slices
+// as they are staged into shared memory: splitting on load is bitwise what
+// storing the split and loading it gives, and moves the same four bytes an
+// entry. The partials, with fp32 accumulation:
+//   FULL  L_H R_H + L_H R_L + L_L R_H   (an fp32 left operand)
+//   HI    L_H R_H + L_H R_L             (the exact bf16 hi slice of L)
+//   LO    L_L R_H + L_L R_L             (the exact bf16 lo slice of L)
+// Entries outside M x K and K x N are read as zero (the zero pad of the
+// one-CTA kernels, in shared memory only), so a side such as 176 = 11 x 16
+// is exact, and nothing outside M x N is written.
+//
+// Epilogues (E and F are M x N blocks laid out like each other):
+//   STORE        C = acc
+//   TWO_I_MINUS  C = 2I - acc             (Newton-Schulz's W = 2I - A_H X)
+//   I_MINUS      C = I - acc              (the refinement's residual)
+//   ADD          C = E + acc              (M + M R)
+//   NEG_ACC      C = -acc, F = E + C      (a Neumann term T and M += T)
+//   DOT          C = acc, and the tile's sum of acc * E into part[b, tile]
+//                (fused_precond's trust-region dot, reduced over the
+//                tiles in a fixed order by a second kernel: no atomics)
+//
+// Bound: operations at the K-FAC shapes (a 256 block's product is 2 x 256^3
+// a partial against 768 KB of fp32 operands, ~85 FLOP a byte from device
+// memory but each operand tile is re-read by every tile of its row or
+// column, from L2). Design, simple first: 64 x 64 output tiles, 4 warps of
+// 32 x 32 on mma.sync m16n8k16 (hilo_mma.cuh's fragments and loads),
+// depth steps of 32 double-buffered in shared memory, the next step's
+// global loads held in registers while this step's products run, one
+// barrier a step; 39 KB of static shared memory, several CTAs an SM.
+#pragma once
+
+#include "hilo_mma.cuh"
+
+namespace bmm {
+
+using hilo::bf16;
+
+constexpr int BM = 64, BN = 64, BK = 32;
+constexpr int THREADS = 128;
+constexpr int LDA = BK + 8;  // left tiles BM x BK, row stride (bf16)
+constexpr int LDB = BN + 8;  // right tiles BK x BN, row stride (bf16)
+
+enum Mode { FULL = 0, HI = 1, LO = 2 };
+enum Epi { STORE = 0, TWO_I_MINUS = 1, I_MINUS = 2, ADD = 3, NEG_ACC = 4,
+           DOT = 5 };
+
+// An fp32 operand: block b at p + (idx ? idx[b] : b) * stride, rows ld
+// apart. vec: ld % 4 == 0, stride % 4 == 0 and p 16-byte aligned (float4
+// loads; a float4 that straddles the last column is masked, which reads
+// inside the row because ld >= the columns rounded up to 4).
+struct Operand {
+  const float* p;
+  const int* idx;
+  long long stride;
+  int ld;
+  int vec;
+};
+
+struct Params {
+  Operand L, R;
+  float* C;
+  long long c_stride;
+  int ldc;
+  const float* E;  // ADD, NEG_ACC: the M block read; DOT: the dot's other
+  long long e_stride;
+  int lde;
+  float* F;        // NEG_ACC: the M block written (E's layout)
+  float* part;     // DOT: (batch, tiles) partial dots
+  int M, N, K, batch;
+  int c_vec;       // C, E, F 8-byte aligned, even ld and strides
+};
+
+__device__ __forceinline__ float4 load4(const float* __restrict__ base,
+                                        int ld, int rows, int cols, int r,
+                                        int c, bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (r < rows && c < cols) {
+    const float* s = base + static_cast<size_t>(r) * ld + c;
+    if (vec) {
+      v = *reinterpret_cast<const float4*>(s);
+      if (c + 1 >= cols) v.y = 0.f;
+      if (c + 2 >= cols) v.z = 0.f;
+      if (c + 3 >= cols) v.w = 0.f;
+    } else {
+      v.x = s[0];
+      if (c + 1 < cols) v.y = s[1];
+      if (c + 2 < cols) v.z = s[2];
+      if (c + 3 < cols) v.w = s[3];
+    }
+  }
+  return v;
+}
+
+__device__ __forceinline__ void split4(const float4 v, uint2& h, uint2& l) {
+  hilo::split2(v.x, v.y, h.x, l.x);
+  hilo::split2(v.z, v.w, h.y, l.y);
+}
+
+template <int MODE, int EPI>
+__global__ void __launch_bounds__(THREADS)
+hilo_bmm_kernel(const __grid_constant__ Params p) {
+  __shared__ __align__(16) bf16 sLH[2][BM * LDA];
+  __shared__ __align__(16) bf16 sLL[2][MODE == FULL ? BM * LDA : 8];
+  __shared__ __align__(16) bf16 sRH[2][BK * LDB];
+  __shared__ __align__(16) bf16 sRL[2][BK * LDB];
+  __shared__ float red[THREADS / 32];
+
+  const int tm = (p.M + BM - 1) / BM, tn = (p.N + BN - 1) / BN;
+  const int tile = static_cast<int>(blockIdx.x % (tm * tn));
+  const int b = static_cast<int>(blockIdx.x / (tm * tn));
+  const int i0 = (tile / tn) * BM, j0 = (tile % tn) * BN;
+  const float* Lb = p.L.p + static_cast<size_t>(p.L.idx ? p.L.idx[b] : b) *
+                                static_cast<size_t>(p.L.stride);
+  const float* Rb = p.R.p + static_cast<size_t>(p.R.idx ? p.R.idx[b] : b) *
+                                static_cast<size_t>(p.R.stride);
+  const bool lvec = p.L.vec, rvec = p.R.vec;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int r16 = lane & 15, c8 = (lane >> 4) * 8;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // this thread's four float4 slots of each staged tile: the left tile's
+  // BM rows of BK (8 slots a row), the right tile's BK rows of BN (16)
+  float4 gl[4], gr[4];
+  auto gload = [&](int k0) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int q = tid + s * THREADS;
+      gl[s] = load4(Lb, p.L.ld, p.M, p.K, i0 + (q >> 3), k0 + (q & 7) * 4,
+                    lvec);
+      gr[s] = load4(Rb, p.R.ld, p.K, p.N, k0 + (q >> 4),
+                    j0 + (q & 15) * 4, rvec);
+    }
+  };
+  auto sstore = [&](int buf) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int q = tid + s * THREADS;
+      uint2 h, l;
+      split4(gl[s], h, l);
+      const int lo = (q >> 3) * LDA + (q & 7) * 4;
+      if constexpr (MODE == FULL) {
+        *reinterpret_cast<uint2*>(&sLH[buf][lo]) = h;
+        *reinterpret_cast<uint2*>(&sLL[buf][lo]) = l;
+      } else {
+        *reinterpret_cast<uint2*>(&sLH[buf][lo]) = MODE == HI ? h : l;
+      }
+      split4(gr[s], h, l);
+      const int ro = (q >> 4) * LDB + (q & 15) * 4;
+      *reinterpret_cast<uint2*>(&sRH[buf][ro]) = h;
+      *reinterpret_cast<uint2*>(&sRL[buf][ro]) = l;
+    }
+  };
+
+  const int kt_n = (p.K + BK - 1) / BK;
+  gload(0);
+  sstore(0);
+  __syncthreads();
+  for (int kt = 0; kt < kt_n; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < kt_n) gload((kt + 1) * BK);
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      const int k0 = ks * 16;
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int off = (wm + mi * 16 + r16) * LDA + k0 + c8;
+        hilo::ldmatrix_x4(ah[mi], &sLH[cur][off]);
+        if constexpr (MODE == FULL)
+          hilo::ldmatrix_x4(al[mi], &sLL[cur][off]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        uint32_t bh[4], bl[4];
+        const int off = (k0 + r16) * LDB + wn + nj * 16 + c8;
+        hilo::ldmatrix_x4_trans(bh, &sRH[cur][off]);
+        hilo::ldmatrix_x4_trans(bl, &sRL[cur][off]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          hilo::mma_16816(acc[mi][2 * nj], ah[mi], bh[0], bh[1]);
+          hilo::mma_16816(acc[mi][2 * nj + 1], ah[mi], bh[2], bh[3]);
+          hilo::mma_16816(acc[mi][2 * nj], ah[mi], bl[0], bl[1]);
+          hilo::mma_16816(acc[mi][2 * nj + 1], ah[mi], bl[2], bl[3]);
+          if constexpr (MODE == FULL) {
+            hilo::mma_16816(acc[mi][2 * nj], al[mi], bh[0], bh[1]);
+            hilo::mma_16816(acc[mi][2 * nj + 1], al[mi], bh[2], bh[3]);
+          }
+        }
+      }
+    }
+    if (kt + 1 < kt_n) sstore(cur ^ 1);
+    __syncthreads();
+  }
+
+  // epilogue from the accumulators: thread element (mi, ni, e) is row
+  // wm + 16 mi + lane / 4 + 8 (e / 2), column wn + 8 ni + 2 (lane % 4) +
+  // e % 2 of the tile
+  float* Cb = p.C + static_cast<size_t>(b) * static_cast<size_t>(p.c_stride);
+  const size_t eo = static_cast<size_t>(b) * static_cast<size_t>(p.e_stride);
+  const float* Eb = (EPI == ADD || EPI == NEG_ACC || EPI == DOT) ? p.E + eo
+                                                                 : nullptr;
+  float* Fb = EPI == NEG_ACC ? p.F + eo : nullptr;
+  const bool v2 = p.c_vec;
+  float dot = 0.f;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = i0 + wm + mi * 16 + (lane >> 2) + h * 8;
+        const int c = j0 + wn + ni * 8 + (lane & 3) * 2;
+        if (r >= p.M || c >= p.N) continue;
+        const bool two = c + 1 < p.N;
+        float v[2] = {acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]};
+        float e[2] = {0.f, 0.f};
+        if constexpr (EPI == ADD || EPI == NEG_ACC || EPI == DOT) {
+          const float* s = Eb + static_cast<size_t>(r) * p.lde + c;
+          if (v2 && two) {
+            const float2 q = *reinterpret_cast<const float2*>(s);
+            e[0] = q.x;
+            e[1] = q.y;
+          } else {
+            e[0] = s[0];
+            if (two) e[1] = s[1];
+          }
+        }
+        float f[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float diag = r == c + k ? 1.f : 0.f;
+          if constexpr (EPI == TWO_I_MINUS) v[k] = 2.f * diag - v[k];
+          if constexpr (EPI == I_MINUS) v[k] = diag - v[k];
+          if constexpr (EPI == ADD) v[k] = e[k] + v[k];
+          if constexpr (EPI == NEG_ACC) {
+            v[k] = -v[k];
+            f[k] = e[k] + v[k];
+          }
+          if constexpr (EPI == DOT)
+            if (k == 0 || two) dot += v[k] * e[k];
+        }
+        float* d = Cb + static_cast<size_t>(r) * p.ldc + c;
+        if (v2 && two) {
+          *reinterpret_cast<float2*>(d) = make_float2(v[0], v[1]);
+        } else {
+          d[0] = v[0];
+          if (two) d[1] = v[1];
+        }
+        if constexpr (EPI == NEG_ACC) {
+          float* o = Fb + static_cast<size_t>(r) * p.lde + c;
+          if (v2 && two) {
+            *reinterpret_cast<float2*>(o) = make_float2(f[0], f[1]);
+          } else {
+            o[0] = f[0];
+            if (two) o[1] = f[1];
+          }
+        }
+      }
+  if constexpr (EPI == DOT) {
+    // the tile's sum in a fixed order: a butterfly a warp (every lane ends
+    // with the same sum), then the four warps in order
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    if (lane == 0) red[warp] = dot;
+    __syncthreads();
+    if (tid == 0) {
+      float s = 0.f;
+      for (int w = 0; w < THREADS / 32; ++w) s += red[w];
+      p.part[static_cast<size_t>(b) * (tm * tn) + tile] = s;
+    }
+  }
+}
+
+// Enqueue hilo_bmm_kernel<MODE, EPI> over every tile of every batch entry;
+// returns the cudaError_t of the launch.
+template <int MODE, int EPI>
+inline int launch(const Params& p, cudaStream_t stream) {
+  const long long tiles = static_cast<long long>(p.batch) *
+                          ((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN);
+  if (tiles < 1 || tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  hilo_bmm_kernel<MODE, EPI><<<static_cast<unsigned>(tiles), THREADS, 0,
+                               stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline bool valid(const Params& p) {
+  return p.M >= 1 && p.N >= 1 && p.K >= 1 && p.batch >= 1 && p.L.p &&
+         p.R.p && p.C;
+}
+
+}  // namespace bmm

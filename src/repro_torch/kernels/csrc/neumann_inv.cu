@@ -32,9 +32,30 @@
 // the prefix sums of nb_i). A K-FAC refresh of 3120 blocks in 11 leaves is
 // then one launch (24 waves of 132 CTAs, not 28 in 11 launches), and each
 // CTA computes exactly what it computes in a launch of its leaf alone.
+//
+// Blocks of 129..1024 (the reference's whole domain) take a second route:
+// a block's hi/lo pair no longer fits one CTA (256 KB at n = 256 against
+// 227 KB), so the iteration runs as a sequence of batched hi/lo products
+// over every block of a chunk of one side (hilo_bmm.cuh), with the state
+// in an fp32 workspace that the caller allocates (ld = n rounded up to 4):
+//   neumann_inv_prep      Ad = A + lam I and X0 = A_H / (|A_H|_1 |A_H|_inf),
+//                         one CTA a block, the norms on n as given, summed
+//                         in a fixed order;
+//   neumann_inv_product   one product of the iteration with its epilogue
+//                         (W = 2I - A_H X, X W, A_L T, T = -X U with
+//                         M += T, R = I - Ad M, M + M R);
+//   neumann_inv_copy_out  the chunk's inverses into the leaves' outputs.
+// The caller issues them in the order of the schedule
+// (kernels/neumann_inv.py, inv_schedule): 2 ns + 2 (taylor - 1) +
+// 2 refine products between prep and copy-out. Each block's arithmetic is
+// independent of the chunk and of the other leaves, and nothing is summed
+// with atomics, so a grouped call is bitwise the per-leaf calls and a run
+// bitwise its repeat.
 #include "composed_inv.cuh"
+#include "hilo_bmm.cuh"
 
 constexpr int MAX_LEAVES = 32;
+constexpr int LARGE_N = 1024;  // the reference's largest block
 
 struct LeafTable {
   const float* a[MAX_LEAVES];        // (nb_i, n, n) blocks
@@ -83,6 +104,144 @@ extern "C" int neumann_inv_launch(const LeafTable* table, int n, int ns_iters,
   neumann_inv_kernel<<<blocks, composed::THREADS, composed::SMEM_BYTES,
                        static_cast<cudaStream_t>(stream)>>>(
       *table, n, ns_iters, taylor_terms, refine_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+__device__ __forceinline__ int leaf_of(const LeafTable& t, int b) {
+  int leaf = 0;
+  while (leaf + 1 < t.count && t.start[leaf + 1] <= b) ++leaf;
+  return leaf;
+}
+
+__device__ __forceinline__ float hi_abs(float v) {
+  return fabsf(__bfloat162float(__float2bfloat16_rn(v)));
+}
+
+constexpr int PREP_THREADS = 256;
+
+// One CTA a block (global index b0 + blockIdx.x of the table): Ad into
+// `ad` and X0 into `x` (n x n at row stride ld, block after block).
+// |A_H|_1: thread j sums column j over the rows in order; |A_H|_inf: a
+// warp sums a row by lanes, then a butterfly (every lane ends with the same
+// sum); both maxima are exact in any order.
+__global__ void __launch_bounds__(PREP_THREADS)
+inv_prep_kernel(const __grid_constant__ LeafTable t, int b0, int n, int ld,
+                float* __restrict__ ad, float* __restrict__ x) {
+  __shared__ float red[2][PREP_THREADS / 32];
+  const int b = b0 + static_cast<int>(blockIdx.x);
+  const int leaf = leaf_of(t, b);
+  const int i = b - t.start[leaf];
+  const float* src = t.a[leaf] + static_cast<size_t>(i) * n * n;
+  const float lam = t.damping[leaf][i];
+  const size_t off = static_cast<size_t>(blockIdx.x) * n * ld;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  float cmax = 0.f;
+  for (int j = tid; j < n; j += PREP_THREADS) {
+    float s = 0.f;
+    for (int r = 0; r < n; ++r) {
+      const float v = src[static_cast<size_t>(r) * n + j] +
+                      (r == j ? lam : 0.f);
+      ad[off + static_cast<size_t>(r) * ld + j] = v;
+      s += hi_abs(v);
+    }
+    cmax = fmaxf(cmax, s);
+  }
+  float rmax = 0.f;
+  for (int r = warp; r < n; r += PREP_THREADS / 32) {
+    float s = 0.f;
+    for (int j = lane; j < n; j += 32)
+      s += hi_abs(src[static_cast<size_t>(r) * n + j] + (r == j ? lam : 0.f));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    rmax = fmaxf(rmax, s);
+  }
+  cmax = composed::warp_max(cmax);
+  rmax = composed::warp_max(rmax);
+  if (lane == 0) {
+    red[0][warp] = cmax;
+    red[1][warp] = rmax;
+  }
+  __syncthreads();
+  float n1 = 0.f, ninf = 0.f;
+  for (int w = 0; w < PREP_THREADS / 32; ++w) {
+    n1 = fmaxf(n1, red[0][w]);
+    ninf = fmaxf(ninf, red[1][w]);
+  }
+  const float bound = n1 * ninf;
+  for (int k = tid; k < n * n; k += PREP_THREADS) {
+    const int r = k / n, c = k - r * n;
+    const float v = src[k] + (r == c ? lam : 0.f);
+    x[off + static_cast<size_t>(r) * ld + c] =
+        __bfloat162float(__float2bfloat16_rn(v)) / bound;
+  }
+}
+
+// The chunk's inverses m (row stride ld) into the leaves' outputs;
+// blockIdx.y is the block of the chunk.
+__global__ void inv_copy_out_kernel(const __grid_constant__ LeafTable t,
+                                    int b0, int n, int ld,
+                                    const float* __restrict__ m) {
+  const int b = b0 + static_cast<int>(blockIdx.y);
+  const int leaf = leaf_of(t, b);
+  const int i = b - t.start[leaf];
+  float* dst = t.out[leaf] + static_cast<size_t>(i) * n * n;
+  const float* src = m + static_cast<size_t>(blockIdx.y) * n * ld;
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n * n;
+       k += gridDim.x * blockDim.x) {
+    const int r = k / n;
+    dst[k] = src[static_cast<size_t>(r) * ld + k - r * n];
+  }
+}
+
+bool large_args(const LeafTable* t, int b0, int nb, int n, int ld) {
+  return n > composed::NP && n <= LARGE_N && ld >= n && ld % 4 == 0 &&
+         t->count >= 1 && t->count <= MAX_LEAVES && b0 >= 0 && nb >= 1 &&
+         nb <= 65535 && b0 + nb <= t->start[t->count];
+}
+
+}  // namespace
+
+// Large route, step 1: Ad and X0 of blocks b0 .. b0 + nb - 1 of the table
+// into the workspace buffers ad and x. Returns the cudaError_t (0 = ok).
+extern "C" int neumann_inv_prep(const LeafTable* table, int b0, int nb, int n,
+                                int ld, float* ad, float* x, void* stream) {
+  if (!large_args(table, b0, nb, n, ld) || !ad || !x)
+    return static_cast<int>(cudaErrorInvalidValue);
+  inv_prep_kernel<<<nb, PREP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      *table, b0, n, ld, ad, x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Large route: one product of the iteration (mode: bmm::Mode, epi:
+// bmm::Epi; the combinations the schedule uses).
+extern "C" int neumann_inv_product(const bmm::Params* p, int mode, int epi,
+                                   void* stream) {
+  if (!bmm::valid(*p)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using namespace bmm;
+  if (mode == HI && epi == TWO_I_MINUS) return launch<HI, TWO_I_MINUS>(*p, s);
+  if (mode == FULL && epi == STORE) return launch<FULL, STORE>(*p, s);
+  if (mode == LO && epi == STORE) return launch<LO, STORE>(*p, s);
+  if (mode == FULL && epi == NEG_ACC) return launch<FULL, NEG_ACC>(*p, s);
+  if (mode == FULL && epi == I_MINUS) return launch<FULL, I_MINUS>(*p, s);
+  if (mode == FULL && epi == ADD) return launch<FULL, ADD>(*p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Large route, last step: the inverses m of blocks b0 .. b0 + nb - 1 into
+// the table's outputs.
+extern "C" int neumann_inv_copy_out(const LeafTable* table, int b0, int nb,
+                                    int n, int ld, const float* m,
+                                    void* stream) {
+  if (!large_args(table, b0, nb, n, ld) || !m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per = (n * n + 255) / 256;
+  const dim3 grid(per < 16 ? per : 16, nb);
+  inv_copy_out_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      *table, b0, n, ld, m);
   return static_cast<int>(cudaGetLastError());
 }
 

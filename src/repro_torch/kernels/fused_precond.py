@@ -8,6 +8,14 @@ blocks are read from their pools (tile t uses ``a_inv[a_src[t]]`` and
 ``g_inv[g_src[t]]``), so the caller never gathers a copy per tile. The
 CUDA source states what bounds it and how the design answers that. The
 plain version is :func:`repro_torch.kernels.ref.fused_precond_ref`.
+
+Tiles with both sides at most :data:`ONE_CTA_B` (128) take the one-CTA
+kernel, one launch a call. A side of 129..:data:`MAX_B` (1024, the
+reference's limit) takes the large route: per chunk of tiles
+(:func:`wu_chunks`), two batched hi/lo products of ``csrc/hilo_bmm.cuh``
+(``tmp = hilo(A_inv, g)`` into a workspace, then ``out = hilo(tmp,
+G_inv)`` with each 64 x 64 tile's partial dot) and a kernel that sums
+the partials in order, still reading the pools by index.
 """
 
 from __future__ import annotations
@@ -16,14 +24,39 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import hilo_bmm
 from repro_torch.kernels.build import CudaLibrary
 
-#: largest tile side the kernel takes
-MAX_B = 128
+#: largest tile side the kernels take (the reference's limit)
+MAX_B = hilo_bmm.MAX_SIDE
+#: largest tile side of the one-CTA route
+ONE_CTA_B = 128
+#: launches of one large-route chunk: two products and the dots
+LARGE_LAUNCHES = 3
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("fused_precond", "fused_precond.cu", {
-    "fused_precond_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]})
+    "fused_precond_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "fused_precond_product": [ctypes.POINTER(hilo_bmm.Params), _I, _I, _P],
+    "fused_precond_dots": [_P, _I, _P, _I, _P]})
+
+
+def wu_chunks(n_tiles: int, bi: int, bo: int,
+              budget: int = hilo_bmm.WORKSPACE_BYTES) -> list:
+    """The large route's ``(t0, t1)`` chunks of tiles: each chunk's
+    ``tmp`` (bi x bo fp32 a tile, rows padded to 4) and partial dots
+    stay under ``budget``."""
+    per_tile = 4 * (bi * hilo_bmm.row_stride(bo) + hilo_bmm.tiles_of(bi, bo))
+    return hilo_bmm.chunks(n_tiles, per_tile, budget)
+
+
+def expected_launches(n_tiles: int, bi: int, bo: int) -> int:
+    """Launches of one :func:`fused_precond` call on (n_tiles, bi, bo)."""
+    if n_tiles == 0:
+        return 0
+    if max(bi, bo) <= ONE_CTA_B:
+        return 1
+    return LARGE_LAUNCHES * len(wu_chunks(n_tiles, bi, bo))
 
 
 def check_indices(a_inv: torch.Tensor, g_inv: torch.Tensor, n: int,
@@ -58,7 +91,7 @@ def fused_precond(a_inv: torch.Tensor, g: torch.Tensor, g_inv: torch.Tensor,
                   a_src: torch.Tensor | None = None,
                   g_src: torch.Tensor | None = None):
     """``(out, dots)`` for (N, bi, bo) fp32 CUDA gradient tiles, bi, bo <=
-    128: (N, bi, bo) preconditioned tiles and (N,) per-tile
+    1024: (N, bi, bo) preconditioned tiles and (N,) per-tile
     ``sum(out * g)``. Without indices ``a_inv`` and ``g_inv`` are the
     per-tile (N, bi, bi) and (N, bo, bo) blocks; with int32 (N,)
     ``a_src``/``g_src`` they are pools (Ma, bi, bi) and (Mg, bo, bo),
@@ -86,7 +119,8 @@ def fused_precond(a_inv: torch.Tensor, g: torch.Tensor, g_inv: torch.Tensor,
             f"g {tuple(g.shape)}, g_inv {tuple(g_inv.shape)}")
     if bi > MAX_B or bo > MAX_B:
         raise ValueError(f"fused_precond kernel takes tiles of at most "
-                         f"{MAX_B} x {MAX_B}, got {bi} x {bo}")
+                         f"{MAX_B} x {MAX_B} (the reference's limit), got "
+                         f"{bi} x {bo}")
     if not (a_inv.device == g.device == g_inv.device):
         raise ValueError("fused_precond operands are on different devices")
     check_indices(a_inv, g_inv, n, a_src, g_src)
@@ -96,11 +130,56 @@ def fused_precond(a_inv: torch.Tensor, g: torch.Tensor, g_inv: torch.Tensor,
     dots = torch.empty((n,), dtype=torch.float32, device=g.device)
     if n == 0:
         return out, dots
+    key = f"{bi}x{bo}"
     with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        if max(bi, bo) > ONE_CTA_B:
+            _large(a_inv, g, g_inv, a_src if indexed else None,
+                   g_src if indexed else None, out, dots, stream, key)
+            return out, dots
         LIB.launch("fused_precond_launch", a_inv.data_ptr(), g.data_ptr(),
                    g_inv.data_ptr(),
                    a_src.data_ptr() if indexed else None,
                    g_src.data_ptr() if indexed else None,
-                   out.data_ptr(), dots.data_ptr(), n, bi, bo,
-                   torch.cuda.current_stream(g.device).cuda_stream)
+                   out.data_ptr(), dots.data_ptr(), n, bi, bo, stream,
+                   key=key)
     return out, dots
+
+
+def _large(a_inv, g, g_inv, a_src, g_src, out, dots, stream, key) -> None:
+    """The large route, chunk by chunk on ``stream``: ``tmp`` into a
+    workspace allocated on it (the current stream), then ``out`` and the
+    partial dots, then the dots."""
+    n, bi, bo = g.shape
+    ldt = hilo_bmm.row_stride(bo)
+    per = hilo_bmm.tiles_of(bi, bo)
+    parts = wu_chunks(n, bi, bo)
+    most = max(t1 - t0 for t0, t1 in parts)
+    tmp = torch.empty(most * bi * ldt, dtype=torch.float32, device=g.device)
+    part = torch.empty(most * per, dtype=torch.float32, device=g.device)
+    tmp_ptr, part_ptr = tmp.data_ptr(), part.data_ptr()
+    for t0, t1 in parts:
+        nt = t1 - t0
+        g_ptr = hilo_bmm.fp32_ptr(g, t0 * bi * bo)
+        if a_src is None:
+            left = hilo_bmm.operand(hilo_bmm.fp32_ptr(a_inv, t0 * bi * bi),
+                                    bi * bi, bi)
+            right = hilo_bmm.operand(hilo_bmm.fp32_ptr(g_inv, t0 * bo * bo),
+                                     bo * bo, bo)
+        else:
+            left = hilo_bmm.operand(a_inv.data_ptr(), bi * bi, bi,
+                                    a_src.data_ptr() + 4 * t0)
+            right = hilo_bmm.operand(g_inv.data_ptr(), bo * bo, bo,
+                                     g_src.data_ptr() + 4 * t0)
+        p = hilo_bmm.params(left, hilo_bmm.operand(g_ptr, bi * bo, bo),
+                            tmp_ptr, bi * ldt, ldt, bi, bo, bi, nt)
+        LIB.launch("fused_precond_product", ctypes.byref(p), hilo_bmm.FULL,
+                   hilo_bmm.STORE, stream, key=key)
+        p = hilo_bmm.params(hilo_bmm.operand(tmp_ptr, bi * ldt, ldt), right,
+                            hilo_bmm.fp32_ptr(out, t0 * bi * bo), bi * bo,
+                            bo, bi, bo, bo, nt, e=g_ptr, e_stride=bi * bo,
+                            lde=bo, part=part_ptr)
+        LIB.launch("fused_precond_product", ctypes.byref(p), hilo_bmm.FULL,
+                   hilo_bmm.DOT, stream, key=key)
+        LIB.launch("fused_precond_dots", part_ptr, per,
+                   hilo_bmm.fp32_ptr(dots, t0), nt, stream, key=key)

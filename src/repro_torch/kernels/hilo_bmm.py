@@ -1,0 +1,103 @@
+"""Arguments of the batched hi/lo product ``csrc/hilo_bmm.cuh``: the
+large-block route of ``neumann_inv`` and ``fused_precond`` (sides of
+129..1024), shared by both wrappers.
+
+The product's operands are fp32 blocks in device memory, addressed by a
+base pointer, an optional int32 index array (block ``idx[b]`` for batch
+entry ``b``), a block stride and a row stride; the kernel splits them
+into bf16 hi/lo slices as it stages them and pads every side with zeros
+to its 64-wide tiles in shared memory only. Nothing here launches or
+allocates: the wrappers build one :class:`Params` a product.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+#: the product's output tile (rows and columns) and depth step
+TILE = 64
+#: the reference's largest block and tile side (``repro.kernels``)
+MAX_SIDE = 1024
+#: a chunk's workspace is kept under this many bytes; a side's blocks (or a
+#: WU group's tiles) are taken in as many chunks as that needs
+WORKSPACE_BYTES = 1 << 30
+
+# left-operand modes and epilogues (bmm::Mode, bmm::Epi)
+FULL, HI, LO = 0, 1, 2
+STORE, TWO_I_MINUS, I_MINUS, ADD, NEG_ACC, DOT = range(6)
+
+
+class Operand(ctypes.Structure):
+    """``bmm::Operand``: block ``b`` at ``p + (idx ? idx[b] : b) *
+    stride`` floats, rows ``ld`` apart; ``vec`` allows float4 loads."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("idx", ctypes.c_void_p),
+                ("stride", ctypes.c_longlong), ("ld", ctypes.c_int),
+                ("vec", ctypes.c_int)]
+
+
+class Params(ctypes.Structure):
+    """``bmm::Params``: one batched product ``C[b] = epi(sum of the
+    partials of L[b] R[b])``, M x K by K x N."""
+
+    _fields_ = [("L", Operand), ("R", Operand),
+                ("C", ctypes.c_void_p), ("c_stride", ctypes.c_longlong),
+                ("ldc", ctypes.c_int),
+                ("E", ctypes.c_void_p), ("e_stride", ctypes.c_longlong),
+                ("lde", ctypes.c_int),
+                ("F", ctypes.c_void_p), ("part", ctypes.c_void_p),
+                ("M", ctypes.c_int), ("N", ctypes.c_int), ("K", ctypes.c_int),
+                ("batch", ctypes.c_int), ("c_vec", ctypes.c_int)]
+
+
+def row_stride(cols: int) -> int:
+    """A workspace row's stride: ``cols`` rounded up to 4 floats, so
+    that every workspace operand takes float4 loads."""
+    return -(-cols // 4) * 4
+
+
+def tiles_of(rows: int, cols: int) -> int:
+    """Output tiles of one rows x cols block (a DOT product's partial
+    dots a block)."""
+    return -(-rows // TILE) * -(-cols // TILE)
+
+
+def chunks(total: int, per_item_bytes: int,
+           budget: int = WORKSPACE_BYTES, cap: int = 65535) -> list:
+    """``[(start, stop), ...]`` covering ``range(total)`` in equal chunks
+    (the last may be shorter) of at most ``budget // per_item_bytes``
+    items (at least 1, at most ``cap``)."""
+    if total <= 0:
+        return []
+    most = max(1, min(budget // per_item_bytes, cap))
+    parts = -(-total // most)
+    size = -(-total // parts)
+    return [(lo, min(lo + size, total)) for lo in range(0, total, size)]
+
+
+def operand(ptr: int, stride: int, ld: int, idx: int | None = None) -> Operand:
+    """An fp32 operand at device address ``ptr``; float4 loads where the
+    base, block stride and row stride allow them."""
+    vec = ptr % 16 == 0 and stride % 4 == 0 and ld % 4 == 0
+    return Operand(ptr, idx, stride, ld, int(vec))
+
+
+def params(left: Operand, right: Operand, out: int, out_stride: int,
+           ldc: int, m: int, n: int, k: int, batch: int, *,
+           e: int | None = None, e_stride: int = 0, lde: int = 0,
+           f: int | None = None, part: int | None = None) -> Params:
+    """One product's :class:`Params`; ``c_vec`` (float2 epilogue
+    accesses) where C, E and F and their strides allow it."""
+    ptrs = [x for x in (out, e, f) if x is not None]
+    strides = [out_stride, ldc] + ([e_stride, lde] if e is not None else [])
+    c_vec = all(x % 8 == 0 for x in ptrs) and all(s % 2 == 0
+                                                  for s in strides)
+    return Params(left, right, out, out_stride, ldc, e, e_stride, lde, f,
+                  part, m, n, k, batch, int(c_vec))
+
+
+def fp32_ptr(t: torch.Tensor, offset: int = 0) -> int:
+    """Device address of float ``offset`` of the fp32 tensor ``t``."""
+    return t.data_ptr() + 4 * offset

@@ -8,7 +8,8 @@ raises. There is no fallback from the card to the plain version.
 This is the wiring ``repro.kernels.ops`` describes for the TPU: the
 K-FAC INV stage (``core.kfac.invert_blocks_grouped``) inverts every
 factor leaf through one :func:`neumann_inv_grouped` call (one launch a
-block side), the pooled WU stage
+block side up to 128, the large route's sequence above), the pooled WU
+stage
 (``core.kfac.precondition_pooled``) runs :func:`fused_precond`, the
 incremental SOI refresh (``solve.smw.smw_update_flat`` with
 ``SMWConfig.use_kernel``) updates through :func:`smw_update`, and the
@@ -31,7 +32,7 @@ from repro_torch.kernels import smw_update as _smw_update
 
 __all__ = ["neumann_inv", "neumann_inv_grouped", "fused_precond",
            "smw_update", "bitslice_mm", "fused_gram_inv", "LIBRARIES",
-           "build_all", "launch_counts", "launch_streams",
+           "build_all", "launch_counts", "launch_streams", "launch_keys",
            "reset_launch_counts"]
 
 #: kernel name -> its CUDA library (launch counters live on these)
@@ -68,9 +69,10 @@ def neumann_inv_grouped(blocks, dampings, *, ns_iters: int = 14,
                         taylor_terms: int = 4, refine_steps: int = 1,
                         out=None) -> list:
     """:func:`neumann_inv` of each (nb_i, n_i, n_i) leaf with its (nb_i,)
-    or scalar damping: on CUDA one launch for each block side (up to 32
-    leaves a launch), each block computed as in a launch of its leaf
-    alone. ``out``: one preallocated contiguous fp32 buffer per leaf,
+    or scalar damping: on CUDA one launch for each block side up to 128
+    (up to 32 leaves a launch) and the large route's launches above
+    (``kernels.neumann_inv.expected_launches``), each block computed as
+    in a call on its leaf alone. ``out``: one preallocated contiguous fp32 buffer per leaf,
     shaped like it, that receives the inverses and is returned (a
     refresh writes into the inverse tree it retires)."""
     if len(blocks) != len(dampings):
@@ -150,7 +152,14 @@ def launch_streams() -> dict:
             for name, lib in LIBRARIES.items()}
 
 
+def launch_keys() -> dict:
+    """kernel name -> {label: launches}: ``neumann_inv`` by block side
+    (``"n256"``), ``fused_precond`` by tile shape (``"256x176"``)."""
+    return {name: dict(lib.key_launches) for name, lib in LIBRARIES.items()}
+
+
 def reset_launch_counts() -> None:
     for lib in LIBRARIES.values():
         lib.launches = 0
         lib.stream_launches.clear()
+        lib.key_launches.clear()

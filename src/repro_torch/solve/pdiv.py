@@ -12,8 +12,9 @@ identity, damping folded up front (``D = F + lam I``)::
 
 Each stage is a pair of independent inversions of half the size, so with
 ``depth`` levels every sub-inversion is of size ``n / 2^depth``: a block
-of 256 at depth 1 runs on the ``neumann_inv`` kernel, which takes
-``n <= 128``. The sub-inversions go through ``kfac.invert_blocks_flat``
+of 256 at depth 1 runs on ``neumann_inv``'s one-CTA route (``n <=
+128``); without pdiv the kernel takes blocks up to 1024 whole, on its
+large route. The sub-inversions go through ``kfac.invert_blocks_flat``
 at zero damping, the primitive every other path inverts with.
 
 Unlike the reference, which inverts one block at a time, a call takes a

@@ -283,9 +283,203 @@ def test_fused_precond_indexed_kernel_matches_plain(cuda_device, n, bi, bo,
 
 @pytest.mark.cuda
 def test_neumann_inv_kernel_refuses_large_blocks(cuda_device):
-    a = torch.eye(130, device=cuda_device).expand(2, 130, 130).contiguous()
-    with pytest.raises(ValueError, match="n <= 128"):
+    """Above the reference's 1024 (its Pallas kernel's limit) the
+    wrapper raises before any launch."""
+    a = torch.eye(1025, device=cuda_device).expand(1, 1025, 1025).contiguous()
+    before = ops.launch_counts()["neumann_inv"]
+    with pytest.raises(ValueError, match="n <= 1024"):
         ops.neumann_inv(a, 0.1, **KW)
+    assert ops.launch_counts()["neumann_inv"] == before
+
+
+@pytest.mark.cuda
+def test_fused_precond_kernel_refuses_tiles_above_1024(cuda_device):
+    x = tuple(torch.zeros(s, device=cuda_device)
+              for s in ((1, 1025, 1025), (1, 1025, 8), (1, 8, 8)))
+    with pytest.raises(ValueError, match="1024 x 1024"):
+        ops.fused_precond(*x)
+
+
+# the large route (sides of 129..1024): the block sides of phase
+# large_blocks, nb small; fused_precond's tiles of that phase
+LARGE_N = [(3, 129), (4, 176), (3, 256), (2, 512), (2, 1024)]
+LARGE_TILES = [(6, 256, 256), (7, 256, 176), (5, 176, 256), (3, 1024, 176),
+               (3, 176, 1024), (4, 130, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,n", LARGE_N)
+def test_neumann_inv_large_kernel_matches_plain(cuda_device, nb, n):
+    """The large route against the plain version, and its launches: one
+    chunk of prep, 52 products at 20/4/2, copy-out, all keyed by the
+    side."""
+    from repro_torch.kernels import neumann_inv as kn
+
+    a, damp = _damped(nb + n, nb, n)
+    ta = torch.from_numpy(a).to(cuda_device)
+    td = torch.from_numpy(damp).to(cuda_device)
+    ops.reset_launch_counts()
+    got = ops.neumann_inv(ta, td, **KW)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["neumann_inv"] == \
+        kn.expected_launches({n: [nb]}, **KW) == 52
+    assert ops.launch_keys()["neumann_inv"] == {f"n{n}": 52}
+    want = tref.neumann_inv_ref(ta, td, **KW)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    # bitwise its repeat (no atomics)
+    assert torch.equal(got, ops.neumann_inv(ta, td, **KW))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taylor,refine", [(1, 0), (4, 0), (3, 3)])
+def test_neumann_inv_large_kernel_ladder_stages(cuda_device, taylor, refine):
+    a, damp = _damped(taylor + refine, 3, 176)
+    ta = torch.from_numpy(a).to(cuda_device)
+    td = torch.from_numpy(damp).to(cuda_device)
+    kw = dict(ns_iters=20, taylor_terms=taylor, refine_steps=refine)
+    got = ops.neumann_inv(ta, td, **kw)
+    want = tref.neumann_inv_ref(ta, td, **kw)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_neumann_inv_grouped_mixed_sides_is_the_per_leaf_calls(cuda_device):
+    """Leaves of 128, 176 and 256 (and an empty one) in one grouped
+    call: each side takes its own route, and each leaf is bitwise a
+    call on it alone."""
+    from repro_torch.kernels import neumann_inv as kn
+
+    shapes = [(5, 256), (3, 128), (0, 176), (6, 176), (2, 256), (4, 128)]
+    leaves = [_damped(80 + k, nb, n) for k, (nb, n) in enumerate(shapes)]
+    blocks = [torch.from_numpy(a).to(cuda_device) for a, _ in leaves]
+    damps = [torch.from_numpy(d).to(cuda_device) for _, d in leaves]
+    ops.reset_launch_counts()
+    got = ops.neumann_inv_grouped(blocks, damps, **KW)
+    torch.cuda.synchronize()
+    sides = {}
+    for nb, n in shapes:
+        sides.setdefault(n, []).append(nb)
+    assert ops.launch_counts()["neumann_inv"] == \
+        kn.expected_launches(sides, **KW) == 1 + 2 * 52
+    assert ops.launch_keys()["neumann_inv"] == {"n256": 52, "n128": 1,
+                                                "n176": 52}
+    for a, d, g in zip(blocks, damps, got):
+        assert torch.equal(g, ops.neumann_inv(a, d, **KW))
+        if a.shape[0]:
+            want = tref.neumann_inv_ref(a, d, **KW)
+            assert (g - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_neumann_inv_large_chunks_are_bitwise_one_chunk(cuda_device,
+                                                       monkeypatch):
+    """A workspace budget of two blocks takes the side in chunks: each
+    block bitwise the one-chunk result (a block's arithmetic does not
+    depend on its chunk)."""
+    from repro_torch.kernels import hilo_bmm
+    from repro_torch.kernels import neumann_inv as kn
+
+    leaves = [_damped(90 + k, nb, 256) for k, nb in enumerate((3, 2))]
+    blocks = [torch.from_numpy(a).to(cuda_device) for a, _ in leaves]
+    damps = [torch.from_numpy(d).to(cuda_device) for _, d in leaves]
+    whole = ops.neumann_inv_grouped(blocks, damps, **KW)
+    budget = 2 * 5 * 256 * 256 * 4
+    plan = kn.large_plan
+    monkeypatch.setattr(kn, "large_plan",
+                        lambda nbs, n: plan(nbs, n, budget=budget))
+    assert [len(p) for _, p, _ in kn.large_plan([3, 2], 256)] == [3]
+    ops.reset_launch_counts()
+    parts = ops.neumann_inv_grouped(blocks, damps, **KW)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["neumann_inv"] == 3 * 52
+    assert hilo_bmm.WORKSPACE_BYTES > budget
+    for x, y in zip(whole, parts):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_neumann_inv_large_out_and_side_stream(cuda_device):
+    """``out=`` at 256 fills the given buffers, bitwise the fresh
+    result; a refresh at 256 on a side stream (its workspace taken from
+    the allocator there) is bitwise the main stream's, every launch on
+    the side stream."""
+    leaves = [_damped(100 + k, nb, n) for k, (nb, n) in
+              enumerate(((6, 256), (4, 176)))]
+    blocks = [torch.from_numpy(a).to(cuda_device) for a, _ in leaves]
+    damps = [torch.from_numpy(d).to(cuda_device) for _, d in leaves]
+    want = ops.neumann_inv_grouped(blocks, damps, **KW)
+    out = [torch.full_like(a, float("nan")) for a in blocks]
+    got = ops.neumann_inv_grouped(blocks, damps, out=out, **KW)
+    torch.cuda.synchronize()
+    for g, o, w in zip(got, out, want):
+        assert g is o and torch.equal(o, w)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    ops.reset_launch_counts()
+    with torch.cuda.stream(side):
+        res = ops.neumann_inv_grouped(blocks, damps, **KW)
+    # the main stream fills fresh allocations while the side stream may
+    # still run: they must not be the side stream's workspace
+    junk = [torch.empty(1 << 26, device=cuda_device).fill_(float("nan"))
+            for _ in range(4)]
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    torch.cuda.synchronize()
+    del junk
+    streams = ops.launch_streams()["neumann_inv"]
+    assert list(streams) == [side.cuda_stream]
+    for r, w in zip(res, want):
+        assert torch.equal(r, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bi,bo", LARGE_TILES)
+def test_fused_precond_large_kernel_matches_plain(cuda_device, n, bi, bo):
+    """Gathered and indexed (repeated, out of order), against the plain
+    version; three launches a call (two products and the dots), the
+    indexed call bitwise the gathered one."""
+    from repro_torch.kernels import fused_precond as kf
+
+    x = tuple(torch.from_numpy(v).to(cuda_device)
+              for v in _tiles(n + bi, n, bi, bo))
+    ops.reset_launch_counts()
+    out, dots = ops.fused_precond(*x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_precond"] == \
+        kf.expected_launches(n, bi, bo) == 3
+    assert ops.launch_keys()["fused_precond"] == {f"{bi}x{bo}": 3}
+    want_out, want_dots = tref.fused_precond_ref(*x)
+    assert (out - want_out).abs().max() <= 1e-4 * want_out.abs().max()
+    assert (dots - want_dots).abs().max() <= 1e-4 * want_dots.abs().max()
+    r = np.random.default_rng(n)
+    a_src, g_src = (torch.from_numpy(r.integers(0, n, n).astype(
+        np.int32)).to(cuda_device) for _ in range(2))
+    io, idots = ops.fused_precond(x[0], x[1], x[2], a_src, g_src)
+    go, gdots = ops.fused_precond(x[0][a_src.long()].contiguous(), x[1],
+                                  x[2][g_src.long()].contiguous())
+    assert torch.equal(io, go) and torch.equal(idots, gdots)
+    want_out, want_dots = tref.fused_precond_ref(x[0], x[1], x[2], a_src,
+                                                 g_src)
+    assert (io - want_out).abs().max() <= 1e-4 * want_out.abs().max()
+    assert (idots - want_dots).abs().max() <= 1e-4 * want_dots.abs().max()
+
+
+@pytest.mark.cuda
+def test_fused_precond_large_chunks_are_bitwise_one_chunk(cuda_device,
+                                                         monkeypatch):
+    from repro_torch.kernels import fused_precond as kf
+
+    x = tuple(torch.from_numpy(v).to(cuda_device)
+              for v in _tiles(3, 9, 256, 176))
+    out, dots = ops.fused_precond(*x)
+    chunks = kf.wu_chunks
+    monkeypatch.setattr(kf, "wu_chunks", lambda n, bi, bo: chunks(
+        n, bi, bo, budget=4 * 4 * (bi * bo + 12)))
+    ops.reset_launch_counts()
+    o2, d2 = ops.fused_precond(*x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_precond"] == 3 * 3
+    assert torch.equal(out, o2) and torch.equal(dots, d2)
 
 
 def _smw_case(seed, n, k, bs, scale):

@@ -1,0 +1,390 @@
+"""Blocks and tiles of 129..1024: the kernels' large route, held on the
+CPU as far as the CPU reaches it.
+
+The CUDA route itself runs only on the card (tests/test_torch_cuda.py,
+``chip_smoke.py`` phase ``large_blocks``). Here:
+
+  * the plain versions, which the card holds the route to, against the
+    reference's Pallas kernels in interpret mode at 256 and (256, 176),
+    (176, 256), and against its unpadded oracle at 176 and 384 (the
+    Pallas kernel pads 176 to 256 with an identity tail, which changes
+    ``X0`` where a block's norms are below 1);
+  * the large route's schedule of products (``inv_schedule``) run by a
+    plain emulation of each kernel, bitwise ``neumann_inv_ref``: the
+    order of the products, the buffers each reads and writes, and each
+    epilogue's arithmetic are those of the plain version;
+  * its launch plans and workspace chunks, as pure functions;
+  * a 2-step K-FAC trajectory through ``launch.train.run`` at block 256
+    on a narrow model with sides of 256 and 176, against the reference.
+
+Tolerances and why:
+  * plain vs Pallas and oracle: 5e-5 of the largest entry for the
+    inverse, 1e-5 for the WU tiles (tests/test_torch_kernels.py: the
+    exact bf16 partial products summed in another order).
+  * the trajectory: those of tests/test_torch_train.py (losses rtol
+    1e-5; inverses 1e-3 of a leaf's largest entry from the reference's
+    inverse of the port's own factors; parameters 1%), Adam leaves as
+    ``_torch_families.check_params`` holds them (first moments 1%; an
+    entry whose gradient was rounding-level at any step within 2 lr a
+    step: Adam's first step moves it by lr g / (|g| + eps), rounding
+    too; measured on the key bias, g ~4e-9 against eps 1e-8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config
+from repro.core import kfac as jkfac
+from repro.core.kfac import KFACConfig as JKFACConfig
+from repro.data import SyntheticTokens as JTokens
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.launch import steps as jsteps
+from repro.models import lm as jlm
+from repro_torch import convert
+from repro_torch.configs import get_smoke_config as t_get_smoke_config
+from repro_torch.core import kfac as tkfac
+from repro_torch.core.quantize import (
+    hilo_matmul,
+    hilo_matmul_exact_lhs,
+    split_hi_lo_bf16,
+)
+from repro_torch.data import SyntheticTokens as TTokens
+from repro_torch.kernels import fused_precond as t_fused_precond
+from repro_torch.kernels import hilo_bmm
+from repro_torch.kernels import neumann_inv as t_neumann_inv
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.launch import train as ttrain
+from repro_torch.models import lm as tlm
+
+from _torch_families import ConvertedProgram
+
+KW = dict(ns_iters=20, taylor_terms=4, refine_steps=2)   # KFACConfig counts
+
+
+def _damped(seed, nb, n):
+    r = np.random.default_rng(seed)
+    m = r.standard_normal((nb, n, n)).astype(np.float32)
+    a = (np.einsum("bij,bkj->bik", m, m) / n
+         + 1e-3 * np.eye(n, dtype=np.float32))
+    damp = (0.03 * np.trace(a, axis1=1, axis2=2) / n).astype(np.float32)
+    return a, damp
+
+
+def _assert_rel(got, want, tol):
+    want = np.asarray(want)
+    err = np.max(np.abs(np.asarray(got) - want))
+    assert err <= tol * np.max(np.abs(want)), (err, np.max(np.abs(want)))
+
+
+# ---------------------------------------------------------------------------
+# the plain versions against the reference above 128
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nb", [1, 2])
+def test_neumann_inv_plain_matches_pallas_kernel_at_256(nb):
+    a, damp = _damped(256 + nb, nb, 256)
+    got = tref.neumann_inv_ref(torch.from_numpy(a), torch.from_numpy(damp),
+                               **KW)
+    want = jops.neumann_inv(jnp.asarray(a), jnp.asarray(damp), **KW)
+    _assert_rel(got.numpy(), want, 5e-5)
+
+
+@pytest.mark.parametrize("nb,n", [(3, 176), (1, 384)])
+def test_neumann_inv_plain_matches_unpadded_oracle_above_128(nb, n):
+    a, damp = _damped(n + nb, nb, n)
+    got = tref.neumann_inv_ref(torch.from_numpy(a), torch.from_numpy(damp),
+                               **KW)
+    want = jref.neumann_inv_ref(jnp.asarray(a), jnp.asarray(damp), **KW)
+    _assert_rel(got.numpy(), want, 5e-5)
+
+
+@pytest.mark.parametrize("bi,bo", [(256, 176), (176, 256)])
+@pytest.mark.parametrize("indexed", [False, True])
+def test_fused_precond_plain_matches_pallas_kernel_above_128(bi, bo,
+                                                             indexed):
+    """Gathered, and indexed into pools (repeated, out of order) against
+    the Pallas kernel on the gathered pools."""
+    r = np.random.default_rng(bi + 2 * bo)
+    n, ma, mg = 5, 3, 4
+    pa = r.standard_normal((ma, bi, bi)).astype(np.float32)
+    g = r.standard_normal((n, bi, bo)).astype(np.float32)
+    pg = r.standard_normal((mg, bo, bo)).astype(np.float32)
+    a_src = r.integers(0, ma, n).astype(np.int32)
+    g_src = r.integers(0, mg, n).astype(np.int32)
+    if indexed:
+        out, dots = ops.fused_precond(*(torch.from_numpy(x) for x in
+                                        (pa, g, pg, a_src, g_src)))
+    else:
+        out, dots = ops.fused_precond(*(torch.from_numpy(x) for x in
+                                        (pa[a_src], g, pg[g_src])))
+    want_out, want_dots = jops.fused_precond(
+        jnp.asarray(pa[a_src]), jnp.asarray(g), jnp.asarray(pg[g_src]))
+    _assert_rel(out.numpy(), want_out, 1e-5)
+    np.testing.assert_allclose(dots.numpy(), np.asarray(want_dots),
+                               rtol=1e-4, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# the large route's schedule, run by a plain emulation of its kernels
+# ---------------------------------------------------------------------------
+
+def _product(mode, left, right):
+    """The product kernel's partials on the CPU: FULL splits both
+    operands; HI and LO take the left operand's exact bf16 slice."""
+    if mode == hilo_bmm.FULL:
+        return hilo_matmul(left, right)
+    hi, lo = split_hi_lo_bf16(left)
+    return hilo_matmul_exact_lhs(hi if mode == hilo_bmm.HI else lo, right)
+
+
+def _emulate(a, lam, counts):
+    """The large route on the CPU: the prep kernel's Ad and X0, the
+    schedule's products with their epilogues, the last buffer."""
+    n = a.shape[-1]
+    eye = torch.eye(n, dtype=torch.float32)
+    ad = a + lam[:, None, None] * eye
+    a_hi = ad.to(torch.bfloat16).to(torch.float32)
+    bound = a_hi.abs().sum(dim=-2).amax(dim=-1) * \
+        a_hi.abs().sum(dim=-1).amax(dim=-1)
+    buf = {"ad": ad, "x0": a_hi / bound[:, None, None]}
+    steps, last = t_neumann_inv.inv_schedule(*counts)
+    for mode, epi, left, right, c, e, f in steps:
+        acc = _product(mode, buf[left], buf[right])
+        if epi == hilo_bmm.STORE:
+            buf[c] = acc
+        elif epi == hilo_bmm.TWO_I_MINUS:
+            buf[c] = 2.0 * eye - acc
+        elif epi == hilo_bmm.I_MINUS:
+            buf[c] = eye - acc
+        elif epi == hilo_bmm.ADD:
+            buf[c] = buf[e] + acc
+        elif epi == hilo_bmm.NEG_ACC:
+            t = -acc
+            buf[f] = buf[e] + t
+            buf[c] = t
+        else:
+            raise AssertionError(f"epilogue {epi} in the inverse")
+    return buf[last]
+
+
+COUNTS = [(20, 4, 2), (14, 4, 1), (20, 1, 0), (20, 4, 0), (3, 1, 2),
+          (0, 1, 0), (2, 3, 3)]
+
+
+@pytest.mark.parametrize("counts", COUNTS)
+def test_large_schedule_emulated_is_the_plain_version(counts):
+    a, damp = _damped(sum(counts), 2, 176)
+    ta, td = torch.from_numpy(a), torch.from_numpy(damp)
+    got = _emulate(ta, td, counts)
+    want = tref.neumann_inv_ref(ta, td, ns_iters=counts[0],
+                                taylor_terms=counts[1],
+                                refine_steps=counts[2])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("counts", COUNTS)
+def test_large_schedule_never_overwrites_what_a_product_reads(counts):
+    """Every product reads only buffers already written, writes none of
+    its operands (other CTAs still read them), and its elementwise
+    E/F pair is the same buffer or F is written fresh; the counts of
+    products are those of the reference's iteration."""
+    steps, last = t_neumann_inv.inv_schedule(*counts)
+    written = {"ad", "x0"}
+    for _, _, left, right, c, e, f in steps:
+        assert {left, right} <= written and (e is None or e in written)
+        assert c not in (left, right) and f not in (left, right, c)
+        assert {c, f} - {None} <= set(t_neumann_inv.BUFFERS)
+        written |= {c, f} - {None}
+    assert last in written
+    ns, taylor, refine = counts
+    assert len(steps) == 2 * ns + 2 * max(taylor - 1, 0) + 2 * refine
+    assert t_neumann_inv.launches_per_chunk(*counts) == len(steps) + 2
+
+
+# ---------------------------------------------------------------------------
+# launch plans and workspace chunks (pure functions)
+# ---------------------------------------------------------------------------
+
+def test_large_plan_covers_every_block_in_chunks_under_the_budget():
+    budget = hilo_bmm.WORKSPACE_BYTES
+    for nbs, n in (([192], 1024), ([768], 256), ([48, 0, 96, 48], 1024),
+                   ([576, 576], 176), ([7], 129)):
+        plan = t_neumann_inv.large_plan(nbs, n, budget)
+        per_block = 5 * n * hilo_bmm.row_stride(n) * 4
+        (leaves, parts, ws), = plan
+        assert leaves == [i for i, nb in enumerate(nbs) if nb]
+        assert parts[0][0] == 0 and parts[-1][1] == sum(nbs)
+        assert all(b1 == c0 for (_, b1), (c0, _) in zip(parts, parts[1:]))
+        sizes = [b1 - b0 for b0, b1 in parts]
+        assert ws == max(sizes) * per_block <= budget
+        assert max(sizes) - min(sizes) <= 1 or len(sizes) == 1 or \
+            sizes[-1] < sizes[0]
+    # n = 1024: 20 MiB a block, 51 under 1 GiB -> 4 chunks of 48
+    (_, parts, ws), = t_neumann_inv.large_plan([192], 1024)
+    assert parts == [(0, 48), (48, 96), (96, 144), (144, 192)]
+    assert ws == 48 * 5 * 1024 * 1024 * 4
+    # block 256 of the main path: one chunk a side
+    assert t_neumann_inv.large_plan([768], 256)[0][1] == [(0, 768)]
+    assert t_neumann_inv.large_plan([1152], 176)[0][1] == [(0, 1152)]
+
+
+def test_large_plan_splits_long_leaf_lists_and_skips_empty_leaves():
+    nbs = [1 + k % 3 for k in range(40)] + [0]
+    plan = t_neumann_inv.large_plan(nbs, 200)
+    assert [leaves for leaves, _, _ in plan] == [list(range(32)),
+                                                 list(range(32, 40))]
+    assert [p[-1][1] for _, p, _ in plan] == [sum(nbs[:32]),
+                                              sum(nbs[32:40])]
+    assert t_neumann_inv.large_plan([0, 0], 300) == []
+    # a small budget takes the blocks in chunks of at least one
+    tiny = t_neumann_inv.large_plan([5], 256, budget=1)
+    assert tiny[0][1] == [(k, k + 1) for k in range(5)]
+
+
+def test_expected_launches_counts_both_routes():
+    per = t_neumann_inv.launches_per_chunk(**KW)
+    assert per == 2 * 20 + 2 * 3 + 2 * 2 + 2 == 52
+    sides = {128: [528, 0, 192], 256: [720, 48], 176: [1152]}
+    assert t_neumann_inv.expected_launches(sides, **KW) == 1 + 2 * per
+    assert t_neumann_inv.expected_launches({1024: [192]}, **KW) == 4 * per
+    assert t_neumann_inv.expected_launches(
+        {64: [1] * 40}, **KW) == 2
+
+
+def test_wu_chunks_and_expected_launches():
+    assert t_fused_precond.wu_chunks(3072, 256, 176) == [(0, 3072)]
+    parts = t_fused_precond.wu_chunks(6144, 1024, 176)
+    per_tile = 4 * (1024 * 176 + 16 * 3)
+    assert parts[0][0] == 0 and parts[-1][1] == 6144
+    assert max(b - a for a, b in parts) * per_tile <= \
+        hilo_bmm.WORKSPACE_BYTES
+    assert t_fused_precond.expected_launches(6144, 1024, 176) == \
+        3 * len(parts)
+    assert t_fused_precond.expected_launches(18816, 128, 128) == 1
+    assert t_fused_precond.expected_launches(0, 256, 256) == 0
+    assert hilo_bmm.tiles_of(176, 256) == 12
+    assert hilo_bmm.row_stride(130) == 132 and hilo_bmm.row_stride(176) == 176
+
+
+def test_params_layout_and_vector_flags():
+    """The ctypes structures match the C ones' layout (offsets the C
+    compiler gives bmm::Operand and bmm::Params on x86-64 and aarch64),
+    and float4/float2 accesses are taken only where aligned."""
+    import ctypes
+
+    assert ctypes.sizeof(hilo_bmm.Operand) == 32
+    assert hilo_bmm.Params.C.offset == 64
+    assert hilo_bmm.Params.E.offset == 88
+    assert hilo_bmm.Params.F.offset == 112
+    assert hilo_bmm.Params.M.offset == 128
+    assert ctypes.sizeof(hilo_bmm.Params) == 152
+    assert hilo_bmm.operand(1024, 176 * 176, 176).vec == 1
+    assert hilo_bmm.operand(1024, 130 * 130, 130).vec == 0
+    assert hilo_bmm.operand(1028, 256 * 256, 256).vec == 0
+    p = hilo_bmm.params(hilo_bmm.operand(0, 4, 4), hilo_bmm.operand(0, 4, 4),
+                        1024, 130 * 200, 200, 130, 200, 130, 3, e=2048,
+                        e_stride=130 * 200, lde=200)
+    assert p.c_vec == 1
+    p = hilo_bmm.params(hilo_bmm.operand(0, 4, 4), hilo_bmm.operand(0, 4, 4),
+                        1024, 129 * 129, 129, 129, 129, 129, 3)
+    assert p.c_vec == 0
+
+
+def test_route_limits_are_the_references():
+    """Both wrappers take sides up to the reference's 1024 and switch to
+    the large route above 128; a CPU tensor is refused by the CUDA
+    wrapper whatever its side (the card test checks the refusal above
+    1024 on CUDA)."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_neumann_inv.neumann_inv(torch.zeros(1, 1025, 1025), 0.1, **KW)
+    assert t_neumann_inv.MAX_N == t_fused_precond.MAX_B == 1024
+    assert t_neumann_inv.ONE_CTA_N == t_fused_precond.ONE_CTA_B == 128
+
+
+# ---------------------------------------------------------------------------
+# a K-FAC trajectory at block 256
+# ---------------------------------------------------------------------------
+
+def _narrow(cfg):
+    """qwen1.5-0.5b's smoke config widened to sides of 256 and 176:
+    d 256 (4 heads of 64), d_ff 704 = 4 x 176, ``soi_block`` = the
+    block, so that the reference's stats step collects its Grams at
+    the factors' block size."""
+    return dataclasses.replace(cfg, d_model=256, n_heads=4, n_kv_heads=4,
+                               head_dim=64, d_ff=704, soi_block=256,
+                               dtype="float32")
+
+
+def test_block_256_trajectory_matches_reference():
+    b, t, n_steps = 2, 32, 2
+    jcfg = _narrow(get_smoke_config("qwen1.5-0.5b"))
+    tcfg = _narrow(t_get_smoke_config("qwen1.5-0.5b"))
+    common = dict(stats_every=2, inv_every=2, block_size=256,
+                  stats_batch=b, stats_seq=t)
+    params = jax.device_get(jlm.init(jcfg, jax.random.PRNGKey(0)))
+
+    jk = JKFACConfig(**common)
+    state = jsteps.TrainState(params, jkfac.init(params,
+                                                 jlm.kfac_specs(jcfg), jk))
+    stats = jax.jit(jsteps.make_stats_step(jcfg, jk))
+    train = jax.jit(jsteps.make_train_step(jcfg, jk))
+    refresh = jax.jit(jsteps.make_inv_refresh(jcfg, jk))
+    ds = JTokens(jcfg.vocab, t, b, seed=0)
+    j_losses, j_mu = [], []
+    for i in range(n_steps):
+        batch = {"tokens": jnp.asarray(ds.batch_slice(i, 0, b))}
+        if i % 2 == 0:
+            state, _ = stats(state, batch)
+            state = state._replace(kfac=state.kfac._replace(
+                inverses=refresh(state.kfac.factors)))
+        state, m = train(state, batch)
+        j_losses.append(float(m["loss"]))
+        j_mu.append(convert._flatten(jax.device_get(state.kfac.adam_mu)))
+
+    program = ConvertedProgram(tcfg, tkfac.KFACConfig(**common),
+                                   device="cpu")
+    program.params = convert.params_from_jax(params, device="cpu")
+    tstate, hist = ttrain.run(program, TTokens(tcfg.vocab, t, b, seed=0),
+                              n_steps)
+    sides = {f.shape[-1] for d in tstate.kfac.factors.values()
+             for f in d.values()}
+    assert {256, 176} <= sides
+    assert [sorted(h["phase_s"]) for h in hist] == \
+        [["inv", "stats", "train", "wu"], ["train", "wu"]]
+    np.testing.assert_allclose([h["loss"] for h in hist], j_losses,
+                               rtol=1e-5)
+    j_of_t = jax.device_get(refresh({
+        n: {s: jnp.asarray(f.numpy()) for s, f in d.items()}
+        for n, d in tstate.kfac.factors.items()}))
+    for n, d in j_of_t.items():
+        for side, v in d.items():
+            got = tstate.kfac.inverses[n][side].numpy()
+            assert np.max(np.abs(got - v)) <= 1e-3 * np.max(np.abs(v)), \
+                (n, side)
+    specs = tlm.kfac_specs(tcfg)
+    for k, v in convert._flatten(jax.device_get(state.params)).items():
+        err = np.abs(tstate.params[k].numpy() - v)
+        if k in specs:
+            assert err.max() <= 1e-2 * np.max(np.abs(v)), (k, err.max())
+            continue
+        # an Adam leaf: its first moment within 1%, and its weights
+        # within 1% except where a step's gradient was rounding-level,
+        # where Adam's step lr g / (|g| + eps) is rounding too (within
+        # 2 lr a step)
+        mu = j_mu[-1][k]
+        mu_err = np.max(np.abs(tstate.kfac.adam_mu[k].numpy() - mu))
+        assert mu_err <= 1e-2 * np.max(np.abs(mu)), (k, "adam_mu", mu_err)
+        tiny = np.any([np.abs(m[k]) <= 1e-3 * np.max(np.abs(m[k]))
+                       for m in j_mu], axis=0)
+        assert np.max(err, where=~tiny, initial=0.0) <= \
+            1e-2 * np.max(np.abs(v)), (k, err.max())
+        assert np.max(err, where=tiny, initial=0.0) <= 2 * jk.lr * n_steps

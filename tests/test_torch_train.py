@@ -227,7 +227,8 @@ def test_package_imports_neither_jax_nor_repro():
         "'benchmarks.wu_fusion', 'benchmarks.serve_engine', "
         "'benchmarks.serve_scale', 'benchmarks.obs_overhead', "
         "'examples.quickstart', 'examples.precision_inv_demo', "
-        "'examples.serve_batched', 'examples.train_kfac_100m'):\n"
+        "'examples.serve_batched', 'examples.train_kfac_100m', "
+        "'kernels.hilo_bmm'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=SRC)
