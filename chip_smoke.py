@@ -239,7 +239,21 @@ Phases, each printed as a JSON line:
                  peak memory, the run's inverses and its largest WU group
                  against the plain versions; (c) one step at the
                  reference's default block 1024 (sides 1024 and 176)
-                 through the same checks
+                 through the same checks; (d) smw_update at (bs, k) of
+                 (129..1024, 64), (256, 128), (176, 129), (256, 256) and
+                 (1024, 1024) at unit and G-side scale, indefinite
+                 inverses at (256, 64), and fused_gram_inv at 129..1024
+                 (T 2048, fp32 and bf16), each against its plain version,
+                 float64, its repeat (bitwise) and its plans' launches,
+                 timed beside its plain version, library call and bound,
+                 the Gram inverse against the two-step route too; (e)
+                 ``--smw`` at block 256, 4 steps at rank 64 and then 2 at
+                 rank 256 (the seeding step and an SMW step: the solve
+                 above 128), launches by side and rank, each run's first
+                 SMW step updated again against the plain version and
+                 float64; (f) fused_gram_inv on the main path's first
+                 batch at block 256 (A sides 256 and 176) against its
+                 plain version, the two-step route and float64
   19. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
@@ -248,7 +262,7 @@ Phases, each printed as a JSON line:
 
 Then the script's seconds, a JSON line of per-kernel results (with
 whisper's launches, the serve and paged phases' (none), the paper
-phase's and the tooling phase's, and the large route's at block 256),
+phase's and the tooling phase's, and the large routes' at block 256),
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 without the ``ok`` line; so does a machine without CUDA, or a directory
@@ -369,13 +383,24 @@ KFAC_COUNTS = dict(ns_iters=20, taylor_terms=4, refine_steps=2)
 # as a WU plan makes them (runs of POOL_RUN tiles on one A block, the G
 # blocks cycling); (b) the main path's model at block 256 (sides 256 and
 # 176); (c) one step at the reference's default block 1024 (sides 1024
-# and 176)
+# and 176); (d) smw_update at these (blocks, k, bs) at unit and G-side
+# scale and one case of indefinite inverses, fused_gram_inv at these
+# (T, nb, n) in fp32 and bf16; (e) --smw at block 256 (rank 64, then one
+# SMW step at smw_rank); (f) fused_gram_inv at block 256 on the main
+# path's first batch
 LARGE = dict(
     sides=((8, 129), (8, 176), (8, 256), (4, 512), (2, 1024)),
     grouped=((5, 256), (3, 128), (6, 176), (2, 256), (4, 128), (0, 176)),
     tiles=((1536, 256, 256), (3072, 256, 176), (1536, 176, 256),
            (768, 1024, 176), (384, 176, 1024), (512, 130, 200)),
-    pool_run=8, block_size=256, default_block=1024)
+    pool_run=8, block_size=256, default_block=1024,
+    smw=((8, 64, 129), (8, 64, 176), (8, 64, 256), (4, 64, 512),
+         (2, 64, 1024), (8, 128, 256), (8, 129, 176), (4, 256, 256),
+         (2, 1024, 1024)),
+    smw_indefinite=(4, 64, 256),
+    gram=((2048, 8, 129), (2048, 8, 176), (2048, 8, 256), (2048, 4, 512),
+          (2048, 2, 1024)),
+    smw_rank=256)
 # a kernel agrees with its plain version when max|kernel - plain| is at
 # most this share of max|plain| (rounding-level: the tensor cores sum the
 # exact bf16 partial products in another order than the plain matmuls)
@@ -1844,6 +1869,395 @@ def tooling_phase(torch, dev, check):
     return out
 
 
+def bits(x, ref64) -> float:
+    """Achieved bits of ``x`` against the float64 ``ref64``: -log2 of the
+    largest error over ``ref64``'s largest entry (64 where exact)."""
+    e = float((x.double() - ref64).abs().max())
+    return 64.0 if e == 0 else -math.log2(e / float(ref64.abs().max()))
+
+
+def woodbury64(inv, v, *, decay, cscale):
+    """The Woodbury update of ``smw_update`` in float64, and its
+    capacitance S: the yardstick of the kernel's rounding."""
+    import torch
+
+    inv, v = inv.double(), v.double()
+    m = (inv + inv.transpose(-1, -2)) * (0.5 / decay)
+    y = v @ m
+    s = y @ v.transpose(-1, -2) + torch.eye(
+        v.shape[-2], device=v.device, dtype=torch.float64) / cscale
+    return m - y.transpose(-1, -2) @ torch.linalg.solve(s, y), s
+
+
+def smw_keeper(kept: dict):
+    """``on_step`` of an SMW run that fills ``kept``, on the host (so that
+    the path's peak memory is its own): the params and inverses entering
+    the first step without a fallback, and that step's factors and
+    inverses."""
+    def to_host(tree):
+        return {n: {k: t.cpu() for k, t in d.items()}
+                for n, d in tree.items()}
+
+    def keep(st, rec):
+        if "factors" in kept:
+            return
+        if rec["smw_fallback"] == 0.0:
+            kept.update(step=rec["step"], factors=to_host(st.kfac.factors),
+                        inverses=to_host(st.kfac.inverses))
+        else:
+            kept.update(params={k: p.cpu() for k, p in st.params.items()},
+                        inverses0=to_host(st.kfac.inverses))
+
+    return keep
+
+
+def smw_step_again(torch, dev, check, cfg, kcfg, ds, rank, kept,
+                   label="") -> list:
+    """The update of the SMW step that :func:`smw_keeper` kept, done again
+    from the inverses it started from and its own batch's columns: the
+    kernel, its plain version, the fp32 route and float64 Woodbury, each
+    against float64 ``torch.linalg.inv`` of the step's damped factors
+    (the last tells the algorithm's error from the rounding's), beside a
+    full re-inversion of those factors. One row a factor leaf, with the
+    kernel's time on it (CUDA events, warm, median of 5) and the bytes
+    and operations its bound counts; the kernel held to the plain
+    version within :data:`REL_TOL_RUN` and within a bit of its
+    accuracy."""
+    from repro_torch.core import kfac, soi
+    from repro_torch.data.pipeline import DataCursor
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+    from repro_torch.solve import smw as smw_mod
+
+    if "factors" not in kept:
+        return []
+    bs, decay = kcfg.block_size, kcfg.ema_decay
+    specs = lm.kfac_specs(cfg)
+    rows = []
+    # stats_batch and stats_seq are the whole batch here
+    batch = ds.batch(DataCursor(kept["step"] - 1), device=dev)
+    n_tok = batch["tokens"].numel()
+    _, _, cols, _ = kfac.stats_rank_k(
+        lambda p, tp, bt: lm.loss_fn(cfg, p, bt, taps=tp,
+                                     collect="cols", soi_block=bs),
+        {k: p.to(dev) for k, p in kept["params"].items()},
+        lm.build_taps(cfg, specs, n_tok, device=dev),
+        batch, specs, bs)
+    for name, c_d in cols.items():
+        for side, v in c_d.items():
+            f = kept["factors"][name][side].to(dev)
+            n = f.shape[-1]
+            flat = f.reshape(-1, n, n)
+            lam = soi.tikhonov_damping(flat, kcfg.damping)
+            exact = torch.linalg.inv(
+                flat.double() + lam.double()[:, None, None]
+                * torch.eye(n, device=dev, dtype=torch.float64))
+            inv0 = kept["inverses0"][name][side + "_inv"].to(dev) \
+                .reshape(-1, n, n).contiguous()
+            w = 1.0 / v.shape[-2] if side == "A" else 1.0
+            v = smw_mod._subsample_cols(v, rank)
+            v = v.reshape(-1, *v.shape[-2:]).contiguous()
+            args = dict(decay=decay, cscale=(1.0 - decay) * w)
+            mine = ops.smw_update(inv0, v, **args)
+            plain = ref.smw_update_ref(inv0, v, **args)
+            nb, k = v.shape[0], v.shape[-2]
+            run_inv = kept["inverses"][name][side + "_inv"].to(dev) \
+                .reshape(-1, n, n)
+            full = ops.neumann_inv(flat.contiguous(), lam, **KFAC_COUNTS)
+            err = float((mine - plain).abs().max())
+            scale = float(plain.abs().max())
+            row = dict(
+                leaf=f"{name}/{side}", rel_err_vs_plain=err / scale,
+                rel_diff_vs_run=float((mine - run_inv).abs().max())
+                / scale,
+                bits_smw=bits(run_inv, exact),
+                bits_kernel=bits(mine, exact),
+                bits_plain=bits(plain, exact),
+                bits_fp32=bits(ref.exact_smw_update(inv0, v, **args),
+                               exact),
+                bits_woodbury64=bits(woodbury64(inv0, v, **args)[0],
+                                     exact),
+                bits_full_reinversion=bits(full, exact),
+                side=n, k=k, blocks=nb,
+                ms=time_ms(torch, lambda: ops.smw_update(inv0, v, **args)),
+                # what the update must move and compute (phase 3's count)
+                bytes=4.0 * nb * (2 * n * n + k * n),
+                flops=2.0 * 3 * nb * (k * n * n + k * k * n + n * n * k),
+                fp32_flops=nb * (2.0 / 3.0 * k ** 3 + 2.0 * k * k * n))
+            rows.append(row)
+            check(err <= REL_TOL_RUN * scale,
+                  f"{label}{row['leaf']} smw_update kernel vs plain (run)")
+            check(row["bits_kernel"] >= row["bits_plain"] - 1.0,
+                  f"{label}{row['leaf']} smw_update as accurate as plain")
+            del exact, mine, plain, full
+    return rows
+
+
+def first_batch_acts(torch, dev, cfg, kcfg, ds) -> dict:
+    """The activations of the main path's first batch at the seed's
+    weights, through ``soi.blocked_tokens`` at ``kcfg``'s block size, for
+    every A leaf: ``{"name/A": (T, nb, n)}``."""
+    from repro_torch.core import kfac
+    from repro_torch.data.pipeline import DataCursor
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import lm
+
+    bs = kcfg.block_size
+    specs = lm.kfac_specs(cfg)
+    params0 = train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"],
+                                    device=dev).init_state().params
+    batch0 = ds.batch(DataCursor(0), device=dev)
+    n_tok = batch0["tokens"].numel()
+    _, _, cols0, _ = kfac.stats_rank_k(
+        lambda p, tp, bt: lm.loss_fn(cfg, p, bt, taps=tp, collect="cols",
+                                     soi_block=bs),
+        params0, lm.build_taps(cfg, specs, n_tok, device=dev), batch0,
+        specs, bs)
+    acts = {f"{name}/A": c["A"].movedim(-2, 0).reshape(
+        n_tok, -1, c["A"].shape[-1]).contiguous()
+        for name, c in cols0.items() if "A" in c}
+    del params0, cols0
+    torch.cuda.empty_cache()
+    return acts
+
+
+def hold_fused_gram(torch, dev, check, acts, fused, fg_kw, damping,
+                    label="") -> list:
+    """``fused`` (``ops.fused_gram_inv`` of each leaf of ``acts``) against
+    its plain version and against the two-step route (gram_from_tokens,
+    the K-FAC path's damping, neumann_inv), and each against float64
+    torch.linalg.inv. The two-step tolerance is the reference's
+    cross-route one, atol 5e-3 on inverses with entries of order 1
+    (tests/test_kernels.py::test_fused_matches_composed_inverse_path),
+    held relative to the largest entry where entries exceed 1. Both
+    tolerances presume an iteration that has converged, which 20
+    Newton-Schulz steps are not on ill-conditioned blocks: there the
+    inverse moves with the rounding of its Gram. So each leaf also
+    measures that: the plain route on the float64 Gram rounded to fp32,
+    another equally valid rounding of the same Gram. A route may differ
+    from the plain version by twice what that rounding alone moves it.
+    One row a leaf, with the kernel's and the library call's times
+    (``ref.exact_gram_inv``) and the bound."""
+    from repro_torch.core import soi
+    from repro_torch.kernels import ops, ref
+
+    prods = (5 * fg_kw["ns_iters"] + 5 * (fg_kw["taylor_terms"] - 1)
+             + 6 * fg_kw["refine_steps"])
+    report = []
+    for leaf, x in acts.items():
+        plain = ref.fused_gram_inv_ref(x, **fg_kw)
+        gram = soi.gram_from_tokens(x)
+        two_step = ops.neumann_inv(gram.contiguous(),
+                                   soi.tikhonov_damping(gram, damping),
+                                   **KFAC_COUNTS)
+        gram64 = soi.gram_from_tokens(x.double())
+        exact = torch.linalg.inv(
+            gram64 + soi.tikhonov_damping(gram64, damping)[:, None, None]
+            * torch.eye(gram.shape[-1], device=dev, dtype=torch.float64))
+        g_alt = gram64.float()
+        alt = ref.neumann_inv_ref(g_alt, soi.tikhonov_damping(g_alt, damping),
+                                  **KFAC_COUNTS)
+        mine = fused[leaf]
+        err = float((mine - plain).abs().max())
+        scale = float(plain.abs().max())
+        sens = float((alt - plain).abs().max())
+        gap = float((mine - two_step).abs().max())
+        two_scale = float(two_step.abs().max())
+        row = dict(leaf=leaf, shape=list(x.shape),
+                   rel_err_vs_plain=err / scale, max_abs_plain=scale,
+                   rel_rounding_sensitivity=sens / scale,
+                   max_abs_gap_two_step=gap,
+                   rel_gap_two_step=gap / two_scale,
+                   bits_fused=bits(mine, exact),
+                   bits_plain=bits(plain, exact),
+                   bits_two_step=bits(two_step, exact),
+                   bits_plain_f64_gram=bits(alt, exact))
+        # the bound as phase 3 counts it: the activations read once, the
+        # inverses written once; the Gram's partials and the inverse's
+        t, nb, n = x.shape
+        b_ms, b_by = bound(
+            x.element_size() * t * nb * n + 4.0 * nb * n * n,
+            2.0 * nb * ((3 if x.dtype == torch.float32 else 1) * t * n * n
+                        + prods * n ** 3))
+        row.update(
+            ms=time_ms(torch, lambda: ops.fused_gram_inv(x, **fg_kw)),
+            library_ms=time_ms(torch, lambda: ref.exact_gram_inv(x,
+                                                                 damping)),
+            bound_ms=b_ms, bound_by=b_by)
+        report.append(row)
+        check(err <= max(REL_TOL_RUN * scale, 2.0 * sens),
+              f"{label}{leaf} fused_gram_inv kernel vs plain (run)")
+        check(row["bits_fused"] >= row["bits_plain"] - 1.0,
+              f"{label}{leaf} fused_gram_inv as accurate as plain")
+        check(gap <= max(5e-3 * max(1.0, two_scale), 2.0 * sens),
+              f"{label}{leaf} fused_gram_inv vs the two-step route")
+        del plain, gram, two_step, gram64, exact, g_alt, alt
+    return report
+
+
+def large_solve_kernels(torch, dev, check, gen):
+    """Phase ``large_blocks`` (d): ``smw_update`` at :data:`LARGE`'s
+    (blocks, k, bs), at unit scale (c as on the A side at 2048 tokens)
+    and at the G side's (columns at 3e-4, inverse entries ~1e7, c =
+    0.05), and one case of indefinite inverses (S not SPD, its
+    conditioning decides how far any fp32 solve lands from float64: held
+    to float64 Woodbury within a bit of the plain version instead);
+    ``fused_gram_inv`` at its (T, nb, n) in fp32 and bf16. Each held to
+    its plain version within :data:`REL_TOL`, to its own repeat
+    (bitwise) and to the launches of its plans, its achieved bits
+    against float64 reported beside the plain version's (as (a) reports
+    them), and timed (CUDA events, warm, median of 5; the smw cases
+    on the G side) beside its plain version, its library call
+    (``ref.exact_smw_update``: fp32 matmuls and ``torch.linalg.solve``;
+    ``ref.exact_gram_inv``: an fp32 einsum and ``torch.linalg.inv``) and
+    its bound; ``fused_gram_inv`` also against the two-step route (the
+    fp32 Gram, then ``neumann_inv``) within the reference's cross-route
+    atol 5e-3. Returns ``(smw rows, gram rows)``."""
+    from repro_torch.core import kfac, soi
+    from repro_torch.kernels import fused_gram_solve as kg
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import smw_update as ks
+
+    decay = kfac.KFACConfig().ema_decay
+    damping = kfac.KFACConfig().damping
+    prods = (5 * KFAC_COUNTS["ns_iters"]
+             + 5 * (KFAC_COUNTS["taylor_terms"] - 1)
+             + 6 * KFAC_COUNTS["refine_steps"])
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    def smw_case(nb, k, bs, scale):
+        v0 = torch.randn(nb, 2 * bs, bs, device=dev, generator=gen,
+                         dtype=torch.float64) * scale
+        f = v0.transpose(-1, -2) @ v0 / (2 * bs)
+        lam = soi.tikhonov_damping(f, 0.03)
+        inv64 = torch.linalg.inv(f + lam[:, None, None] * torch.eye(
+            bs, device=dev, dtype=torch.float64))
+        v = torch.randn(nb, k, bs, device=dev, generator=gen) * scale
+        return inv64.float().contiguous(), v
+
+    def indefinite(nb, k, bs):
+        q = torch.linalg.qr(torch.randn(nb, bs, bs, device=dev,
+                                        generator=gen,
+                                        dtype=torch.float64))[0]
+        ev = torch.rand(nb, bs, device=dev, generator=gen,
+                        dtype=torch.float64) * 1.5 + 0.5
+        ev = ev * torch.where(torch.arange(bs, device=dev) % 3 == 0, -1.0,
+                              1.0)
+        inv = (q * ev[:, None, :]) @ q.transpose(-1, -2)
+        return inv.float().contiguous(), torch.randn(
+            nb, k, bs, device=dev, generator=gen)
+
+    smw_rows = []
+    cases = [(c, scale, cs) for c in LARGE["smw"] for scale, cs in (
+        (1.0, (1 - decay) / (MAIN["batch"] * MAIN["seq"])),
+        (3e-4, 1 - decay))] + [(LARGE["smw_indefinite"], None, 0.05)]
+    for (nb, k, bs), scale, c in cases:
+        if scale is None:
+            inv, v = indefinite(nb, k, bs)
+        else:
+            inv, v = smw_case(nb, k, bs, scale)
+        args = dict(decay=decay, cscale=c)
+        ops.reset_launch_counts()
+        got = ops.smw_update(inv, v, **args)
+        torch.cuda.synchronize(dev)
+        launches = ops.launch_counts()["smw_update"]
+        want = ref.smw_update_ref(inv, v, **args)
+        w64 = woodbury64(inv, v, **args)[0]
+        row = dict(blocks=nb, k=k, bs=bs,
+                   scale="indefinite" if scale is None else scale,
+                   cscale=c, rel_err=rel(got, want),
+                   max_abs_err=float((got - want).abs().max()),
+                   bits_kernel=bits(got, w64), bits_plain=bits(want, w64),
+                   launches=launches,
+                   repeat_bitwise=torch.equal(got, ops.smw_update(
+                       inv, v, **args)))
+        what = f"large_blocks: smw_update ({nb}, {k}, {bs}) {row['scale']}"
+        if scale is None:
+            check(bool(torch.isfinite(got).all()), f"{what} finite")
+            check(row["bits_kernel"] >= row["bits_plain"] - 1.0,
+                  f"{what} as accurate as plain")
+        else:
+            check(row["rel_err"] <= REL_TOL, f"{what} vs plain")
+        check(row["repeat_bitwise"], f"{what} bitwise its repeat")
+        check(launches == ks.expected_launches(bs, k, nb),
+              f"{what} launches")
+        if scale == 3e-4:
+            # bytes: inv and v read, out written; operations: 3 partials
+            # of V M, Y V^T and Y^T Z, and the fp32 solve (LU of k x k,
+            # two triangular solves on bs columns)
+            b_ms, b_by = bound(
+                4.0 * nb * (2 * bs * bs + k * bs),
+                2.0 * 3 * nb * (k * bs * bs + k * k * bs + bs * bs * k),
+                nb * (2.0 / 3.0 * k ** 3 + 2.0 * k * k * bs))
+            row.update(
+                ms=time_ms(torch, lambda: ops.smw_update(inv, v, **args)),
+                plain_ms=time_ms(torch, lambda: ref.smw_update_ref(
+                    inv, v, **args)),
+                library_ms=time_ms(torch, lambda: ref.exact_smw_update(
+                    inv, v, **args)),
+                bound_ms=b_ms, bound_by=b_by)
+        smw_rows.append(row)
+        del inv, v, got, want, w64
+
+    gram_rows = []
+    fg_kw = dict(rel_damp=damping, **KFAC_COUNTS)
+    for t, nb, n in LARGE["gram"]:
+        acts32 = torch.randn(t, nb, n, device=dev, generator=gen)
+        for dtype, tag in ((torch.float32, "fp32"),
+                           (torch.bfloat16, "bf16")):
+            x = acts32.to(dtype)
+            ops.reset_launch_counts()
+            got = ops.fused_gram_inv(x, **fg_kw)
+            torch.cuda.synchronize(dev)
+            counts = ops.launch_counts()
+            launches = {lib: counts[lib] for lib in ("fused_gram_inv",
+                                                     "neumann_inv")}
+            want = ref.fused_gram_inv_ref(x, **fg_kw)
+            gram = soi.gram_from_tokens(x.float())
+            two = ops.neumann_inv(gram.contiguous(),
+                                  soi.tikhonov_damping(gram, damping),
+                                  **KFAC_COUNTS)
+            gram64 = soi.gram_from_tokens(x.double())
+            exact = torch.linalg.inv(
+                gram64 + soi.tikhonov_damping(gram64, damping)[:, None, None]
+                * torch.eye(n, device=dev, dtype=torch.float64))
+            gap = float((got - two).abs().max())
+            partials = 3 if dtype == torch.float32 else 1
+            b_ms, b_by = bound(
+                x.element_size() * t * nb * n + 4.0 * nb * n * n,
+                2.0 * nb * (partials * t * n * n + prods * n ** 3))
+            row = dict(
+                shape=[t, nb, n], dtype=tag, rel_err=rel(got, want),
+                max_abs_err=float((got - want).abs().max()),
+                max_abs_gap_two_step=gap,
+                rel_gap_two_step=gap / float(two.abs().max()),
+                bits_kernel=bits(got, exact), bits_plain=bits(want, exact),
+                bits_two_step=bits(two, exact), launches=launches,
+                repeat_bitwise=torch.equal(got, ops.fused_gram_inv(
+                    x, **fg_kw)),
+                ms=time_ms(torch, lambda: ops.fused_gram_inv(x, **fg_kw)),
+                plain_ms=time_ms(torch, lambda: ref.fused_gram_inv_ref(
+                    x, **fg_kw)),
+                library_ms=time_ms(torch, lambda: ref.exact_gram_inv(
+                    x, damping)),
+                bound_ms=b_ms, bound_by=b_by)
+            gram_rows.append(row)
+            what = f"large_blocks: fused_gram_inv ({t}, {nb}, {n}) {tag}"
+            check(row["rel_err"] <= REL_TOL, f"{what} vs plain")
+            check(gap <= 5e-3 * max(1.0, float(two.abs().max())),
+                  f"{what} vs the two-step route")
+            check(row["bits_kernel"] >= row["bits_plain"] - 1.0,
+                  f"{what} as accurate as plain")
+            check(row["repeat_bitwise"], f"{what} bitwise its repeat")
+            check(launches == kg.expected_launches(nb, n, **KFAC_COUNTS),
+                  f"{what} launches")
+            del x, got, want, gram, two, gram64, exact
+        del acts32
+    return smw_rows, gram_rows
+
+
 def large_blocks_phase(torch, dev, check):
     """Phase ``large_blocks``: the kernels' route for sides of 129..1024
     (``csrc/hilo_bmm.cuh``). (a) ``neumann_inv`` at :data:`LARGE`'s
@@ -1859,14 +2273,26 @@ def large_blocks_phase(torch, dev, check):
     refresh of its last stats step timed, the run's inverses and its
     largest WU group against the plain versions (``kfac_kernel_checks``);
     (c) one step at the reference's default block 1024 (sides 1024 and
-    176): its refresh and WU through the same checks, peak memory.
+    176): its refresh and WU through the same checks, peak memory;
+    (d) ``smw_update`` and ``fused_gram_inv`` on their large routes
+    against their plain versions, float64, their own repeats and the
+    plans' launches, timed beside the plain versions, the library calls
+    and the bounds (``fused_gram_inv`` also against the two-step route);
+    (e) ``--smw`` at block 256 on the main path's model and traffic: 4
+    steps at rank 64, then 2 at :data:`LARGE`'s ``smw_rank`` (the seeding
+    step and one SMW step, the solve above 128), launches by side and
+    rank, and each run's first SMW step updated again
+    (:func:`smw_step_again`); (f) ``fused_gram_inv`` at block 256 on the
+    main path's first batch, every A leaf (:func:`hold_fused_gram`).
     Returns the phase's record."""
     from repro_torch.configs import get_config
     from repro_torch.core import kfac, soi
     from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import fused_gram_solve as kg
     from repro_torch.kernels import fused_precond as kf
     from repro_torch.kernels import neumann_inv as kn
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import smw_update as ks
     from repro_torch.launch import train as train_mod
 
     import gc
@@ -2081,8 +2507,108 @@ def large_blocks_phase(torch, dev, check):
             seconds=time.perf_counter() - t_run)
         gc.collect()
         torch.cuda.empty_cache()
+    smw_rows, gram_rows = large_solve_kernels(torch, dev, check, gen)
+    bs = LARGE["block_size"]
+    kcfg = kfac.KFACConfig(
+        stats_every=MAIN["stats_every"], inv_every=MAIN["inv_every"],
+        block_size=bs, stats_batch=MAIN["batch"], stats_seq=MAIN["seq"])
+
+    # (e) --smw at block 256: rank 64 for SMW's steps, then the seeding
+    # step and one SMW step at the larger rank
+    for tag, rank, steps in (("smw_256", SMW["rank"], SMW["steps"]),
+                             ("smw_256_rank256", LARGE["smw_rank"], 2)):
+        t_run = time.perf_counter()
+        program = train_mod.KFACProgram(
+            cfg, kcfg, seed=MAIN["seed"], device=dev, smw=True,
+            smw_drift_budget=SMW["drift_budget"], smw_rank=rank)
+        kept = {}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = train_mod.run(program, ds, steps,
+                                    on_step=smw_keeper(kept))
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches, keys = ops.launch_counts(), ops.launch_keys()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        losses = [h["loss"] for h in hist]
+        fallbacks = sum(h["smw_fallback"] for h in hist)
+        name = f"large_blocks {tag}"
+        check(all(math.isfinite(x) for x in losses), f"{name}: finite losses")
+        sides = leaves_by_side(state.kfac.factors)
+        k = min(rank, MAIN["batch"] * MAIN["seq"])
+        want_keys = {ks.launch_key(n, k): steps * sum(
+            ks.expected_launches(n, k, nb) for nb in nbs)
+            for n, nbs in sides.items()}
+        check(set(sides) == {256, 176}, f"{name}: sides 256 and 176")
+        check(keys["smw_update"] == want_keys,
+              f"{name}: smw_update on both sides, the launches of its "
+              f"plans")
+        check(launches["neumann_inv"]
+              == fallbacks * kn.expected_launches(sides, **KFAC_COUNTS),
+              f"{name}: neumann_inv's large route a gate fallback")
+        check("factors" in kept, f"{name}: an SMW step without a fallback")
+        del state, program
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows = smw_step_again(torch, dev, check, cfg, kcfg, ds, rank, kept,
+                              label=f"{name}: ")
+        runs[tag] = dict(
+            block_size=bs, rank=rank, k=k, steps=steps, losses=losses,
+            drift=[h["smw_drift"] for h in hist],
+            fallback=[h["smw_fallback"] for h in hist],
+            phase_s=[h["phase_s"] for h in hist], wall_s=wall,
+            peak_mem_gb=peak, launches=launches, launch_keys=keys,
+            bits_step=kept.get("step"), bits=rows,
+            **{"min_" + key: min((r[key] for r in rows), default=None)
+               for key in ("bits_smw", "bits_kernel", "bits_plain",
+                           "bits_woodbury64", "bits_full_reinversion")},
+            max_rel_err_vs_plain=max((r["rel_err_vs_plain"] for r in rows),
+                                     default=None),
+            update_ms=sum(r["ms"] for r in rows),
+            update_bound=bound(sum(r["bytes"] for r in rows),
+                               sum(r["flops"] for r in rows),
+                               sum(r["fp32_flops"] for r in rows)),
+            seconds=time.perf_counter() - t_run)
+        kept.clear()
+
+    # (f) fused_gram_inv at block 256 on the main path's first batch
+    t_run = time.perf_counter()
+    damping = kfac.KFACConfig().damping
+    fg_kw = dict(rel_damp=damping, **KFAC_COUNTS)
+    acts = first_batch_acts(torch, dev, cfg, kcfg, ds)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fused = {leaf: ops.fused_gram_inv(x, **fg_kw) for leaf, x in acts.items()}
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches, keys = ops.launch_counts(), ops.launch_keys()
+    want = {"fused_gram_inv": 0, "neumann_inv": 0}
+    for x in acts.values():
+        for lib, c in kg.expected_launches(x.shape[1], x.shape[2],
+                                           **KFAC_COUNTS).items():
+            want[lib] += c
+    check({x.shape[-1] for x in acts.values()} == {256, 176},
+          "large_blocks gram_256: A sides 256 and 176")
+    check({lib: launches[lib] for lib in want} == want,
+          "large_blocks gram_256: the launches of the plans")
+    report = hold_fused_gram(torch, dev, check, acts, fused, fg_kw, damping,
+                             label="large_blocks gram_256: ")
+    runs["gram_256"] = dict(
+        leaves={leaf: list(x.shape) for leaf, x in acts.items()},
+        wall_s=wall, launches={lib: launches[lib] for lib in want},
+        launch_keys=keys["fused_gram_inv"], fused_gram_inv=report,
+        min_bits_fused=min(r["bits_fused"] for r in report),
+        min_bits_two_step=min(r["bits_two_step"] for r in report),
+        seconds=time.perf_counter() - t_run)
+    del acts, fused
+    gc.collect()
+    torch.cuda.empty_cache()
     return dict(neumann_inv=inv_rows, grouped=grouped_row,
-                fused_precond=wu_rows, **runs,
+                fused_precond=wu_rows, smw_update=smw_rows,
+                fused_gram_inv=gram_rows, **runs,
                 phase_seconds=time.perf_counter() - t_phase)
 
 
@@ -2101,7 +2627,7 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.core import kfac, soi
-    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.data.pipeline import DataCursor, SyntheticTokens
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import train as train_mod
     from repro_torch.models import lm
@@ -2316,14 +2842,6 @@ def main() -> int:
         v = torch.randn(nb_max, ks, n, device=dev, generator=gen) * scale
         return inv64.float().contiguous(), v
 
-    def woodbury64(inv, v, *, decay, cscale):
-        inv, v = inv.double(), v.double()
-        m = (inv + inv.transpose(-1, -2)) * (0.5 / decay)
-        y = v @ m
-        s = y @ v.transpose(-1, -2) + torch.eye(
-            v.shape[-2], device=dev, dtype=torch.float64) / cscale
-        return m - y.transpose(-1, -2) @ torch.linalg.solve(s, y), s
-
     # each side: kernel and plain version against each other, and both
     # against float64 Woodbury, with the capacitance's condition number
     smw_sides = {}
@@ -2506,10 +3024,6 @@ def main() -> int:
           "neumann_inv: one launch per block side a refresh")
 
     # 5. the run's own inverses: kernel vs plain, and achieved bits -------
-    def bits(x, ref64):
-        e = float((x.double() - ref64).abs().max())
-        return 64.0 if e == 0 else -math.log2(e / float(ref64.abs().max()))
-
     inv_report = []
     for name, d in state.kfac.factors.items():
         for side, f in d.items():
@@ -2564,29 +3078,11 @@ def main() -> int:
         cfg, kcfg, seed=MAIN["seed"], device="cuda", smw=True,
         smw_drift_budget=SMW["drift_budget"], smw_rank=SMW["rank"])
     kept = {}
-
-    def to_host(tree):
-        return {n: {k: t.cpu() for k, t in d.items()}
-                for n, d in tree.items()}
-
-    def keep_first_smw_step(st, rec):
-        # on the host, so that the path's peak memory is its own: the
-        # params and inverses entering the first step without a
-        # fallback, and that step's factors and inverses
-        if "factors" in kept:
-            return
-        if rec["smw_fallback"] == 0.0:
-            kept.update(step=rec["step"], factors=to_host(st.kfac.factors),
-                        inverses=to_host(st.kfac.inverses))
-        else:
-            kept.update(params={k: p.cpu() for k, p in st.params.items()},
-                        inverses0=to_host(st.kfac.inverses))
-
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     _, smw_hist = train_mod.run(smw_prog, ds, SMW["steps"],
-                                on_step=keep_first_smw_step)
+                                on_step=smw_keeper(kept))
     torch.cuda.synchronize(dev)
     smw_wall = time.perf_counter() - t0
     smw_launches = ops.launch_counts()
@@ -2603,66 +3099,9 @@ def main() -> int:
           == sum(h["smw_fallback"] for h in smw_hist) * len(sides),
           "neumann_inv: one launch per block side a gate fallback")
 
-    # that step's update again, from the inverses it started from and
-    # its own batch's columns: the kernel, its plain version, the fp32
-    # route and float64 Woodbury, each against float64 torch.linalg.inv
-    # of the step's damped factors (the last tells the algorithm's error
-    # from the rounding's), beside a full re-inversion of those factors
-    from repro_torch.data.pipeline import DataCursor
-    from repro_torch.solve import smw as smw_mod
-
-    smw_bits = []
-    if "factors" in kept:
-        # stats_batch and stats_seq are the whole batch here
-        batch = ds.batch(DataCursor(kept["step"] - 1), device=dev)
-        n_tok = batch["tokens"].numel()
-        _, _, cols, _ = kfac.stats_rank_k(
-            lambda p, tp, bt: lm.loss_fn(cfg, p, bt, taps=tp,
-                                         collect="cols", soi_block=bs),
-            {k: p.to(dev) for k, p in kept["params"].items()},
-            lm.build_taps(cfg, specs, n_tok, device=dev),
-            batch, specs, bs)
-        for name, c_d in cols.items():
-            for side, v in c_d.items():
-                f = kept["factors"][name][side].to(dev)
-                flat = f.reshape(-1, bs, bs)
-                lam = soi.tikhonov_damping(flat, kcfg.damping)
-                exact = torch.linalg.inv(
-                    flat.double() + lam.double()[:, None, None]
-                    * torch.eye(bs, device=dev, dtype=torch.float64))
-                inv0 = kept["inverses0"][name][side + "_inv"].to(dev) \
-                    .reshape(-1, bs, bs).contiguous()
-                w = 1.0 / v.shape[-2] if side == "A" else 1.0
-                v = smw_mod._subsample_cols(v, SMW["rank"])
-                v = v.reshape(-1, *v.shape[-2:]).contiguous()
-                args = dict(decay=decay, cscale=(1.0 - decay) * w)
-                mine = ops.smw_update(inv0, v, **args)
-                plain = ref.smw_update_ref(inv0, v, **args)
-                run_inv = kept["inverses"][name][side + "_inv"].to(dev) \
-                    .reshape(-1, bs, bs)
-                full = ops.neumann_inv(flat.contiguous(), lam,
-                                       **KFAC_COUNTS)
-                err = float((mine - plain).abs().max())
-                scale = float(plain.abs().max())
-                row = dict(
-                    leaf=f"{name}/{side}", rel_err_vs_plain=err / scale,
-                    rel_diff_vs_run=float((mine - run_inv).abs().max())
-                    / scale,
-                    bits_smw=bits(run_inv, exact),
-                    bits_kernel=bits(mine, exact),
-                    bits_plain=bits(plain, exact),
-                    bits_fp32=bits(ref.exact_smw_update(inv0, v, **args),
-                                   exact),
-                    bits_woodbury64=bits(woodbury64(inv0, v, **args)[0],
-                                         exact),
-                    bits_full_reinversion=bits(full, exact))
-                smw_bits.append(row)
-                check(err <= REL_TOL_RUN * scale,
-                      f"{row['leaf']} smw_update kernel vs plain (run)")
-                check(row["bits_kernel"] >= row["bits_plain"] - 1.0,
-                      f"{row['leaf']} smw_update as accurate as plain")
-                del exact, mine, plain, full
-        del cols
+    # that step's update again (smw_step_again)
+    smw_bits = smw_step_again(torch, dev, check, cfg, kcfg, ds, SMW["rank"],
+                              kept)
 
     def lowest(key):
         return min((r[key] for r in smw_bits), default=None)
@@ -2892,23 +3331,9 @@ def main() -> int:
     rhs = torch.from_numpy(rng.standard_normal((128, 64)).astype(
         np.float32)).to(dev)
 
-    # the main path's first batch, through soi.blocked_tokens, for every
-    # A leaf (all of block width 128 here), as (T, nb, n)
-    params0 = train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"],
-                                    device="cuda").init_state().params
-    batch0 = ds.batch(DataCursor(0), device=dev)
-    n_tok = batch0["tokens"].numel()
-    _, _, cols0, _ = kfac.stats_rank_k(
-        lambda p, tp, bt: lm.loss_fn(cfg, p, bt, taps=tp, collect="cols",
-                                     soi_block=bs),
-        params0, lm.build_taps(cfg, specs, n_tok, device=dev), batch0,
-        specs, bs)
-    acts_run = {f"{name}/A": c["A"].movedim(-2, 0).reshape(
-        n_tok, -1, c["A"].shape[-1]).contiguous()
-        for name, c in cols0.items()
-        if "A" in c and c["A"].shape[-1] <= 128}
-    del params0, cols0
-    torch.cuda.empty_cache()
+    # the main path's first batch, for every A leaf (all of block width
+    # 128 here)
+    acts_run = first_batch_acts(torch, dev, cfg, kcfg, ds)
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2934,55 +3359,8 @@ def main() -> int:
     check(mxu_err <= REL_TOL * mxu_scale, "mxu_inv_apply kernel vs plain")
     check(mxu_rel_solve < 2.0 ** -10, "mxu_inv_apply vs float64 solve")
 
-    # the fused kernel against its plain version and against the two-step
-    # route (gram_from_tokens, the K-FAC path's damping, neumann_inv), and
-    # each against float64 torch.linalg.inv. The two-step tolerance is the
-    # reference's cross-route one, atol 5e-3 on inverses with entries of
-    # order 1 (tests/test_kernels.py::test_fused_matches_composed_inverse_
-    # path), held relative to the largest entry where entries exceed 1.
-    # Both tolerances presume an iteration that has converged, which 20
-    # Newton-Schulz steps are not on ill-conditioned blocks: there the
-    # inverse moves with the rounding of its Gram. So each leaf also
-    # measures that: the plain route on the float64 Gram rounded to fp32,
-    # another equally valid rounding of the same Gram. A route may differ
-    # from the plain version by twice what that rounding alone moves it.
-    fused_report = []
-    for leaf, x in acts_run.items():
-        plain = ref.fused_gram_inv_ref(x, **fg_kw)
-        gram = soi.gram_from_tokens(x)
-        two_step = ops.neumann_inv(gram.contiguous(),
-                                   soi.tikhonov_damping(gram, damping),
-                                   **KFAC_COUNTS)
-        gram64 = soi.gram_from_tokens(x.double())
-        exact = torch.linalg.inv(
-            gram64 + soi.tikhonov_damping(gram64, damping)[:, None, None]
-            * torch.eye(gram.shape[-1], device=dev, dtype=torch.float64))
-        g_alt = gram64.float()
-        alt = ref.neumann_inv_ref(g_alt, soi.tikhonov_damping(g_alt, damping),
-                                  **KFAC_COUNTS)
-        mine = fused[leaf]
-        err = float((mine - plain).abs().max())
-        scale = float(plain.abs().max())
-        sens = float((alt - plain).abs().max())
-        gap = float((mine - two_step).abs().max())
-        two_scale = float(two_step.abs().max())
-        row = dict(leaf=leaf, shape=list(x.shape),
-                   rel_err_vs_plain=err / scale, max_abs_plain=scale,
-                   rel_rounding_sensitivity=sens / scale,
-                   max_abs_gap_two_step=gap,
-                   rel_gap_two_step=gap / two_scale,
-                   bits_fused=bits(mine, exact),
-                   bits_plain=bits(plain, exact),
-                   bits_two_step=bits(two_step, exact),
-                   bits_plain_f64_gram=bits(alt, exact))
-        fused_report.append(row)
-        check(err <= max(REL_TOL_RUN * scale, 2.0 * sens),
-              f"{leaf} fused_gram_inv kernel vs plain (run)")
-        check(row["bits_fused"] >= row["bits_plain"] - 1.0,
-              f"{leaf} fused_gram_inv as accurate as plain")
-        check(gap <= max(5e-3 * max(1.0, two_scale), 2.0 * sens),
-              f"{leaf} fused_gram_inv vs the two-step route")
-        del plain, gram, two_step, gram64, exact, g_alt, alt
+    fused_report = hold_fused_gram(torch, dev, check, acts_run, fused,
+                                   fg_kw, damping)
     emit({"phase": "precision_inv",
           "fig5_toy": dict(bits=toy_bits, target=toy.q_x,
                            loops=[toy.loops_b, toy.loops_x, toy.n_taylor],
@@ -3397,7 +3775,9 @@ def main() -> int:
 
     # 18. large_blocks: the kernels' route for sides of 129..1024: the
     # kernels against their plain versions, the main path's model at
-    # block 256, one step at the reference's default block 1024
+    # block 256, one step at the reference's default block 1024, then
+    # smw_update and fused_gram_inv above 128, --smw at block 256 and the
+    # Gram inverse of its first batch
     t0 = time.perf_counter()
     large_row = large_blocks_phase(torch, dev, check)
     emit({"phase": "large_blocks", "nvidia_smi": smi, **large_row})
@@ -3476,6 +3856,23 @@ def main() -> int:
         "fused_precond": dict(
             launches=b256["launches"]["fused_precond"],
             largest_group=b256["fused_precond"])}
+    # smw_update's and fused_gram_inv's large routes (phase large_blocks:
+    # (e) and (f)'s launches, (d)'s timed shapes at block 256 and 1024)
+    timed = [r for r in large_row["smw_update"] if "ms" in r]
+    smw_run, rank_run = large_row["smw_256"], large_row["smw_256_rank256"]
+    large_route["smw_update"] = dict(
+        launches=smw_run["launches"]["smw_update"],
+        launch_keys=smw_run["launch_keys"]["smw_update"],
+        rank256_launches=rank_run["launches"]["smw_update"],
+        rank256_launch_keys=rank_run["launch_keys"]["smw_update"],
+        block_256=next(r for r in timed if (r["bs"], r["k"]) == (256, 64)),
+        largest=timed[-1])
+    grams = [r for r in large_row["fused_gram_inv"] if r["dtype"] == "fp32"]
+    large_route["fused_gram_inv"] = dict(
+        launches=large_row["gram_256"]["launches"],
+        launch_keys=large_row["gram_256"]["launch_keys"],
+        block_256=next(r for r in grams if r["shape"][2] == 256),
+        largest=grams[-1])
     # whisper's launches beside them, the serving phases' (none: the
     # serving path runs no TPU kernel's counterpart) and the paper
     # phase's (its driven runs together)

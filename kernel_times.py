@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Times the composed-inverse kernels and bitslice_mm of one tree's
-``repro_torch`` on one GPU, so that two trees can be compared inside one
-call.
+"""Times the kernels of one tree's ``repro_torch`` on one GPU, so that
+two trees can be compared inside one call.
 
     python3 kernel_times.py [--src DIR] [--ablate]
 
@@ -17,7 +16,16 @@ main path (qwen1.5-0.5b, K-FAC block 128, 2048 tokens):
   bitslice_mm     fp32 (2048, 1024) @ (1024, 2816) (the MLP product) and
                   (128, 128) @ (128, 64) (mxu_inv_apply's), through
                   ``ops.bitslice_mm``, one call and 20 back to back,
-                  beside fp32 torch.matmul (TF32 off).
+                  beside fp32 torch.matmul (TF32 off);
+and the large routes (sides and ranks of 129..1024) at the shapes of
+``chip_smoke.py``'s phase ``large_blocks`` (its ``LARGE``), for each
+kernel whose module in the tree takes them (``MAX_N``/``MAX_B`` above
+128; a tree without a kernel's large route gets no key for it):
+  neumann_inv     (a)'s blocks of 129..1024;
+  fused_precond   (a)'s tile shapes, pools indexed as a WU plan makes
+                  them;
+  smw_update      (d)'s (blocks, k, bs), at the G side's scale;
+  fused_gram_inv  (d)'s (T, nb, n), fp32 and bf16.
 With ``--ablate`` (this tree's kernel only) it also builds copies of
 ``csrc/bitslice_mm.cu`` with parts of the work cut out and times them at
 the MLP product (20 calls back to back, wrong results): the TMA copies
@@ -118,6 +126,60 @@ def ablate(torch, build, x, w) -> dict:
     return times
 
 
+def large_routes(torch, ops, dev, gen) -> dict:
+    """ms a call of each kernel's large route at ``chip_smoke.LARGE``'s
+    shapes, for the kernels whose module takes sides above 128."""
+    from chip_smoke import LARGE
+    from repro_torch.core import soi
+    from repro_torch.kernels import fused_gram_solve as kg
+    from repro_torch.kernels import fused_precond as kf
+    from repro_torch.kernels import neumann_inv as kn
+    from repro_torch.kernels import smw_update as ks
+
+    def damped(nb, n):
+        m = torch.randn(nb, n, 2 * n, device=dev, generator=gen)
+        a = m @ m.transpose(-1, -2) / (2 * n)
+        return a, soi.tikhonov_damping(a, 0.03)
+
+    out = {}
+    if getattr(kn, "MAX_N", 128) > 128:
+        for nb, n in LARGE["sides"]:
+            a, lam = damped(nb, n)
+            out[f"neumann_inv_{nb}x{n}_ms"] = time_ms(
+                torch, lambda: ops.neumann_inv(a, lam, **KFAC_COUNTS))
+    if getattr(kf, "MAX_B", 128) > 128:
+        run = LARGE["pool_run"]
+        for nt, bi, bo in LARGE["tiles"]:
+            na, ng = -(-nt // run), max(1, min(run, nt))
+            pa = torch.randn(na, bi, bi, device=dev, generator=gen)
+            pg = torch.randn(ng, bo, bo, device=dev, generator=gen)
+            g = torch.randn(nt, bi, bo, device=dev, generator=gen)
+            t = torch.arange(nt, device=dev)
+            a_src, g_src = (t // run).to(torch.int32), (t % ng).to(
+                torch.int32)
+            out[f"fused_precond_{nt}x{bi}x{bo}_ms"] = time_ms(
+                torch, lambda: ops.fused_precond(pa, g, pg, a_src, g_src))
+    if getattr(ks, "MAX_N", 128) > 128:
+        for nb, k, bs in LARGE["smw"]:
+            a, lam = damped(nb, bs)
+            inv = (torch.linalg.inv(a + lam[:, None, None] * torch.eye(
+                bs, device=dev)) / 3e-4 ** 2).contiguous()
+            v = torch.randn(nb, k, bs, device=dev, generator=gen) * 3e-4
+            out[f"smw_update_{nb}x{k}x{bs}_ms"] = time_ms(
+                torch, lambda: ops.smw_update(inv, v, decay=0.95,
+                                              cscale=0.05))
+    if getattr(kg, "MAX_N", 128) > 128:
+        for t, nb, n in LARGE["gram"]:
+            acts = torch.randn(t, nb, n, device=dev, generator=gen)
+            for dtype, name in ((torch.float32, "fp32"),
+                                (torch.bfloat16, "bf16")):
+                x = acts.to(dtype)
+                out[f"fused_gram_inv_{t}x{nb}x{n}_{name}_ms"] = time_ms(
+                    torch, lambda: ops.fused_gram_inv(x, rel_damp=0.03,
+                                                      **KFAC_COUNTS))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(
@@ -187,6 +249,7 @@ def main() -> int:
             torch, lambda: torch.matmul(x, w))
         out[f"matmul_{m}_{k}_{n}_loop20_ms"] = time_ms(
             torch, lambda: torch.matmul(x, w), launches=20)
+    out.update(large_routes(torch, ops, dev, gen))
     if args.ablate:   # last: it loads three more libraries
         x = torch.randn(2048, 1024, device=dev, generator=gen)
         w = torch.randn(1024, 2816, device=dev, generator=gen)

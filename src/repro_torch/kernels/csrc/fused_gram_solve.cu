@@ -1,5 +1,6 @@
 // Fused Gram accumulation and composed-precision inverse, one CTA per
-// feature block.
+// feature block (n <= 128; blocks of 129..1024 take the large route at the
+// end of this file).
 //
 // Replaces the Pallas TPU kernel repro/kernels/fused_gram_solve.py
 // (_kernel, called from fused_gram_inv). For activations a (T, nb, n),
@@ -35,7 +36,28 @@
 // shuffles, lam added on the diagonal, and the damped Gram split into the
 // A_H / A_L tiles, where composed_inverse takes over. One CTA per SM;
 // splitting T across CTAs for few-block, many-token calls is later work.
+//
+// Blocks of 129..1024 (the reference's whole domain): a block's Gram no
+// longer fits one CTA (a 256 block's fp32 Gram is 256 KB against 227 KB a
+// CTA may have), so above 128 the Gram passes through device memory, where
+// the TPU kept it in VMEM. Per chunk of blocks, into a workspace the caller
+// allocates:
+//   fused_gram_inv_gram    G_i = sum of the hi/lo partials of a_i^T a_i,
+//                          one batched product (hilo_bmm.cuh) over the
+//                          chunk's blocks: the left operand block i of a
+//                          read transposed (rows nb n apart), the right the
+//                          same block as it is, depth T; bf16 activations
+//                          are read as they are (their lo slice is zero),
+//                          never copied to fp32;
+//   fused_gram_inv_finish  G_i / T (a division, as the plain version
+//                          divides) and lam_i = rel_damp tr / n + 1e-8, the
+//                          trace summed in the one-CTA kernel's order;
+// then the caller runs neumann_inv's large route on (G_i, lam_i)
+// (kernels/fused_gram_solve.py). A cluster holding the Gram in distributed
+// shared memory, and T split across CTAs for calls with few blocks and many
+// tokens, are later work.
 #include "composed_inv.cuh"
+#include "hilo_bmm.cuh"
 
 namespace {
 
@@ -255,7 +277,57 @@ int launch(const T* a, float* out, int t_tok, int nb, int n, float rel_damp,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int FINISH_THREADS = 256;
+
+// G /= T in place and lam = rel_damp * tr(G) / n + 1e-8, one CTA a block.
+__global__ void __launch_bounds__(FINISH_THREADS)
+gram_finish_kernel(float* __restrict__ g, float* __restrict__ lam, int n,
+                   int t_tok, float rel_damp) {
+  __shared__ float diag[1024];
+  float* gb = g + static_cast<size_t>(blockIdx.x) * n * n;
+  const float tf = static_cast<float>(t_tok);
+  for (int idx = threadIdx.x; idx < n * n; idx += FINISH_THREADS) {
+    const float v = gb[idx] / tf;
+    gb[idx] = v;
+    if (idx % (n + 1) == 0) diag[idx / (n + 1)] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float tr = 0.f;
+    for (int k = threadIdx.x; k < n; k += 32) tr += diag[k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      tr += __shfl_xor_sync(0xffffffffu, tr, o);
+    if (threadIdx.x == 0)
+      lam[blockIdx.x] = rel_damp * tr / static_cast<float>(n) + 1e-8f;
+  }
+}
+
 }  // namespace
+
+// Large route: the chunk's Grams (mode FULL, epilogue STORE, the left
+// operand read transposed), of fp32 (bf16 == 0) or bf16 activations.
+extern "C" int fused_gram_inv_gram(const bmm::Params* p, int bf16_in,
+                                   void* stream) {
+  if (!bmm::valid(*p)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16_in)
+    return bmm::launch<bmm::FULL, bmm::STORE, true, false, __nv_bfloat16>(
+        *p, st);
+  return bmm::launch<bmm::FULL, bmm::STORE, true, false, float>(*p, st);
+}
+
+// Large route: g (nb, n, n) /= t_tok in place, lam (nb,) its damping.
+extern "C" int fused_gram_inv_finish(float* g, float* lam, int nb, int n,
+                                     int t_tok, float rel_damp,
+                                     void* stream) {
+  if (nb < 1 || n < 1 || n > 1024 || t_tok < 1 || !g || !lam)
+    return static_cast<int>(cudaErrorInvalidValue);
+  gram_finish_kernel<<<nb, FINISH_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(g, lam, n, t_tok,
+                                                            rel_damp);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Launch on `stream` for contiguous a (T, nb, n) and out (nb, n, n);
 // returns the cudaError_t of the launch (0 = success).

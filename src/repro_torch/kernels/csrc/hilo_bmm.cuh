@@ -1,17 +1,24 @@
 // Batched, tiled hi/lo product on the tensor cores with fused epilogues:
-// the large-block route of neumann_inv.cu and fused_precond.cu (blocks and
-// tiles of 129..1024), where one block no longer fits one CTA's shared
-// memory (a 256 block's hi/lo pair is 256 KB against 227 KB a CTA may have).
+// the large-block route of neumann_inv.cu, fused_precond.cu, smw_update.cu
+// and fused_gram_solve.cu (blocks, tiles and ranks of 129..1024), where one
+// block no longer fits one CTA's shared memory (a 256 block's hi/lo pair is
+// 256 KB against 227 KB a CTA may have).
 //
 // One launch computes, for every batch entry b and every 64 x 64 tile of
 // the M x N result,
-//   acc = sum over the partials of Lp[b] Rp[b]   (M x K times K x N)
-// and writes epilogue(acc) into C[b]. Operands are fp32 in device memory
-// (row-major, any leading dimension, block b at base + idx[b] * stride, or
-// b * stride without an index array) and are split into bf16 hi/lo slices
-// as they are staged into shared memory: splitting on load is bitwise what
-// storing the split and loading it gives, and moves the same four bytes an
-// entry. The partials, with fp32 accumulation:
+//   acc = sum over the partials of op(L)p[b] op(R)p[b]   (M x K times K x N)
+// and writes epilogue(acc) into C[b]. Operands are fp32 (or, for the Gram
+// of bf16 activations, bf16: converted to fp32 as they are read, so their
+// lo slice is exactly zero) in device memory (row-major, any leading
+// dimension, block b at base + idx[b] * stride, or b * stride without an
+// index array) and are split into bf16 hi/lo slices as they are staged
+// into shared memory: splitting on load is bitwise what storing the split
+// and loading it gives, and moves the same bytes an entry. op(L) is L, or
+// with the template flag LT the transpose of L stored K x M; op(R) is R, or
+// with RT the transpose of R stored N x K. A transposed operand is loaded
+// along its contiguous side like any other and staged in its stored
+// layout; ldmatrix's other form (.trans or not) delivers the same mma
+// fragments from it. The partials, with fp32 accumulation:
 //   FULL  L_H R_H + L_H R_L + L_L R_H   (an fp32 left operand)
 //   HI    L_H R_H + L_H R_L             (the exact bf16 hi slice of L)
 //   LO    L_L R_H + L_L R_L             (the exact bf16 lo slice of L)
@@ -28,6 +35,8 @@
 //   DOT          C = acc, and the tile's sum of acc * E into part[b, tile]
 //                (fused_precond's trust-region dot, reduced over the
 //                tiles in a fixed order by a second kernel: no atomics)
+//   SUB          C = E - acc              (the Woodbury correction
+//                                          M - Y^T Z, one rounding)
 //
 // Bound: operations at the K-FAC shapes (a 256 block's product is 2 x 256^3
 // a partial against 768 KB of fp32 operands, ~85 FLOP a byte from device
@@ -38,6 +47,8 @@
 // global loads held in registers while this step's products run, one
 // barrier a step; 39 KB of static shared memory, several CTAs an SM.
 #pragma once
+
+#include <type_traits>
 
 #include "hilo_mma.cuh"
 
@@ -52,11 +63,12 @@ constexpr int LDB = BN + 8;  // right tiles BK x BN, row stride (bf16)
 
 enum Mode { FULL = 0, HI = 1, LO = 2 };
 enum Epi { STORE = 0, TWO_I_MINUS = 1, I_MINUS = 2, ADD = 3, NEG_ACC = 4,
-           DOT = 5 };
+           DOT = 5, SUB = 6 };
 
-// An fp32 operand: block b at p + (idx ? idx[b] : b) * stride, rows ld
-// apart. vec: ld % 4 == 0, stride % 4 == 0 and p 16-byte aligned (float4
-// loads; a float4 that straddles the last column is masked, which reads
+// An operand: block b at p + (idx ? idx[b] : b) * stride elements (fp32,
+// or bf16 where the kernel's element type says so), rows ld apart. vec:
+// ld % 4 == 0, stride % 4 == 0 and p 16-byte aligned (loads of four
+// entries; four that straddle the last column are masked, which reads
 // inside the row because ld >= the columns rounded up to 4).
 struct Operand {
   const float* p;
@@ -71,7 +83,8 @@ struct Params {
   float* C;
   long long c_stride;
   int ldc;
-  const float* E;  // ADD, NEG_ACC: the M block read; DOT: the dot's other
+  const float* E;  // ADD, NEG_ACC, SUB: the M block read; DOT: the dot's
+                   // other factor
   long long e_stride;
   int lde;
   float* F;        // NEG_ACC: the M block written (E's layout)
@@ -80,22 +93,37 @@ struct Params {
   int c_vec;       // C, E, F 8-byte aligned, even ld and strides
 };
 
-__device__ __forceinline__ float4 load4(const float* __restrict__ base,
-                                        int ld, int rows, int cols, int r,
-                                        int c, bool vec) {
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// Four entries of row r from column c on, as fp32 (zeros outside rows x
+// cols).
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* __restrict__ base, int ld,
+                                        int rows, int cols, int r, int c,
+                                        bool vec) {
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   if (r < rows && c < cols) {
-    const float* s = base + static_cast<size_t>(r) * ld + c;
+    const T* s = base + static_cast<size_t>(r) * ld + c;
     if (vec) {
-      v = *reinterpret_cast<const float4*>(s);
+      if constexpr (std::is_same<T, float>::value) {
+        v = *reinterpret_cast<const float4*>(s);
+      } else {
+        const uint2 q = *reinterpret_cast<const uint2*>(s);
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&q.x));
+        const float2 b = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&q.y));
+        v = make_float4(a.x, a.y, b.x, b.y);
+      }
       if (c + 1 >= cols) v.y = 0.f;
       if (c + 2 >= cols) v.z = 0.f;
       if (c + 3 >= cols) v.w = 0.f;
     } else {
-      v.x = s[0];
-      if (c + 1 < cols) v.y = s[1];
-      if (c + 2 < cols) v.z = s[2];
-      if (c + 3 < cols) v.w = s[3];
+      v.x = to_f32(s[0]);
+      if (c + 1 < cols) v.y = to_f32(s[1]);
+      if (c + 2 < cols) v.z = to_f32(s[2]);
+      if (c + 3 < cols) v.w = to_f32(s[3]);
     }
   }
   return v;
@@ -106,29 +134,46 @@ __device__ __forceinline__ void split4(const float4 v, uint2& h, uint2& l) {
   hilo::split2(v.z, v.w, h.y, l.y);
 }
 
-template <int MODE, int EPI>
+// The left tile is staged as stored: BM x BK (row stride LDA), or with LT
+// BK x BM (row stride LDB); the right tile BK x BN (LDB), or with RT
+// BN x BK (LDA).
+template <bool TR>
+__host__ __device__ constexpr int left_elems() {
+  return TR ? BK * LDB : BM * LDA;
+}
+template <bool TR>
+__host__ __device__ constexpr int right_elems() {
+  return TR ? BN * LDA : BK * LDB;
+}
+
+template <int MODE, int EPI, bool LT = false, bool RT = false,
+          typename T = float>
 __global__ void __launch_bounds__(THREADS)
 hilo_bmm_kernel(const __grid_constant__ Params p) {
-  __shared__ __align__(16) bf16 sLH[2][BM * LDA];
-  __shared__ __align__(16) bf16 sLL[2][MODE == FULL ? BM * LDA : 8];
-  __shared__ __align__(16) bf16 sRH[2][BK * LDB];
-  __shared__ __align__(16) bf16 sRL[2][BK * LDB];
+  __shared__ __align__(16) bf16 sLH[2][left_elems<LT>()];
+  __shared__ __align__(16) bf16 sLL[2][MODE == FULL ? left_elems<LT>() : 8];
+  __shared__ __align__(16) bf16 sRH[2][right_elems<RT>()];
+  __shared__ __align__(16) bf16 sRL[2][right_elems<RT>()];
   __shared__ float red[THREADS / 32];
 
   const int tm = (p.M + BM - 1) / BM, tn = (p.N + BN - 1) / BN;
   const int tile = static_cast<int>(blockIdx.x % (tm * tn));
   const int b = static_cast<int>(blockIdx.x / (tm * tn));
   const int i0 = (tile / tn) * BM, j0 = (tile % tn) * BN;
-  const float* Lb = p.L.p + static_cast<size_t>(p.L.idx ? p.L.idx[b] : b) *
-                                static_cast<size_t>(p.L.stride);
-  const float* Rb = p.R.p + static_cast<size_t>(p.R.idx ? p.R.idx[b] : b) *
-                                static_cast<size_t>(p.R.stride);
+  const T* Lb = reinterpret_cast<const T*>(p.L.p) +
+                static_cast<size_t>(p.L.idx ? p.L.idx[b] : b) *
+                    static_cast<size_t>(p.L.stride);
+  const T* Rb = reinterpret_cast<const T*>(p.R.p) +
+                static_cast<size_t>(p.R.idx ? p.R.idx[b] : b) *
+                    static_cast<size_t>(p.R.stride);
   const bool lvec = p.L.vec, rvec = p.R.vec;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int r16 = lane & 15, c8 = (lane >> 4) * 8;
+  const int r16 = lane & 15, c8 = (lane >> 4) * 8;           // plain
+  const int r8 = (lane & 7) + ((lane >> 4) << 3);              // swapped
+  const int s8 = ((lane >> 3) & 1) * 8;
 
   float acc[2][4][4];
 #pragma unroll
@@ -138,17 +183,27 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
-  // this thread's four float4 slots of each staged tile: the left tile's
-  // BM rows of BK (8 slots a row), the right tile's BK rows of BN (16)
+  // this thread's four slots of four entries of each staged tile, in the
+  // operand's stored layout: a BM x BK tile (64 rows of 8 slots; the left
+  // tile, or the right one with RT) or a BK x BN tile (32 rows of 16; the
+  // right tile, or the left one with LT)
   float4 gl[4], gr[4];
   auto gload = [&](int k0) {
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       const int q = tid + s * THREADS;
-      gl[s] = load4(Lb, p.L.ld, p.M, p.K, i0 + (q >> 3), k0 + (q & 7) * 4,
-                    lvec);
-      gr[s] = load4(Rb, p.R.ld, p.K, p.N, k0 + (q >> 4),
-                    j0 + (q & 15) * 4, rvec);
+      if constexpr (LT)
+        gl[s] = load4(Lb, p.L.ld, p.K, p.M, k0 + (q >> 4),
+                      i0 + (q & 15) * 4, lvec);
+      else
+        gl[s] = load4(Lb, p.L.ld, p.M, p.K, i0 + (q >> 3),
+                      k0 + (q & 7) * 4, lvec);
+      if constexpr (RT)
+        gr[s] = load4(Rb, p.R.ld, p.N, p.K, j0 + (q >> 3),
+                      k0 + (q & 7) * 4, rvec);
+      else
+        gr[s] = load4(Rb, p.R.ld, p.K, p.N, k0 + (q >> 4),
+                      j0 + (q & 15) * 4, rvec);
     }
   };
   auto sstore = [&](int buf) {
@@ -157,7 +212,8 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
       const int q = tid + s * THREADS;
       uint2 h, l;
       split4(gl[s], h, l);
-      const int lo = (q >> 3) * LDA + (q & 7) * 4;
+      const int lo = LT ? (q >> 4) * LDB + (q & 15) * 4
+                        : (q >> 3) * LDA + (q & 7) * 4;
       if constexpr (MODE == FULL) {
         *reinterpret_cast<uint2*>(&sLH[buf][lo]) = h;
         *reinterpret_cast<uint2*>(&sLL[buf][lo]) = l;
@@ -165,7 +221,8 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
         *reinterpret_cast<uint2*>(&sLH[buf][lo]) = MODE == HI ? h : l;
       }
       split4(gr[s], h, l);
-      const int ro = (q >> 4) * LDB + (q & 15) * 4;
+      const int ro = RT ? (q >> 3) * LDA + (q & 7) * 4
+                        : (q >> 4) * LDB + (q & 15) * 4;
       *reinterpret_cast<uint2*>(&sRH[buf][ro]) = h;
       *reinterpret_cast<uint2*>(&sRL[buf][ro]) = l;
     }
@@ -184,17 +241,30 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
-        const int off = (wm + mi * 16 + r16) * LDA + k0 + c8;
-        hilo::ldmatrix_x4(ah[mi], &sLH[cur][off]);
-        if constexpr (MODE == FULL)
-          hilo::ldmatrix_x4(al[mi], &sLL[cur][off]);
+        if constexpr (LT) {
+          const int off = (k0 + r8) * LDB + wm + mi * 16 + s8;
+          hilo::ldmatrix_x4_trans(ah[mi], &sLH[cur][off]);
+          if constexpr (MODE == FULL)
+            hilo::ldmatrix_x4_trans(al[mi], &sLL[cur][off]);
+        } else {
+          const int off = (wm + mi * 16 + r16) * LDA + k0 + c8;
+          hilo::ldmatrix_x4(ah[mi], &sLH[cur][off]);
+          if constexpr (MODE == FULL)
+            hilo::ldmatrix_x4(al[mi], &sLL[cur][off]);
+        }
       }
 #pragma unroll
       for (int nj = 0; nj < 2; ++nj) {
         uint32_t bh[4], bl[4];
-        const int off = (k0 + r16) * LDB + wn + nj * 16 + c8;
-        hilo::ldmatrix_x4_trans(bh, &sRH[cur][off]);
-        hilo::ldmatrix_x4_trans(bl, &sRL[cur][off]);
+        if constexpr (RT) {
+          const int off = (wn + nj * 16 + r8) * LDA + k0 + s8;
+          hilo::ldmatrix_x4(bh, &sRH[cur][off]);
+          hilo::ldmatrix_x4(bl, &sRL[cur][off]);
+        } else {
+          const int off = (k0 + r16) * LDB + wn + nj * 16 + c8;
+          hilo::ldmatrix_x4_trans(bh, &sRH[cur][off]);
+          hilo::ldmatrix_x4_trans(bl, &sRL[cur][off]);
+        }
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
           hilo::mma_16816(acc[mi][2 * nj], ah[mi], bh[0], bh[1]);
@@ -217,8 +287,9 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
   // e % 2 of the tile
   float* Cb = p.C + static_cast<size_t>(b) * static_cast<size_t>(p.c_stride);
   const size_t eo = static_cast<size_t>(b) * static_cast<size_t>(p.e_stride);
-  const float* Eb = (EPI == ADD || EPI == NEG_ACC || EPI == DOT) ? p.E + eo
-                                                                 : nullptr;
+  constexpr bool READS_E =
+      EPI == ADD || EPI == NEG_ACC || EPI == DOT || EPI == SUB;
+  const float* Eb = READS_E ? p.E + eo : nullptr;
   float* Fb = EPI == NEG_ACC ? p.F + eo : nullptr;
   const bool v2 = p.c_vec;
   float dot = 0.f;
@@ -234,7 +305,7 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
         const bool two = c + 1 < p.N;
         float v[2] = {acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]};
         float e[2] = {0.f, 0.f};
-        if constexpr (EPI == ADD || EPI == NEG_ACC || EPI == DOT) {
+        if constexpr (READS_E) {
           const float* s = Eb + static_cast<size_t>(r) * p.lde + c;
           if (v2 && two) {
             const float2 q = *reinterpret_cast<const float2*>(s);
@@ -258,6 +329,7 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
           }
           if constexpr (EPI == DOT)
             if (k == 0 || two) dot += v[k] * e[k];
+          if constexpr (EPI == SUB) v[k] = __fsub_rn(e[k], v[k]);
         }
         float* d = Cb + static_cast<size_t>(r) * p.ldc + c;
         if (v2 && two) {
@@ -292,16 +364,17 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
   }
 }
 
-// Enqueue hilo_bmm_kernel<MODE, EPI> over every tile of every batch entry;
-// returns the cudaError_t of the launch.
-template <int MODE, int EPI>
+// Enqueue hilo_bmm_kernel<MODE, EPI, LT, RT, T> over every tile of every
+// batch entry; returns the cudaError_t of the launch.
+template <int MODE, int EPI, bool LT = false, bool RT = false,
+          typename T = float>
 inline int launch(const Params& p, cudaStream_t stream) {
   const long long tiles = static_cast<long long>(p.batch) *
                           ((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN);
   if (tiles < 1 || tiles > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  hilo_bmm_kernel<MODE, EPI><<<static_cast<unsigned>(tiles), THREADS, 0,
-                               stream>>>(p);
+  hilo_bmm_kernel<MODE, EPI, LT, RT, T>
+      <<<static_cast<unsigned>(tiles), THREADS, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

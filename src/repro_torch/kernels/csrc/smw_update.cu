@@ -1,11 +1,12 @@
 // Rank-k Sherman-Morrison-Woodbury update of cached block inverses, hi/lo
-// bit-sliced, one CTA per block and one launch a call, the k x k solve
-// inside the CTA.
+// bit-sliced: for bs, k <= 128 one CTA per block and one launch a call,
+// the k x k solve inside the CTA; for bs or k of 129..1024 the large route
+// at the end of this file.
 //
 // Replaces the Pallas TPU kernel repro/kernels/smw_update.py (_kernel_stats
 // and _kernel_apply, called from smw_update, with jnp.linalg.solve between
 // the two pallas_calls). Per block, with the cached inverse inv (bs x bs),
-// the columns V (k x bs), bs, k <= 128:
+// the columns V (k x bs):
 //   M   = (inv + inv^T) * (0.5 / decay)
 //   Y   = V M                              (k x bs)
 //   S   = Y V^T + I / c                    (k x k, fp32)
@@ -45,14 +46,16 @@
 // What holds it back now: the k pivot steps of the LU run one after
 // another, each a short chain of shared-memory accesses between two
 // __syncthreads, on one CTA per SM; the bytes are a small share.
-#include "hilo_mma.cuh"
+#include "hilo_bmm.cuh"
+#include "lu_solve.cuh"
 
 using namespace hilo;
+using smw::ILP;
+using smw::SLD;
+using smw::lu_solve;
 
 namespace {
 
-constexpr int SLD = NP + 1;   // fp32 row stride (words)
-constexpr int ILP = 8;        // rows a thread updates between stores
 constexpr int SMEM_BYTES = 4 * TILE_BYTES + NP * SLD * 4 + (NP + 1) * 4;
 static_assert(NP * SLD * 4 <= 2 * TILE_BYTES, "S fits two tiles");
 
@@ -71,94 +74,6 @@ __device__ __forceinline__ void stage_block(const float* src, int n,
 __device__ __forceinline__ float sym_entry(const float* st, int i, int j,
                                            float s) {
   return __fmul_rn(__fadd_rn(st[i * SLD + j], st[j * SLD + i]), s);
-}
-
-// Z = S^-1 B in place: S (k x k) and B (k x bs), both row stride SLD in
-// shared memory; k + bs <= THREADS. LU with partial pivoting (the first
-// largest |pivot| of the column), the forward substitution folded into the
-// elimination. At step j a warp finds the pivot row p; then each thread
-// owns one column of [S | B] right of j, swaps rows j and p in it and
-// eliminates below row j with multipliers S[i][j] / S[p][j] (taken as a
-// product with the pivot's reciprocal, as LAPACK's getf2 scales them), read
-// from column j, which nobody writes during the step: no thread waits on
-// another inside a step. U's diagonal goes to udiag (column j keeps its
-// unswapped values). Back substitution: a thread per column of B.
-__device__ void lu_solve(float* S, float* B, int k, int bs, float* scratch) {
-  int* piv = reinterpret_cast<int*>(scratch);
-  float* udiag = scratch + 1;
-  const int lane = threadIdx.x & 31;
-  for (int j = 0; j < k; ++j) {
-    if (threadIdx.x < 32) {
-      float best = -1.f;
-      int p = j;
-      for (int i = j + lane; i < k; i += 32) {
-        const float a = fabsf(S[i * SLD + j]);
-        if (a > best) {
-          best = a;
-          p = i;
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-        const int op = __shfl_xor_sync(0xffffffffu, p, off);
-        if (ob > best || (ob == best && op < p)) {
-          best = ob;
-          p = op;
-        }
-      }
-      if (lane == 0) {
-        *piv = p;
-        udiag[j] = S[p * SLD + j];
-      }
-    }
-    __syncthreads();
-    const int p = *piv;
-    const float r = 1.f / udiag[j];
-    const int ws = k - j - 1;          // S columns right of j
-    if (threadIdx.x < ws + bs) {
-      float* col = threadIdx.x < ws ? S + j + 1 + threadIdx.x
-                                    : B + threadIdx.x - ws;
-      const float top = col[p * SLD];
-      const float was = col[j * SLD];
-      col[j * SLD] = top;
-      col[p * SLD] = was;
-      // rows in batches of ILP: all loads of a batch before its stores
-      for (int i0 = j + 1; i0 < k; i0 += ILP) {
-        float l[ILP], x[ILP];
-#pragma unroll
-        for (int u = 0; u < ILP; ++u) {
-          const int i = i0 + u < k ? i0 + u : j;
-          l[u] = S[(i == p ? j : i) * SLD + j] * r;
-          x[u] = col[i * SLD];
-        }
-#pragma unroll
-        for (int u = 0; u < ILP; ++u)
-          if (i0 + u < k) col[(i0 + u) * SLD] = x[u] - l[u] * top;
-      }
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x < bs) {
-    float* col = B + threadIdx.x;
-    for (int j = k - 1; j >= 0; --j) {
-      const float x = col[j * SLD] / udiag[j];
-      col[j * SLD] = x;
-      for (int i0 = 0; i0 < j; i0 += ILP) {
-        float u_[ILP], y[ILP];
-#pragma unroll
-        for (int u = 0; u < ILP; ++u) {
-          const int i = i0 + u < j ? i0 + u : 0;
-          u_[u] = S[i * SLD + j];
-          y[u] = col[i * SLD];
-        }
-#pragma unroll
-        for (int u = 0; u < ILP; ++u)
-          if (i0 + u < j) col[(i0 + u) * SLD] = y[u] - u_[u] * x;
-      }
-    }
-  }
-  __syncthreads();
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -241,6 +156,219 @@ smw_update_kernel(const float* __restrict__ inv, const float* __restrict__ v,
   });
 }
 
+// ---------------------------------------------------------------------------
+// Large route: bs or k of 129..1024 (the reference's whole domain). A block
+// no longer fits one CTA (a 256 block's inverse alone is 256 KB), so the
+// update runs as a sequence of kernels over every block of a chunk, with
+// M, Y, S and Z in an fp32 workspace that the caller allocates (rows of
+// ld = the columns rounded up to 4):
+//   smw_update_prep          M = (inv + inv^T) * (0.5 / decay), sym_entry's
+//                            rounding, 32 x 32 tiles through shared memory;
+//   smw_update_product       Y = hilo(V, M); S = hilo(Y, V^T) (V read
+//                            transposed in place); out = M - hilo(Y^T, Z)
+//                            (Y read transposed, the SUB epilogue writing the
+//                            caller's output): hilo_bmm.cuh;
+//   smw_update_solve_slab    k <= 128: Z = (S + I/c)^-1 Y, one CTA a block
+//                            and a slab of at most 128 columns of Y, S and
+//                            the slab in shared memory, lu_solve as the
+//                            one-CTA kernel runs it;
+//   smw_update_solve_lu      k of 129..1024: S (up to 4 MB) fits no CTA;
+//                            one CTA a block runs a right-looking LU with
+//                            partial pivoting over [S | Z] in the workspace
+//                            (Z starts as a copy of Y), then back
+//                            substitution, with lu_solve's rules: the first
+//                            largest |pivot|, multipliers as a product with
+//                            the pivot's reciprocal, an exactly singular S
+//                            giving a non-finite out without a host check.
+// The caller issues them in the order of the schedule (kernels/
+// smw_update.py, smw_schedule). A block's arithmetic does not depend on its
+// chunk, and nothing is summed with atomics, so a call is bitwise its
+// repeat.
+// What bounds it: bytes at k = 64 (the main path's bs 256 and 176: inv, V
+// and out, ~0.79 GB a refresh), against ~75 GFLOP of partials; the design
+// moves M, Y, S and Z through device memory (the L2 for most of it) and
+// re-reads fp32 operands a 64 x 64 tile at a time, and the LU route's k
+// pivot steps run one after another in one CTA a block.
+
+constexpr int PREP_TILE = 32;
+constexpr int SOLVE_SMEM_BYTES = (2 * NP * SLD + NP + 1) * 4;
+constexpr int LU_THREADS = 512;
+constexpr int LU_MAX = 1024;   // the reference's largest rank
+
+__global__ void __launch_bounds__(PREP_TILE * 8)
+smw_prep_kernel(const float* __restrict__ inv, float* __restrict__ m, int bs,
+                int ld, float inv_decay) {
+  __shared__ float t[PREP_TILE][PREP_TILE + 1], u[PREP_TILE][PREP_TILE + 1];
+  const int tb = (bs + PREP_TILE - 1) / PREP_TILE;
+  const int i0 = static_cast<int>(blockIdx.x) / tb * PREP_TILE;
+  const int j0 = static_cast<int>(blockIdx.x) % tb * PREP_TILE;
+  const float* ib = inv + static_cast<size_t>(blockIdx.y) * bs * bs;
+  float* mb = m + static_cast<size_t>(blockIdx.y) * bs * ld;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  // t: inv's tile (i0, j0); u: its tile (j0, i0)
+  for (int r = ty; r < PREP_TILE; r += blockDim.y) {
+    const int i = i0 + r, j = j0 + tx;
+    t[r][tx] = i < bs && j < bs ? ib[static_cast<size_t>(i) * bs + j] : 0.f;
+    const int i2 = j0 + r, j2 = i0 + tx;
+    u[r][tx] =
+        i2 < bs && j2 < bs ? ib[static_cast<size_t>(i2) * bs + j2] : 0.f;
+  }
+  __syncthreads();
+  for (int r = ty; r < PREP_TILE; r += blockDim.y) {
+    const int i = i0 + r, j = j0 + tx;
+    if (i < bs && j < bs)
+      mb[static_cast<size_t>(i) * ld + j] =
+          __fmul_rn(__fadd_rn(t[r][tx], u[tx][r]), inv_decay);
+  }
+}
+
+// Z = (S + I/c)^-1 Y for one block (blockIdx.x) and one slab of at most NP
+// columns of Y (blockIdx.y); k <= NP. The diagonal term is added as
+// acc + inv_c, as the one-CTA kernel and the plain version add it.
+__global__ void __launch_bounds__(THREADS, 1)
+smw_solve_slab_kernel(const float* __restrict__ s, int lds,
+                      const float* __restrict__ y, float* __restrict__ z,
+                      int ldy, int k, int bs, float inv_c) {
+  extern __shared__ __align__(16) float sm[];
+  float* S = sm;
+  float* B = S + NP * SLD;
+  float* scratch = B + NP * SLD;
+  const int c0 = static_cast<int>(blockIdx.y) * NP;
+  const int cols = bs - c0 < NP ? bs - c0 : NP;
+  const size_t blk = blockIdx.x;
+  const float* sb = s + blk * k * lds;
+  const float* yb = y + blk * k * ldy + c0;
+  float* zb = z + blk * k * ldy + c0;
+  for (int idx = threadIdx.x; idx < k * k; idx += THREADS) {
+    const int i = idx / k, j = idx % k;
+    const float v = sb[static_cast<size_t>(i) * lds + j];
+    S[i * SLD + j] = i == j ? v + inv_c : v;
+  }
+  for (int idx = threadIdx.x; idx < k * cols; idx += THREADS) {
+    const int i = idx / cols, j = idx % cols;
+    B[i * SLD + j] = yb[static_cast<size_t>(i) * ldy + j];
+  }
+  __syncthreads();
+  lu_solve(S, B, k, cols, scratch);
+  for (int idx = threadIdx.x; idx < k * cols; idx += THREADS) {
+    const int i = idx / cols, j = idx % cols;
+    zb[static_cast<size_t>(i) * ldy + j] = B[i * SLD + j];
+  }
+}
+
+// Z = (S + I/c)^-1 Y for one block (blockIdx.x), k of 129..LU_MAX, in the
+// workspace: S is factored in place. At step j the CTA finds the pivot row
+// p (the first largest |S[i][j]|, i >= j), writes the multipliers
+// S[i][j] * (1 / U[j][j]) of the rows below j to shared memory (read from
+// column j, which nobody writes during the step), and each thread takes
+// columns of [S | Z] right of j: it swaps rows j and p and eliminates
+// below j. Back substitution: at step j (descending) U's column above j
+// goes to shared memory and each thread takes columns of Z.
+__global__ void __launch_bounds__(LU_THREADS)
+smw_solve_lu_kernel(float* __restrict__ s, int lds,
+                    const float* __restrict__ y, float* __restrict__ z,
+                    int ldy, int k, int bs, float inv_c) {
+  __shared__ float colv[LU_MAX];   // multipliers, then U's column
+  __shared__ float udiag[LU_MAX];
+  __shared__ float wbest[LU_THREADS / 32];
+  __shared__ int wrow[LU_THREADS / 32];
+  __shared__ int piv;
+  const size_t blk = blockIdx.x;
+  float* S = s + blk * k * lds;
+  const float* Y = y + blk * k * ldy;
+  float* Z = z + blk * k * ldy;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int idx = tid; idx < k * bs; idx += LU_THREADS) {
+    const int i = idx / bs, j = idx % bs;
+    Z[static_cast<size_t>(i) * ldy + j] = Y[static_cast<size_t>(i) * ldy + j];
+  }
+  for (int i = tid; i < k; i += LU_THREADS) {
+    float* d = S + static_cast<size_t>(i) * lds + i;
+    *d = *d + inv_c;
+  }
+  __syncthreads();
+  for (int j = 0; j < k; ++j) {
+    float best = -1.f;
+    int p = j;
+    for (int i = j + tid; i < k; i += LU_THREADS) {
+      const float a = fabsf(S[static_cast<size_t>(i) * lds + j]);
+      if (a > best) {
+        best = a;
+        p = i;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+      const int op = __shfl_xor_sync(0xffffffffu, p, off);
+      if (ob > best || (ob == best && op < p)) {
+        best = ob;
+        p = op;
+      }
+    }
+    if (lane == 0) {
+      wbest[warp] = best;
+      wrow[warp] = p;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < LU_THREADS / 32; ++w)
+        if (wbest[w] > best || (wbest[w] == best && wrow[w] < p)) {
+          best = wbest[w];
+          p = wrow[w];
+        }
+      piv = p;
+      udiag[j] = S[static_cast<size_t>(p) * lds + j];
+    }
+    __syncthreads();
+    p = piv;
+    const float r = 1.f / udiag[j];
+    for (int i = j + 1 + tid; i < k; i += LU_THREADS)
+      colv[i] = S[static_cast<size_t>(i == p ? j : i) * lds + j] * r;
+    __syncthreads();
+    const int ws = k - j - 1;   // S columns right of j
+    for (int c = tid; c < ws + bs; c += LU_THREADS) {
+      float* col = c < ws ? S + j + 1 + c : Z + (c - ws);
+      const size_t ld = c < ws ? lds : ldy;
+      const float top = col[p * ld];
+      const float was = col[j * ld];
+      col[j * ld] = top;
+      col[p * ld] = was;
+      for (int i0 = j + 1; i0 < k; i0 += ILP) {
+        float x[ILP];
+#pragma unroll
+        for (int u = 0; u < ILP; ++u)
+          x[u] = i0 + u < k ? col[(i0 + u) * ld] : 0.f;
+#pragma unroll
+        for (int u = 0; u < ILP; ++u)
+          if (i0 + u < k) col[(i0 + u) * ld] = x[u] - colv[i0 + u] * top;
+      }
+    }
+    __syncthreads();
+  }
+  for (int j = k - 1; j >= 0; --j) {
+    for (int i = tid; i < j; i += LU_THREADS)
+      colv[i] = S[static_cast<size_t>(i) * lds + j];
+    __syncthreads();
+    for (int c = tid; c < bs; c += LU_THREADS) {
+      float* col = Z + c;
+      const size_t ld = ldy;
+      const float x = col[j * ld] / udiag[j];
+      col[j * ld] = x;
+      for (int i0 = 0; i0 < j; i0 += ILP) {
+        float v[ILP];
+#pragma unroll
+        for (int u = 0; u < ILP; ++u) v[u] = i0 + u < j ? col[(i0 + u) * ld]
+                                                        : 0.f;
+#pragma unroll
+        for (int u = 0; u < ILP; ++u)
+          if (i0 + u < j) col[(i0 + u) * ld] = v[u] - colv[i0 + u] * x;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 // One launch on `stream`: out (nb, bs, bs) from inv (nb, bs, bs) and
@@ -258,6 +386,67 @@ extern "C" int smw_update_launch(const float* inv, const float* v,
   smw_update_kernel<<<nb, THREADS, SMEM_BYTES,
                       static_cast<cudaStream_t>(stream)>>>(
       inv, v, out, bs, k, inv_decay, inv_c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Large route: M of the nb blocks of inv (nb, bs, bs) into m (rows ld apart).
+extern "C" int smw_update_prep(const float* inv, float* m, int nb, int bs,
+                               int ld, float inv_decay, void* stream) {
+  if (nb < 1 || bs < 1 || bs > LU_MAX || ld < bs || !inv || !m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tb = (bs + PREP_TILE - 1) / PREP_TILE;
+  smw_prep_kernel<<<dim3(tb * tb, nb), dim3(PREP_TILE, 8), 0,
+                    static_cast<cudaStream_t>(stream)>>>(inv, m, bs, ld,
+                                                         inv_decay);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Large route: one product (mode FULL; epi STORE, or SUB for out; lt, rt:
+// the operand read transposed), the combinations the schedule uses.
+extern "C" int smw_update_product(const bmm::Params* p, int mode, int epi,
+                                  int lt, int rt, void* stream) {
+  if (!bmm::valid(*p)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using namespace bmm;
+  if (mode == FULL && epi == STORE && !lt && !rt)
+    return launch<FULL, STORE>(*p, st);
+  if (mode == FULL && epi == STORE && !lt && rt)
+    return launch<FULL, STORE, false, true>(*p, st);
+  if (mode == FULL && epi == SUB && lt && !rt)
+    return launch<FULL, SUB, true, false>(*p, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Large route, k <= 128: z = (s + I/c)^-1 y for nb blocks, s (k x k, rows
+// lds apart), y and z (k x bs, rows ldy apart), one CTA a block and slab.
+extern "C" int smw_update_solve_slab(const float* s, int lds, const float* y,
+                                     float* z, int ldy, int nb, int k,
+                                     int bs, float inv_c, void* stream) {
+  if (nb < 1 || k < 1 || k > NP || bs < 1 || lds < k || ldy < bs || !s ||
+      !y || !z)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      smw_solve_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SOLVE_SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  smw_solve_slab_kernel<<<dim3(nb, (bs + NP - 1) / NP), THREADS,
+                          SOLVE_SMEM_BYTES,
+                          static_cast<cudaStream_t>(stream)>>>(
+      s, lds, y, z, ldy, k, bs, inv_c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Large route, k of 129..1024: the same solve, one CTA a block, s factored
+// in place.
+extern "C" int smw_update_solve_lu(float* s, int lds, const float* y,
+                                   float* z, int ldy, int nb, int k, int bs,
+                                   float inv_c, void* stream) {
+  if (nb < 1 || k < 1 || k > LU_MAX || bs < 1 || lds < k || ldy < bs ||
+      !s || !y || !z)
+    return static_cast<int>(cudaErrorInvalidValue);
+  smw_solve_lu_kernel<<<nb, LU_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      s, lds, y, z, ldy, k, bs, inv_c);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -160,11 +160,11 @@ def _large(a_inv, g, g_inv, a_src, g_src, out, dots, stream, key) -> None:
     tmp_ptr, part_ptr = tmp.data_ptr(), part.data_ptr()
     for t0, t1 in parts:
         nt = t1 - t0
-        g_ptr = hilo_bmm.fp32_ptr(g, t0 * bi * bo)
+        g_ptr = hilo_bmm.elem_ptr(g, t0 * bi * bo)
         if a_src is None:
-            left = hilo_bmm.operand(hilo_bmm.fp32_ptr(a_inv, t0 * bi * bi),
+            left = hilo_bmm.operand(hilo_bmm.elem_ptr(a_inv, t0 * bi * bi),
                                     bi * bi, bi)
-            right = hilo_bmm.operand(hilo_bmm.fp32_ptr(g_inv, t0 * bo * bo),
+            right = hilo_bmm.operand(hilo_bmm.elem_ptr(g_inv, t0 * bo * bo),
                                      bo * bo, bo)
         else:
             left = hilo_bmm.operand(a_inv.data_ptr(), bi * bi, bi,
@@ -176,10 +176,10 @@ def _large(a_inv, g, g_inv, a_src, g_src, out, dots, stream, key) -> None:
         LIB.launch("fused_precond_product", ctypes.byref(p), hilo_bmm.FULL,
                    hilo_bmm.STORE, stream, key=key)
         p = hilo_bmm.params(hilo_bmm.operand(tmp_ptr, bi * ldt, ldt), right,
-                            hilo_bmm.fp32_ptr(out, t0 * bi * bo), bi * bo,
+                            hilo_bmm.elem_ptr(out, t0 * bi * bo), bi * bo,
                             bo, bi, bo, bo, nt, e=g_ptr, e_stride=bi * bo,
                             lde=bo, part=part_ptr)
         LIB.launch("fused_precond_product", ctypes.byref(p), hilo_bmm.FULL,
                    hilo_bmm.DOT, stream, key=key)
         LIB.launch("fused_precond_dots", part_ptr, per,
-                   hilo_bmm.fp32_ptr(dots, t0), nt, stream, key=key)
+                   hilo_bmm.elem_ptr(dots, t0), nt, stream, key=key)

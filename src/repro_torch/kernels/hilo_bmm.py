@@ -1,13 +1,16 @@
 """Arguments of the batched hi/lo product ``csrc/hilo_bmm.cuh``: the
-large-block route of ``neumann_inv`` and ``fused_precond`` (sides of
-129..1024), shared by both wrappers.
+large-block route of ``neumann_inv``, ``fused_precond``, ``smw_update``
+and ``fused_gram_inv`` (sides and ranks of 129..1024), shared by their
+wrappers.
 
-The product's operands are fp32 blocks in device memory, addressed by a
-base pointer, an optional int32 index array (block ``idx[b]`` for batch
-entry ``b``), a block stride and a row stride; the kernel splits them
-into bf16 hi/lo slices as it stages them and pads every side with zeros
-to its 64-wide tiles in shared memory only. Nothing here launches or
-allocates: the wrappers build one :class:`Params` a product.
+The product's operands are fp32 blocks in device memory (bf16 for the
+Gram of bf16 activations), addressed by a base pointer, an optional int32
+index array (block ``idx[b]`` for batch entry ``b``), a block stride and a
+row stride, in elements; the kernel reads either operand as stored or
+transposed (a template flag of the launch, chosen by the wrapper's C
+entry), splits it into bf16 hi/lo slices as it stages it and pads every
+side with zeros to its 64-wide tiles in shared memory only. Nothing here
+launches or allocates: the wrappers build one :class:`Params` a product.
 """
 
 from __future__ import annotations
@@ -26,12 +29,13 @@ WORKSPACE_BYTES = 1 << 30
 
 # left-operand modes and epilogues (bmm::Mode, bmm::Epi)
 FULL, HI, LO = 0, 1, 2
-STORE, TWO_I_MINUS, I_MINUS, ADD, NEG_ACC, DOT = range(6)
+STORE, TWO_I_MINUS, I_MINUS, ADD, NEG_ACC, DOT, SUB = range(7)
 
 
 class Operand(ctypes.Structure):
     """``bmm::Operand``: block ``b`` at ``p + (idx ? idx[b] : b) *
-    stride`` floats, rows ``ld`` apart; ``vec`` allows float4 loads."""
+    stride`` elements, rows ``ld`` apart; ``vec`` allows loads of four
+    entries at once."""
 
     _fields_ = [("p", ctypes.c_void_p), ("idx", ctypes.c_void_p),
                 ("stride", ctypes.c_longlong), ("ld", ctypes.c_int),
@@ -78,8 +82,9 @@ def chunks(total: int, per_item_bytes: int,
 
 
 def operand(ptr: int, stride: int, ld: int, idx: int | None = None) -> Operand:
-    """An fp32 operand at device address ``ptr``; float4 loads where the
-    base, block stride and row stride allow them."""
+    """An operand at device address ``ptr`` (strides in elements); loads
+    of four entries where the base, block stride and row stride allow
+    them (16-byte alignment also covers bf16's 8-byte loads)."""
     vec = ptr % 16 == 0 and stride % 4 == 0 and ld % 4 == 0
     return Operand(ptr, idx, stride, ld, int(vec))
 
@@ -98,6 +103,6 @@ def params(left: Operand, right: Operand, out: int, out_stride: int,
                   part, m, n, k, batch, int(c_vec))
 
 
-def fp32_ptr(t: torch.Tensor, offset: int = 0) -> int:
-    """Device address of float ``offset`` of the fp32 tensor ``t``."""
-    return t.data_ptr() + 4 * offset
+def elem_ptr(t: torch.Tensor, offset: int = 0) -> int:
+    """Device address of element ``offset`` of ``t`` (any dtype)."""
+    return t.data_ptr() + t.element_size() * offset

@@ -262,7 +262,7 @@ def _large_side(blocks, lams, outs, n: int, counts, stream) -> None:
         for b0, b1 in parts:
             cb = b1 - b0
             size = cb * n * ld
-            buf = {name: hilo_bmm.fp32_ptr(ws, k * size)
+            buf = {name: hilo_bmm.elem_ptr(ws, k * size)
                    for k, name in enumerate(BUFFERS)}
             LIB.launch("neumann_inv_prep", table, b0, cb, n, ld, buf["ad"],
                        buf["x0"], stream, key=key)

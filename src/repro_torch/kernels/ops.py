@@ -12,7 +12,8 @@ block side up to 128, the large route's sequence above), the pooled WU
 stage
 (``core.kfac.precondition_pooled``) runs :func:`fused_precond`, the
 incremental SOI refresh (``solve.smw.smw_update_flat`` with
-``SMWConfig.use_kernel``) updates through :func:`smw_update`, and the
+``SMWConfig.use_kernel``) updates through :func:`smw_update` (one launch a
+call up to 128, the large route's sequence above), and the
 composed-precision inversion library applies its inverses with
 :func:`bitslice_mm` (``core.precision_inv.mxu_inv_apply``) and inverts
 fresh activation Grams with :func:`fused_gram_inv`, which callers reach
@@ -110,7 +111,10 @@ def fused_precond(a_inv: torch.Tensor, g: torch.Tensor,
 def smw_update(inv: torch.Tensor, v: torch.Tensor, *, decay: float,
                cscale: float) -> torch.Tensor:
     """Rank-k Woodbury update of (N, bs, bs) cached inverses with
-    (N, k, bs) columns: inverses of ``decay * F + cscale * V^T V``."""
+    (N, k, bs) columns: inverses of ``decay * F + cscale * V^T V``, bs
+    and k up to 1024 (the reference's limit): on CUDA one launch a call
+    up to 128, the large route's launches above
+    (``kernels.smw_update.expected_launches``)."""
     if _route(inv, v) == "cpu":
         return ref.smw_update_ref(inv, v, decay=decay, cscale=cscale)
     return _smw_update.smw_update(inv, v, decay=decay, cscale=cscale)
@@ -129,7 +133,10 @@ def fused_gram_inv(a: torch.Tensor, *, rel_damp: float = 0.03,
                    refine_steps: int = 1) -> torch.Tensor:
     """(nb, n, n) inverses of ``a_i^T a_i / T + lam_i I`` for (T, nb, n)
     activations, ``lam_i = rel_damp * tr / n + 1e-8``, the Gram formed
-    from hi/lo partial products and never stored."""
+    from hi/lo partial products, n up to 1024: on CUDA up to 128 one
+    launch that never stores the Gram; above, the Gram in a workspace and
+    ``neumann_inv``'s large route
+    (``kernels.fused_gram_solve.expected_launches``)."""
     kw = dict(rel_damp=rel_damp, ns_iters=ns_iters,
               taylor_terms=taylor_terms, refine_steps=refine_steps)
     if _route(a) == "cpu":
@@ -153,8 +160,10 @@ def launch_streams() -> dict:
 
 
 def launch_keys() -> dict:
-    """kernel name -> {label: launches}: ``neumann_inv`` by block side
-    (``"n256"``), ``fused_precond`` by tile shape (``"256x176"``)."""
+    """kernel name -> {label: launches}: ``neumann_inv`` and
+    ``fused_gram_inv`` by block side (``"n256"``), ``fused_precond`` by
+    tile shape (``"256x176"``), ``smw_update`` by block side and rank
+    (``"bs256k64"``)."""
     return {name: dict(lib.key_launches) for name, lib in LIBRARIES.items()}
 
 

@@ -228,7 +228,9 @@ def make_inv_refresh(cfg, kcfg: KFACConfig, *, distributed: bool = False,
     on one device (the port's only) the refresh is the replicated one.
     ``plan`` routes the refresh through a plan the caller built, such as
     ``make_plan(factors, 1, kcfg, pdiv_cap_bs=128)``, which sends blocks
-    above the kernel's 128 through ``solve.pdiv``."""
+    above its cap through ``solve.pdiv``, as the reference's plan does;
+    without one, ``neumann_inv`` takes every block whole, up to 1024 (its
+    one-CTA route up to 128, its large route above)."""
     del cfg, distributed, pdiv_cap_bs
 
     def refresh(factors, out=None):

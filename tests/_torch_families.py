@@ -249,6 +249,17 @@ def check_params(t_state, j_state, specs, *, lr, n_steps, bound,
             (k, "rounding-level entries", err.max())
 
 
+def narrow(cfg):
+    """qwen1.5-0.5b's smoke config widened to K-FAC sides of 256 and 176:
+    d 256 (4 heads of 64), d_ff 704 = 4 x 176, ``soi_block`` = the
+    block, so that the reference's stats step collects its Grams at
+    the factors' block size (the large route's trajectories at
+    ``--block-size 256``)."""
+    return dataclasses.replace(cfg, d_model=256, n_heads=4, n_kv_heads=4,
+                               head_dim=64, d_ff=704, soi_block=256,
+                               dtype="float32")
+
+
 class ConvertedProgram(ttrain.KFACProgram):
     """The port's K-FAC program starting from given (converted)
     weights instead of its own seeded init."""

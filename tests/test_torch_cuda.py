@@ -547,9 +547,152 @@ def test_smw_update_kernel_singular_capacitance_is_non_finite(cuda_device):
 @pytest.mark.cuda
 def test_smw_update_kernel_refuses_large_rank(cuda_device):
     inv = torch.eye(32, device=cuda_device).expand(2, 32, 32).contiguous()
-    v = torch.zeros(2, 130, 32, device=cuda_device)
-    with pytest.raises(ValueError, match="k <= 128|bs, k <= 128"):
+    v = torch.zeros(2, 1025, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="bs, k <= 1024"):
         ops.smw_update(inv, v, decay=0.95, cscale=0.05)
+
+
+# the large route of smw_update (bs or k of 129..1024): (blocks, k, bs) at
+# the shapes of chip_smoke.py's phase large_blocks (d), fewer blocks
+LARGE_SMW = [(3, 64, 129), (4, 64, 176), (3, 64, 256), (2, 64, 512),
+             (2, 64, 1024), (3, 128, 256), (3, 129, 176), (2, 256, 256),
+             (2, 1024, 1024), (3, 160, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,bs", LARGE_SMW)
+@pytest.mark.parametrize("scale,c", [(1.0, 0.05 / 2048), (3e-4, 0.05)])
+def test_smw_update_large_kernel_matches_plain(cuda_device, n, k, bs, scale,
+                                               c):
+    """The large route against the plain version at unit and G-side
+    scale, its launches (5 a chunk, keyed by shape) and bitwise its
+    repeat."""
+    from repro_torch.kernels import smw_update as ks
+
+    inv, v = (torch.from_numpy(x).to(cuda_device)
+              for x in _smw_case(n + k + bs, n, k, bs, scale))
+    ops.reset_launch_counts()
+    got = ops.smw_update(inv, v, decay=0.95, cscale=c)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["smw_update"] == \
+        ks.expected_launches(bs, k, n) == 5
+    assert ops.launch_keys()["smw_update"] == {f"bs{bs}k{k}": 5}
+    want = tref.smw_update_ref(inv, v, decay=0.95, cscale=c)
+    assert got.shape == want.shape == (n, bs, bs)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert torch.equal(got, ops.smw_update(inv, v, decay=0.95, cscale=c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bs", [(64, 256), (192, 256)])
+def test_smw_update_large_kernel_with_indefinite_inverses(cuda_device, k,
+                                                          bs):
+    """S not SPD on both solves of the large route (slab, LU): finite,
+    and as close to float64 Woodbury as the plain version is. Not held
+    to the plain version itself: these S reach condition numbers of
+    1.1e3 (k 64) and 2.9e4 (k 192), where the plain version is itself
+    3.7e-4 and 4.5e-3 of the largest entry from float64, and two
+    roundings of the products move the solve by as much."""
+    r = np.random.default_rng(k + bs)
+    n = 3
+    q = np.linalg.qr(r.standard_normal((n, bs, bs)))[0]
+    ev = r.uniform(0.5, 2.0, (n, bs)) * np.where(np.arange(bs) % 3, 1, -1)
+    inv = np.einsum("nij,nj,nkj->nik", q, ev, q).astype(np.float32)
+    v = r.standard_normal((n, k, bs)).astype(np.float32)
+    tinv, tv = (torch.from_numpy(x).to(cuda_device) for x in (inv, v))
+    got = ops.smw_update(tinv, tv, decay=0.95, cscale=0.05)
+    want = tref.smw_update_ref(tinv, tv, decay=0.95, cscale=0.05)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    m = (tinv.double() + tinv.double().transpose(1, 2)) * (0.5 / 0.95)
+    y = tv.double() @ m
+    s = y @ tv.double().transpose(1, 2) + torch.eye(
+        k, device=cuda_device, dtype=torch.float64) / 0.05
+    w64 = m - y.transpose(1, 2) @ torch.linalg.solve(s, y)
+    assert (got.double() - w64).abs().max() <= \
+        2.0 * (want.double() - w64).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bs", [(8, 256), (160, 192)])
+def test_smw_update_large_singular_capacitance_is_non_finite(cuda_device, k,
+                                                             bs):
+    """Two equal rows of V and 1/c = 0 make S exactly singular: the slab
+    and the LU solve give non-finite blocks (the SMW gate's fallback
+    signal). The plain version's LAPACK, a blocked LU, may round past
+    the zero pivot (on the card it does at k 160), so it is not held to
+    the same."""
+    inv, v = _smw_case(k, 2, k, bs, 1.0)
+    v[:, 5] = v[:, 2]
+    tinv, tv = (torch.from_numpy(x).to(cuda_device) for x in (inv, v))
+    got = ops.smw_update(tinv, tv, decay=0.95, cscale=float("inf"))
+    assert not torch.isfinite(got).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 160])
+def test_smw_update_large_slabs_are_bitwise_one_another(cuda_device, k):
+    """inv = [[A, A], [A, A]] (A symmetric, 128 x 128) makes M's and Y's
+    columns 128..255 copies of 0..127: the second slab of the solve
+    (k <= 128), or the LU's other columns (k > 128), computes them as
+    the first does, so out's two column halves are bitwise equal."""
+    r = np.random.default_rng(k)
+    a = r.standard_normal((2, 128, 128)).astype(np.float32)
+    a = a + a.transpose(0, 2, 1)
+    inv = np.concatenate([np.concatenate([a, a], 2)] * 2, 1)
+    v = r.standard_normal((2, k, 256)).astype(np.float32)
+    tinv, tv = (torch.from_numpy(x).to(cuda_device) for x in (inv, v))
+    got = ops.smw_update(tinv, tv, decay=0.95, cscale=0.05)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[:, :, 128:], got[:, :, :128])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 160])
+def test_smw_update_large_chunks_are_bitwise_one_chunk(cuda_device,
+                                                      monkeypatch, k):
+    from repro_torch.kernels import smw_update as ks
+
+    inv, v = (torch.from_numpy(x).to(cuda_device)
+              for x in _smw_case(7, 5, k, 176, 1.0))
+    whole = ops.smw_update(inv, v, decay=0.95, cscale=0.05)
+    plan = ks.smw_plan
+    monkeypatch.setattr(ks, "smw_plan", lambda nb, bs, kk: plan(
+        nb, bs, kk, budget=2 * ks.block_bytes(bs, kk)))
+    assert len(ks.smw_plan(5, 176, k)) == 3
+    ops.reset_launch_counts()
+    parts = ops.smw_update(inv, v, decay=0.95, cscale=0.05)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["smw_update"] == 3 * 5
+    assert torch.equal(whole, parts)
+
+
+@pytest.mark.cuda
+def test_smw_update_and_gram_large_on_a_side_stream(cuda_device):
+    """The large routes on a side stream (their workspace taken from the
+    allocator there): bitwise the main stream's, every launch on the
+    side stream."""
+    inv, v = (torch.from_numpy(x).to(cuda_device)
+              for x in _smw_case(8, 4, 192, 256, 1.0))
+    a = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (512, 3, 176)).astype(np.float32)).to(cuda_device)
+    want_s = ops.smw_update(inv, v, decay=0.95, cscale=0.05)
+    want_g = ops.fused_gram_inv(a, rel_damp=0.05, **KW)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    ops.reset_launch_counts()
+    with torch.cuda.stream(side):
+        got_s = ops.smw_update(inv, v, decay=0.95, cscale=0.05)
+        got_g = ops.fused_gram_inv(a, rel_damp=0.05, **KW)
+    junk = [torch.empty(1 << 26, device=cuda_device).fill_(float("nan"))
+            for _ in range(4)]
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    torch.cuda.synchronize()
+    del junk
+    streams = ops.launch_streams()
+    for name in ("smw_update", "fused_gram_inv", "neumann_inv"):
+        assert list(streams[name]) == [side.cuda_stream], name
+    assert torch.equal(got_s, want_s) and torch.equal(got_g, want_g)
 
 
 @pytest.mark.cuda
@@ -638,9 +781,66 @@ def test_fused_gram_inv_kernel_matches_plain(cuda_device, t, nb, n, dtype):
 
 @pytest.mark.cuda
 def test_fused_gram_inv_kernel_refuses_large_blocks(cuda_device):
-    a = torch.ones(64, 2, 130, device=cuda_device)
-    with pytest.raises(ValueError, match="n <= 128"):
+    a = torch.ones(64, 2, 1025, device=cuda_device)
+    with pytest.raises(ValueError, match="n <= 1024"):
         ops.fused_gram_inv(a, rel_damp=0.05, **KW)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,nb,n", [(2048, 3, 129), (2048, 4, 176),
+                                    (2048, 3, 256), (2048, 2, 512),
+                                    (2048, 2, 1024), (700, 2, 130)])
+def test_fused_gram_inv_large_kernel_matches_plain(cuda_device, t, nb, n,
+                                                   dtype):
+    """The large route against the plain version and against the
+    two-step route (the Gram, then neumann_inv); its launches (the Gram
+    and the finish, then neumann_inv's 52) and bitwise its repeat."""
+    from repro_torch.core import soi
+    from repro_torch.kernels import fused_gram_solve as kg
+
+    r = np.random.default_rng(t + nb + n)
+    a = torch.from_numpy(r.standard_normal((t, nb, n))).to(cuda_device,
+                                                           dtype)
+    kw = dict(rel_damp=0.05, **KW)
+    ops.reset_launch_counts()
+    got = ops.fused_gram_inv(a, **kw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert {k: counts[k] for k in ("fused_gram_inv", "neumann_inv")} == \
+        kg.expected_launches(nb, n, **KW) == \
+        {"fused_gram_inv": 2, "neumann_inv": 52}
+    assert ops.launch_keys()["fused_gram_inv"] == {f"n{n}": 2}
+    want = tref.fused_gram_inv_ref(a, **kw)
+    assert got.shape == want.shape == (nb, n, n)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    # the two-step route forms its Gram in plain fp32: the reference's
+    # cross-route tolerance (tests/test_kernels.py), atol 5e-3 on entries
+    # of order 1, relative to the largest entry above 1
+    gram = soi.gram_from_tokens(a.float())
+    two = ops.neumann_inv(gram.contiguous(),
+                          soi.tikhonov_damping(gram, 0.05), **KW)
+    assert (got - two).abs().max() <= 5e-3 * max(1.0, two.abs().max())
+    assert torch.equal(got, ops.fused_gram_inv(a, **kw))
+
+
+@pytest.mark.cuda
+def test_fused_gram_inv_large_chunks_are_bitwise_one_chunk(cuda_device,
+                                                          monkeypatch):
+    from repro_torch.kernels import fused_gram_solve as kg
+
+    a = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (300, 5, 200)).astype(np.float32)).to(cuda_device)
+    whole = ops.fused_gram_inv(a, rel_damp=0.05, **KW)
+    plan = kg.gram_plan
+    monkeypatch.setattr(kg, "gram_plan", lambda nb, n: plan(
+        nb, n, budget=2 * 4 * (n * n + 1)))
+    assert len(kg.gram_plan(5, 200)) == 3
+    ops.reset_launch_counts()
+    parts = ops.fused_gram_inv(a, rel_damp=0.05, **KW)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_gram_inv"] == 3 * 2
+    assert torch.equal(whole, parts)
 
 
 @pytest.mark.cuda

@@ -32,8 +32,6 @@ Tolerances and why:
 
 from __future__ import annotations
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,7 +63,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.launch import train as ttrain
 from repro_torch.models import lm as tlm
 
-from _torch_families import ConvertedProgram
+from _torch_families import ConvertedProgram, narrow
 
 KW = dict(ns_iters=20, taylor_terms=4, refine_steps=2)   # KFACConfig counts
 
@@ -314,20 +312,10 @@ def test_route_limits_are_the_references():
 # a K-FAC trajectory at block 256
 # ---------------------------------------------------------------------------
 
-def _narrow(cfg):
-    """qwen1.5-0.5b's smoke config widened to sides of 256 and 176:
-    d 256 (4 heads of 64), d_ff 704 = 4 x 176, ``soi_block`` = the
-    block, so that the reference's stats step collects its Grams at
-    the factors' block size."""
-    return dataclasses.replace(cfg, d_model=256, n_heads=4, n_kv_heads=4,
-                               head_dim=64, d_ff=704, soi_block=256,
-                               dtype="float32")
-
-
 def test_block_256_trajectory_matches_reference():
     b, t, n_steps = 2, 32, 2
-    jcfg = _narrow(get_smoke_config("qwen1.5-0.5b"))
-    tcfg = _narrow(t_get_smoke_config("qwen1.5-0.5b"))
+    jcfg = narrow(get_smoke_config("qwen1.5-0.5b"))
+    tcfg = narrow(t_get_smoke_config("qwen1.5-0.5b"))
     common = dict(stats_every=2, inv_every=2, block_size=256,
                   stats_batch=b, stats_seq=t)
     params = jax.device_get(jlm.init(jcfg, jax.random.PRNGKey(0)))
