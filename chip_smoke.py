@@ -223,7 +223,8 @@ Phases, each printed as a JSON line:
                  with their verdicts, not gated; launch counters zeroed
                  just before each sub-phase and read just after
   18. large_blocks  the kernels' route for block and tile sides of
-                 129..1024 (``csrc/hilo_bmm.cuh``): (a) neumann_inv at
+                 129..1024 (``csrc/hilo_tma.cuh`` for neumann_inv,
+                 ``csrc/hilo_bmm.cuh`` for the others): (a) neumann_inv at
                  129, 176, 256, 512 and 1024 (2-8 blocks) and fused_precond
                  indexed and gathered at (256, 256), (256, 176), (176,
                  256), (1024, 176), (176, 1024) and (130, 200), each
@@ -236,7 +237,9 @@ Phases, each printed as a JSON line:
                  counters zeroed just before and read just after (both
                  kernels on every side and tile shape, the counts of the
                  plans), the whole refresh timed with its workspace and
-                 peak memory, the run's inverses and its largest WU group
+                 peak memory beside torch.linalg.inv of the same damped
+                 blocks and the schedule's bytes floor, the run's
+                 inverses and its largest WU group
                  against the plain versions; (c) one step at the
                  reference's default block 1024 (sides 1024 and 176)
                  through the same checks; (d) smw_update at (bs, k) of
@@ -251,9 +254,10 @@ Phases, each printed as a JSON line:
                  rank 256 (the seeding step and an SMW step: the solve
                  above 128), launches by side and rank, each run's first
                  SMW step updated again against the plain version and
-                 float64; (f) fused_gram_inv on the main path's first
-                 batch at block 256 (A sides 256 and 176) against its
-                 plain version, the two-step route and float64
+                 float64, timed beside ref.exact_smw_update; (f)
+                 fused_gram_inv on the main path's first batch at block
+                 256 (A sides 256 and 176) against its plain version, the
+                 two-step route and float64
   19. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
@@ -1919,8 +1923,10 @@ def smw_step_again(torch, dev, check, cfg, kcfg, ds, rank, kept,
     against float64 ``torch.linalg.inv`` of the step's damped factors
     (the last tells the algorithm's error from the rounding's), beside a
     full re-inversion of those factors. One row a factor leaf, with the
-    kernel's time on it (CUDA events, warm, median of 5) and the bytes
-    and operations its bound counts; the kernel held to the plain
+    kernel's time on it (CUDA events, warm, median of 5), that of its
+    library call (``ref.exact_smw_update``: fp32 matmuls and
+    ``torch.linalg.solve``) and the bytes and operations its bound
+    counts; the kernel held to the plain
     version within :data:`REL_TOL_RUN` and within a bit of its
     accuracy."""
     from repro_torch.core import kfac, soi
@@ -1980,6 +1986,8 @@ def smw_step_again(torch, dev, check, cfg, kcfg, ds, rank, kept,
                 bits_full_reinversion=bits(full, exact),
                 side=n, k=k, blocks=nb,
                 ms=time_ms(torch, lambda: ops.smw_update(inv0, v, **args)),
+                library_ms=time_ms(torch, lambda: ref.exact_smw_update(
+                    inv0, v, **args)),
                 # what the update must move and compute (phase 3's count)
                 bytes=4.0 * nb * (2 * n * n + k * n),
                 flops=2.0 * 3 * nb * (k * n * n + k * k * n + n * n * k),
@@ -2260,17 +2268,19 @@ def large_solve_kernels(torch, dev, check, gen):
 
 def large_blocks_phase(torch, dev, check):
     """Phase ``large_blocks``: the kernels' route for sides of 129..1024
-    (``csrc/hilo_bmm.cuh``). (a) ``neumann_inv`` at :data:`LARGE`'s
-    sides and ``fused_precond`` (indexed, as the WU calls it, and
-    gathered) at its tile shapes against their plain versions, each
-    timed (CUDA events, warm, median of 5) beside its plain version, its
-    library call and its bound, and a grouped call over leaves of mixed
-    sides bitwise the per-leaf calls; (b) the main path's model and
-    traffic at block 256 (sides 256 and 176): 4 steps of
-    ``launch.train.run`` with the launch counters zeroed just before and
+    (``csrc/hilo_tma.cuh``, ``csrc/hilo_bmm.cuh``). (a) ``neumann_inv``
+    at :data:`LARGE`'s sides and ``fused_precond`` (indexed, as the WU
+    calls it, and gathered) at its tile shapes against their plain
+    versions, each timed (CUDA events, warm, median of 5) beside its
+    plain version, its library call and its bound, and a grouped call
+    over leaves of mixed sides bitwise the per-leaf calls; (b) the main
+    path's model and traffic at block 256 (sides 256 and 176): 4 steps
+    of ``launch.train.run`` with the launch counters zeroed just before and
     read just after (both kernels on both sides, the counts the plans
     give), finite losses, phase seconds and peak memory, the whole
-    refresh of its last stats step timed, the run's inverses and its
+    refresh of its last stats step timed (beside ``torch.linalg.inv`` of
+    the same damped blocks, its bound and the schedule's bytes floor,
+    ``neumann_inv.schedule_bytes``), the run's inverses and its
     largest WU group against the plain versions (``kfac_kernel_checks``);
     (c) one step at the reference's default block 1024 (sides 1024 and
     176): its refresh and WU through the same checks, peak memory;
@@ -2479,14 +2489,29 @@ def large_blocks_phase(torch, dev, check):
         bytes_total = sum(4.0 * (2 * nb * n * n + nb)
                           for n, nb in nbs.items())
         b_ms, b_by = bound(bytes_total, ops_total)
+        # the schedule's own traffic: its state passes through device
+        # memory between products
+        design_ms, _ = bound(sum(
+            nb * kn.schedule_bytes(n, **KFAC_COUNTS)
+            for n, nb in nbs.items()), 0.0)
         torch.cuda.reset_peak_memory_stats(dev)
         whole_ms = time_ms(torch, lambda: ops.neumann_inv_grouped(
             flats, lams, **KFAC_COUNTS), 3)
         refresh_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        by_n = {}
+        for x, y in zip(flats, lams):
+            by_n.setdefault(x.shape[-1], []).append((x, y))
+        damped_sides = {n: torch.cat([x + y[:, None, None] * torch.eye(
+            n, device=dev) for x, y in v]) for n, v in by_n.items()}
+        del by_n
+        lib_ms = time_ms(torch, lambda: [torch.linalg.inv(x) for x in
+                                         damped_sides.values()], 3)
+        del damped_sides
         refresh_all = dict(
             sides={str(n): nb for n, nb in nbs.items()},
-            launches=per_refresh, ms=whole_ms, bound_ms=b_ms,
-            bound_by=b_by, peak_mem_gb=refresh_peak,
+            launches=per_refresh, ms=whole_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, design_bytes_ms=design_ms,
+            peak_mem_gb=refresh_peak,
             workspace_gb={str(n): max(w for _, _, w in kn.large_plan(v, n))
                           / 1e9 for n, v in sides.items()})
         del flats, lams
@@ -2568,6 +2593,7 @@ def large_blocks_phase(torch, dev, check):
             max_rel_err_vs_plain=max((r["rel_err_vs_plain"] for r in rows),
                                      default=None),
             update_ms=sum(r["ms"] for r in rows),
+            update_library_ms=sum(r["library_ms"] for r in rows),
             update_bound=bound(sum(r["bytes"] for r in rows),
                                sum(r["flops"] for r in rows),
                                sum(r["fp32_flops"] for r in rows)),
@@ -3851,7 +3877,9 @@ def main() -> int:
         "neumann_inv": dict(
             launches=b256["launches"]["neumann_inv"],
             refresh_ms=b256["refresh_all"]["ms"],
+            refresh_library_ms=b256["refresh_all"]["library_ms"],
             refresh_bound_ms=b256["refresh_all"]["bound_ms"],
+            refresh_design_bytes_ms=b256["refresh_all"]["design_bytes_ms"],
             largest_side=b256["refresh"]),
         "fused_precond": dict(
             launches=b256["launches"]["fused_precond"],
@@ -3865,6 +3893,10 @@ def main() -> int:
         launch_keys=smw_run["launch_keys"]["smw_update"],
         rank256_launches=rank_run["launches"]["smw_update"],
         rank256_launch_keys=rank_run["launch_keys"]["smw_update"],
+        update_ms=smw_run["update_ms"],
+        update_library_ms=smw_run["update_library_ms"],
+        rank256_update_ms=rank_run["update_ms"],
+        rank256_update_library_ms=rank_run["update_library_ms"],
         block_256=next(r for r in timed if (r["bs"], r["k"]) == (256, 64)),
         largest=timed[-1])
     grams = [r for r in large_row["fused_gram_inv"] if r["dtype"] == "fp32"]

@@ -21,16 +21,25 @@ and the large routes (sides and ranks of 129..1024) at the shapes of
 ``chip_smoke.py``'s phase ``large_blocks`` (its ``LARGE``), for each
 kernel whose module in the tree takes them (``MAX_N``/``MAX_B`` above
 128; a tree without a kernel's large route gets no key for it):
-  neumann_inv     (a)'s blocks of 129..1024;
+  neumann_inv     (a)'s blocks of 129..1024; the main path's sides at
+                  block 256 and 1024 ((b), (c): 768 x 256, 1152 x 176,
+                  192 x 1024), each beside torch.linalg.inv of the same
+                  damped blocks, and the block-256 refresh (768 x 256 and
+                  1152 x 176) in one grouped call;
   fused_precond   (a)'s tile shapes, pools indexed as a WU plan makes
                   them;
   smw_update      (d)'s (blocks, k, bs), at the G side's scale;
   fused_gram_inv  (d)'s (T, nb, n), fp32 and bf16.
-With ``--ablate`` (this tree's kernel only) it also builds copies of
-``csrc/bitslice_mm.cu`` with parts of the work cut out and times them at
-the MLP product (20 calls back to back, wrong results): the TMA copies
-and hand-overs alone, copies and splits (no products), copies and
-products (no splits).
+For ``neumann_inv``'s (a) shapes it also gives the host's time to enqueue
+one call (no synchronisation; median of 5). With ``--ablate`` (this
+tree's kernels only) it also builds copies of ``csrc/bitslice_mm.cu``
+with parts of the work cut out and times them at the MLP product (20
+calls back to back, wrong results): the TMA copies and hand-overs alone,
+copies and splits (no products), copies and products (no splits); and a
+copy of ``csrc/hilo_tma.cuh`` with the products' epilogue cut out, timing
+single products of ``neumann_inv``'s large route (10 back to back) as
+built and without their epilogue, at a chunk of the block-256 path's 256
+side (384 blocks) and of the 1024 side (32 blocks).
 Inputs are random, from seed 0. Prints one JSON line with the card's
 name and power limit. Compare two trees in turns (parent, change,
 change, parent); a directory without ``repro_torch`` or a machine
@@ -47,8 +56,12 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 KFAC_COUNTS = dict(ns_iters=20, taylor_terms=4, refine_steps=2)
+# the main path's large sides: (blocks, side) of a refresh at block 256
+# (chip_smoke.py phase large_blocks (b)) and the 1024 side at block 1024 (c)
+PATH_SIDES = ((768, 256), (1152, 176), (192, 1024))
 GRAM_ONLY = dict(ns_iters=0, taylor_terms=1, refine_steps=0)
 
 
@@ -66,6 +79,13 @@ NO_SPLITS = ("      store_stage<T>(l, g % C::S, slice, v);\n"
 ABLATIONS = {"copies": (NO_PRODUCTS, NO_SPLITS),
              "copies_splits": (NO_PRODUCTS,),
              "copies_products": (NO_SPLITS,)}
+# hilo_tma.cuh cut down, for --ablate: no tile's epilogue runs
+NO_EPILOGUE = ("    epilogue<BN>(acc, p,",
+               "    if (p.n < 0) epilogue<BN>(acc, p,")
+# neumann_inv's large-route products timed alone, by their place in the
+# schedule at 20/4/2: a Newton-Schulz pair (2I - A_H X, then X W), a
+# Neumann term's -X U with M += T, a refinement's M + M R
+PRODUCTS = {"ns_w": 0, "ns_xw": 1, "neg_acc": 41, "add": 47}
 
 
 def time_ms(torch, fn, reps=5, launches=1) -> float:
@@ -126,6 +146,82 @@ def ablate(torch, build, x, w) -> dict:
     return times
 
 
+def ablate_products(torch, ops, build, dev, gen) -> dict:
+    """ms a launch of single large-route products of ``neumann_inv`` (10
+    back to back), as built and with the epilogue cut out of
+    ``csrc/hilo_tma.cuh``, at (384, 256) and (32, 1024)."""
+    from repro_torch.core import soi
+    from repro_torch.kernels import hilo_bmm, hilo_tma
+    from repro_torch.kernels import neumann_inv as kn
+
+    old, new = NO_EPILOGUE
+    text = (build.CSRC / "hilo_tma.cuh").read_text()
+    if old not in text:
+        raise SystemExit(f"kernel_times: --ablate anchor not found in "
+                         f"hilo_tma.cuh: {old!r}")
+    cut_dir = build.BUILD_DIR / "ablate" / "no_epilogue"
+    cut_dir.mkdir(parents=True, exist_ok=True)
+    (cut_dir / "hilo_tma.cuh").write_text(text.replace(old, new))
+    # a copy beside it, so that its #include finds the cut header first
+    (cut_dir / "neumann_inv.cu").write_text(
+        (build.CSRC / "neumann_inv.cu").read_text())
+    so = cut_dir / "libneumann_inv.so"
+    proc = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+         str(so), str(cut_dir / "neumann_inv.cu")], capture_output=True,
+        text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the no_epilogue cut:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    fns = {"built": kn.LIB._load()["neumann_inv_product"],
+           "no_epilogue": ctypes.CDLL(str(so)).neumann_inv_product}
+    fns["no_epilogue"].argtypes = kn.LIB.entries["neumann_inv_product"]
+    stream = torch.cuda.current_stream().cuda_stream
+    sched = kn.inv_schedule(**KFAC_COUNTS)
+    out = {}
+    for nb, n in ((384, 256), (32, 1024)):
+        m = torch.randn(nb, n, 2 * n, device=dev, generator=gen)
+        a = m @ m.transpose(-1, -2) / (2 * n)
+        lam = soi.tikhonov_damping(a, 0.03)
+        inv = torch.empty_like(a)
+        ld32, ld16 = hilo_bmm.row_stride(n), hilo_tma.slice_stride(n)
+        ws = torch.empty(nb * kn.block_bytes(n), dtype=torch.uint8,
+                         device=dev)
+        addr = kn.workspace(ws.data_ptr(), nb, n)
+
+        def form(buf, forms):
+            return hilo_tma.Out(*(addr[(buf, f)] if f in forms else None
+                                  for f in hilo_tma.FORMS))
+
+        table = kn._table([a], [lam], [inv], [0])
+        kn.LIB.launch("neumann_inv_prep", ctypes.byref(table), 0, nb, n,
+                      ld32, ld16, ctypes.byref(form("ad", sched.prep["ad"])),
+                      ctypes.byref(form("x0", sched.prep["x0"])), stream)
+        params = []
+        for p in sched.products:
+            left = [addr[(p.left, f)] for f in hilo_tma.LEFT_FORMS[p.mode]]
+            params.append(hilo_tma.Params(
+                left[0], left[1] if len(left) > 1 else None,
+                addr[(p.right, hilo_tma.HI)], addr[(p.right, hilo_tma.LO)],
+                addr[(p.e, hilo_tma.F32)] if p.e else None,
+                form(p.c, p.c_forms),
+                form(p.f, p.f_forms) if p.f else hilo_tma.Out(),
+                n, ld32, ld16, nb, p.epi))
+            if fns["built"](ctypes.byref(params[-1]), stream) != 0:
+                raise RuntimeError("neumann_inv_product refused a launch")
+        for tag, i in PRODUCTS.items():
+            for name, fn in fns.items():
+                def call(fn=fn, prm=params[i], name=name):
+                    err = fn(ctypes.byref(prm), stream)
+                    if err != 0:
+                        raise RuntimeError(f"{name} product refused: "
+                                           f"cudaError {err}")
+                out[f"product_{nb}x{n}_{tag}_{name}_ms"] = time_ms(
+                    torch, call, launches=10)
+        del m, a, lam, inv, ws
+    return out
+
+
 def large_routes(torch, ops, dev, gen) -> dict:
     """ms a call of each kernel's large route at ``chip_smoke.LARGE``'s
     shapes, for the kernels whose module takes sides above 128."""
@@ -147,6 +243,31 @@ def large_routes(torch, ops, dev, gen) -> dict:
             a, lam = damped(nb, n)
             out[f"neumann_inv_{nb}x{n}_ms"] = time_ms(
                 torch, lambda: ops.neumann_inv(a, lam, **KFAC_COUNTS))
+            enqueue = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ops.neumann_inv(a, lam, **KFAC_COUNTS)
+                enqueue.append((time.perf_counter() - t0) * 1e3)
+            out[f"neumann_inv_{nb}x{n}_enqueue_ms"] = statistics.median(
+                enqueue)
+        refresh = []
+        for nb, n in PATH_SIDES:
+            a, lam = damped(nb, n)
+            eye = torch.eye(n, device=dev)
+            out[f"neumann_inv_{nb}x{n}_ms"] = time_ms(
+                torch, lambda: ops.neumann_inv(a, lam, **KFAC_COUNTS), 3)
+            out[f"linalg_inv_{nb}x{n}_ms"] = time_ms(
+                torch, lambda: torch.linalg.inv(a + lam[:, None, None] * eye),
+                3)
+            if n < 1024:
+                refresh.append((a, lam))
+            del a, lam
+        out["neumann_inv_refresh_256_ms"] = time_ms(
+            torch, lambda: ops.neumann_inv_grouped(
+                [a for a, _ in refresh], [lam for _, lam in refresh],
+                **KFAC_COUNTS), 3)
+        del refresh
     if getattr(kf, "MAX_B", 128) > 128:
         run = LARGE["pool_run"]
         for nt, bi, bo in LARGE["tiles"]:
@@ -254,6 +375,8 @@ def main() -> int:
         x = torch.randn(2048, 1024, device=dev, generator=gen)
         w = torch.randn(1024, 2816, device=dev, generator=gen)
         out["bitslice_mm_ablate_loop20_ms"] = ablate(torch, build, x, w)
+        out["neumann_inv_products_ablate"] = ablate_products(
+            torch, ops, build, dev, gen)
     out["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

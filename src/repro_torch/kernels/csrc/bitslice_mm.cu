@@ -50,10 +50,16 @@
 #include <type_traits>
 
 #include "hilo_mma.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
+using tma::mbar_arrive;
+using tma::mbar_arrive_tx;
+using tma::mbar_init;
+using tma::wait_filled;
+using tma::wait_free;
 using wgmma::bf16;
 
 constexpr int BM = 128, BN = 192, BK = 32;  // output tile; K a stage
@@ -112,65 +118,6 @@ __device__ __forceinline__ Layout carve(unsigned char* smem) {
   l.staged = l.empty + C::S * 8;
   l.freed = l.staged + C::D * 8;
   return l;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
-          bar)
-      : "memory");
-}
-
-// This thread's arrival, and `bytes` more for the barrier's phase to wait
-// for (the TMA copies report them as they land).
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 st;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// TMA: the box of `map` at (column x, row y) into shared dst (zero outside
-// the matrix), reported to the barrier bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int x, int y, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Stage g of a ring of n slots: wait for the consumer of the slot's
-// previous use (parity of round g / n - 1; passes at once in round 0).
-__device__ __forceinline__ void wait_free(uint32_t bars, int g, int n) {
-  mbar_wait(bars + 8 * (g % n), ((g / n) & 1) ^ 1);
-}
-
-__device__ __forceinline__ void wait_filled(uint32_t bars, int g, int n) {
-  mbar_wait(bars + 8 * (g % n), (g / n) & 1);
 }
 
 // Element by element (rows not 16-byte aligned): E elements of row `row`
@@ -342,8 +289,8 @@ __device__ __forceinline__ void split_walk(const T* __restrict__ a,
       const uint32_t st = l.stage + g % C::D * C::STAGE_BYTES;
       const Corner k = corner<T>(w, g);
       mbar_arrive_tx(bar, C::STAGE_BYTES);
-      tma_load(st, map_a, k.k0, k.m0, bar);
-      tma_load(st + 16 * C::PA, map_b, k.n0, k.k0, bar);
+      tma::load_2d(st, map_a, k.k0, k.m0, bar);
+      tma::load_2d(st + 16 * C::PA, map_b, k.n0, k.k0, bar);
     };
     if (t == 0)
       for (int g = 0; g < C::D - 1 && g < stages; ++g) fetch(g);
@@ -422,7 +369,7 @@ bitslice_mm_kernel(const T* __restrict__ a, const T* __restrict__ b,
       mbar_init(l.staged + 8 * s, 1);
       mbar_init(l.freed + 8 * s, SPLITTERS / 32);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    tma::mbar_fence_init();
   }
   __syncthreads();
   const int my_tiles =
@@ -481,33 +428,6 @@ bitslice_mm_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, reached through the runtime (this
-// library does not link libcuda); null where it is missing.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 template <class T>
 constexpr CUtensorMapDataType tma_type() {
   return std::is_same<T, float>::value    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -526,7 +446,7 @@ bool encode(CUtensorMap* map, const T* p, int rows, int cols, int box_rows,
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
-  return encode_tiled()(map, tma_type<T>(), 2, const_cast<T*>(p), dims,
+  return tma::encode_tiled()(map, tma_type<T>(), 2, const_cast<T*>(p), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -550,7 +470,7 @@ int launch(const T* a, const T* b, float* c, int M, int N, int K,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (encode_tiled() == nullptr)
+  if (tma::encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorSymbolNotFound);
   // TMA needs 16-byte aligned bases and row strides: K and N multiples of
   // E elements

@@ -312,9 +312,8 @@ extern "C" int fused_gram_inv_gram(const bmm::Params* p, int bf16_in,
   if (!bmm::valid(*p)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16_in)
-    return bmm::launch<bmm::FULL, bmm::STORE, true, false, __nv_bfloat16>(
-        *p, st);
-  return bmm::launch<bmm::FULL, bmm::STORE, true, false, float>(*p, st);
+    return bmm::launch<bmm::STORE, true, false, __nv_bfloat16>(*p, st);
+  return bmm::launch<bmm::STORE, true, false, float>(*p, st);
 }
 
 // Large route: g (nb, n, n) /= t_tok in place, lam (nb,) its damping.

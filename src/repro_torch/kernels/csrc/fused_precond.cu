@@ -217,9 +217,9 @@ extern "C" int fused_precond_product(const bmm::Params* p, int mode, int epi,
   if (!bmm::valid(*p) || mode != bmm::FULL)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (epi == bmm::STORE) return bmm::launch<bmm::FULL, bmm::STORE>(*p, s);
+  if (epi == bmm::STORE) return bmm::launch<bmm::STORE>(*p, s);
   if (epi == bmm::DOT && p->E && p->part)
-    return bmm::launch<bmm::FULL, bmm::DOT>(*p, s);
+    return bmm::launch<bmm::DOT>(*p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

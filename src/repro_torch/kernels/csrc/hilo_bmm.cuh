@@ -1,12 +1,15 @@
 // Batched, tiled hi/lo product on the tensor cores with fused epilogues:
-// the large-block route of neumann_inv.cu, fused_precond.cu, smw_update.cu
-// and fused_gram_solve.cu (blocks, tiles and ranks of 129..1024), where one
-// block no longer fits one CTA's shared memory (a 256 block's hi/lo pair is
-// 256 KB against 227 KB a CTA may have).
+// the large-block route of fused_precond.cu, smw_update.cu and
+// fused_gram_solve.cu's Gram (blocks, tiles and ranks of 129..1024), where
+// one block no longer fits one CTA's shared memory (a 256 block's hi/lo
+// pair is 256 KB against 227 KB a CTA may have). neumann_inv.cu's large
+// route has a product of its own (hilo_tma.cuh): its operands are stored
+// split, by the kernel that writes them; these routes' operands are not.
 //
 // One launch computes, for every batch entry b and every 64 x 64 tile of
 // the M x N result,
-//   acc = sum over the partials of op(L)p[b] op(R)p[b]   (M x K times K x N)
+//   acc = op(L)_H op(R)_H + op(L)_H op(R)_L + op(L)_L op(R)_H
+//         (M x K times K x N, fp32 accumulation)
 // and writes epilogue(acc) into C[b]. Operands are fp32 (or, for the Gram
 // of bf16 activations, bf16: converted to fp32 as they are read, so their
 // lo slice is exactly zero) in device memory (row-major, any leading
@@ -18,34 +21,30 @@
 // with RT the transpose of R stored N x K. A transposed operand is loaded
 // along its contiguous side like any other and staged in its stored
 // layout; ldmatrix's other form (.trans or not) delivers the same mma
-// fragments from it. The partials, with fp32 accumulation:
-//   FULL  L_H R_H + L_H R_L + L_L R_H   (an fp32 left operand)
-//   HI    L_H R_H + L_H R_L             (the exact bf16 hi slice of L)
-//   LO    L_L R_H + L_L R_L             (the exact bf16 lo slice of L)
-// Entries outside M x K and K x N are read as zero (the zero pad of the
-// one-CTA kernels, in shared memory only), so a side such as 176 = 11 x 16
-// is exact, and nothing outside M x N is written.
+// fragments from it. Entries outside M x K and K x N are read as zero
+// (the zero pad of the one-CTA kernels, in shared memory only), so a side
+// such as 176 = 11 x 16 is exact, and nothing outside M x N is written.
 //
-// Epilogues (E and F are M x N blocks laid out like each other):
-//   STORE        C = acc
-//   TWO_I_MINUS  C = 2I - acc             (Newton-Schulz's W = 2I - A_H X)
-//   I_MINUS      C = I - acc              (the refinement's residual)
-//   ADD          C = E + acc              (M + M R)
-//   NEG_ACC      C = -acc, F = E + C      (a Neumann term T and M += T)
-//   DOT          C = acc, and the tile's sum of acc * E into part[b, tile]
-//                (fused_precond's trust-region dot, reduced over the
-//                tiles in a fixed order by a second kernel: no atomics)
-//   SUB          C = E - acc              (the Woodbury correction
-//                                          M - Y^T Z, one rounding)
+// Epilogues (E an M x N block):
+//   STORE  C = acc                  (fused_precond's tmp = A^-1 g; the
+//                                    Woodbury Y and S; the Gram)
+//   DOT    C = acc, and the tile's sum of acc * E into part[b, tile]
+//          (fused_precond's trust-region dot, reduced over the tiles in a
+//          fixed order by a second kernel: no atomics)
+//   SUB    C = E - acc              (the Woodbury correction M - Y^T Z, one
+//                                    rounding)
 //
-// Bound: operations at the K-FAC shapes (a 256 block's product is 2 x 256^3
+// Bound: operations at the K-FAC shapes (a 256 tile's product is 2 x 256^3
 // a partial against 768 KB of fp32 operands, ~85 FLOP a byte from device
 // memory but each operand tile is re-read by every tile of its row or
 // column, from L2). Design, simple first: 64 x 64 output tiles, 4 warps of
 // 32 x 32 on mma.sync m16n8k16 (hilo_mma.cuh's fragments and loads),
 // depth steps of 32 double-buffered in shared memory, the next step's
 // global loads held in registers while this step's products run, one
-// barrier a step; 39 KB of static shared memory, several CTAs an SM.
+// barrier a step; 39 KB of static shared memory, several CTAs an SM. The
+// re-reads and the splits on every load hold it near 56 TFLOP/s on the
+// H100 (PERF.md, section 6); moving these routes onto hilo_tma.cuh's
+// product is later work.
 #pragma once
 
 #include <type_traits>
@@ -61,9 +60,10 @@ constexpr int THREADS = 128;
 constexpr int LDA = BK + 8;  // left tiles BM x BK, row stride (bf16)
 constexpr int LDB = BN + 8;  // right tiles BK x BN, row stride (bf16)
 
-enum Mode { FULL = 0, HI = 1, LO = 2 };
-enum Epi { STORE = 0, TWO_I_MINUS = 1, I_MINUS = 2, ADD = 3, NEG_ACC = 4,
-           DOT = 5, SUB = 6 };
+// The left operand's mode: FULL, its two slices (the only one these routes
+// use; the C entries check it). Epilogues keep their numbers.
+enum Mode { FULL = 0 };
+enum Epi { STORE = 0, DOT = 5, SUB = 6 };
 
 // An operand: block b at p + (idx ? idx[b] : b) * stride elements (fp32,
 // or bf16 where the kernel's element type says so), rows ld apart. vec:
@@ -83,11 +83,9 @@ struct Params {
   float* C;
   long long c_stride;
   int ldc;
-  const float* E;  // ADD, NEG_ACC, SUB: the M block read; DOT: the dot's
-                   // other factor
+  const float* E;  // SUB: the M block read; DOT: the dot's other factor
   long long e_stride;
   int lde;
-  float* F;        // NEG_ACC: the M block written (E's layout)
   float* part;     // DOT: (batch, tiles) partial dots
   int M, N, K, batch;
   int c_vec;       // C, E, F 8-byte aligned, even ld and strides
@@ -146,12 +144,11 @@ __host__ __device__ constexpr int right_elems() {
   return TR ? BN * LDA : BK * LDB;
 }
 
-template <int MODE, int EPI, bool LT = false, bool RT = false,
-          typename T = float>
+template <int EPI, bool LT = false, bool RT = false, typename T = float>
 __global__ void __launch_bounds__(THREADS)
 hilo_bmm_kernel(const __grid_constant__ Params p) {
   __shared__ __align__(16) bf16 sLH[2][left_elems<LT>()];
-  __shared__ __align__(16) bf16 sLL[2][MODE == FULL ? left_elems<LT>() : 8];
+  __shared__ __align__(16) bf16 sLL[2][left_elems<LT>()];
   __shared__ __align__(16) bf16 sRH[2][right_elems<RT>()];
   __shared__ __align__(16) bf16 sRL[2][right_elems<RT>()];
   __shared__ float red[THREADS / 32];
@@ -214,12 +211,8 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
       split4(gl[s], h, l);
       const int lo = LT ? (q >> 4) * LDB + (q & 15) * 4
                         : (q >> 3) * LDA + (q & 7) * 4;
-      if constexpr (MODE == FULL) {
-        *reinterpret_cast<uint2*>(&sLH[buf][lo]) = h;
-        *reinterpret_cast<uint2*>(&sLL[buf][lo]) = l;
-      } else {
-        *reinterpret_cast<uint2*>(&sLH[buf][lo]) = MODE == HI ? h : l;
-      }
+      *reinterpret_cast<uint2*>(&sLH[buf][lo]) = h;
+      *reinterpret_cast<uint2*>(&sLL[buf][lo]) = l;
       split4(gr[s], h, l);
       const int ro = RT ? (q >> 3) * LDA + (q & 7) * 4
                         : (q >> 4) * LDB + (q & 15) * 4;
@@ -244,13 +237,11 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
         if constexpr (LT) {
           const int off = (k0 + r8) * LDB + wm + mi * 16 + s8;
           hilo::ldmatrix_x4_trans(ah[mi], &sLH[cur][off]);
-          if constexpr (MODE == FULL)
-            hilo::ldmatrix_x4_trans(al[mi], &sLL[cur][off]);
+          hilo::ldmatrix_x4_trans(al[mi], &sLL[cur][off]);
         } else {
           const int off = (wm + mi * 16 + r16) * LDA + k0 + c8;
           hilo::ldmatrix_x4(ah[mi], &sLH[cur][off]);
-          if constexpr (MODE == FULL)
-            hilo::ldmatrix_x4(al[mi], &sLL[cur][off]);
+          hilo::ldmatrix_x4(al[mi], &sLL[cur][off]);
         }
       }
 #pragma unroll
@@ -271,10 +262,8 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
           hilo::mma_16816(acc[mi][2 * nj + 1], ah[mi], bh[2], bh[3]);
           hilo::mma_16816(acc[mi][2 * nj], ah[mi], bl[0], bl[1]);
           hilo::mma_16816(acc[mi][2 * nj + 1], ah[mi], bl[2], bl[3]);
-          if constexpr (MODE == FULL) {
-            hilo::mma_16816(acc[mi][2 * nj], al[mi], bh[0], bh[1]);
-            hilo::mma_16816(acc[mi][2 * nj + 1], al[mi], bh[2], bh[3]);
-          }
+          hilo::mma_16816(acc[mi][2 * nj], al[mi], bh[0], bh[1]);
+          hilo::mma_16816(acc[mi][2 * nj + 1], al[mi], bh[2], bh[3]);
         }
       }
     }
@@ -287,10 +276,8 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
   // e % 2 of the tile
   float* Cb = p.C + static_cast<size_t>(b) * static_cast<size_t>(p.c_stride);
   const size_t eo = static_cast<size_t>(b) * static_cast<size_t>(p.e_stride);
-  constexpr bool READS_E =
-      EPI == ADD || EPI == NEG_ACC || EPI == DOT || EPI == SUB;
+  constexpr bool READS_E = EPI == DOT || EPI == SUB;
   const float* Eb = READS_E ? p.E + eo : nullptr;
-  float* Fb = EPI == NEG_ACC ? p.F + eo : nullptr;
   const bool v2 = p.c_vec;
   float dot = 0.f;
 #pragma unroll
@@ -316,17 +303,8 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
             if (two) e[1] = s[1];
           }
         }
-        float f[2];
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
-          const float diag = r == c + k ? 1.f : 0.f;
-          if constexpr (EPI == TWO_I_MINUS) v[k] = 2.f * diag - v[k];
-          if constexpr (EPI == I_MINUS) v[k] = diag - v[k];
-          if constexpr (EPI == ADD) v[k] = e[k] + v[k];
-          if constexpr (EPI == NEG_ACC) {
-            v[k] = -v[k];
-            f[k] = e[k] + v[k];
-          }
           if constexpr (EPI == DOT)
             if (k == 0 || two) dot += v[k] * e[k];
           if constexpr (EPI == SUB) v[k] = __fsub_rn(e[k], v[k]);
@@ -337,15 +315,6 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
         } else {
           d[0] = v[0];
           if (two) d[1] = v[1];
-        }
-        if constexpr (EPI == NEG_ACC) {
-          float* o = Fb + static_cast<size_t>(r) * p.lde + c;
-          if (v2 && two) {
-            *reinterpret_cast<float2*>(o) = make_float2(f[0], f[1]);
-          } else {
-            o[0] = f[0];
-            if (two) o[1] = f[1];
-          }
         }
       }
   if constexpr (EPI == DOT) {
@@ -364,16 +333,15 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
   }
 }
 
-// Enqueue hilo_bmm_kernel<MODE, EPI, LT, RT, T> over every tile of every
-// batch entry; returns the cudaError_t of the launch.
-template <int MODE, int EPI, bool LT = false, bool RT = false,
-          typename T = float>
+// Enqueue hilo_bmm_kernel<EPI, LT, RT, T> over every tile of every batch
+// entry; returns the cudaError_t of the launch.
+template <int EPI, bool LT = false, bool RT = false, typename T = float>
 inline int launch(const Params& p, cudaStream_t stream) {
   const long long tiles = static_cast<long long>(p.batch) *
                           ((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN);
   if (tiles < 1 || tiles > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  hilo_bmm_kernel<MODE, EPI, LT, RT, T>
+  hilo_bmm_kernel<EPI, LT, RT, T>
       <<<static_cast<unsigned>(tiles), THREADS, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -409,11 +409,11 @@ extern "C" int smw_update_product(const bmm::Params* p, int mode, int epi,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   using namespace bmm;
   if (mode == FULL && epi == STORE && !lt && !rt)
-    return launch<FULL, STORE>(*p, st);
+    return launch<STORE>(*p, st);
   if (mode == FULL && epi == STORE && !lt && rt)
-    return launch<FULL, STORE, false, true>(*p, st);
+    return launch<STORE, false, true>(*p, st);
   if (mode == FULL && epi == SUB && lt && !rt)
-    return launch<FULL, SUB, true, false>(*p, st);
+    return launch<SUB, true, false>(*p, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,16 +1,19 @@
 """Arguments of the batched hi/lo product ``csrc/hilo_bmm.cuh``: the
-large-block route of ``neumann_inv``, ``fused_precond``, ``smw_update``
-and ``fused_gram_inv`` (sides and ranks of 129..1024), shared by their
-wrappers.
+large-block route of ``fused_precond``, ``smw_update`` and
+``fused_gram_inv``'s Gram (sides and ranks of 129..1024), shared by their
+wrappers; also the workspace helpers of every large route
+(:data:`WORKSPACE_BYTES`, :func:`chunks`, :func:`row_stride`).
 
-The product's operands are fp32 blocks in device memory (bf16 for the
-Gram of bf16 activations), addressed by a base pointer, an optional int32
+The product's operands are fp32 blocks in device memory (bf16 for the Gram
+of bf16 activations), addressed by a base pointer, an optional int32
 index array (block ``idx[b]`` for batch entry ``b``), a block stride and a
 row stride, in elements; the kernel reads either operand as stored or
 transposed (a template flag of the launch, chosen by the wrapper's C
 entry), splits it into bf16 hi/lo slices as it stages it and pads every
 side with zeros to its 64-wide tiles in shared memory only. Nothing here
 launches or allocates: the wrappers build one :class:`Params` a product.
+``neumann_inv``'s large route runs on a product of its own
+(``csrc/hilo_tma.cuh``, :mod:`hilo_tma`).
 """
 
 from __future__ import annotations
@@ -27,9 +30,10 @@ MAX_SIDE = 1024
 #: WU group's tiles) are taken in as many chunks as that needs
 WORKSPACE_BYTES = 1 << 30
 
-# left-operand modes and epilogues (bmm::Mode, bmm::Epi)
-FULL, HI, LO = 0, 1, 2
-STORE, TWO_I_MINUS, I_MINUS, ADD, NEG_ACC, DOT, SUB = range(7)
+# the left operand's mode (its two slices) and the epilogues (bmm::Mode,
+# bmm::Epi)
+FULL = 0
+STORE, DOT, SUB = 0, 5, 6
 
 
 class Operand(ctypes.Structure):
@@ -50,8 +54,7 @@ class Params(ctypes.Structure):
                 ("C", ctypes.c_void_p), ("c_stride", ctypes.c_longlong),
                 ("ldc", ctypes.c_int),
                 ("E", ctypes.c_void_p), ("e_stride", ctypes.c_longlong),
-                ("lde", ctypes.c_int),
-                ("F", ctypes.c_void_p), ("part", ctypes.c_void_p),
+                ("lde", ctypes.c_int), ("part", ctypes.c_void_p),
                 ("M", ctypes.c_int), ("N", ctypes.c_int), ("K", ctypes.c_int),
                 ("batch", ctypes.c_int), ("c_vec", ctypes.c_int)]
 
@@ -92,15 +95,15 @@ def operand(ptr: int, stride: int, ld: int, idx: int | None = None) -> Operand:
 def params(left: Operand, right: Operand, out: int, out_stride: int,
            ldc: int, m: int, n: int, k: int, batch: int, *,
            e: int | None = None, e_stride: int = 0, lde: int = 0,
-           f: int | None = None, part: int | None = None) -> Params:
+           part: int | None = None) -> Params:
     """One product's :class:`Params`; ``c_vec`` (float2 epilogue
-    accesses) where C, E and F and their strides allow it."""
-    ptrs = [x for x in (out, e, f) if x is not None]
+    accesses) where C and E and their strides allow it."""
+    ptrs = [x for x in (out, e) if x is not None]
     strides = [out_stride, ldc] + ([e_stride, lde] if e is not None else [])
     c_vec = all(x % 8 == 0 for x in ptrs) and all(s % 2 == 0
                                                   for s in strides)
-    return Params(left, right, out, out_stride, ldc, e, e_stride, lde, f,
-                  part, m, n, k, batch, int(c_vec))
+    return Params(left, right, out, out_stride, ldc, e, e_stride, lde, part,
+                  m, n, k, batch, int(c_vec))
 
 
 def elem_ptr(t: torch.Tensor, offset: int = 0) -> int:

@@ -10,10 +10,12 @@ Two routes, chosen by the block side:
   (:func:`neumann_inv_grouped`), so a K-FAC refresh inverts every block
   of one side in one launch.
 * 128 < n <= :data:`MAX_N` (1024): a block no longer fits one CTA, so the
-  iteration runs as :func:`inv_schedule`'s batched hi/lo products
-  (``csrc/hilo_bmm.cuh``) over every block of a chunk of one side, with
-  the state in a workspace allocated here on the launches' stream
-  (:func:`large_plan`: chunks under ``hilo_bmm.WORKSPACE_BYTES``).
+  iteration runs as :func:`inv_schedule`'s batched hi/lo products on TMA
+  and wgmma (``csrc/hilo_tma.cuh``) over every block of a chunk of one
+  side, with the state in a workspace allocated here on the launches'
+  stream (:func:`large_plan`: chunks under ``hilo_bmm.WORKSPACE_BYTES``),
+  each value stored in the forms its readers take: bf16 hi and lo slices
+  for a product's operands, fp32 for an epilogue's E and the copy-out.
 
 The CUDA source states what bounds each route and how its design answers
 that.
@@ -27,11 +29,12 @@ padded n to a multiple of 128 with an identity tail, which changes
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
-from repro_torch.kernels import hilo_bmm
+from repro_torch.kernels import hilo_bmm, hilo_tma
+from repro_torch.kernels.hilo_tma import F32, FORMS, HI, LO
 from repro_torch.kernels.build import CudaLibrary
 from repro_torch.kernels.ref import _damping_vector
 
@@ -39,9 +42,12 @@ from repro_torch.kernels.ref import _damping_vector
 MAX_N = hilo_bmm.MAX_SIDE
 #: largest block side of the one-CTA route (one CTA holds the block)
 ONE_CTA_N = 128
-#: workspace buffers of the large route, each (chunk, n, ld) fp32: Ad,
-#: the two X buffers, W and M (see :func:`inv_schedule`)
+#: workspace buffers of the large route (see :func:`inv_schedule`): Ad,
+#: the two X buffers, W and M, each in the forms any schedule writes it in,
+#: each form a (chunk, n, ld) array (``hilo_tma.stride``)
 BUFFERS = ("ad", "x0", "x1", "w", "m")
+BUFFER_FORMS = {"ad": (HI, LO), "x0": FORMS, "x1": FORMS, "w": (HI, LO),
+                "m": FORMS}
 #: leaves one launch takes (the kernel's leaf table; longer lists take
 #: several launches)
 MAX_LEAVES = 32
@@ -63,8 +69,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _TABLE = ctypes.POINTER(LeafTable)
 LIB = CudaLibrary("neumann_inv", "neumann_inv.cu", {
     "neumann_inv_launch": [_TABLE, _I, _I, _I, _I, _P],
-    "neumann_inv_prep": [_TABLE, _I, _I, _I, _I, _P, _P, _P],
-    "neumann_inv_product": [ctypes.POINTER(hilo_bmm.Params), _I, _I, _P],
+    "neumann_inv_prep": [_TABLE, _I, _I, _I, _I, _I,
+                         ctypes.POINTER(hilo_tma.Out),
+                         ctypes.POINTER(hilo_tma.Out), _P],
+    "neumann_inv_product": [ctypes.POINTER(hilo_tma.Params), _P],
     "neumann_inv_copy_out": [_TABLE, _I, _I, _I, _I, _P, _P]})
 
 
@@ -90,12 +98,45 @@ def leaf_tables(blocks: Sequence[torch.Tensor], dampings, outs) -> list:
             for k in range(0, len(live), MAX_LEAVES)]
 
 
-def inv_schedule(ns_iters: int, taylor_terms: int, refine_steps: int):
-    """The large route's products, in order, and the buffer that holds
-    the inverse at the end. Each product is ``(mode, epilogue, L, R, C,
-    E, F)`` over the names of :data:`BUFFERS` (``hilo_bmm`` modes and
-    epilogues; E and F only where the epilogue reads or writes them),
-    the iteration of :func:`repro_torch.kernels.ref.neumann_inv_ref`:
+class Product(NamedTuple):
+    """One product of the large route: ``C = epi(L R)`` over the names of
+    :data:`BUFFERS` (``hilo_tma`` left modes and epilogues; E and F only
+    where the epilogue reads or writes them), and the forms it writes C
+    and F in."""
+
+    mode: int
+    epi: int
+    left: str
+    right: str
+    c: str
+    e: str | None
+    f: str | None
+    c_forms: frozenset = frozenset()
+    f_forms: frozenset = frozenset()
+
+    @property
+    def reads(self) -> list:
+        """``(buffer, forms)`` the product reads: the left operand's
+        slices, both slices of the right one, E in fp32."""
+        got = [(self.left, hilo_tma.LEFT_FORMS[self.mode]),
+               (self.right, (HI, LO))]
+        return got + ([(self.e, (F32,))] if self.e else [])
+
+
+class Schedule(NamedTuple):
+    """The large route's kernels: the forms the prep kernel writes Ad and
+    X0 in, the products in order, and the buffer the copy-out reads (in
+    fp32)."""
+
+    prep: dict
+    products: tuple
+    last: str
+
+
+def inv_schedule(ns_iters: int, taylor_terms: int,
+                 refine_steps: int) -> Schedule:
+    """The large route's products, in order, the iteration of
+    :func:`repro_torch.kernels.ref.neumann_inv_ref`:
 
     * Newton-Schulz, ``W = 2I - A_H X`` then ``X' = X W`` into the other
       X buffer (a product never writes an operand it reads);
@@ -104,26 +145,88 @@ def inv_schedule(ns_iters: int, taylor_terms: int, refine_steps: int):
     * refinements, ``R = I - Ad M`` into W, then ``M + M R`` into
       whichever of M and the free X buffer does not hold M.
 
-    The prep kernel writes Ad and X0 into ``ad`` and ``x0`` first."""
+    The prep kernel writes Ad and X0 into ``ad`` and ``x0`` first. Each
+    kernel writes a value in exactly the forms that its readers take
+    before the buffer is written again (:meth:`Product.reads`; the
+    copy-out reads the last buffer in fp32): a value read only as an
+    operand is stored as its two slices, one read as E or copied out also
+    (or only) in fp32."""
     steps = []
     x, y = "x0", "x1"
     for _ in range(ns_iters):
-        steps.append((hilo_bmm.HI, hilo_bmm.TWO_I_MINUS, "ad", x, "w",
-                      None, None))
-        steps.append((hilo_bmm.FULL, hilo_bmm.STORE, x, "w", y, None, None))
+        steps.append(Product(hilo_tma.HI_SLICE, hilo_tma.TWO_I_MINUS, "ad",
+                             x, "w", None, None))
+        steps.append(Product(hilo_tma.FULL, hilo_tma.STORE, x, "w", y, None,
+                             None))
         x, y = y, x
     m = t = x
     for _ in range(max(taylor_terms - 1, 0)):
-        steps.append((hilo_bmm.LO, hilo_bmm.STORE, "ad", t, "w", None, None))
-        steps.append((hilo_bmm.FULL, hilo_bmm.NEG_ACC, x, "w", y, m, "m"))
+        steps.append(Product(hilo_tma.LO_SLICE, hilo_tma.STORE, "ad", t, "w",
+                             None, None))
+        steps.append(Product(hilo_tma.FULL, hilo_tma.NEG_ACC, x, "w", y, m,
+                             "m"))
         t, m = y, "m"
     for _ in range(refine_steps):
-        steps.append((hilo_bmm.FULL, hilo_bmm.I_MINUS, "ad", m, "w", None,
-                      None))
+        steps.append(Product(hilo_tma.FULL, hilo_tma.I_MINUS, "ad", m, "w",
+                             None, None))
         new = y if m == "m" else "m"
-        steps.append((hilo_bmm.FULL, hilo_bmm.ADD, m, "w", new, m, None))
+        steps.append(Product(hilo_tma.FULL, hilo_tma.ADD, m, "w", new, m,
+                             None))
         m = new
-    return steps, m
+    # backwards: what later kernels read of each buffer's current value
+    need = {m: {F32}}
+    products = []
+    for p in reversed(steps):
+        c_forms = need.pop(p.c, set())
+        f_forms = need.pop(p.f, set()) if p.f else set()
+        for buf, forms in p.reads:
+            need.setdefault(buf, set()).update(forms)
+        products.append(p._replace(c_forms=frozenset(c_forms),
+                                   f_forms=frozenset(f_forms)))
+    prep = {buf: frozenset(need.pop(buf, ())) for buf in ("ad", "x0")}
+    if need:
+        raise AssertionError(f"read before written: {sorted(need)}")
+    return Schedule(prep, tuple(products[::-1]), m)
+
+
+def block_bytes(n: int) -> int:
+    """Workspace bytes of one block of side ``n``: every buffer in its
+    :data:`BUFFER_FORMS`."""
+    return sum(n * hilo_tma.stride(n, f) * hilo_tma.itemsize(f)
+               for buf in BUFFERS for f in BUFFER_FORMS[buf])
+
+
+def workspace(base: int, nb: int, n: int) -> dict:
+    """``{(buffer, form): device address}`` of a chunk of ``nb`` blocks in
+    a workspace at ``base``: each form of each buffer one (nb, n, stride)
+    array, one after the other (every array a multiple of 16 bytes)."""
+    addr, off = {}, base
+    for buf in BUFFERS:
+        for f in BUFFER_FORMS[buf]:
+            addr[(buf, f)] = off
+            off += nb * n * hilo_tma.stride(n, f) * hilo_tma.itemsize(f)
+    return addr
+
+
+def schedule_bytes(n: int, ns_iters: int, taylor_terms: int,
+                   refine_steps: int) -> int:
+    """Bytes the large route moves for one block of side ``n``, each
+    kernel's inputs read once and its outputs written once (n x n entries
+    a form; 4 bytes fp32, 2 a slice): the block and its damping into the
+    prep kernel, Ad and X0 out of it; every product's operand slices and
+    E, its C and F in their forms; the last buffer into the copy-out and
+    the inverse out of it. The floor of a design whose state passes
+    through device memory between products."""
+    sched = inv_schedule(ns_iters, taylor_terms, refine_steps)
+
+    def size(forms):
+        return sum(n * n * hilo_tma.itemsize(f) for f in forms)
+
+    total = 4 * n * n + 4 + sum(size(f) for f in sched.prep.values())
+    for p in sched.products:
+        total += sum(size(forms) for _, forms in p.reads)
+        total += size(p.c_forms) + size(p.f_forms)
+    return total + 2 * size((F32,))
 
 
 def large_plan(nbs: Sequence[int], n: int,
@@ -132,9 +235,9 @@ def large_plan(nbs: Sequence[int], n: int,
     side ``n``: per table of at most :data:`MAX_LEAVES` leaves with
     blocks, ``(leaves, chunks, workspace_bytes)``, where ``chunks`` are
     ``(b0, b1)`` ranges of the table's blocks (in leaf order) whose
-    workspace (:data:`BUFFERS`, each (chunk, n, ld) fp32) stays under
-    ``budget``, and ``workspace_bytes`` the largest chunk's."""
-    per_block = len(BUFFERS) * n * hilo_bmm.row_stride(n) * 4
+    workspace (:func:`block_bytes` a block) stays under ``budget``, and
+    ``workspace_bytes`` the largest chunk's."""
+    per_block = block_bytes(n)
     live = [i for i, nb in enumerate(nbs) if nb > 0]
     plan = []
     for k in range(0, len(live), MAX_LEAVES):
@@ -150,7 +253,8 @@ def launches_per_chunk(ns_iters: int, taylor_terms: int,
                        refine_steps: int) -> int:
     """Kernel launches of one large-route chunk: prep, the schedule's
     products, copy-out."""
-    return len(inv_schedule(ns_iters, taylor_terms, refine_steps)[0]) + 2
+    return len(inv_schedule(ns_iters, taylor_terms,
+                            refine_steps).products) + 2
 
 
 def expected_launches(sides, ns_iters: int, taylor_terms: int,
@@ -251,32 +355,40 @@ def _large_side(blocks, lams, outs, n: int, counts, stream) -> None:
     """The large route over the leaves of one side n > 128: per table
     and chunk, prep, the schedule's products, copy-out, all on
     ``stream``, the workspace allocated on it (the current stream)."""
-    ld = hilo_bmm.row_stride(n)
-    steps, last = inv_schedule(*counts)
+    ld32, ld16 = hilo_bmm.row_stride(n), hilo_tma.slice_stride(n)
+    sched = inv_schedule(*counts)
     key = f"n{n}"
     for leaves, parts, ws_bytes in large_plan(
             [a.shape[0] for a in blocks], n):
         table = ctypes.byref(_table(blocks, lams, outs, leaves))
-        ws = torch.empty(ws_bytes // 4, dtype=torch.float32,
+        ws = torch.empty(ws_bytes, dtype=torch.uint8,
                          device=blocks[0].device)
         for b0, b1 in parts:
             cb = b1 - b0
-            size = cb * n * ld
-            buf = {name: hilo_bmm.elem_ptr(ws, k * size)
-                   for k, name in enumerate(BUFFERS)}
-            LIB.launch("neumann_inv_prep", table, b0, cb, n, ld, buf["ad"],
-                       buf["x0"], stream, key=key)
-            for mode, epi, lft, rgt, c, e, f in steps:
-                p = hilo_bmm.params(
-                    hilo_bmm.operand(buf[lft], n * ld, ld),
-                    hilo_bmm.operand(buf[rgt], n * ld, ld),
-                    buf[c], n * ld, ld, n, n, n, cb,
-                    e=buf[e] if e else None, e_stride=n * ld, lde=ld,
-                    f=buf[f] if f else None)
-                LIB.launch("neumann_inv_product", ctypes.byref(p), mode, epi,
-                           stream, key=key)
-            LIB.launch("neumann_inv_copy_out", table, b0, cb, n, ld,
-                       buf[last], stream, key=key)
+            addr = workspace(ws.data_ptr(), cb, n)
+
+            def out(buf, forms):
+                return hilo_tma.Out(*(addr[(buf, f)] if f in forms else None
+                                      for f in FORMS))
+
+            LIB.launch("neumann_inv_prep", table, b0, cb, n, ld32, ld16,
+                       ctypes.byref(out("ad", sched.prep["ad"])),
+                       ctypes.byref(out("x0", sched.prep["x0"])), stream,
+                       key=key)
+            for p in sched.products:
+                left = [addr[(p.left, f)]
+                        for f in hilo_tma.LEFT_FORMS[p.mode]]
+                prm = hilo_tma.Params(
+                    left[0], left[1] if len(left) > 1 else None,
+                    addr[(p.right, HI)], addr[(p.right, LO)],
+                    addr[(p.e, F32)] if p.e else None,
+                    out(p.c, p.c_forms),
+                    out(p.f, p.f_forms) if p.f else hilo_tma.Out(),
+                    n, ld32, ld16, cb, p.epi)
+                LIB.launch("neumann_inv_product", ctypes.byref(prm), stream,
+                           key=key)
+            LIB.launch("neumann_inv_copy_out", table, b0, cb, n, ld32,
+                       addr[(sched.last, F32)], stream, key=key)
 
 
 def neumann_inv(a: torch.Tensor, damping, *, ns_iters: int,

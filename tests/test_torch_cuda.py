@@ -20,6 +20,7 @@ blocks).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -384,7 +385,7 @@ def test_neumann_inv_large_chunks_are_bitwise_one_chunk(cuda_device,
     blocks = [torch.from_numpy(a).to(cuda_device) for a, _ in leaves]
     damps = [torch.from_numpy(d).to(cuda_device) for _, d in leaves]
     whole = ops.neumann_inv_grouped(blocks, damps, **KW)
-    budget = 2 * 5 * 256 * 256 * 4
+    budget = 2 * kn.block_bytes(256)
     plan = kn.large_plan
     monkeypatch.setattr(kn, "large_plan",
                         lambda nbs, n: plan(nbs, n, budget=budget))
@@ -396,6 +397,50 @@ def test_neumann_inv_large_chunks_are_bitwise_one_chunk(cuda_device,
     assert hilo_bmm.WORKSPACE_BYTES > budget
     for x, y in zip(whole, parts):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,n", [(3, 131), (2, 200), (2, 300), (1, 520)])
+def test_neumann_inv_large_kernel_ragged_tiles(cuda_device, nb, n):
+    """Sides whose last k stage, row tile or column panel lies partly or
+    wholly outside the block (the TMA's zero fill: 131 and 300 take
+    192-wide tiles, 300's second one has a panel wholly outside; 200 and
+    520 take 256-wide ones) against the plain version."""
+    a, damp = _damped(nb * n, nb, n)
+    ta = torch.from_numpy(a).to(cuda_device)
+    td = torch.from_numpy(damp).to(cuda_device)
+    got = ops.neumann_inv(ta, td, **KW)
+    want = tref.neumann_inv_ref(ta, td, **KW)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_neumann_inv_large_product_refuses_what_it_cannot_take(cuda_device):
+    """A product whose slices' row stride is not a multiple of 8 (no
+    tensor map can take it) or whose operand is not on 16 bytes is
+    refused at the launch, and the wrapper raises: nothing falls back."""
+    from repro_torch.kernels import hilo_tma
+    from repro_torch.kernels import neumann_inv as kn
+
+    n = 176
+    ws = torch.zeros(4 * n * 184 * 2 + 64, dtype=torch.uint8,
+                     device=cuda_device)
+    base = ws.data_ptr()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    slice_bytes = n * 184 * 2
+    ok = dict(l_hi=base, r_hi=base + slice_bytes,
+              r_lo=base + 2 * slice_bytes,
+              c=hilo_tma.Out(None, base + 3 * slice_bytes, None), n=n,
+              ld32=n, ld16=184, batch=1, epi=hilo_tma.STORE)
+    kn.LIB.launch("neumann_inv_product",
+                  ctypes.byref(hilo_tma.Params(**ok)), stream)
+    torch.cuda.synchronize()
+    for bad in (dict(ok, ld16=180), dict(ok, r_lo=base + 8),
+                dict(ok, epi=hilo_tma.ADD)):
+        with pytest.raises(RuntimeError, match="neumann_inv_product"):
+            kn.LIB.launch("neumann_inv_product",
+                          ctypes.byref(hilo_tma.Params(**bad)), stream)
 
 
 @pytest.mark.cuda

@@ -11,9 +11,12 @@ The CUDA route itself runs only on the card (tests/test_torch_cuda.py,
     ``X0`` where a block's norms are below 1);
   * the large route's schedule of products (``inv_schedule``) run by a
     plain emulation of each kernel, bitwise ``neumann_inv_ref``: the
-    order of the products, the buffers each reads and writes, and each
-    epilogue's arithmetic are those of the plain version;
-  * its launch plans and workspace chunks, as pure functions;
+    order of the products, the buffers each reads and writes, the forms
+    (fp32, bf16 hi and lo slices) each writes and reads, and each
+    epilogue's arithmetic are those of the plain version; the forms as a
+    pure function (every form written before it is read, fp32 wherever
+    an E, an F or the copy-out reads it);
+  * its launch plans, workspace layout and chunks, as pure functions;
   * a 2-step K-FAC trajectory through ``launch.train.run`` at block 256
     on a narrow model with sides of 256 and 176, against the reference.
 
@@ -49,15 +52,12 @@ from repro.models import lm as jlm
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config as t_get_smoke_config
 from repro_torch.core import kfac as tkfac
-from repro_torch.core.quantize import (
-    hilo_matmul,
-    hilo_matmul_exact_lhs,
-    split_hi_lo_bf16,
-)
+from repro_torch.core.quantize import split_hi_lo_bf16
 from repro_torch.data import SyntheticTokens as TTokens
 from repro_torch.kernels import fused_precond as t_fused_precond
-from repro_torch.kernels import hilo_bmm
+from repro_torch.kernels import hilo_bmm, hilo_tma
 from repro_torch.kernels import neumann_inv as t_neumann_inv
+from repro_torch.kernels.hilo_tma import F32, HI, LO
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.launch import train as ttrain
@@ -135,43 +135,57 @@ def test_fused_precond_plain_matches_pallas_kernel_above_128(bi, bo,
 # the large route's schedule, run by a plain emulation of its kernels
 # ---------------------------------------------------------------------------
 
-def _product(mode, left, right):
-    """The product kernel's partials on the CPU: FULL splits both
-    operands; HI and LO take the left operand's exact bf16 slice."""
-    if mode == hilo_bmm.FULL:
-        return hilo_matmul(left, right)
-    hi, lo = split_hi_lo_bf16(left)
-    return hilo_matmul_exact_lhs(hi if mode == hilo_bmm.HI else lo, right)
+def _mm(x, y):
+    """bf16 x bf16 with fp32 accumulation (the plain version's partial)."""
+    return torch.matmul(x.to(torch.float32), y.to(torch.float32))
+
+
+def _store(mem, buf, forms, value):
+    """A kernel's write of ``value`` into ``buf`` in ``forms``: every form
+    of the buffer's previous value is gone, the new ones split on store."""
+    for key in [k for k in mem if k[0] == buf]:
+        del mem[key]
+    hi, lo = split_hi_lo_bf16(value)
+    for f in forms:
+        mem[(buf, f)] = {F32: value, HI: hi, LO: lo}[f]
 
 
 def _emulate(a, lam, counts):
     """The large route on the CPU: the prep kernel's Ad and X0, the
-    schedule's products with their epilogues, the last buffer."""
+    schedule's products with their epilogues, the copy-out, each kernel
+    reading only the forms stored before it (a form never written, or
+    overwritten, is a KeyError) and writing only its own."""
     n = a.shape[-1]
     eye = torch.eye(n, dtype=torch.float32)
     ad = a + lam[:, None, None] * eye
     a_hi = ad.to(torch.bfloat16).to(torch.float32)
     bound = a_hi.abs().sum(dim=-2).amax(dim=-1) * \
         a_hi.abs().sum(dim=-1).amax(dim=-1)
-    buf = {"ad": ad, "x0": a_hi / bound[:, None, None]}
-    steps, last = t_neumann_inv.inv_schedule(*counts)
-    for mode, epi, left, right, c, e, f in steps:
-        acc = _product(mode, buf[left], buf[right])
-        if epi == hilo_bmm.STORE:
-            buf[c] = acc
-        elif epi == hilo_bmm.TWO_I_MINUS:
-            buf[c] = 2.0 * eye - acc
-        elif epi == hilo_bmm.I_MINUS:
-            buf[c] = eye - acc
-        elif epi == hilo_bmm.ADD:
-            buf[c] = buf[e] + acc
-        elif epi == hilo_bmm.NEG_ACC:
-            t = -acc
-            buf[f] = buf[e] + t
-            buf[c] = t
+    sched = t_neumann_inv.inv_schedule(*counts)
+    mem = {}
+    _store(mem, "ad", sched.prep["ad"], ad)
+    _store(mem, "x0", sched.prep["x0"], a_hi / bound[:, None, None])
+    for p in sched.products:
+        left = [mem[(p.left, f)] for f in hilo_tma.LEFT_FORMS[p.mode]]
+        r_hi, r_lo = mem[(p.right, HI)], mem[(p.right, LO)]
+        acc = _mm(left[0], r_hi) + _mm(left[0], r_lo)
+        if len(left) == 2:
+            acc = acc + _mm(left[1], r_hi)
+        if p.epi == hilo_tma.STORE:
+            c = acc
+        elif p.epi == hilo_tma.TWO_I_MINUS:
+            c = 2.0 * eye - acc
+        elif p.epi == hilo_tma.I_MINUS:
+            c = eye - acc
+        elif p.epi == hilo_tma.ADD:
+            c = mem[(p.e, F32)] + acc
+        elif p.epi == hilo_tma.NEG_ACC:
+            c = -acc
+            _store(mem, p.f, p.f_forms, mem[(p.e, F32)] + c)
         else:
-            raise AssertionError(f"epilogue {epi} in the inverse")
-    return buf[last]
+            raise AssertionError(f"epilogue {p.epi} in the inverse")
+        _store(mem, p.c, p.c_forms, c)
+    return mem[(sched.last, F32)]
 
 
 COUNTS = [(20, 4, 2), (14, 4, 1), (20, 1, 0), (20, 4, 0), (3, 1, 2),
@@ -195,29 +209,75 @@ def test_large_schedule_never_overwrites_what_a_product_reads(counts):
     its operands (other CTAs still read them), and its elementwise
     E/F pair is the same buffer or F is written fresh; the counts of
     products are those of the reference's iteration."""
-    steps, last = t_neumann_inv.inv_schedule(*counts)
+    sched = t_neumann_inv.inv_schedule(*counts)
     written = {"ad", "x0"}
-    for _, _, left, right, c, e, f in steps:
-        assert {left, right} <= written and (e is None or e in written)
-        assert c not in (left, right) and f not in (left, right, c)
-        assert {c, f} - {None} <= set(t_neumann_inv.BUFFERS)
-        written |= {c, f} - {None}
-    assert last in written
+    for p in sched.products:
+        assert {p.left, p.right} <= written and (p.e is None
+                                                 or p.e in written)
+        assert p.c not in (p.left, p.right)
+        assert p.f not in (p.left, p.right, p.c)
+        assert {p.c, p.f} - {None} <= set(t_neumann_inv.BUFFERS)
+        written |= {p.c, p.f} - {None}
+    assert sched.last in written
     ns, taylor, refine = counts
-    assert len(steps) == 2 * ns + 2 * max(taylor - 1, 0) + 2 * refine
-    assert t_neumann_inv.launches_per_chunk(*counts) == len(steps) + 2
+    assert len(sched.products) == \
+        2 * ns + 2 * max(taylor - 1, 0) + 2 * refine
+    assert t_neumann_inv.launches_per_chunk(*counts) == \
+        len(sched.products) + 2
+
+
+@pytest.mark.parametrize("counts", COUNTS)
+def test_large_schedule_forms_are_written_before_read(counts):
+    """The forms each kernel writes, as a pure function: every form an
+    operand, an E or the copy-out reads was written by the kernel that
+    last wrote the buffer; fp32 is kept wherever an E, an F or the
+    copy-out reads the value, never for a value read only as an operand;
+    no form is written that nothing reads; every form lies in the
+    buffer's workspace arrays; the right operand is always read as both
+    slices, the left as the mode's."""
+    sched = t_neumann_inv.inv_schedule(*counts)
+    held = dict(sched.prep)          # buffer -> forms of its value
+    unread = {b: set(f) for b, f in sched.prep.items()}
+    for p in sched.products:
+        assert p.reads[:2] == [(p.left, hilo_tma.LEFT_FORMS[p.mode]),
+                               (p.right, (HI, LO))]
+        for buf, forms in p.reads:
+            assert set(forms) <= held[buf], (p, buf, forms)
+            unread[buf] -= set(forms)
+        for buf, forms in ((p.c, p.c_forms), (p.f, p.f_forms)):
+            if buf is None:
+                continue
+            assert not unread.get(buf), (p, buf, "written, never read")
+            assert forms <= set(t_neumann_inv.BUFFER_FORMS[buf])
+            held[buf], unread[buf] = set(forms), set(forms)
+        if p.epi == hilo_tma.NEG_ACC:
+            assert F32 in p.f_forms       # the running M, read as E
+    assert F32 in held[sched.last]
+    unread[sched.last].discard(F32)
+    assert not any(unread.values()), unread
+    for buf, forms in sched.prep.items():
+        assert forms <= set(t_neumann_inv.BUFFER_FORMS[buf])
+        assert F32 not in forms or (counts[0] == 0)
 
 
 # ---------------------------------------------------------------------------
 # launch plans and workspace chunks (pure functions)
 # ---------------------------------------------------------------------------
 
+def _block_bytes(n):
+    """Ad and W as two slices, X0, X1 and M also in fp32."""
+    return 2 * 4 * n * hilo_tma.slice_stride(n) + \
+        3 * (4 * n * hilo_bmm.row_stride(n)
+             + 4 * n * hilo_tma.slice_stride(n))
+
+
 def test_large_plan_covers_every_block_in_chunks_under_the_budget():
     budget = hilo_bmm.WORKSPACE_BYTES
     for nbs, n in (([192], 1024), ([768], 256), ([48, 0, 96, 48], 1024),
                    ([576, 576], 176), ([7], 129)):
         plan = t_neumann_inv.large_plan(nbs, n, budget)
-        per_block = 5 * n * hilo_bmm.row_stride(n) * 4
+        per_block = _block_bytes(n)
+        assert t_neumann_inv.block_bytes(n) == per_block
         (leaves, parts, ws), = plan
         assert leaves == [i for i, nb in enumerate(nbs) if nb]
         assert parts[0][0] == 0 and parts[-1][1] == sum(nbs)
@@ -226,13 +286,50 @@ def test_large_plan_covers_every_block_in_chunks_under_the_budget():
         assert ws == max(sizes) * per_block <= budget
         assert max(sizes) - min(sizes) <= 1 or len(sizes) == 1 or \
             sizes[-1] < sizes[0]
-    # n = 1024: 20 MiB a block, 51 under 1 GiB -> 4 chunks of 48
+    # n = 1024: 32 MiB a block, 32 under 1 GiB -> 6 chunks of 32
     (_, parts, ws), = t_neumann_inv.large_plan([192], 1024)
-    assert parts == [(0, 48), (48, 96), (96, 144), (144, 192)]
-    assert ws == 48 * 5 * 1024 * 1024 * 4
-    # block 256 of the main path: one chunk a side
-    assert t_neumann_inv.large_plan([768], 256)[0][1] == [(0, 768)]
-    assert t_neumann_inv.large_plan([1152], 176)[0][1] == [(0, 1152)]
+    assert parts == [(k, k + 32) for k in range(0, 192, 32)]
+    assert ws == 32 * 32 * 1024 * 1024
+    # block 256 of the main path: two chunks a side (2 MiB a block of 256,
+    # 968 KiB a block of 176)
+    assert t_neumann_inv.large_plan([768], 256)[0][1] == [(0, 384),
+                                                          (384, 768)]
+    assert t_neumann_inv.large_plan([1152], 176)[0][1] == [(0, 576),
+                                                           (576, 1152)]
+
+
+@pytest.mark.parametrize("n", [129, 176, 256, 1024])
+def test_large_workspace_strides_and_layout(n):
+    """The slices' row stride is a multiple of 8 bf16 (16 bytes, a TMA
+    tensor map's stride), the fp32 one of 4; each buffer's forms are
+    (nb, n, stride) arrays one after the other, every one on 16 bytes,
+    the chunk's last byte the workspace's."""
+    ld16 = hilo_tma.slice_stride(n)
+    assert ld16 % 8 == 0 and n <= ld16 < n + 8
+    assert hilo_bmm.row_stride(n) % 4 == 0
+    nb, base = 7, 1 << 20
+    addr = t_neumann_inv.workspace(base, nb, n)
+    assert set(addr) == {(b, f) for b in t_neumann_inv.BUFFERS
+                         for f in t_neumann_inv.BUFFER_FORMS[b]}
+    ordered = sorted(addr.items(), key=lambda kv: kv[1])
+    assert ordered[0][1] == base
+    for ((b, f), lo), (_, hi) in zip(ordered, ordered[1:]):
+        assert hi - lo == nb * n * hilo_tma.stride(n, f) * \
+            hilo_tma.itemsize(f)
+        assert lo % 16 == 0
+    (b, f), last = ordered[-1]
+    end = last + nb * n * hilo_tma.stride(n, f) * hilo_tma.itemsize(f)
+    assert end - base == nb * t_neumann_inv.block_bytes(n)
+
+
+def test_schedule_bytes_counts_each_kernel_once():
+    """The large route's bytes floor: 614 n^2 a block at 20/4/2 (plus
+    the damping); with no product (0/1/0) the prep kernel reads A (4 n^2)
+    and writes X0 in fp32 only (4 n^2; Ad is read by nothing, so it is
+    not stored), and the copy-out moves 8 n^2."""
+    assert t_neumann_inv.schedule_bytes(256, **KW) == 614 * 256 * 256 + 4
+    assert t_neumann_inv.schedule_bytes(176, 0, 1, 0) == \
+        (4 + 4 + 8) * 176 * 176 + 4
 
 
 def test_large_plan_splits_long_leaf_lists_and_skips_empty_leaves():
@@ -252,8 +349,8 @@ def test_expected_launches_counts_both_routes():
     per = t_neumann_inv.launches_per_chunk(**KW)
     assert per == 2 * 20 + 2 * 3 + 2 * 2 + 2 == 52
     sides = {128: [528, 0, 192], 256: [720, 48], 176: [1152]}
-    assert t_neumann_inv.expected_launches(sides, **KW) == 1 + 2 * per
-    assert t_neumann_inv.expected_launches({1024: [192]}, **KW) == 4 * per
+    assert t_neumann_inv.expected_launches(sides, **KW) == 1 + 4 * per
+    assert t_neumann_inv.expected_launches({1024: [192]}, **KW) == 6 * per
     assert t_neumann_inv.expected_launches(
         {64: [1] * 40}, **KW) == 2
 
@@ -282,9 +379,15 @@ def test_params_layout_and_vector_flags():
     assert ctypes.sizeof(hilo_bmm.Operand) == 32
     assert hilo_bmm.Params.C.offset == 64
     assert hilo_bmm.Params.E.offset == 88
-    assert hilo_bmm.Params.F.offset == 112
-    assert hilo_bmm.Params.M.offset == 128
-    assert ctypes.sizeof(hilo_bmm.Params) == 152
+    assert hilo_bmm.Params.part.offset == 112
+    assert hilo_bmm.Params.M.offset == 120
+    assert ctypes.sizeof(hilo_bmm.Params) == 144
+    # hilo_tma's: five pointers, two Outs of three, five ints
+    assert ctypes.sizeof(hilo_tma.Out) == 24
+    assert hilo_tma.Params.c.offset == 40
+    assert hilo_tma.Params.f.offset == 64
+    assert hilo_tma.Params.n.offset == 88
+    assert ctypes.sizeof(hilo_tma.Params) == 112
     assert hilo_bmm.operand(1024, 176 * 176, 176).vec == 1
     assert hilo_bmm.operand(1024, 130 * 130, 130).vec == 0
     assert hilo_bmm.operand(1028, 256 * 256, 256).vec == 0

@@ -275,11 +275,12 @@ def test_gram_plan_and_expected_launches():
     assert max(b1 - b0 for b0, b1 in parts) * 4 * (1024 * 1024 + 1) <= \
         hilo_bmm.WORKSPACE_BYTES
     per = t_neumann_inv.launches_per_chunk(**KW)
+    # 1152 blocks of 176: one Gram chunk, neumann_inv's 2 chunks of 576
     assert t_gram.expected_launches(1152, 176, **KW) == \
-        {"fused_gram_inv": 2, "neumann_inv": per}
-    # 192 blocks of 1024: one Gram chunk, neumann_inv's 4 chunks of 48
+        {"fused_gram_inv": 2, "neumann_inv": 2 * per}
+    # 192 blocks of 1024: one Gram chunk, neumann_inv's 6 chunks of 32
     assert t_gram.expected_launches(192, 1024, **KW) == \
-        {"fused_gram_inv": 2, "neumann_inv": 4 * per}
+        {"fused_gram_inv": 2, "neumann_inv": 6 * per}
     assert t_gram.expected_launches(528, 128, **KW) == \
         {"fused_gram_inv": 1, "neumann_inv": 0}
     assert t_gram.expected_launches(0, 256, **KW) == \
