@@ -248,8 +248,11 @@ Phases, each printed as a JSON line:
                  inverses at (256, 64), and fused_gram_inv at 129..1024
                  (T 2048, fp32 and bf16), each against its plain version,
                  float64, its repeat (bitwise) and its plans' launches,
-                 timed beside its plain version, library call and bound,
-                 the Gram inverse against the two-step route too; (e)
+                 timed beside its plain version, library call and bound
+                 (smw_update's solve also alone: its share), the Gram
+                 inverse against the two-step route too; at (2, 1024,
+                 1024) Y, S, Z and out stage by stage against the plain
+                 version's and float64; (e)
                  ``--smw`` at block 256, 4 steps at rank 64 and then 2 at
                  rank 256 (the seeding step and an SMW step: the solve
                  above 128), launches by side and rank, each run's first
@@ -401,7 +404,7 @@ LARGE = dict(
     smw=((8, 64, 129), (8, 64, 176), (8, 64, 256), (4, 64, 512),
          (2, 64, 1024), (8, 128, 256), (8, 129, 176), (4, 256, 256),
          (2, 1024, 1024)),
-    smw_indefinite=(4, 64, 256),
+    smw_indefinite=(4, 64, 256), smw_stages=(2, 1024, 1024),
     gram=((2048, 8, 129), (2048, 8, 176), (2048, 8, 256), (2048, 4, 512),
           (2048, 2, 1024)),
     smw_rank=256)
@@ -1893,6 +1896,53 @@ def woodbury64(inv, v, *, decay, cscale):
     return m - y.transpose(-1, -2) @ torch.linalg.solve(s, y), s
 
 
+def smw_stage_bits(torch, inv, v, *, decay, cscale) -> dict:
+    """Where the large route's rounding goes, stage by stage: Y, S
+    (before 1/c), Z and out of the route (``smw_update.route_stages``, one
+    chunk) and of the plain version, each in bits (:func:`bits`) against
+    its float64 Woodbury stage; the solve alone: the route's blocked LU
+    and the plain version's ``solve_ex`` on the same fp32 S and Y (the
+    plain version's), against float64's solve of those, which tells a
+    solve's own rounding from its inputs'; and out with one stage
+    swapped (the plain version's S and Y through the LU, the route's
+    through ``solve_ex``), which tells which stage loses the bits."""
+    from repro_torch.core.quantize import hilo_matmul
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import smw_update as ks
+
+    inv_decay, inv_c = ref.smw_scalars(decay, cscale)
+    k = v.shape[-2]
+    eye = torch.eye(k, device=v.device)
+    route = ks.route_stages(inv, v, decay=decay, cscale=cscale)
+    m = (inv + inv.transpose(-1, -2)) * inv_decay
+    plain = dict(y=hilo_matmul(v, m))
+    plain["s"] = hilo_matmul(plain["y"], v.transpose(-1, -2))
+    sc = plain["s"] + eye * inv_c
+    plain["z"] = torch.linalg.solve_ex(sc, plain["y"])[0]
+    plain["out"] = m - hilo_matmul(plain["y"].transpose(-1, -2),
+                                   plain["z"])
+    m64 = (inv.double() + inv.double().transpose(-1, -2)) * (0.5 / decay)
+    ex = dict(y=v.double() @ m64)
+    ex["s"] = ex["y"] @ v.double().transpose(-1, -2)
+    ex["z"] = torch.linalg.solve(ex["s"] + eye.double() / cscale, ex["y"])
+    ex["out"] = m64 - ex["y"].transpose(-1, -2) @ ex["z"]
+    row = {f"bits_{name}_{who}": bits(got[name], ex[name])
+           for name in ("y", "s", "z", "out")
+           for who, got in (("route", route), ("plain", plain))}
+    z64 = torch.linalg.solve(sc.double(), plain["y"].double())
+    z_lu = ks.solve(plain["s"], plain["y"], inv_c)
+    row["bits_solve_lu"] = bits(z_lu, z64)
+    row["bits_solve_lapack"] = bits(plain["z"], z64)
+    # out with one stage swapped: the plain version's products and the
+    # LU; the route's Y and S and solve_ex (the last product plain's)
+    row["bits_out_plain_lu"] = bits(
+        m - hilo_matmul(plain["y"].transpose(-1, -2), z_lu), ex["out"])
+    z_rs = torch.linalg.solve_ex(route["s"] + eye * inv_c, route["y"])[0]
+    row["bits_out_route_lapack"] = bits(
+        m - hilo_matmul(route["y"].transpose(-1, -2), z_rs), ex["out"])
+    return row
+
+
 def smw_keeper(kept: dict):
     """``on_step`` of an SMW run that fills ``kept``, on the host (so that
     the path's peak memory is its own): the params and inverses entering
@@ -2118,9 +2168,13 @@ def large_solve_kernels(torch, dev, check, gen):
     on the G side) beside its plain version, its library call
     (``ref.exact_smw_update``: fp32 matmuls and ``torch.linalg.solve``;
     ``ref.exact_gram_inv``: an fp32 einsum and ``torch.linalg.inv``) and
-    its bound; ``fused_gram_inv`` also against the two-step route (the
-    fp32 Gram, then ``neumann_inv``) within the reference's cross-route
-    atol 5e-3. Returns ``(smw rows, gram rows)``."""
+    its bound, ``smw_update``'s solve also alone on the route's S and Y
+    (``solve_ms``, ``solve_share``); at :data:`LARGE`'s ``smw_stages``,
+    unit scale, the route's stages against the plain version's and
+    float64 (:func:`smw_stage_bits`); ``fused_gram_inv`` also against the
+    two-step route (the fp32 Gram, then ``neumann_inv``) within the
+    reference's cross-route atol 5e-3. Returns ``(smw rows, gram
+    rows)``."""
     from repro_torch.core import kfac, soi
     from repro_torch.kernels import fused_gram_solve as kg
     from repro_torch.kernels import ops, ref
@@ -2191,7 +2245,17 @@ def large_solve_kernels(torch, dev, check, gen):
         check(row["repeat_bitwise"], f"{what} bitwise its repeat")
         check(launches == ks.expected_launches(bs, k, nb),
               f"{what} launches")
+        if (nb, k, bs) == LARGE["smw_stages"] and scale == 1.0:
+            row["stages"] = smw_stage_bits(torch, inv, v, **args)
         if scale == 3e-4:
+            # the solve alone, on the route's own S and Y (its share of
+            # the update; ks.solve copies S and Y first)
+            st = ks.route_stages(inv, v, **args)
+            kind = "slab" if k <= ks.ONE_CTA_N else "lu"
+            inv_c = ref.smw_scalars(decay, c)[1]
+            row["solve_ms"] = time_ms(torch, lambda: ks.solve(
+                st["s"], st["y"], inv_c, kind))
+            del st
             # bytes: inv and v read, out written; operations: 3 partials
             # of V M, Y V^T and Y^T Z, and the fp32 solve (LU of k x k,
             # two triangular solves on bs columns)
@@ -2206,6 +2270,7 @@ def large_solve_kernels(torch, dev, check, gen):
                 library_ms=time_ms(torch, lambda: ref.exact_smw_update(
                     inv, v, **args)),
                 bound_ms=b_ms, bound_by=b_by)
+            row["solve_share"] = row["solve_ms"] / row["ms"]
         smw_rows.append(row)
         del inv, v, got, want, w64
 

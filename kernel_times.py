@@ -28,8 +28,16 @@ kernel whose module in the tree takes them (``MAX_N``/``MAX_B`` above
                   1152 x 176) in one grouped call;
   fused_precond   (a)'s tile shapes, pools indexed as a WU plan makes
                   them;
-  smw_update      (d)'s (blocks, k, bs), at the G side's scale;
+  smw_update      (d)'s (blocks, k, bs), at the G side's scale, and the
+                  --smw path's update at block 256 (768 x 256 and 1152 x
+                  176 blocks, at rank 64 and 256) beside
+                  ref.exact_smw_update; the host's enqueue time of one
+                  call at the path's shapes and at (2, 1024, 1024);
   fused_gram_inv  (d)'s (T, nb, n), fp32 and bf16.
+Where the tree's ``smw_update`` has the blocked LU (``lu_schedule``), its
+launches are also timed by kind (panel, update, back substitution; CUDA
+events around each launch, median of 5 solves) at (2, 1024, 1024) and
+the path's rank-256 shapes, on S = N(0, 1) + 30 I and Y = N(0, 1).
 For ``neumann_inv``'s (a) shapes it also gives the host's time to enqueue
 one call (no synchronisation; median of 5). With ``--ablate`` (this
 tree's kernels only) it also builds copies of ``csrc/bitslice_mm.cu``
@@ -63,6 +71,10 @@ KFAC_COUNTS = dict(ns_iters=20, taylor_terms=4, refine_steps=2)
 # (chip_smoke.py phase large_blocks (b)) and the 1024 side at block 1024 (c)
 PATH_SIDES = ((768, 256), (1152, 176), (192, 1024))
 GRAM_ONLY = dict(ns_iters=0, taylor_terms=1, refine_steps=0)
+# smw_update on the --smw path at block 256 (phase large_blocks (e)):
+# (blocks, k, bs) of a step's update at rank 64 and 256
+SMW_PATH = ((768, 64, 256), (1152, 64, 176), (768, 256, 256),
+            (1152, 256, 176))
 
 
 # bitslice_mm.cu cut down, for --ablate: (anchor, replacement) pairs
@@ -281,14 +293,28 @@ def large_routes(torch, ops, dev, gen) -> dict:
             out[f"fused_precond_{nt}x{bi}x{bo}_ms"] = time_ms(
                 torch, lambda: ops.fused_precond(pa, g, pg, a_src, g_src))
     if getattr(ks, "MAX_N", 128) > 128:
-        for nb, k, bs in LARGE["smw"]:
+        from repro_torch.kernels import ref
+
+        for nb, k, bs in tuple(LARGE["smw"]) + SMW_PATH:
             a, lam = damped(nb, bs)
             inv = (torch.linalg.inv(a + lam[:, None, None] * torch.eye(
                 bs, device=dev)) / 3e-4 ** 2).contiguous()
             v = torch.randn(nb, k, bs, device=dev, generator=gen) * 3e-4
-            out[f"smw_update_{nb}x{k}x{bs}_ms"] = time_ms(
-                torch, lambda: ops.smw_update(inv, v, decay=0.95,
-                                              cscale=0.05))
+            tag = f"smw_update_{nb}x{k}x{bs}"
+            kw = dict(decay=0.95, cscale=0.05)
+            out[f"{tag}_ms"] = time_ms(
+                torch, lambda: ops.smw_update(inv, v, **kw))
+            if (nb, k, bs) in SMW_PATH or k == 1024:
+                enqueue = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ops.smw_update(inv, v, **kw)
+                    enqueue.append((time.perf_counter() - t0) * 1e3)
+                out[f"{tag}_enqueue_ms"] = statistics.median(enqueue)
+                out[f"exact_{tag}_ms"] = time_ms(
+                    torch, lambda: ref.exact_smw_update(inv, v, **kw))
+            del a, lam, inv, v
     if getattr(kg, "MAX_N", 128) > 128:
         for t, nb, n in LARGE["gram"]:
             acts = torch.randn(t, nb, n, device=dev, generator=gen)
@@ -298,6 +324,48 @@ def large_routes(torch, ops, dev, gen) -> dict:
                 out[f"fused_gram_inv_{t}x{nb}x{n}_{name}_ms"] = time_ms(
                     torch, lambda: ops.fused_gram_inv(x, rel_damp=0.03,
                                                       **KFAC_COUNTS))
+    return out
+
+
+def lu_breakdown(torch, dev, gen) -> dict:
+    """ms of the blocked LU's launches by kind, a solve at a time."""
+    from repro_torch.kernels import hilo_bmm
+    from repro_torch.kernels import smw_update as ks
+
+    out = {}
+    stream = torch.cuda.current_stream().cuda_stream
+    for nb, k, bs in ((2, 1024, 1024), (768, 256, 256), (1152, 256, 176)):
+        lds, ldy = hilo_bmm.row_stride(k), hilo_bmm.row_stride(bs)
+        s0 = torch.randn(nb, k, lds, device=dev, generator=gen) \
+            + 30 * torch.eye(k, lds, device=dev)
+        s = s0.clone()
+        y = torch.randn(nb, k, ldy, device=dev, generator=gen)
+        z = torch.empty_like(y)
+        piv = torch.empty(nb, lds, dtype=torch.int32, device=dev)
+        op = {"s": (s.data_ptr(), k * lds, lds),
+              "y": (y.data_ptr(), k * ldy, ldy),
+              "z": (z.data_ptr(), k * ldy, ldy),
+              "piv": (piv.data_ptr(), lds, lds)}
+        times = {"panel": [], "update": [], "back": []}
+        for rep in range(6):
+            s.copy_(s0)
+            evs = []
+            for kind, j0, _ in ks.lu_schedule(k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                ks._solve_step(kind, j0, op, nb, k, bs, 1.0, stream, None)
+                e1.record()
+                evs.append((kind, e0, e1))
+            torch.cuda.synchronize()
+            if rep:   # the first warms up
+                for kind in times:
+                    times[kind].append(sum(e0.elapsed_time(e1)
+                                           for kd, e0, e1 in evs
+                                           if kd == kind))
+        for kind, ts in times.items():
+            out[f"lu_{nb}x{k}x{bs}_{kind}_ms"] = statistics.median(ts)
+        del s0, s, y, z, piv
     return out
 
 
@@ -371,6 +439,9 @@ def main() -> int:
         out[f"matmul_{m}_{k}_{n}_loop20_ms"] = time_ms(
             torch, lambda: torch.matmul(x, w), launches=20)
     out.update(large_routes(torch, ops, dev, gen))
+    from repro_torch.kernels import smw_update as ks
+    if hasattr(ks, "lu_schedule"):
+        out.update(lu_breakdown(torch, dev, gen))
     if args.ablate:   # last: it loads three more libraries
         x = torch.randn(2048, 1024, device=dev, generator=gen)
         w = torch.randn(1024, 2816, device=dev, generator=gen)

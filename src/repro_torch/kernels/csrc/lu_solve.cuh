@@ -23,7 +23,9 @@ constexpr int ILP = 8;             // rows a thread updates between stores
 // product with the pivot's reciprocal, as LAPACK's getf2 scales them), read
 // from column j, which nobody writes during the step: no thread waits on
 // another inside a step. U's diagonal goes to udiag (column j keeps its
-// unswapped values). Back substitution: a thread per column of B.
+// unswapped values). Back substitution: a thread per column of B. Every
+// update is an explicit fp32 fma(-l, u, x), the arithmetic of the large
+// route's blocked LU (lu_blocked.cuh), which is bitwise this solve.
 __device__ void lu_solve(float* S, float* B, int k, int bs, float* scratch) {
   int* piv = reinterpret_cast<int*>(scratch);
   float* udiag = scratch + 1;
@@ -75,7 +77,7 @@ __device__ void lu_solve(float* S, float* B, int k, int bs, float* scratch) {
         }
 #pragma unroll
         for (int u = 0; u < ILP; ++u)
-          if (i0 + u < k) col[(i0 + u) * SLD] = x[u] - l[u] * top;
+          if (i0 + u < k) col[(i0 + u) * SLD] = __fmaf_rn(-l[u], top, x[u]);
       }
     }
     __syncthreads();
@@ -95,7 +97,7 @@ __device__ void lu_solve(float* S, float* B, int k, int bs, float* scratch) {
         }
 #pragma unroll
         for (int u = 0; u < ILP; ++u)
-          if (i0 + u < j) col[(i0 + u) * SLD] = y[u] - u_[u] * x;
+          if (i0 + u < j) col[(i0 + u) * SLD] = __fmaf_rn(-u_[u], x, y[u]);
       }
     }
   }

@@ -46,7 +46,10 @@
 // What holds it back now: the k pivot steps of the LU run one after
 // another, each a short chain of shared-memory accesses between two
 // __syncthreads, on one CTA per SM; the bytes are a small share.
+#include <cstdint>
+
 #include "hilo_bmm.cuh"
+#include "lu_blocked.cuh"
 #include "lu_solve.cuh"
 
 using namespace hilo;
@@ -172,13 +175,14 @@ smw_update_kernel(const float* __restrict__ inv, const float* __restrict__ v,
 //                            and a slab of at most 128 columns of Y, S and
 //                            the slab in shared memory, lu_solve as the
 //                            one-CTA kernel runs it;
-//   smw_update_solve_lu      k of 129..1024: S (up to 4 MB) fits no CTA;
-//                            one CTA a block runs a right-looking LU with
-//                            partial pivoting over [S | Z] in the workspace
-//                            (Z starts as a copy of Y), then back
-//                            substitution, with lu_solve's rules: the first
-//                            largest |pivot|, multipliers as a product with
-//                            the pivot's reciprocal, an exactly singular S
+//   smw_update_lu_panel, smw_update_lu_update, smw_update_lu_back
+//                            k of 129..1024: S (up to 4 MB) fits no CTA; a
+//                            blocked right-looking LU with partial pivoting
+//                            over [S | Z] in the workspace, two launches a
+//                            panel of 32 columns and one back substitution
+//                            (lu_blocked.cuh), with lu_solve's rules and its
+//                            per-element arithmetic: Z bitwise the
+//                            unblocked solve's, an exactly singular S
 //                            giving a non-finite out without a host check.
 // The caller issues them in the order of the schedule (kernels/
 // smw_update.py, smw_schedule). A block's arithmetic does not depend on its
@@ -187,12 +191,11 @@ smw_update_kernel(const float* __restrict__ inv, const float* __restrict__ v,
 // What bounds it: bytes at k = 64 (the main path's bs 256 and 176: inv, V
 // and out, ~0.79 GB a refresh), against ~75 GFLOP of partials; the design
 // moves M, Y, S and Z through device memory (the L2 for most of it) and
-// re-reads fp32 operands a 64 x 64 tile at a time, and the LU route's k
-// pivot steps run one after another in one CTA a block.
+// re-reads fp32 operands a 64 x 64 tile at a time; above k 128 the LU's k
+// pivot steps run one after another, one CTA a block.
 
 constexpr int PREP_TILE = 32;
 constexpr int SOLVE_SMEM_BYTES = (2 * NP * SLD + NP + 1) * 4;
-constexpr int LU_THREADS = 512;
 constexpr int LU_MAX = 1024;   // the reference's largest rank
 
 __global__ void __launch_bounds__(PREP_TILE * 8)
@@ -253,119 +256,6 @@ smw_solve_slab_kernel(const float* __restrict__ s, int lds,
   for (int idx = threadIdx.x; idx < k * cols; idx += THREADS) {
     const int i = idx / cols, j = idx % cols;
     zb[static_cast<size_t>(i) * ldy + j] = B[i * SLD + j];
-  }
-}
-
-// Z = (S + I/c)^-1 Y for one block (blockIdx.x), k of 129..LU_MAX, in the
-// workspace: S is factored in place. At step j the CTA finds the pivot row
-// p (the first largest |S[i][j]|, i >= j), writes the multipliers
-// S[i][j] * (1 / U[j][j]) of the rows below j to shared memory (read from
-// column j, which nobody writes during the step), and each thread takes
-// columns of [S | Z] right of j: it swaps rows j and p and eliminates
-// below j. Back substitution: at step j (descending) U's column above j
-// goes to shared memory and each thread takes columns of Z.
-__global__ void __launch_bounds__(LU_THREADS)
-smw_solve_lu_kernel(float* __restrict__ s, int lds,
-                    const float* __restrict__ y, float* __restrict__ z,
-                    int ldy, int k, int bs, float inv_c) {
-  __shared__ float colv[LU_MAX];   // multipliers, then U's column
-  __shared__ float udiag[LU_MAX];
-  __shared__ float wbest[LU_THREADS / 32];
-  __shared__ int wrow[LU_THREADS / 32];
-  __shared__ int piv;
-  const size_t blk = blockIdx.x;
-  float* S = s + blk * k * lds;
-  const float* Y = y + blk * k * ldy;
-  float* Z = z + blk * k * ldy;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int idx = tid; idx < k * bs; idx += LU_THREADS) {
-    const int i = idx / bs, j = idx % bs;
-    Z[static_cast<size_t>(i) * ldy + j] = Y[static_cast<size_t>(i) * ldy + j];
-  }
-  for (int i = tid; i < k; i += LU_THREADS) {
-    float* d = S + static_cast<size_t>(i) * lds + i;
-    *d = *d + inv_c;
-  }
-  __syncthreads();
-  for (int j = 0; j < k; ++j) {
-    float best = -1.f;
-    int p = j;
-    for (int i = j + tid; i < k; i += LU_THREADS) {
-      const float a = fabsf(S[static_cast<size_t>(i) * lds + j]);
-      if (a > best) {
-        best = a;
-        p = i;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-      const int op = __shfl_xor_sync(0xffffffffu, p, off);
-      if (ob > best || (ob == best && op < p)) {
-        best = ob;
-        p = op;
-      }
-    }
-    if (lane == 0) {
-      wbest[warp] = best;
-      wrow[warp] = p;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < LU_THREADS / 32; ++w)
-        if (wbest[w] > best || (wbest[w] == best && wrow[w] < p)) {
-          best = wbest[w];
-          p = wrow[w];
-        }
-      piv = p;
-      udiag[j] = S[static_cast<size_t>(p) * lds + j];
-    }
-    __syncthreads();
-    p = piv;
-    const float r = 1.f / udiag[j];
-    for (int i = j + 1 + tid; i < k; i += LU_THREADS)
-      colv[i] = S[static_cast<size_t>(i == p ? j : i) * lds + j] * r;
-    __syncthreads();
-    const int ws = k - j - 1;   // S columns right of j
-    for (int c = tid; c < ws + bs; c += LU_THREADS) {
-      float* col = c < ws ? S + j + 1 + c : Z + (c - ws);
-      const size_t ld = c < ws ? lds : ldy;
-      const float top = col[p * ld];
-      const float was = col[j * ld];
-      col[j * ld] = top;
-      col[p * ld] = was;
-      for (int i0 = j + 1; i0 < k; i0 += ILP) {
-        float x[ILP];
-#pragma unroll
-        for (int u = 0; u < ILP; ++u)
-          x[u] = i0 + u < k ? col[(i0 + u) * ld] : 0.f;
-#pragma unroll
-        for (int u = 0; u < ILP; ++u)
-          if (i0 + u < k) col[(i0 + u) * ld] = x[u] - colv[i0 + u] * top;
-      }
-    }
-    __syncthreads();
-  }
-  for (int j = k - 1; j >= 0; --j) {
-    for (int i = tid; i < j; i += LU_THREADS)
-      colv[i] = S[static_cast<size_t>(i) * lds + j];
-    __syncthreads();
-    for (int c = tid; c < bs; c += LU_THREADS) {
-      float* col = Z + c;
-      const size_t ld = ldy;
-      const float x = col[j * ld] / udiag[j];
-      col[j * ld] = x;
-      for (int i0 = 0; i0 < j; i0 += ILP) {
-        float v[ILP];
-#pragma unroll
-        for (int u = 0; u < ILP; ++u) v[u] = i0 + u < j ? col[(i0 + u) * ld]
-                                                        : 0.f;
-#pragma unroll
-        for (int u = 0; u < ILP; ++u)
-          if (i0 + u < j) col[(i0 + u) * ld] = v[u] - colv[i0 + u] * x;
-      }
-    }
-    __syncthreads();
   }
 }
 
@@ -436,17 +326,67 @@ extern "C" int smw_update_solve_slab(const float* s, int lds, const float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Large route, k of 129..1024: the same solve, one CTA a block, s factored
-// in place.
-extern "C" int smw_update_solve_lu(float* s, int lds, const float* y,
-                                   float* z, int ldy, int nb, int k, int bs,
-                                   float inv_c, void* stream) {
-  if (nb < 1 || k < 1 || k > LU_MAX || bs < 1 || lds < k || ldy < bs ||
-      !s || !y || !z)
+// Large route, k of 129..1024 (any k of 1..1024 is taken): the blocked LU
+// of lu_blocked.cuh, its launches in smw_schedule's order. s (k x k, rows
+// lds apart, lds a multiple of 4, 16-byte aligned) is factored in place;
+// rows holds k ints a block (ldp apart): the sources of each panel's rows.
+static bool lu_args(const float* s, int lds, int nb, int k, int ldp) {
+  return s && nb >= 1 && k >= 1 && k <= lub::MAX_K && lds >= k &&
+         lds % 4 == 0 && ldp >= k &&
+         reinterpret_cast<uintptr_t>(s) % 16 == 0;
+}
+
+// The panel [j0, j0 + 32) of every block.
+extern "C" int smw_update_lu_panel(float* s, int lds, int* rows, int ldp,
+                                   int nb, int k, int j0, float inv_c,
+                                   void* stream) {
+  if (!lu_args(s, lds, nb, k, ldp) || !rows || j0 < 0 || j0 >= k ||
+      j0 % lub::PANEL)
     return static_cast<int>(cudaErrorInvalidValue);
-  smw_solve_lu_kernel<<<nb, LU_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      s, lds, y, z, ldy, k, bs, inv_c);
+  const int nr = k - j0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nr <= lub::PANEL_THREADS)
+    lub::panel_kernel<1><<<nb, (nr + 31) / 32 * 32, 0, st>>>(
+        s, lds, rows, ldp, k, j0, inv_c);
+  else
+    lub::panel_kernel<2><<<nb, ((nr + 1) / 2 + 31) / 32 * 32, 0, st>>>(
+        s, lds, rows, ldp, k, j0, inv_c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The panel [j0, j0 + 32) applied to the columns right of it, S's and Z's
+// (y, z: k x bs, rows ldy apart; the first panel reads y).
+extern "C" int smw_update_lu_update(float* s, int lds, const float* y,
+                                    float* z, int ldy, const int* rows,
+                                    int ldp, int nb, int k, int bs, int j0,
+                                    float inv_c, void* stream) {
+  if (!lu_args(s, lds, nb, k, ldp) || !rows || !y || !z || bs < 1 ||
+      ldy < bs || j0 < 0 || j0 >= k || j0 % lub::PANEL || nb > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int j1 = j0 + lub::PANEL < k ? j0 + lub::PANEL : k;
+  const int slabs = (k - j1 + lub::CW - 1) / lub::CW +
+                    (bs + lub::CW - 1) / lub::CW;
+  lub::update_kernel<<<dim3(slabs, nb), lub::SLAB_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      s, lds, y, z, ldy, rows, ldp, k, bs, j0, inv_c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Z = U^-1 Z with U the factored s's upper triangle.
+extern "C" int smw_update_lu_back(const float* s, int lds, float* z,
+                                  int ldy, int nb, int k, int bs,
+                                  void* stream) {
+  if (!lu_args(s, lds, nb, k, k) || !z || bs < 1 || ldy < bs ||
+      nb > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = k * lub::ZLD * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      lub::back_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lub::back_kernel<<<dim3((bs + lub::CW - 1) / lub::CW, nb),
+                     lub::SLAB_THREADS, smem,
+                     static_cast<cudaStream_t>(stream)>>>(s, lds, z, ldy, k,
+                                                          bs);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,8 +15,10 @@ every product hi/lo bit-sliced. Two routes:
   ``hilo_bmm.WORKSPACE_BYTES``), with M, Y, S and Z in a workspace
   allocated here on the launches' stream: the symmetrisation, two batched
   hi/lo products of ``csrc/hilo_bmm.cuh``, the solve (a slab kernel for
-  k <= 128, an LU in the workspace above) and the correction's product,
-  which writes the output.
+  k <= 128; above, a blocked LU with partial pivoting, two launches a
+  panel of :data:`PANEL` columns and a back substitution,
+  ``csrc/lu_blocked.cuh``) and the correction's product, which writes the
+  output.
 
 The CUDA source states what bounds each route and how its design answers
 that. Unlike the TPU kernel, k and bs are not padded to 128. The plain
@@ -37,26 +39,49 @@ from repro_torch.kernels.ref import smw_scalars
 MAX_N = hilo_bmm.MAX_SIDE
 #: largest block side and rank of the one-CTA route
 ONE_CTA_N = 128
+#: columns of one panel of the blocked LU (k above :data:`ONE_CTA_N`)
+PANEL = 32
 #: workspace buffers of the large route, per block: M (bs x bs), Y (k x
-#: bs), S (k x k), Z (k x bs), rows ``hilo_bmm.row_stride`` apart
-BUFFERS = ("m", "y", "s", "z")
+#: bs), S (k x k), Z (k x bs), rows ``hilo_bmm.row_stride`` apart, and
+#: above k 128 the LU's row sources (k int32)
+BUFFERS = ("m", "y", "s", "z", "piv")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SOLVE = [_P, _I, _P, _P, _I, _I, _I, _I, _F, _P]
 LIB = CudaLibrary("smw_update", "smw_update.cu", {
     "smw_update_launch": [_P, _P, _P, _I, _I, _I, _F, _F, _P],
     "smw_update_prep": [_P, _P, _I, _I, _I, _F, _P],
     "smw_update_product": [ctypes.POINTER(hilo_bmm.Params), _I, _I, _I, _I,
                            _P],
-    "smw_update_solve_slab": _SOLVE,
-    "smw_update_solve_lu": _SOLVE})
+    "smw_update_solve_slab": [_P, _I, _P, _P, _I, _I, _I, _I, _F, _P],
+    "smw_update_lu_panel": [_P, _I, _P, _I, _I, _I, _I, _F, _P],
+    "smw_update_lu_update": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                             _F, _P],
+    "smw_update_lu_back": [_P, _I, _P, _I, _I, _I, _I, _P]})
 
 
 def buffer_shapes(bs: int, k: int) -> dict:
     """(rows, columns) of one block of each operand: the caller's
-    ``inv``, ``v`` and ``out`` and the workspace's :data:`BUFFERS`."""
+    ``inv``, ``v`` and ``out`` and the workspace's :data:`BUFFERS` (the
+    row sources ``piv`` only above k 128, where the LU runs)."""
     return {"inv": (bs, bs), "v": (k, bs), "out": (bs, bs), "m": (bs, bs),
-            "y": (k, bs), "s": (k, k), "z": (k, bs)}
+            "y": (k, bs), "s": (k, k), "z": (k, bs),
+            "piv": (int(k > ONE_CTA_N), k)}
+
+
+def lu_schedule(k: int) -> list:
+    """The blocked LU's launches for rank ``k``, in order, as
+    ``(kind, j0, j1)``: for each panel of :data:`PANEL` columns
+    ``[j0, j1)`` (the last one ragged), ``"panel"`` (one CTA a block
+    factors it: pivot search, swaps, multipliers, the panel's rank-1
+    updates; it writes L's panel, U11 and the rows' sources) and
+    ``"update"`` (the columns right of it, S's and Z's, over many CTAs a
+    block: the swaps, U12 = L11^-1 A12, A22 -= L21 U12); then ``("back",
+    0, k)``, Z = U^-1 Z."""
+    steps = []
+    for j0 in range(0, k, PANEL):
+        j1 = min(j0 + PANEL, k)
+        steps += [("panel", j0, j1), ("update", j0, j1)]
+    return steps + [("back", 0, k)]
 
 
 def smw_schedule(k: int) -> list:
@@ -69,20 +94,33 @@ def smw_schedule(k: int) -> list:
       op(R)))`` (``hilo_bmm`` modes and epilogues; ``lt``/``rt`` read the
       operand transposed; E only where the epilogue reads it):
       ``Y = hilo(V, M)``, ``S = hilo(Y, V^T)``, ``out = M - hilo(Y^T, Z)``;
-    * ``("solve", kind, S, Y, Z)``: ``Z = (S + I/c)^-1 Y``, the diagonal
-      term added as ``acc + 1/c``; ``kind`` "slab" for k <= 128 (S and a
-      slab of Y's columns in one CTA's shared memory), "lu" above (S
-      factored in place in the workspace)."""
+    * ``("solve", kind, j0, j1, reads, writes)``: the launches of
+      ``Z = (S + I/c)^-1 Y`` (the diagonal term added as ``acc + 1/c``),
+      with the buffers each reads and writes: for k <= 128 one ``"slab"``
+      (S and a slab of Y's columns in one CTA's shared memory); above, the
+      blocked LU of :func:`lu_schedule` (S factored in place, Z made from
+      Y by the first panel's update)."""
     fl, st, sub = hilo_bmm.FULL, hilo_bmm.STORE, hilo_bmm.SUB
+    if k <= ONE_CTA_N:
+        solve = [("solve", "slab", 0, k, ("s", "y"), ("z",))]
+    else:
+        solve = []
+        for kind, j0, j1 in lu_schedule(k):
+            reads, writes = {"panel": (("s",), ("s", "piv")),
+                             "update": (("s", "piv", "z" if j0 else "y"),
+                                        ("s", "z")),
+                             "back": (("s", "z"), ("z",))}[kind]
+            solve.append(("solve", kind, j0, j1, reads, writes))
     return [("prep", "inv", "m"),
             ("product", fl, st, "v", False, "m", False, "y", None),
             ("product", fl, st, "y", False, "v", True, "s", None),
-            ("solve", "slab" if k <= ONE_CTA_N else "lu", "s", "y", "z"),
+            *solve,
             ("product", fl, sub, "y", True, "z", False, "out", "m")]
 
 
 def block_bytes(bs: int, k: int) -> int:
-    """Workspace bytes of one block on the large route."""
+    """Workspace bytes of one block on the large route (4 a float or an
+    int32)."""
     shapes = buffer_shapes(bs, k)
     return 4 * sum(shapes[b][0] * hilo_bmm.row_stride(shapes[b][1])
                    for b in BUFFERS)
@@ -168,47 +206,147 @@ def _large(inv, v, out, inv_decay: float, inv_c: float, stream,
     """The large route, chunk by chunk on ``stream``, the workspace
     allocated on it (the current stream)."""
     n, k, bs = v.shape
-    shapes = buffer_shapes(bs, k)
-    ld = {b: hilo_bmm.row_stride(shapes[b][1]) for b in BUFFERS}
     parts = smw_plan(n, bs, k)
     ws = torch.empty(max(b1 - b0 for b0, b1 in parts)
                      * block_bytes(bs, k) // 4, dtype=torch.float32,
                      device=v.device)
+    for b0, b1 in parts:
+        op = _operands(inv, v, out, ws, b0, b1)
+        _run(smw_schedule(k), op, b1 - b0, k, bs, inv_decay, inv_c, stream,
+             key)
+
+
+def _operands(inv, v, out, ws, b0: int, b1: int) -> dict:
+    """name -> (address, block stride, row stride) of every operand of
+    the chunk ``[b0, b1)``, strides in elements, the workspace's buffers
+    one after another in ``ws``."""
+    n, k, bs = v.shape
+    shapes = buffer_shapes(bs, k)
+    op = {name: (hilo_bmm.elem_ptr(t, b0 * t.shape[1] * t.shape[2]),
+                 t.shape[1] * t.shape[2], t.shape[2])
+          for name, t in (("inv", inv), ("v", v), ("out", out))}
+    off = 0
+    for name in BUFFERS:
+        rows, ld = shapes[name][0], hilo_bmm.row_stride(shapes[name][1])
+        op[name] = (hilo_bmm.elem_ptr(ws, off), rows * ld, ld)
+        off += (b1 - b0) * rows * ld
+    return op
+
+
+def _run(steps, op: dict, cb: int, k: int, bs: int, inv_decay: float,
+         inv_c: float, stream, key: str) -> None:
+    """Enqueue ``steps`` (:func:`smw_schedule`'s) on ``cb`` blocks."""
+    shapes = buffer_shapes(bs, k)
 
     def dims(name, transposed):
         r, c = shapes[name]
         return (c, r) if transposed else (r, c)
 
-    for b0, b1 in parts:
-        cb = b1 - b0
-        # name -> (address, block stride, row stride), in floats
-        op = {name: (hilo_bmm.elem_ptr(t, b0 * t.shape[1] * t.shape[2]),
-                     t.shape[1] * t.shape[2], t.shape[2])
-              for name, t in (("inv", inv), ("v", v), ("out", out))}
-        off = 0
-        for name in BUFFERS:
-            rows = shapes[name][0]
-            op[name] = (hilo_bmm.elem_ptr(ws, off), rows * ld[name],
-                        ld[name])
-            off += cb * rows * ld[name]
-        for step in smw_schedule(k):
-            if step[0] == "prep":
-                _, src, dst = step
-                LIB.launch("smw_update_prep", op[src][0], op[dst][0], cb,
-                           bs, op[dst][2], inv_decay, stream, key=key)
-            elif step[0] == "product":
-                _, mode, epi, lft, lt, rgt, rt, c, e = step
-                m_rows, depth = dims(lft, lt)
-                _, n_cols = dims(rgt, rt)
-                ext = dict(e=op[e][0], e_stride=op[e][1], lde=op[e][2]) \
-                    if e else {}
-                p = hilo_bmm.params(hilo_bmm.operand(*op[lft]),
-                                    hilo_bmm.operand(*op[rgt]), *op[c],
-                                    m_rows, n_cols, depth, cb, **ext)
-                LIB.launch("smw_update_product", ctypes.byref(p), mode, epi,
-                           int(lt), int(rt), stream, key=key)
-            else:
-                _, kind, s, y, z = step
-                LIB.launch(f"smw_update_solve_{kind}", op[s][0], op[s][2],
-                           op[y][0], op[z][0], op[y][2], cb, k, bs, inv_c,
-                           stream, key=key)
+    for step in steps:
+        if step[0] == "prep":
+            _, src, dst = step
+            LIB.launch("smw_update_prep", op[src][0], op[dst][0], cb, bs,
+                       op[dst][2], inv_decay, stream, key=key)
+        elif step[0] == "product":
+            _, mode, epi, lft, lt, rgt, rt, c, e = step
+            m_rows, depth = dims(lft, lt)
+            _, n_cols = dims(rgt, rt)
+            ext = dict(e=op[e][0], e_stride=op[e][1], lde=op[e][2]) \
+                if e else {}
+            p = hilo_bmm.params(hilo_bmm.operand(*op[lft]),
+                                hilo_bmm.operand(*op[rgt]), *op[c],
+                                m_rows, n_cols, depth, cb, **ext)
+            LIB.launch("smw_update_product", ctypes.byref(p), mode, epi,
+                       int(lt), int(rt), stream, key=key)
+        else:
+            _solve_step(step[1], step[2], op, cb, k, bs, inv_c, stream, key)
+
+
+def _solve_step(kind: str, j0: int, op: dict, cb: int, k: int, bs: int,
+                inv_c: float, stream, key: str) -> None:
+    s, lds = op["s"][0], op["s"][2]
+    y, z, ldy = op["y"][0], op["z"][0], op["y"][2]
+    if kind == "slab":
+        LIB.launch("smw_update_solve_slab", s, lds, y, z, ldy, cb, k, bs,
+                   inv_c, stream, key=key)
+    elif kind == "panel":
+        LIB.launch("smw_update_lu_panel", s, lds, op["piv"][0],
+                   op["piv"][1], cb, k, j0, inv_c, stream, key=key)
+    elif kind == "update":
+        LIB.launch("smw_update_lu_update", s, lds, y, z, ldy, op["piv"][0],
+                   op["piv"][1], cb, k, bs, j0, inv_c, stream, key=key)
+    else:
+        LIB.launch("smw_update_lu_back", s, lds, z, ldy, cb, k, bs, stream,
+                   key=key)
+
+
+def solve(s: torch.Tensor, y: torch.Tensor, inv_c: float,
+          kind: str = "lu") -> torch.Tensor:
+    """``Z = (S + I/c)^-1 Y`` for (N, k, k) ``s`` and (N, k, bs) ``y``,
+    fp32 CUDA, k and bs up to 1024, by the large route's solve kernels
+    alone on the current stream: ``"lu"``, the blocked LU (any k; the
+    route takes it above 128), or ``"slab"`` (k <= 128). ``s`` is
+    copied first (the LU factors its copy). Launches are counted under
+    the key ``solve_{kind}_k{k}``."""
+    if not (s.is_cuda and y.is_cuda) or s.dtype != torch.float32 \
+            or y.dtype != torch.float32:
+        raise ValueError("smw_update.solve takes fp32 CUDA tensors")
+    n, k, bs = y.shape
+    if tuple(s.shape) != (n, k, k) or not 1 <= bs <= MAX_N \
+            or not 1 <= k <= (ONE_CTA_N if kind == "slab" else MAX_N):
+        raise ValueError(f"smw_update.solve ({kind}): s {tuple(s.shape)}, "
+                         f"y {tuple(y.shape)}")
+    lds, ldy = hilo_bmm.row_stride(k), hilo_bmm.row_stride(bs)
+    sw = torch.zeros(n, k, lds, dtype=torch.float32, device=s.device)
+    sw[..., :k] = s
+    yw = torch.zeros(n, k, ldy, dtype=torch.float32, device=s.device)
+    yw[..., :bs] = y
+    zw = torch.empty_like(yw)
+    piv = torch.empty(n, lds, dtype=torch.int32, device=s.device)
+    op = {"s": (sw.data_ptr(), k * lds, lds),
+          "y": (yw.data_ptr(), k * ldy, ldy),
+          "z": (zw.data_ptr(), k * ldy, ldy),
+          "piv": (piv.data_ptr(), lds, lds)}
+    steps = [("slab", 0)] if kind == "slab" else \
+        [(kd, j0) for kd, j0, _ in lu_schedule(k)]
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream(s.device).cuda_stream
+        for kd, j0 in steps:
+            _solve_step(kd, j0, op, n, k, bs, inv_c, stream,
+                        f"solve_{kind}_k{k}")
+    return zw[..., :bs]
+
+
+def route_stages(inv: torch.Tensor, v: torch.Tensor, *, decay: float,
+                 cscale: float) -> dict:
+    """The large route's intermediates on (N, bs, bs) ``inv`` and (N, k,
+    bs) ``v`` in one chunk (N within :func:`smw_plan`'s first): ``y``,
+    ``s`` (before the solve, without 1/c), ``z`` and ``out``, fp32
+    copies, for checks of where its rounding goes."""
+    _check(inv, v)
+    n, k, bs = v.shape
+    if max(bs, k) <= ONE_CTA_N or smw_plan(n, bs, k)[0] != (0, n):
+        raise ValueError("route_stages takes one chunk of the large route")
+    inv_decay, inv_c = smw_scalars(decay, cscale)
+    out = torch.empty_like(inv)
+    ws = torch.empty(n * block_bytes(bs, k) // 4, dtype=torch.float32,
+                     device=v.device)
+    op = _operands(inv, v, out, ws, 0, n)
+    shapes = buffer_shapes(bs, k)
+
+    def view(name):
+        r, c = shapes[name]
+        off = (op[name][0] - ws.data_ptr()) // 4
+        ld = op[name][2]
+        return ws[off:off + n * r * ld].view(n, r, ld)[..., :c].clone()
+
+    steps = smw_schedule(k)
+    first = next(i for i, st in enumerate(steps) if st[0] == "solve")
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        key = launch_key(bs, k)
+        _run(steps[:first], op, n, k, bs, inv_decay, inv_c, stream, key)
+        got = {"y": view("y"), "s": view("s")}
+        _run(steps[first:], op, n, k, bs, inv_decay, inv_c, stream, key)
+        got.update(z=view("z"), out=out)
+    return got

@@ -601,7 +601,7 @@ def test_smw_update_kernel_refuses_large_rank(cuda_device):
 # the shapes of chip_smoke.py's phase large_blocks (d), fewer blocks
 LARGE_SMW = [(3, 64, 129), (4, 64, 176), (3, 64, 256), (2, 64, 512),
              (2, 64, 1024), (3, 128, 256), (3, 129, 176), (2, 256, 256),
-             (2, 1024, 1024), (3, 160, 96)]
+             (2, 1024, 1024), (3, 160, 96), (2, 1000, 1024)]
 
 
 @pytest.mark.cuda
@@ -610,8 +610,9 @@ LARGE_SMW = [(3, 64, 129), (4, 64, 176), (3, 64, 256), (2, 64, 512),
 def test_smw_update_large_kernel_matches_plain(cuda_device, n, k, bs, scale,
                                                c):
     """The large route against the plain version at unit and G-side
-    scale, its launches (5 a chunk, keyed by shape) and bitwise its
-    repeat."""
+    scale, its launches (``expected_launches``: 5 a chunk up to k 128,
+    then two a panel of the LU more; keyed by shape) and bitwise its
+    repeat; k 1000 ends on a ragged panel of 8."""
     from repro_torch.kernels import smw_update as ks
 
     inv, v = (torch.from_numpy(x).to(cuda_device)
@@ -619,9 +620,10 @@ def test_smw_update_large_kernel_matches_plain(cuda_device, n, k, bs, scale,
     ops.reset_launch_counts()
     got = ops.smw_update(inv, v, decay=0.95, cscale=c)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["smw_update"] == \
-        ks.expected_launches(bs, k, n) == 5
-    assert ops.launch_keys()["smw_update"] == {f"bs{bs}k{k}": 5}
+    want = ks.expected_launches(bs, k, n)
+    assert want == len(ks.smw_schedule(k))   # one chunk
+    assert ops.launch_counts()["smw_update"] == want
+    assert ops.launch_keys()["smw_update"] == {f"bs{bs}k{k}": want}
     want = tref.smw_update_ref(inv, v, decay=0.95, cscale=c)
     assert got.shape == want.shape == (n, bs, bs)
     assert torch.isfinite(got).all()
@@ -708,8 +710,63 @@ def test_smw_update_large_chunks_are_bitwise_one_chunk(cuda_device,
     ops.reset_launch_counts()
     parts = ops.smw_update(inv, v, decay=0.95, cscale=0.05)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["smw_update"] == 3 * 5
+    assert ops.launch_counts()["smw_update"] == 3 * len(ks.smw_schedule(k))
     assert torch.equal(whole, parts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 100])
+def test_smw_lu_solve_is_the_slab_solve_bitwise(cuda_device, k):
+    """The blocked LU launched alone on k <= 128 (the route takes it
+    above): every entry of Z goes through the operations of the slab
+    kernel's unblocked elimination in its order (explicit fp32 fmas on
+    both), so Z is bitwise the slab solve's; k 100 ends on a ragged
+    panel of 4."""
+    from repro_torch.core.quantize import hilo_matmul
+    from repro_torch.kernels import smw_update as ks
+
+    inv, v = (torch.from_numpy(x).to(cuda_device)
+              for x in _smw_case(k, 3, k, 256, 1.0))
+    m = (inv + inv.transpose(1, 2)) * (0.5 / 0.95)
+    y = hilo_matmul(v, m).contiguous()
+    s = hilo_matmul(y, v.transpose(1, 2)).contiguous()
+    inv_c = 2048 / 0.05
+    ops.reset_launch_counts()
+    lu = ks.solve(s, y, inv_c, "lu")
+    slab = ks.solve(s, y, inv_c, "slab")
+    torch.cuda.synchronize()
+    assert ops.launch_keys()["smw_update"] == {
+        f"solve_lu_k{k}": len(ks.lu_schedule(k)), f"solve_slab_k{k}": 1}
+    assert torch.isfinite(lu).all()
+    assert torch.equal(lu, slab)
+    want = torch.linalg.solve(s + torch.eye(k, device=cuda_device) * inv_c,
+                              y)
+    assert (lu - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_smw_update_large_route_stages(cuda_device):
+    """``route_stages`` runs the route's own launches: its out is bitwise
+    a call's, its S and Y within the tolerance of the plain products, and
+    Z solves (S + I/c) Z = Y."""
+    from repro_torch.core.quantize import hilo_matmul
+    from repro_torch.kernels import smw_update as ks
+
+    inv, v = (torch.from_numpy(x).to(cuda_device)
+              for x in _smw_case(3, 2, 160, 176, 1.0))
+    got = ks.route_stages(inv, v, decay=0.95, cscale=0.05)
+    assert torch.equal(got["out"], ops.smw_update(inv, v, decay=0.95,
+                                                  cscale=0.05))
+    m = (inv + inv.transpose(1, 2)) * (0.5 / 0.95)
+    y = hilo_matmul(v, m)
+    s = hilo_matmul(y, v.transpose(1, 2))
+    for name, want in (("y", y), ("s", s)):
+        assert (got[name] - want).abs().max() <= 1e-4 * want.abs().max()
+    sc = got["s"].double() + torch.eye(160, device=cuda_device,
+                                       dtype=torch.float64) / 0.05
+    z = got["z"].double()
+    resid = sc @ z - got["y"].double()
+    assert resid.abs().max() <= 1e-4 * (sc.abs() @ z.abs()).max()
 
 
 @pytest.mark.cuda

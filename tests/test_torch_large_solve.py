@@ -17,7 +17,14 @@ The CUDA routes themselves run only on the card (tests/test_torch_cuda.py,
     (``hilo_matmul`` for each product, ``solve_ex`` for the solve, the
     finish's division and damping), bitwise ``smw_update_ref`` and
     ``fused_gram_inv_ref``, for k <= 128 (the slab solve) and k > 128
-    (the LU); no product writes an operand it reads;
+    (the blocked LU); no product writes an operand it reads;
+  * the blocked LU's launches (panel, update, back substitution) emulated
+    kernel by kernel in their own order of operations, against an
+    unblocked emulation of ``lu_solve``'s rules: bitwise in fp32 at k of
+    129, 160, 200 (a ragged last panel), 256 and 1024, pivots too; within
+    1e-10 of ``torch.linalg.solve`` in float64 with
+    ``torch.linalg.lu_factor``'s pivots; non-finite on an exactly
+    singular S (two equal rows, 1/c = 0);
   * the plans and chunks as pure functions, and ``expected_launches``;
   * a 2-step ``KFACProgram(smw=True)`` trajectory at block 256 on the
     narrow model (sides 256 and 176) against the reference's.
@@ -138,8 +145,9 @@ def test_fused_gram_inv_plain_matches_pallas_kernel_above_128(n, dtype):
 def _smw_emulate(inv, v, *, decay, cscale):
     """The large route on the CPU: the prep kernel's M, each product's
     partials and epilogue, the solve as ``solve_ex`` (the slab and the
-    LU kernel both solve (S + I/c) Z = Y, the diagonal term added as
-    ``acc + 1/c``), in :func:`smw_schedule`'s order."""
+    blocked LU both solve (S + I/c) Z = Y, the diagonal term added as
+    ``acc + 1/c``; it stands in at the solve's last launch), in
+    :func:`smw_schedule`'s order."""
     inv_decay, inv_c = tref.smw_scalars(decay, cscale)
     k = v.shape[-2]
     buf = {"inv": inv, "v": v}
@@ -160,11 +168,193 @@ def _smw_emulate(inv, v, *, decay, cscale):
             else:
                 raise AssertionError(f"epilogue {epi} in the update")
         else:
-            _, kind, s, y, z = step
-            assert kind == ("slab" if k <= 128 else "lu")
-            eye = torch.eye(k, dtype=torch.float32)
-            buf[z] = torch.linalg.solve_ex(buf[s] + eye * inv_c, buf[y])[0]
+            _, kind, _, _, _, _ = step
+            assert (kind == "slab") == (k <= 128)
+            if kind in ("slab", "back"):
+                eye = torch.eye(k, dtype=torch.float32)
+                buf["z"] = torch.linalg.solve_ex(buf["s"] + eye * inv_c,
+                                                 buf["y"])[0]
     return buf["out"]
+
+
+def _first_largest(col):
+    """lu_solve's pivot rule: the first largest |x| (NaN never taken;
+    the first row if every entry is NaN)."""
+    a = col.abs()
+    a = torch.where(torch.isnan(a), torch.full_like(a, -1.0), a)
+    return int(torch.argmax(a))   # the first of equal maxima
+
+
+def _lu_unblocked(s, y, inv_c):
+    """Z = (S + I/c)^-1 Y by lu_solve's rules, a column at a time: the
+    pivot by :func:`_first_largest`, rows swapped, multipliers
+    ``x * (1 / pivot)``, each step's update ``x - l * u`` over [S | Z];
+    then back substitution ``z_i - u_ij * z_j`` for descending j, then
+    ``z_j / u_jj``. Returns (Z, pivots)."""
+    k = s.shape[0]
+    a, z = s.clone(), y.clone()
+    a.diagonal().add_(inv_c)
+    one = torch.ones((), dtype=s.dtype)
+    piv = []
+    for j in range(k):
+        p = j + _first_largest(a[j:, j])
+        piv.append(p)
+        a[[j, p]], z[[j, p]] = a[[p, j]], z[[p, j]]
+        r = one / a[j, j]
+        lcol = a[j + 1:, j:j + 1] * r
+        a[j + 1:, j:j + 1] = lcol
+        a[j + 1:, j + 1:] = a[j + 1:, j + 1:] - lcol * a[j:j + 1, j + 1:]
+        z[j + 1:] = z[j + 1:] - lcol * z[j:j + 1]
+    for j in range(k - 1, -1, -1):
+        z[j] = z[j] / a[j, j]
+        z[:j] = z[:j] - a[:j, j:j + 1] * z[j:j + 1]
+    return z, piv
+
+
+def _lu_blocked(s, y, inv_c):
+    """The same solve by the blocked LU's launches (the solve steps of
+    :func:`smw_schedule`), each kernel emulated on the CPU with its own
+    order of operations: ``panel`` factors rows j0..k-1 of its columns
+    (rows swapped whole inside the panel, the rank-1 updates of the
+    panel's columns) and records each row's source; ``update`` gathers
+    the columns right of it by those sources, solves U12 = L11^-1 A12 row
+    by row (``x - l * u`` for ascending t) and updates A22 as w
+    sequential rank-1 steps (``acc - l[:, t:t+1] * u[t:t+1, :]``);
+    ``back`` solves each panel's diagonal block from the last (``z_i -
+    u_ij z_j`` for descending j, then ``z_j / u_jj``), then the rows
+    above it for its columns in descending order. The first panel adds
+    1/c to the diagonal and its update reads Y. Returns (Z, pivots)."""
+    k, bs = y.shape
+    a = s.clone()
+    z = torch.empty_like(y)
+    one = torch.ones((), dtype=s.dtype)
+    src = list(range(k))
+    piv = []
+    for step in t_smw.smw_schedule(k):
+        if step[0] != "solve":
+            continue
+        _, kind, j0, j1, reads, _ = step
+        if kind == "panel":
+            if j0 == 0:
+                a.diagonal().add_(inv_c)
+            blk = a[j0:, j0:j1].clone()
+            order = list(range(j0, k))
+            for t in range(j1 - j0):
+                p = t + _first_largest(blk[t:, t])
+                piv.append(j0 + p)
+                blk[[t, p]] = blk[[p, t]]
+                order[t], order[p] = order[p], order[t]
+                r = one / blk[t, t]
+                lcol = blk[t + 1:, t:t + 1] * r
+                blk[t + 1:, t:t + 1] = lcol
+                blk[t + 1:, t + 1:] = blk[t + 1:, t + 1:] \
+                    - lcol * blk[t:t + 1, t + 1:]
+            a[j0:, j0:j1] = blk
+            src[j0:] = order
+            # what the update kernel's gather relies on: a row below the
+            # panel that moved took one of the panel's rows
+            assert all(j0 <= order[r - j0] < j1 for r in range(j1, k)
+                       if order[r - j0] != r)
+        elif kind == "update":
+            rhs = torch.cat([a[:, j1:], y if "y" in reads else z], dim=1)
+            rhs[j0:] = rhs[src[j0:]].clone()
+            for t in range(j1 - j0):
+                for q in range(t):
+                    rhs[j0 + t] = rhs[j0 + t] - a[j0 + t, j0 + q] \
+                        * rhs[j0 + q]
+            for t in range(j1 - j0):
+                rhs[j1:] = rhs[j1:] - a[j1:, j0 + t:j0 + t + 1] \
+                    * rhs[j0 + t:j0 + t + 1]
+            a[:, j1:], z = rhs[:, :k - j1], rhs[:, k - j1:].clone()
+        else:
+            for q0 in range((k - 1) // t_smw.PANEL * t_smw.PANEL, -1,
+                            -t_smw.PANEL):
+                q1 = min(q0 + t_smw.PANEL, k)
+                for j in range(q1 - 1, q0 - 1, -1):
+                    z[j] = z[j] / a[j, j]
+                    z[q0:j] = z[q0:j] - a[q0:j, j:j + 1] * z[j:j + 1]
+                for j in range(q1 - 1, q0 - 1, -1):
+                    z[:q0] = z[:q0] - a[:q0, j:j + 1] * z[j:j + 1]
+    return z, piv
+
+
+def _capacitance(seed, k, bs, dtype, singular=False):
+    """S = Y V^T and Y = V M as the route computes them (hilo_matmul of
+    the damped case at unit scale), 1/c as the A side's at 2048 tokens;
+    ``singular``: rows 2 and 5 of V equal and 1/c = 0, so S has two
+    equal rows and is exactly singular."""
+    inv, v = _smw_case(seed, 1, k, bs, 1.0)
+    if singular:
+        v[:, 5] = v[:, 2]
+    inv_decay, inv_c = tref.smw_scalars(0.95, float("inf") if singular
+                                        else 0.05 / 2048)
+    inv, v = torch.from_numpy(inv[0]), torch.from_numpy(v[0])
+    m = (inv + inv.T) * inv_decay
+    y = hilo_matmul(v, m)
+    s = hilo_matmul(y, v.T)
+    return s.to(dtype), y.to(dtype), inv_c
+
+
+LU_CASES = [(129, 8), (160, 16), (200, 24), (256, 40), (1024, 6)]
+
+
+@pytest.mark.parametrize("k,bs", LU_CASES)
+def test_blocked_lu_is_the_unblocked_elimination_bitwise(k, bs):
+    """fp32: every entry of Z goes through the same operations in the
+    same order in the blocked schedule as in lu_solve's unblocked
+    elimination, wherever the panel boundaries fall (200 = 6 panels and
+    a ragged 8), so the two are bitwise equal, pivots too."""
+    s, y, inv_c = _capacitance(k + bs, k, bs, torch.float32)
+    z_b, piv_b = _lu_blocked(s, y, inv_c)
+    z_u, piv_u = _lu_unblocked(s, y, inv_c)
+    assert piv_b == piv_u
+    assert torch.isfinite(z_b).all()
+    assert torch.equal(z_b, z_u)
+
+
+@pytest.mark.parametrize("k,bs", LU_CASES)
+def test_blocked_lu_float64_matches_linalg(k, bs):
+    """float64: the blocked schedule solves the system (within 1e-10 of
+    ``torch.linalg.solve``, relative to Z's largest entry) with LAPACK's
+    pivots (``torch.linalg.lu_factor``'s, which are 1-based)."""
+    s, y, inv_c = _capacitance(k + bs, k, bs, torch.float64)
+    z, piv = _lu_blocked(s, y, inv_c)
+    sc = s + torch.eye(k, dtype=torch.float64) * inv_c
+    want = torch.linalg.solve(sc, y)
+    assert float((z - want).abs().max()) <= 1e-10 * float(want.abs().max())
+    _, lapack = torch.linalg.lu_factor(sc)
+    assert piv == [int(p) - 1 for p in lapack]
+
+
+@pytest.mark.parametrize("k", [160, 200])
+def test_blocked_lu_singular_capacitance_is_non_finite(k):
+    """Two equal rows of V and 1/c = 0: S is exactly singular, an exact
+    zero pivot turns up, and both emulations give a non-finite Z, bitwise
+    alike up to the NaNs (the SMW gate's fallback signal)."""
+    s, y, inv_c = _capacitance(k, k, 12, torch.float32, singular=True)
+    assert inv_c == 0.0 and torch.equal(s[2], s[5])
+    z_b, piv_b = _lu_blocked(s, y, inv_c)
+    z_u, piv_u = _lu_unblocked(s, y, inv_c)
+    assert not torch.isfinite(z_b).all() and not torch.isfinite(z_u).all()
+    assert piv_b == piv_u
+    assert torch.equal(torch.nan_to_num(z_b), torch.nan_to_num(z_u))
+
+
+def test_lu_schedule_covers_every_column_once():
+    """Panels of PANEL columns in order, the last one ragged, two
+    launches a panel and one back substitution: fewer than 3 launches a
+    panel, 65 at k 1024."""
+    for k in (1, 31, 32, 33, 129, 200, 1000, 1024):
+        steps = t_smw.lu_schedule(k)
+        assert steps[-1] == ("back", 0, k)
+        panels = [(j0, j1) for kind, j0, j1 in steps if kind == "panel"]
+        assert [kind for kind, _, _ in steps[:-1]] == \
+            ["panel", "update"] * len(panels)
+        assert panels[0][0] == 0 and panels[-1][1] == k
+        assert all(b == c for (_, b), (c, _) in zip(panels, panels[1:]))
+        assert all(j1 - j0 == t_smw.PANEL for j0, j1 in panels[:-1])
+        assert 0 < panels[-1][1] - panels[-1][0] <= t_smw.PANEL
+    assert len(t_smw.lu_schedule(1024)) == 65
 
 
 @pytest.mark.parametrize("n,k,bs,scale", [(3, 64, 176, 1.0),
@@ -179,15 +369,16 @@ def test_smw_schedule_emulated_is_the_plain_version(n, k, bs, scale):
                        tref.smw_update_ref(inv, v, **kw))
 
 
-@pytest.mark.parametrize("k", [64, 128, 129, 1024])
+@pytest.mark.parametrize("k", [64, 128, 129, 200, 1024])
 def test_smw_schedule_never_overwrites_what_a_product_reads(k):
     """Every kernel reads only what the caller gave or an earlier kernel
     wrote; no product writes an operand it reads (other CTAs still read
-    it); the solve writes Z fresh (the LU factors S in place, which no
-    later kernel reads) and the last product writes the output."""
+    it); the solve's launches make Z from S and Y (the LU factors S in
+    place and records its row sources, which no later product reads)
+    and the last product writes the output."""
     steps = t_smw.smw_schedule(k)
     written = {"inv", "v"}
-    for step in steps:
+    for i, step in enumerate(steps):
         if step[0] == "prep":
             _, src, dst = step
             assert src in written and dst != src
@@ -198,15 +389,18 @@ def test_smw_schedule_never_overwrites_what_a_product_reads(k):
             assert c not in (lft, rgt, e, "inv", "v")
             written.add(c)
         else:
-            _, _, s, y, z = step
-            assert {s, y} <= written and z not in (s, y)
-            assert all(s not in st[3:9] for st in steps[steps.index(step)
-                                                          + 1:])
-            written.add(z)
+            _, kind, j0, j1, reads, writes = step
+            assert set(reads) <= written
+            assert "y" not in writes and {"inv", "v", "m"}.isdisjoint(writes)
+            assert all(st[0] == "solve" or not {"s", "piv"} & set(st[3:9])
+                       for st in steps[i + 1:])
+            written.update(writes)
     assert steps[-1][7] == "out"
-    assert {c for st in steps for c in st[1:] if isinstance(c, str)
-            and c not in ("slab", "lu")} <= set(t_smw.buffer_shapes(8, 8))
-    assert set(t_smw.BUFFERS) <= written
+    names = {c for st in steps if st[0] != "solve" for c in st[1:]
+             if isinstance(c, str)}
+    names |= {c for st in steps if st[0] == "solve" for c in st[4] + st[5]}
+    assert names <= set(t_smw.buffer_shapes(8, 8))
+    assert set(t_smw.BUFFERS) - ({"piv"} if k <= 128 else set()) <= written
 
 
 def _gram_emulate(a, *, rel_damp, **counts):
@@ -239,14 +433,19 @@ def test_gram_route_emulated_is_the_plain_version(t, nb, n, dtype):
 def test_smw_plan_and_expected_launches():
     assert t_smw.block_bytes(176, 64) == 4 * (176 * 176 + 2 * 64 * 176
                                               + 64 * 64)
+    # above k 128 the LU's row sources, k int32 (a row of 132) a block
     assert t_smw.block_bytes(130, 129) == 4 * (130 * 132 + 2 * 129 * 132
-                                               + 129 * 132)
-    # the main path at block 256, rank 64: one chunk a side
+                                               + 129 * 132 + 132)
+    assert t_smw.block_bytes(1024, 1024) == 4 * (4 * 1024 * 1024 + 1024)
+    # the main path at block 256, rank 64 and 256: one chunk a side
     assert t_smw.smw_plan(768, 256, 64) == [(0, 768)]
     assert t_smw.smw_plan(1152, 176, 64) == [(0, 1152)]
-    # 1024 x 1024: 16 MiB a block, 64 under 1 GiB
+    assert t_smw.smw_plan(768, 256, 256) == [(0, 768)]
+    assert t_smw.smw_plan(1152, 176, 256) == [(0, 1152)]
+    # 1024 x 1024: 16 MiB and 4 KiB a block, 63 under 1 GiB: four
+    # chunks of 48
     parts = t_smw.smw_plan(192, 1024, 1024)
-    assert parts == [(0, 64), (64, 128), (128, 192)]
+    assert parts == [(0, 48), (48, 96), (96, 144), (144, 192)]
     for nb, bs, k in ((192, 1024, 1024), (5000, 256, 256), (7, 129, 64)):
         parts = t_smw.smw_plan(nb, bs, k)
         assert parts[0][0] == 0 and parts[-1][1] == nb
@@ -257,14 +456,19 @@ def test_smw_plan_and_expected_launches():
         [(b, b + 1) for b in range(5)]
     assert t_smw.expected_launches(128, 64, 528) == 1
     assert t_smw.expected_launches(128, 128, 528) == 1
+    # prep, 2 products, the slab solve, the last product
     assert t_smw.expected_launches(256, 64, 768) == 5
-    assert t_smw.expected_launches(128, 129, 3) == 5
-    assert t_smw.expected_launches(1024, 1024, 192) == 15
+    # above k 128 two launches a panel of 32 and the back substitution
+    assert t_smw.expected_launches(128, 129, 3) == 4 + 2 * 5 + 1
+    assert t_smw.expected_launches(256, 256, 768) == 4 + 2 * 8 + 1
+    assert t_smw.expected_launches(176, 256, 1152) == 21
+    assert t_smw.expected_launches(1024, 1000, 2) == 4 + 2 * 32 + 1
+    assert t_smw.expected_launches(1024, 1024, 192) == 4 * 69
     assert t_smw.expected_launches(256, 64, 0) == 0
     assert [s[1] for s in t_smw.smw_schedule(128) if s[0] == "solve"] == \
         ["slab"]
     assert [s[1] for s in t_smw.smw_schedule(129) if s[0] == "solve"] == \
-        ["lu"]
+        ["panel", "update"] * 5 + ["back"]
     assert t_smw.launch_key(176, 64) == "bs176k64"
 
 
