@@ -223,14 +223,17 @@ Phases, each printed as a JSON line:
                  with their verdicts, not gated; launch counters zeroed
                  just before each sub-phase and read just after
   18. large_blocks  the kernels' route for block and tile sides of
-                 129..1024 (``csrc/hilo_tma.cuh`` for neumann_inv,
-                 ``csrc/hilo_bmm.cuh`` for the others): (a) neumann_inv at
-                 129, 176, 256, 512 and 1024 (2-8 blocks) and fused_precond
-                 indexed and gathered at (256, 256), (256, 176), (176,
-                 256), (1024, 176), (176, 1024) and (130, 200), each
+                 129..1024 (``csrc/hilo_tma.cuh`` for neumann_inv and
+                 fused_precond, ``csrc/hilo_bmm.cuh`` for the others): (a)
+                 neumann_inv at 129, 176, 256, 512 and 1024 (2-8 blocks)
+                 and fused_precond indexed and gathered at (256, 256),
+                 (256, 176), (176, 256), (1024, 176), (176, 1024), (130,
+                 200) and (200, 130) (out's rows no multiple of 4), each
                  against its plain version (float64 inv too), launches,
                  bitwise its repeat, timed beside its plain version, its
-                 library call and its bound; a grouped call over leaves
+                 library call (fused_precond: the gather + fp32 matmul
+                 chain) and its bound (fused_precond: also the route's
+                 bytes floor, ``wu_schedule``); a grouped call over leaves
                  of 128, 176 and 256 bitwise the per-leaf calls; (b) the
                  main path's model and traffic at block 256 (sides 256 and
                  176), 4 steps of ``launch.train.run`` with the launch
@@ -239,8 +242,10 @@ Phases, each printed as a JSON line:
                  plans), the whole refresh timed with its workspace and
                  peak memory beside torch.linalg.inv of the same damped
                  blocks and the schedule's bytes floor, the run's
-                 inverses and its largest WU group
-                 against the plain versions; (c) one step at the
+                 inverses and its largest WU group against the plain
+                 versions, each step's WU ms and each of its three WU
+                 groups' fused_precond call timed beside the gather +
+                 fp32 matmul chain; (c) one step at the
                  reference's default block 1024 (sides 1024 and 176)
                  through the same checks; (d) smw_update at (bs, k) of
                  (129..1024, 64), (256, 128), (176, 129), (256, 256) and
@@ -386,20 +391,22 @@ TOOLING = dict(wu_full=dict(arch="qwen1.5-0.5b", block_size=128,
 KFAC_COUNTS = dict(ns_iters=20, taylor_terms=4, refine_steps=2)
 # phase large_blocks: the kernels' large route (sides of 129..1024). (a)
 # neumann_inv at these (blocks, side), a grouped call over leaves of
-# mixed sides, fused_precond at these (tiles, bi, bo), each tile's pools
-# as a WU plan makes them (runs of POOL_RUN tiles on one A block, the G
-# blocks cycling); (b) the main path's model at block 256 (sides 256 and
-# 176); (c) one step at the reference's default block 1024 (sides 1024
-# and 176); (d) smw_update at these (blocks, k, bs) at unit and G-side
-# scale and one case of indefinite inverses, fused_gram_inv at these
-# (T, nb, n) in fp32 and bf16; (e) --smw at block 256 (rank 64, then one
-# SMW step at smw_rank); (f) fused_gram_inv at block 256 on the main
-# path's first batch
+# mixed sides, fused_precond at these (tiles, bi, bo; the last one's bo
+# no multiple of 4, so out's and g's rows take the epilogue's masked
+# entries), each tile's pools as a WU plan makes them (runs of POOL_RUN
+# tiles on one A block, the G blocks cycling); (b) the main path's model
+# at block 256 (sides 256 and 176); (c) one step at the reference's
+# default block 1024 (sides 1024 and 176); (d) smw_update at these
+# (blocks, k, bs) at unit and G-side scale and one case of indefinite
+# inverses, fused_gram_inv at these (T, nb, n) in fp32 and bf16; (e)
+# --smw at block 256 (rank 64, then one SMW step at smw_rank); (f)
+# fused_gram_inv at block 256 on the main path's first batch
 LARGE = dict(
     sides=((8, 129), (8, 176), (8, 256), (4, 512), (2, 1024)),
     grouped=((5, 256), (3, 128), (6, 176), (2, 256), (4, 128), (0, 176)),
     tiles=((1536, 256, 256), (3072, 256, 176), (1536, 176, 256),
-           (768, 1024, 176), (384, 176, 1024), (512, 130, 200)),
+           (768, 1024, 176), (384, 176, 1024), (512, 130, 200),
+           (512, 200, 130)),
     pool_run=8, block_size=256, default_block=1024,
     smw=((8, 64, 129), (8, 64, 176), (8, 64, 256), (4, 64, 512),
          (2, 64, 1024), (8, 128, 256), (8, 129, 176), (4, 256, 256),
@@ -514,7 +521,9 @@ def kfac_launch_checks(check, name, state, hist, launches, wu) -> int:
     from repro_torch.kernels import fused_precond as kf
     from repro_torch.kernels import neumann_inv as kn
 
-    per_step = sum(kf.expected_launches(g.n_tiles, g.bi, g.bo)
+    # a group of bi == bo reads one pool as both sides (split once)
+    per_step = sum(kf.expected_launches(g.n_tiles, g.bi, g.bo,
+                                        shared=g.bi == g.bo)
                    for g in wu.groups)
     check(launches["fused_precond"] == len(hist) * per_step,
           f"{name}: fused_precond once a WU group (or chunk) a step")
@@ -526,7 +535,8 @@ def kfac_launch_checks(check, name, state, hist, launches, wu) -> int:
     return per_refresh
 
 
-def kfac_kernel_checks(torch, dev, check, name, box, kcfg, wu, reps=5):
+def kfac_kernel_checks(torch, dev, check, name, box, kcfg, wu, reps=5,
+                       every_group=False):
     """The kernels of a K-FAC run held to their plain versions and
     timed: the run's inverses (``box["state"]``, popped so that its
     memory can go before the WU's tiles are made) against the plain
@@ -535,7 +545,9 @@ def kfac_kernel_checks(torch, dev, check, name, box, kcfg, wu, reps=5):
     call on the WU plan ``wu``'s largest group (the run's inverse pools,
     random tiles), each beside its library call and its bound. Returns
     ``(worst inverse, refresh row, fused_precond row)``; ``reps``: the
-    timed runs a median is taken of."""
+    timed runs a median is taken of. ``every_group``: the row also times
+    every group of the plan, kernel and library call (``groups``), on the
+    run's pools as the WU passes them."""
     from repro_torch.core import kfac, soi
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import neumann_inv as kn
@@ -598,7 +610,7 @@ def kfac_kernel_checks(torch, dev, check, name, box, kcfg, wu, reps=5):
     grp = max(wu.groups, key=lambda g: g.n_tiles)
     pools = kfac.inverse_pools(state.kfac.inverses, wu.inv_plan)
     pa, pg = pools[grp.bi], pools[grp.bo]
-    del state, pools
+    del state
     gc.collect()
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(MAIN["seed"])
@@ -640,7 +652,27 @@ def kfac_kernel_checks(torch, dev, check, name, box, kcfg, wu, reps=5):
         library_ms=time_ms(torch, lambda: torch.matmul(
             torch.matmul(pa[a_idx], g), pg[g_idx]), reps),
         bound_ms=wu_b_ms, bound_by=wu_b_by)
-    del out, dots, p_out, p_dots, pa, pg, g, a_idx, g_idx
+    del out, dots, p_out, p_dots, g, a_idx, g_idx
+    if every_group:
+        precond_row["groups"] = []
+        for grp in wu.groups:
+            pa, pg = pools[grp.bi], pools[grp.bo]
+            g = torch.randn(grp.n_tiles, grp.bi, grp.bo, device=dev,
+                            generator=gen)
+            a_src, g_src = grp.src_on(dev)
+            a_idx, g_idx = a_src.long(), g_src.long()
+            precond_row["groups"].append(dict(
+                shape=[grp.n_tiles, grp.bi, grp.bo],
+                ms=time_ms(torch, lambda: ops.fused_precond(
+                    pa, g, pg, a_src, g_src), reps),
+                library_ms=time_ms(torch, lambda: torch.matmul(
+                    torch.matmul(pa[a_idx], g), pg[g_idx]), reps)))
+            del g, a_idx, g_idx
+        precond_row["groups_ms"] = sum(r["ms"]
+                                       for r in precond_row["groups"])
+        precond_row["groups_library_ms"] = sum(
+            r["library_ms"] for r in precond_row["groups"])
+    del pools, pa, pg
     torch.cuda.empty_cache()
 
     return worst, refresh_row, precond_row
@@ -2337,7 +2369,8 @@ def large_blocks_phase(torch, dev, check):
     at :data:`LARGE`'s sides and ``fused_precond`` (indexed, as the WU
     calls it, and gathered) at its tile shapes against their plain
     versions, each timed (CUDA events, warm, median of 5) beside its
-    plain version, its library call and its bound, and a grouped call
+    plain version, its library call and its bound (``fused_precond``:
+    also the route's bytes floor, ``wu_schedule``), and a grouped call
     over leaves of mixed sides bitwise the per-leaf calls; (b) the main
     path's model and traffic at block 256 (sides 256 and 176): 4 steps
     of ``launch.train.run`` with the launch counters zeroed just before and
@@ -2473,19 +2506,27 @@ def large_blocks_phase(torch, dev, check):
                                   + ng * bo * bo), flops)
         gb_ms, gb_by = bound(4.0 * nt * (bi * bi + 2 * bi * bo + bo * bo
                                          + 1), flops)
+        floor_ms, _ = bound(kf.wu_schedule(nt, bi, bo, (na, ng))
+                            .floor_bytes, 0.0)
+        again = ops.fused_precond(pa, g, pg, a_src, g_src)
         row = dict(
             shape=[nt, bi, bo], pool_blocks=[na, ng], rel_err=rel(out, p_out),
             max_abs_err=float((out - p_out).abs().max()),
             dots_rel_err=rel(dots, p_dots), launches=launches,
             gathered_bitwise=torch.equal(out, gout)
             and torch.equal(dots, gdots),
+            repeat_bitwise=torch.equal(out, again[0])
+            and torch.equal(dots, again[1]),
             ms=time_ms(torch, lambda: ops.fused_precond(pa, g, pg, a_src,
                                                         g_src)),
             plain_ms=time_ms(torch, lambda: ref.fused_precond_ref(
                 pa, g, pg, a_src, g_src)),
+            # the library call: the gather + fp32 matmul chain
             library_ms=time_ms(torch, lambda: torch.matmul(
                 torch.matmul(pa[a_idx], g), pg[g_idx])),
             bound_ms=b_ms, bound_by=b_by,
+            # the design's bytes floor (kernels.fused_precond.wu_schedule)
+            floor_ms=floor_ms,
             gathered_ms=time_ms(torch, lambda: ops.fused_precond(
                 a_sel, g, g_sel)),
             gathered_library_ms=time_ms(torch, lambda: torch.matmul(
@@ -2497,9 +2538,12 @@ def large_blocks_phase(torch, dev, check):
         check(row["gathered_bitwise"],
               f"large_blocks: fused_precond {bi}x{bo} indexed bitwise "
               f"gathered")
+        check(row["repeat_bitwise"],
+              f"large_blocks: fused_precond {bi}x{bo} bitwise its repeat")
         check(launches == kf.expected_launches(nt, bi, bo),
               f"large_blocks: fused_precond {bi}x{bo} launches")
         del pa, pg, g, out, dots, p_out, p_dots, gout, gdots, a_sel, g_sel
+        del again
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2584,10 +2628,12 @@ def large_blocks_phase(torch, dev, check):
         del state, program
         worst, refresh_row, precond_row = kfac_kernel_checks(
             torch, dev, check, name, box, kcfg, wu,
-            reps=5 if block <= 256 else 3)
+            reps=5 if block <= 256 else 3, every_group=block == 256)
         runs[tag] = dict(
             block_size=bs, steps=steps, losses=losses,
-            phase_s=[h["phase_s"] for h in hist], wall_s=wall,
+            phase_s=[h["phase_s"] for h in hist],
+            wu_ms=[h["phase_s"].get("wu", 0.0) * 1e3 for h in hist],
+            wall_s=wall,
             peak_mem_gb=peak, launches=launches, launch_keys=keys,
             neumann_inv_per_refresh=per_refresh,
             wu_groups=[[g.n_tiles, g.bi, g.bo] for g in wu.groups],
@@ -3948,7 +3994,11 @@ def main() -> int:
             largest_side=b256["refresh"]),
         "fused_precond": dict(
             launches=b256["launches"]["fused_precond"],
-            largest_group=b256["fused_precond"])}
+            wu_ms=b256["wu_ms"],
+            groups_ms=b256["fused_precond"]["groups_ms"],
+            groups_library_ms=b256["fused_precond"]["groups_library_ms"],
+            largest_group={k: v for k, v in b256["fused_precond"].items()
+                           if k != "groups"})}
     # smw_update's and fused_gram_inv's large routes (phase large_blocks:
     # (e) and (f)'s launches, (d)'s timed shapes at block 256 and 1024)
     timed = [r for r in large_row["smw_update"] if "ms" in r]

@@ -27,13 +27,21 @@ kernel whose module in the tree takes them (``MAX_N``/``MAX_B`` above
                   damped blocks, and the block-256 refresh (768 x 256 and
                   1152 x 176) in one grouped call;
   fused_precond   (a)'s tile shapes, pools indexed as a WU plan makes
-                  them;
+                  them, in turns with the gather + fp32 torch.matmul
+                  chain on the same pools and indices (``chain_*``), and
+                  the large route's bytes floor where the tree has
+                  ``wu_schedule`` (``*_floor_ms``, at 3.35 TB/s);
   smw_update      (d)'s (blocks, k, bs), at the G side's scale, and the
                   --smw path's update at block 256 (768 x 256 and 1152 x
                   176 blocks, at rank 64 and 256) beside
                   ref.exact_smw_update; the host's enqueue time of one
                   call at the path's shapes and at (2, 1024, 1024);
   fused_gram_inv  (d)'s (T, nb, n), fp32 and bf16.
+Where the tree's ``fused_precond`` has ``wu_schedule``, its large route's
+launches are also timed by kind (the pool splits, g's split, the two
+products, the dots; CUDA events around each launch, median of 5 calls),
+with the host's time to enqueue a call, at (1536, 256, 256) and (512,
+130, 200) of (a).
 Where the tree's ``smw_update`` has the blocked LU (``lu_schedule``), its
 launches are also timed by kind (panel, update, back substitution; CUDA
 events around each launch, median of 5 solves) at (2, 1024, 1024) and
@@ -47,7 +55,9 @@ copies and splits (no products), copies and products (no splits); and a
 copy of ``csrc/hilo_tma.cuh`` with the products' epilogue cut out, timing
 single products of ``neumann_inv``'s large route (10 back to back) as
 built and without their epilogue, at a chunk of the block-256 path's 256
-side (384 blocks) and of the 1024 side (32 blocks).
+side (384 blocks) and of the 1024 side (32 blocks); and ``fused_precond``'s
+launches by kind again, built from a copy of ``csrc/fused_precond.cu``
+with that cut header, so its products run without their epilogue.
 Inputs are random, from seed 0. Prints one JSON line with the card's
 name and power limit. Compare two trees in turns (parent, change,
 change, parent); a directory without ``repro_torch`` or a machine
@@ -92,8 +102,8 @@ ABLATIONS = {"copies": (NO_PRODUCTS, NO_SPLITS),
              "copies_splits": (NO_PRODUCTS,),
              "copies_products": (NO_SPLITS,)}
 # hilo_tma.cuh cut down, for --ablate: no tile's epilogue runs
-NO_EPILOGUE = ("    epilogue<BN>(acc, p,",
-               "    if (p.n < 0) epilogue<BN>(acc, p,")
+NO_EPILOGUE = ("    epilogue<BN, VEC>(acc, p,",
+               "    if (p.n < 0) epilogue<BN, VEC>(acc, p,")
 # neumann_inv's large-route products timed alone, by their place in the
 # schedule at 20/4/2: a Newton-Schulz pair (2I - A_H X, then X W), a
 # Neumann term's -X U with M += T, a refinement's M + M R
@@ -116,6 +126,25 @@ def time_ms(torch, fn, reps=5, launches=1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
+
+
+def in_turns(torch, fns: dict, reps=5) -> dict:
+    """ms a call of each of ``fns``, timed in turns (each rep times every
+    function once, in order, warm); the median of ``reps`` for each."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(ts) for name, ts in times.items()}
 
 
 def ablate(torch, build, x, w) -> dict:
@@ -290,8 +319,18 @@ def large_routes(torch, ops, dev, gen) -> dict:
             t = torch.arange(nt, device=dev)
             a_src, g_src = (t // run).to(torch.int32), (t % ng).to(
                 torch.int32)
-            out[f"fused_precond_{nt}x{bi}x{bo}_ms"] = time_ms(
-                torch, lambda: ops.fused_precond(pa, g, pg, a_src, g_src))
+            a_idx, g_idx = a_src.long(), g_src.long()
+            tag = f"{nt}x{bi}x{bo}"
+            got = in_turns(torch, {
+                "kernel": lambda: ops.fused_precond(pa, g, pg, a_src, g_src),
+                "chain": lambda: torch.matmul(torch.matmul(pa[a_idx], g),
+                                              pg[g_idx])})
+            out[f"fused_precond_{tag}_ms"] = got["kernel"]
+            out[f"chain_{tag}_ms"] = got["chain"]
+            if hasattr(kf, "wu_schedule"):
+                out[f"fused_precond_{tag}_floor_ms"] = kf.wu_schedule(
+                    nt, bi, bo, (na, ng)).floor_bytes / 3.35e12 * 1e3
+            del pa, pg, g, a_idx, g_idx
     if getattr(ks, "MAX_N", 128) > 128:
         from repro_torch.kernels import ref
 
@@ -325,6 +364,110 @@ def large_routes(torch, ops, dev, gen) -> dict:
                     torch, lambda: ops.fused_gram_inv(x, rel_damp=0.03,
                                                       **KFAC_COUNTS))
     return out
+
+
+# fused_precond's large route timed launch by launch (wu_breakdown)
+WU_SHAPES = ((1536, 256, 256), (512, 130, 200))
+
+
+def wu_breakdown(torch, ops, dev, gen, tag="") -> dict:
+    """ms of ``fused_precond``'s large-route launches by kind, a call at a
+    time (CUDA events around each launch; median of 5 calls after one to
+    warm up), the whole call, and the host's time to enqueue one, at
+    :data:`WU_SHAPES` with pools as ``chip_smoke.LARGE`` makes them."""
+    from chip_smoke import LARGE
+    from repro_torch.kernels import fused_precond as kf
+
+    run, out = LARGE["pool_run"], {}
+    launch = kf.LIB.launch
+    for nt, bi, bo in WU_SHAPES:
+        na, ng = -(-nt // run), max(1, min(run, nt))
+        pa = torch.randn(na, bi, bi, device=dev, generator=gen)
+        pg = torch.randn(ng, bo, bo, device=dev, generator=gen)
+        g = torch.randn(nt, bi, bo, device=dev, generator=gen)
+        t = torch.arange(nt, device=dev)
+        a_src, g_src = (t // run).to(torch.int32), (t % ng).to(torch.int32)
+        evs = []
+
+        def timed(entry, *args, key=None):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            launch(entry, *args, key=key)
+            e1.record()
+            evs.append((entry, e0, e1))
+
+        times = {}
+        kf.LIB.launch = timed
+        try:
+            for rep in range(6):
+                evs.clear()
+                ops.fused_precond(pa, g, pg, a_src, g_src)
+                torch.cuda.synchronize()
+                if not rep:
+                    continue
+                by = {}
+                for i, (entry, e0, e1) in enumerate(evs):
+                    name = entry.replace("fused_precond_", "")
+                    if name == "split":
+                        name = "split_pools" if i < 2 else "split_g"
+                    elif name == "product":
+                        name = "product_%d" % (
+                            1 + sum(e == entry for e, _, _ in evs[:i]) % 2)
+                    by[name] = by.get(name, 0.0) + e0.elapsed_time(e1)
+                for name, ms in by.items():
+                    times.setdefault(name, []).append(ms)
+        finally:
+            del kf.LIB.launch
+        shape = f"{nt}x{bi}x{bo}"
+        for name, ts in times.items():
+            out[f"wu{tag}_{shape}_{name}_ms"] = statistics.median(ts)
+        out[f"wu{tag}_{shape}_call_ms"] = time_ms(
+            torch, lambda: ops.fused_precond(pa, g, pg, a_src, g_src))
+        enqueue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ops.fused_precond(pa, g, pg, a_src, g_src)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        out[f"wu{tag}_{shape}_enqueue_ms"] = statistics.median(enqueue)
+        del pa, pg, g
+    return out
+
+
+def ablate_wu(torch, ops, build, dev, gen) -> dict:
+    """:func:`wu_breakdown` with ``fused_precond``'s library built from
+    copies of its source and of ``csrc/hilo_tma.cuh`` with the products'
+    epilogue cut out (wrong results, times only)."""
+    from repro_torch.kernels import fused_precond as kf
+
+    old, new = NO_EPILOGUE
+    cut_dir = build.BUILD_DIR / "ablate" / "wu_no_epilogue"
+    cut_dir.mkdir(parents=True, exist_ok=True)
+    (cut_dir / "hilo_tma.cuh").write_text(
+        (build.CSRC / "hilo_tma.cuh").read_text().replace(old, new))
+    (cut_dir / "fused_precond.cu").write_text(
+        (build.CSRC / "fused_precond.cu").read_text())
+    so = cut_dir / "libfused_precond.so"
+    proc = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+         str(so), str(cut_dir / "fused_precond.cu")], capture_output=True,
+        text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the wu_no_epilogue cut:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(so))
+    fns = {}
+    for sym, argtypes in kf.LIB.entries.items():
+        fns[sym] = getattr(lib, sym)
+        fns[sym].argtypes = argtypes
+        fns[sym].restype = ctypes.c_int
+    built = kf.LIB._load()
+    kf.LIB._fns = fns
+    try:
+        return wu_breakdown(torch, ops, dev, gen, tag="_no_epilogue")
+    finally:
+        kf.LIB._fns = built
 
 
 def lu_breakdown(torch, dev, gen) -> dict:
@@ -439,7 +582,10 @@ def main() -> int:
         out[f"matmul_{m}_{k}_{n}_loop20_ms"] = time_ms(
             torch, lambda: torch.matmul(x, w), launches=20)
     out.update(large_routes(torch, ops, dev, gen))
+    from repro_torch.kernels import fused_precond as kf
     from repro_torch.kernels import smw_update as ks
+    if hasattr(kf, "wu_schedule"):
+        out.update(wu_breakdown(torch, ops, dev, gen))
     if hasattr(ks, "lu_schedule"):
         out.update(lu_breakdown(torch, dev, gen))
     if args.ablate:   # last: it loads three more libraries
@@ -448,6 +594,7 @@ def main() -> int:
         out["bitslice_mm_ablate_loop20_ms"] = ablate(torch, build, x, w)
         out["neumann_inv_products_ablate"] = ablate_products(
             torch, ops, build, dev, gen)
+        out["fused_precond_ablate"] = ablate_wu(torch, ops, build, dev, gen)
     out["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -51,21 +51,40 @@
 // next step.
 //
 // Tiles with a side of 129..1024 (the reference's whole domain) take a
-// second route on the batched product of hilo_bmm.cuh, whose operand
-// tiles no longer need to hold a whole tile on chip: per chunk of tiles,
-//   fused_precond_product (FULL, STORE)  tmp = hilo(A[a_src[t]], g[t]) into
-//                                        an fp32 workspace the caller
-//                                        allocates (split again on load:
-//                                        bitwise a stored hi/lo split),
-//   fused_precond_product (FULL, DOT)    out[t] = hilo(tmp, G[g_src[t]]),
-//                                        each 64 x 64 tile's sum of
-//                                        out * g into a partial,
-//   fused_precond_dots                   dots[t] = the tile's partials
-//                                        summed in order (no atomics).
-// The pools are read by index as on the one-CTA route; tmp makes one round
-// trip through device memory (bi x bo fp32 a tile).
-#include "hilo_bmm.cuh"
+// second route, on hilo_tma.cuh's batched product (TMA, wgmma, operands
+// stored as bf16 hi/lo slices by the kernel that writes them), with the
+// schedule of launches in Python (kernels/fused_precond.wu_schedule):
+//   fused_precond_split    once a call, each distinct inverse pool into
+//                          its slices (one split when a_inv is g_inv);
+// then per chunk of tiles (workspace from PyTorch's allocator, under
+// hilo_bmm.WORKSPACE_BYTES):
+//   fused_precond_split    the chunk's g into its slices,
+//   fused_precond_product  (FULL, STORE) tmp = hilo(A[a_src[t]], g[t]),
+//                          stored as its two slices only,
+//   fused_precond_product  (FULL, DOT) out[t] = hilo(tmp, G[g_src[t]]) in
+//                          fp32 into the caller's unpadded out, each
+//                          (tile, warpgroup)'s sum of out * g (E, the
+//                          caller's g) into a partial,
+//   fused_precond_dots     dots[t] = the tile's partials summed in order.
+// The pools are read by index through their tensor maps (the producer
+// reads a_src[t] and g_src[t] as a tile's block coordinates): no block is
+// gathered or split per tile, and tiles next to each other in the walk
+// share an A block (a WU plan's runs), read from L2.
+// Bound. The function (each input read once, each distinct pool block
+// once) is bound by operations at the WU's shapes: (1536, 256, 256) is
+// 309 GFLOP of bf16 partials, 0.31 ms at 989 TFLOP/s, against 0.23 ms of
+// its bytes. The design's own floor is bytes, since tmp and the slices
+// pass through device memory: 28 B an element of g (the split 4 + 4,
+// product 1 4 + 4, product 2 4 + 4 + 4) and 12 B an element of a pool
+// (split 4 + 4, read 4), 0.89 ms at that shape (wu_schedule's
+// floor_bytes). What holds it back (kernel_times.py --ablate at that shape
+// on the H100, PERF.md section 6): g's split (0.29 ms, ~2.8 TB/s) and the
+// two products' epilogues, which the consumer warpgroups run between one
+// tile's products and the next (without them the products take 0.21 and
+// 0.20 ms instead of 0.39 and 0.57 ms); a call takes ~1.4 ms. Sides of 130
+// or 176 rows also multiply zeros over 256 rows (128-row tiles).
 #include "hilo_mma.cuh"
+#include "hilo_tma.cuh"
 
 using namespace hilo;
 
@@ -210,17 +229,24 @@ __global__ void dots_kernel(const float* __restrict__ part, int per,
 
 }  // namespace
 
-// Large route: one of the two products (mode FULL; epi STORE for tmp, DOT
-// for out and the partial dots). Returns the cudaError_t (0 = success).
-extern "C" int fused_precond_product(const bmm::Params* p, int mode, int epi,
-                                     void* stream) {
-  if (!bmm::valid(*p) || mode != bmm::FULL)
+// Large route: `blocks` fp32 rows x cols blocks (a pool, or a chunk's g)
+// into their bf16 hi and lo slices, rows ld16 apart. Returns the
+// cudaError_t (0 = success).
+extern "C" int fused_precond_split(const float* src, long long blocks,
+                                   int rows, int cols, void* hi, void* lo,
+                                   int ld16, void* stream) {
+  return tbmm::split_launch(src, blocks, rows, cols, ld16,
+                            static_cast<tbmm::bf16*>(hi),
+                            static_cast<tbmm::bf16*>(lo),
+                            static_cast<cudaStream_t>(stream));
+}
+
+// Large route: one of the two products (hilo_tma.cuh; epi STORE for tmp,
+// DOT for out and the partial dots). Returns the cudaError_t.
+extern "C" int fused_precond_product(const tbmm::Params* p, void* stream) {
+  if (!p || (p->epi != tbmm::STORE && p->epi != tbmm::DOT))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (epi == bmm::STORE) return bmm::launch<bmm::STORE>(*p, s);
-  if (epi == bmm::DOT && p->E && p->part)
-    return bmm::launch<bmm::DOT>(*p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return tbmm::launch(*p, static_cast<cudaStream_t>(stream));
 }
 
 // Large route: dots[t] for t < n from `per` partials a tile.

@@ -1,10 +1,10 @@
 // Batched, tiled hi/lo product on the tensor cores with fused epilogues:
-// the large-block route of fused_precond.cu, smw_update.cu and
-// fused_gram_solve.cu's Gram (blocks, tiles and ranks of 129..1024), where
-// one block no longer fits one CTA's shared memory (a 256 block's hi/lo
-// pair is 256 KB against 227 KB a CTA may have). neumann_inv.cu's large
-// route has a product of its own (hilo_tma.cuh): its operands are stored
-// split, by the kernel that writes them; these routes' operands are not.
+// the large-block route of smw_update.cu and fused_gram_solve.cu's Gram
+// (blocks and ranks of 129..1024), where one block no longer fits one
+// CTA's shared memory (a 256 block's hi/lo pair is 256 KB against 227 KB a
+// CTA may have). neumann_inv.cu's and fused_precond.cu's large routes run
+// on hilo_tma.cuh's product: their operands are stored split, by the
+// kernel that writes them; these routes' operands are not.
 //
 // One launch computes, for every batch entry b and every 64 x 64 tile of
 // the M x N result,
@@ -26,25 +26,21 @@
 // such as 176 = 11 x 16 is exact, and nothing outside M x N is written.
 //
 // Epilogues (E an M x N block):
-//   STORE  C = acc                  (fused_precond's tmp = A^-1 g; the
-//                                    Woodbury Y and S; the Gram)
-//   DOT    C = acc, and the tile's sum of acc * E into part[b, tile]
-//          (fused_precond's trust-region dot, reduced over the tiles in a
-//          fixed order by a second kernel: no atomics)
+//   STORE  C = acc                  (the Woodbury Y and S; the Gram)
 //   SUB    C = E - acc              (the Woodbury correction M - Y^T Z, one
 //                                    rounding)
 //
-// Bound: operations at the K-FAC shapes (a 256 tile's product is 2 x 256^3
-// a partial against 768 KB of fp32 operands, ~85 FLOP a byte from device
-// memory but each operand tile is re-read by every tile of its row or
-// column, from L2). Design, simple first: 64 x 64 output tiles, 4 warps of
-// 32 x 32 on mma.sync m16n8k16 (hilo_mma.cuh's fragments and loads),
+// Bound: operations at the K-FAC shapes (a 256 block's product is 2 x
+// 256^3 a partial against 768 KB of fp32 operands, ~85 FLOP a byte from
+// device memory but each operand tile is re-read by every tile of its row
+// or column, from L2). Design, simple first: 64 x 64 output tiles, 4 warps
+// of 32 x 32 on mma.sync m16n8k16 (hilo_mma.cuh's fragments and loads),
 // depth steps of 32 double-buffered in shared memory, the next step's
 // global loads held in registers while this step's products run, one
 // barrier a step; 39 KB of static shared memory, several CTAs an SM. The
 // re-reads and the splits on every load hold it near 56 TFLOP/s on the
-// H100 (PERF.md, section 6); moving these routes onto hilo_tma.cuh's
-// product is later work.
+// H100 (PERF.md, section 6); moving smw_update's products and the Gram
+// onto hilo_tma.cuh's product, as fused_precond's moved, is later work.
 #pragma once
 
 #include <type_traits>
@@ -63,7 +59,7 @@ constexpr int LDB = BN + 8;  // right tiles BK x BN, row stride (bf16)
 // The left operand's mode: FULL, its two slices (the only one these routes
 // use; the C entries check it). Epilogues keep their numbers.
 enum Mode { FULL = 0 };
-enum Epi { STORE = 0, DOT = 5, SUB = 6 };
+enum Epi { STORE = 0, SUB = 6 };
 
 // An operand: block b at p + (idx ? idx[b] : b) * stride elements (fp32,
 // or bf16 where the kernel's element type says so), rows ld apart. vec:
@@ -83,10 +79,9 @@ struct Params {
   float* C;
   long long c_stride;
   int ldc;
-  const float* E;  // SUB: the M block read; DOT: the dot's other factor
+  const float* E;  // SUB: the M block read
   long long e_stride;
   int lde;
-  float* part;     // DOT: (batch, tiles) partial dots
   int M, N, K, batch;
   int c_vec;       // C, E, F 8-byte aligned, even ld and strides
 };
@@ -151,7 +146,6 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
   __shared__ __align__(16) bf16 sLL[2][left_elems<LT>()];
   __shared__ __align__(16) bf16 sRH[2][right_elems<RT>()];
   __shared__ __align__(16) bf16 sRL[2][right_elems<RT>()];
-  __shared__ float red[THREADS / 32];
 
   const int tm = (p.M + BM - 1) / BM, tn = (p.N + BN - 1) / BN;
   const int tile = static_cast<int>(blockIdx.x % (tm * tn));
@@ -276,10 +270,9 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
   // e % 2 of the tile
   float* Cb = p.C + static_cast<size_t>(b) * static_cast<size_t>(p.c_stride);
   const size_t eo = static_cast<size_t>(b) * static_cast<size_t>(p.e_stride);
-  constexpr bool READS_E = EPI == DOT || EPI == SUB;
+  constexpr bool READS_E = EPI == SUB;
   const float* Eb = READS_E ? p.E + eo : nullptr;
   const bool v2 = p.c_vec;
-  float dot = 0.f;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -303,11 +296,9 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
             if (two) e[1] = s[1];
           }
         }
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          if constexpr (EPI == DOT)
-            if (k == 0 || two) dot += v[k] * e[k];
-          if constexpr (EPI == SUB) v[k] = __fsub_rn(e[k], v[k]);
+        if constexpr (EPI == SUB) {
+          v[0] = __fsub_rn(e[0], v[0]);
+          v[1] = __fsub_rn(e[1], v[1]);
         }
         float* d = Cb + static_cast<size_t>(r) * p.ldc + c;
         if (v2 && two) {
@@ -317,20 +308,6 @@ hilo_bmm_kernel(const __grid_constant__ Params p) {
           if (two) d[1] = v[1];
         }
       }
-  if constexpr (EPI == DOT) {
-    // the tile's sum in a fixed order: a butterfly a warp (every lane ends
-    // with the same sum), then the four warps in order
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    if (lane == 0) red[warp] = dot;
-    __syncthreads();
-    if (tid == 0) {
-      float s = 0.f;
-      for (int w = 0; w < THREADS / 32; ++w) s += red[w];
-      p.part[static_cast<size_t>(b) * (tm * tn) + tile] = s;
-    }
-  }
 }
 
 // Enqueue hilo_bmm_kernel<EPI, LT, RT, T> over every tile of every batch

@@ -11,52 +11,194 @@ plain version is :func:`repro_torch.kernels.ref.fused_precond_ref`.
 
 Tiles with both sides at most :data:`ONE_CTA_B` (128) take the one-CTA
 kernel, one launch a call. A side of 129..:data:`MAX_B` (1024, the
-reference's limit) takes the large route: per chunk of tiles
-(:func:`wu_chunks`), two batched hi/lo products of ``csrc/hilo_bmm.cuh``
-(``tmp = hilo(A_inv, g)`` into a workspace, then ``out = hilo(tmp,
-G_inv)`` with each 64 x 64 tile's partial dot) and a kernel that sums
-the partials in order, still reading the pools by index.
+reference's limit) takes the large route, :func:`wu_schedule`'s launches
+on ``csrc/hilo_tma.cuh``'s batched product (TMA and wgmma, operands stored
+as bf16 hi/lo slices by the kernel that writes them): once a call each
+distinct inverse pool split into its slices; then per chunk of tiles
+(:func:`wu_chunks`) the chunk's g split, ``tmp = hilo(A_inv, g)`` stored
+as its slices, ``out = hilo(tmp, G_inv)`` with each (tile, warpgroup)'s
+partial dot, and a kernel that sums the partials in order, the pools
+still read by index.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import hilo_bmm
+from repro_torch.kernels import hilo_bmm, hilo_tma
 from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.hilo_tma import F32, HI, LO
 
 #: largest tile side the kernels take (the reference's limit)
 MAX_B = hilo_bmm.MAX_SIDE
 #: largest tile side of the one-CTA route
 ONE_CTA_B = 128
-#: launches of one large-route chunk: two products and the dots
-LARGE_LAUNCHES = 3
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("fused_precond", "fused_precond.cu", {
     "fused_precond_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "fused_precond_product": [ctypes.POINTER(hilo_bmm.Params), _I, _I, _P],
+    "fused_precond_split": [_P, ctypes.c_longlong, _I, _I, _P, _P, _I, _P],
+    "fused_precond_product": [ctypes.POINTER(hilo_tma.Params), _P],
     "fused_precond_dots": [_P, _I, _P, _I, _P]})
+
+#: the large route's buffers: the caller's tensors (fp32), the pools'
+#: slices (made once a call) and a chunk's workspace
+A_INV, G_INV, G, OUT, DOTS = "a_inv", "g_inv", "g", "out", "dots"
+A_SLICES, G_SLICES = "a_slices", "g_inv_slices"
+G_SLICED, TMP, PART = "g_slices", "tmp", "part"
+CALLER = (A_INV, G_INV, G, OUT, DOTS)
+POOL_SLICES = (A_SLICES, G_SLICES)
+CHUNK = (G_SLICED, TMP, PART)
+#: the large route's kernels
+SPLIT, PRODUCT, SUM = "split", "product", "sum"
+SLICES = (HI, LO)
+
+
+class Launch(NamedTuple):
+    """One kernel of the large route: its kind, the ``(buffer, forms)`` it
+    reads (a product: left, right, then E) and writes, and for a product
+    its epilogue (``hilo_tma`` STORE or DOT) and the index array each
+    operand is read through (``"a_src"``, ``"g_src"``, or None: block b of
+    the chunk)."""
+
+    kind: str
+    reads: tuple
+    writes: tuple
+    epi: int | None = None
+    index: tuple = (None, None)
+
+
+class WuSchedule(NamedTuple):
+    """The large route of one call on (n_tiles, bi, bo) tiles and pools of
+    ``pool_blocks`` blocks: the pool splits (once a call), the ``(t0,
+    t1)`` chunks of tiles and each chunk's launches in order, the
+    workspace of the pools' slices and of the largest chunk in bytes, and
+    (:attr:`floor_bytes`) the bytes floor of the call."""
+
+    pools: tuple
+    chunks: tuple
+    per_chunk: tuple
+    pool_bytes: int
+    chunk_bytes: int
+    shape: tuple
+    pool_blocks: tuple
+
+    @property
+    def floor_bytes(self) -> int:
+        """Each kernel's inputs read once and outputs written once (fp32
+        4 bytes an entry, a slice 2; rows x cols entries a block, not the
+        strides' padding), each pool's slices read once a call however
+        many tiles read them, each index array once (see
+        :func:`wu_schedule`)."""
+        n, bi, bo = self.shape
+        na, ng = self.pool_blocks
+        blocks = {A_INV: na, A_SLICES: na, G_INV: ng, G_SLICES: ng}
+
+        def size(buf, forms):
+            rows, cols = geometry(buf, bi, bo)
+            return blocks.get(buf, n) * rows * cols * sum(
+                hilo_tma.itemsize(f) for f in forms)
+
+        launches = self.pools + self.per_chunk
+        return sum(size(b, f) for x in launches
+                   for b, f in x.reads + x.writes) + \
+            4 * n * sum(i is not None for x in self.per_chunk
+                        for i in x.index)
+
+
+def partials(bi: int, bo: int) -> int:
+    """Partial dots a tile: two (one a consumer warpgroup) for each
+    output tile of the second product."""
+    return 2 * hilo_tma.tiles_of(bi, bo)
+
+
+def geometry(buf: str, bi: int, bo: int) -> tuple:
+    """``(rows, cols)`` of one block of ``buf`` (PART: a tile's
+    partials as one row; DOTS: one entry)."""
+    if buf in (A_INV, A_SLICES):
+        return bi, bi
+    if buf in (G_INV, G_SLICES):
+        return bo, bo
+    if buf == PART:
+        return 1, partials(bi, bo)
+    if buf == DOTS:
+        return 1, 1
+    return bi, bo
+
+
+def tile_bytes(bi: int, bo: int) -> int:
+    """Chunk workspace a tile: g's and tmp's slices (rows
+    ``hilo_tma.slice_stride(bo)`` apart) and its partial dots."""
+    return 2 * 4 * bi * hilo_tma.slice_stride(bo) + 4 * partials(bi, bo)
 
 
 def wu_chunks(n_tiles: int, bi: int, bo: int,
               budget: int = hilo_bmm.WORKSPACE_BYTES) -> list:
     """The large route's ``(t0, t1)`` chunks of tiles: each chunk's
-    ``tmp`` (bi x bo fp32 a tile, rows padded to 4) and partial dots
-    stay under ``budget``."""
-    per_tile = 4 * (bi * hilo_bmm.row_stride(bo) + hilo_bmm.tiles_of(bi, bo))
-    return hilo_bmm.chunks(n_tiles, per_tile, budget)
+    workspace (:func:`tile_bytes` a tile) stays under ``budget``."""
+    return hilo_bmm.chunks(n_tiles, tile_bytes(bi, bo), budget)
 
 
-def expected_launches(n_tiles: int, bi: int, bo: int) -> int:
-    """Launches of one :func:`fused_precond` call on (n_tiles, bi, bo)."""
+def wu_schedule(n_tiles: int, bi: int, bo: int, pool_blocks=None,
+                shared: bool = False) -> WuSchedule:
+    """The large route's launches for (n_tiles, bi, bo) tiles, as a pure
+    function. ``pool_blocks = (na, ng)``: the inverses are pools of that
+    many blocks read through ``a_src``/``g_src``; None: the gathered form,
+    block t of each (``shared`` is then False). ``shared``: ``a_inv`` and
+    ``g_inv`` are one tensor, split once.
+
+    * once a call, each pool into its slices (rows
+      ``hilo_tma.slice_stride`` apart);
+    * per chunk: g's split; ``tmp = hilo(A, g)``, stored as its slices
+      only (no fp32 ``tmp`` is written); ``out = hilo(tmp, G)`` in fp32
+      into the caller's out with the partial dots (E: the caller's g);
+      the dots, each tile's partials summed in order.
+
+    Its bytes floor (``floor_bytes``) is 28 bytes an entry of g, 12 an
+    entry of a pool (16 of a shared one, read as both sides), 4 an index,
+    8 a partial dot and 4 a dot."""
+    indexed = pool_blocks is not None
+    na, ng = pool_blocks if indexed else (n_tiles, n_tiles)
+    if shared and (not indexed or bi != bo or na != ng):
+        raise ValueError("a shared pool takes indexed tiles with bi == bo")
+    g_pool = A_SLICES if shared else G_SLICES
+    pools = [Launch(SPLIT, ((A_INV, (F32,)),), ((A_SLICES, SLICES),))]
+    if not shared:
+        pools.append(Launch(SPLIT, ((G_INV, (F32,)),),
+                            ((G_SLICES, SLICES),)))
+    a_idx, g_idx = ("a_src", "g_src") if indexed else (None, None)
+    per_chunk = (
+        Launch(SPLIT, ((G, (F32,)),), ((G_SLICED, SLICES),)),
+        Launch(PRODUCT, ((A_SLICES, SLICES), (G_SLICED, SLICES)),
+               ((TMP, SLICES),), hilo_tma.STORE, (a_idx, None)),
+        Launch(PRODUCT, ((TMP, SLICES), (g_pool, SLICES), (G, (F32,))),
+               ((OUT, (F32,)), (PART, (F32,))), hilo_tma.DOT,
+               (None, g_idx)),
+        Launch(SUM, ((PART, (F32,)),), ((DOTS, (F32,)),)))
+    ss = hilo_tma.slice_stride
+    pool_bytes = 4 * (na * bi * ss(bi) + (0 if shared else ng * bo * ss(bo)))
+    parts = tuple(wu_chunks(n_tiles, bi, bo))
+    most = max((t1 - t0 for t0, t1 in parts), default=0)
+    return WuSchedule(tuple(pools), parts, per_chunk, pool_bytes,
+                      most * tile_bytes(bi, bo), (n_tiles, bi, bo),
+                      (na, ng))
+
+
+def expected_launches(n_tiles: int, bi: int, bo: int,
+                      shared: bool = False) -> int:
+    """Launches of one :func:`fused_precond` call on (n_tiles, bi, bo);
+    ``shared``: ``a_inv`` is ``g_inv`` (a WU group with bi == bo, whose
+    sides share one pool), split once."""
     if n_tiles == 0:
         return 0
     if max(bi, bo) <= ONE_CTA_B:
         return 1
-    return LARGE_LAUNCHES * len(wu_chunks(n_tiles, bi, bo))
+    sched = wu_schedule(n_tiles, bi, bo,
+                        (1, 1) if shared else None, shared)
+    return len(sched.pools) + len(sched.per_chunk) * len(sched.chunks)
 
 
 def check_indices(a_inv: torch.Tensor, g_inv: torch.Tensor, n: int,
@@ -146,40 +288,104 @@ def fused_precond(a_inv: torch.Tensor, g: torch.Tensor, g_inv: torch.Tensor,
     return out, dots
 
 
+def workspace(base: int, layout, bi: int, bo: int) -> dict:
+    """``{(buffer, form): device address}`` for ``layout``, a sequence of
+    ``(buffer, blocks)``: each buffer's forms (PART fp32, the others their
+    two slices at rows ``hilo_tma.slice_stride`` apart), one array after
+    the other from ``base``, each a multiple of 16 bytes but PART's."""
+    addr, off = {}, base
+    for buf, nb in layout:
+        rows, cols = geometry(buf, bi, bo)
+        for f in (F32,) if buf == PART else SLICES:
+            addr[(buf, f)] = off
+            ld = cols if f == F32 else hilo_tma.slice_stride(cols)
+            off += nb * rows * ld * hilo_tma.itemsize(f)
+    return addr
+
+
 def _large(a_inv, g, g_inv, a_src, g_src, out, dots, stream, key) -> None:
-    """The large route, chunk by chunk on ``stream``: ``tmp`` into a
-    workspace allocated on it (the current stream), then ``out`` and the
-    partial dots, then the dots."""
+    """The large route, :func:`wu_schedule`'s launches on ``stream``, its
+    workspace (the pools' slices, then the chunk's arrays, laid out for
+    the largest chunk) one allocation on it (the current stream)."""
     n, bi, bo = g.shape
-    ldt = hilo_bmm.row_stride(bo)
-    per = hilo_bmm.tiles_of(bi, bo)
-    parts = wu_chunks(n, bi, bo)
-    most = max(t1 - t0 for t0, t1 in parts)
-    tmp = torch.empty(most * bi * ldt, dtype=torch.float32, device=g.device)
-    part = torch.empty(most * per, dtype=torch.float32, device=g.device)
-    tmp_ptr, part_ptr = tmp.data_ptr(), part.data_ptr()
-    for t0, t1 in parts:
+    indexed = a_src is not None
+    shared = indexed and a_inv is g_inv
+    na, ng = a_inv.shape[0], g_inv.shape[0]
+    sched = wu_schedule(n, bi, bo, (na, ng) if indexed else None, shared)
+    ws = torch.empty(sched.pool_bytes + sched.chunk_bytes,
+                     dtype=torch.uint8, device=g.device)
+    most = max(t1 - t0 for t0, t1 in sched.chunks)
+    pools = ((A_SLICES, na),) if shared else ((A_SLICES, na), (G_SLICES, ng))
+    addr = workspace(ws.data_ptr(), pools, bi, bo)
+    addr.update(workspace(ws.data_ptr() + sched.pool_bytes,
+                          [(b, most) for b in CHUNK], bi, bo))
+    geo = {b: geometry(b, bi, bo) for b in CALLER + POOL_SLICES + CHUNK}
+    fp32 = {A_INV: a_inv, G_INV: g_inv, G: g, OUT: out, DOTS: dots}
+    index = {"a_src": a_src, "g_src": g_src}
+    ss = hilo_tma.slice_stride
+    for x in sched.pools:
+        (src, _), = x.reads
+        (dst, _), = x.writes
+        rows, cols = geo[src]
+        LIB.launch("fused_precond_split", fp32[src].data_ptr(),
+                   fp32[src].shape[0], rows, cols, addr[(dst, HI)],
+                   addr[(dst, LO)], ss(cols), stream, key=key)
+    for t0, t1 in sched.chunks:
         nt = t1 - t0
-        g_ptr = hilo_bmm.elem_ptr(g, t0 * bi * bo)
-        if a_src is None:
-            left = hilo_bmm.operand(hilo_bmm.elem_ptr(a_inv, t0 * bi * bi),
-                                    bi * bi, bi)
-            right = hilo_bmm.operand(hilo_bmm.elem_ptr(g_inv, t0 * bo * bo),
-                                     bo * bo, bo)
-        else:
-            left = hilo_bmm.operand(a_inv.data_ptr(), bi * bi, bi,
-                                    a_src.data_ptr() + 4 * t0)
-            right = hilo_bmm.operand(g_inv.data_ptr(), bo * bo, bo,
-                                     g_src.data_ptr() + 4 * t0)
-        p = hilo_bmm.params(left, hilo_bmm.operand(g_ptr, bi * bo, bo),
-                            tmp_ptr, bi * ldt, ldt, bi, bo, bi, nt)
-        LIB.launch("fused_precond_product", ctypes.byref(p), hilo_bmm.FULL,
-                   hilo_bmm.STORE, stream, key=key)
-        p = hilo_bmm.params(hilo_bmm.operand(tmp_ptr, bi * ldt, ldt), right,
-                            hilo_bmm.elem_ptr(out, t0 * bi * bo), bi * bo,
-                            bo, bi, bo, bo, nt, e=g_ptr, e_stride=bi * bo,
-                            lde=bo, part=part_ptr)
-        LIB.launch("fused_precond_product", ctypes.byref(p), hilo_bmm.FULL,
-                   hilo_bmm.DOT, stream, key=key)
-        LIB.launch("fused_precond_dots", part_ptr, per,
-                   hilo_bmm.elem_ptr(dots, t0), nt, stream, key=key)
+
+        def ptr(buf, form):
+            """``buf``'s form for the chunk's first tile."""
+            rows, cols = geo[buf]
+            if buf in fp32:
+                return hilo_bmm.elem_ptr(fp32[buf], t0 * rows * cols)
+            if buf in POOL_SLICES and not indexed:
+                return addr[(buf, form)] + 2 * t0 * rows * ss(cols)
+            return addr[(buf, form)]
+
+        for x in sched.per_chunk:
+            if x.kind == SPLIT:
+                (src, _), = x.reads
+                (dst, _), = x.writes
+                rows, cols = geo[src]
+                LIB.launch("fused_precond_split", ptr(src, F32), nt, rows,
+                           cols, ptr(dst, HI), ptr(dst, LO), ss(cols),
+                           stream, key=key)
+            elif x.kind == PRODUCT:
+                prm = _product(x, ptr, geo, index, t0, nt,
+                               {A_SLICES: na, G_SLICES: ng})
+                LIB.launch("fused_precond_product", ctypes.byref(prm),
+                           stream, key=key)
+            else:
+                LIB.launch("fused_precond_dots", ptr(PART, F32),
+                           geo[PART][1], ptr(DOTS, F32), nt, stream,
+                           key=key)
+
+
+def _product(x: Launch, ptr, geo: dict, index: dict, t0: int, nt: int,
+             pool_blocks: dict) -> hilo_tma.Params:
+    """One product of :func:`wu_schedule` as ``hilo_tma.Params``: the
+    left m x k and right k x n operands' slices, each through its index
+    array (from the chunk's first tile on, over the pool's
+    ``pool_blocks``) where it has one, else the chunk's ``nt`` blocks,
+    C's forms, E, and the partials of DOT (``geo``: each buffer's
+    :func:`geometry`)."""
+    (left, _), (right, _), *e = x.reads
+    (c, c_forms), *part = x.writes
+    m, k = geo[left]
+    n = geo[right][1]
+    ss = hilo_tma.slice_stride
+    idx = [None if i is None else index[i].data_ptr() + 4 * t0
+           for i in x.index]
+    prm = hilo_tma.Params(
+        ptr(left, HI), ptr(left, LO), ptr(right, HI), ptr(right, LO),
+        ptr(e[0][0], F32) if e else None,
+        hilo_tma.Out(*(ptr(c, f) if f in c_forms else None
+                       for f in hilo_tma.FORMS)),
+        hilo_tma.Out(), n, n, ss(n), nt, x.epi)
+    prm.m, prm.k, prm.l_ld16, prm.r_ld16 = m, k, ss(k), ss(n)
+    prm.l_blocks = pool_blocks[left] if idx[0] else nt
+    prm.r_blocks = pool_blocks[right] if idx[1] else nt
+    prm.l_idx, prm.r_idx = idx
+    if part:
+        prm.part = ptr(PART, F32)
+    return prm

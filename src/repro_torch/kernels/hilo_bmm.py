@@ -1,8 +1,8 @@
 """Arguments of the batched hi/lo product ``csrc/hilo_bmm.cuh``: the
-large-block route of ``fused_precond``, ``smw_update`` and
-``fused_gram_inv``'s Gram (sides and ranks of 129..1024), shared by their
-wrappers; also the workspace helpers of every large route
-(:data:`WORKSPACE_BYTES`, :func:`chunks`, :func:`row_stride`).
+large-block route of ``smw_update`` and ``fused_gram_inv``'s Gram (sides
+and ranks of 129..1024), shared by their wrappers; also the workspace
+helpers of every large route (:data:`WORKSPACE_BYTES`, :func:`chunks`,
+:func:`row_stride`).
 
 The product's operands are fp32 blocks in device memory (bf16 for the Gram
 of bf16 activations), addressed by a base pointer, an optional int32
@@ -12,8 +12,8 @@ transposed (a template flag of the launch, chosen by the wrapper's C
 entry), splits it into bf16 hi/lo slices as it stages it and pads every
 side with zeros to its 64-wide tiles in shared memory only. Nothing here
 launches or allocates: the wrappers build one :class:`Params` a product.
-``neumann_inv``'s large route runs on a product of its own
-(``csrc/hilo_tma.cuh``, :mod:`hilo_tma`).
+``neumann_inv``'s and ``fused_precond``'s large routes run on a product
+of their own (``csrc/hilo_tma.cuh``, :mod:`hilo_tma`).
 """
 
 from __future__ import annotations
@@ -22,8 +22,6 @@ import ctypes
 
 import torch
 
-#: the product's output tile (rows and columns) and depth step
-TILE = 64
 #: the reference's largest block and tile side (``repro.kernels``)
 MAX_SIDE = 1024
 #: a chunk's workspace is kept under this many bytes; a side's blocks (or a
@@ -33,7 +31,7 @@ WORKSPACE_BYTES = 1 << 30
 # the left operand's mode (its two slices) and the epilogues (bmm::Mode,
 # bmm::Epi)
 FULL = 0
-STORE, DOT, SUB = 0, 5, 6
+STORE, SUB = 0, 6
 
 
 class Operand(ctypes.Structure):
@@ -54,7 +52,7 @@ class Params(ctypes.Structure):
                 ("C", ctypes.c_void_p), ("c_stride", ctypes.c_longlong),
                 ("ldc", ctypes.c_int),
                 ("E", ctypes.c_void_p), ("e_stride", ctypes.c_longlong),
-                ("lde", ctypes.c_int), ("part", ctypes.c_void_p),
+                ("lde", ctypes.c_int),
                 ("M", ctypes.c_int), ("N", ctypes.c_int), ("K", ctypes.c_int),
                 ("batch", ctypes.c_int), ("c_vec", ctypes.c_int)]
 
@@ -63,12 +61,6 @@ def row_stride(cols: int) -> int:
     """A workspace row's stride: ``cols`` rounded up to 4 floats, so
     that every workspace operand takes float4 loads."""
     return -(-cols // 4) * 4
-
-
-def tiles_of(rows: int, cols: int) -> int:
-    """Output tiles of one rows x cols block (a DOT product's partial
-    dots a block)."""
-    return -(-rows // TILE) * -(-cols // TILE)
 
 
 def chunks(total: int, per_item_bytes: int,
@@ -94,15 +86,14 @@ def operand(ptr: int, stride: int, ld: int, idx: int | None = None) -> Operand:
 
 def params(left: Operand, right: Operand, out: int, out_stride: int,
            ldc: int, m: int, n: int, k: int, batch: int, *,
-           e: int | None = None, e_stride: int = 0, lde: int = 0,
-           part: int | None = None) -> Params:
+           e: int | None = None, e_stride: int = 0, lde: int = 0) -> Params:
     """One product's :class:`Params`; ``c_vec`` (float2 epilogue
     accesses) where C and E and their strides allow it."""
     ptrs = [x for x in (out, e) if x is not None]
     strides = [out_stride, ldc] + ([e_stride, lde] if e is not None else [])
     c_vec = all(x % 8 == 0 for x in ptrs) and all(s % 2 == 0
                                                   for s in strides)
-    return Params(left, right, out, out_stride, ldc, e, e_stride, lde, part,
+    return Params(left, right, out, out_stride, ldc, e, e_stride, lde,
                   m, n, k, batch, int(c_vec))
 
 

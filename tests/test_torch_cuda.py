@@ -305,7 +305,7 @@ def test_fused_precond_kernel_refuses_tiles_above_1024(cuda_device):
 # large_blocks, nb small; fused_precond's tiles of that phase
 LARGE_N = [(3, 129), (4, 176), (3, 256), (2, 512), (2, 1024)]
 LARGE_TILES = [(6, 256, 256), (7, 256, 176), (5, 176, 256), (3, 1024, 176),
-               (3, 176, 1024), (4, 130, 200)]
+               (3, 176, 1024), (4, 130, 200), (16, 129, 129), (24, 200, 130)]
 
 
 @pytest.mark.cuda
@@ -437,7 +437,17 @@ def test_neumann_inv_large_product_refuses_what_it_cannot_take(cuda_device):
                   ctypes.byref(hilo_tma.Params(**ok)), stream)
     torch.cuda.synchronize()
     for bad in (dict(ok, ld16=180), dict(ok, r_lo=base + 8),
-                dict(ok, epi=hilo_tma.ADD)):
+                dict(ok, epi=hilo_tma.ADD),
+                # the rectangular fields: a side above 1024, a slice
+                # stride no multiple of 8 or under its rows' width, a
+                # block count out of range, an index array off 4 bytes,
+                # DOT without E or partials, an epilogue past DOT
+                dict(ok, m=1025), dict(ok, k=-1), dict(ok, l_ld16=180),
+                dict(ok, r_ld16=168), dict(ok, r_blocks=-1),
+                dict(ok, l_blocks=1 << 25), dict(ok, l_idx=base + 2),
+                dict(ok, epi=hilo_tma.DOT),
+                dict(ok, epi=hilo_tma.DOT, e=base, part=None),
+                dict(ok, epi=hilo_tma.DOT + 1)):
         with pytest.raises(RuntimeError, match="neumann_inv_product"):
             kn.LIB.launch("neumann_inv_product",
                           ctypes.byref(hilo_tma.Params(**bad)), stream)
@@ -481,8 +491,11 @@ def test_neumann_inv_large_out_and_side_stream(cuda_device):
 @pytest.mark.parametrize("n,bi,bo", LARGE_TILES)
 def test_fused_precond_large_kernel_matches_plain(cuda_device, n, bi, bo):
     """Gathered and indexed (repeated, out of order), against the plain
-    version; three launches a call (two products and the dots), the
-    indexed call bitwise the gathered one."""
+    version (sides of 129 and 130 with rows that are no multiple of 4:
+    out and g unpadded); the launches of ``wu_schedule`` (two pool
+    splits, then g's split, two products and the dots a chunk), all
+    keyed by the shape; the indexed call bitwise the gathered one, each
+    call bitwise its repeat."""
     from repro_torch.kernels import fused_precond as kf
 
     x = tuple(torch.from_numpy(v).to(cuda_device)
@@ -490,9 +503,11 @@ def test_fused_precond_large_kernel_matches_plain(cuda_device, n, bi, bo):
     ops.reset_launch_counts()
     out, dots = ops.fused_precond(*x)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["fused_precond"] == \
-        kf.expected_launches(n, bi, bo) == 3
-    assert ops.launch_keys()["fused_precond"] == {f"{bi}x{bo}": 3}
+    want = kf.expected_launches(n, bi, bo)
+    assert ops.launch_counts()["fused_precond"] == want == 2 + 4
+    assert ops.launch_keys()["fused_precond"] == {f"{bi}x{bo}": want}
+    again = ops.fused_precond(*x)
+    assert torch.equal(out, again[0]) and torch.equal(dots, again[1])
     want_out, want_dots = tref.fused_precond_ref(*x)
     assert (out - want_out).abs().max() <= 1e-4 * want_out.abs().max()
     assert (dots - want_dots).abs().max() <= 1e-4 * want_dots.abs().max()
@@ -503,6 +518,8 @@ def test_fused_precond_large_kernel_matches_plain(cuda_device, n, bi, bo):
     go, gdots = ops.fused_precond(x[0][a_src.long()].contiguous(), x[1],
                                   x[2][g_src.long()].contiguous())
     assert torch.equal(io, go) and torch.equal(idots, gdots)
+    again = ops.fused_precond(x[0], x[1], x[2], a_src, g_src)
+    assert torch.equal(io, again[0]) and torch.equal(idots, again[1])
     want_out, want_dots = tref.fused_precond_ref(x[0], x[1], x[2], a_src,
                                                  g_src)
     assert (io - want_out).abs().max() <= 1e-4 * want_out.abs().max()
@@ -519,12 +536,63 @@ def test_fused_precond_large_chunks_are_bitwise_one_chunk(cuda_device,
     out, dots = ops.fused_precond(*x)
     chunks = kf.wu_chunks
     monkeypatch.setattr(kf, "wu_chunks", lambda n, bi, bo: chunks(
-        n, bi, bo, budget=4 * 4 * (bi * bo + 12)))
+        n, bi, bo, budget=4 * kf.tile_bytes(bi, bo)))
     ops.reset_launch_counts()
     o2, d2 = ops.fused_precond(*x)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["fused_precond"] == 3 * 3
+    assert ops.launch_counts()["fused_precond"] == \
+        kf.expected_launches(9, 256, 176) == 2 + 4 * 3
     assert torch.equal(out, o2) and torch.equal(dots, d2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [176, 256])
+def test_fused_precond_large_shared_pool_is_two_pools(cuda_device, b):
+    """A WU group of bi == bo passes one pool as both sides: split once
+    (five launches), bitwise the call with a copy of it as the G pool
+    (two splits)."""
+    from repro_torch.kernels import fused_precond as kf
+
+    r = np.random.default_rng(b)
+    pool = torch.from_numpy(r.standard_normal((5, b, b)).astype(
+        np.float32)).to(cuda_device)
+    g = torch.from_numpy(r.standard_normal((12, b, b)).astype(
+        np.float32)).to(cuda_device)
+    a_src, g_src = (torch.from_numpy(r.integers(0, 5, 12).astype(
+        np.int32)).to(cuda_device) for _ in range(2))
+    ops.reset_launch_counts()
+    out, dots = ops.fused_precond(pool, g, pool, a_src, g_src)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_precond"] == \
+        kf.expected_launches(12, b, b, shared=True) == 1 + 4
+    o2, d2 = ops.fused_precond(pool, g, pool.clone(), a_src, g_src)
+    assert torch.equal(out, o2) and torch.equal(dots, d2)
+    want_out, want_dots = tref.fused_precond_ref(pool, g, pool, a_src,
+                                                 g_src)
+    assert (out - want_out).abs().max() <= 1e-4 * want_out.abs().max()
+    assert (dots - want_dots).abs().max() <= 1e-4 * want_dots.abs().max()
+
+
+@pytest.mark.cuda
+def test_fused_precond_large_on_a_side_stream(cuda_device):
+    """The large route on a side stream (its workspace taken from the
+    allocator there): bitwise the main stream's, every launch on the
+    side stream."""
+    x = tuple(torch.from_numpy(v).to(cuda_device)
+              for v in _tiles(5, 40, 256, 176))
+    want = ops.fused_precond(*x)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    ops.reset_launch_counts()
+    with torch.cuda.stream(side):
+        got = ops.fused_precond(*x)
+    junk = [torch.empty(1 << 26, device=cuda_device).fill_(float("nan"))
+            for _ in range(4)]
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    torch.cuda.synchronize()
+    del junk
+    assert list(ops.launch_streams()["fused_precond"]) == [side.cuda_stream]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _smw_case(seed, n, k, bs, scale):

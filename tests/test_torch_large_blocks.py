@@ -356,17 +356,26 @@ def test_expected_launches_counts_both_routes():
 
 
 def test_wu_chunks_and_expected_launches():
-    assert t_fused_precond.wu_chunks(3072, 256, 176) == [(0, 3072)]
+    """The large route's chunks keep g's and tmp's bf16 slices (rows of
+    176 padded to 176, of 200 to 200) and the partial dots (two a 128 x
+    192 or 128 x 256 output tile) under the budget; a call launches two
+    pool splits, then four kernels a chunk (tests/test_torch_wu_large.py
+    holds the schedule itself)."""
+    assert t_fused_precond.wu_chunks(3072, 256, 176) == [(0, 1536),
+                                                         (1536, 3072)]
+    assert t_fused_precond.wu_chunks(1536, 256, 256) == [(0, 1536)]
     parts = t_fused_precond.wu_chunks(6144, 1024, 176)
-    per_tile = 4 * (1024 * 176 + 16 * 3)
+    per_tile = 2 * 2 * 2 * 1024 * 176 + 4 * 2 * 8
+    assert t_fused_precond.tile_bytes(1024, 176) == per_tile
     assert parts[0][0] == 0 and parts[-1][1] == 6144
     assert max(b - a for a, b in parts) * per_tile <= \
         hilo_bmm.WORKSPACE_BYTES
     assert t_fused_precond.expected_launches(6144, 1024, 176) == \
-        3 * len(parts)
+        2 + 4 * len(parts)
+    assert t_fused_precond.expected_launches(1536, 256, 256,
+                                             shared=True) == 1 + 4
     assert t_fused_precond.expected_launches(18816, 128, 128) == 1
     assert t_fused_precond.expected_launches(0, 256, 256) == 0
-    assert hilo_bmm.tiles_of(176, 256) == 12
     assert hilo_bmm.row_stride(130) == 132 and hilo_bmm.row_stride(176) == 176
 
 
@@ -379,15 +388,35 @@ def test_params_layout_and_vector_flags():
     assert ctypes.sizeof(hilo_bmm.Operand) == 32
     assert hilo_bmm.Params.C.offset == 64
     assert hilo_bmm.Params.E.offset == 88
-    assert hilo_bmm.Params.part.offset == 112
-    assert hilo_bmm.Params.M.offset == 120
-    assert ctypes.sizeof(hilo_bmm.Params) == 144
-    # hilo_tma's: five pointers, two Outs of three, five ints
+    assert hilo_bmm.Params.M.offset == 108
+    assert ctypes.sizeof(hilo_bmm.Params) == 128
+    # hilo_tma's: five pointers, two Outs of three, five ints (the square
+    # form, neumann_inv's), then the rectangular form's six ints, padding
+    # to 8 bytes, three pointers (two index arrays, the partials)
     assert ctypes.sizeof(hilo_tma.Out) == 24
     assert hilo_tma.Params.c.offset == 40
     assert hilo_tma.Params.f.offset == 64
     assert hilo_tma.Params.n.offset == 88
-    assert ctypes.sizeof(hilo_tma.Params) == 112
+    assert hilo_tma.Params.epi.offset == 104
+    assert [getattr(hilo_tma.Params, f).offset for f in (
+        "m", "k", "l_ld16", "r_ld16", "l_blocks", "r_blocks")] == \
+        list(range(108, 132, 4))
+    assert hilo_tma.Params.l_idx.offset == 136
+    assert hilo_tma.Params.r_idx.offset == 144
+    assert hilo_tma.Params.part.offset == 152
+    assert ctypes.sizeof(hilo_tma.Params) == 160
+    # neumann_inv's positional Params leave the rectangular fields 0: the
+    # square form
+    sq = hilo_tma.Params(16, 32, 48, 64, None, hilo_tma.Out(),
+                         hilo_tma.Out(), 176, 176, 176, 3, hilo_tma.STORE)
+    assert (sq.m, sq.k, sq.l_ld16, sq.r_ld16, sq.l_blocks, sq.r_blocks,
+            sq.l_idx, sq.r_idx, sq.part) == (0,) * 6 + (None,) * 3
+    # the tile's columns and a result's tiles (the partials' count)
+    assert [hilo_tma.tile_n(n) for n in (129, 176, 200, 256, 300, 1024)] \
+        == [192, 192, 256, 256, 192, 256]
+    assert hilo_tma.tiles_of(176, 256) == 2 and \
+        hilo_tma.tiles_of(1024, 176) == 8 and \
+        hilo_tma.tiles_of(130, 1024) == 8
     assert hilo_bmm.operand(1024, 176 * 176, 176).vec == 1
     assert hilo_bmm.operand(1024, 130 * 130, 130).vec == 0
     assert hilo_bmm.operand(1028, 256 * 256, 256).vec == 0
