@@ -223,8 +223,7 @@ Phases, each printed as a JSON line:
                  with their verdicts, not gated; launch counters zeroed
                  just before each sub-phase and read just after
   18. large_blocks  the kernels' route for block and tile sides of
-                 129..1024 (``csrc/hilo_tma.cuh`` for neumann_inv and
-                 fused_precond, ``csrc/hilo_bmm.cuh`` for the others): (a)
+                 129..1024 (every kernel's on ``csrc/hilo_tma.cuh``): (a)
                  neumann_inv at 129, 176, 256, 512 and 1024 (2-8 blocks)
                  and fused_precond indexed and gathered at (256, 256),
                  (256, 176), (176, 256), (1024, 176), (176, 1024), (130,
@@ -2356,7 +2355,8 @@ def large_solve_kernels(torch, dev, check, gen):
             check(row["bits_kernel"] >= row["bits_plain"] - 1.0,
                   f"{what} as accurate as plain")
             check(row["repeat_bitwise"], f"{what} bitwise its repeat")
-            check(launches == kg.expected_launches(nb, n, **KFAC_COUNTS),
+            check(launches == kg.expected_launches(x.shape, dtype,
+                                                   **KFAC_COUNTS),
                   f"{what} launches")
             del x, got, want, gram, two, gram64, exact
         del acts32
@@ -2365,7 +2365,7 @@ def large_solve_kernels(torch, dev, check, gen):
 
 def large_blocks_phase(torch, dev, check):
     """Phase ``large_blocks``: the kernels' route for sides of 129..1024
-    (``csrc/hilo_tma.cuh``, ``csrc/hilo_bmm.cuh``). (a) ``neumann_inv``
+    (``csrc/hilo_tma.cuh``). (a) ``neumann_inv``
     at :data:`LARGE`'s sides and ``fused_precond`` (indexed, as the WU
     calls it, and gathered) at its tile shapes against their plain
     versions, each timed (CUDA events, warm, median of 5) beside its
@@ -2724,7 +2724,7 @@ def large_blocks_phase(torch, dev, check):
     launches, keys = ops.launch_counts(), ops.launch_keys()
     want = {"fused_gram_inv": 0, "neumann_inv": 0}
     for x in acts.values():
-        for lib, c in kg.expected_launches(x.shape[1], x.shape[2],
+        for lib, c in kg.expected_launches(x.shape, x.dtype,
                                            **KFAC_COUNTS).items():
             want[lib] += c
     check({x.shape[-1] for x in acts.values()} == {256, 176},

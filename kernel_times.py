@@ -36,7 +36,17 @@ kernel whose module in the tree takes them (``MAX_N``/``MAX_B`` above
                   176 blocks, at rank 64 and 256) beside
                   ref.exact_smw_update; the host's enqueue time of one
                   call at the path's shapes and at (2, 1024, 1024);
-  fused_gram_inv  (d)'s (T, nb, n), fp32 and bf16.
+  fused_gram_inv  (d)'s (T, nb, n) and (f)'s (the main path's first
+                  batch at block 256: 2048 tokens of 96 blocks of 256 and
+                  384 of 176), fp32 and bf16.
+Where a tree's module takes the large routes, ``smw_update``'s and
+``fused_gram_inv``'s are also timed launch by launch (CUDA events around
+each launch, median of 5 calls after one to warm up; any tree, keyed by
+stage): ``smw_*`` the prep, the products (``y`` = hilo(V, M), ``s`` =
+hilo(Y, V^T), ``out`` = M - hilo(Y^T, Z)) and the solve's launches
+together, at (d)'s shapes and the path's; ``gram_*`` the
+activations' split, the Gram product, the finish and neumann_inv's
+launches, at (d)'s and (f)'s shapes, fp32 and bf16.
 Where the tree's ``fused_precond`` has ``wu_schedule``, its large route's
 launches are also timed by kind (the pool splits, g's split, the two
 products, the dots; CUDA events around each launch, median of 5 calls),
@@ -58,6 +68,9 @@ built and without their epilogue, at a chunk of the block-256 path's 256
 side (384 blocks) and of the 1024 side (32 blocks); and ``fused_precond``'s
 launches by kind again, built from a copy of ``csrc/fused_precond.cu``
 with that cut header, so its products run without their epilogue.
+Each large-route call's result also gets a digest (``*_digest``, a hash
+of its bytes): two trees' digests agree where their results on the same
+inputs are bitwise equal.
 Inputs are random, from seed 0. Prints one JSON line with the card's
 name and power limit. Compare two trees in turns (parent, change,
 change, parent); a directory without ``repro_torch`` or a machine
@@ -68,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import math
 import os
@@ -85,6 +99,14 @@ GRAM_ONLY = dict(ns_iters=0, taylor_terms=1, refine_steps=0)
 # (blocks, k, bs) of a step's update at rank 64 and 256
 SMW_PATH = ((768, 64, 256), (1152, 64, 176), (768, 256, 256),
             (1152, 256, 176))
+# fused_gram_inv on the main path's first batch at block 256 (phase
+# large_blocks (f)): (T, nb, n) of its A leaves' two sides
+GRAM_PATH = ((2048, 96, 256), (2048, 384, 176))
+
+
+def row_stride(cols: int) -> int:
+    """An fp32 workspace row's stride (any tree's ``row_stride``)."""
+    return -(-cols // 4) * 4
 
 
 # bitslice_mm.cu cut down, for --ablate: (anchor, replacement) pairs
@@ -108,6 +130,15 @@ NO_EPILOGUE = ("    epilogue<BN, VEC>(acc, p,",
 # schedule at 20/4/2: a Newton-Schulz pair (2I - A_H X, then X W), a
 # Neumann term's -X U with M += T, a refinement's M + M R
 PRODUCTS = {"ns_w": 0, "ns_xw": 1, "neg_acc": 41, "add": 47}
+
+
+def digest(*tensors) -> str:
+    """A short hash of the tensors' bytes: equal digests of two trees'
+    results on the same inputs mean bitwise equal results."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def time_ms(torch, fn, reps=5, launches=1) -> float:
@@ -192,7 +223,7 @@ def ablate_products(torch, ops, build, dev, gen) -> dict:
     back to back), as built and with the epilogue cut out of
     ``csrc/hilo_tma.cuh``, at (384, 256) and (32, 1024)."""
     from repro_torch.core import soi
-    from repro_torch.kernels import hilo_bmm, hilo_tma
+    from repro_torch.kernels import hilo_tma
     from repro_torch.kernels import neumann_inv as kn
 
     old, new = NO_EPILOGUE
@@ -225,7 +256,7 @@ def ablate_products(torch, ops, build, dev, gen) -> dict:
         a = m @ m.transpose(-1, -2) / (2 * n)
         lam = soi.tikhonov_damping(a, 0.03)
         inv = torch.empty_like(a)
-        ld32, ld16 = hilo_bmm.row_stride(n), hilo_tma.slice_stride(n)
+        ld32, ld16 = row_stride(n), hilo_tma.slice_stride(n)
         ws = torch.empty(nb * kn.block_bytes(n), dtype=torch.uint8,
                          device=dev)
         addr = kn.workspace(ws.data_ptr(), nb, n)
@@ -284,6 +315,8 @@ def large_routes(torch, ops, dev, gen) -> dict:
             a, lam = damped(nb, n)
             out[f"neumann_inv_{nb}x{n}_ms"] = time_ms(
                 torch, lambda: ops.neumann_inv(a, lam, **KFAC_COUNTS))
+            out[f"neumann_inv_{nb}x{n}_digest"] = digest(
+                ops.neumann_inv(a, lam, **KFAC_COUNTS))
             enqueue = []
             for _ in range(5):
                 torch.cuda.synchronize()
@@ -326,6 +359,8 @@ def large_routes(torch, ops, dev, gen) -> dict:
                 "chain": lambda: torch.matmul(torch.matmul(pa[a_idx], g),
                                               pg[g_idx])})
             out[f"fused_precond_{tag}_ms"] = got["kernel"]
+            out[f"fused_precond_{tag}_digest"] = digest(
+                *ops.fused_precond(pa, g, pg, a_src, g_src))
             out[f"chain_{tag}_ms"] = got["chain"]
             if hasattr(kf, "wu_schedule"):
                 out[f"fused_precond_{tag}_floor_ms"] = kf.wu_schedule(
@@ -343,6 +378,7 @@ def large_routes(torch, ops, dev, gen) -> dict:
             kw = dict(decay=0.95, cscale=0.05)
             out[f"{tag}_ms"] = time_ms(
                 torch, lambda: ops.smw_update(inv, v, **kw))
+            out[f"{tag}_digest"] = digest(ops.smw_update(inv, v, **kw))
             if (nb, k, bs) in SMW_PATH or k == 1024:
                 enqueue = []
                 for _ in range(5):
@@ -355,7 +391,7 @@ def large_routes(torch, ops, dev, gen) -> dict:
                     torch, lambda: ref.exact_smw_update(inv, v, **kw))
             del a, lam, inv, v
     if getattr(kg, "MAX_N", 128) > 128:
-        for t, nb, n in LARGE["gram"]:
+        for t, nb, n in tuple(LARGE["gram"]) + GRAM_PATH:
             acts = torch.randn(t, nb, n, device=dev, generator=gen)
             for dtype, name in ((torch.float32, "fp32"),
                                 (torch.bfloat16, "bf16")):
@@ -363,6 +399,110 @@ def large_routes(torch, ops, dev, gen) -> dict:
                 out[f"fused_gram_inv_{t}x{nb}x{n}_{name}_ms"] = time_ms(
                     torch, lambda: ops.fused_gram_inv(x, rel_damp=0.03,
                                                       **KFAC_COUNTS))
+                out[f"fused_gram_inv_{t}x{nb}x{n}_{name}_digest"] = digest(
+                    ops.fused_gram_inv(x, rel_damp=0.03, **KFAC_COUNTS))
+    return out
+
+
+def by_launch(torch, build, call, name) -> dict:
+    """ms of each kernel launch of ``call()`` (CUDA events around every
+    ``CudaLibrary.launch``), summed by ``name(library, entry, i)`` (i: the
+    launch's count among the call's launches of that entry), median of 5
+    calls after one to warm up."""
+    launch = build.CudaLibrary.launch
+    evs, times = [], {}
+
+    def timed(lib, entry, *args, key=None):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        launch(lib, entry, *args, key=key)
+        e1.record()
+        evs.append((lib.name, entry, e0, e1))
+
+    build.CudaLibrary.launch = timed
+    try:
+        for rep in range(6):
+            evs.clear()
+            call()
+            torch.cuda.synchronize()
+            if not rep:
+                continue
+            by, seen = {}, {}
+            for lib, entry, e0, e1 in evs:
+                i = seen[entry] = seen.get(entry, -1) + 1
+                stage = name(lib, entry, i)
+                by[stage] = by.get(stage, 0.0) + e0.elapsed_time(e1)
+            for stage, ms in by.items():
+                times.setdefault(stage, []).append(ms)
+    finally:
+        build.CudaLibrary.launch = launch
+    return {stage: statistics.median(ts) for stage, ts in times.items()}
+
+
+def smw_stage(lib, entry, i) -> str:
+    """smw_update's stages, summed over a call's chunks: the products in
+    the schedule's order (y, s, out), the prep, the solve's launches."""
+    if entry == "smw_update_product":
+        return ("y", "s", "out")[i % 3]
+    if entry == "smw_update_prep":
+        return "prep"
+    return "solve"
+
+
+def gram_stage(lib, entry, i) -> str:
+    """fused_gram_inv's stages: the split, the Gram, the finish; the
+    inverse (neumann_inv's launches)."""
+    if lib == "neumann_inv":
+        return "inverse"
+    return entry.replace("fused_gram_inv_", "")
+
+
+def stage_breakdown(torch, ops, build, dev, gen) -> dict:
+    """``smw_update``'s and ``fused_gram_inv``'s large routes launch by
+    launch (:func:`by_launch`) at ``chip_smoke.LARGE``'s shapes and the
+    paths' (``SMW_PATH``, ``GRAM_PATH``), beside the bounds of the stages
+    the products do (H100 SXM peaks, 989 TFLOP/s bf16, 3.35 TB/s): the
+    three products' operations (``smw_*_products_bound_ms``: 3 partials of
+    V M, Y V^T and Y^T Z); the Gram's (``gram_*_gram_bound_ms``: 3
+    partials, one for bf16, of a^T a, against the activations read once
+    and the Grams written once, the larger of the two)."""
+    from chip_smoke import LARGE
+    from repro_torch.core import soi
+
+    out = {}
+    kw = dict(decay=0.95, cscale=0.05)
+    for nb, k, bs in tuple(LARGE["smw"]) + SMW_PATH:
+        m = torch.randn(nb, bs, 2 * bs, device=dev, generator=gen)
+        a = m @ m.transpose(-1, -2) / (2 * bs)
+        lam = soi.tikhonov_damping(a, 0.03)
+        inv = (torch.linalg.inv(a + lam[:, None, None] * torch.eye(
+            bs, device=dev)) / 3e-4 ** 2).contiguous()
+        v = torch.randn(nb, k, bs, device=dev, generator=gen) * 3e-4
+        del m, a, lam
+        for stage, ms in by_launch(
+                torch, build, lambda: ops.smw_update(inv, v, **kw),
+                smw_stage).items():
+            out[f"smw_{nb}x{k}x{bs}_{stage}_ms"] = ms
+        flops = 2.0 * 3 * nb * (k * bs * bs + k * k * bs + bs * bs * k)
+        out[f"smw_{nb}x{k}x{bs}_products_bound_ms"] = flops / 989e12 * 1e3
+        del inv, v
+    for t, nb, n in tuple(LARGE["gram"]) + GRAM_PATH:
+        acts = torch.randn(t, nb, n, device=dev, generator=gen)
+        for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16,
+                                                     "bf16")):
+            x = acts.to(dtype)
+            for stage, ms in by_launch(
+                    torch, build, lambda: ops.fused_gram_inv(
+                        x, rel_damp=0.03, **KFAC_COUNTS),
+                    gram_stage).items():
+                out[f"gram_{t}x{nb}x{n}_{tag}_{stage}_ms"] = ms
+            partials = 3 if dtype == torch.float32 else 1
+            out[f"gram_{t}x{nb}x{n}_{tag}_gram_bound_ms"] = 1e3 * max(
+                2.0 * partials * nb * n * n * t / 989e12,
+                (x.element_size() * t * nb * n + 4 * nb * n * n) / 3.35e12)
+            del x
+        del acts
     return out
 
 
@@ -370,16 +510,26 @@ def large_routes(torch, ops, dev, gen) -> dict:
 WU_SHAPES = ((1536, 256, 256), (512, 130, 200))
 
 
+def wu_stage(lib, entry, i) -> str:
+    """fused_precond's stages: the two pool splits, then g's; the two
+    products in order; the dots."""
+    name = entry.replace("fused_precond_", "")
+    if name == "split":
+        return "split_pools" if i < 2 else "split_g"
+    if name == "product":
+        return "product_%d" % (1 + i % 2)
+    return name
+
+
 def wu_breakdown(torch, ops, dev, gen, tag="") -> dict:
-    """ms of ``fused_precond``'s large-route launches by kind, a call at a
-    time (CUDA events around each launch; median of 5 calls after one to
-    warm up), the whole call, and the host's time to enqueue one, at
-    :data:`WU_SHAPES` with pools as ``chip_smoke.LARGE`` makes them."""
+    """ms of ``fused_precond``'s large-route launches by kind
+    (:func:`by_launch`), the whole call, and the host's time to enqueue
+    one, at :data:`WU_SHAPES` with pools as ``chip_smoke.LARGE`` makes
+    them."""
     from chip_smoke import LARGE
-    from repro_torch.kernels import fused_precond as kf
+    from repro_torch.kernels import build
 
     run, out = LARGE["pool_run"], {}
-    launch = kf.LIB.launch
     for nt, bi, bo in WU_SHAPES:
         na, ng = -(-nt // run), max(1, min(run, nt))
         pa = torch.randn(na, bi, bi, device=dev, generator=gen)
@@ -387,41 +537,12 @@ def wu_breakdown(torch, ops, dev, gen, tag="") -> dict:
         g = torch.randn(nt, bi, bo, device=dev, generator=gen)
         t = torch.arange(nt, device=dev)
         a_src, g_src = (t // run).to(torch.int32), (t % ng).to(torch.int32)
-        evs = []
-
-        def timed(entry, *args, key=None):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            launch(entry, *args, key=key)
-            e1.record()
-            evs.append((entry, e0, e1))
-
-        times = {}
-        kf.LIB.launch = timed
-        try:
-            for rep in range(6):
-                evs.clear()
-                ops.fused_precond(pa, g, pg, a_src, g_src)
-                torch.cuda.synchronize()
-                if not rep:
-                    continue
-                by = {}
-                for i, (entry, e0, e1) in enumerate(evs):
-                    name = entry.replace("fused_precond_", "")
-                    if name == "split":
-                        name = "split_pools" if i < 2 else "split_g"
-                    elif name == "product":
-                        name = "product_%d" % (
-                            1 + sum(e == entry for e, _, _ in evs[:i]) % 2)
-                    by[name] = by.get(name, 0.0) + e0.elapsed_time(e1)
-                for name, ms in by.items():
-                    times.setdefault(name, []).append(ms)
-        finally:
-            del kf.LIB.launch
         shape = f"{nt}x{bi}x{bo}"
-        for name, ts in times.items():
-            out[f"wu{tag}_{shape}_{name}_ms"] = statistics.median(ts)
+        for name, ms in by_launch(
+                torch, build,
+                lambda: ops.fused_precond(pa, g, pg, a_src, g_src),
+                wu_stage).items():
+            out[f"wu{tag}_{shape}_{name}_ms"] = ms
         out[f"wu{tag}_{shape}_call_ms"] = time_ms(
             torch, lambda: ops.fused_precond(pa, g, pg, a_src, g_src))
         enqueue = []
@@ -472,13 +593,12 @@ def ablate_wu(torch, ops, build, dev, gen) -> dict:
 
 def lu_breakdown(torch, dev, gen) -> dict:
     """ms of the blocked LU's launches by kind, a solve at a time."""
-    from repro_torch.kernels import hilo_bmm
     from repro_torch.kernels import smw_update as ks
 
     out = {}
     stream = torch.cuda.current_stream().cuda_stream
     for nb, k, bs in ((2, 1024, 1024), (768, 256, 256), (1152, 256, 176)):
-        lds, ldy = hilo_bmm.row_stride(k), hilo_bmm.row_stride(bs)
+        lds, ldy = row_stride(k), row_stride(bs)
         s0 = torch.randn(nb, k, lds, device=dev, generator=gen) \
             + 30 * torch.eye(k, lds, device=dev)
         s = s0.clone()
@@ -582,12 +702,15 @@ def main() -> int:
         out[f"matmul_{m}_{k}_{n}_loop20_ms"] = time_ms(
             torch, lambda: torch.matmul(x, w), launches=20)
     out.update(large_routes(torch, ops, dev, gen))
+    from repro_torch.kernels import fused_gram_solve as kg
     from repro_torch.kernels import fused_precond as kf
     from repro_torch.kernels import smw_update as ks
     if hasattr(kf, "wu_schedule"):
         out.update(wu_breakdown(torch, ops, dev, gen))
     if hasattr(ks, "lu_schedule"):
         out.update(lu_breakdown(torch, dev, gen))
+    if getattr(ks, "MAX_N", 128) > 128 and getattr(kg, "MAX_N", 128) > 128:
+        out.update(stage_breakdown(torch, ops, build, dev, gen))
     if args.ablate:   # last: it loads three more libraries
         x = torch.randn(2048, 1024, device=dev, generator=gen)
         w = torch.randn(1024, 2816, device=dev, generator=gen)

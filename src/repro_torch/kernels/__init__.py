@@ -10,10 +10,10 @@
 
 The four with a block side or rank take the reference's whole domain, up
 to 1024: up to 128 one CTA holds a block; above, batched hi/lo products
-run over every block of a chunk with the state in a workspace
-(``neumann_inv``'s on TMA and wgmma with operands stored split,
-``csrc/hilo_tma.cuh``, :mod:`hilo_tma`; the others' on mma.sync,
-``csrc/hilo_bmm.cuh``, :mod:`hilo_bmm`). ``bitslice_mm`` takes any shape.
+run over every block of a chunk with the state in a workspace, on TMA
+and wgmma with operands stored split by their writer
+(``csrc/hilo_tma.cuh``, :mod:`hilo_tma`). ``bitslice_mm`` takes any
+shape.
 
 Each has a plain PyTorch version in :mod:`ref`; :mod:`ops` dispatches by
 device. Together they are every TPU kernel of ``repro.kernels``.

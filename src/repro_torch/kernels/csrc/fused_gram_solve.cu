@@ -42,13 +42,19 @@
 // CTA may have), so above 128 the Gram passes through device memory, where
 // the TPU kept it in VMEM. Per chunk of blocks, into a workspace the caller
 // allocates:
+//   fused_gram_inv_split   each block's (T, n) activations (rows nb n
+//                          apart in a) into slices, block after block, rows
+//                          slice_stride(n) apart (a TMA-legal layout: a's
+//                          own rows need not lie on 16 bytes, n = 129 puts
+//                          none there): hi and lo of fp32 activations, hi
+//                          alone of bf16 ones (exact: their lo is zero);
 //   fused_gram_inv_gram    G_i = sum of the hi/lo partials of a_i^T a_i,
-//                          one batched product (hilo_bmm.cuh) over the
-//                          chunk's blocks: the left operand block i of a
-//                          read transposed (rows nb n apart), the right the
-//                          same block as it is, depth T; bf16 activations
-//                          are read as they are (their lo slice is zero),
-//                          never copied to fp32;
+//                          one batched product of hilo_tma.cuh over the
+//                          chunk's blocks, depth T: the left operand block
+//                          i's slices read as stored (T x n: a_i^T stored
+//                          k x m), the right the same slices; three
+//                          partials for fp32, L_H R_H alone for bf16 (the
+//                          two left out add exact zeros);
 //   fused_gram_inv_finish  G_i / T (a division, as the plain version
 //                          divides) and lam_i = rel_damp tr / n + 1e-8, the
 //                          trace summed in the one-CTA kernel's order;
@@ -57,7 +63,7 @@
 // shared memory, and T split across CTAs for calls with few blocks and many
 // tokens, are later work.
 #include "composed_inv.cuh"
-#include "hilo_bmm.cuh"
+#include "hilo_tma.cuh"
 
 namespace {
 
@@ -305,15 +311,35 @@ gram_finish_kernel(float* __restrict__ g, float* __restrict__ lam, int n,
 
 }  // namespace
 
-// Large route: the chunk's Grams (mode FULL, epilogue STORE, the left
-// operand read transposed), of fp32 (bf16 == 0) or bf16 activations.
-extern "C" int fused_gram_inv_gram(const bmm::Params* p, int bf16_in,
-                                   void* stream) {
-  if (!bmm::valid(*p)) return static_cast<int>(cudaErrorInvalidValue);
+// Large route: `blocks` blocks of rows x cols activations at src (block
+// b's row r at src + b bstride + r ld elements; fp32, or bf16 with bf16_in
+// and lo null) into their slices at hi and lo, rows ld16 apart.
+extern "C" int fused_gram_inv_split(const void* src, int bf16_in,
+                                    long long blocks, int rows, int cols,
+                                    long long bstride, long long ld,
+                                    void* hi, void* lo, int ld16,
+                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* h = static_cast<bf16*>(hi);
   if (bf16_in)
-    return bmm::launch<bmm::STORE, true, false, __nv_bfloat16>(*p, st);
-  return bmm::launch<bmm::STORE, true, false, float>(*p, st);
+    return htma::split_launch(static_cast<const bf16*>(src), blocks, rows,
+                              cols, bstride, ld, ld16, h,
+                              static_cast<bf16*>(lo), st);
+  return htma::split_launch(static_cast<const float*>(src), blocks, rows,
+                            cols, bstride, ld, ld16, h,
+                            static_cast<bf16*>(lo), st);
+}
+
+// The Gram's forms: its left operand stored k x m (a_i^T as a_i), three
+// partials (fp32 activations) or one (bf16).
+constexpr int GRAM_FORMS =
+    htma::form_bit(true, false, 3) | htma::form_bit(true, false, 1);
+
+// Large route: the chunk's Grams (epilogue STORE).
+extern "C" int fused_gram_inv_gram(const htma::Params* p, void* stream) {
+  if (!p || p->epi != htma::STORE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return htma::launch<GRAM_FORMS>(*p, static_cast<cudaStream_t>(stream));
 }
 
 // Large route: g (nb, n, n) /= t_tok in place, lam (nb,) its damping.

@@ -57,7 +57,7 @@
 //   fused_precond_split    once a call, each distinct inverse pool into
 //                          its slices (one split when a_inv is g_inv);
 // then per chunk of tiles (workspace from PyTorch's allocator, under
-// hilo_bmm.WORKSPACE_BYTES):
+// hilo_tma.WORKSPACE_BYTES):
 //   fused_precond_split    the chunk's g into its slices,
 //   fused_precond_product  (FULL, STORE) tmp = hilo(A[a_src[t]], g[t]),
 //                          stored as its two slices only,
@@ -235,18 +235,19 @@ __global__ void dots_kernel(const float* __restrict__ part, int per,
 extern "C" int fused_precond_split(const float* src, long long blocks,
                                    int rows, int cols, void* hi, void* lo,
                                    int ld16, void* stream) {
-  return tbmm::split_launch(src, blocks, rows, cols, ld16,
-                            static_cast<tbmm::bf16*>(hi),
-                            static_cast<tbmm::bf16*>(lo),
+  return htma::split_launch(src, blocks, rows, cols,
+                            static_cast<long long>(rows) * cols, cols, ld16,
+                            static_cast<htma::bf16*>(hi),
+                            static_cast<htma::bf16*>(lo),
                             static_cast<cudaStream_t>(stream));
 }
 
 // Large route: one of the two products (hilo_tma.cuh; epi STORE for tmp,
 // DOT for out and the partial dots). Returns the cudaError_t.
-extern "C" int fused_precond_product(const tbmm::Params* p, void* stream) {
-  if (!p || (p->epi != tbmm::STORE && p->epi != tbmm::DOT))
+extern "C" int fused_precond_product(const htma::Params* p, void* stream) {
+  if (!p || (p->epi != htma::STORE && p->epi != htma::DOT))
     return static_cast<int>(cudaErrorInvalidValue);
-  return tbmm::launch(*p, static_cast<cudaStream_t>(stream));
+  return htma::launch(*p, static_cast<cudaStream_t>(stream));
 }
 
 // Large route: dots[t] for t < n from `per` partials a tile.

@@ -1,6 +1,7 @@
 // Batched hi/lo product on TMA and wgmma, with operands stored split: the
-// products of neumann_inv.cu's large route (blocks of 129..1024) and of
-// fused_precond.cu's (WU tiles with a side of 129..1024).
+// products of every large route (blocks, tiles and ranks of 129..1024):
+// neumann_inv.cu's, fused_precond.cu's, smw_update.cu's and
+// fused_gram_solve.cu's Gram.
 //
 // One launch computes, for every batch entry b and every 128 x BN tile of
 // the m x n result,
@@ -9,31 +10,44 @@
 // device memory as its bf16 hi and lo slices (round to nearest even, as
 // hilo::split2: hi = bf16(x), lo = bf16(x - hi)), row-major, rows l_ld16
 // (left) or r_ld16 (right) apart (multiples of 8 elements, as TMA needs).
-// Block b of an operand is block idx[b] of its array when the operand has
-// an index array (a pool of blocks that many batch entries share: the WU's
-// inverse blocks), else block b; an array holds l_blocks or r_blocks
-// blocks. The square form (m = k = n, one stride ld16, no index, arrays of
-// batch blocks) is what zero in the rectangular fields gives. The writer
-// of an operand, a split kernel (split_launch), the prep kernel or a
-// product's epilogue, splits it once as it stores it: nothing is split as
-// it is loaded, and splitting on store is bitwise what splitting the
-// stored fp32 on load gives. The partials, with fp32 accumulation in
-// wgmma's registers:
+// Each is stored m x k (left) and k x n (right), or transposed with l_t
+// (the left stored k x m: Y^T Z reads Y, the Gram a^T a reads a) and r_t
+// (the right stored n x k: Y V^T reads V); the TMA lands either in the
+// shared-memory layout wgmma reads for it (a stored-transposed left is an
+// MN-major A, a stored-transposed right a K-major B), so nothing is
+// transposed in memory. Block b of an operand is block idx[b] of its
+// array when the operand has an index array (a pool of blocks that many
+// batch entries share: the WU's inverse blocks), else block b; an array
+// holds l_blocks or r_blocks blocks. The square form (m = k = n, one
+// stride ld16, no index, arrays of batch blocks) is what zero in the
+// rectangular fields gives. The writer of an operand, a split kernel
+// (split_launch), a prep kernel or a product's epilogue, splits it once as
+// it stores it: nothing is split as it is loaded, and splitting on store
+// is bitwise what splitting the stored fp32 on load gives. The partials,
+// with fp32 accumulation in wgmma's registers:
 //   two slices of L  L_H R_H + L_H R_L + L_L R_H
 //   one slice of L   L_S R_H + L_S R_L   (L_S an exact bf16 slice: the hi
 //                                          or lo slice of A + lam I)
+//   one of each      L_H R_H             (both exact bf16: bf16
+//                                          activations, whose lo slices
+//                                          are zero, so the two partials
+//                                          left out add exact zeros)
 // summed k step by k step (16 deep) in a fixed order: no split K, no
 // atomics, so a launch is bitwise its repeat and each block's result does
-// not depend on the other blocks of the batch or on its index.
+// not depend on the other blocks of the batch or on its index. The depth k
+// may exceed the sides' 1024 (the Gram's is its token count).
 //
 // Epilogues (E fp32 m x n, read at rows ld32 apart; C and F each written
 // in the forms the caller asks for: fp32 at ld32, hi and lo at ld16, any
-// subset):
+// subset, none too):
 //   STORE        C = acc
 //   TWO_I_MINUS  C = 2I - acc             (Newton-Schulz's W = 2I - A_H X)
 //   I_MINUS      C = I - acc              (the refinement's residual)
 //   ADD          C = E + acc              (M + M R)
-//   NEG_ACC      C = -acc, F = E + C      (a Neumann term T and M += T)
+//   NEG_ACC      C = -acc, F = E + C      (a Neumann term T and M += T;
+//                                          with C written in no form, the
+//                                          Woodbury correction F = M - acc
+//                                          in one rounding)
 //   DOT          C = acc, and sum(acc E) over each warpgroup's 64 rows of
 //                the tile into part[2 tile + wg], in a fixed order (the
 //                WU's trust-region dot; a second kernel sums a block's
@@ -47,11 +61,13 @@
 // so are the pool blocks of neighbouring entries). Warp 8 is the producer:
 // one thread reads the tile's block indices and issues, for each k stage
 // of 32, the TMA copies of the stage's left block (128 x 32, each slice,
-// 64-byte swizzle) and right block (32 x BN, each slice, in 64-column
-// panels, 128-byte swizzle) from three-dimensional tensor maps over
-// (block, row, column), which land them in wgmma's canonical layouts and
-// fill every entry outside the m x k or k x n block with zero (so sides
-// such as 129 or 176 are exact with no padding in memory). A ring of as
+// 64-byte swizzle; stored k x m: two 64-column panels of 32 rows, 128-byte
+// swizzle) and right block (32 x BN, each slice, in 64-column panels,
+// 128-byte swizzle; stored n x k: BN rows of 32, 64-byte swizzle) from
+// three-dimensional tensor maps over (block, row, column), which land them
+// in wgmma's canonical layouts and fill every entry outside the stored
+// block with zero (so sides such as 129 or 176 are exact with no padding
+// in memory). A ring of as
 // many stages as shared memory holds (4 of 48 KB at BN 256, 5 of 40 KB at
 // 192), handed over with mbarriers (full: the copies' bytes; empty: one
 // arrival a consumer warp), keeps all but one stage's copies in flight,
@@ -72,6 +88,11 @@
 // that E is read and every form stored in whole rows of a warp: stored
 // straight from the accumulators' layout, a warp store covers 16 bytes of
 // each of 8 rows, and those stores, not the products, set the pace.
+//
+// A library instantiates the kernel only for the operand forms and
+// partial counts it launches (launch<FORMS>): each is a kernel of its own
+// for both tile widths and both epilogue accesses, and nvcc takes seconds
+// for each.
 #pragma once
 
 #include <cuda.h>
@@ -82,7 +103,7 @@
 #include "tma.cuh"
 #include "wgmma.cuh"
 
-namespace tbmm {
+namespace htma {
 
 using wgmma::bf16;
 
@@ -90,7 +111,8 @@ constexpr int BM = 128, BK = 32;
 constexpr int CONSUMERS = 256;              // two warpgroups
 constexpr int THREADS = CONSUMERS + 32;     // and the producer warp
 constexpr int A_BYTES = BM * BK * 2;        // one slice of a left block
-constexpr int MAX_N = 1024;
+constexpr int MAX_N = 1024;                 // m and n
+constexpr int MAX_K = 1 << 24;              // the depth (a Gram's tokens)
 constexpr int MAX_BATCH = 1 << 24;          // entries, blocks of an array
 constexpr int SMEM_LIMIT = 232448;          // a CTA's shared memory
 
@@ -108,8 +130,8 @@ struct Out {
 
 struct Params {
   const bf16* l_hi;  // the left operand's slice (its hi slice, or the one
-  const bf16* l_lo;  // exact slice with l_lo null: two partials)
-  const bf16* r_hi;
+  const bf16* l_lo;  // exact slice with l_lo null: two partials; with
+  const bf16* r_hi;  // r_lo null too, one)
   const bf16* r_lo;
   const float* e;    // ADD, NEG_ACC: the M block read; DOT: the E block
   Out c, f;          // f: NEG_ACC's M block written
@@ -123,7 +145,18 @@ struct Params {
   const int* l_idx;          // block of batch entry b: l_idx[b] (null: b)
   const int* r_idx;
   float* part;               // DOT: 2 partial dots a tile
+  int l_t, r_t;              // 1: the left stored k x m, the right n x k
 };
+
+// The forms a library launches, a bit each (launch<FORMS>): the left and
+// right operands' storage and the partial count (3: two slices of L; 2:
+// one; 1: L_H R_H alone).
+constexpr int form_bit(bool lt, bool rt, int parts) {
+  return 1 << (3 * (lt + 2 * rt) + parts - 1);
+}
+// the square and rectangular form with two or three partials
+// (neumann_inv.cu, fused_precond.cu)
+constexpr int PLAIN = form_bit(false, false, 2) | form_bit(false, false, 3);
 
 // The tile's width: 192 or 256 columns, whichever covers n with less pad.
 __host__ __device__ constexpr int tile_n(int n) {
@@ -353,11 +386,57 @@ __device__ __forceinline__ void epilogue(float (&d)[NA], const Params& p,
   }
 }
 
-// TWO: the left operand has two slices (three partials), else one (two).
-// VEC: C's, F's and E's fp32 rows take 16-byte accesses (a template flag:
-// tested at run time in the epilogue's loops, it slowed neumann_inv's
-// products by 3-4% on the H100). p is resolved().
-template <int BN, bool TWO, bool VEC>
+// The stage's copies of one operand block (its hi or lo slice) at shared
+// address dst, reported to bar: a left block of rows m0.. and depth k0..
+// (LT: stored k x m, two 64-column panels of BK rows, 128-byte swizzle;
+// else one box of BM rows of BK, 64-byte swizzle), a right block of
+// columns n0.. (RT: stored n x k, one box of BN rows of BK, 64-byte
+// swizzle; else BN / 64 panels of BK rows, 128-byte swizzle).
+template <bool LT>
+__device__ __forceinline__ void load_left(uint32_t dst, const CUtensorMap* map,
+                                          int m0, int k0, int blk,
+                                          uint32_t bar) {
+  if constexpr (LT) {
+    tma::load_3d(dst, map, m0, k0, blk, bar);
+    tma::load_3d(dst + BK * 128, map, m0 + 64, k0, blk, bar);
+  } else {
+    tma::load_3d(dst, map, k0, m0, blk, bar);
+  }
+}
+
+template <int BN, bool RT>
+__device__ __forceinline__ void load_right(uint32_t dst,
+                                           const CUtensorMap* map, int n0,
+                                           int k0, int blk, uint32_t bar) {
+  if constexpr (RT) {
+    tma::load_3d(dst, map, k0, n0, blk, bar);
+  } else {
+#pragma unroll
+    for (int q = 0; q < BN / 64; ++q)
+      tma::load_3d(dst + q * (BK * 128), map, n0 + 64 * q, k0, blk, bar);
+  }
+}
+
+// Descriptors of k16 step ks of a stage's left block (warpgroup wg's 64
+// rows; LT: MN-major, wgmma's transposed A) and right block (RT: K-major).
+template <bool LT>
+__device__ __forceinline__ uint64_t desc_left(uint32_t a, int wg, int ks) {
+  if constexpr (LT) return wgmma::desc_mn_t<BK>(a, wg, ks);
+  return desc_k64(a, wg, ks);
+}
+
+template <bool RT>
+__device__ __forceinline__ uint64_t desc_right(uint32_t b, int ks) {
+  if constexpr (RT) return desc_k64(b, 0, ks);
+  return wgmma::desc_mn<BK>(b, ks);
+}
+
+// PARTS: 3 (the left operand's two slices), 2 (its one slice) or 1 (L_H
+// R_H). LT, RT: the operands stored transposed (l_t, r_t). VEC: C's, F's
+// and E's fp32 rows take 16-byte accesses (a template flag: tested at run
+// time in the epilogue's loops, it slowed neumann_inv's products by 3-4%
+// on the H100). p is resolved().
+template <int BN, int PARTS, bool LT, bool RT, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
 product_kernel(const __grid_constant__ Params p,
                const __grid_constant__ CUtensorMap map_lh,
@@ -388,7 +467,8 @@ product_kernel(const __grid_constant__ Params p,
   if (threadIdx.x >= CONSUMERS) {
     if (threadIdx.x != CONSUMERS) return;
     // the producer: every stage of every tile of this CTA, in order
-    constexpr uint32_t BYTES = (TWO ? 2 : 1) * A_BYTES + 2 * C::B_BYTES;
+    constexpr uint32_t BYTES =
+        (PARTS == 3 ? 2 : 1) * A_BYTES + (PARTS == 1 ? 1 : 2) * C::B_BYTES;
     int g = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int b = tile / per, rc = tile % per;
@@ -403,15 +483,12 @@ product_kernel(const __grid_constant__ Params p,
         const int k0 = kt * BK;
         tma::wait_free(empty, g, STAGES);
         tma::mbar_arrive_tx(bar, BYTES);
-        tma::load_3d(st, &map_lh, k0, m0, lb, bar);
-        if (TWO) tma::load_3d(st + A_BYTES, &map_ll, k0, m0, lb, bar);
-#pragma unroll
-        for (int q = 0; q < BN / 64; ++q) {
-          const uint32_t panel = st + 2 * A_BYTES + q * (BK * 128);
-          tma::load_3d(panel, &map_rh, n0 + 64 * q, k0, rb, bar);
-          tma::load_3d(panel + C::B_BYTES, &map_rl, n0 + 64 * q, k0, rb,
-                       bar);
-        }
+        load_left<LT>(st, &map_lh, m0, k0, lb, bar);
+        if (PARTS == 3) load_left<LT>(st + A_BYTES, &map_ll, m0, k0, lb, bar);
+        load_right<BN, RT>(st + 2 * A_BYTES, &map_rh, n0, k0, rb, bar);
+        if (PARTS > 1)
+          load_right<BN, RT>(st + 2 * A_BYTES + C::B_BYTES, &map_rl, n0, k0,
+                             rb, bar);
       }
     }
     // stay until the consumers have released every slot
@@ -438,11 +515,13 @@ product_kernel(const __grid_constant__ Params p,
       wgmma::fence();
 #pragma unroll
       for (int ks = 0; ks < BK / 16; ++ks) {
-        const uint64_t dl = desc_k64(lh, wg, ks);
-        const uint64_t dr = wgmma::desc_mn<BK>(rh, ks);
-        wgmma::mma<0, 1>(acc, dl, dr, 1);
-        wgmma::mma<0, 1>(acc, dl, wgmma::desc_mn<BK>(rl, ks), 1);
-        if (TWO) wgmma::mma<0, 1>(acc, desc_k64(lh + A_BYTES, wg, ks), dr, 1);
+        const uint64_t dl = desc_left<LT>(lh, wg, ks);
+        const uint64_t dr = desc_right<RT>(rh, ks);
+        wgmma::mma<LT, !RT>(acc, dl, dr, 1);
+        if (PARTS > 1) wgmma::mma<LT, !RT>(acc, dl, desc_right<RT>(rl, ks), 1);
+        if (PARTS == 3)
+          wgmma::mma<LT, !RT>(acc, desc_left<LT>(lh + A_BYTES, wg, ks), dr,
+                              1);
       }
       wgmma::commit();
       wgmma::wait<1>();  // the previous stage's products are done
@@ -521,7 +600,7 @@ inline bool encode_cached(CUtensorMap* map, const bf16* p, int rows,
 
 // The device's SM count, the kernel's shared-memory limit set on the first
 // launch there (both fixed for the process).
-template <int BN, bool TWO, bool VEC>
+template <int BN, int PARTS, bool LT, bool RT, bool VEC>
 cudaError_t prepare(int* sms) {
   constexpr int DEVICES = 64;
   static std::mutex mu;
@@ -532,7 +611,7 @@ cudaError_t prepare(int* sms) {
   if (dev < 0 || dev >= DEVICES) return cudaErrorInvalidDevice;
   const std::lock_guard<std::mutex> lock(mu);
   if (count[dev] == 0) {
-    err = cudaFuncSetAttribute(product_kernel<BN, TWO, VEC>,
+    err = cudaFuncSetAttribute(product_kernel<BN, PARTS, LT, RT, VEC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Cfg<BN>::SMEM);
     if (err == cudaSuccess)
@@ -551,33 +630,56 @@ inline bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// p resolved() and valid().
-template <int BN, bool TWO, bool VEC>
+// p resolved() and valid(). The maps' boxes: a left block of BM rows of
+// BK (64-byte swizzle) or, stored k x m, 64-column panels of BK rows
+// (128-byte swizzle); a right block in 64-column panels of BK rows or,
+// stored n x k, BN rows of BK.
+template <int BN, int PARTS, bool LT, bool RT, bool VEC>
 int launch_tiles(const Params& p, cudaStream_t stream) {
   CUtensorMap lh{}, ll{}, rh{}, rl{};
-  if (!encode_cached(&lh, p.l_hi, p.m, p.k, p.l_ld16, p.l_blocks, BK, BM) ||
-      (TWO && !encode_cached(&ll, p.l_lo, p.m, p.k, p.l_ld16, p.l_blocks, BK,
-                             BM)) ||
-      !encode_cached(&rh, p.r_hi, p.k, p.n, p.r_ld16, p.r_blocks, 64, BK) ||
-      !encode_cached(&rl, p.r_lo, p.k, p.n, p.r_ld16, p.r_blocks, 64, BK))
+  const int lr = LT ? p.k : p.m, lc = LT ? p.m : p.k;
+  const int rr = RT ? p.n : p.k, rc = RT ? p.k : p.n;
+  const int lbc = LT ? 64 : BK, lbr = LT ? BK : BM;
+  const int rbc = RT ? BK : 64, rbr = RT ? BN : BK;
+  if (!encode_cached(&lh, p.l_hi, lr, lc, p.l_ld16, p.l_blocks, lbc, lbr) ||
+      (PARTS == 3 &&
+       !encode_cached(&ll, p.l_lo, lr, lc, p.l_ld16, p.l_blocks, lbc, lbr)) ||
+      !encode_cached(&rh, p.r_hi, rr, rc, p.r_ld16, p.r_blocks, rbc, rbr) ||
+      (PARTS > 1 &&
+       !encode_cached(&rl, p.r_lo, rr, rc, p.r_ld16, p.r_blocks, rbc, rbr)))
     return static_cast<int>(cudaErrorInvalidValue);
   int sms = 0;
-  const cudaError_t err = prepare<BN, TWO, VEC>(&sms);
+  const cudaError_t err = prepare<BN, PARTS, LT, RT, VEC>(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = static_cast<long long>(p.batch) *
                           ((p.m + BM - 1) / BM) * ((p.n + BN - 1) / BN);
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  product_kernel<BN, TWO, VEC><<<grid, THREADS, Cfg<BN>::SMEM, stream>>>(
-      p, lh, ll, rh, rl);
+  product_kernel<BN, PARTS, LT, RT, VEC>
+      <<<grid, THREADS, Cfg<BN>::SMEM, stream>>>(p, lh, ll, rh, rl);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN, bool TWO>
-int launch_vec(const Params& p, cudaStream_t stream) {
-  const bool vec = p.ld32 % 4 == 0 && aligned(p.c.f32, 16) &&
-                   aligned(p.f.f32, 16) && aligned(p.e, 16);
-  return vec ? launch_tiles<BN, TWO, true>(p, stream)
-             : launch_tiles<BN, TWO, false>(p, stream);
+// The kernel of one form, if the library's FORMS instantiate it.
+template <int FORMS, bool LT, bool RT, int PARTS>
+int launch_form(const Params& p, cudaStream_t stream) {
+  if constexpr ((FORMS & form_bit(LT, RT, PARTS)) == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    const bool vec = p.ld32 % 4 == 0 && aligned(p.c.f32, 16) &&
+                     aligned(p.f.f32, 16) && aligned(p.e, 16);
+    if (tile_n(p.n) == 192)
+      return vec ? launch_tiles<192, PARTS, LT, RT, true>(p, stream)
+                 : launch_tiles<192, PARTS, LT, RT, false>(p, stream);
+    return vec ? launch_tiles<256, PARTS, LT, RT, true>(p, stream)
+               : launch_tiles<256, PARTS, LT, RT, false>(p, stream);
+  }
+}
+
+template <int FORMS, bool LT, bool RT>
+int launch_parts(const Params& p, cudaStream_t stream) {
+  if (p.l_lo) return launch_form<FORMS, LT, RT, 3>(p, stream);
+  if (p.r_lo) return launch_form<FORMS, LT, RT, 2>(p, stream);
+  return launch_form<FORMS, LT, RT, 1>(p, stream);
 }
 
 inline bool out_ok(const Out& o) {
@@ -588,60 +690,93 @@ inline bool side_ok(int v) { return v >= 1 && v <= MAX_N; }
 
 inline bool count_ok(int v) { return v >= 1 && v <= MAX_BATCH; }
 
-// p resolved(): every side in 1..MAX_N, every slice stride a multiple of 8
-// and at least its rows' width, an array without an index holding a block
-// for every batch entry, slices on 16 bytes (TMA's and the 8-byte stores'
-// alignment), fp32 and indices on 4, E where the epilogue reads it and the
-// partials where DOT writes them.
+// p resolved(): m and n in 1..MAX_N, k in 1..MAX_K, the stage count of the
+// whole launch in an int, every slice stride a multiple of 8 and at least
+// its stored rows' width (k, or m for a left operand stored k x m; n, or k
+// for a right one stored n x k), an array without an index holding a block
+// for every batch entry, a left lo slice only beside a right one, slices
+// on 16 bytes (TMA's and the 8-byte stores' alignment), fp32 and indices
+// on 4, E where the epilogue reads it and the partials where DOT writes
+// them.
 inline bool valid(const Params& p) {
   const bool reads_e = p.epi == ADD || p.epi == NEG_ACC || p.epi == DOT;
-  return side_ok(p.n) && side_ok(p.m) && side_ok(p.k) && p.ld16 >= p.n &&
-         p.ld16 % 8 == 0 && p.l_ld16 >= p.k && p.l_ld16 % 8 == 0 &&
-         p.r_ld16 >= p.n && p.r_ld16 % 8 == 0 && p.ld32 >= p.n &&
-         count_ok(p.batch) && count_ok(p.l_blocks) && count_ok(p.r_blocks) &&
+  const bool forms = (p.l_t == 0 || p.l_t == 1) && (p.r_t == 0 || p.r_t == 1);
+  const int l_width = p.l_t ? p.m : p.k, r_width = p.r_t ? p.k : p.n;
+  const bool sides = side_ok(p.n) && side_ok(p.m) && p.k >= 1 &&
+                     p.k <= MAX_K && count_ok(p.batch);
+  return forms && sides &&
+         static_cast<long long>(p.batch) * ((p.m + BM - 1) / BM) *
+                 ((p.n + 191) / 192) * ((p.k + BK - 1) / BK) <
+             (1LL << 31) &&
+         p.ld16 >= p.n && p.ld16 % 8 == 0 && p.l_ld16 >= l_width &&
+         p.l_ld16 % 8 == 0 && p.r_ld16 >= r_width && p.r_ld16 % 8 == 0 &&
+         p.ld32 >= p.n && count_ok(p.l_blocks) && count_ok(p.r_blocks) &&
          (p.l_idx || p.l_blocks >= p.batch) &&
          (p.r_idx || p.r_blocks >= p.batch) && p.epi >= STORE &&
-         p.epi <= DOT && p.l_hi && p.r_hi && p.r_lo && aligned(p.l_hi, 16) &&
-         aligned(p.l_lo, 16) && aligned(p.r_hi, 16) && aligned(p.r_lo, 16) &&
-         aligned(p.l_idx, 4) && aligned(p.r_idx, 4) &&
+         p.epi <= DOT && p.l_hi && p.r_hi && (p.r_lo || !p.l_lo) &&
+         aligned(p.l_hi, 16) && aligned(p.l_lo, 16) && aligned(p.r_hi, 16) &&
+         aligned(p.r_lo, 16) && aligned(p.l_idx, 4) && aligned(p.r_idx, 4) &&
          (!reads_e || (p.e && aligned(p.e, 4))) &&
          (p.epi != DOT || (p.part && aligned(p.part, 4))) && out_ok(p.c) &&
          out_ok(p.f);
 }
 
-// Enqueue one product on `stream`; returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for arguments it does not take or a tensor map
-// the driver refuses, cudaErrorSymbolNotFound without the encoder).
+// Enqueue one product on `stream`, its kernel among those FORMS
+// instantiates (form_bit); returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for arguments it does not take, a form the
+// library does not instantiate or a tensor map the CUDA driver refuses,
+// cudaErrorSymbolNotFound without the encoder).
+template <int FORMS = PLAIN>
 inline int launch(const Params& given, cudaStream_t stream) {
   const Params p = resolved(given);
   if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
   if (tma::encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorSymbolNotFound);
-  const bool two = p.l_lo != nullptr;
-  if (tile_n(p.n) == 192)
-    return two ? launch_vec<192, true>(p, stream)
-               : launch_vec<192, false>(p, stream);
-  return two ? launch_vec<256, true>(p, stream)
-             : launch_vec<256, false>(p, stream);
+  if (p.l_t)
+    return p.r_t ? launch_parts<FORMS, true, true>(p, stream)
+                 : launch_parts<FORMS, true, false>(p, stream);
+  return p.r_t ? launch_parts<FORMS, false, true>(p, stream)
+               : launch_parts<FORMS, false, false>(p, stream);
 }
 
 constexpr int SPLIT_THREADS = 256;
 
-// fp32 blocks (rows x cols, contiguous, block after block) into their hi
-// and lo slices, rows ld16 apart: each thread 8 columns of a row at a time
-// (two 16-byte loads where vec, else one entry at a time; one 16-byte
-// store a slice), the columns past cols written as zeros.
-__global__ void __launch_bounds__(SPLIT_THREADS)
-split_kernel(const float* __restrict__ src, long long groups, int cols,
-             int ld16, bf16* __restrict__ hi, bf16* __restrict__ lo,
-             bool vec) {
+// Group i of blocks of rows x cols entries (fp32, or bf16: exact hi
+// slices, whose lo is zero and not stored) at src, block b's row r at src
+// + b bstride + r ld, into their slices at hi and lo (lo null for bf16),
+// block after block, rows ld16 apart: 8 columns of a row (16-byte loads
+// where vec, else one entry at a time; one 16-byte store a slice), the
+// columns past cols written as zeros. The split kernel's body, and a prep
+// kernel's where it splits an input beside its own work.
+template <typename T>
+__device__ __forceinline__ void split_group(const T* __restrict__ src,
+                                            long long bstride, long long ld,
+                                            int rows, long long i, int cols,
+                                            int ld16, bf16* __restrict__ hi,
+                                            bf16* __restrict__ lo, bool vec) {
   const int per_row = ld16 / 8;
-  for (long long i = blockIdx.x * static_cast<long long>(SPLIT_THREADS) +
-                     threadIdx.x;
-       i < groups; i += static_cast<long long>(gridDim.x) * SPLIT_THREADS) {
-    const long long row = i / per_row;
-    const int c = static_cast<int>(i - row * per_row) * 8;
-    const float* s = src + row * cols + c;
+  const long long row = i / per_row;
+  const int c = static_cast<int>(i - row * per_row) * 8;
+  // block after block (bstride = rows ld: the row's offset alone), else
+  // the block's row (rows of all blocks < 2^32, 32-bit division)
+  const unsigned blk =
+      bstride == rows * ld ? 0u : static_cast<unsigned>(row) / rows;
+  const T* s = src + blk * bstride + (row - blk * rows) * ld + c;
+  const size_t o = static_cast<size_t>(row) * ld16 + c;
+  if constexpr (sizeof(T) == 2) {
+    uint4 h;
+    if (vec && c + 8 <= cols) {
+      h = *reinterpret_cast<const uint4*>(s);
+    } else {
+      uint32_t e[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        e[j] = c + j < cols ? __bfloat16_as_ushort(s[j]) : 0u;
+      h = make_uint4(e[0] | e[1] << 16, e[2] | e[3] << 16, e[4] | e[5] << 16,
+                     e[6] | e[7] << 16);
+    }
+    *reinterpret_cast<uint4*>(hi + o) = h;
+  } else {
     float v[8];
     if (vec && c + 8 <= cols) {
       const float4 a = reinterpret_cast<const float4*>(s)[0];
@@ -656,28 +791,54 @@ split_kernel(const float* __restrict__ src, long long groups, int cols,
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       hilo::split2(v[2 * j], v[2 * j + 1], h[j], l[j]);
-    const size_t o = static_cast<size_t>(row) * ld16 + c;
     *reinterpret_cast<uint4*>(hi + o) = make_uint4(h[0], h[1], h[2], h[3]);
     *reinterpret_cast<uint4*>(lo + o) = make_uint4(l[0], l[1], l[2], l[3]);
   }
 }
 
-// Enqueue the split of `blocks` fp32 rows x cols blocks at src into slices
-// at hi and lo (rows ld16 apart) on `stream`; returns the cudaError_t.
-inline int split_launch(const float* src, long long blocks, int rows,
-                        int cols, int ld16, bf16* hi, bf16* lo,
-                        cudaStream_t stream) {
-  if (!src || !hi || !lo || blocks < 1 || rows < 1 || !side_ok(cols) ||
-      ld16 < cols || ld16 % 8 != 0 || !aligned(src, 4) ||
+// Whether split_group may take 16-byte loads: cols, the strides and src
+// on 16 bytes' worth of entries.
+template <typename T>
+inline bool split_vec(const T* src, int cols, long long bstride,
+                      long long ld) {
+  constexpr int E16 = 16 / sizeof(T);
+  return cols % E16 == 0 && ld % E16 == 0 && bstride % E16 == 0 &&
+         aligned(src, 16);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+split_kernel(const T* __restrict__ src, long long bstride, long long ld,
+             int rows, long long groups, int cols, int ld16,
+             bf16* __restrict__ hi, bf16* __restrict__ lo, bool vec) {
+  for (long long i = blockIdx.x * static_cast<long long>(SPLIT_THREADS) +
+                     threadIdx.x;
+       i < groups; i += static_cast<long long>(gridDim.x) * SPLIT_THREADS)
+    split_group(src, bstride, ld, rows, i, cols, ld16, hi, lo, vec);
+}
+
+// Enqueue the split of `blocks` rows x cols blocks at src (block b's row r
+// at src + b bstride + r ld elements; fp32, or bf16 with lo null) into
+// slices at hi and lo (rows ld16 apart) on `stream`; returns the
+// cudaError_t.
+template <typename T>
+inline int split_launch(const T* src, long long blocks, int rows, int cols,
+                        long long bstride, long long ld, int ld16, bf16* hi,
+                        bf16* lo, cudaStream_t stream) {
+  if (!src || !hi || (sizeof(T) == 4) != (lo != nullptr) || blocks < 1 ||
+      rows < 1 || blocks * rows >= (1LL << 32) || !side_ok(cols) ||
+      ld < cols || bstride < 0 ||
+      ld16 < cols || ld16 % 8 != 0 || !aligned(src, sizeof(T)) ||
       !aligned(hi, 16) || !aligned(lo, 16))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long groups = blocks * rows * (ld16 / 8);
   const long long want = (groups + SPLIT_THREADS - 1) / SPLIT_THREADS;
   const int grid = static_cast<int>(want < 4096 ? want : 4096);
-  split_kernel<<<grid, SPLIT_THREADS, 0, stream>>>(
-      src, groups, cols, ld16, hi, lo, cols % 4 == 0 && aligned(src, 16));
+  split_kernel<T><<<grid, SPLIT_THREADS, 0, stream>>>(
+      src, bstride, ld, rows, groups, cols, ld16, hi, lo,
+      split_vec(src, cols, bstride, ld));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
-}  // namespace tbmm
+}  // namespace htma

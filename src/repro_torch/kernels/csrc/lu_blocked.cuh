@@ -40,7 +40,9 @@
 //                  shared memory (k x CW): for each panel from the last,
 //                  the diagonal block (one warp, a lane a column), then
 //                  the rows above it, U's rows staged in shared memory 64
-//                  at a time as in the update kernel.
+//                  at a time as in the update kernel; Z stored in fp32
+//                  and, where asked, as its bf16 hi and lo slices (the
+//                  Woodbury correction's operand), split as it is stored.
 // Per element the arithmetic is that of the unblocked elimination of
 // lu_solve.cuh and of the kernel this replaces, in the same order: every
 // update x = fma(-l, u, x) in fp32 on the CUDA cores (no tensor cores),
@@ -62,6 +64,7 @@
 // more than they compute (fp32 FMAs from shared memory).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace lub {
@@ -339,10 +342,12 @@ update_kernel(float* __restrict__ s, int lds, const float* __restrict__ y,
 }
 
 // Z = U^-1 Z: grid (slabs of Z's columns, blocks); dynamic shared memory
-// k * ZLD floats.
+// k * ZLD floats. zh, zl (rows ld16 apart; null: not stored): Z's hi and
+// lo slices (round to nearest even, hi = bf16(z), lo = bf16(z - hi)).
 __global__ void __launch_bounds__(SLAB_THREADS, 4)
 back_kernel(const float* __restrict__ s, int lds, float* __restrict__ z,
-            int ldy, int k, int bs) {
+            int ldy, int k, int bs, __nv_bfloat16* __restrict__ zh,
+            __nv_bfloat16* __restrict__ zl, int ld16) {
   constexpr int RC = 64;                 // rows of U staged at a time
   constexpr int RW = RC / SLAB_WARPS;    // of them a warp's
   constexpr int LPT = RC * PANEL / 4 / SLAB_THREADS;   // float4 a thread
@@ -470,8 +475,16 @@ back_kernel(const float* __restrict__ s, int lds, float* __restrict__ z,
   }
   __syncthreads();
   if (live)
-    for (int r = warp; r < k; r += SLAB_WARPS)
-      Z[static_cast<size_t>(r) * ldy + lane] = zs[r * ZLD + lane];
+    for (int r = warp; r < k; r += SLAB_WARPS) {
+      const float v = zs[r * ZLD + lane];
+      Z[static_cast<size_t>(r) * ldy + lane] = v;
+      if (zh) {
+        const size_t o = (blk * k + r) * ld16 + c0 + lane;
+        const __nv_bfloat16 h = __float2bfloat16_rn(v);
+        zh[o] = h;
+        zl[o] = __float2bfloat16_rn(v - __bfloat162float(h));
+      }
+    }
 }
 
 }  // namespace lub

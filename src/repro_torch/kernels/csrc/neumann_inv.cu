@@ -146,7 +146,7 @@ constexpr int PREP_U = 8;  // loads a thread issues before it uses them
 
 // v's forms into o at fp32 index i32 and bf16 index i16 (hilo::split2's
 // rounding: hi = bf16(v), lo = bf16(v - hi)).
-__device__ __forceinline__ void put(const tbmm::Out& o, size_t i32,
+__device__ __forceinline__ void put(const htma::Out& o, size_t i32,
                                     size_t i16, float v) {
   if (o.f32) o.f32[i32] = v;
   const __nv_bfloat16 h = __float2bfloat16_rn(v);
@@ -165,7 +165,7 @@ __device__ __forceinline__ void put(const tbmm::Out& o, size_t i32,
 // and adds them in the same order.
 __global__ void __launch_bounds__(PREP_THREADS)
 inv_prep_kernel(const __grid_constant__ LeafTable t, int b0, int n, int ld32,
-                int ld16, const tbmm::Out ad, const tbmm::Out x) {
+                int ld16, const htma::Out ad, const htma::Out x) {
   __shared__ float red[2][PREP_THREADS / 32];
   const int b = b0 + static_cast<int>(blockIdx.x);
   const int leaf = leaf_of(t, b);
@@ -280,8 +280,8 @@ bool large_args(const LeafTable* t, int b0, int nb, int n, int ld32) {
 // into the workspace, each in the forms its Out names. Returns the
 // cudaError_t (0 = ok).
 extern "C" int neumann_inv_prep(const LeafTable* table, int b0, int nb, int n,
-                                int ld32, int ld16, const tbmm::Out* ad,
-                                const tbmm::Out* x, void* stream) {
+                                int ld32, int ld16, const htma::Out* ad,
+                                const htma::Out* x, void* stream) {
   if (!large_args(table, b0, nb, n, ld32) || ld16 < n || ld16 % 8 != 0 ||
       !ad || !x)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -291,8 +291,8 @@ extern "C" int neumann_inv_prep(const LeafTable* table, int b0, int nb, int n,
 }
 
 // Large route: one product of the iteration (hilo_tma.cuh).
-extern "C" int neumann_inv_product(const tbmm::Params* p, void* stream) {
-  return tbmm::launch(*p, static_cast<cudaStream_t>(stream));
+extern "C" int neumann_inv_product(const htma::Params* p, void* stream) {
+  return htma::launch(*p, static_cast<cudaStream_t>(stream));
 }
 
 // Large route, last step: the inverses m of blocks b0 .. b0 + nb - 1 into

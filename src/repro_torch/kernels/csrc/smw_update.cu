@@ -48,7 +48,7 @@
 // __syncthreads, on one CTA per SM; the bytes are a small share.
 #include <cstdint>
 
-#include "hilo_bmm.cuh"
+#include "hilo_tma.cuh"
 #include "lu_blocked.cuh"
 #include "lu_solve.cuh"
 
@@ -163,18 +163,30 @@ smw_update_kernel(const float* __restrict__ inv, const float* __restrict__ v,
 // Large route: bs or k of 129..1024 (the reference's whole domain). A block
 // no longer fits one CTA (a 256 block's inverse alone is 256 KB), so the
 // update runs as a sequence of kernels over every block of a chunk, with
-// M, Y, S and Z in an fp32 workspace that the caller allocates (rows of
-// ld = the columns rounded up to 4):
-//   smw_update_prep          M = (inv + inv^T) * (0.5 / decay), sym_entry's
-//                            rounding, 32 x 32 tiles through shared memory;
-//   smw_update_product       Y = hilo(V, M); S = hilo(Y, V^T) (V read
-//                            transposed in place); out = M - hilo(Y^T, Z)
-//                            (Y read transposed, the SUB epilogue writing the
-//                            caller's output): hilo_bmm.cuh;
+// M, Y, S and Z in a workspace that the caller allocates, each value
+// stored in the forms its readers take (derived backwards from them): bf16
+// hi and lo slices (rows ld16 apart) for a product's operands, fp32 (rows
+// ld = the columns rounded up to 4) for the solve and an epilogue's E:
+//   smw_update_prep          the caller's inputs into the forms the products
+//                            read: M = (inv + inv^T) * (0.5 / decay),
+//                            sym_entry's rounding, 32 x 32 tiles through
+//                            shared memory, stored as fp32 (out's E, at
+//                            out's unpadded rows) and as slices (Y's right
+//                            operand); in the same launch (CTAs of their
+//                            own) V into its slices by hilo_tma.cuh's
+//                            split: Y's left operand, and S's right one
+//                            read as stored (k x bs: V^T stored n x k);
+//   smw_update_product       hilo_tma.cuh's product: Y = hilo(V, M), stored
+//                            as fp32 (the solve's) and as slices (S's left
+//                            operand, and out's read as stored: Y^T stored
+//                            k x m); S = hilo(Y, V^T) in fp32;
+//                            out = M - hilo(Y^T, Z), NEG_ACC writing F (the
+//                            caller's output) alone, one rounding;
 //   smw_update_solve_slab    k <= 128: Z = (S + I/c)^-1 Y, one CTA a block
 //                            and a slab of at most 128 columns of Y, S and
 //                            the slab in shared memory, lu_solve as the
-//                            one-CTA kernel runs it;
+//                            one-CTA kernel runs it; Z stored in fp32 and
+//                            as its slices (out's right operand);
 //   smw_update_lu_panel, smw_update_lu_update, smw_update_lu_back
 //                            k of 129..1024: S (up to 4 MB) fits no CTA; a
 //                            blocked right-looking LU with partial pivoting
@@ -183,31 +195,52 @@ smw_update_kernel(const float* __restrict__ inv, const float* __restrict__ v,
 //                            (lu_blocked.cuh), with lu_solve's rules and its
 //                            per-element arithmetic: Z bitwise the
 //                            unblocked solve's, an exactly singular S
-//                            giving a non-finite out without a host check.
+//                            giving a non-finite out without a host check;
+//                            the back substitution stores Z's slices too.
+// So a chunk takes as many launches as it did with products that split
+// their operands as they loaded them: at a few blocks a call is bound by
+// its launches.
 // The caller issues them in the order of the schedule (kernels/
 // smw_update.py, smw_schedule). A block's arithmetic does not depend on its
 // chunk, and nothing is summed with atomics, so a call is bitwise its
 // repeat.
 // What bounds it: bytes at k = 64 (the main path's bs 256 and 176: inv, V
 // and out, ~0.79 GB a refresh), against ~75 GFLOP of partials; the design
-// moves M, Y, S and Z through device memory (the L2 for most of it) and
-// re-reads fp32 operands a 64 x 64 tile at a time; above k 128 the LU's k
-// pivot steps run one after another, one CTA a block.
+// moves M, Y, S and Z through device memory (M's slices and fp32 once
+// each), the products at the rate of hilo_tma.cuh's wgmma; above k 128
+// operations (the products' partials and the LU's k pivot steps, which run
+// one after another, one CTA a block).
 
 constexpr int PREP_TILE = 32;
 constexpr int SOLVE_SMEM_BYTES = (2 * NP * SLD + NP + 1) * 4;
 constexpr int LU_MAX = 1024;   // the reference's largest rank
 
+// M's 32 x 32 tile blockIdx.x of block blockIdx.y, or, for blockIdx.x
+// past M's tb x tb tiles, V's split: 256 groups of 8 columns of block
+// blockIdx.y's k x bs columns a CTA (v null: no split).
 __global__ void __launch_bounds__(PREP_TILE * 8)
-smw_prep_kernel(const float* __restrict__ inv, float* __restrict__ m, int bs,
-                int ld, float inv_decay) {
+smw_prep_kernel(const float* __restrict__ inv, const htma::Out m, int bs,
+                int ld32, int ld16, float inv_decay, const float* v, int k,
+                bf16* vh, bf16* vl, bool vec) {
   __shared__ float t[PREP_TILE][PREP_TILE + 1], u[PREP_TILE][PREP_TILE + 1];
   const int tb = (bs + PREP_TILE - 1) / PREP_TILE;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  if (static_cast<int>(blockIdx.x) >= tb * tb) {
+    const long long i =
+        (static_cast<long long>(blockIdx.x) - tb * tb) * (PREP_TILE * 8) +
+        ty * PREP_TILE + tx;
+    if (i < static_cast<long long>(k) * (ld16 / 8)) {
+      const size_t blk = blockIdx.y;
+      htma::split_group(v + blk * k * bs, static_cast<long long>(k) * bs,
+                        bs, k, i, bs, ld16,
+                        vh + blk * k * ld16, vl + blk * k * ld16, vec);
+    }
+    return;
+  }
   const int i0 = static_cast<int>(blockIdx.x) / tb * PREP_TILE;
   const int j0 = static_cast<int>(blockIdx.x) % tb * PREP_TILE;
   const float* ib = inv + static_cast<size_t>(blockIdx.y) * bs * bs;
-  float* mb = m + static_cast<size_t>(blockIdx.y) * bs * ld;
-  const int tx = threadIdx.x, ty = threadIdx.y;
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * bs;
   // t: inv's tile (i0, j0); u: its tile (j0, i0)
   for (int r = ty; r < PREP_TILE; r += blockDim.y) {
     const int i = i0 + r, j = j0 + tx;
@@ -219,9 +252,11 @@ smw_prep_kernel(const float* __restrict__ inv, float* __restrict__ m, int bs,
   __syncthreads();
   for (int r = ty; r < PREP_TILE; r += blockDim.y) {
     const int i = i0 + r, j = j0 + tx;
-    if (i < bs && j < bs)
-      mb[static_cast<size_t>(i) * ld + j] =
-          __fmul_rn(__fadd_rn(t[r][tx], u[tx][r]), inv_decay);
+    if (i >= bs || j >= bs) continue;
+    const float val = __fmul_rn(__fadd_rn(t[r][tx], u[tx][r]), inv_decay);
+    if (m.f32) m.f32[(row0 + i) * ld32 + j] = val;
+    const size_t o = (row0 + i) * ld16 + j;
+    if (m.hi) split(val, m.hi[o], m.lo[o]);
   }
 }
 
@@ -231,7 +266,8 @@ smw_prep_kernel(const float* __restrict__ inv, float* __restrict__ m, int bs,
 __global__ void __launch_bounds__(THREADS, 1)
 smw_solve_slab_kernel(const float* __restrict__ s, int lds,
                       const float* __restrict__ y, float* __restrict__ z,
-                      int ldy, int k, int bs, float inv_c) {
+                      int ldy, int k, int bs, float inv_c, bf16* zh,
+                      bf16* zl, int ld16) {
   extern __shared__ __align__(16) float sm[];
   float* S = sm;
   float* B = S + NP * SLD;
@@ -255,7 +291,12 @@ smw_solve_slab_kernel(const float* __restrict__ s, int lds,
   lu_solve(S, B, k, cols, scratch);
   for (int idx = threadIdx.x; idx < k * cols; idx += THREADS) {
     const int i = idx / cols, j = idx % cols;
-    zb[static_cast<size_t>(i) * ldy + j] = B[i * SLD + j];
+    const float val = B[i * SLD + j];
+    zb[static_cast<size_t>(i) * ldy + j] = val;
+    if (zh) {
+      const size_t o = (blk * k + i) * ld16 + c0 + j;
+      split(val, zh[o], zl[o]);
+    }
   }
 }
 
@@ -279,41 +320,53 @@ extern "C" int smw_update_launch(const float* inv, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Large route: M of the nb blocks of inv (nb, bs, bs) into m (rows ld apart).
-extern "C" int smw_update_prep(const float* inv, float* m, int nb, int bs,
-                               int ld, float inv_decay, void* stream) {
-  if (nb < 1 || bs < 1 || bs > LU_MAX || ld < bs || !inv || !m)
+// Large route: M of the nb blocks of inv (nb, bs, bs) in the forms of m
+// (fp32 rows ld32 apart, slices ld16 apart; hi and lo both or neither),
+// and the slices of v (nb, k, bs) at vh and vl, rows ld16 apart.
+extern "C" int smw_update_prep(const float* inv, const htma::Out* m,
+                               const float* v, void* vh, void* vl, int nb,
+                               int bs, int k, int ld32, int ld16,
+                               float inv_decay, void* stream) {
+  if (nb < 1 || bs < 1 || bs > LU_MAX || k < 1 || k > LU_MAX || !inv ||
+      !m || (!m->f32 && !m->hi) || (!m->hi) != (!m->lo) || ld32 < bs ||
+      ld16 < bs || ld16 % 8 != 0 || nb > 65535 || !v || !vh || !vl ||
+      reinterpret_cast<uintptr_t>(vh) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(vl) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tb = (bs + PREP_TILE - 1) / PREP_TILE;
-  smw_prep_kernel<<<dim3(tb * tb, nb), dim3(PREP_TILE, 8), 0,
-                    static_cast<cudaStream_t>(stream)>>>(inv, m, bs, ld,
-                                                         inv_decay);
+  const long long groups = static_cast<long long>(k) * (ld16 / 8);
+  const int vb = static_cast<int>((groups + PREP_TILE * 8 - 1) /
+                                  (PREP_TILE * 8));
+  smw_prep_kernel<<<dim3(tb * tb + vb, nb), dim3(PREP_TILE, 8), 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      inv, *m, bs, ld32, ld16, inv_decay, v, k, static_cast<bf16*>(vh),
+      static_cast<bf16*>(vl),
+      htma::split_vec(v, bs, static_cast<long long>(k) * bs, bs));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Large route: one product (mode FULL; epi STORE, or SUB for out; lt, rt:
-// the operand read transposed), the combinations the schedule uses.
-extern "C" int smw_update_product(const bmm::Params* p, int mode, int epi,
-                                  int lt, int rt, void* stream) {
-  if (!bmm::valid(*p)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using namespace bmm;
-  if (mode == FULL && epi == STORE && !lt && !rt)
-    return launch<STORE>(*p, st);
-  if (mode == FULL && epi == STORE && !lt && rt)
-    return launch<STORE, false, true>(*p, st);
-  if (mode == FULL && epi == SUB && lt && !rt)
-    return launch<SUB, true, false>(*p, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+// The products' forms: Y = V M (both as stored), S = Y V^T (V stored n x
+// k), out = M - Y^T Z (Y stored k x m), each of three partials.
+constexpr int PRODUCT_FORMS = htma::form_bit(false, false, 3) |
+                              htma::form_bit(false, true, 3) |
+                              htma::form_bit(true, false, 3);
+
+// Large route: one product (epilogue STORE, or NEG_ACC for out).
+extern "C" int smw_update_product(const htma::Params* p, void* stream) {
+  if (!p || (p->epi != htma::STORE && p->epi != htma::NEG_ACC))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return htma::launch<PRODUCT_FORMS>(*p, static_cast<cudaStream_t>(stream));
 }
 
 // Large route, k <= 128: z = (s + I/c)^-1 y for nb blocks, s (k x k, rows
-// lds apart), y and z (k x bs, rows ldy apart), one CTA a block and slab.
+// lds apart), y and z (k x bs, rows ldy apart), one CTA a block and slab;
+// z's slices at zh and zl too (rows ld16 apart; both null: not stored).
 extern "C" int smw_update_solve_slab(const float* s, int lds, const float* y,
                                      float* z, int ldy, int nb, int k,
-                                     int bs, float inv_c, void* stream) {
+                                     int bs, float inv_c, void* zh,
+                                     void* zl, int ld16, void* stream) {
   if (nb < 1 || k < 1 || k > NP || bs < 1 || lds < k || ldy < bs || !s ||
-      !y || !z)
+      !y || !z || (!zh) != (!zl) || (zh && ld16 < bs))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       smw_solve_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -322,7 +375,8 @@ extern "C" int smw_update_solve_slab(const float* s, int lds, const float* y,
   smw_solve_slab_kernel<<<dim3(nb, (bs + NP - 1) / NP), THREADS,
                           SOLVE_SMEM_BYTES,
                           static_cast<cudaStream_t>(stream)>>>(
-      s, lds, y, z, ldy, k, bs, inv_c);
+      s, lds, y, z, ldy, k, bs, inv_c, static_cast<bf16*>(zh),
+      static_cast<bf16*>(zl), ld16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -372,12 +426,13 @@ extern "C" int smw_update_lu_update(float* s, int lds, const float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Z = U^-1 Z with U the factored s's upper triangle.
+// Z = U^-1 Z with U the factored s's upper triangle; Z's slices at zh and
+// zl too (rows ld16 apart; both null: not stored).
 extern "C" int smw_update_lu_back(const float* s, int lds, float* z,
-                                  int ldy, int nb, int k, int bs,
-                                  void* stream) {
+                                  int ldy, int nb, int k, int bs, void* zh,
+                                  void* zl, int ld16, void* stream) {
   if (!lu_args(s, lds, nb, k, k) || !z || bs < 1 || ldy < bs ||
-      nb > 65535)
+      nb > 65535 || (!zh) != (!zl) || (zh && ld16 < bs))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = k * lub::ZLD * 4;
   cudaError_t err = cudaFuncSetAttribute(
@@ -385,8 +440,9 @@ extern "C" int smw_update_lu_back(const float* s, int lds, float* z,
   if (err != cudaSuccess) return static_cast<int>(err);
   lub::back_kernel<<<dim3((bs + lub::CW - 1) / lub::CW, nb),
                      lub::SLAB_THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(s, lds, z, ldy, k,
-                                                          bs);
+                     static_cast<cudaStream_t>(stream)>>>(
+      s, lds, z, ldy, k, bs, static_cast<bf16*>(zh), static_cast<bf16*>(zl),
+      ld16);
   return static_cast<int>(cudaGetLastError());
 }
 

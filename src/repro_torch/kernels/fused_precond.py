@@ -28,12 +28,12 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import hilo_bmm, hilo_tma
+from repro_torch.kernels import hilo_tma
 from repro_torch.kernels.build import CudaLibrary
 from repro_torch.kernels.hilo_tma import F32, HI, LO
 
 #: largest tile side the kernels take (the reference's limit)
-MAX_B = hilo_bmm.MAX_SIDE
+MAX_B = hilo_tma.MAX_SIDE
 #: largest tile side of the one-CTA route
 ONE_CTA_B = 128
 
@@ -136,10 +136,10 @@ def tile_bytes(bi: int, bo: int) -> int:
 
 
 def wu_chunks(n_tiles: int, bi: int, bo: int,
-              budget: int = hilo_bmm.WORKSPACE_BYTES) -> list:
+              budget: int = hilo_tma.WORKSPACE_BYTES) -> list:
     """The large route's ``(t0, t1)`` chunks of tiles: each chunk's
     workspace (:func:`tile_bytes` a tile) stays under ``budget``."""
-    return hilo_bmm.chunks(n_tiles, tile_bytes(bi, bo), budget)
+    return hilo_tma.chunks(n_tiles, tile_bytes(bi, bo), budget)
 
 
 def wu_schedule(n_tiles: int, bi: int, bo: int, pool_blocks=None,
@@ -337,7 +337,7 @@ def _large(a_inv, g, g_inv, a_src, g_src, out, dots, stream, key) -> None:
             """``buf``'s form for the chunk's first tile."""
             rows, cols = geo[buf]
             if buf in fp32:
-                return hilo_bmm.elem_ptr(fp32[buf], t0 * rows * cols)
+                return hilo_tma.elem_ptr(fp32[buf], t0 * rows * cols)
             if buf in POOL_SLICES and not indexed:
                 return addr[(buf, form)] + 2 * t0 * rows * ss(cols)
             return addr[(buf, form)]

@@ -13,7 +13,7 @@ Two routes, chosen by the block side:
   iteration runs as :func:`inv_schedule`'s batched hi/lo products on TMA
   and wgmma (``csrc/hilo_tma.cuh``) over every block of a chunk of one
   side, with the state in a workspace allocated here on the launches'
-  stream (:func:`large_plan`: chunks under ``hilo_bmm.WORKSPACE_BYTES``),
+  stream (:func:`large_plan`: chunks under ``hilo_tma.WORKSPACE_BYTES``),
   each value stored in the forms its readers take: bf16 hi and lo slices
   for a product's operands, fp32 for an epilogue's E and the copy-out.
 
@@ -33,13 +33,13 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from repro_torch.kernels import hilo_bmm, hilo_tma
+from repro_torch.kernels import hilo_tma
 from repro_torch.kernels.hilo_tma import F32, FORMS, HI, LO
 from repro_torch.kernels.build import CudaLibrary
 from repro_torch.kernels.ref import _damping_vector
 
 #: largest block side the kernels take (the reference's limit)
-MAX_N = hilo_bmm.MAX_SIDE
+MAX_N = hilo_tma.MAX_SIDE
 #: largest block side of the one-CTA route (one CTA holds the block)
 ONE_CTA_N = 128
 #: workspace buffers of the large route (see :func:`inv_schedule`): Ad,
@@ -230,7 +230,7 @@ def schedule_bytes(n: int, ns_iters: int, taylor_terms: int,
 
 
 def large_plan(nbs: Sequence[int], n: int,
-               budget: int = hilo_bmm.WORKSPACE_BYTES) -> list:
+               budget: int = hilo_tma.WORKSPACE_BYTES) -> list:
     """The large route's launches for leaves of ``nbs[i]`` blocks of one
     side ``n``: per table of at most :data:`MAX_LEAVES` leaves with
     blocks, ``(leaves, chunks, workspace_bytes)``, where ``chunks`` are
@@ -242,7 +242,7 @@ def large_plan(nbs: Sequence[int], n: int,
     plan = []
     for k in range(0, len(live), MAX_LEAVES):
         leaves = live[k:k + MAX_LEAVES]
-        parts = hilo_bmm.chunks(sum(nbs[i] for i in leaves), per_block,
+        parts = hilo_tma.chunks(sum(nbs[i] for i in leaves), per_block,
                                 budget)
         plan.append((leaves, parts,
                      max(b1 - b0 for b0, b1 in parts) * per_block))
@@ -355,7 +355,7 @@ def _large_side(blocks, lams, outs, n: int, counts, stream) -> None:
     """The large route over the leaves of one side n > 128: per table
     and chunk, prep, the schedule's products, copy-out, all on
     ``stream``, the workspace allocated on it (the current stream)."""
-    ld32, ld16 = hilo_bmm.row_stride(n), hilo_tma.slice_stride(n)
+    ld32, ld16 = hilo_tma.row_stride(n), hilo_tma.slice_stride(n)
     sched = inv_schedule(*counts)
     key = f"n{n}"
     for leaves, parts, ws_bytes in large_plan(

@@ -378,7 +378,7 @@ def test_neumann_inv_large_chunks_are_bitwise_one_chunk(cuda_device,
     """A workspace budget of two blocks takes the side in chunks: each
     block bitwise the one-chunk result (a block's arithmetic does not
     depend on its chunk)."""
-    from repro_torch.kernels import hilo_bmm
+    from repro_torch.kernels import hilo_tma
     from repro_torch.kernels import neumann_inv as kn
 
     leaves = [_damped(90 + k, nb, 256) for k, nb in enumerate((3, 2))]
@@ -394,7 +394,7 @@ def test_neumann_inv_large_chunks_are_bitwise_one_chunk(cuda_device,
     parts = ops.neumann_inv_grouped(blocks, damps, **KW)
     torch.cuda.synchronize()
     assert ops.launch_counts()["neumann_inv"] == 3 * 52
-    assert hilo_bmm.WORKSPACE_BYTES > budget
+    assert hilo_tma.WORKSPACE_BYTES > budget
     for x, y in zip(whole, parts):
         assert torch.equal(x, y)
 
@@ -447,7 +447,12 @@ def test_neumann_inv_large_product_refuses_what_it_cannot_take(cuda_device):
                 dict(ok, l_blocks=1 << 25), dict(ok, l_idx=base + 2),
                 dict(ok, epi=hilo_tma.DOT),
                 dict(ok, epi=hilo_tma.DOT, e=base, part=None),
-                dict(ok, epi=hilo_tma.DOT + 1)):
+                dict(ok, epi=hilo_tma.DOT + 1),
+                # forms neumann_inv's library does not instantiate: an
+                # operand stored transposed, one partial; a form flag
+                # other than 0 or 1
+                dict(ok, l_t=1), dict(ok, r_t=1), dict(ok, r_lo=None),
+                dict(ok, l_t=2)):
         with pytest.raises(RuntimeError, match="neumann_inv_product"):
             kn.LIB.launch("neumann_inv_product",
                           ctypes.byref(hilo_tma.Params(**bad)), stream)
@@ -865,6 +870,88 @@ def test_smw_update_and_gram_large_on_a_side_stream(cuda_device):
     assert torch.equal(got_s, want_s) and torch.equal(got_g, want_g)
 
 
+def _slices(x, ld16):
+    """bf16 hi and lo slices of fp32 ``x`` (round to nearest even, as the
+    kernels split), its rows padded with zeros to ``ld16``."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    pad = ld16 - x.shape[-1]
+    return tuple(torch.nn.functional.pad(t, (0, pad)).contiguous()
+                 for t in (hi, lo))
+
+
+def _hilo_tma_product(form, lv, rv, e=None):
+    """One product of ``csrc/hilo_tma.cuh`` on the values ``lv`` (b, m,
+    k) and ``rv`` (b, k, n), stored as ``form`` says and split as their
+    writer would: ``l_t`` (the left stored k x m) and ``r_t`` (the right
+    stored n x k) through ``smw_update``'s product entry, STORE;
+    ``one_partial`` (L_H R_H, the left stored k x m) through
+    ``fused_gram_inv``'s; ``sub`` (NEG_ACC writing F = E - acc alone, the
+    left stored k x m) through ``smw_update``'s. Returns the (b, m, n)
+    fp32 result."""
+    from repro_torch.kernels import fused_gram_solve as kg
+    from repro_torch.kernels import hilo_tma
+    from repro_torch.kernels import smw_update as ks
+
+    b, m, k = lv.shape
+    n = rv.shape[2]
+    lt, rt = form != "r_t", form == "r_t"
+    one, sub = form == "one_partial", form == "sub"
+    ls = lv.transpose(1, 2).contiguous() if lt else lv
+    rs = rv.transpose(1, 2).contiguous() if rt else rv
+    ss = hilo_tma.slice_stride
+    lh, ll = _slices(ls, ss(ls.shape[2]))
+    rh, rl = _slices(rs, ss(rs.shape[2]))
+    out = torch.full((b, m, n), float("nan"), device=lv.device)
+    res = hilo_tma.Out(out.data_ptr(), None, None)
+    p = hilo_tma.Params(
+        lh.data_ptr(), None if one else ll.data_ptr(), rh.data_ptr(),
+        None if one else rl.data_ptr(), e.data_ptr() if sub else None,
+        hilo_tma.Out() if sub else res, res if sub else hilo_tma.Out(),
+        n, n, ss(n), b, hilo_tma.NEG_ACC if sub else hilo_tma.STORE)
+    p.m, p.k, p.l_ld16, p.r_ld16 = m, k, ss(ls.shape[2]), ss(rs.shape[2])
+    p.l_blocks = p.r_blocks = b
+    p.l_t, p.r_t = int(lt), int(rt)
+    lib, entry = (kg.LIB, "fused_gram_inv_gram") if one else \
+        (ks.LIB, "smw_update_product")
+    lib.launch(entry, ctypes.byref(p),
+               torch.cuda.current_stream(lv.device).cuda_stream)
+    torch.cuda.synchronize(lv.device)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["l_t", "r_t", "one_partial", "sub"])
+@pytest.mark.parametrize("m,n,k", [(64, 64, 64), (129, 176, 1024),
+                                   (176, 129, 2048), (256, 256, 64),
+                                   (1024, 1024, 1024), (256, 1024, 2048)])
+def test_hilo_tma_forms_match_a_plain_hilo_product(cuda_device, form, m, n,
+                                                   k):
+    """The product's operand forms of the large smw_update and Gram
+    routes against a plain hi/lo product (three fp32 matmuls of the
+    slices, TF32 off; bf16-valued operands and L_H R_H alone for the one
+    partial; E - that for ``sub``) within 1e-4 of the largest entry, at
+    sides of 64 (half a 128-row tile), 129 and 176 (ragged tiles), 256
+    and 1024 and depths of 64, 1024 and 2048 (past the sides' 1024, as a
+    Gram's tokens go), each bitwise its repeat."""
+    g = torch.Generator(device=cuda_device).manual_seed(m + 7 * n + k)
+    lv = torch.randn(2, m, k, device=cuda_device, generator=g)
+    rv = torch.randn(2, k, n, device=cuda_device, generator=g)
+    if form == "one_partial":
+        lv, rv = (x.to(torch.bfloat16).float() for x in (lv, rv))
+    e = torch.randn(2, m, n, device=cuda_device, generator=g) * 30.0
+    got = _hilo_tma_product(form, lv, rv, e)
+    lh, ll = (x.float() for x in _slices(lv, k))
+    rh, rl = (x.float() for x in _slices(rv, n))
+    want = lh @ rh if form == "one_partial" else \
+        lh @ rh + lh @ rl + ll @ rh
+    if form == "sub":
+        want = e - want
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert torch.equal(got, _hilo_tma_product(form, lv, rv, e))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
@@ -964,8 +1051,9 @@ def test_fused_gram_inv_kernel_refuses_large_blocks(cuda_device):
 def test_fused_gram_inv_large_kernel_matches_plain(cuda_device, t, nb, n,
                                                    dtype):
     """The large route against the plain version and against the
-    two-step route (the Gram, then neumann_inv); its launches (the Gram
-    and the finish, then neumann_inv's 52) and bitwise its repeat."""
+    two-step route (the Gram, then neumann_inv); its launches (the
+    activations' split, the Gram and the finish, then neumann_inv's 52)
+    and bitwise its repeat."""
     from repro_torch.core import soi
     from repro_torch.kernels import fused_gram_solve as kg
 
@@ -978,9 +1066,9 @@ def test_fused_gram_inv_large_kernel_matches_plain(cuda_device, t, nb, n,
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert {k: counts[k] for k in ("fused_gram_inv", "neumann_inv")} == \
-        kg.expected_launches(nb, n, **KW) == \
-        {"fused_gram_inv": 2, "neumann_inv": 52}
-    assert ops.launch_keys()["fused_gram_inv"] == {f"n{n}": 2}
+        kg.expected_launches(a.shape, dtype, **KW) == \
+        {"fused_gram_inv": 3, "neumann_inv": 52}
+    assert ops.launch_keys()["fused_gram_inv"] == {f"n{n}": 3}
     want = tref.fused_gram_inv_ref(a, **kw)
     assert got.shape == want.shape == (nb, n, n)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
@@ -1003,13 +1091,13 @@ def test_fused_gram_inv_large_chunks_are_bitwise_one_chunk(cuda_device,
         (300, 5, 200)).astype(np.float32)).to(cuda_device)
     whole = ops.fused_gram_inv(a, rel_damp=0.05, **KW)
     plan = kg.gram_plan
-    monkeypatch.setattr(kg, "gram_plan", lambda nb, n: plan(
-        nb, n, budget=2 * 4 * (n * n + 1)))
-    assert len(kg.gram_plan(5, 200)) == 3
+    monkeypatch.setattr(kg, "gram_plan", lambda nb, n, t, sl: plan(
+        nb, n, t, sl, budget=2 * kg.block_bytes(t, n, sl)))
+    assert len(kg.gram_plan(5, 200, 300, 2)) == 3
     ops.reset_launch_counts()
     parts = ops.fused_gram_inv(a, rel_damp=0.05, **KW)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["fused_gram_inv"] == 3 * 2
+    assert ops.launch_counts()["fused_gram_inv"] == 3 * kg.LARGE_LAUNCHES
     assert torch.equal(whole, parts)
 
 

@@ -55,7 +55,7 @@ from repro_torch.core import kfac as tkfac
 from repro_torch.core.quantize import split_hi_lo_bf16
 from repro_torch.data import SyntheticTokens as TTokens
 from repro_torch.kernels import fused_precond as t_fused_precond
-from repro_torch.kernels import hilo_bmm, hilo_tma
+from repro_torch.kernels import hilo_tma
 from repro_torch.kernels import neumann_inv as t_neumann_inv
 from repro_torch.kernels.hilo_tma import F32, HI, LO
 from repro_torch.kernels import ops
@@ -267,12 +267,12 @@ def test_large_schedule_forms_are_written_before_read(counts):
 def _block_bytes(n):
     """Ad and W as two slices, X0, X1 and M also in fp32."""
     return 2 * 4 * n * hilo_tma.slice_stride(n) + \
-        3 * (4 * n * hilo_bmm.row_stride(n)
+        3 * (4 * n * hilo_tma.row_stride(n)
              + 4 * n * hilo_tma.slice_stride(n))
 
 
 def test_large_plan_covers_every_block_in_chunks_under_the_budget():
-    budget = hilo_bmm.WORKSPACE_BYTES
+    budget = hilo_tma.WORKSPACE_BYTES
     for nbs, n in (([192], 1024), ([768], 256), ([48, 0, 96, 48], 1024),
                    ([576, 576], 176), ([7], 129)):
         plan = t_neumann_inv.large_plan(nbs, n, budget)
@@ -306,7 +306,7 @@ def test_large_workspace_strides_and_layout(n):
     the chunk's last byte the workspace's."""
     ld16 = hilo_tma.slice_stride(n)
     assert ld16 % 8 == 0 and n <= ld16 < n + 8
-    assert hilo_bmm.row_stride(n) % 4 == 0
+    assert hilo_tma.row_stride(n) % 4 == 0
     nb, base = 7, 1 << 20
     addr = t_neumann_inv.workspace(base, nb, n)
     assert set(addr) == {(b, f) for b in t_neumann_inv.BUFFERS
@@ -369,30 +369,27 @@ def test_wu_chunks_and_expected_launches():
     assert t_fused_precond.tile_bytes(1024, 176) == per_tile
     assert parts[0][0] == 0 and parts[-1][1] == 6144
     assert max(b - a for a, b in parts) * per_tile <= \
-        hilo_bmm.WORKSPACE_BYTES
+        hilo_tma.WORKSPACE_BYTES
     assert t_fused_precond.expected_launches(6144, 1024, 176) == \
         2 + 4 * len(parts)
     assert t_fused_precond.expected_launches(1536, 256, 256,
                                              shared=True) == 1 + 4
     assert t_fused_precond.expected_launches(18816, 128, 128) == 1
     assert t_fused_precond.expected_launches(0, 256, 256) == 0
-    assert hilo_bmm.row_stride(130) == 132 and hilo_bmm.row_stride(176) == 176
+    assert hilo_tma.row_stride(130) == 132 and hilo_tma.row_stride(176) == 176
 
 
 def test_params_layout_and_vector_flags():
     """The ctypes structures match the C ones' layout (offsets the C
-    compiler gives bmm::Operand and bmm::Params on x86-64 and aarch64),
-    and float4/float2 accesses are taken only where aligned."""
+    compiler gives htma::Out and htma::Params on x86-64 and aarch64), the
+    square form is what zero in the rectangular fields gives, and the
+    tile widths and partial counts are the kernel's."""
     import ctypes
 
-    assert ctypes.sizeof(hilo_bmm.Operand) == 32
-    assert hilo_bmm.Params.C.offset == 64
-    assert hilo_bmm.Params.E.offset == 88
-    assert hilo_bmm.Params.M.offset == 108
-    assert ctypes.sizeof(hilo_bmm.Params) == 128
-    # hilo_tma's: five pointers, two Outs of three, five ints (the square
-    # form, neumann_inv's), then the rectangular form's six ints, padding
-    # to 8 bytes, three pointers (two index arrays, the partials)
+    # five pointers, two Outs of three, five ints (the square form,
+    # neumann_inv's), then the rectangular form's six ints, padding to 8
+    # bytes, three pointers (two index arrays, the partials), then the
+    # operands' storage (l_t, r_t)
     assert ctypes.sizeof(hilo_tma.Out) == 24
     assert hilo_tma.Params.c.offset == 40
     assert hilo_tma.Params.f.offset == 64
@@ -404,29 +401,28 @@ def test_params_layout_and_vector_flags():
     assert hilo_tma.Params.l_idx.offset == 136
     assert hilo_tma.Params.r_idx.offset == 144
     assert hilo_tma.Params.part.offset == 152
-    assert ctypes.sizeof(hilo_tma.Params) == 160
+    assert hilo_tma.Params.l_t.offset == 160
+    assert hilo_tma.Params.r_t.offset == 164
+    assert ctypes.sizeof(hilo_tma.Params) == 168
     # neumann_inv's positional Params leave the rectangular fields 0: the
-    # square form
+    # square form, both operands stored as they are read
     sq = hilo_tma.Params(16, 32, 48, 64, None, hilo_tma.Out(),
                          hilo_tma.Out(), 176, 176, 176, 3, hilo_tma.STORE)
     assert (sq.m, sq.k, sq.l_ld16, sq.r_ld16, sq.l_blocks, sq.r_blocks,
-            sq.l_idx, sq.r_idx, sq.part) == (0,) * 6 + (None,) * 3
+            sq.l_idx, sq.r_idx, sq.part, sq.l_t, sq.r_t) == \
+        (0,) * 6 + (None,) * 3 + (0, 0)
     # the tile's columns and a result's tiles (the partials' count)
     assert [hilo_tma.tile_n(n) for n in (129, 176, 200, 256, 300, 1024)] \
         == [192, 192, 256, 256, 192, 256]
     assert hilo_tma.tiles_of(176, 256) == 2 and \
         hilo_tma.tiles_of(1024, 176) == 8 and \
         hilo_tma.tiles_of(130, 1024) == 8
-    assert hilo_bmm.operand(1024, 176 * 176, 176).vec == 1
-    assert hilo_bmm.operand(1024, 130 * 130, 130).vec == 0
-    assert hilo_bmm.operand(1028, 256 * 256, 256).vec == 0
-    p = hilo_bmm.params(hilo_bmm.operand(0, 4, 4), hilo_bmm.operand(0, 4, 4),
-                        1024, 130 * 200, 200, 130, 200, 130, 3, e=2048,
-                        e_stride=130 * 200, lde=200)
-    assert p.c_vec == 1
-    p = hilo_bmm.params(hilo_bmm.operand(0, 4, 4), hilo_bmm.operand(0, 4, 4),
-                        1024, 129 * 129, 129, 129, 129, 129, 3)
-    assert p.c_vec == 0
+    # slices on 16 bytes, fp32 workspace rows on 16 bytes (float4)
+    assert [hilo_tma.slice_stride(n) for n in (129, 176, 1024)] == \
+        [136, 176, 1024]
+    assert [hilo_tma.row_stride(n) for n in (129, 130, 176)] == \
+        [132, 132, 176]
+    assert hilo_tma.MAX_SIDE == 1024 and hilo_tma.MAX_DEPTH == 1 << 24
 
 
 def test_route_limits_are_the_references():

@@ -13,11 +13,16 @@ The CUDA routes themselves run only on the card (tests/test_torch_cuda.py,
     the Pallas ``fused_gram_inv`` at n = 256 and 176 (padded to 256 with
     a lam-damped tail, which leaves the top-left inverse as it is), fp32
     and bf16, T = 512;
-  * the routes' schedules run by a plain emulation of each kernel
-    (``hilo_matmul`` for each product, ``solve_ex`` for the solve, the
-    finish's division and damping), bitwise ``smw_update_ref`` and
-    ``fused_gram_inv_ref``, for k <= 128 (the slab solve) and k > 128
-    (the blocked LU); no product writes an operand it reads;
+  * the routes' schedules run by a plain emulation of each kernel (the
+    splits, each product's partials from its operands' stored slices, as
+    stored or transposed, the one partial of bf16 activations,
+    ``solve_ex`` for the solve, the finish's division and damping),
+    bitwise ``smw_update_ref`` and ``fused_gram_inv_ref``, for k <= 128
+    (the slab solve) and k > 128 (the blocked LU); every reader finds
+    the forms it reads written earlier, and no product writes an operand
+    it reads; the wrappers' own launches, each kernel emulated on CPU
+    memory from the raw arguments it gets (addresses, strides,
+    ``hilo_tma.Params``), bitwise the same, in chunks too;
   * the blocked LU's launches (panel, update, back substitution) emulated
     kernel by kernel in their own order of operations, against an
     unblocked emulation of ``lu_solve``'s rules: bitwise in fp32 at k of
@@ -50,6 +55,8 @@ Tolerances and why:
 
 from __future__ import annotations
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -64,9 +71,9 @@ from repro.kernels import ref as jref
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config as t_get_smoke_config
 from repro_torch.core import kfac as tkfac
-from repro_torch.core.quantize import hilo_matmul
+from repro_torch.core.quantize import hilo_matmul, split_hi_lo_bf16
 from repro_torch.kernels import fused_gram_solve as t_gram
-from repro_torch.kernels import hilo_bmm
+from repro_torch.kernels import hilo_tma
 from repro_torch.kernels import neumann_inv as t_neumann_inv
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
@@ -142,39 +149,73 @@ def test_fused_gram_inv_plain_matches_pallas_kernel_above_128(n, dtype):
 # the large routes' schedules, run by a plain emulation of their kernels
 # ---------------------------------------------------------------------------
 
+def _mm(x, y):
+    """bf16 x bf16 with fp32 accumulation (the plain version's partial)."""
+    return torch.matmul(x.to(torch.float32), y.to(torch.float32))
+
+
+def _partials(left, right):
+    """A product's partials from its operands' (hi, lo) slices, in the
+    kernel's (and the plain version's) order: L_H R_H + L_H R_L +
+    L_L R_H, or L_H R_H alone where both lo slices are missing (bf16
+    activations)."""
+    (lh, ll), (rh, rl) = left, right
+    if ll is None and rl is None:
+        return _mm(lh, rh)
+    return _mm(lh, rh) + _mm(lh, rl) + _mm(ll, rh)
+
+
 def _smw_emulate(inv, v, *, decay, cscale):
-    """The large route on the CPU: the prep kernel's M, each product's
-    partials and epilogue, the solve as ``solve_ex`` (the slab and the
-    blocked LU both solve (S + I/c) Z = Y, the diagonal term added as
-    ``acc + 1/c``; it stands in at the solve's last launch), in
-    :func:`smw_schedule`'s order."""
+    """The large route on the CPU, :func:`smw_schedule`'s kernels in
+    order over each value's stored forms (fp32, and the hi and lo slices
+    split as their writer stores them): the prep kernel's M and V's
+    slices, each product's partials from its operands' slices (read
+    transposed where stored so) and its epilogue (NEG_ACC: ``E + -acc``),
+    the solve as ``solve_ex`` (the slab and the blocked LU both solve
+    (S + I/c) Z = Y, the diagonal term added as ``acc + 1/c``; it stands
+    in at the solve's last launch, which stores Z's forms). A read of a
+    form not yet written fails."""
     inv_decay, inv_c = tref.smw_scalars(decay, cscale)
     k = v.shape[-2]
-    buf = {"inv": inv, "v": v}
-    for step in t_smw.smw_schedule(k):
-        if step[0] == "prep":
-            _, src, dst = step
-            buf[dst] = (buf[src] + buf[src].transpose(-1, -2)) * inv_decay
-        elif step[0] == "product":
-            _, mode, epi, lft, lt, rgt, rt, c, e = step
-            assert mode == hilo_bmm.FULL
-            left = buf[lft].transpose(-1, -2) if lt else buf[lft]
-            right = buf[rgt].transpose(-1, -2) if rt else buf[rgt]
-            acc = hilo_matmul(left, right)
-            if epi == hilo_bmm.STORE:
-                buf[c] = acc
-            elif epi == hilo_bmm.SUB:
-                buf[c] = buf[e] - acc
+    mem = {("inv", "f32"): inv, ("v", "f32"): v}
+
+    def store(buf, forms, value):
+        hi, lo = split_hi_lo_bf16(value)
+        for f, x in (("f32", value), ("hi", hi), ("lo", lo)):
+            if f in forms:
+                mem[(buf, f)] = x
+
+    for x in t_smw.smw_schedule(k):
+        if x.kind == t_smw.PREP:
+            (src, _), (vsrc, _) = x.reads
+            (dst, forms), (vdst, vforms) = x.writes
+            m = mem[(src, "f32")]
+            store(dst, forms, (m + m.transpose(-1, -2)) * inv_decay)
+            store(vdst, vforms, mem[(vsrc, "f32")])
+        elif x.kind == t_smw.PRODUCT:
+            (left, _), (right, _), *e = x.reads
+            ((c, forms),) = x.writes
+
+            def slices(buf, t):
+                return tuple(mem[(buf, f)].transpose(-1, -2) if t
+                             else mem[(buf, f)] for f in ("hi", "lo"))
+
+            acc = _partials(slices(left, x.lt), slices(right, x.rt))
+            if x.epi == hilo_tma.STORE:
+                store(c, forms, acc)
+            elif x.epi == hilo_tma.NEG_ACC:
+                store(c, forms, mem[(e[0][0], "f32")] + -acc)
             else:
-                raise AssertionError(f"epilogue {epi} in the update")
+                raise AssertionError(f"epilogue {x.epi} in the update")
         else:
-            _, kind, _, _, _, _ = step
+            kind = x.solve[0]
             assert (kind == "slab") == (k <= 128)
             if kind in ("slab", "back"):
                 eye = torch.eye(k, dtype=torch.float32)
-                buf["z"] = torch.linalg.solve_ex(buf["s"] + eye * inv_c,
-                                                 buf["y"])[0]
-    return buf["out"]
+                ((z, forms),) = x.writes
+                store(z, forms, torch.linalg.solve_ex(
+                    mem[("s", "f32")] + eye * inv_c, mem[("y", "f32")])[0])
+    return mem[("out", "f32")]
 
 
 def _first_largest(col):
@@ -231,9 +272,9 @@ def _lu_blocked(s, y, inv_c):
     src = list(range(k))
     piv = []
     for step in t_smw.smw_schedule(k):
-        if step[0] != "solve":
+        if step.kind != t_smw.SOLVE:
             continue
-        _, kind, j0, j1, reads, _ = step
+        (kind, j0, j1), reads = step.solve, [b for b, _ in step.reads]
         if kind == "panel":
             if j0 == 0:
                 a.diagonal().add_(inv_c)
@@ -371,47 +412,68 @@ def test_smw_schedule_emulated_is_the_plain_version(n, k, bs, scale):
 
 @pytest.mark.parametrize("k", [64, 128, 129, 200, 1024])
 def test_smw_schedule_never_overwrites_what_a_product_reads(k):
-    """Every kernel reads only what the caller gave or an earlier kernel
-    wrote; no product writes an operand it reads (other CTAs still read
-    it); the solve's launches make Z from S and Y (the LU factors S in
-    place and records its row sources, which no later product reads)
-    and the last product writes the output."""
+    """Every kernel reads only forms the caller gave or an earlier kernel
+    wrote: slices for a product's operands, fp32 for an epilogue's E and
+    the solve; no product writes a buffer it reads (other CTAs still read
+    it); the prep stores M's forms and V's slices; the solve's launches
+    make Z from S and Y in fp32 (the LU factors S in place and records
+    its row sources, which no later product reads), its last launch
+    stores Z's slices too, and the last product writes the output; every
+    workspace form written has its array in the layout, and the layout
+    holds nothing else."""
     steps = t_smw.smw_schedule(k)
-    written = {"inv", "v"}
-    for i, step in enumerate(steps):
-        if step[0] == "prep":
-            _, src, dst = step
-            assert src in written and dst != src
-            written.add(dst)
-        elif step[0] == "product":
-            _, _, _, lft, _, rgt, _, c, e = step
-            assert {lft, rgt} <= written and (e is None or e in written)
-            assert c not in (lft, rgt, e, "inv", "v")
-            written.add(c)
+    written = {("inv", "f32"), ("v", "f32")}
+    for i, x in enumerate(steps):
+        reads = {(b, f) for b, forms in x.reads for f in forms}
+        assert reads <= written, (x, reads - written)
+        if x.kind == t_smw.PRODUCT:
+            (left, lf), (right, rf), *e = x.reads
+            assert lf == rf == ("hi", "lo")
+            assert all(forms == ("f32",) for _, forms in e)
+            assert len(e) == (x.epi == hilo_tma.NEG_ACC)
+            ((c, _),) = x.writes
+            assert c not in (left, right, *(b for b, _ in e), "inv", "v")
+        elif x.kind == t_smw.SOLVE:
+            last = x is [st for st in steps if st.kind == t_smw.SOLVE][-1]
+            assert all(forms in (("f32",), ("i32",)) for _, forms in
+                       x.reads + (() if last else x.writes))
+            assert not last or x.writes == (("z", ("f32", "hi", "lo")),)
+            outs = {b for b, _ in x.writes}
+            assert "y" not in outs and {"inv", "v", "m"}.isdisjoint(outs)
+            assert all(st.kind == t_smw.SOLVE or not {"s", "piv"} & {
+                b for b, _ in st.reads} for st in steps[i + 1:])
         else:
-            _, kind, j0, j1, reads, writes = step
-            assert set(reads) <= written
-            assert "y" not in writes and {"inv", "v", "m"}.isdisjoint(writes)
-            assert all(st[0] == "solve" or not {"s", "piv"} & set(st[3:9])
-                       for st in steps[i + 1:])
-            written.update(writes)
-    assert steps[-1][7] == "out"
-    names = {c for st in steps if st[0] != "solve" for c in st[1:]
-             if isinstance(c, str)}
-    names |= {c for st in steps if st[0] == "solve" for c in st[4] + st[5]}
+            assert i == 0 and x.kind == t_smw.PREP
+            assert x.reads == (("inv", ("f32",)), ("v", ("f32",)))
+            assert x.writes == (("m", ("f32", "hi", "lo")),
+                                ("v", ("hi", "lo")))
+        written |= {(b, f) for b, forms in x.writes for f in forms}
+    assert steps[-1].writes == (("out", ("f32",)),)
+    last_solve = max(i for i, x in enumerate(steps) if x.kind == t_smw.SOLVE)
+    assert [x.kind for x in steps[last_solve + 1:]] == [t_smw.PRODUCT]
+    names = {b for x in steps for b, _ in x.reads + x.writes}
     assert names <= set(t_smw.buffer_shapes(8, 8))
-    assert set(t_smw.BUFFERS) - ({"piv"} if k <= 128 else set()) <= written
+    ws = written - {("inv", "f32"), ("v", "f32"), ("out", "f32")}
+    assert set(t_smw.layout(8, k)) == ws
+    assert len(t_smw.layout(8, k)) == len(ws)
 
 
 def _gram_emulate(a, *, rel_damp, **counts):
-    """The large Gram route on the CPU: the product (block i of the fp32
-    upcast read transposed on the left, as it is on the right), the
-    finish kernel's division and damping, then neumann_inv's large
-    route (bitwise ``neumann_inv_ref``:
+    """The large Gram route on the CPU: the split (each block's (T, n)
+    activations as hi and lo slices, hi alone for bf16), the product (the
+    left operand the block's slices read as stored, T x n, transposed;
+    the right the same slices; three partials, or L_H R_H alone for
+    bf16), the finish kernel's division and damping, then neumann_inv's
+    large route (bitwise ``neumann_inv_ref``:
     tests/test_torch_large_blocks.py)."""
     t = a.shape[0]
-    blocks = a.to(torch.float32).movedim(1, 0)   # (nb, T, n)
-    gram = hilo_matmul(blocks.transpose(-1, -2), blocks) / t
+    blocks = a.movedim(1, 0)                     # (nb, T, n)
+    if a.dtype == torch.bfloat16:
+        hi, lo = blocks, None
+    else:
+        hi, lo = split_hi_lo_bf16(blocks)
+    tr = [None if x is None else x.transpose(-1, -2) for x in (hi, lo)]
+    gram = _partials(tr, (hi, lo)) / t
     lam = tref._gram_damping(gram, rel_damp)
     return tref.neumann_inv_ref(gram, lam, **counts)
 
@@ -427,68 +489,301 @@ def test_gram_route_emulated_is_the_plain_version(t, nb, n, dtype):
 
 
 # ---------------------------------------------------------------------------
+# the wrappers' launches, each kernel emulated from its raw arguments
+# ---------------------------------------------------------------------------
+
+def _view(addr, dtype, count):
+    """A flat tensor of ``count`` entries of ``dtype`` at a CPU address."""
+    ctype = {torch.float32: ctypes.c_float, torch.int32: ctypes.c_int32,
+             torch.bfloat16: ctypes.c_int16}[dtype]
+    raw = np.ctypeslib.as_array((ctype * count).from_address(addr))
+    return torch.from_numpy(raw).view(dtype)
+
+
+def _blocks(addr, dtype, blocks, rows, cols, ld, bstride=None):
+    """A (blocks, rows, cols) view of blocks ``bstride`` entries apart
+    (default rows x ld), rows ``ld`` apart, at ``addr``."""
+    bstride = rows * ld if bstride is None else bstride
+    flat = _view(addr, dtype, (blocks - 1) * bstride + (rows - 1) * ld
+                 + cols)
+    return flat.as_strided((blocks, rows, cols), (bstride, ld, 1))
+
+
+def _put(o, blocks, rows, cols, ld32, ld16, value):
+    """An epilogue's (or the prep kernel's) stores of ``value`` in the
+    forms ``o`` (a ``hilo_tma.Out``) asks for."""
+    hi, lo = split_hi_lo_bf16(value)
+    for addr, dtype, v, ld in ((o.f32, torch.float32, value, ld32),
+                               (o.hi, torch.bfloat16, hi, ld16),
+                               (o.lo, torch.bfloat16, lo, ld16)):
+        if addr:
+            _blocks(addr, dtype, blocks, rows, cols, ld).copy_(v)
+
+
+def _product_from_params(p):
+    """``htma::launch`` on CPU memory from its ``Params``: the operands'
+    slices as stored (transposed where ``l_t``/``r_t`` say), the
+    partials, the epilogue (STORE or NEG_ACC) into C's and F's forms."""
+    m, k, n = p.m or p.n, p.k or p.n, p.n
+    assert not (p.l_idx or p.r_idx or p.part)
+
+    def operand(hi, lo, rows, cols, ld, blocks, t):
+        got = [None if a is None else
+               _blocks(a, torch.bfloat16, blocks, rows, cols, ld)[:p.batch]
+               for a in (hi, lo)]
+        return [None if x is None else (x.transpose(-1, -2) if t else x)
+                for x in got]
+
+    assert all(a is None or a % 16 == 0
+               for a in (p.l_hi, p.l_lo, p.r_hi, p.r_lo))
+    left = operand(p.l_hi, p.l_lo, *((k, m) if p.l_t else (m, k)),
+                   p.l_ld16, p.l_blocks or p.batch, p.l_t)
+    right = operand(p.r_hi, p.r_lo, *((n, k) if p.r_t else (k, n)),
+                    p.r_ld16, p.r_blocks or p.batch, p.r_t)
+    acc = _partials(left, right)
+    if p.epi == hilo_tma.STORE:
+        _put(p.c, p.batch, m, n, p.ld32, p.ld16, acc)
+    else:
+        assert p.epi == hilo_tma.NEG_ACC
+        e = _blocks(p.e, torch.float32, p.batch, m, n, p.ld32)
+        _put(p.c, p.batch, m, n, p.ld32, p.ld16, -acc)
+        _put(p.f, p.batch, m, n, p.ld32, p.ld16, e + -acc)
+
+
+class _Card:
+    """The large routes' kernels of ``smw_update`` and ``fused_gram_inv``,
+    run on CPU memory from their arguments as the C entries get them;
+    records the launches. The LU's launches stand in by ``solve_ex`` at
+    its first update (S is still as the products wrote it: the panels
+    here do nothing), as :func:`_smw_emulate` does."""
+
+    def __init__(self):
+        self.calls = []
+
+    def launch(self, entry, *args, key=None):
+        self.calls.append((entry, key))
+        getattr(self, entry)(*args)
+
+    def smw_update_prep(self, inv, ref, v, vh, vl, nb, bs, k, ld32, ld16,
+                        inv_decay, stream):
+        assert ld16 % 8 == 0 and ld16 >= bs and vh % 16 == vl % 16 == 0
+        a = _blocks(inv, torch.float32, nb, bs, bs, bs)
+        _put(ref._obj, nb, bs, bs, ld32, ld16,
+             (a + a.transpose(-1, -2)) * inv_decay)
+        _put(hilo_tma.Out(None, vh, vl), nb, k, bs, 0, ld16,
+             _blocks(v, torch.float32, nb, k, bs, bs))
+
+    def smw_update_product(self, ref, stream):
+        assert ref._obj.epi in (hilo_tma.STORE, hilo_tma.NEG_ACC)
+        _product_from_params(ref._obj)
+
+    def _solve(self, s, lds, y, z, ldy, nb, k, bs, inv_c):
+        sm = _blocks(s, torch.float32, nb, k, k, lds)
+        ym = _blocks(y, torch.float32, nb, k, bs, ldy)
+        eye = torch.eye(k, dtype=torch.float32)
+        _blocks(z, torch.float32, nb, k, bs, ldy).copy_(
+            torch.linalg.solve_ex(sm + eye * inv_c, ym)[0])
+
+    def _z_slices(self, z, ldy, nb, k, bs, zh, zl, ld16):
+        """The last solve launch's stores of Z's slices."""
+        assert zh and zl and ld16 >= bs
+        _put(hilo_tma.Out(None, zh, zl), nb, k, bs, 0, ld16,
+             _blocks(z, torch.float32, nb, k, bs, ldy))
+
+    def smw_update_solve_slab(self, s, lds, y, z, ldy, nb, k, bs, inv_c,
+                              zh, zl, ld16, stream):
+        assert k <= 128
+        self._solve(s, lds, y, z, ldy, nb, k, bs, inv_c)
+        self._z_slices(z, ldy, nb, k, bs, zh, zl, ld16)
+
+    def smw_update_lu_panel(self, s, lds, piv, ldp, nb, k, j0, inv_c,
+                            stream):
+        assert k > 128 and lds % 4 == 0 and ldp >= k
+
+    def smw_update_lu_update(self, s, lds, y, z, ldy, piv, ldp, nb, k, bs,
+                             j0, inv_c, stream):
+        if j0 == 0:
+            self._solve(s, lds, y, z, ldy, nb, k, bs, inv_c)
+
+    def smw_update_lu_back(self, s, lds, z, ldy, nb, k, bs, zh, zl, ld16,
+                           stream):
+        self._z_slices(z, ldy, nb, k, bs, zh, zl, ld16)
+
+    def fused_gram_inv_split(self, src, bf16_in, blocks, rows, cols,
+                             bstride, ld, hi, lo, ld16, stream):
+        a = _blocks(src, torch.bfloat16 if bf16_in else torch.float32,
+                    blocks, rows, cols, ld, bstride)
+        if bf16_in:
+            assert lo is None
+            _blocks(hi, torch.bfloat16, blocks, rows, cols, ld16).copy_(a)
+        else:
+            _put(hilo_tma.Out(None, hi, lo), blocks, rows, cols, 0, ld16, a)
+
+    def fused_gram_inv_gram(self, ref, stream):
+        p = ref._obj
+        assert p.epi == hilo_tma.STORE and p.l_t and not p.r_t
+        _product_from_params(p)
+
+    def fused_gram_inv_finish(self, g, lam, nb, n, t, rel_damp, stream):
+        gram = _blocks(g, torch.float32, nb, n, n, n)
+        gram.copy_(gram / t)
+        _view(lam, torch.float32, nb).copy_(
+            tref._gram_damping(gram, rel_damp))
+
+
+@pytest.mark.parametrize("n,k,bs", [(3, 64, 176), (2, 129, 130),
+                                    (2, 200, 96), (2, 40, 256)])
+@pytest.mark.parametrize("budget_blocks", [None, 1])
+def test_smw_wrapper_launches_emulated_are_the_plain_version(
+        n, k, bs, budget_blocks, monkeypatch):
+    """``_large`` on CPU tensors, every kernel emulated from the
+    addresses, strides and ``hilo_tma.Params`` it passes: bitwise the
+    plain version, in one chunk and a block a chunk, the launches those
+    of ``expected_launches``, all keyed by the shape."""
+    inv, v = (torch.from_numpy(x) for x in _smw_case(k + bs, n, k, bs,
+                                                     1.0))
+    if budget_blocks:
+        plan = t_smw.smw_plan
+        monkeypatch.setattr(t_smw, "smw_plan", lambda nb, b, kk: plan(
+            nb, b, kk, budget=budget_blocks * t_smw.block_bytes(b, kk)))
+    card = _Card()
+    monkeypatch.setattr(t_smw.LIB, "launch", card.launch)
+    kw = dict(decay=0.95, cscale=0.05)
+    inv_decay, inv_c = tref.smw_scalars(**kw)
+    out = torch.full_like(inv, float("nan"))
+    t_smw._large(inv, v, out, inv_decay, inv_c, 0, t_smw.launch_key(bs, k))
+    assert torch.equal(out, tref.smw_update_ref(inv, v, **kw))
+    assert len(card.calls) == t_smw.expected_launches(bs, k, n)
+    assert {key for _, key in card.calls} == {t_smw.launch_key(bs, k)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,nb,n,budget_blocks", [(300, 3, 176, None),
+                                                  (90, 3, 130, 2),
+                                                  (40, 2, 129, 1)])
+def test_gram_wrapper_launches_emulated_are_the_plain_version(
+        t, nb, n, budget_blocks, dtype, monkeypatch):
+    """``_large`` on CPU activations (fp32 and bf16), the split, the Gram
+    and the finish emulated from their raw arguments, ``neumann_inv``'s
+    route by its plain version: bitwise ``fused_gram_inv_ref``, the
+    launches those of ``expected_launches``, keyed by the side."""
+    a = torch.from_numpy(np.random.default_rng(t + n).standard_normal(
+        (t, nb, n)).astype(np.float32)).to(dtype)
+    if budget_blocks:
+        plan = t_gram.gram_plan
+        monkeypatch.setattr(t_gram, "gram_plan", lambda b, s, tt, sl: plan(
+            b, s, tt, sl, budget=budget_blocks * t_gram.block_bytes(
+                tt, s, sl)))
+    card = _Card()
+    monkeypatch.setattr(t_gram.LIB, "launch", card.launch)
+
+    def inverse(blocks, lams, *, out, **counts):
+        out[0].copy_(tref.neumann_inv_ref(blocks[0], lams[0], **counts))
+
+    monkeypatch.setattr(t_gram._neumann_inv, "neumann_inv_grouped", inverse)
+    out = torch.full((nb, n, n), float("nan"))
+    t_gram._large(a, out, 0.05, KW, 0)
+    assert torch.equal(out, tref.fused_gram_inv_ref(a, rel_damp=0.05, **KW))
+    want = t_gram.expected_launches(a.shape, dtype, **KW)
+    assert len(card.calls) == want["fused_gram_inv"]
+    assert {key for _, key in card.calls} == {f"n{n}"}
+
+
+# ---------------------------------------------------------------------------
 # plans, chunks and launches (pure functions)
 # ---------------------------------------------------------------------------
 
+def _smw_block_bytes(bs, k):
+    """A block's workspace: M's fp32 (unpadded rows) and slices, V's
+    slices, Y's and Z's fp32 and slices, S's fp32, above k 128 the LU's
+    row sources."""
+    ss, rs = hilo_tma.slice_stride, hilo_tma.row_stride
+    return (4 * bs * bs + 4 * bs * ss(bs) + 4 * k * ss(bs)
+            + 2 * (4 * k * rs(bs) + 4 * k * ss(bs)) + 4 * k * rs(k)
+            + (4 * rs(k) if k > 128 else 0))
+
+
 def test_smw_plan_and_expected_launches():
-    assert t_smw.block_bytes(176, 64) == 4 * (176 * 176 + 2 * 64 * 176
-                                              + 64 * 64)
+    for bs, k in ((176, 64), (130, 129), (256, 256), (96, 200),
+                  (1024, 1024)):
+        assert t_smw.block_bytes(bs, k) == _smw_block_bytes(bs, k)
+    assert t_smw.block_bytes(176, 64) == 4 * 176 * 176 * 2 + \
+        64 * 176 * (4 + 2 * (4 + 4)) + 4 * 64 * 64
     # above k 128 the LU's row sources, k int32 (a row of 132) a block
-    assert t_smw.block_bytes(130, 129) == 4 * (130 * 132 + 2 * 129 * 132
-                                               + 129 * 132 + 132)
-    assert t_smw.block_bytes(1024, 1024) == 4 * (4 * 1024 * 1024 + 1024)
-    # the main path at block 256, rank 64 and 256: one chunk a side
+    assert t_smw.block_bytes(130, 129) == 4 * 130 * 130 + 4 * 130 * 136 + \
+        4 * 129 * 136 + 2 * (4 * 129 * 132 + 4 * 129 * 136) + \
+        4 * 129 * 132 + 4 * 132
+    assert t_smw.block_bytes(1024, 1024) == 4 * 8 * 1024 * 1024 + 4 * 1024
+    # the main path at block 256: one chunk a side at rank 64, two at
+    # rank 256 (2.1 MB and 1.4 MB a block)
     assert t_smw.smw_plan(768, 256, 64) == [(0, 768)]
     assert t_smw.smw_plan(1152, 176, 64) == [(0, 1152)]
-    assert t_smw.smw_plan(768, 256, 256) == [(0, 768)]
-    assert t_smw.smw_plan(1152, 176, 256) == [(0, 1152)]
-    # 1024 x 1024: 16 MiB and 4 KiB a block, 63 under 1 GiB: four
-    # chunks of 48
+    assert t_smw.smw_plan(768, 256, 256) == [(0, 384), (384, 768)]
+    assert t_smw.smw_plan(1152, 176, 256) == [(0, 576), (576, 1152)]
+    # 1024 x 1024: 32 MiB and 4 KiB a block, 31 under 1 GiB: seven
+    # chunks of 28 (the last 24)
     parts = t_smw.smw_plan(192, 1024, 1024)
-    assert parts == [(0, 48), (48, 96), (96, 144), (144, 192)]
+    assert parts == [(b, min(b + 28, 192)) for b in range(0, 192, 28)]
     for nb, bs, k in ((192, 1024, 1024), (5000, 256, 256), (7, 129, 64)):
         parts = t_smw.smw_plan(nb, bs, k)
         assert parts[0][0] == 0 and parts[-1][1] == nb
         assert all(b1 == c0 for (_, b1), (c0, _) in zip(parts, parts[1:]))
         assert max(b1 - b0 for b0, b1 in parts) * \
-            t_smw.block_bytes(bs, k) <= hilo_bmm.WORKSPACE_BYTES
+            t_smw.block_bytes(bs, k) <= hilo_tma.WORKSPACE_BYTES
     assert t_smw.smw_plan(5, 256, 64, budget=1) == \
         [(b, b + 1) for b in range(5)]
     assert t_smw.expected_launches(128, 64, 528) == 1
     assert t_smw.expected_launches(128, 128, 528) == 1
-    # prep, 2 products, the slab solve, the last product
+    # the prep (with V's split), 2 products, the slab solve (storing Z's
+    # slices too), the last product
     assert t_smw.expected_launches(256, 64, 768) == 5
     # above k 128 two launches a panel of 32 and the back substitution
     assert t_smw.expected_launches(128, 129, 3) == 4 + 2 * 5 + 1
-    assert t_smw.expected_launches(256, 256, 768) == 4 + 2 * 8 + 1
-    assert t_smw.expected_launches(176, 256, 1152) == 21
+    assert t_smw.expected_launches(256, 256, 768) == 2 * (4 + 2 * 8 + 1)
+    assert t_smw.expected_launches(176, 256, 1152) == 2 * 21
     assert t_smw.expected_launches(1024, 1000, 2) == 4 + 2 * 32 + 1
-    assert t_smw.expected_launches(1024, 1024, 192) == 4 * 69
+    assert t_smw.expected_launches(1024, 1024, 192) == 7 * 69
     assert t_smw.expected_launches(256, 64, 0) == 0
-    assert [s[1] for s in t_smw.smw_schedule(128) if s[0] == "solve"] == \
-        ["slab"]
-    assert [s[1] for s in t_smw.smw_schedule(129) if s[0] == "solve"] == \
-        ["panel", "update"] * 5 + ["back"]
+    assert [x.solve[0] for x in t_smw.smw_schedule(128)
+            if x.kind == t_smw.SOLVE] == ["slab"]
+    assert [x.solve[0] for x in t_smw.smw_schedule(129)
+            if x.kind == t_smw.SOLVE] == ["panel", "update"] * 5 + ["back"]
     assert t_smw.launch_key(176, 64) == "bs176k64"
 
 
 def test_gram_plan_and_expected_launches():
-    assert t_gram.gram_plan(1152, 176) == [(0, 1152)]
-    parts = t_gram.gram_plan(600, 1024)
+    ss = hilo_tma.slice_stride
+    # a block's activations as slices (hi and lo; hi alone for bf16), its
+    # Gram and its damping
+    assert t_gram.block_bytes(2048, 176, 2) == \
+        2 * 2 * 2048 * 176 + 4 * (176 * 176 + 1)
+    assert t_gram.block_bytes(300, 129, 1) == \
+        2 * 300 * ss(129) + 4 * (129 * 129 + 1)
+    assert t_gram.gram_plan(384, 176, 2048, 2) == [(0, 384)]
+    assert t_gram.gram_plan(1152, 176, 2048, 2) == [(0, 576), (576, 1152)]
+    assert t_gram.gram_plan(1152, 176, 2048, 1) == [(0, 1152)]
+    parts = t_gram.gram_plan(600, 1024, 2048, 2)
     assert parts[0][0] == 0 and parts[-1][1] == 600
-    assert max(b1 - b0 for b0, b1 in parts) * 4 * (1024 * 1024 + 1) <= \
-        hilo_bmm.WORKSPACE_BYTES
+    assert max(b1 - b0 for b0, b1 in parts) * \
+        t_gram.block_bytes(2048, 1024, 2) <= hilo_tma.WORKSPACE_BYTES
     per = t_neumann_inv.launches_per_chunk(**KW)
-    # 1152 blocks of 176: one Gram chunk, neumann_inv's 2 chunks of 576
-    assert t_gram.expected_launches(1152, 176, **KW) == \
-        {"fused_gram_inv": 2, "neumann_inv": 2 * per}
-    # 192 blocks of 1024: one Gram chunk, neumann_inv's 6 chunks of 32
-    assert t_gram.expected_launches(192, 1024, **KW) == \
-        {"fused_gram_inv": 2, "neumann_inv": 6 * per}
-    assert t_gram.expected_launches(528, 128, **KW) == \
+    f32, b16 = torch.float32, torch.bfloat16
+    # 1152 blocks of 176, fp32: two Gram chunks of 576 (a split, the Gram
+    # and the finish each), neumann_inv's one chunk a Gram chunk
+    assert t_gram.expected_launches((2048, 1152, 176), f32, **KW) == \
+        {"fused_gram_inv": 6, "neumann_inv": 2 * per}
+    # bf16: one Gram chunk, neumann_inv's 2 chunks of 576
+    assert t_gram.expected_launches((2048, 1152, 176), b16, **KW) == \
+        {"fused_gram_inv": 3, "neumann_inv": 2 * per}
+    # 192 blocks of 1024, fp32: three Gram chunks of 64, neumann_inv's 2
+    # chunks of 32 in each
+    assert t_gram.expected_launches((2048, 192, 1024), f32, **KW) == \
+        {"fused_gram_inv": 9, "neumann_inv": 6 * per}
+    assert t_gram.expected_launches((2048, 528, 128), f32, **KW) == \
         {"fused_gram_inv": 1, "neumann_inv": 0}
-    assert t_gram.expected_launches(0, 256, **KW) == \
+    assert t_gram.expected_launches((2048, 0, 256), b16, **KW) == \
         {"fused_gram_inv": 0, "neumann_inv": 0}
+    assert t_gram.slices_of(f32) == 2 and t_gram.slices_of(b16) == 1
 
 
 def test_route_limits_are_the_references():
@@ -503,7 +798,9 @@ def test_route_limits_are_the_references():
                          decay=0.95, cscale=0.05)
     with pytest.raises(ValueError, match="CUDA"):
         t_gram.fused_gram_inv(torch.zeros(4, 1, 300), rel_damp=0.05, **KW)
-    assert hilo_bmm.SUB == 6
+    # the update's correction, out = M - Y^T Z, is NEG_ACC writing F
+    # alone (E + -acc: one rounding, as E - acc)
+    assert t_smw.smw_schedule(64)[-1].epi == hilo_tma.NEG_ACC
 
 
 # ---------------------------------------------------------------------------

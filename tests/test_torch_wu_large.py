@@ -43,7 +43,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.core.quantize import split_hi_lo_bf16
 from repro_torch.kernels import fused_precond as kf
-from repro_torch.kernels import hilo_bmm, hilo_tma
+from repro_torch.kernels import hilo_tma
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.hilo_tma import F32, HI, LO
 
@@ -266,9 +266,9 @@ def test_wu_schedule_forms_are_written_before_read(bi, bo, indexed, shared):
 def test_wu_chunks_stay_under_the_budget():
     """Chunks cover the tiles in order, each chunk's workspace (g's and
     tmp's slices, rows padded to 8 bf16, and its partial dots) under the
-    budget, at most hilo_bmm.chunks' cap of tiles; the pools' slices are
+    budget, at most hilo_tma.chunks' cap of tiles; the pools' slices are
     made once a call, outside it."""
-    budget = hilo_bmm.WORKSPACE_BYTES
+    budget = hilo_tma.WORKSPACE_BYTES
     for n, bi, bo in ((1536, 256, 256), (3072, 256, 176), (1536, 176, 256),
                       (768, 1024, 176), (384, 176, 1024), (512, 130, 200),
                       (200000, 129, 129), (6144, 1024, 1024)):
