@@ -265,7 +265,39 @@ Phases, each printed as a JSON line:
                  fused_gram_inv on the main path's first batch at block
                  256 (A sides 256 and 176) against its plain version, the
                  two-step route and float64
-  19. trace      the main path's four steps again, the fourth under
+  19. dist       the main path over several ranks: two ranks sharing
+                 the one card over gloo (NCCL refuses two ranks on one
+                 device; gloo moves CUDA tensors through the host, every
+                 kernel still runs on the card), or one rank a card over
+                 NCCL; the parent frees its cache first and spawns them
+                 (``dist.spawn.run_ranks``). On each rank: (a) one
+                 data-parallel stats step of the main path (8 x 256 split
+                 over the ranks, Grams reduced), its 3120 factor blocks
+                 through a plan of the rank count, the rank's
+                 neumann_inv launches and blocks against the plan, its
+                 kernel ms (CUDA events) apart from the gather's, bitwise
+                 the one-rank grouped refresh; (b) the same at block 256
+                 (768 blocks of 256, 1152 of 176: the large route); (c)
+                 ``solve.refresh_and_precondition`` in owner and gather
+                 mode on the main path's 18816 WU tiles, the inverses
+                 bitwise the one-rank call's, the tiles within 1e-6 of
+                 its largest entry (whether bitwise is printed); (d) 4
+                 data-parallel ``--dist-inv`` steps of
+                 ``KFACProgram(mesh=)``: params bitwise equal across
+                 ranks, losses within 0.2% of the same steps on one
+                 rank with the gradient accumulated over the ranks' row
+                 split (train_accum 2: the bf16 rounding of each part's
+                 weight gradient) and the first gradient norm within
+                 1e-6 of that run's, the gap to the main path's printed;
+                 the same 4 steps at fp32 compute within 0.2% of the
+                 plain one-rank run at fp32; on every rank neumann_inv's
+                 launches and blocks those of (a)'s plan a refresh (its
+                 pool rows alone) and fused_precond once a WU group a
+                 step (summed into the kernels line); (e) ``compressed_allreduce_tree`` of each rank's
+                 gradient of (d)'s last batch: within s / 127 of the
+                 exact mean, 8 steps of error feedback within one step;
+                 each rank's peak memory
+  20. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
                  so that the profiler session cannot perturb the phases
@@ -273,7 +305,8 @@ Phases, each printed as a JSON line:
 
 Then the script's seconds, a JSON line of per-kernel results (with
 whisper's launches, the serve and paged phases' (none), the paper
-phase's and the tooling phase's, and the large routes' at block 256),
+phase's and the tooling phase's, the large routes' at block 256, and
+the dist phase's summed over its ranks),
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 without the ``ok`` line; so does a machine without CUDA, or a directory
@@ -414,6 +447,19 @@ LARGE = dict(
     gram=((2048, 8, 129), (2048, 8, 176), (2048, 8, 256), (2048, 4, 512),
           (2048, 2, 1024)),
     smw_rank=256)
+# phase dist: the main path's model and traffic over DIST["ranks"] ranks
+# (two sharing the one card over gloo, else one a card over NCCL): (a)
+# the refresh of one data-parallel stats step's factors at block 128,
+# (b) at block 256, (c) the fused INV->VMM program in both modes on the
+# main path's WU tiles, (d) 4 data-parallel --dist-inv steps (and again
+# at fp32 compute), (e) the compressed all-reduce of (d)'s gradients with
+# EF_STEPS steps of error feedback; pre_tol: (c)'s preconditioned tiles
+# against the one-rank call, of the largest entry; loss_tol: (d)'s losses
+# against the one-rank run with the same row split accumulated, and at
+# fp32 against the plain one-rank run ("Rounding on the card",
+# ROADMAP.md)
+DIST = dict(block_256=256, ef_steps=8, pre_tol=1e-6, loss_tol=2e-3,
+            grad_seed=1)
 # a kernel agrees with its plain version when max|kernel - plain| is at
 # most this share of max|plain| (rounding-level: the tensor cores sum the
 # exact bf16 partial products in another order than the plain matmuls)
@@ -2363,6 +2409,360 @@ def large_solve_kernels(torch, dev, check, gen):
     return smw_rows, gram_rows
 
 
+def dist_rank(rank, world):
+    """One rank of phase ``dist`` (run by ``dist.spawn.run_ranks``; see
+    :func:`dist_phase`): every check's inputs and this rank's timings,
+    launches and peak memory."""
+    import hashlib
+
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import kfac
+    from repro_torch.data.pipeline import (DataCursor, SyntheticTokens,
+                                           make_global_batch)
+    from repro_torch.dist import compression
+    from repro_torch.dist.api import all_gather_rows, all_reduce, \
+        mesh_position
+    from repro_torch.kernels import fused_precond as fp_mod
+    from repro_torch.kernels import neumann_inv as nv_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.solve import (invert_factor_tree, make_plan,
+                                   make_wu_plan, refresh_and_precondition)
+    from repro_torch.solve.block_solver import invert_pools
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    train_mod.fp32_matmuls()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_dev_mesh()
+    pos = mesh_position(mesh)
+    cfg = get_config(MAIN["arch"])
+    bs = min(MAIN["block_size"], cfg.soi_block)
+    kcfg = kfac.KFACConfig(
+        stats_every=MAIN["stats_every"], inv_every=MAIN["inv_every"],
+        block_size=bs, stats_batch=MAIN["batch"], stats_seq=MAIN["seq"])
+    specs = steps_mod.kfac_specs(cfg)
+    ds = SyntheticTokens(vocab=cfg.vocab, seq_len=MAIN["seq"],
+                         global_batch=MAIN["batch"], seed=MAIN["seed"])
+    batch = make_global_batch(ds, DataCursor(0), mesh, device=dev)
+    program = train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"],
+                                    device=dev, mesh=mesh, dist_inv=True)
+    params = program.init_state().params
+    out = {"rank": rank, "position": pos, "device": str(dev),
+           "rows": list(batch["tokens"].shape)}
+
+    def synced(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def event_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end)
+
+    def refresh_case(block):
+        """(a)/(b): one data-parallel stats step's factors at ``block``,
+        through a plan of ``world`` devices: this rank's launches and
+        blocks, its kernel and gather ms, bitwise the one-rank refresh."""
+        kc = dataclasses.replace(kcfg, block_size=block)
+        state = steps_mod.TrainState(params, kfac.init(params, specs, kc))
+        state, _ = steps_mod.make_stats_step(cfg, kc, data_mesh=mesh)(
+            state, batch)
+        factors = state.kfac.factors
+        del state
+        plan = make_plan(factors, world, kc)
+        counts = dict(ns_iters=kc.ns_iters, taylor_terms=kc.taylor_terms,
+                      refine_steps=kc.refine_steps)
+        invert_pools(factors, kc, plan, mesh)          # warm
+        ops.reset_launch_counts()
+        shards, kernel_ms = event_ms(
+            lambda: invert_pools(factors, kc, plan, mesh))
+        launches = ops.launch_counts()["neumann_inv"]
+        keys = ops.launch_keys()["neumann_inv"]
+        _, gather_ms = synced(lambda: [all_gather_rows(x, mesh)
+                                       for x in shards])
+        del shards
+        got, call_ms = synced(lambda: invert_factor_tree(
+            factors, kc, mesh=mesh, plan=plan))
+        one = invert_factor_tree(factors, kc)
+        bitwise = all(torch.equal(got[n][k], one[n][k])
+                      for n in one for k in one[n])
+        fsum = float(sum(f.double().sum() for d in factors.values()
+                         for f in d.values()))
+        del got, one
+        want = nv_mod.expected_launches(
+            {g.bs: [g.per_device] for g in plan.groups}, **counts)
+        s = plan.summary()
+        return factors, plan, {
+            "block": block, "plan": s, "launches": launches,
+            "launch_keys": keys, "expected_launches": want,
+            "blocks": s["device_blocks"][pos],
+            "real_blocks": sum(int((g.slots[pos] >= 0).sum())
+                               for g in plan.groups),
+            "block_bound": sum(-(-g.n_blocks // world) for g in plan.groups),
+            "inverted": sum(g.per_device for g in plan.groups),
+            "kernel_ms": kernel_ms, "gather_ms": gather_ms,
+            "call_ms": call_ms, "bitwise_one_rank": bitwise,
+            "factor_sum": fsum}
+
+    # (a), then (b) at block 256 (the large route, chunked per rank)
+    factors, plan, out["a"] = refresh_case(bs)
+    _, _, out["b"] = refresh_case(DIST["block_256"])
+    torch.cuda.empty_cache()
+
+    # (c) the fused INV->VMM program, both modes, on the main path's WU
+    # tiles, against the one-rank call
+    gen = torch.Generator(device=dev).manual_seed(DIST["grad_seed"])
+    grads = {n: torch.randn(s.stack + (s.d_in, s.d_out), device=dev,
+                            generator=gen) for n, s in sorted(specs.items())}
+    wu = make_wu_plan(specs, factors, kcfg, ndev=world)
+    inv1, pre1 = refresh_and_precondition(
+        factors, grads, kcfg, make_wu_plan(specs, factors, kcfg))
+    out["c"] = {"tiles": wu.total_tiles}
+    for mode in ("owner", "gather"):
+        refresh_and_precondition(factors, grads, kcfg, wu, mesh=mesh,
+                                 mode=mode)                  # warm
+        (inv, pre), ms = synced(lambda: refresh_and_precondition(
+            factors, grads, kcfg, wu, mesh=mesh, mode=mode))
+        err = max(float((pre[n] - pre1[n]).abs().max()
+                        / pre1[n].abs().max()) for n in pre1)
+        out["c"][mode] = {
+            "ms": ms, "inverses_bitwise": all(
+                torch.equal(inv[n][k], inv1[n][k])
+                for n in inv1 for k in inv1[n]),
+            "pre_bitwise": all(torch.equal(pre[n], pre1[n]) for n in pre1),
+            "pre_max_rel_err": err}
+        del inv, pre
+    _, out["c"]["one_rank_ms"] = synced(lambda: refresh_and_precondition(
+        factors, grads, kcfg, make_wu_plan(specs, factors, kcfg)))
+    # (d)'s schedule: the trainer's WU runs on every rank on the one-rank
+    # WU plan (the gathered inverses); its refresh on (a)'s plan
+    out["fused_precond_per_step"] = sum(
+        fp_mod.expected_launches(g.n_tiles, g.bi, g.bo, shared=g.bi == g.bo)
+        for g in make_wu_plan(specs, factors, kcfg).groups)
+    del inv1, pre1, grads, factors, plan, wu, params
+    torch.cuda.empty_cache()
+
+    # (d) 4 data-parallel --dist-inv steps of the main path
+    ops.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state, hist = train_mod.run(program, ds, MAIN["steps"])
+    torch.cuda.synchronize(dev)
+    h = hashlib.sha256()
+    for k in kfac.tree_order(state.params):
+        h.update(state.params[k].contiguous().view(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    out["d"] = {"losses": [r["loss"] for r in hist],
+                "grad_norms": [r["grad_norm"] for r in hist],
+                "phase_s": [r["phase_s"] for r in hist],
+                "wall_s": time.perf_counter() - t0,
+                "launches": ops.launch_counts(),
+                "launch_keys": ops.launch_keys(),
+                "blocks_inverted": ops.launch_items()["neumann_inv"],
+                "params_digest": h.hexdigest()[:16]}
+
+    # (e) the compressed all-reduce of this rank's own gradient of (d)'s
+    # last batch, against the exact mean, and error feedback
+    _, g = steps_mod._grads(cfg, state.params, make_global_batch(
+        ds, DataCursor(MAIN["steps"] - 1), mesh, device=dev))
+    del state
+    g = {k: g[k] for k in kfac.tree_order(g)}
+    exact = {k: all_reduce(v.clone(), mesh) / world for k, v in g.items()}
+    errs = compression.init_error_buffers(g)
+    (means, errs), ms = synced(lambda: compression.compressed_allreduce_tree(
+        g, errs, mesh, ("pod", "data")))
+    worst, acc = 0.0, {k: m.clone() for k, m in means.items()}
+    for k, v in g.items():
+        s_k = all_reduce(v.abs().max().reshape(1), mesh, "max")[0]
+        worst = max(worst, float((means[k] - exact[k]).abs().max()
+                                 / (s_k / 127)))
+    del means
+    for _ in range(DIST["ef_steps"] - 1):
+        m, errs = compression.compressed_allreduce_tree(
+            g, errs, mesh, ("pod", "data"))
+        acc = {k: acc[k] + m[k] for k in acc}
+        del m
+    ef = 0.0
+    for k, v in g.items():
+        step = all_reduce((v.abs() + errs[k].abs()).max().reshape(1), mesh,
+                          "max")[0] / 127
+        ef = max(ef, float((acc[k] - DIST["ef_steps"] * exact[k]).abs()
+                           .max() / step))
+    n = sum(v.numel() for v in g.values())
+    out["e"] = {"elements": n, "leaves": len(g), "compressed_ms": ms,
+                "max_err_over_s127": worst, "ef_sum_err_over_step": ef,
+                "fp32_bytes": 4 * n, "int8_bytes": n + 4 * len(g)}
+    del g, errs, acc, exact
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.empty_cache()
+
+    # (d) at fp32 compute: the same 4 steps, where no bf16 rounding of a
+    # rank's gradient stands between data parallelism and one rank
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, hist = train_mod.run(train_mod.KFACProgram(
+        dataclasses.replace(cfg, dtype="float32"), kcfg, seed=MAIN["seed"],
+        device=dev, mesh=mesh, dist_inv=True), ds, MAIN["steps"])
+    out["d_fp32"] = {"losses": [r["loss"] for r in hist],
+                     "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
+                     / 1e9}
+    out["backend"] = tdist.get_backend()
+    return out
+
+
+def dist_phase(torch, dev, check, main_losses):
+    """Phase ``dist``: the main path over several ranks. With one card two
+    ranks share ``cuda:0`` over gloo (NCCL refuses two ranks on one
+    device; gloo moves the CUDA tensors through the host, and every
+    kernel still runs on the card), else one rank a card over NCCL;
+    :func:`dist_rank` on each. Checks: (a) and (b) each rank's
+    ``neumann_inv`` launches as its plan rows' schedule gives
+    (``plan.summary()``), the refresh bitwise the one-rank grouped
+    refresh; (c) the inverses of both modes bitwise the one-rank call's,
+    the tiles within ``pre_tol`` of its largest entry (the fp32 batched
+    product may take another cuBLAS kernel for another batch count, so
+    not held bitwise); (d) params bitwise equal across ranks, losses
+    within ``loss_tol`` of the same 4 steps on one rank with the
+    gradient accumulated over the ranks' row split (the bf16 rounding of
+    each part's weight gradient is the arithmetic of data parallelism;
+    the gap to the main path's losses is reported) and the first step's
+    gradient norm within 1e-6 of that run's, the same 4 steps at fp32
+    compute within ``loss_tol`` of the plain one-rank run at fp32, and
+    on every rank ``neumann_inv`` launched as (a)'s plan gives a refresh
+    on the rank's pool rows alone (the blocks each launch covered are
+    counted) and ``fused_precond`` once a WU group a step; (e) every
+    element within
+    s / 127 of the exact mean, the error-feedback sum within one step.
+    A failed rank fails the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import kfac
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.dist.spawn import backend_for, run_ranks
+    from repro_torch.launch import train as train_mod
+
+    n_cards = torch.cuda.device_count()
+    world = 2 if n_cards == 1 else n_cards
+    backend = backend_for("cuda", world)
+    emit({"phase": "dist_setup", "ranks": world, "cards": n_cards,
+          "backend": backend,
+          "placement": ("two ranks share cuda:0 over gloo" if n_cards == 1
+                        else "one rank a card over NCCL")})
+    # (d)'s yardstick: the same 4 steps on this one rank with each step's
+    # gradient accumulated over the ranks' row split (train_accum = the
+    # rank count): data parallelism's arithmetic on one rank. The model
+    # computes in bf16, and each weight gradient is rounded to bf16 per
+    # microbatch (per rank), which moves the main path's chaotic step 3
+    # by ~2% (train_accum 2 against 1) on one rank too
+    cfg = get_config(MAIN["arch"])
+    kcfg = kfac.KFACConfig(
+        stats_every=MAIN["stats_every"], inv_every=MAIN["inv_every"],
+        block_size=min(MAIN["block_size"], cfg.soi_block),
+        stats_batch=MAIN["batch"], stats_seq=MAIN["seq"])
+    ds = SyntheticTokens(vocab=cfg.vocab, seq_len=MAIN["seq"],
+                         global_batch=MAIN["batch"], seed=MAIN["seed"])
+    _, acc_hist = train_mod.run(train_mod.KFACProgram(
+        dataclasses.replace(cfg, train_accum=world), kcfg,
+        seed=MAIN["seed"], device="cuda"), ds, MAIN["steps"])
+    accum_losses = [h["loss"] for h in acc_hist]
+    torch.cuda.empty_cache()
+    # and the plain one-rank run at fp32 compute, (d)'s fp32 yardstick
+    _, hist32 = train_mod.run(train_mod.KFACProgram(
+        dataclasses.replace(cfg, dtype="float32"), kcfg, seed=MAIN["seed"],
+        device="cuda"), ds, MAIN["steps"])
+    fp32_losses = [h["loss"] for h in hist32]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(dist_rank, world, device="cuda", timeout=900)
+    seconds = time.perf_counter() - t0
+    for r in ranks:
+        tag = f"dist rank {r['rank']}"
+        for case in ("a", "b"):
+            c = r[case]
+            check(c["bitwise_one_rank"],
+                  f"{tag} ({case}): refresh bitwise the one-rank refresh")
+            check(c["launches"] == c["expected_launches"] > 0,
+                  f"{tag} ({case}): neumann_inv launches as planned")
+            check(c["real_blocks"] == c["blocks"] <= c["block_bound"],
+                  f"{tag} ({case}): the rank's pool rows hold its "
+                  f"plan.summary() blocks, within the plan's bound")
+            check(c["factor_sum"] == ranks[0][case]["factor_sum"],
+                  f"{tag} ({case}): the same reduced factors on every rank")
+        for mode in ("owner", "gather"):
+            c = r["c"][mode]
+            check(c["inverses_bitwise"],
+                  f"{tag} (c) {mode}: inverses bitwise the one-rank call")
+            check(c["pre_max_rel_err"] <= DIST["pre_tol"],
+                  f"{tag} (c) {mode}: tiles within the tolerance")
+        d = r["d"]
+        check(d["params_digest"] == ranks[0]["d"]["params_digest"],
+              f"{tag} (d): params bitwise equal across ranks")
+        check(d["losses"] == ranks[0]["d"]["losses"],
+              f"{tag} (d): the same losses on every rank")
+        check(all(abs(x - y) <= DIST["loss_tol"] * abs(y)
+                  for x, y in zip(d["losses"], accum_losses))
+              and len(d["losses"]) == len(accum_losses),
+              f"{tag} (d): losses within {DIST['loss_tol']} of the one-rank "
+              f"run accumulated over the same row split")
+        check(abs(d["grad_norms"][0] - acc_hist[0]["grad_norm"])
+              <= 1e-6 * acc_hist[0]["grad_norm"],
+              f"{tag} (d): the first step's reduced gradient norm that of "
+              f"the one-rank run accumulated over the same row split")
+        d32 = r["d_fp32"]["losses"]
+        check(len(d32) == len(fp32_losses) and all(
+            abs(x - y) <= DIST["loss_tol"] * abs(y)
+            for x, y in zip(d32, fp32_losses)),
+              f"{tag} (d) fp32: losses within {DIST['loss_tol']} of the "
+              f"plain one-rank run")
+        check(d32 == ranks[0]["d_fp32"]["losses"],
+              f"{tag} (d) fp32: the same losses on every rank")
+        # the trainer's refresh splits the blocks as (a)'s plan does: each
+        # refresh inverts this rank's pool rows alone, one launch a side
+        refreshes = sum("inv" in p for p in d["phase_s"])
+        check(refreshes > 0 and d["launches"]["neumann_inv"]
+              == refreshes * r["a"]["expected_launches"],
+              f"{tag} (d): neumann_inv launches as planned")
+        check(d["blocks_inverted"] == {
+            f"n{g['bs']}": refreshes * g["per_device"]
+            for g in r["a"]["plan"]["groups"]}
+              and r["a"]["inverted"] < r["a"]["plan"]["total_blocks"],
+              f"{tag} (d): each refresh inverted the rank's pool rows, "
+              f"not every block")
+        check(d["launches"]["fused_precond"]
+              == len(d["losses"]) * r["fused_precond_per_step"] > 0,
+              f"{tag} (d): fused_precond once a WU group a step")
+        e = r["e"]
+        check(e["max_err_over_s127"] <= 1.0 + 1e-6,
+              f"{tag} (e): compressed mean within s/127")
+        check(e["ef_sum_err_over_step"] <= 1.0 + 1e-3,
+              f"{tag} (e): error feedback within one step")
+    launches = {name: sum(r["d"]["launches"][name] for r in ranks)
+                for name in ranks[0]["d"]["launches"]}
+    d_losses = ranks[0]["d"]["losses"]
+    d32 = ranks[0]["d_fp32"]["losses"]
+    return {"ranks": world, "backend": backend, "seconds": seconds,
+            "losses": d_losses, "accum_losses": accum_losses,
+            "main_path_losses": list(main_losses),
+            "rel_to_accum": [abs(x - y) / abs(y)
+                             for x, y in zip(d_losses, accum_losses)],
+            "rel_to_main_path": [abs(x - y) / abs(y)
+                                 for x, y in zip(d_losses, main_losses)],
+            "fp32_losses": d32, "fp32_one_rank_losses": fp32_losses,
+            "fp32_rel_to_one_rank": [abs(x - y) / abs(y)
+                                     for x, y in zip(d32, fp32_losses)],
+            "launches": launches, "per_rank": ranks}
+
+
 def large_blocks_phase(torch, dev, check):
     """Phase ``large_blocks``: the kernels' route for sides of 129..1024
     (``csrc/hilo_tma.cuh``). (a) ``neumann_inv``
@@ -3919,7 +4319,13 @@ def main() -> int:
     large_row = large_blocks_phase(torch, dev, check)
     emit({"phase": "large_blocks", "nvidia_smi": smi, **large_row})
 
-    # 19. trace: the main path's fourth step (FP, BP and WU only) under
+    # 19. dist: the main path over two ranks on the one card (or a rank
+    # a card): the distributed refresh at blocks 128 and 256, the fused
+    # INV->VMM program, 4 data-parallel steps, the compressed all-reduce
+    dist_row = dist_phase(torch, dev, check, losses)
+    emit({"phase": "dist", "nvidia_smi": smi, **dist_row})
+
+    # 20. trace: the main path's fourth step (FP, BP and WU only) under
     # torch.profiler, kernels only, last, so that the profiler session
     # cannot perturb the phases timed before it: the device's busy time
     # (the union of the kernels' intervals) against the step's host wall
@@ -3967,6 +4373,7 @@ def main() -> int:
     del prof
 
     emit({"phase": "timing", "script_seconds": time.perf_counter() - t_script,
+          "dist_seconds": dist_row["seconds"],
           "tooling_seconds": tooling_row["phase_seconds"],
           "large_blocks_seconds": large_row["phase_seconds"]})
     if failures:
@@ -4035,7 +4442,8 @@ def main() -> int:
                                paper_row["launches"].values()),
                            tooling_launches=sum(
                                c[name] for c in
-                               tooling_row["launches"].values()))
+                               tooling_row["launches"].values()),
+                           dist_launches=dist_row["launches"][name])
                       for name, r in results.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

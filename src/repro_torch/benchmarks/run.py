@@ -44,11 +44,7 @@ from repro_torch.benchmarks.common import print_csv
 SUMMARY_SCHEMA = 1
 
 #: the reference's modules not yet ported -> the ROADMAP item porting them
-UNPORTED = {
-    "dist_inverse": "8", "pipeline_bench": "8",
-    "grad_compression_dcn": "8",
-    "roofline": "9b",
-}
+UNPORTED = {"pipeline_bench": "8", "roofline": "9b"}
 
 
 def _wall_values(obj, key=""):
@@ -121,8 +117,10 @@ def main(argv=None):
 
     from repro_torch.benchmarks import (
         area,
+        dist_inverse,
         dse,
         energy,
+        grad_compression,
         inv_convergence,
         kernel_bench,
         kfac_convergence,
@@ -215,8 +213,15 @@ def main(argv=None):
     # trajectories
     run("precision_ladder", lambda: score(precision_ladder.headline(
         precision_ladder.main(fast + dev + out("precision")))))
-    for name in ("dist_inverse", "pipeline_bench", "grad_compression_dcn"):
-        unported(name)
+    # the distributed refresh against the replicated one, on spawned
+    # ranks; BENCH_dist_inverse.json
+    run("dist_inverse", lambda: dist_inverse.main(
+        dev + out("dist_inverse")))
+    unported("pipeline_bench")
+    # fp32 against int8 error-feedback gradient reduction over spawned
+    # ranks; BENCH_grad_compression.json
+    run("grad_compression_dcn", lambda: grad_compression.main(
+        dev + out("grad_compression")))
     run("sec6c_kfac_convergence", lambda: measured(
         "kfac_convergence", kfac_convergence.rows(fast=args.fast,
                                                   device=device)),

@@ -40,11 +40,17 @@ largest per-leaf deviation of the new momentum (the clipped
 preconditioned direction) from ``per_leaf``'s, relative to that
 leaf's largest entry, is reported beside ``KERNEL_TOL``.
 
-``--dist`` (the reference's forced-4-device INV→VMM dataflow
-comparison, ``solve/fused_wu.py`` on a mesh) waits for the multi-GPU
-port and raises.
+``--dist`` runs only the distributed INV→VMM dataflow comparison
+(``solve.fused_wu`` on a (2, 2) mesh of 4 ranks, the reference's
+forced 4-device child; ``dist.spawn``: gloo ranks on the CPU, on CUDA
+one rank a card or two sharing the one card): the owner-routed program
+against gather-then-replicated-product, each rank's inverses and
+preconditioned gradients held bitwise to the replicated refresh and the
+per-leaf product (on the card, within ``KERNEL_TOL`` of the largest
+entry: the batched fp32 product may take another kernel for another
+batch count), with each mode's wall ms.
 
-  python -m repro_torch.benchmarks.wu_fusion [--device cuda|cpu]
+  python -m repro_torch.benchmarks.wu_fusion [--device cuda|cpu] [--dist]
 """
 
 from __future__ import annotations
@@ -234,21 +240,97 @@ def wall_guard(case) -> bool:
         -0.15 * leg["wall_ms"] * 1e3
 
 
+def _dist_rank(rank: int, world: int, arch: str, device: str) -> dict:
+    """One rank of the ``--dist`` comparison (see the module docstring)."""
+    from repro_torch.benchmarks.common import timed
+    from repro_torch.benchmarks.dist_inverse import probe_mesh, spd_factors
+    from repro_torch.core import kfac
+    from repro_torch.core.kfac import KFACConfig
+    from repro_torch.dist.spawn import rank_device
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.solve import make_wu_plan, refresh_and_precondition
+
+    dev = rank_device(device, rank)
+    cfg, params = model_setup(arch, device=dev)
+    kcfg = KFACConfig(block_size=64, ns_iters=8, taylor_terms=3,
+                      refine_steps=1)
+    specs = steps_mod.kfac_specs(cfg)
+    factors = spd_factors(specs, kcfg.block_size, dev)
+    r = np.random.default_rng(1)
+    grads = {k: torch.from_numpy(r.standard_normal(
+        tuple(params[k].shape), dtype=np.float32)).to(dev)
+        for k in kfac.tree_order(params)}
+    gbn = {k: g for k, g in grads.items() if k in specs}
+    mesh = probe_mesh(world)
+    wu = make_wu_plan(specs, factors, kcfg, ndev=world)
+    # the legacy yardstick: replicated refresh, per-leaf product
+    state = dataclasses.replace(kfac.init(params, specs, kcfg),
+                                factors=factors)
+    ref_inv = kfac.refresh_inverses(state, kcfg).inverses
+    pre_ref = kfac.precondition(grads, dataclasses.replace(
+        state, inverses=ref_inv), specs, kcfg)
+    res = {"arch": arch, "ndev": world, "rank": rank, "device": str(dev),
+           "total_tiles": wu.total_tiles}
+    for mode in ("gather", "owner"):
+        (inv, pre), us = timed(lambda: refresh_and_precondition(
+            factors, gbn, kcfg, wu, mesh=mesh, mode=mode))
+        inv_eq = all(torch.equal(ref_inv[n][k], inv[n][k])
+                     for n in ref_inv for k in ref_inv[n])
+        pre_eq = all(torch.equal(pre[n], pre_ref[n]) for n in gbn)
+        err = max(float((pre[n] - pre_ref[n]).abs().max()
+                        / pre_ref[n].abs().max()) for n in gbn)
+        res[mode] = {"wall_ms": us / 1e3, "bitwise_equal": inv_eq and pre_eq,
+                     "inverses_bitwise": inv_eq, "pre_max_rel_err": err}
+    return res
+
+
+def dist_rows(*, world: int = 4, arch: str = "qwen1.5-0.5b",
+              device: str = "cpu") -> dict:
+    """Rank 0's record of the ``--dist`` comparison, with every rank's
+    under ``ranks``; asserts the bitwise equalities (on the card: the
+    inverses bitwise, the products within :data:`KERNEL_TOL`)."""
+    from repro_torch.dist.spawn import run_ranks
+
+    ranks = run_ranks(_dist_rank, world, device=device,
+                      args=(arch, device))
+    for r in ranks:
+        for mode in ("gather", "owner"):
+            if torch.device(device).type == "cuda":
+                assert r[mode]["inverses_bitwise"], r
+                assert r[mode]["pre_max_rel_err"] <= KERNEL_TOL, r
+            else:
+                assert r[mode]["bitwise_equal"], r
+    return {**ranks[0], "ranks": ranks}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dist", action="store_true",
-                    help="the forced-4-device INV→VMM dataflow comparison "
-                         "(multi-GPU; not ported)")
+                    help="run only the 4-rank INV→VMM dataflow comparison "
+                         "(gather against owner)")
+    ap.add_argument("--ranks", type=int, default=4,
+                    help="--dist's rank count (the reference's 4)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without CUDA) or cpu")
-    ap.add_argument("--out", default=out_path("wu_fusion"))
+    ap.add_argument("--out", default=None,
+                    help="default bench_out/BENCH_wu_fusion.json, with "
+                         "--dist BENCH_wu_fusion_dist.json")
     args = ap.parse_args(argv)
 
     if args.dist:
-        raise NotImplementedError(
-            "wu_fusion --dist compares solve/fused_wu.py's INV→VMM "
-            "dataflows on a 4-device mesh; the port runs on one device "
-            "(multi-GPU is ROADMAP Queue 1 item 8)")
+        from repro_torch.launch.train import resolve_device
+
+        d = dist_rows(world=args.ranks,
+                      device=str(resolve_device(args.device)))
+        print_csv("wu_fusion_dist", [
+            {"mode": m, "wall_ms": d[m]["wall_ms"],
+             "bitwise_equal": d[m]["bitwise_equal"]}
+            for m in ("gather", "owner")])
+        out = args.out or out_path("wu_fusion_dist")
+        write_json(out, d)
+        print(f"# wrote {out}")
+        return d
+    args.out = args.out or out_path("wu_fusion")
 
     cases = [_wu_case(a, device=args.device) for a in ARCHS + EXTRA_ARCHS]
     table = []

@@ -271,6 +271,25 @@ def inverse_pools(inverses, inv_plan) -> Dict[int, torch.Tensor]:
     return pools
 
 
+def group_tiles(grads_by_name: Mapping[str, torch.Tensor], grp
+                ) -> torch.Tensor:
+    """One WU group's gradient tiles, its leaves' in plan order."""
+    return torch.cat([soi.gather_grad_tiles(grads_by_name[l.name], l.stack,
+                                            grp.bi, grp.bo)
+                      for l in grp.leaves])
+
+
+def scatter_group_tiles(grp, o: torch.Tensor) -> dict:
+    """A WU group's tiles in plan order -> ``{leaf: (*stack, d_in,
+    d_out)}``."""
+    out, ofs = {}, 0
+    for l in grp.leaves:
+        out[l.name] = soi.scatter_grad_tiles(
+            o[ofs:ofs + l.n_tiles], l.stack, l.nb_i, l.nb_o, l.d_in, l.d_out)
+        ofs += l.n_tiles
+    return out
+
+
 def precondition_pooled(grads_by_name: Mapping[str, torch.Tensor],
                         inverses, wu_plan, use_kernel: bool = False,
                         precision: str = "fp32") -> dict:
@@ -297,10 +316,7 @@ def precondition_pooled(grads_by_name: Mapping[str, torch.Tensor],
     pools = inverse_pools(inverses, wu_plan.inv_plan)
     out = {}
     for grp in wu_plan.groups:
-        tiles = [soi.gather_grad_tiles(grads_by_name[l.name], l.stack,
-                                       grp.bi, grp.bo)
-                 for l in grp.leaves]
-        g_pool = torch.cat(tiles).contiguous()
+        g_pool = group_tiles(grads_by_name, grp).contiguous()
         a_src, g_src = grp.src_on(g_pool.device)
         if use_kernel:
             o, _dots = ops.fused_precond(pools[grp.bi], g_pool,
@@ -312,12 +328,7 @@ def precondition_pooled(grads_by_name: Mapping[str, torch.Tensor],
                                        precision=precision)
             o = quantize.lowp_einsum("nac,ncd->nad", tmp, g_sel,
                                      precision=precision)
-        ofs = 0
-        for l in grp.leaves:
-            out[l.name] = soi.scatter_grad_tiles(
-                o[ofs:ofs + l.n_tiles], l.stack, l.nb_i, l.nb_o, l.d_in,
-                l.d_out)
-            ofs += l.n_tiles
+        out.update(scatter_group_tiles(grp, o))
     return out
 
 

@@ -1,3 +1,7 @@
 """Synthetic token data (counterpart of ``repro.data``)."""
 
-from repro_torch.data.pipeline import DataCursor, SyntheticTokens  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    DataCursor,
+    SyntheticTokens,
+    make_global_batch,
+)

@@ -1,10 +1,12 @@
-"""Deterministic, seekable synthetic token stream (counterpart of
-``repro.data.pipeline``, without the jax sharding helpers).
+"""Deterministic, seekable, shardable synthetic token stream
+(counterpart of ``repro.data.pipeline``).
 
 Batch ``i`` is a pure function of ``(seed, i)`` drawn with numpy's
 Philox, so the port and the reference produce byte-identical tokens.
 Tokens follow per-sequence topic unigrams with copy-previous and
-offset-8 repeat moves, so the loss has learnable structure.
+offset-8 repeat moves, so the loss has learnable structure. Each row
+draws from its own counter, so a rank generates only its own rows of the
+global batch (:func:`make_global_batch`), as the reference's hosts do.
 """
 
 from __future__ import annotations
@@ -67,7 +69,56 @@ class SyntheticTokens:
             out[r] = toks
         return out % self.vocab
 
+    def host_slice(self, step: int, rank: int, world: int) -> np.ndarray:
+        """Rank ``rank`` of ``world``'s equal share of global batch
+        ``step`` (the reference's per-host slice)."""
+        per = self.global_batch // world
+        return self.batch_slice(step, rank * per, (rank + 1) * per)
+
     def batch(self, cursor: DataCursor, *, device) -> dict:
         """The whole global batch at ``cursor`` as a tensor dict."""
         toks = self.batch_slice(cursor.step, 0, self.global_batch)
         return {"tokens": torch.from_numpy(toks).to(device)}
+
+
+def batch_shard(mesh) -> tuple:
+    """``(shard, n)``: this rank's shard of the batch and the shard count,
+    over the batch axes the mesh has (``pod``, ``data``, combined
+    row-major). Ranks that differ only along other axes (``model``) hold
+    the same shard."""
+    from repro_torch.dist.api import BATCH_AXES, axis_sizes
+
+    sizes = axis_sizes(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    shard, n = 0, 1
+    for a in (a for a in BATCH_AXES if a in sizes):
+        shard = shard * sizes[a] + coord[a]
+        n *= sizes[a]
+    return shard, n
+
+
+def batch_rows_of(global_batch: int, mesh) -> tuple:
+    """``(lo, hi)``: this rank's rows of a global batch of
+    ``global_batch`` rows, split evenly over the batch shards
+    (:func:`batch_shard`)."""
+    shard, n = batch_shard(mesh)
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} does not split "
+                         f"over {n} batch shards")
+    per = global_batch // n
+    return shard * per, (shard + 1) * per
+
+
+def make_global_batch(ds: SyntheticTokens, cursor: DataCursor, mesh, *,
+                      device, extras: dict | None = None) -> dict:
+    """This rank's rows of global batch ``cursor`` over the mesh's batch
+    axes (:func:`batch_rows_of`), generated for this rank only, as the
+    reference's ``make_global_batch`` fills each device's shard; without
+    a mesh the whole batch. ``extras`` are added as given."""
+    lo, hi = (0, ds.global_batch) if mesh is None else \
+        batch_rows_of(ds.global_batch, mesh)
+    out = {"tokens": torch.from_numpy(
+        ds.batch_slice(cursor.step, lo, hi)).to(device)}
+    if extras:
+        out.update(extras)
+    return out

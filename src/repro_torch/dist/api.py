@@ -1,0 +1,172 @@
+"""Mesh-axis vocabulary and the mesh helpers of the port (counterpart of
+``repro.dist.api``, its mesh-independent part).
+
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` built with
+``init_device_mesh(device_type, shape, mesh_dim_names=...)`` over an
+initialised process group, under the reference's axis names:
+
+* ``POD``/``STAGE``/``DATA``/``MODEL``; ``BATCH_AXES = (POD, DATA)`` is
+  the batch-dim prefix (the ``pod`` axis exists only on multi-pod
+  meshes and is filtered automatically);
+* :func:`mesh_axes` and :func:`mesh_ndev` read a mesh's axis names and
+  rank count; :func:`mesh_position` is this rank's row of a device-major
+  pool: a pool row belongs to the rank at that position of
+  ``mesh.mesh.flatten()``, the row-major order of JAX's ``P(axes)`` over
+  every axis combined;
+* :func:`all_gather_rows` and :func:`all_reduce` are the collectives
+  the port's mesh paths use: ``all_gather`` and ``all_reduce``, which
+  both NCCL and gloo take on CUDA tensors. A gather puts each rank's
+  shard at its flat-mesh position, not at its group rank (``new_group``
+  sorts its ranks). A collective that refuses a tensor raises; nothing
+  falls back to the CPU;
+* :func:`clean_spec` fits a partition spec (a tuple of axis names per
+  dim) to a mesh's axis sizes; :func:`path_key` and :func:`factor_axes`
+  are the reference's, on the port's flat parameter paths.
+
+The spec functions also take a plain ``{axis: size}`` mapping for the
+mesh, so layouts can be planned without a process group. The reference's
+``shard_hint``, ``hint_guard`` and ``*psum_if_bound`` operators belong to
+tensor-parallel placement and wait for ``--model-parallel`` (ROADMAP
+Queue 1 item 8).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+POD = "pod"
+STAGE = "stage"
+DATA = "data"
+MODEL = "model"
+
+#: batch dims shard over the pure data-parallel axes (outer ``pod`` on
+#: multi-pod meshes, inner ``data`` everywhere); the ``stage`` axis never
+#: carries batch
+BATCH_AXES: Tuple[str, ...] = (POD, DATA)
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a DeviceMesh, outer to inner (a mapping
+    passes through)."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def mesh_axes(mesh) -> Tuple[str, ...]:
+    """Every axis name of ``mesh``, outer to inner: the combined-axis
+    tuple the block-parallel solver shards its device-major pools over."""
+    return tuple(axis_sizes(mesh))
+
+
+def mesh_ndev(mesh) -> int:
+    """Total device (rank) count of ``mesh``."""
+    if isinstance(mesh, Mapping):
+        return math.prod(mesh.values())
+    return int(mesh.size())
+
+
+def mesh_ranks(mesh) -> Tuple[int, ...]:
+    """The global ranks of ``mesh`` in flat (row-major) mesh order."""
+    return tuple(int(r) for r in mesh.mesh.flatten().tolist())
+
+
+def mesh_position(mesh) -> int:
+    """This rank's position in ``mesh.mesh.flatten()``: the row of every
+    device-major pool it owns."""
+    return mesh_ranks(mesh).index(dist.get_rank())
+
+
+def mesh_group(mesh):
+    """The process group over every rank of ``mesh``: None (the default
+    group) when the mesh spans the world, else a one-axis submesh's own
+    group (``mesh["data"]``, made with the mesh by every rank)."""
+    if sorted(mesh_ranks(mesh)) == list(range(dist.get_world_size())):
+        return None
+    if mesh.mesh.ndim != 1:
+        raise ValueError("a mesh of several axes must span the world; "
+                         "reduce over a one-axis submesh instead")
+    return mesh.get_group()
+
+
+def all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's ``t`` (the same shape on each), concatenated along
+    dim 0 in flat-mesh order: rank ``mesh_ranks(mesh)[p]``'s rows land at
+    position ``p``."""
+    ranks = mesh_ranks(mesh)
+    parts = [torch.empty_like(t) for _ in ranks]
+    dist.all_gather(parts, t.contiguous(), group=mesh_group(mesh))
+    by_rank = dict(zip(sorted(ranks), parts))     # group rank order
+    return torch.cat([by_rank[r] for r in ranks])
+
+
+def all_reduce(t: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced over every rank of ``mesh`` in place (``"sum"`` or
+    ``"max"``); returns ``t``."""
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+    dist.all_reduce(t, op=ops[op], group=mesh_group(mesh))
+    return t
+
+
+def _norm_entry(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    if isinstance(entry, str):
+        return (entry,)
+    return tuple(entry)
+
+
+def clean_spec(spec, shape, mesh) -> tuple:
+    """A spec valid on ``mesh`` for an array of ``shape``: per dim, keep
+    only the axis names the mesh has, then drop axes right to left until
+    the dim divides by the remaining axes' product. A dim that does not
+    divide degrades to replication (None); one axis stays a name, several
+    a tuple, as the reference's ``PartitionSpec`` entries."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for dim, entry in zip(shape, spec):
+        names = tuple(a for a in _norm_entry(entry) if a in sizes)
+        n = math.prod(sizes[a] for a in names)
+        while names and dim % n:
+            n //= sizes[names[-1]]
+            names = names[:-1]
+        if not names:
+            out.append(None)
+        elif len(names) == 1:
+            out.append(names[0])
+        else:
+            out.append(names)
+    return tuple(out)
+
+
+def path_key(path) -> str:
+    """Canonical string for a tree path: ``a/b/0/c``. Entries are strings
+    or ints, or key objects with ``key``, ``idx`` or ``name``."""
+    parts = []
+    for p in path:
+        if hasattr(p, "key"):
+            parts.append(str(p.key))
+        elif hasattr(p, "idx"):
+            parts.append(str(p.idx))
+        elif hasattr(p, "name"):
+            parts.append(str(p.name))
+        else:
+            parts.append(str(p))
+    return "/".join(parts)
+
+
+def factor_axes(name: str) -> Tuple[Optional[str], ...]:
+    """Block axes of the factored linear ``name``: ``(*stack_axes,
+    a_block_axis, g_block_axis)``, from the owning weight's partition
+    spec, so that the gradient's (d_in, d_out) layout maps onto (A
+    blocks, G blocks); MoE weights carry the expert dim on ``model`` as
+    a stack axis."""
+    from repro_torch.dist.sharding import _param_pspec
+
+    if "moe/" in name:
+        return tuple(_param_pspec(name, 4))[1:]
+    return tuple(_param_pspec(name, 3))[-2:]

@@ -47,7 +47,9 @@ class CudaLibrary:
     can show that its main path went through the kernel;
     ``stream_launches`` counts the same launches by stream handle and
     ``key_launches`` by the label the wrapper gives (its block or tile
-    shape)."""
+    shape); ``key_items`` counts, by the same label, the items (blocks)
+    a wrapper's launches covered, where the wrapper reports them
+    (:meth:`note_items`)."""
 
     def __init__(self, name: str, source: str,
                  entries: Mapping[str, Sequence]):
@@ -57,6 +59,7 @@ class CudaLibrary:
         self.launches = 0
         self.stream_launches: Counter = Counter()
         self.key_launches: Counter = Counter()
+        self.key_items: Counter = Counter()
         self.build_log = ""
         self._fns = None
         self._err_str = None
@@ -125,6 +128,11 @@ class CudaLibrary:
         self.stream_launches[args[-1]] += 1
         if key is not None:
             self.key_launches[key] += 1
+
+    def note_items(self, key: str, n: int) -> None:
+        """Add ``n`` items to ``key_items[key]``: called by a wrapper once
+        its launches for those items were enqueued."""
+        self.key_items[key] += n
 
 
 def build_all(libraries: Sequence[CudaLibrary]) -> float:

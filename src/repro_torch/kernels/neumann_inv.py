@@ -343,11 +343,12 @@ def neumann_inv_grouped(blocks: Sequence[torch.Tensor], dampings, *,
             if n > ONE_CTA_N:
                 _large_side(*side, n, (ns_iters, taylor_terms,
                                        refine_steps), stream)
-                continue
-            for table in leaf_tables(*side):
-                LIB.launch("neumann_inv_launch", ctypes.byref(table), n,
-                           ns_iters, taylor_terms, refine_steps, stream,
-                           key=f"n{n}")
+            else:
+                for table in leaf_tables(*side):
+                    LIB.launch("neumann_inv_launch", ctypes.byref(table),
+                               n, ns_iters, taylor_terms, refine_steps,
+                               stream, key=f"n{n}")
+            LIB.note_items(f"n{n}", sum(blocks[i].shape[0] for i in idx))
     return outs
 
 

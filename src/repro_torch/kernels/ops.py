@@ -34,7 +34,7 @@ from repro_torch.kernels import smw_update as _smw_update
 __all__ = ["neumann_inv", "neumann_inv_grouped", "fused_precond",
            "smw_update", "bitslice_mm", "fused_gram_inv", "LIBRARIES",
            "build_all", "launch_counts", "launch_streams", "launch_keys",
-           "reset_launch_counts"]
+           "launch_items", "reset_launch_counts"]
 
 #: kernel name -> its CUDA library (launch counters live on these)
 LIBRARIES = {
@@ -167,8 +167,15 @@ def launch_keys() -> dict:
     return {name: dict(lib.key_launches) for name, lib in LIBRARIES.items()}
 
 
+def launch_items() -> dict:
+    """kernel name -> {label: items its launches covered}: ``neumann_inv``
+    the blocks it inverted, by block side (``"n128"``)."""
+    return {name: dict(lib.key_items) for name, lib in LIBRARIES.items()}
+
+
 def reset_launch_counts() -> None:
     for lib in LIBRARIES.values():
         lib.launches = 0
         lib.stream_launches.clear()
         lib.key_launches.clear()
+        lib.key_items.clear()

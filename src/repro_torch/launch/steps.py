@@ -1,5 +1,5 @@
-"""Step builders for single-device K-FAC training and serving
-(counterpart of ``repro.launch.steps``).
+"""Step builders for K-FAC training and serving (counterpart of
+``repro.launch.steps``).
 
   train_step   FP + BP + WU (precondition + update) every step
   stats_step   SU: factor Grams on a token subsample, EMA'd into state
@@ -14,6 +14,17 @@
 Every builder takes any family: :func:`model_module` is
 ``models.whisper`` for the audio encoder-decoder and ``models.lm`` for
 the rest.
+
+Data parallelism: the train and stats steps take ``data_mesh``, a mesh
+whose ranks each hold their own rows of the global batch (the params
+replicated on every rank). Each rank computes on its rows, scales by its
+share of the rows (the stats step takes it as ``weight``: the SU
+subsample may split unevenly) and all-reduces once, so that every rank
+holds the global batch's loss and gradients (averaged), and the global
+batch's A and G Grams: A is a mean over tokens (scaled by the share), G
+a sum over tokens of the global mean loss's tap gradients, which are the
+local ones times the share (so G is scaled by its square). The reduced
+values are the same on every rank, so the ranks' updates are too.
 """
 
 from __future__ import annotations
@@ -25,10 +36,11 @@ import torch
 
 from repro_torch.core import kfac
 from repro_torch.core.kfac import KFACConfig, KFACState
+from repro_torch.dist.api import all_reduce, mesh_ndev
 from repro_torch.models import lm, whisper
 from repro_torch.solve import smw as smw_mod
 from repro_torch.solve.block_solver import invert_factor_tree
-from repro_torch.solve.partition import Plan, make_wu_plan
+from repro_torch.solve.partition import Plan, make_plan, make_wu_plan
 
 
 @dataclasses.dataclass
@@ -57,9 +69,24 @@ def init_params(cfg, *, generator: torch.Generator, device):
     return model_module(cfg).init(cfg, generator=generator, device=device)
 
 
-def make_wu_plan_for(cfg, state: TrainState):
-    """Pooled WU plan for this model, from the state's factor shapes."""
-    return make_wu_plan(kfac_specs(cfg), state.kfac.factors)
+def make_wu_plan_for(cfg, state: TrainState, *, ndev: int = 1):
+    """Pooled WU plan for this model, from the state's factor shapes, on
+    an INV plan of ``ndev`` devices."""
+    return make_wu_plan(kfac_specs(cfg), state.kfac.factors, ndev=ndev)
+
+
+def reduce_shares(tensors, data_mesh, scales) -> list:
+    """``sum over ranks of scale * t`` for each tensor, in one
+    ``all_reduce`` of one flat fp32 buffer over ``data_mesh``; each
+    result keeps its tensor's shape and dtype."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32) * sc
+                      for t, sc in zip(tensors, scales)])
+    all_reduce(flat, data_mesh)
+    out, ofs = [], 0
+    for t in tensors:
+        out.append(flat[ofs:ofs + t.numel()].reshape(t.shape).to(t.dtype))
+        ofs += t.numel()
+    return out
 
 
 def build_taps(cfg, specs, batch) -> Dict[str, torch.Tensor]:
@@ -105,14 +132,18 @@ def batch_rows(batch: dict, lo: int, hi: int) -> dict:
 
 def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
                     use_kernel: bool = False,
-                    timer: Callable | None = None) -> Callable:
+                    timer: Callable | None = None,
+                    data_mesh=None) -> Callable:
     """One FP+BP+WU step ``(state, batch) -> (state, metrics)``.
 
     ``cfg.train_accum > 1`` splits the batch rows into that many
     microbatches and averages their loss and gradients. ``wu_plan``
     routes the WU through the pooled program and ``use_kernel`` that
     program through the ``fused_precond`` kernel. ``timer(name, fn)``,
-    if given, runs the WU as ``timer("wu", fn)``."""
+    if given, runs the WU as ``timer("wu", fn)``. ``data_mesh``: the
+    loss and gradients are the global batch's, reduced over its ranks,
+    each holding an even share of the rows
+    (``data.make_global_batch``)."""
     specs = kfac_specs(cfg)
     accum = max(cfg.train_accum, 1)
     timer = timer or (lambda name, fn: fn())
@@ -137,6 +168,12 @@ def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
                 grads = {k: grads[k] + g_i[k].to(torch.float32) / accum
                          for k in grads}
                 loss = loss + l_i / accum
+        if data_mesh is not None:
+            w = 1.0 / mesh_ndev(data_mesh)
+            order = kfac.tree_order(grads)
+            red = reduce_shares([grads[k] for k in order] + [loss],
+                                data_mesh, [w] * (len(order) + 1))
+            grads, loss = dict(zip(order, red[:-1])), red[-1]
         params2, kstate2 = timer("wu", lambda: kfac.apply_updates(
             state.params, grads, state.kfac, specs, kcfg, wu_plan=wu_plan,
             use_kernel=use_kernel))
@@ -149,26 +186,51 @@ def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
     return train_step
 
 
-def make_stats_step(cfg, kcfg: KFACConfig) -> Callable:
-    """SU: factor Grams from one tapped fwd+bwd, EMA'd into the state.
+def make_stats_step(cfg, kcfg: KFACConfig, data_mesh=None) -> Callable:
+    """SU: factor Grams from one tapped fwd+bwd, EMA'd into the state:
+    ``(state, batch, weight=None) -> (state, metrics)``.
 
     The model collects its A-Grams at ``kcfg.block_size``, the factors'
     block size. (The reference collects at ``cfg.soi_block`` and so
     fails on any config whose ``soi_block`` exceeds the K-FAC block
-    size, e.g. the full qwen1.5-0.5b at ``--block-size 128``.)"""
+    size, e.g. the full qwen1.5-0.5b at ``--block-size 128``.)
+    ``data_mesh``: the Grams and the loss are the global subsample's,
+    reduced over its ranks; ``weight`` is this rank's share of the
+    subsample's rows (default an even split), and a rank holding none of
+    them (``weight`` 0, no rows) adds zeros."""
     specs = kfac_specs(cfg)
     mod = model_module(cfg)
 
-    def stats_step(state: TrainState, batch):
+    def local_grams(state: TrainState, batch):
         taps = build_taps(cfg, specs, batch)
 
         def loss_with_taps(p, tp, bt):
             return mod.loss_fn(cfg, p, bt, taps=tp, collect=True,
                                soi_block=kcfg.block_size)
 
-        a_grams, g_grams, loss = kfac.stats_grams(
-            loss_with_taps, state.params, taps, batch, specs,
-            kcfg.block_size)
+        return kfac.stats_grams(loss_with_taps, state.params, taps, batch,
+                                specs, kcfg.block_size)
+
+    def stats_step(state: TrainState, batch, weight=None):
+        if data_mesh is None:
+            a_grams, g_grams, loss = local_grams(state, batch)
+        else:
+            w = 1.0 / mesh_ndev(data_mesh) if weight is None else weight
+            fac = state.kfac.factors
+            a_names = [n for n in specs if specs[n].share_a_with is None]
+            if batch["tokens"].shape[0]:
+                a_grams, g_grams, loss = local_grams(state, batch)
+            else:
+                a_grams = {n: torch.zeros_like(fac[n]["A"]) for n in a_names}
+                g_grams = {n: torch.zeros_like(fac[n]["G"]) for n in specs}
+                loss = torch.zeros((), device=fac[a_names[0]]["A"].device)
+            red = reduce_shares(
+                [a_grams[n] for n in a_names] + [g_grams[n] for n in specs]
+                + [loss], data_mesh,
+                [w] * len(a_names) + [w * w] * len(specs) + [w])
+            a_grams = dict(zip(a_names, red[:len(a_names)]))
+            g_grams = dict(zip(specs, red[len(a_names):-1]))
+            loss = red[-1]
         kstate2 = kfac.update_factors(state.kfac, a_grams, g_grams, kcfg)
         return dataclasses.replace(state, kfac=kstate2), {"stats_loss": loss}
 
@@ -213,8 +275,8 @@ def make_smw_step(cfg, kcfg: KFACConfig,
     return smw_step
 
 
-def make_inv_refresh(cfg, kcfg: KFACConfig, *, distributed: bool = False,
-                     plan: Plan | None = None,
+def make_inv_refresh(cfg, kcfg: KFACConfig, *, mesh=None,
+                     distributed: bool = False, plan: Plan | None = None,
                      pdiv_cap_bs: int | None = None) -> Callable:
     """``refresh(factors, out=None) -> inverses``: the paper's
     composed-precision INV of every SOI block through
@@ -222,28 +284,41 @@ def make_inv_refresh(cfg, kcfg: KFACConfig, *, distributed: bool = False,
     on CUDA, one launch a block side); ``out`` is an inverse tree to
     write into.
 
-    ``distributed`` asks for the block-parallel solver, and
-    ``pdiv_cap_bs`` for the cap of the plan it builds. As in the
-    reference, that plan is built for a mesh of several devices only, so
-    on one device (the port's only) the refresh is the replicated one.
-    ``plan`` routes the refresh through a plan the caller built, such as
-    ``make_plan(factors, 1, kcfg, pdiv_cap_bs=128)``, which sends blocks
-    above its cap through ``solve.pdiv``, as the reference's plan does;
-    without one, ``neumann_inv`` takes every block whole, up to 1024 (its
-    one-CTA route up to 128, its large route above)."""
-    del cfg, distributed, pdiv_cap_bs
+    ``distributed`` on a ``mesh`` of several ranks routes through the
+    block-parallel solver: a plan for ``mesh_ndev(mesh)`` devices (capped
+    at ``pdiv_cap_bs``) is built once, from the factor shapes of the
+    first call, and each rank inverts about ``1/ndev`` of the blocks, the
+    shards gathered. Otherwise, as in the reference, the refresh is the
+    replicated one. ``plan`` routes the refresh through a plan the caller
+    built, such as ``make_plan(factors, 1, kcfg, pdiv_cap_bs=128)``, which
+    sends blocks above its cap through ``solve.pdiv``, as the reference's
+    plan does; on a distributed mesh it takes the place of the built one,
+    under ``invert_factor_tree``'s rules (a plan for another rank count
+    raises ``ValueError``, a one-device plan runs replicated). Without
+    one, ``neumann_inv`` takes every block whole, up to 1024 (its one-CTA
+    route up to 128, its large route above)."""
+    del cfg
+    dist_mesh = mesh if (distributed and mesh is not None
+                         and mesh_ndev(mesh) > 1) else None
+    built = {"plan": plan}
 
     def refresh(factors, out=None):
-        return invert_factor_tree(factors, kcfg, plan=plan, out=out)
+        if dist_mesh is None:
+            return invert_factor_tree(factors, kcfg, plan=plan, out=out)
+        if built["plan"] is None:
+            built["plan"] = make_plan(factors, mesh_ndev(dist_mesh), kcfg,
+                                      pdiv_cap_bs=pdiv_cap_bs)
+        return invert_factor_tree(factors, kcfg, mesh=dist_mesh,
+                                  plan=built["plan"], out=out)
 
     return refresh
 
 
-def make_inv_step(cfg, kcfg: KFACConfig, *,
+def make_inv_step(cfg, kcfg: KFACConfig, *, mesh=None,
                   distributed: bool = False) -> Callable:
     """``state -> state`` with every inverse refreshed from the state's
     factors (:func:`make_inv_refresh` on a whole state)."""
-    refresh = make_inv_refresh(cfg, kcfg, distributed=distributed)
+    refresh = make_inv_refresh(cfg, kcfg, mesh=mesh, distributed=distributed)
 
     def inv_step(state: TrainState) -> TrainState:
         kst = state.kfac

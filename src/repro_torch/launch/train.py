@@ -1,6 +1,6 @@
-"""End-to-end training driver on one GPU: K-FAC (or the SGD baseline),
-the fault-tolerant loop with checkpoints, and synthetic data
-(counterpart of ``repro.launch.train``).
+"""End-to-end training driver: K-FAC (or the SGD baseline), the
+fault-tolerant loop with checkpoints, and synthetic data (counterpart of
+``repro.launch.train``).
 
   python -m repro_torch.launch.train --arch qwen1.5-0.5b --steps 4 \\
       --batch 8 --seq 256 --stats-every 2 --inv-every 2
@@ -24,6 +24,21 @@ side CUDA stream beside the following steps. ``--dist-inv`` routes the
 refresh through the block-parallel solver, which on one device is the
 replicated refresh.
 
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the program trains data-parallel:
+it initialises the process group (NCCL on ``--device cuda``, gloo on
+``--device cpu``, or ``--dist-backend``), puts each rank on
+``cuda:{LOCAL_RANK}``, builds ``launch.mesh.make_dev_mesh()`` and
+replicates the params; each rank takes its rows of the global batch,
+the loss, gradients and factor Grams are reduced over the ranks, and
+with ``--dist-inv`` each rank inverts its share of the blocks. Rank 0
+prints the JSON and writes the checkpoints::
+
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch qwen1.5-0.5b --dist-inv --steps 4 --batch 8 --seq 256
+
+``--model-parallel``, ``--pp``, and ``--async-inv`` or ``--smw`` across
+ranks raise (ROADMAP Queue 1 item 8).
+
 ``--smw`` replaces the stats/inv cadence with the incremental SOI path:
 every step runs one rank-k program (SU with column factors, factor EMA,
 Woodbury inverse update through the ``smw_update`` kernel, drift probe)
@@ -43,6 +58,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import time
 from typing import Any, Callable
 
@@ -52,7 +68,9 @@ from repro_torch import obs as obs_mod
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import kfac, quantize
 from repro_torch.core.kfac import KFACConfig
-from repro_torch.data.pipeline import DataCursor, SyntheticTokens
+from repro_torch.data.pipeline import (DataCursor, SyntheticTokens,
+                                       batch_shard, make_global_batch)
+from repro_torch.dist.api import mesh_ndev
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.steps import TrainState
@@ -122,11 +140,15 @@ def _phase_timer(device: torch.device, obs, phase_s: dict,
     return timed
 
 
+#: what the multi-rank paths still lack raises naming this
+MULTI_GPU_ITEM = "ROADMAP Queue 1 item 8"
+
+
 @dataclasses.dataclass
 class KFACProgram:
-    """Single-device K-FAC program: INV through ``neumann_inv`` and the
-    WU on :attr:`wu_route` (the kernels' plain versions when ``device``
-    is the CPU).
+    """K-FAC program: INV through ``neumann_inv`` and the WU on
+    :attr:`wu_route` (the kernels' plain versions when ``device`` is the
+    CPU).
 
     ``fused_wu``: the pooled WU plan (default); ``False`` runs the
     per-leaf einsums. With the plan, ``kcfg.precision`` chooses the
@@ -151,6 +173,15 @@ class KFACProgram:
     (``steps.make_inv_refresh(distributed=True)``); on one device that is
     the replicated refresh, as in the reference.
 
+    ``mesh``: data parallelism over a DeviceMesh (every rank running this
+    program on its own ``device``, the params replicated): each step's
+    batch is this rank's rows of the global batch
+    (``data.make_global_batch``), the SU subsample the global rows
+    ``[:stats_batch]`` this rank holds, and the loss, gradients and
+    Grams are reduced over the ranks (``launch.steps``); with
+    ``dist_inv`` each rank inverts its share of the blocks. ``smw`` and
+    ``async_inv`` across ranks wait for ROADMAP Queue 1 item 8.
+
     ``obs``: phase spans and the ``train_phase_s`` histogram."""
 
     cfg: Any
@@ -164,12 +195,23 @@ class KFACProgram:
     async_inv: bool = False
     dist_inv: bool = False
     obs: Any = None
+    mesh: Any = None
 
     def __post_init__(self):
         if self.smw and self.async_inv:
             raise ValueError(
                 "--smw refreshes the inverses inside every step; there "
                 "is no inv cadence left for --async-inv to overlap")
+        if self.mesh is not None and (self.smw or self.async_inv):
+            raise NotImplementedError(
+                f"--{'smw' if self.smw else 'async-inv'} across ranks is "
+                f"not ported yet ({MULTI_GPU_ITEM})")
+        if self.mesh is not None \
+                and batch_shard(self.mesh)[1] != mesh_ndev(self.mesh):
+            raise NotImplementedError(
+                f"a mesh whose non-batch axes hold several ranks "
+                f"({self.mesh.mesh_dim_names}, {tuple(self.mesh.mesh.shape)})"
+                f": only data parallelism is ported ({MULTI_GPU_ITEM})")
         self.device = resolve_device(str(self.device))
         if self.obs is None:
             self.obs = obs_mod.NULL
@@ -207,12 +249,15 @@ class KFACProgram:
                              async_inv=self.async_inv)
         wu_plan = (steps_mod.make_wu_plan_for(self.cfg, state)
                    if self.fused_wu else None)
+        mesh = self.mesh
         train = steps_mod.make_train_step(
             self.cfg, kcfg, wu_plan=wu_plan,
-            use_kernel=self.wu_route == "fused_precond", timer=timed)
-        stats = steps_mod.make_stats_step(self.cfg, kcfg)
-        refresh = steps_mod.make_inv_refresh(self.cfg, kcfg,
+            use_kernel=self.wu_route == "fused_precond", timer=timed,
+            data_mesh=mesh)
+        stats = steps_mod.make_stats_step(self.cfg, kcfg, data_mesh=mesh)
+        refresh = steps_mod.make_inv_refresh(self.cfg, kcfg, mesh=mesh,
                                              distributed=self.dist_inv)
+        shard, n_shards = batch_shard(mesh) if mesh is not None else (0, 1)
 
         self._refresher = None
         if self.async_inv:
@@ -240,8 +285,13 @@ class KFACProgram:
         def subsample(batch):
             # the SU's sequences and tokens, and the VLM's image rows,
             # whisper's frames (all of them) and M-RoPE positions with
-            # them
-            sb = min(batch["tokens"].shape[0], kcfg.stats_batch)
+            # them: the global batch's rows [:stats_batch], of which a
+            # rank holds those in its own rows; with the share of the
+            # subsample's rows they are
+            b = batch["tokens"].shape[0]
+            lo = shard * b
+            total = min(b * n_shards, kcfg.stats_batch)
+            sb = max(min(b, total - lo), 0)
             ss = min(batch["tokens"].shape[1], kcfg.stats_seq)
             out = {"tokens": batch["tokens"][:sb, :ss]}
             for k in ("img_embeds", "enc_embeds"):
@@ -249,19 +299,19 @@ class KFACProgram:
                     out[k] = batch[k][:sb]
             if "positions" in batch:
                 out["positions"] = batch["positions"][:, :sb, :ss]
-            return out
+            return out, sb / total
 
         def step_fn(state: TrainState, batch):
             i = state.kfac.step
             phase_s.clear()
             metrics: dict = {}
             if smw_ref is not None:
-                state, m = smw_ref.step(state, subsample(batch))
+                state, m = smw_ref.step(state, subsample(batch)[0])
                 metrics.update(m)
             else:
                 if i % kcfg.stats_every == 0:
                     state, m = timed("stats", lambda: stats(
-                        state, subsample(batch)))
+                        state, *subsample(batch)))
                     metrics.update(m)
                 if i % kcfg.inv_every == 0 and refresher is not None:
                     state = dataclasses.replace(state, kfac=timed(
@@ -351,7 +401,8 @@ def run(program: KFACProgram | SGDProgram, ds: SyntheticTokens,
         on_step: Callable[[TrainState, dict], None] | None = None):
     """The plain driver, without ``runtime.TrainLoop``'s checkpoints,
     watchdog and recovery: init the state and take ``n_steps`` steps on
-    ``ds`` with a :class:`KFACProgram` or an :class:`SGDProgram`; returns
+    ``ds`` (on a program's ``mesh``, this rank's rows of each batch) with
+    a :class:`KFACProgram` or an :class:`SGDProgram`; returns
     the final state and one history record per step (loss, per-phase
     seconds, K-FAC's grad norm, and on the SMW path the drift and
     fallback flag). ``on_step(state, record)`` is called after each
@@ -360,8 +411,12 @@ def run(program: KFACProgram | SGDProgram, ds: SyntheticTokens,
     step_fn = program.make_step(state)
     cursor = DataCursor()
     history = []
+    mesh = getattr(program, "mesh", None)
     for _ in range(n_steps):
-        state, m = step_fn(state, ds.batch(cursor, device=program.device))
+        batch = (ds.batch(cursor, device=program.device) if mesh is None
+                 else make_global_batch(ds, cursor, mesh,
+                                        device=program.device))
+        state, m = step_fn(state, batch)
         cursor = cursor.advance()
         rec = {"step": cursor.step, "loss": float(m["loss"]),
                "phase_s": m["phase_s"]}
@@ -402,7 +457,18 @@ def main(argv=None):
     ap.add_argument("--dist-inv", action=argparse.BooleanOptionalAction,
                     default=False,
                     help="block-parallel SOI inversion through the "
-                         "solver; on one device the replicated refresh")
+                         "solver: each rank inverts its share of the "
+                         "blocks; on one device the replicated refresh")
+    ap.add_argument("--dist-backend", default=None,
+                    help="process-group backend under torchrun "
+                         "(WORLD_SIZE > 1); default nccl on --device "
+                         "cuda, gloo on --device cpu")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="tensor-parallel ranks; only 1 is ported "
+                         "(ROADMAP Queue 1 item 8)")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages; only 1 is ported (ROADMAP "
+                         "Queue 1 item 8)")
     ap.add_argument("--async-inv", action=argparse.BooleanOptionalAction,
                     default=False,
                     help="staleness-tolerant double-buffered inverse "
@@ -454,7 +520,64 @@ def main(argv=None):
                          "every span")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    if args.model_parallel > 1 or args.pp > 1:
+        raise NotImplementedError(
+            f"--model-parallel {args.model_parallel} / --pp {args.pp}: "
+            f"tensor and pipeline parallelism are not ported yet "
+            f"({MULTI_GPU_ITEM})")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh = None
+    if world > 1:
+        mesh, device = init_ranks(args.device, args.dist_backend)
+        if args.optimizer != "kfac" or args.smw or args.async_inv:
+            raise NotImplementedError(
+                f"data parallelism runs K-FAC without --smw and "
+                f"--async-inv; the rest is not ported yet "
+                f"({MULTI_GPU_ITEM})")
+    else:
+        device = resolve_device(args.device)
+    try:
+        return _main(args, device, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def params_digest(params) -> str:
+    """sha256 of the params' bytes in tree order: equal digests are
+    bitwise-equal params (ranks kept in step)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in kfac.tree_order(params):
+        h.update(params[k].detach().cpu().contiguous().view(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def init_ranks(device: str, backend: str | None = None):
+    """Under torchrun: the process group (``backend``, default NCCL for a
+    CUDA ``device``, gloo for the CPU) from the environment torchrun sets,
+    this rank's device (``cuda:{LOCAL_RANK}``) and the ``(data, model)``
+    dev mesh over the world: ``(mesh, device)``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend or ("nccl" if dev.type == "cuda"
+                                        else "gloo"))
+    if dev.type == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads()
+                                  // dist.get_world_size()))
+    return make_dev_mesh(), dev
+
+
+def _main(args, device, mesh):
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if cfg.family == "audio":
         raise ValueError(
@@ -462,7 +585,8 @@ def main(argv=None):
             f"the CLI's synthetic token stream does not make (nor does "
             f"the reference's); drive launch.train.run with a dataset "
             f"that adds them")
-    obs = obs_mod.from_args(args)
+    # the telemetry spine on rank 0 only (the ranks' steps are the same)
+    obs = obs_mod.from_args(args) if rank0 else obs_mod.NULL
     kcfg = KFACConfig(
         lr=args.lr, damping=args.damping,
         stats_every=args.stats_every, inv_every=args.inv_every,
@@ -476,7 +600,7 @@ def main(argv=None):
                               smw_rank=args.smw_rank,
                               fused_wu=args.fused_wu,
                               async_inv=args.async_inv,
-                              dist_inv=args.dist_inv, obs=obs)
+                              dist_inv=args.dist_inv, obs=obs, mesh=mesh)
     else:
         program = SGDProgram(cfg, lr=args.lr, seed=args.seed,
                              device=device, obs=obs)
@@ -501,12 +625,19 @@ def main(argv=None):
         inject=inject if args.inject_failure_at >= 0 else None, obs=obs)
     result = loop.run()
     history = result["history"]
+    digest = params_digest(loop.final_state.params if args.optimizer ==
+                           "kfac" else loop.final_state[0])
+    digests = [digest]
+    if mesh is not None:
+        digests = [None] * mesh_ndev(mesh)
+        torch.distributed.all_gather_object(digests, digest)
     summary = {
         "arch": cfg.name, "optimizer": args.optimizer,
         "device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
         "batch": args.batch, "seq": args.seq,
+        "ranks": 1 if mesh is None else mesh_ndev(mesh),
         "block_size": kcfg.block_size, "precision": args.precision,
         **({"wu_route": program.wu_route, "smw": args.smw,
             "async_inv": args.async_inv, "dist_inv": args.dist_inv}
@@ -516,16 +647,20 @@ def main(argv=None):
            if args.optimizer == "kfac" and args.async_inv else {}),
         **{k: v for k, v in result.items() if k != "history"},
         "losses": [h["loss"] for h in history],
+        "params_digest": digests,
         "kernel_launches": ops.launch_counts(),
     }
     if args.smw and args.optimizer == "kfac":
         summary["smw_drift"] = [h["smw_drift"] for h in history]
         summary["smw_fallback"] = [h["smw_fallback"] for h in history]
-    print(json.dumps(summary, indent=1))
+    summary["history"] = history
+    if not rank0:
+        return summary
+    print(json.dumps({k: v for k, v in summary.items() if k != "history"},
+                     indent=1))
     if summary["losses"]:
         print(f"loss: first={summary['losses'][0]:.4f} "
               f"last={summary['losses'][-1]:.4f}")
-    summary["history"] = history
     if args.out:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)

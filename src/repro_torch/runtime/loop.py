@@ -1,5 +1,5 @@
-"""Fault-tolerant training loop on one device: checkpoint/restart and a
-step watchdog (counterpart of ``repro.runtime.loop``).
+"""Fault-tolerant training loop: checkpoint/restart and a step watchdog
+(counterpart of ``repro.runtime.loop``).
 
 The loop owns generic train *state* (a tree of tensors, see
 ``checkpoint.store``) and a *program*:
@@ -24,6 +24,18 @@ Recovery policy:
      (deterministic pipeline => exactly-once optimizer updates);
 * after ``max_failures`` consecutive failures the loop re-raises.
 
+On a program with a ``mesh`` (data parallelism) each rank's batch is its
+rows of the global batch (``data.make_global_batch``); rank 0 alone
+writes the checkpoints, and a recovery waits for its writes, then a
+barrier, then every rank restores the same files, so that every rank
+resumes alike. The ranks agree on failure twice a step, where none has
+a collective in flight: after the ``inject`` hook and after the step's
+watchdog (:meth:`TrainLoop._agree`). A recoverable failure on any rank
+there is a recovery on every rank. One raised inside a rank's step, in
+the middle of its collectives, is not recoverable across ranks (its
+peers wait in the step's reductions) and re-raises as a
+``RuntimeError``.
+
 Every other exception re-raises at once, a kernel's launch or build
 error included: a CUDA error that poisons the context cannot be
 recovered in the process, and retrying a faulty kernel would only hide
@@ -40,7 +52,8 @@ from typing import Any, Callable, Dict, Optional, Protocol
 import torch
 
 from repro_torch.checkpoint import CheckpointManager, latest_step, restore
-from repro_torch.data import DataCursor, SyntheticTokens
+from repro_torch.data import DataCursor, SyntheticTokens, make_global_batch
+from repro_torch.dist.api import all_reduce
 from repro_torch.obs import NULL as NULL_OBS, Observability, TapBuffer
 from repro_torch.obs.trace import wait_for
 from repro_torch.runtime.elastic import DeviceLoss
@@ -98,8 +111,12 @@ class TrainLoop:
         self.device = torch.device(program.device)
         self.obs = obs if obs is not None else NULL_OBS
         self.inject = inject
+        self.mesh = getattr(program, "mesh", None)
+        writer = self.mesh is None or torch.distributed.get_rank() == 0
         self.ckpt = (CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
-                     if cfg.ckpt_dir is not None else None)
+                     if cfg.ckpt_dir is not None and writer else None)
+        #: the state after the last step of :meth:`run`
+        self.final_state = None
         self.watchdog = StepWatchdog(
             straggler_factor=cfg.straggler_factor,
             hang_factor=cfg.hang_factor,
@@ -164,6 +181,37 @@ class TrainLoop:
     def _fence(self):
         wait_for(self._fence_target())
 
+    def _body(self, step_fn, state, batch):
+        """One step, fenced. Under a mesh a recoverable failure raised
+        here, amid the step's collectives, re-raises as a RuntimeError:
+        the other ranks cannot meet this rank at :meth:`_agree`."""
+        try:
+            out = step_fn(state, batch)
+            self._fence()
+            return out
+        except Exception as e:  # noqa: BLE001
+            if self.mesh is not None and _recoverable(e):
+                raise RuntimeError(
+                    f"rank {torch.distributed.get_rank()}: "
+                    f"{type(e).__name__} inside a data-parallel step is not "
+                    f"recoverable across ranks (elastic recovery: ROADMAP "
+                    f"Queue 1 item 8)") from e
+            raise
+
+    def _agree(self, failure: Optional[BaseException], step: int):
+        """Under a mesh: every rank's ``failure`` flag, MAX-reduced, so
+        that a recoverable failure on one rank is a recovery on every
+        rank (a rank that did not fail gets a :class:`PeerFailure`).
+        Called where no rank has a collective in flight."""
+        if self.mesh is None:
+            return failure
+        flag = torch.tensor([int(failure is not None)], dtype=torch.int32,
+                            device=self.device)
+        all_reduce(flag, self.mesh, "max")
+        if failure is None and int(flag.item()):
+            failure = PeerFailure(f"another rank failed at step {step}")
+        return failure
+
     # -- main --------------------------------------------------------------
 
     def run(self) -> Dict[str, Any]:
@@ -173,17 +221,31 @@ class TrainLoop:
 
         while cursor.step < self.cfg.total_steps:
             step = cursor.step
+            failure = None
             try:
                 if self.inject is not None:
                     self.inject(step)
-                batch = self.dataset.batch(cursor, device=self.device)
-                with self.watchdog.step(), \
-                        self.obs.span("train_step", args={"step": step}):
-                    state, metrics = step_fn(state, batch)
-                    self._fence()
             except Exception as e:  # noqa: BLE001
                 if not _recoverable(e):
                     raise
+                failure = e
+            failure = self._agree(failure, step)
+            if failure is None:
+                try:
+                    batch = (self.dataset.batch(cursor, device=self.device)
+                             if self.mesh is None else make_global_batch(
+                                 self.dataset, cursor, self.mesh,
+                                 device=self.device))
+                    with self.watchdog.step(), \
+                            self.obs.span("train_step", args={"step": step}):
+                        state, metrics = self._body(step_fn, state, batch)
+                except Exception as e:  # noqa: BLE001
+                    if not _recoverable(e):
+                        raise
+                    failure = e
+                failure = self._agree(failure, step)
+            if failure is not None:
+                e = failure
                 failures += 1
                 self.n_recoveries += 1
                 # the steps that completed before the failure stay in
@@ -199,10 +261,13 @@ class TrainLoop:
                             step, type(e).__name__, failures,
                             self.cfg.max_failures)
                 if failures > self.cfg.max_failures:
-                    raise
+                    raise e
                 if self.ckpt is not None:
                     self.ckpt.wait()
-                if self.ckpt is None \
+                if self.mesh is not None:
+                    # rank 0's files are on disk before any rank reads
+                    torch.distributed.barrier()
+                if self.cfg.ckpt_dir is None \
                         or latest_step(self.cfg.ckpt_dir) is None:
                     log.warning(
                         "recovery with no checkpoint: restarting from "
@@ -257,6 +322,7 @@ class TrainLoop:
         self._drain_taps()   # tail of the last (partial) window
         if self.ckpt is not None:
             self.ckpt.wait()
+        self.final_state = state
         return {
             "steps": cursor.step,
             "wall_s": time.monotonic() - t_start,
@@ -266,6 +332,11 @@ class TrainLoop:
                if self.ckpt is not None else {}),
             "history": self.metrics_history,
         }
+
+
+class PeerFailure(RuntimeError):
+    """Another rank of the mesh failed this step recoverably: this rank
+    recovers with it."""
 
 
 def _recoverable(e: BaseException) -> bool:

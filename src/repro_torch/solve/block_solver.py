@@ -1,16 +1,22 @@
 """Block-parallel SOI inversion through a plan (counterpart of
-``repro.solve.block_solver``, single device).
+``repro.solve.block_solver``).
 
 The partitioner's :class:`~repro_torch.solve.partition.Plan` pools every
 same-size diagonal block of the network device-major,
 ``(ndev, m, bs, bs)``, with an identity block (damping 1.0) in each
-padding slot. Without a mesh the reference runs that pooled program
-locally, as "the single-process image of the same graph"; so does the
-port: every pool is inverted by the same grouped ``neumann_inv`` call as
-the replicated refresh (one launch a block side), and scattered back
-into the ``A_inv``/``G_inv`` layout. The kernel computes every block on
-its own, so the pooled and replicated paths agree bitwise. Leaves the
-plan diverted for being above its cap go through ``solve.pdiv``.
+padding slot. On a mesh (``mesh=``, a DeviceMesh of ``plan.ndev`` ranks)
+each rank takes its row of every pool (the row of its position in
+``mesh.mesh.flatten()``), inverts them in one grouped
+``invert_blocks_grouped`` call (the ``neumann_inv`` kernel on the card:
+one launch a block side up to 128), all-gathers the inverse shards and
+scatters them back into the ``A_inv``/``G_inv`` layout, so that each rank
+inverts about ``1/ndev`` of the blocks (the paper's factor blocks spread
+over parallel INV crossbar groups, Sec. IV-B). Without a mesh the pooled
+program runs locally, the reference's "single-process image of the same
+graph". The kernel computes every block on its own, and a gather only
+moves bits, so the distributed, pooled and replicated paths agree
+bitwise. Leaves the plan diverted for being above its cap go through
+``solve.pdiv``, their stage pairs spread over the mesh.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 from repro_torch.core import soi
 from repro_torch.core.kfac import KFACConfig, invert_blocks_grouped, \
     invert_factors
+from repro_torch.dist.api import all_gather_rows, mesh_ndev, mesh_position
 from repro_torch.solve.partition import Plan
 from repro_torch.solve.pdiv import pdiv_invert
 
@@ -36,10 +43,11 @@ def _leaf_flat(f: torch.Tensor, cfg: KFACConfig):
             soi.tikhonov_damping(f, cfg.damping).reshape(-1))
 
 
-def _pool_group(factors, cfg: KFACConfig, group):
+def _pool_group(factors, cfg: KFACConfig, group, row=None):
     """A group's blocks concatenated and indexed device-major, flattened
-    to (ndev*m, bs, bs) with their (ndev*m,) damping; padding slots take
-    an identity block at damping 1.0, which the scatter discards."""
+    to (ndev*m, bs, bs) with their (ndev*m,) damping, or with ``row`` only
+    that device's (m, bs, bs) and (m,); padding slots take an identity
+    block at damping 1.0, which the scatter discards."""
     blocks, lams = zip(*(_leaf_flat(factors[name][side], cfg)
                          for name, side in group.leaves))
     ref = blocks[0]
@@ -47,11 +55,35 @@ def _pool_group(factors, cfg: KFACConfig, group):
                                         device=ref.device)[None],))
     lam_ext = torch.cat(lams + (torch.ones(1, dtype=lams[0].dtype,
                                            device=ref.device),))
-    idx = group.slots.copy()
+    idx = (group.slots if row is None else group.slots[row]).copy()
     idx[idx < 0] = group.n_blocks                # -> the identity pad
     idx = torch.as_tensor(idx.reshape(-1).astype(np.int64),
                           device=ref.device)
     return ext[idx], lam_ext[idx]
+
+
+def check_plan_mesh(plan, mesh, what: str = "plan") -> bool:
+    """Whether the program is distributed: a mesh and a plan of several
+    devices (a one-device plan runs locally, as in the reference). A plan
+    built for another rank count than the mesh's raises ``ValueError``."""
+    if mesh is None or plan.ndev <= 1:
+        return False
+    if plan.ndev != mesh_ndev(mesh):
+        raise ValueError(
+            f"{what} was built for {plan.ndev} devices but the mesh has "
+            f"{mesh_ndev(mesh)}; rebuild the plan with "
+            f"make_plan(factors, mesh_ndev(mesh), cfg)")
+    return True
+
+
+def invert_pools(factors, cfg: KFACConfig, plan, mesh=None) -> list:
+    """Every pool of ``plan`` inverted in one grouped call: on a mesh
+    this rank's rows only, (m, bs, bs) a group, else the whole
+    device-major pools, (ndev*m, bs, bs)."""
+    row = None if mesh is None else mesh_position(mesh)
+    pools = [_pool_group(factors, cfg, g, row) for g in plan.groups]
+    return invert_blocks_grouped([b for b, _ in pools],
+                                 [lam for _, lam in pools], cfg)
 
 
 def _scatter_group(factors, group, pooled: torch.Tensor, out) -> dict:
@@ -78,21 +110,21 @@ def invert_factor_tree(factors: Mapping[str, Mapping[str, Any]],
 
     Without a plan this is the replicated path, ``kfac.invert_factors``
     (one grouped launch a block side). With a plan it pools the blocks
-    device-major, inverts every pool in one grouped call and scatters
-    them back, then runs the plan's pdiv sub-schedule. ``out``: an
-    inverse tree to write the result into (a refresh reusing the tree
-    it retires). ``mesh`` must be None: the distributed solver waits for
-    the multi-GPU port (ROADMAP Queue 1 item 8)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "invert_factor_tree(mesh=...) runs the pooled program under a "
-            "device mesh; the port runs on one device (multi-GPU is "
-            "ROADMAP Queue 1 item 8)")
+    device-major: with ``mesh`` (a DeviceMesh of ``plan.ndev`` ranks,
+    every rank calling) each rank inverts its own row of every pool and
+    the inverse shards are all-gathered; without one the whole pools are
+    inverted locally. Then the blocks are scattered back and the plan's
+    pdiv sub-schedule runs. Every path is bitwise the replicated one.
+    ``out``: an inverse tree to write the result into (a refresh reusing
+    the tree it retires)."""
     if plan is None:
         return invert_factors(factors, cfg, out=out)
-    pools = [_pool_group(factors, cfg, g) for g in plan.groups]
-    invs = invert_blocks_grouped([b for b, _ in pools],
-                                 [lam for _, lam in pools], cfg)
+    if check_plan_mesh(plan, mesh):
+        invs = [all_gather_rows(inv, mesh)
+                for inv in invert_pools(factors, cfg, plan, mesh)]
+    else:
+        mesh = None
+        invs = invert_pools(factors, cfg, plan)
     res: dict = {}
     for g, inv in zip(plan.groups, invs):
         for name, d in _scatter_group(factors, g, inv, out).items():
@@ -100,8 +132,8 @@ def invert_factor_tree(factors: Mapping[str, Mapping[str, Any]],
     for entry in plan.pdiv:
         leaf = factors[entry.name][entry.side]
         flat, lam = _leaf_flat(leaf, cfg)
-        inv = pdiv_invert(flat, lam, cfg, depth=entry.depth).reshape(
-            leaf.shape)
+        inv = pdiv_invert(flat, lam, cfg, depth=entry.depth,
+                          mesh=mesh).reshape(leaf.shape)
         key = entry.side + "_inv"
         if out is not None:
             inv = out[entry.name][key].copy_(inv)

@@ -11,8 +11,10 @@ exceed ``pdiv_cap_bs`` leave the pools for the plan's pdiv sub-schedule
 (``solve.pdiv``). The :class:`WUPlan` enumerates every factored gradient
 tile and, per ``(bi, bo)`` group, indexes each tile's ``A_inv``/``G_inv``
 block inside those pools (``a_src``/``g_src``) — the layout the
-``fused_precond`` kernel consumes; ``stacked`` groups the leaves by
-blocked geometry, as the reference's local fused program does.
+``fused_precond`` kernel consumes — and routes each tile to the devices
+owning its blocks (the distributed ``solve.fused_wu``); ``stacked``
+groups the leaves by blocked geometry, as the reference's local fused
+program does.
 """
 
 from __future__ import annotations
@@ -223,16 +225,35 @@ class WULeaf:
         return self.n_stack * self.nb_i * self.nb_o
 
 
+def _owner_table(group: GroupPlan) -> np.ndarray:
+    """Device owning each concatenated block of an INV group."""
+    return (group.gather_back // group.per_device).astype(np.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class WUGroupPlan:
     """All same-``(bi, bo)`` gradient tiles; ``a_src``/``g_src`` index
-    each tile's inverse blocks in the ``bi``/``bo`` pools."""
+    each tile's inverse blocks in the ``bi``/``bo`` pools.
+
+    The owner routing of the distributed fused INV->VMM program
+    (``solve.fused_wu``): ``slots``/``gather_back`` lay the tiles
+    device-major by the owner of their A block (the left product's
+    placement), ``g_slots``/``g_gather_back`` by the owner of their G
+    block (the right product's); ``a_slot``/``g_slot`` are each tile's
+    block position within its owner's row of the device-major inverse
+    pool (``Plan.groups[...].slots``)."""
 
     bi: int
     bo: int
     leaves: Tuple[WULeaf, ...]
     a_src: np.ndarray
     g_src: np.ndarray
+    slots: np.ndarray
+    gather_back: np.ndarray
+    a_slot: np.ndarray
+    g_slots: np.ndarray
+    g_gather_back: np.ndarray
+    g_slot: np.ndarray
     _on_device: dict = dataclasses.field(default_factory=dict, compare=False,
                                          repr=False)
 
@@ -361,12 +382,24 @@ def make_wu_plan(specs: Mapping[str, LinearSpec],
         entry["g"].append((g_off + s_ix * nb_o + j_ix).astype(np.int32))
         by_geom.setdefault((nb_i, bi, nb_o, bo), []).append(leaf)
 
-    groups = tuple(
-        WUGroupPlan(bi=int(bi), bo=int(bo),
-                    leaves=tuple(pools[(bi, bo)]["leaves"]),
-                    a_src=np.concatenate(pools[(bi, bo)]["a"]),
-                    g_src=np.concatenate(pools[(bi, bo)]["g"]))
-        for bi, bo in sorted(pools))
+    groups = []
+    for bi, bo in sorted(pools):
+        a_src = np.concatenate(pools[(bi, bo)]["a"])
+        g_src = np.concatenate(pools[(bi, bo)]["g"])
+        a_group = next(g for g in plan.groups if g.bs == bi)
+        g_group = next(g for g in plan.groups if g.bs == bo)
+        slots, gather_back = _devmajor(_owner_table(a_group)[a_src],
+                                       plan.ndev)
+        g_slots, g_gather_back = _devmajor(_owner_table(g_group)[g_src],
+                                           plan.ndev)
+        groups.append(WUGroupPlan(
+            bi=int(bi), bo=int(bo), leaves=tuple(pools[(bi, bo)]["leaves"]),
+            a_src=a_src, g_src=g_src, slots=slots, gather_back=gather_back,
+            a_slot=(a_group.gather_back[a_src]
+                    % a_group.per_device).astype(np.int32),
+            g_slots=g_slots, g_gather_back=g_gather_back,
+            g_slot=(g_group.gather_back[g_src]
+                    % g_group.per_device).astype(np.int32)))
     # the fused_precond kernel reads the pools by these indices unchecked
     # on the card (a check there would sync); hold them in range here
     sizes = {g.bs: g.n_blocks for g in plan.groups}
@@ -384,5 +417,5 @@ def make_wu_plan(specs: Mapping[str, LinearSpec],
             nb_i=int(nb_i), bi=int(bi), nb_o=int(nb_o), bo=int(bo),
             members=members,
             pooled=len(members) > 1 and group_bytes <= pool_bytes_cap))
-    return WUPlan(inv_plan=plan, groups=groups, stacked=tuple(stacked),
-                  ndev=plan.ndev)
+    return WUPlan(inv_plan=plan, groups=tuple(groups),
+                  stacked=tuple(stacked), ndev=plan.ndev)

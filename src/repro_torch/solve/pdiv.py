@@ -1,5 +1,5 @@
 """Divide-and-conquer inversion of oversized factor blocks (counterpart
-of ``repro.solve.pdiv``, single device).
+of ``repro.solve.pdiv``).
 
 A block above the pool cap is split by the 2-way recursive block-Schur
 identity, damping folded up front (``D = F + lam I``)::
@@ -21,8 +21,12 @@ Unlike the reference, which inverts one block at a time, a call takes a
 batch of blocks, and each stage inverts the pair's halves of every block
 in one grouped call (the blocks are computed independently). The bridge
 products are fp32 ``torch.matmul`` with TF32 off, as the reference's are
-plain fp32 einsums. The reference's ``mesh`` spreads each stage's pair
-over devices; the port has no mesh yet.
+plain fp32 einsums. With a ``mesh`` the top level's stage pairs are
+spread over its ranks, as in the reference: the pair's two members go to
+the ranks at flat-mesh positions 0 and 1, the others invert an identity
+pad of the same shape, and one gather brings both back; the levels below
+run locally on each rank. The result is bitwise the local run's on the
+CPU (each sub-inversion and each product is computed per block).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import contextlib
 import torch
 
 from repro_torch.core.kfac import KFACConfig, invert_blocks_flat
+from repro_torch.dist.api import all_gather_rows, mesh_ndev, mesh_position
 
 __all__ = ["pdiv_invert"]
 
@@ -54,11 +59,28 @@ def _pair(p: torch.Tensor, q: torch.Tensor, cfg: KFACConfig, depth: int):
     return both[:p.shape[0]], both[p.shape[0]:]
 
 
-def _pdiv_local(d: torch.Tensor, cfg: KFACConfig, depth: int) -> torch.Tensor:
-    """(B, n, n) damped blocks -> their inverses, ``depth`` levels down."""
-    if depth <= 0:
-        return invert_blocks_flat(
-            d, torch.zeros(d.shape[0], dtype=d.dtype, device=d.device), cfg)
+def _dist_pair(mesh):
+    """A stage runner spreading a pair over the mesh: the rank at flat
+    position 0 inverts ``p``, the one at 1 ``q``, every other rank an
+    identity pad, each with the local recursion; one gather."""
+    pos = mesh_position(mesh)
+
+    def run(p: torch.Tensor, q: torch.Tensor, cfg: KFACConfig, depth: int):
+        if pos < 2:
+            mine = (p, q)[pos]
+        else:
+            mine = torch.eye(p.shape[-1], dtype=p.dtype,
+                             device=p.device).expand_as(p)
+        inv = _pdiv_local(mine.contiguous(), cfg, depth)
+        got = all_gather_rows(inv[None], mesh)
+        return got[0], got[1]
+
+    return run
+
+
+def _schur(d: torch.Tensor, cfg: KFACConfig, depth: int, run_pair):
+    """One block-Schur level of (B, n, n) damped blocks; ``run_pair(p, q,
+    cfg, depth - 1)`` inverts the two halves of each stage."""
     n = d.shape[-1]
     if n % 2:
         raise ValueError(
@@ -67,16 +89,24 @@ def _pdiv_local(d: torch.Tensor, cfg: KFACConfig, depth: int) -> torch.Tensor:
     h = n // 2
     a11, a12 = d[:, :h, :h], d[:, :h, h:]
     a21, a22 = d[:, h:, :h], d[:, h:, h:]
-    x11, x22 = _pair(a11, a22, cfg, depth - 1)
+    x11, x22 = run_pair(a11, a22, cfg, depth - 1)
     u12 = torch.matmul(x11, a12)
     u21 = torch.matmul(x22, a21)
     s1 = a11 - torch.matmul(a12, u21)
     s2 = a22 - torch.matmul(a21, u12)
-    y1, y2 = _pair(s1, s2, cfg, depth - 1)
+    y1, y2 = run_pair(s1, s2, cfg, depth - 1)
     b12 = -torch.matmul(u12, y2)
     b21 = -torch.matmul(u21, y1)
     return torch.cat([torch.cat([y1, b12], dim=-1),
                       torch.cat([b21, y2], dim=-1)], dim=-2)
+
+
+def _pdiv_local(d: torch.Tensor, cfg: KFACConfig, depth: int) -> torch.Tensor:
+    """(B, n, n) damped blocks -> their inverses, ``depth`` levels down."""
+    if depth <= 0:
+        return invert_blocks_flat(
+            d, torch.zeros(d.shape[0], dtype=d.dtype, device=d.device), cfg)
+    return _schur(d, cfg, depth, _pair)
 
 
 def pdiv_invert(block: torch.Tensor, lam, cfg: KFACConfig, *,
@@ -86,13 +116,9 @@ def pdiv_invert(block: torch.Tensor, lam, cfg: KFACConfig, *,
 
     ``lam``: the Tikhonov shift, a scalar or one per block, folded in
     first, so every sub-problem is a plain inversion. ``depth=0`` is a
-    single ``invert_blocks_flat`` call. ``mesh`` must be None: the
-    distributed stage pairs wait for the multi-GPU port."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "pdiv_invert(mesh=...) spreads the stage pairs over devices; "
-            "the port runs on one device (multi-GPU is ROADMAP Queue 1 "
-            "item 8)")
+    single ``invert_blocks_flat`` call. ``mesh``: a DeviceMesh whose
+    ranks all call with the same blocks; the top level's stage pairs are
+    spread over it (a mesh of one rank runs locally)."""
     single = block.ndim == 2
     blocks = block[None] if single else block
     nb, n = blocks.shape[0], blocks.shape[-1]
@@ -101,5 +127,8 @@ def pdiv_invert(block: torch.Tensor, lam, cfg: KFACConfig, *,
     eye = torch.eye(n, dtype=torch.float32, device=blocks.device)
     d = blocks.to(torch.float32) + lam[:, None, None] * eye
     with _fp32_matmul():
-        out = _pdiv_local(d, cfg, depth)
+        if mesh is None or mesh_ndev(mesh) <= 1 or depth <= 0:
+            out = _pdiv_local(d, cfg, depth)
+        else:
+            out = _schur(d, cfg, depth, _dist_pair(mesh))
     return out[0] if single else out

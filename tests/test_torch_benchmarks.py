@@ -235,6 +235,7 @@ def test_run_cpu_fast_scorecard_and_out_dir(tmp_path, monkeypatch, capsys):
         "serve_sessions_paged_vs_slot", "serve_prefill_cut_prefix"}
     assert sorted(os.listdir(cwd)) == []
     assert sorted(os.listdir(out_dir)) == [
+        "BENCH_dist_inverse.json", "BENCH_grad_compression.json",
         "BENCH_kernel_bench.json", "BENCH_kfac_convergence.json",
         "BENCH_obs.json", "BENCH_precision.json",
         "BENCH_serve_engine.json", "BENCH_serve_scale.json",

@@ -1413,3 +1413,33 @@ def test_precision_inv_demo_kernel_inverse_matches_plain(cuda_device):
     want = tref.neumann_inv_ref(out["blocks"], out["damping"], **KW)
     assert (out["inverse"] - want).abs().max() <= 1e-4 * want.abs().max()
     assert out["resid"] < 1e-3 and out["final_bits"] >= 16.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaves", [
+    # block 128: one side, one launch a rank
+    (("wq", "A", 40, 128), ("wq", "G", 24, 128), ("wd", "G", 9, 128)),
+    # block 256: sides 256 and 176 on the large route; 60 blocks of 256
+    # take three <= 1 GiB chunks on one rank and two on each of two
+    (("wq", "A", 36, 256), ("wq", "G", 24, 256), ("wd", "A", 20, 176)),
+], ids=["block128", "block256"])
+def test_distributed_refresh_two_ranks_on_one_card(cuda_device, leaves):
+    """Two gloo ranks (on ``cuda:0`` when the machine has one card) run
+    the block-parallel refresh: each rank's ``neumann_inv`` launches are
+    its plan rows' schedule and invert its pool rows' blocks alone, and
+    the gathered inverses are bitwise the one-rank grouped refresh (every
+    block is computed on its own, also when a rank's chunks differ from
+    the one-rank run's)."""
+    import _torch_dist_ranks as ranks_mod
+    from repro_torch.dist.spawn import run_ranks
+
+    ops.build_all()
+    torch.cuda.empty_cache()
+    res = run_ranks(ranks_mod.cuda_refresh_rank, 2, device="cuda",
+                    args=(leaves,), timeout=600)
+    for r in res:
+        assert r["bitwise"], r
+        assert r["launches"] == r["expected"] > 0, r
+        # the rank's pool rows, not every block
+        assert r["items"] == {f"n{bs}": n
+                              for bs, n in r["per_device"].items()}, r

@@ -282,11 +282,39 @@ def test_pdiv_sub_schedule_matches_reference():
 
 
 def test_mesh_raises():
+    """A mesh whose rank count differs from the plan's raises
+    ``ValueError``, as the reference's solver does, before any
+    collective: for the pooled pools and for a plan whose pdiv
+    sub-schedule would run ``pdiv_invert`` on the mesh. A one-device plan
+    runs locally on any mesh, and ``pdiv_invert`` on a mesh of one rank
+    is the local run; ``make_inv_refresh(distributed=True)`` keeps a
+    caller's plan under those rules. (The meshes are ``{axis: size}``
+    mappings: the rank-count check needs no process group;
+    tests/test_torch_dist_solve.py runs the mesh paths on gloo ranks.)"""
     tf = _torch(_factors())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        invert_factor_tree(tf, TCFG, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pdiv_invert(torch.eye(4), 0.0, TCFG, mesh=object())
+    with pytest.raises(ValueError, match="built for 2 devices"):
+        invert_factor_tree(tf, TCFG, mesh={"data": 4},
+                           plan=make_plan(tf, 2, TCFG))
+    tb = _torch(_factors(1, big=True))
+    with pytest.raises(ValueError, match="built for 4 devices"):
+        invert_factor_tree(tb, TCFG, mesh={"data": 2, "model": 3},
+                           plan=make_plan(tb, 4, TCFG, pdiv_cap_bs=48))
+    plan1 = make_plan(tf, 1, TCFG)
+    _assert_bitwise(invert_factor_tree(tf, TCFG, mesh={"data": 4},
+                                       plan=plan1),
+                    invert_factor_tree(tf, TCFG, plan=plan1))
+    # the trainer's refresh on a distributed mesh keeps a caller's plan
+    # under the same rules
+    with pytest.raises(ValueError, match="built for 2 devices"):
+        tsteps.make_inv_refresh(None, TCFG, mesh={"data": 4},
+                                distributed=True,
+                                plan=make_plan(tf, 2, TCFG))(tf)
+    _assert_bitwise(tsteps.make_inv_refresh(
+        None, TCFG, mesh={"data": 4}, distributed=True, plan=plan1)(tf),
+        invert_factor_tree(tf, TCFG, plan=plan1))
+    blocks = torch.from_numpy(_spd(np.random.default_rng(3), (2, 32, 32)))
+    assert torch.equal(pdiv_invert(blocks, 0.1, TCFG, mesh={"data": 1}),
+                       pdiv_invert(blocks, 0.1, TCFG))
 
 
 def test_dist_refresh_on_one_device_is_the_replicated_one():

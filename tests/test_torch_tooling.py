@@ -158,9 +158,19 @@ def test_wu_case_matches_reference(arch):
     assert set(c["paired"]) == {"paired_diff_med_us", "fused_win_frac"}
 
 
-def test_wu_fusion_dist_raises_naming_item_8():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        wu_fusion.main(["--dist", "--device", "cpu"])
+def test_wu_fusion_dist_raises_naming_item_8(tmp_path):
+    """``--dist`` (once not ported, and raising) runs on 2 gloo CPU ranks:
+    both dataflows bitwise the replicated refresh and the per-leaf
+    product on every rank, as the reference's child asserts."""
+    out = tmp_path / "dist.json"
+    d = wu_fusion.main(["--dist", "--device", "cpu", "--ranks", "2",
+                        "--out", str(out)])
+    assert out.exists() and d["ndev"] == 2 and len(d["ranks"]) == 2
+    for r in d["ranks"]:
+        for mode in ("gather", "owner"):
+            assert r[mode]["bitwise_equal"], (r["rank"], mode)
+            assert r[mode]["wall_ms"] > 0
+    assert d["total_tiles"] > 0
 
 
 # ---------------------------------------------------------------------------

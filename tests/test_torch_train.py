@@ -228,7 +228,10 @@ def test_package_imports_neither_jax_nor_repro():
         "'benchmarks.serve_scale', 'benchmarks.obs_overhead', "
         "'examples.quickstart', 'examples.precision_inv_demo', "
         "'examples.serve_batched', 'examples.train_kfac_100m', "
-        "'kernels.hilo_tma'):\n"
+        "'kernels.hilo_tma', 'dist.api', 'dist.sharding', "
+        "'dist.compression', 'dist.spawn', 'solve.fused_wu', "
+        "'launch.mesh', 'benchmarks.dist_inverse', "
+        "'benchmarks.grad_compression'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=SRC)

@@ -310,12 +310,12 @@ def test_stats_subsample_keeps_all_frames():
     state = prog.init_state()
     orig = tsteps.make_stats_step
 
-    def spy(cfg, kcfg):
-        step = orig(cfg, kcfg)
+    def spy(cfg, kcfg, **kw):
+        step = orig(cfg, kcfg, **kw)
 
-        def wrapped(st, batch):
+        def wrapped(st, batch, *share):
             seen.append({k: tuple(v.shape) for k, v in batch.items()})
-            return step(st, batch)
+            return step(st, batch, *share)
         return wrapped
 
     tsteps.make_stats_step = spy
