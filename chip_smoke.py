@@ -460,6 +460,11 @@ LARGE = dict(
 # ROADMAP.md)
 DIST = dict(block_256=256, ef_steps=8, pre_tol=1e-6, loss_tol=2e-3,
             grad_seed=1)
+# phase tp: --model-parallel 2 at fp32 compute against the one-rank fp32
+# run (only the fp32 summation order of the row-parallel outputs and the
+# input cotangents differs; the data-parallel fp32 witness landed 5.0e-5),
+# and at bf16 steps 0-1 against the main path
+TP = dict(fp32_tol=1e-4, bf16_tol=2e-3)
 # a kernel agrees with its plain version when max|kernel - plain| is at
 # most this share of max|plain| (rounding-level: the tensor cores sum the
 # exact bf16 partial products in another order than the plain matmuls)
@@ -2763,6 +2768,313 @@ def dist_phase(torch, dev, check, main_losses):
             "launches": launches, "per_rank": ranks}
 
 
+def tp_rank(rank, world, model, ckpt_dir):
+    """One rank of phase ``tp`` (run by ``dist.spawn.run_ranks``; see
+    :func:`tp_phase`): the main path's model split over a ``(data,
+    model)`` mesh of ``model`` ranks a model group, every check's inputs,
+    and this rank's timings, traffic, launches and peak memory."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.checkpoint import CheckpointManager, restore
+    from repro_torch.configs import get_config
+    from repro_torch.core import kfac
+    from repro_torch.data.pipeline import (DataCursor, SyntheticTokens,
+                                           make_global_batch)
+    from repro_torch.dist import api, sharding
+    from repro_torch.kernels import fused_precond as fp_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.solve import make_wu_plan
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    train_mod.fp32_matmuls()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_dev_mesh(model)
+    cfg = get_config(MAIN["arch"])
+    kcfg = kfac.KFACConfig(
+        stats_every=MAIN["stats_every"], inv_every=MAIN["inv_every"],
+        block_size=min(MAIN["block_size"], cfg.soi_block),
+        stats_batch=MAIN["batch"], stats_seq=MAIN["seq"])
+    ds = SyntheticTokens(vocab=cfg.vocab, seq_len=MAIN["seq"],
+                         global_batch=MAIN["batch"], seed=MAIN["seed"])
+
+    def digest(tree):
+        return train_mod.params_digest(tree)
+
+    def program(dtype):
+        return train_mod.KFACProgram(
+            dataclasses.replace(cfg, dtype=dtype), kcfg, seed=MAIN["seed"],
+            device=dev, mesh=mesh, dist_inv=True)
+
+    def traced_run(prog):
+        """``MAIN["steps"]`` steps of ``run``: the history, each step's
+        digest of the replicated leaves, the launches, blocks and seam
+        traffic, the wall seconds."""
+        digests = []
+
+        def on_step(state, rec):
+            digests.append(digest({k: v for k, v in state.params.items()
+                                   if prog.shards.dims.get(k) is None}))
+
+        ops.reset_launch_counts()
+        api.SEAM_TRAFFIC.update(reductions=0, bytes=0)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, hist = train_mod.run(prog, ds, MAIN["steps"], on_step=on_step)
+        torch.cuda.synchronize(dev)
+        return state, {
+            "losses": [h["loss"] for h in hist],
+            "phase_s": [h["phase_s"] for h in hist],
+            "wall_s": time.perf_counter() - t0,
+            "replicated_digests": digests,
+            "launches": ops.launch_counts(),
+            "blocks_inverted": ops.launch_items()["neumann_inv"],
+            "seam_reductions": api.SEAM_TRAFFIC["reductions"],
+            "seam_bytes": api.SEAM_TRAFFIC["bytes"]}
+
+    out = {"rank": rank, "backend": tdist.get_backend(),
+           "mesh": api.axis_sizes(mesh)}
+    sec = out["seconds"] = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        sec[name] = now - clock[0]
+        clock[0] = now
+
+    lap("start")
+    # (a) at the config's bf16 compute and (e): 4 --dist-inv steps, timed
+    prog = program(cfg.dtype)
+    shards = prog.shards
+    state, out["bf16"] = traced_run(prog)
+    out["bf16"]["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    lap("bf16_run")
+    # (b) the gathered params on every rank; (d) rank 0 writes the full
+    # state's checkpoint, as the loop does, while (c) runs
+    full = prog.full_state(state)
+    out["bf16"]["params_digest"] = digest(full.params)
+    lap("gather")
+    writer = CheckpointManager(ckpt_dir) if rank == 0 else None
+    if writer is not None:
+        writer.save_async(MAIN["steps"], full)
+    lap("save_snapshot")
+
+    # (a) fp32 compute: 4 --dist-inv steps, held to the one-rank fp32 run
+    # (while rank 0's checkpoint is written)
+    torch.cuda.reset_peak_memory_stats(dev)
+    prog32 = program("float32")
+    state32, out["fp32"] = traced_run(prog32)
+    out["fp32"]["params_digest"] = digest(
+        sharding.full_params(state32.params, shards))
+    out["fp32"]["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del state32, prog32
+    torch.cuda.empty_cache()
+    lap("fp32_run")
+
+    # (c) the one-rank stats step's factors, sliced to this rank and
+    # refreshed under --dist-inv, against the one-rank refresh
+    gen = torch.Generator(device=dev).manual_seed(MAIN["seed"])
+    full_params = steps_mod.init_params(cfg, generator=gen, device=dev)
+    specs = steps_mod.kfac_specs(cfg)
+    one = steps_mod.TrainState(full_params, kfac.init(full_params, specs,
+                                                      kcfg))
+    one, _ = steps_mod.make_stats_step(cfg, kcfg)(one, make_global_batch(
+        ds, DataCursor(0), None, device=dev))
+    factors = one.kfac.factors
+    del one, full_params
+    want = sharding.local_factors(kfac.invert_factors(factors, kcfg), shards)
+    local = sharding.local_factors(factors, shards)
+    refresh = steps_mod.make_inv_refresh(cfg, kcfg, mesh=mesh,
+                                         distributed=True, shards=shards)
+    meta = steps_mod.init_params(cfg, generator=None, device="meta")
+    sliced = {k: v for k, v in meta.items() if shards.dims.get(k) is not None}
+
+    def sliced_factors(tree):
+        return {n: {s: t for s, t in d.items()
+                    if shards.factor_dim(n, s, t.ndim) is not None}
+                for n, d in tree.items()}
+
+    refresh(local)                                     # warm, plans built
+    ops.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    got = refresh(local)
+    torch.cuda.synchronize(dev)
+    lspecs = steps_mod.kfac_specs(cfg, shards)
+    wu = make_wu_plan(lspecs, local)
+    out["c"] = {
+        "bitwise": all(torch.equal(got[n][k], want[n][k])
+                       for n in want for k in want[n]),
+        "refresh_ms": (time.perf_counter() - t0) * 1e3,
+        "launches": ops.launch_counts()["neumann_inv"],
+        "blocks": ops.launch_items()["neumann_inv"],
+        "one_rank_blocks": sum(math.prod(t.shape[:-2])
+                               for d in factors.values()
+                               for t in d.values()),
+        "fused_precond_per_step": sum(
+            fp_mod.expected_launches(g.n_tiles, g.bi, g.bo,
+                                     shared=g.bi == g.bo)
+            for g in wu.groups),
+        "wu_tiles": wu.total_tiles,
+        # the sliced leaves' weights and factors: this rank's bytes, and
+        # the full model's
+        "sliced_weight_bytes": [tensor_bytes(sharding.local_params(
+            sliced, shards)), tensor_bytes(sliced)],
+        "sliced_factor_bytes": [tensor_bytes(sliced_factors(local)),
+                                tensor_bytes(sliced_factors(factors))]}
+    del got, want, local, factors
+    torch.cuda.empty_cache()
+    lap("c")
+
+    # (d) the checkpoint restored into a one-rank program (rank 0) and
+    # into this run (every rank, as the loop restores)
+    if writer is not None:
+        writer.wait()
+        out["write_s"] = writer.write_s[-1]
+    tdist.barrier()
+    lap("save_wait")
+    like = (train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"], device=dev)
+            if rank == 0 else prog).init_state()
+    restored, _ = restore(ckpt_dir, like)
+    del like
+    lap("restore")
+
+    def same(a, b):
+        return (all(torch.equal(a.params[k], b.params[k]) for k in b.params)
+                and all(torch.equal(a.kfac.factors[n][s], b.kfac.factors[n][s])
+                        and torch.equal(a.kfac.inverses[n][s + "_inv"],
+                                        b.kfac.inverses[n][s + "_inv"])
+                        for n in b.kfac.factors for s in b.kfac.factors[n])
+                and all(torch.equal(getattr(a.kfac, m)[k],
+                                    getattr(b.kfac, m)[k])
+                        for m in ("momentum", "adam_mu", "adam_nu")
+                        for k in getattr(b.kfac, m)))
+
+    out["d"] = {"one_rank": same(restored, full) if rank == 0 else None,
+                "this_run": same(prog.local_state(restored), state)}
+    del restored, full, state
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    tdist.barrier()
+    lap("compare")
+    return out
+
+
+def tp_phase(torch, dev, check, main_losses, fp32_losses):
+    """Phase ``tp``: the main path's model split megatron-style over the
+    ``model`` axis (``--model-parallel 2 --dist-inv``): two gloo ranks
+    sharing ``cuda:0`` on a (1, 2) mesh, or one rank a card over NCCL on
+    a (cards / 2, 2) one; :func:`tp_rank` on each. Checks: (a) at fp32
+    compute every step within ``TP["fp32_tol"]`` of the one-rank fp32
+    run (``dist_phase``'s), at bf16 steps 0-1 within ``TP["bf16_tol"]``
+    of the main path (steps 2-3 printed: the step-2 transient amplifies
+    the ranks' bf16 rounding); (b) the gathered params bitwise equal on
+    every rank, the replicated leaves bitwise equal across ranks at every
+    step; (c) the one-rank stats step's factors, sliced and refreshed
+    under --dist-inv, bitwise the one-rank refresh's blocks, the blocks
+    ``neumann_inv`` inverted summed over ranks the one-rank plan's, and
+    in the runs ``neumann_inv`` as (c) a refresh and ``fused_precond``
+    once a WU group a step on each rank; (d) rank 0's checkpoint of the
+    full state restored bitwise into a one-rank program and into the
+    run. (e) is printed: each rank's phase seconds, seam reductions and
+    bytes a step, peak GB. A failed rank fails the phase."""
+    from repro_torch.dist.spawn import backend_for, run_ranks
+
+    n_cards = torch.cuda.device_count()
+    world = 2 if n_cards == 1 else n_cards - n_cards % 2
+    backend = backend_for("cuda", world)
+    emit({"phase": "tp_setup", "ranks": world, "cards": n_cards,
+          "backend": backend, "mesh": {"data": world // 2, "model": 2},
+          "placement": ("two ranks share cuda:0 over gloo" if n_cards == 1
+                        else "one rank a card over NCCL")})
+    torch.cuda.empty_cache()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(tp_rank, world, device="cuda", args=(2, ckpt),
+                          timeout=600)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    steps = MAIN["steps"]
+    r0 = ranks[0]
+    for r in ranks:
+        tag = f"tp rank {r['rank']}"
+        f32, b16, c = r["fp32"], r["bf16"], r["c"]
+        check(len(f32["losses"]) == len(fp32_losses) == steps and all(
+            abs(x - y) <= TP["fp32_tol"] * abs(y)
+            for x, y in zip(f32["losses"], fp32_losses)),
+              f"{tag} (a): fp32 losses within {TP['fp32_tol']} of one rank")
+        check(all(abs(x - y) <= TP["bf16_tol"] * abs(y)
+                  for x, y in zip(b16["losses"][:2], main_losses[:2])),
+              f"{tag} (a): bf16 steps 0-1 within {TP['bf16_tol']} of the "
+              f"main path")
+        for run in ("fp32", "bf16"):
+            check(r[run]["params_digest"] == r0[run]["params_digest"]
+                  and r[run]["losses"] == r0[run]["losses"],
+                  f"{tag} (b) {run}: gathered params and losses equal "
+                  f"across ranks")
+            check(len(r[run]["replicated_digests"]) == steps
+                  and r[run]["replicated_digests"]
+                  == r0[run]["replicated_digests"],
+                  f"{tag} (b) {run}: replicated leaves bitwise equal across "
+                  f"ranks at every step")
+            refreshes = sum("inv" in p for p in r[run]["phase_s"])
+            check(refreshes > 0 and r[run]["launches"]["neumann_inv"]
+                  == refreshes * c["launches"]
+                  and r[run]["blocks_inverted"]
+                  == {k: refreshes * n for k, n in c["blocks"].items()},
+                  f"{tag} (c) {run}: neumann_inv as the split refresh plans")
+            check(r[run]["launches"]["fused_precond"]
+                  == steps * c["fused_precond_per_step"] > 0,
+                  f"{tag} (c) {run}: fused_precond once a WU group a step")
+        check(c["bitwise"], f"{tag} (c): the split refresh bitwise the "
+                            f"one-rank refresh's blocks")
+        check(r["d"]["this_run"], f"{tag} (d): the checkpoint restored "
+                                  f"bitwise into the run")
+    check(r0["d"]["one_rank"], "tp (d): rank 0's checkpoint restored "
+                               "bitwise into a one-rank program")
+    blocks = sum(sum(r["c"]["blocks"].values()) for r in ranks)
+    check(blocks == r0["c"]["one_rank_blocks"],
+          f"tp (c): neumann_inv covered each block once over the mesh "
+          f"({blocks} blocks)")
+    launches = {name: sum(r["bf16"]["launches"][name] for r in ranks)
+                for name in r0["bf16"]["launches"]}
+
+    def rel(xs, ys):
+        return [abs(x - y) / abs(y) for x, y in zip(xs, ys)]
+
+    return {"ranks": world, "backend": backend, "seconds": seconds,
+            "fp32_losses": r0["fp32"]["losses"],
+            "fp32_one_rank_losses": list(fp32_losses),
+            "fp32_rel_to_one_rank": rel(r0["fp32"]["losses"], fp32_losses),
+            "bf16_losses": r0["bf16"]["losses"],
+            "main_path_losses": list(main_losses),
+            "bf16_rel_to_main_path": rel(r0["bf16"]["losses"], main_losses),
+            "launches": launches,
+            "per_rank": [{
+                "rank": r["rank"], "mesh": r["mesh"],
+                "phase_s": r["bf16"]["phase_s"],
+                "fp32_phase_s": r["fp32"]["phase_s"],
+                "seam_reductions_a_step": r["bf16"]["seam_reductions"]
+                / steps,
+                "seam_bytes_a_step": r["bf16"]["seam_bytes"] / steps,
+                "wall_s": r["bf16"]["wall_s"],
+                "refresh_ms": r["c"]["refresh_ms"],
+                "neumann_inv_blocks": r["c"]["blocks"],
+                "wu_tiles": r["c"]["wu_tiles"],
+                "sliced_weight_bytes": r["c"]["sliced_weight_bytes"],
+                "sliced_factor_bytes": r["c"]["sliced_factor_bytes"],
+                "seconds": r["seconds"], "write_s": r.get("write_s"),
+                "peak_mem_gb": r["peak_mem_gb"],
+                "fp32_peak_mem_gb": r["fp32"]["peak_mem_gb"],
+                "bf16_peak_mem_gb": r["bf16"]["peak_mem_gb"]}
+                for r in ranks]}
+
+
 def large_blocks_phase(torch, dev, check):
     """Phase ``large_blocks``: the kernels' route for sides of 129..1024
     (``csrc/hilo_tma.cuh``). (a) ``neumann_inv``
@@ -4325,7 +4637,14 @@ def main() -> int:
     dist_row = dist_phase(torch, dev, check, losses)
     emit({"phase": "dist", "nvidia_smi": smi, **dist_row})
 
-    # 20. trace: the main path's fourth step (FP, BP and WU only) under
+    # 20. tp: the main path's model split megatron-style over two model
+    # ranks (--model-parallel 2 --dist-inv), at fp32 and bf16 compute,
+    # its split refresh and a checkpoint of the full state
+    tp_row = tp_phase(torch, dev, check, losses,
+                      dist_row["fp32_one_rank_losses"])
+    emit({"phase": "tp", "nvidia_smi": smi, **tp_row})
+
+    # 21. trace: the main path's fourth step (FP, BP and WU only) under
     # torch.profiler, kernels only, last, so that the profiler session
     # cannot perturb the phases timed before it: the device's busy time
     # (the union of the kernels' intervals) against the step's host wall
@@ -4374,6 +4693,7 @@ def main() -> int:
 
     emit({"phase": "timing", "script_seconds": time.perf_counter() - t_script,
           "dist_seconds": dist_row["seconds"],
+          "tp_seconds": tp_row["seconds"],
           "tooling_seconds": tooling_row["phase_seconds"],
           "large_blocks_seconds": large_row["phase_seconds"]})
     if failures:
@@ -4443,7 +4763,8 @@ def main() -> int:
                            tooling_launches=sum(
                                c[name] for c in
                                tooling_row["launches"].values()),
-                           dist_launches=dist_row["launches"][name])
+                           dist_launches=dist_row["launches"][name],
+                           tp_launches=tp_row["launches"][name])
                       for name, r in results.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -114,8 +114,10 @@ def probe(device: str = "cpu") -> list:
                      args=(ARCH, device))
 
 
-def rows(payload=None, *, device: str = "cpu"):
-    ranks = probe(device)
+def rows(payload=None, *, device: str = "cpu", ranks=None):
+    """The table from every rank's record: ``ranks``, or a :func:`probe`
+    of its own."""
+    ranks = ranks or probe(device)
     d = ranks[0]
     if payload is not None:
         payload["dist"] = d
@@ -142,7 +144,9 @@ def rows(payload=None, *, device: str = "cpu"):
     }]
 
 
-def main(argv=None):
+def main(argv=None, ranks=None):
+    """The CLI; ``ranks``: the ranks' records of a spawn shared with
+    another benchmark (``benchmarks.run``), else a probe of its own."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--smw", action="store_true",
                     help="the incremental-SOI probe (not ported)")
@@ -158,7 +162,7 @@ def main(argv=None):
 
     device = str(resolve_device(args.device))
     payload = {"device": device}
-    r = rows(payload, device=device)
+    r = rows(payload, device=device, ranks=ranks)
     print_csv("dist_inverse", r)
     write_json(args.out, payload)
     print(f"# wrote {args.out}")

@@ -90,9 +90,12 @@ def _rank(rank: int, world: int, arch: str, device: str):
             "max_err_over_s127": worst, "ef_sum_err_over_step": ef_worst}
 
 
-def rows(payload=None, *, arch: str = ARCH, device: str = "cpu"):
-    ranks = run_ranks(_rank, default_world(device, 2), device=device,
-                      args=(arch, device))
+def rows(payload=None, *, arch: str = ARCH, device: str = "cpu",
+         ranks=None):
+    """The table from every rank's record: ``ranks``, or a spawn of its
+    own."""
+    ranks = ranks or run_ranks(_rank, default_world(device, 2),
+                               device=device, args=(arch, device))
     d = ranks[0]
     if payload is not None:
         payload["ranks"] = ranks
@@ -108,7 +111,9 @@ def rows(payload=None, *, arch: str = ARCH, device: str = "cpu"):
                                          2), "wall_ms": ""}]
 
 
-def main(argv=None):
+def main(argv=None, ranks=None):
+    """The CLI; ``ranks``: the ranks' records of a spawn shared with
+    another benchmark (``benchmarks.run``), else a spawn of its own."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=ARCH)
     ap.add_argument("--device", default="cuda",
@@ -119,7 +124,7 @@ def main(argv=None):
 
     device = str(resolve_device(args.device))
     payload = {"device": device}
-    r = rows(payload, arch=args.arch, device=device)
+    r = rows(payload, arch=args.arch, device=device, ranks=ranks)
     print_csv("grad_compression_dcn", r)
     write_json(args.out, payload)
     print(f"# wrote {args.out}")

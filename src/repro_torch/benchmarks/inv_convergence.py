@@ -82,6 +82,7 @@ def main():
     rs = rows()
     print_csv("fig4b_inv_convergence", rs)
     print_csv("fig4b_headline", headline(rs))
+    return rs
 
 
 if __name__ == "__main__":

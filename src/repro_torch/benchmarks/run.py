@@ -40,6 +40,7 @@ import time
 import traceback
 
 from repro_torch.benchmarks.common import print_csv
+from repro_torch.dist.spawn import default_world, start_ranks
 
 SUMMARY_SCHEMA = 1
 
@@ -97,6 +98,17 @@ def write_summary(directory):
     with open(os.path.join(directory, "BENCH_summary.json"), "w") as f:
         json.dump(out, f, indent=1)
     return rows
+
+
+def multi_rank(rank: int, world: int, device: str) -> dict:
+    """One rank of both multi-rank benchmarks (``dist_inverse``,
+    ``grad_compression``), on one spawn of ranks."""
+    from repro_torch.benchmarks import dist_inverse, grad_compression
+
+    return {"dist_inverse": dist_inverse._rank(rank, world,
+                                               dist_inverse.ARCH, device),
+            "grad_compression": grad_compression._rank(
+                rank, world, grad_compression.ARCH, device)}
 
 
 def main(argv=None):
@@ -178,8 +190,15 @@ def main(argv=None):
     run("table2_area", area.main)
     score(area.headline())
     run("fig3_soi_precision", soi_precision.main)
-    run("fig4b_inv_convergence", inv_convergence.main)
-    score(inv_convergence.headline())
+    # the two multi-rank benchmarks share one spawn of ranks, which runs
+    # beside the host-side studies and is waited for before the first
+    # module with a wall-clock guard, which the ranks' load would perturb
+    shared = start_ranks(multi_rank, default_world(str(device), 4),
+                         device=str(device), args=(str(device),))
+    fig4b: dict = {}
+    run("fig4b_inv_convergence",
+        lambda: fig4b.update(rows=inv_convergence.main()))
+    score(inv_convergence.headline(fig4b.get("rows")))
     run("fig10_dse", dse.main)
     score(dse.headline())
     run("fig11_speedup", speedup.main)
@@ -192,6 +211,7 @@ def main(argv=None):
         "kernel_bench", kernel_bench.rows(device=device)))
     dev = ["--device", str(device)]
     fast = ["--fast"] if args.fast else []
+    shared.wait()
 
     def out(name):
         return ["--out", os.path.join(args.out_dir, f"BENCH_{name}.json")]
@@ -216,12 +236,14 @@ def main(argv=None):
     # the distributed refresh against the replicated one, on spawned
     # ranks; BENCH_dist_inverse.json
     run("dist_inverse", lambda: dist_inverse.main(
-        dev + out("dist_inverse")))
+        dev + out("dist_inverse"),
+        ranks=[r["dist_inverse"] for r in shared.results()]))
     unported("pipeline_bench")
     # fp32 against int8 error-feedback gradient reduction over spawned
     # ranks; BENCH_grad_compression.json
     run("grad_compression_dcn", lambda: grad_compression.main(
-        dev + out("grad_compression")))
+        dev + out("grad_compression"),
+        ranks=[r["grad_compression"] for r in shared.results()]))
     run("sec6c_kfac_convergence", lambda: measured(
         "kfac_convergence", kfac_convergence.rows(fast=args.fast,
                                                   device=device)),

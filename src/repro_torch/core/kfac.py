@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.core import quantize, soi
 from repro_torch.core.soi import LinearSpec
+from repro_torch.dist.sharding import leaf_sum
 from repro_torch.kernels import ops
 
 
@@ -121,16 +122,17 @@ def stats_grams(loss_with_taps: Callable, params, taps: Dict[str, torch.Tensor],
                                         batch)
     a_grams, g_grams = {}, {}
     for name, spec in specs.items():
+        bi, bo = soi.spec_blocks(spec, bs)
         g = tap_grads[name]                        # (*stack, T, d_out)
         # Fisher convention: G = E_t[g g^T] * T
-        g_grams[name] = soi.blocked_gram(g, bs) * g.shape[-2]
+        g_grams[name] = soi.blocked_gram(g, bs, bo) * g.shape[-2]
         if spec.share_a_with is None:
             a = acts[name]
             if (a.ndim == len(spec.stack) + 3
                     and a.shape[-1] == a.shape[-2]):
                 a_grams[name] = a                  # already a blocked Gram
             else:
-                a_grams[name] = soi.blocked_gram(a, bs)
+                a_grams[name] = soi.blocked_gram(a, bs, bi)
     return a_grams, g_grams, loss
 
 
@@ -152,7 +154,8 @@ def stats_rank_k(loss_with_taps: Callable, params,
                                         batch)
     a_grams, g_grams, cols = {}, {}, {}
     for name, spec in specs.items():
-        g = soi.blocked_tokens(tap_grads[name], bs)   # (*stack,T,nb,bs)
+        g = soi.blocked_tokens(tap_grads[name], bs,
+                               soi.spec_blocks(spec, bs)[1])  # (*stack,T,nb,bs)
         g_grams[name] = soi.gram_from_tokens(g) * g.shape[-3]
         entry = {"G": soi.cols_from_tokens(g)}
         if spec.share_a_with is None:
@@ -425,13 +428,18 @@ def apply_updates(params: Mapping[str, torch.Tensor],
                   grads: Mapping[str, torch.Tensor], state: KFACState,
                   specs: Mapping[str, LinearSpec], cfg: KFACConfig,
                   wu_plan=None, use_kernel: bool = False,
-                  pool_elementwise: bool = False
-                  ) -> Tuple[dict, KFACState]:
+                  pool_elementwise: bool = False, shards=None,
+                  info: dict | None = None) -> Tuple[dict, KFACState]:
     """Trust-region-clipped update: factored params take the
     preconditioned direction with heavy-ball momentum, the others Adam.
 
     The clip scale ``nu = min(1, kl_clip / (lr |sum(d * g)|))`` sums
-    the factored leaves' dots in the reference's leaf order. With
+    the factored leaves' dots in the reference's leaf order; under
+    ``shards`` (``dist.sharding.ModelShards``: the params are this
+    rank's model slices) the sliced leaves' partial dots are summed over
+    the model ranks and the replicated leaves counted once
+    (``sharding.leaf_sum``), so every rank clips with the same ``nu``.
+    ``info``, if given, receives ``nu``. With
     ``wu_plan``, ``pool_elementwise`` runs the momentum and Adam updates
     as one chain each over the concatenated leaves (bitwise the per-leaf
     loop; off by default, as in the reference: the concatenation costs
@@ -441,10 +449,12 @@ def apply_updates(params: Mapping[str, torch.Tensor],
                        use_kernel=use_kernel)
     dev = next(iter(params.values())).device
     order = tree_order(params)
-    terms = [torch.sum(pre[k] * grads[k]) for k in order if k in specs]
-    dot = sum(terms) if terms else torch.zeros((), device=dev)
+    terms = [(k, torch.sum(pre[k] * grads[k])) for k in order if k in specs]
+    dot = leaf_sum(terms, shards) if terms else torch.zeros((), device=dev)
     nu = torch.clamp(cfg.kl_clip / (cfg.lr * torch.abs(dot) + 1e-12),
                      max=1.0)
+    if info is not None:
+        info["nu"] = nu
 
     step = state.step + 1
     stepf = torch.tensor(float(step), dtype=torch.float32, device=dev)

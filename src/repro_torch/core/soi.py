@@ -33,6 +33,26 @@ class LinearSpec:
     cap_tokens: bool = False
 
 
+@dataclasses.dataclass(frozen=True)
+class SlicedSpec(LinearSpec):
+    """A model rank's slice of a factored linear (tensor parallelism):
+    ``bs_in``/``bs_out`` fix the block size of a side whose width is a
+    slice to that of the full leaf's width, which the slice's own width
+    may not give, so the rank holds whole blocks of the full factor (0:
+    :func:`block_size_for` of the side's width)."""
+
+    bs_in: int = 0
+    bs_out: int = 0
+
+
+def spec_blocks(spec, cap: int) -> Tuple[int, int]:
+    """The (A, G) block sizes of ``spec`` (any object with ``d_in`` and
+    ``d_out``; a :class:`SlicedSpec`'s fixed ones) at block cap
+    ``cap``."""
+    return (getattr(spec, "bs_in", 0) or block_size_for(spec.d_in, cap),
+            getattr(spec, "bs_out", 0) or block_size_for(spec.d_out, cap))
+
+
 def n_blocks(d: int, bs: int) -> int:
     return -(-d // bs)
 
@@ -70,19 +90,21 @@ def pad_to_blocks(x: torch.Tensor, axis: int, bs: int) -> torch.Tensor:
     return F.pad(x, widths)
 
 
-def blocked_gram(a: torch.Tensor, cap: int) -> torch.Tensor:
+def blocked_gram(a: torch.Tensor, cap: int, block: int = 0) -> torch.Tensor:
     """(..., T, d) activations -> (..., nb, bs, bs) diagonal-block Gram
     ``a_i^T a_i / T`` (fp32). Computed as the Gram of
     :func:`blocked_tokens`, so the cols-collecting SMW stats path gets
     the same factors bitwise."""
-    return gram_from_tokens(blocked_tokens(a, cap))
+    return gram_from_tokens(blocked_tokens(a, cap, block))
 
 
-def blocked_tokens(a: torch.Tensor, cap: int) -> torch.Tensor:
+def blocked_tokens(a: torch.Tensor, cap: int, block: int = 0) -> torch.Tensor:
     """(..., T, d) activations -> (..., T, nb, bs) fp32 blocked token
     columns, the rank-T square root of :func:`blocked_gram` that the
-    SMW incremental refresh (``repro_torch.solve.smw``) consumes."""
-    bs = block_size_for(a.shape[-1], cap)
+    SMW incremental refresh (``repro_torch.solve.smw``) consumes.
+    ``block``: the block size itself (a model slice's, that of its full
+    width); 0 takes :func:`block_size_for` of ``d`` at ``cap``."""
+    bs = block or block_size_for(a.shape[-1], cap)
     a = pad_to_blocks(a.to(torch.float32), -1, bs)
     nb = a.shape[-1] // bs
     return a.reshape(a.shape[:-1] + (nb, bs))
@@ -104,10 +126,9 @@ def cols_from_tokens(bt: torch.Tensor) -> torch.Tensor:
 
 def factor_shapes(spec: LinearSpec, cap: int) -> dict:
     shapes = {}
+    bi, bo = spec_blocks(spec, cap)
     if spec.share_a_with is None:
-        bi = block_size_for(spec.d_in, cap)
         shapes["A"] = spec.stack + (n_blocks(spec.d_in, bi), bi, bi)
-    bo = block_size_for(spec.d_out, cap)
     shapes["G"] = spec.stack + (n_blocks(spec.d_out, bo), bo, bo)
     return shapes
 

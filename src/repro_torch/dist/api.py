@@ -21,22 +21,37 @@ initialised process group, under the reference's axis names:
   falls back to the CPU;
 * :func:`clean_spec` fits a partition spec (a tuple of axis names per
   dim) to a mesh's axis sizes; :func:`path_key` and :func:`factor_axes`
-  are the reference's, on the port's flat parameter paths.
+  are the reference's, on the port's flat parameter paths;
+* the megatron seams of tensor parallelism (``--model-parallel``), as
+  ``torch.autograd.Function``s over a one-axis model submesh:
+  :func:`fwd_psum` (all-reduce forward, identity backward: megatron's
+  ``g``) and :func:`bwd_psum` (identity forward, all-reduce backward:
+  its ``f``); :func:`psum_if_bound` and :func:`bwd_psum_if_bound` apply
+  them only inside a :func:`hint_guard` that bound the axis to a
+  submesh of several ranks, and are the identity elsewhere. The program
+  enters the guard around its model calls (no global mesh, which a
+  raise would leave bound). Both seams reduce in fp32 and count their
+  traffic in :data:`SEAM_TRAFFIC`.
 
 The spec functions also take a plain ``{axis: size}`` mapping for the
-mesh, so layouts can be planned without a process group. The reference's
-``shard_hint``, ``hint_guard`` and ``*psum_if_bound`` operators belong to
-tensor-parallel placement and wait for ``--model-parallel`` (ROADMAP
-Queue 1 item 8).
+mesh, so layouts can be planned without a process group. The
+reference's ``shard_hint`` and ``shard_like_params`` are not ported:
+they are GSPMD sharding constraints, which mean nothing without a
+partitioner; the port's tensor-parallel model code holds its slices and
+reduces through the seams above.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Mapping, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+#: what the multi-rank paths still lack raises naming this
+MULTI_GPU_ITEM = "ROADMAP Queue 1 item 8"
 
 POD = "pod"
 STAGE = "stage"
@@ -110,6 +125,103 @@ def all_reduce(t: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
     dist.all_reduce(t, op=ops[op], group=mesh_group(mesh))
     return t
+
+
+# the one-axis submeshes bound by the innermost hint_guard, by axis name
+_BOUND: list = []
+
+#: the seams' all-reduces and their fp32 bytes since the caller last
+#: zeroed them (``SEAM_TRAFFIC.update(reductions=0, bytes=0)``)
+SEAM_TRAFFIC = {"reductions": 0, "bytes": 0}
+
+
+@contextlib.contextmanager
+def hint_guard(axes: Optional[Mapping[str, Any]] = None):
+    """Bind one-axis submeshes by axis name (``{MODEL: mesh["model"]}``)
+    for the model code's seams inside the ``with`` body; the binding is
+    dropped on the way out, a raise included. (The reference's guard
+    records axis sizes inside a manual ``shard_map`` region; here the
+    submesh itself is bound, since the collective needs its group.)"""
+    _BOUND.append(dict(axes or {}))
+    try:
+        yield
+    finally:
+        _BOUND.pop()
+
+
+def bound_axes() -> dict:
+    """``{axis: size}`` bound by the innermost :func:`hint_guard` (empty
+    outside one)."""
+    return {a: mesh_ndev(m) for a, m in _BOUND[-1].items()} if _BOUND \
+        else {}
+
+
+def bound_mesh(axis: str):
+    """The submesh the innermost :func:`hint_guard` bound to ``axis``,
+    when it holds several ranks; else None."""
+    mesh = _BOUND[-1].get(axis) if _BOUND else None
+    return mesh if mesh is not None and mesh_ndev(mesh) > 1 else None
+
+
+def _seam_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` summed over ``mesh``'s ranks in fp32, in ``t``'s dtype (a new
+    tensor)."""
+    buf = t.to(torch.float32, copy=True)
+    all_reduce(buf, mesh)
+    SEAM_TRAFFIC["reductions"] += 1
+    SEAM_TRAFFIC["bytes"] += 4 * buf.numel()
+    return buf.to(t.dtype)
+
+
+class _FwdPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _seam_reduce(x, mesh)
+
+    @staticmethod
+    def backward(ctx, ct):
+        # the summed output is replicated, so its cotangent is too, and
+        # each rank's partial enters it with coefficient 1
+        return ct, None
+
+
+class _BwdPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _seam_reduce(ct, ctx.mesh), None
+
+
+def fwd_psum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the ranks of the one-axis ``mesh``, with the
+    identity as its backward: the reduction after a row-parallel
+    product."""
+    return _FwdPsum.apply(x, mesh)
+
+
+def bwd_psum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The identity, whose cotangent is summed over the ranks of
+    ``mesh``: where a replicated activation fans into column-parallel
+    slices, each of which gives only its part of the input cotangent."""
+    return _BwdPsum.apply(x, mesh)
+
+
+def psum_if_bound(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """:func:`fwd_psum` over the submesh bound to ``axis``
+    (:func:`bound_mesh`), or the identity."""
+    mesh = bound_mesh(axis)
+    return x if mesh is None else fwd_psum(x, mesh)
+
+
+def bwd_psum_if_bound(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """:func:`bwd_psum` over the submesh bound to ``axis``, or the
+    identity."""
+    mesh = bound_mesh(axis)
+    return x if mesh is None else bwd_psum(x, mesh)
 
 
 def _norm_entry(entry) -> Tuple[str, ...]:

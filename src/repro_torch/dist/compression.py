@@ -74,19 +74,20 @@ def compressed_psum(g: torch.Tensor, err: torch.Tensor, mesh=None
 
 def _reduce_mesh(mesh, axis_names: Sequence[str]):
     """The (sub)mesh whose ranks reduce together over ``axis_names``
-    (filtered to the axes ``mesh`` has), or None when none is left."""
+    (filtered to the axes ``mesh`` has), or None when none is left: the
+    mesh itself, a one-axis submesh (``data`` of a ``(data, model)``
+    mesh), or several axes' submesh flattened into one axis (its group
+    made by every rank of the mesh at the first such call)."""
     if mesh is None:
         return None
-    axes = tuple(a for a in axis_names if a in mesh_axes(mesh))
+    axes = tuple(a for a in mesh_axes(mesh) if a in axis_names)
     if not axes:
         return None
-    if set(axes) == set(mesh_axes(mesh)):
+    if len(axes) == len(mesh_axes(mesh)):
         return mesh
     if len(axes) == 1:
         return mesh[axes[0]]
-    raise NotImplementedError(
-        f"a compressed reduction over axes {axes} of a mesh with axes "
-        f"{mesh_axes(mesh)}: one axis, or all of them")
+    return mesh[axes]._flatten()
 
 
 def compressed_allreduce_tree(grads: Any, errors: Any, mesh,

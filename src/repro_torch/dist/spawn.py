@@ -7,7 +7,9 @@ host platform (benchmarks, tests, ``chip_smoke.py``'s ``dist`` phase).
 spawns ``world`` processes (start method ``spawn``); each initialises a
 process group through a ``file://`` store in a fresh temporary directory
 and calls ``fn(rank, world, *args)`` (``fn`` a module-level function);
-the return values come back in rank order. Backends: gloo on the CPU
+the return values come back in rank order (``start_ranks`` starts them
+and returns a handle whose ``results()`` waits, so that the caller works
+meanwhile). Backends: gloo on the CPU
 (each rank one intra-op thread), NCCL when each rank has a card of its
 own, gloo when the ranks share cards (NCCL refuses two ranks on one
 device; gloo moves CUDA tensors through the host, and every kernel still
@@ -79,21 +81,71 @@ def run_ranks(fn: Callable, world: int, *, device: str = "cpu",
     """``[fn(rank, world, *args) for each rank]``, each on its own rank of
     a ``world``-rank process group (:func:`backend_for`; see the module's
     docstring). Results are pickled: return host objects."""
-    backend = backend_for(device, world)
-    tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
-    ctx = torch.multiprocessing.get_context("spawn")
-    outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(world)]
-    procs = [ctx.Process(target=_entry, args=(
-        fn, r, world, os.path.join(tmp, "store"), backend, device,
-        outs[r], tuple(args))) for r in range(world)]
-    try:
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + timeout
+    return start_ranks(fn, world, device=device, args=args,
+                       timeout=timeout).results()
+
+
+class Ranks:
+    """Ranks started by :func:`start_ranks`, running beside the caller.
+    :meth:`results` waits for them once; a later call returns the same
+    list, or raises the same error."""
+
+    def __init__(self, fn, world, device, args, timeout):
+        backend = backend_for(device, world)
+        self._tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+        self._timeout = timeout
+        self._deadline = time.monotonic() + timeout
+        self._outs = [os.path.join(self._tmp, f"rank{r}.pkl")
+                      for r in range(world)]
+        ctx = torch.multiprocessing.get_context("spawn")
+        self._procs = [ctx.Process(target=_entry, args=(
+            fn, r, world, os.path.join(self._tmp, "store"), backend,
+            device, self._outs[r], tuple(args))) for r in range(world)]
+        self._done = None
+        try:
+            for p in self._procs:
+                p.start()
+        except BaseException:
+            self._stop()
+            raise
+
+    def _stop(self):
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(self._tmp, ignore_errors=True)
+
+    def wait(self) -> None:
+        """Wait for the ranks to end; :meth:`results` raises a failure."""
+        try:
+            self.results()
+        except RuntimeError:
+            pass
+
+    def results(self) -> list:
+        if self._done is None:
+            try:
+                self._done = ("ok", self._collect())
+            except RuntimeError as e:
+                self._done = ("error", e)
+            finally:
+                self._stop()
+        if self._done[0] == "error":
+            raise self._done[1]
+        return self._done[1]
+
+    def _collect(self) -> list:
+        """Wait for the ranks (a failed rank stops the others) and read
+        their results in rank order."""
+        procs, outs = self._procs, self._outs
         while any(p.is_alive() for p in procs):
             if any(p.exitcode not in (None, 0) for p in procs):
                 break              # a rank failed: the others may hang
-            if time.monotonic() > deadline:
+            if time.monotonic() > self._deadline:
                 break
             time.sleep(0.05)
         errors = []
@@ -112,14 +164,19 @@ def run_ranks(fn: Callable, world: int, *, device: str = "cpu",
             else:
                 errors.append(f"rank {r}: no result (exit code "
                               f"{p.exitcode}; stopped after a failure or "
-                              f"the {timeout:.0f} s limit)")
+                              f"the {self._timeout:.0f} s limit)")
         if errors:
-            raise RuntimeError(f"{len(errors)} of {world} ranks failed:\n"
-                               + "\n".join(errors))
+            raise RuntimeError(f"{len(errors)} of {len(procs)} ranks "
+                               f"failed:\n" + "\n".join(errors))
         results = []
         for out in outs:
             with open(out, "rb") as f:
                 results.append(pickle.load(f)[1])
         return results
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def start_ranks(fn: Callable, world: int, *, device: str = "cpu",
+                args: Sequence[Any] = (), timeout: float = 600.0) -> Ranks:
+    """:func:`run_ranks` started without waiting: the ranks run beside
+    the caller until :meth:`Ranks.results`."""
+    return Ranks(fn, world, device, args, timeout)

@@ -3,7 +3,10 @@
 
 :func:`make_dev_mesh` is the largest ``(data, model)`` mesh over the
 initialised process group's world: every rank a device, ranks in
-row-major order. The reference's ``make_production_mesh`` (its 256- and
+row-major order. Its one-axis submeshes give each rank its groups:
+``mesh["model"]`` the ranks of its row (its model group, which the
+tensor-parallel seams reduce over), ``mesh["data"]`` those of its column
+(its data group, which the gradients and Grams reduce over). The reference's ``make_production_mesh`` (its 256- and
 512-chip TPU pod layouts) waits for ROADMAP Queue 1 item 9b, and
 ``make_pipeline_mesh`` for ``pipeline/`` (item 8's ``--pp``).
 """

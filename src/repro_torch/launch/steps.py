@@ -25,6 +25,16 @@ batch's A and G Grams: A is a mean over tokens (scaled by the share), G
 a sum over tokens of the global mean loss's tap gradients, which are the
 local ones times the share (so G is scaled by its square). The reduced
 values are the same on every rank, so the ranks' updates are too.
+
+Tensor parallelism: the steps take ``shards``
+(``dist.sharding.ModelShards``), whose params are this rank's model
+slices. They run the model inside a ``dist.api.hint_guard`` binding the
+model submesh, so its seams reduce over it; ``data_mesh`` is then the
+data submesh, whose ranks hold the same slices. The specs are the
+local ones (:func:`kfac_specs`), so factors, inverses and WU tiles are
+the rank's own blocks, and the WU of a sliced leaf needs no collective.
+With ``distributed`` the refresh inverts each block of the full factor
+tree on exactly one rank (:func:`make_inv_refresh`).
 """
 
 from __future__ import annotations
@@ -36,7 +46,9 @@ import torch
 
 from repro_torch.core import kfac
 from repro_torch.core.kfac import KFACConfig, KFACState
-from repro_torch.dist.api import all_reduce, mesh_ndev
+from repro_torch.dist import sharding
+from repro_torch.dist.api import DATA, MODEL, all_reduce, hint_guard, \
+    mesh_ndev
 from repro_torch.models import lm, whisper
 from repro_torch.solve import smw as smw_mod
 from repro_torch.solve.block_solver import invert_factor_tree
@@ -53,8 +65,48 @@ def model_module(cfg):
     return whisper if cfg.family == "audio" else lm
 
 
-def kfac_specs(cfg):
-    return model_module(cfg).kfac_specs(cfg)
+def kfac_specs(cfg, shards=None):
+    """Every factored linear's spec; under ``shards`` this rank's
+    (``dist.sharding.local_specs``)."""
+    specs = model_module(cfg).kfac_specs(cfg)
+    return specs if shards is None else sharding.local_specs(specs, shards)
+
+
+def bound(shards):
+    """The ``hint_guard`` a step runs its model calls in: binding the
+    model submesh under ``shards``, nothing otherwise."""
+    return hint_guard(None if shards is None else {MODEL: shards.mesh})
+
+
+def full_state(state: TrainState, shards) -> TrainState:
+    """The full model's state from every model rank's slices (collective
+    over the model submesh; the state itself without ``shards``)."""
+    if shards is None:
+        return state
+    k = state.kfac
+    return TrainState(sharding.full_params(state.params, shards),
+                      dataclasses.replace(
+                          k, factors=sharding.full_factors(k.factors, shards),
+                          inverses=sharding.full_factors(k.inverses, shards),
+                          momentum=sharding.full_params(k.momentum, shards),
+                          adam_mu=sharding.full_params(k.adam_mu, shards),
+                          adam_nu=sharding.full_params(k.adam_nu, shards)))
+
+
+def local_state(state: TrainState, shards) -> TrainState:
+    """A full state cut to this rank's slices (:func:`full_state`'s
+    inverse)."""
+    if shards is None:
+        return state
+    k = state.kfac
+    return TrainState(sharding.local_params(state.params, shards),
+                      dataclasses.replace(
+                          k, factors=sharding.local_factors(k.factors, shards),
+                          inverses=sharding.local_factors(k.inverses,
+                                                          shards),
+                          momentum=sharding.local_params(k.momentum, shards),
+                          adam_mu=sharding.local_params(k.adam_mu, shards),
+                          adam_nu=sharding.local_params(k.adam_nu, shards)))
 
 
 def enc_len_for(cfg, seq: int) -> int:
@@ -69,10 +121,13 @@ def init_params(cfg, *, generator: torch.Generator, device):
     return model_module(cfg).init(cfg, generator=generator, device=device)
 
 
-def make_wu_plan_for(cfg, state: TrainState, *, ndev: int = 1):
-    """Pooled WU plan for this model, from the state's factor shapes, on
-    an INV plan of ``ndev`` devices."""
-    return make_wu_plan(kfac_specs(cfg), state.kfac.factors, ndev=ndev)
+def make_wu_plan_for(cfg, state: TrainState, *, ndev: int = 1,
+                     shards=None):
+    """Pooled WU plan for this model (this rank's slices under
+    ``shards``), from the state's factor shapes, on an INV plan of
+    ``ndev`` devices."""
+    return make_wu_plan(kfac_specs(cfg, shards), state.kfac.factors,
+                        ndev=ndev)
 
 
 def reduce_shares(tensors, data_mesh, scales) -> list:
@@ -133,8 +188,10 @@ def batch_rows(batch: dict, lo: int, hi: int) -> dict:
 def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
                     use_kernel: bool = False,
                     timer: Callable | None = None,
-                    data_mesh=None) -> Callable:
-    """One FP+BP+WU step ``(state, batch) -> (state, metrics)``.
+                    data_mesh=None, shards=None) -> Callable:
+    """One FP+BP+WU step ``(state, batch) -> (state, metrics)``; the
+    metrics carry the loss, the gradient norm and the trust-region
+    scale ``nu``.
 
     ``cfg.train_accum > 1`` splits the batch rows into that many
     microbatches and averages their loss and gradients. ``wu_plan``
@@ -143,12 +200,17 @@ def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
     if given, runs the WU as ``timer("wu", fn)``. ``data_mesh``: the
     loss and gradients are the global batch's, reduced over its ranks,
     each holding an even share of the rows
-    (``data.make_global_batch``)."""
-    specs = kfac_specs(cfg)
+    (``data.make_global_batch``). ``shards``: tensor parallelism (see
+    the module's docstring)."""
+    specs = kfac_specs(cfg, shards)
     accum = max(cfg.train_accum, 1)
     timer = timer or (lambda name, fn: fn())
 
     def train_step(state: TrainState, batch):
+        with bound(shards):
+            return step(state, batch)
+
+    def step(state: TrainState, batch):
         if accum == 1:
             loss, grads = _grads(cfg, state.params, batch)
         else:
@@ -174,19 +236,21 @@ def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
             red = reduce_shares([grads[k] for k in order] + [loss],
                                 data_mesh, [w] * (len(order) + 1))
             grads, loss = dict(zip(order, red[:-1])), red[-1]
+        info: dict = {}
         params2, kstate2 = timer("wu", lambda: kfac.apply_updates(
             state.params, grads, state.kfac, specs, kcfg, wu_plan=wu_plan,
-            use_kernel=use_kernel))
-        gnorm = torch.sqrt(sum(
-            torch.sum(torch.square(grads[k].to(torch.float32)))
-            for k in kfac.tree_order(grads)))
-        return TrainState(params2, kstate2), {"loss": loss,
-                                              "grad_norm": gnorm}
+            use_kernel=use_kernel, shards=shards, info=info))
+        gnorm = torch.sqrt(sharding.leaf_sum(
+            [(k, torch.sum(torch.square(grads[k].to(torch.float32))))
+             for k in kfac.tree_order(grads)], shards))
+        return TrainState(params2, kstate2), {
+            "loss": loss, "grad_norm": gnorm, "nu": info["nu"]}
 
     return train_step
 
 
-def make_stats_step(cfg, kcfg: KFACConfig, data_mesh=None) -> Callable:
+def make_stats_step(cfg, kcfg: KFACConfig, data_mesh=None,
+                    shards=None) -> Callable:
     """SU: factor Grams from one tapped fwd+bwd, EMA'd into the state:
     ``(state, batch, weight=None) -> (state, metrics)``.
 
@@ -197,8 +261,9 @@ def make_stats_step(cfg, kcfg: KFACConfig, data_mesh=None) -> Callable:
     ``data_mesh``: the Grams and the loss are the global subsample's,
     reduced over its ranks; ``weight`` is this rank's share of the
     subsample's rows (default an even split), and a rank holding none of
-    them (``weight`` 0, no rows) adds zeros."""
-    specs = kfac_specs(cfg)
+    them (``weight`` 0, no rows) adds zeros. ``shards``: tensor
+    parallelism (see the module's docstring)."""
+    specs = kfac_specs(cfg, shards)
     mod = model_module(cfg)
 
     def local_grams(state: TrainState, batch):
@@ -208,8 +273,9 @@ def make_stats_step(cfg, kcfg: KFACConfig, data_mesh=None) -> Callable:
             return mod.loss_fn(cfg, p, bt, taps=tp, collect=True,
                                soi_block=kcfg.block_size)
 
-        return kfac.stats_grams(loss_with_taps, state.params, taps, batch,
-                                specs, kcfg.block_size)
+        with bound(shards):
+            return kfac.stats_grams(loss_with_taps, state.params, taps,
+                                    batch, specs, kcfg.block_size)
 
     def stats_step(state: TrainState, batch, weight=None):
         if data_mesh is None:
@@ -277,7 +343,8 @@ def make_smw_step(cfg, kcfg: KFACConfig,
 
 def make_inv_refresh(cfg, kcfg: KFACConfig, *, mesh=None,
                      distributed: bool = False, plan: Plan | None = None,
-                     pdiv_cap_bs: int | None = None) -> Callable:
+                     pdiv_cap_bs: int | None = None,
+                     shards=None) -> Callable:
     """``refresh(factors, out=None) -> inverses``: the paper's
     composed-precision INV of every SOI block through
     ``solve.block_solver.invert_factor_tree`` (the ``neumann_inv`` kernel
@@ -296,8 +363,19 @@ def make_inv_refresh(cfg, kcfg: KFACConfig, *, mesh=None,
     under ``invert_factor_tree``'s rules (a plan for another rank count
     raises ``ValueError``, a one-device plan runs replicated). Without
     one, ``neumann_inv`` takes every block whole, up to 1024 (its one-CTA
-    route up to 128, its large route above)."""
+    route up to 128, its large route above).
+
+    Under ``shards`` (a ``(data, model)`` ``mesh``, the factors this
+    rank's blocks) ``distributed`` inverts each block of the full factor
+    tree on exactly one rank, as the reference's plan over every mesh
+    axis does: the replicated leaves (the A side of a column-parallel
+    weight, the G side of a row-parallel one, every side of an unsliced
+    one) on a plan over the whole mesh, the model-sliced leaves on a plan
+    over the data ranks of the rank's model column (``mesh["data"]``):
+    two grouped calls, each gathered over its own mesh."""
     del cfg
+    if distributed and shards is not None:
+        return _split_refresh(kcfg, mesh, shards)
     dist_mesh = mesh if (distributed and mesh is not None
                          and mesh_ndev(mesh) > 1) else None
     built = {"plan": plan}
@@ -310,6 +388,35 @@ def make_inv_refresh(cfg, kcfg: KFACConfig, *, mesh=None,
                                       pdiv_cap_bs=pdiv_cap_bs)
         return invert_factor_tree(factors, kcfg, mesh=dist_mesh,
                                   plan=built["plan"], out=out)
+
+    return refresh
+
+
+def _split_refresh(kcfg: KFACConfig, mesh, shards) -> Callable:
+    """:func:`make_inv_refresh`'s tensor-parallel ``distributed``
+    refresh."""
+    parts = ((mesh, lambda d: d is None),
+             (mesh[DATA], lambda d: d is not None))
+    plans: dict = {}
+
+    def refresh(factors, out=None):
+        res: dict = {}
+        for i, (sub, pick) in enumerate(parts):
+            tree = {n: {s: f for s, f in d.items()
+                        if pick(shards.factor_dim(n, s, f.ndim))}
+                    for n, d in factors.items()}
+            tree = {n: d for n, d in tree.items() if d}
+            if not tree:
+                continue
+            if i not in plans:
+                plans[i] = make_plan(tree, mesh_ndev(sub), kcfg)
+            got = invert_factor_tree(
+                tree, kcfg, mesh=sub, plan=plans[i],
+                out=None if out is None else {n: out[n] for n in tree})
+            for n, d in got.items():
+                res.setdefault(n, {}).update(d)
+        return {n: {s + "_inv": res[n][s + "_inv"] for s in d}
+                for n, d in factors.items()}
 
     return refresh
 

@@ -25,9 +25,10 @@ refresh through the block-parallel solver, which on one device is the
 replicated refresh.
 
 Under ``torchrun`` (``WORLD_SIZE`` > 1) the program trains data-parallel:
-it initialises the process group (NCCL on ``--device cuda``, gloo on
-``--device cpu``, or ``--dist-backend``), puts each rank on
-``cuda:{LOCAL_RANK}``, builds ``launch.mesh.make_dev_mesh()`` and
+it initialises the process group (NCCL when each rank has a card of its
+own, gloo on ``--device cpu`` or when ranks share cards, or
+``--dist-backend``), puts each rank on ``cuda:{LOCAL_RANK % cards}``,
+builds ``launch.mesh.make_dev_mesh()`` and
 replicates the params; each rank takes its rows of the global batch,
 the loss, gradients and factor Grams are reduced over the ranks, and
 with ``--dist-inv`` each rank inverts its share of the blocks. Rank 0
@@ -36,8 +37,17 @@ prints the JSON and writes the checkpoints::
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch qwen1.5-0.5b --dist-inv --steps 4 --batch 8 --seq 256
 
-``--model-parallel``, ``--pp``, and ``--async-inv`` or ``--smw`` across
-ranks raise (ROADMAP Queue 1 item 8).
+``--model-parallel N`` splits each model group of ``N`` ranks of the
+``(data, model)`` mesh megatron-style (``dist.sharding.model_spec_dim``):
+attention and MLP weights are sliced, each rank's K-FAC factor blocks
+follow its weight slice, and with ``--dist-inv`` each block of the full
+factor tree is inverted on exactly one rank::
+
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+      --arch qwen1.5-0.5b --model-parallel 2 --dist-inv --steps 4
+
+``--pp``, moe under ``--model-parallel``, and ``--async-inv``, ``--smw``
+or ``--optimizer sgd`` across ranks raise (ROADMAP Queue 1 item 8).
 
 ``--smw`` replaces the stats/inv cadence with the incremental SOI path:
 every step runs one rank-k program (SU with column factors, factor EMA,
@@ -70,7 +80,9 @@ from repro_torch.core import kfac, quantize
 from repro_torch.core.kfac import KFACConfig
 from repro_torch.data.pipeline import (DataCursor, SyntheticTokens,
                                        batch_shard, make_global_batch)
-from repro_torch.dist.api import mesh_ndev
+from repro_torch.dist import sharding
+from repro_torch.dist.api import (DATA, MODEL, MULTI_GPU_ITEM, axis_sizes,
+                                  mesh_ndev)
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.steps import TrainState
@@ -140,10 +152,6 @@ def _phase_timer(device: torch.device, obs, phase_s: dict,
     return timed
 
 
-#: what the multi-rank paths still lack raises naming this
-MULTI_GPU_ITEM = "ROADMAP Queue 1 item 8"
-
-
 @dataclasses.dataclass
 class KFACProgram:
     """K-FAC program: INV through ``neumann_inv`` and the WU on
@@ -173,14 +181,20 @@ class KFACProgram:
     (``steps.make_inv_refresh(distributed=True)``); on one device that is
     the replicated refresh, as in the reference.
 
-    ``mesh``: data parallelism over a DeviceMesh (every rank running this
-    program on its own ``device``, the params replicated): each step's
-    batch is this rank's rows of the global batch
-    (``data.make_global_batch``), the SU subsample the global rows
-    ``[:stats_batch]`` this rank holds, and the loss, gradients and
-    Grams are reduced over the ranks (``launch.steps``); with
-    ``dist_inv`` each rank inverts its share of the blocks. ``smw`` and
-    ``async_inv`` across ranks wait for ROADMAP Queue 1 item 8.
+    ``mesh``: a ``(data, model)`` DeviceMesh (``launch.mesh``), every
+    rank running this program on its own ``device``: each step's batch
+    is this rank's rows of the global batch (``data.make_global_batch``),
+    the SU subsample the global rows ``[:stats_batch]`` this rank holds,
+    and the loss, gradients and Grams are reduced over the ranks of the
+    data axis (``launch.steps``); with ``dist_inv`` each rank inverts its
+    share of the blocks. A model axis of several ranks adds tensor
+    parallelism (:attr:`shards`, ``dist.sharding.ModelShards``): the
+    state holds this rank's slices (the params made whole from the seed
+    and sliced), the model reduces through its seams, and
+    :meth:`full_state`/:meth:`local_state` carry a state to and from
+    the full model's, the layout of a checkpoint. ``smw`` and
+    ``async_inv`` across ranks, and moe under tensor parallelism, wait
+    for ROADMAP Queue 1 item 8.
 
     ``obs``: phase spans and the ``train_phase_s`` histogram."""
 
@@ -206,12 +220,27 @@ class KFACProgram:
             raise NotImplementedError(
                 f"--{'smw' if self.smw else 'async-inv'} across ranks is "
                 f"not ported yet ({MULTI_GPU_ITEM})")
-        if self.mesh is not None \
-                and batch_shard(self.mesh)[1] != mesh_ndev(self.mesh):
-            raise NotImplementedError(
-                f"a mesh whose non-batch axes hold several ranks "
-                f"({self.mesh.mesh_dim_names}, {tuple(self.mesh.mesh.shape)})"
-                f": only data parallelism is ported ({MULTI_GPU_ITEM})")
+        #: tensor parallelism: this rank's layout (None without it)
+        self.shards = None
+        self.data_mesh = self.mesh
+        if self.mesh is not None:
+            sizes = axis_sizes(self.mesh)
+            mp = sizes.get(MODEL, 1)
+            if batch_shard(self.mesh)[1] * mp != mesh_ndev(self.mesh) \
+                    or (mp > 1 and set(sizes) != {DATA, MODEL}):
+                raise NotImplementedError(
+                    f"a mesh {sizes} with axes other than data and model "
+                    f"holding several ranks: only data and tensor "
+                    f"parallelism are ported ({MULTI_GPU_ITEM})")
+            shapes = steps_mod.init_params(self.cfg, generator=None,
+                                           device="meta")
+            self.shards = sharding.model_shards(
+                self.cfg, self.mesh, shapes, self.kcfg.block_size)
+            if self.shards is not None:
+                # the gradients and Grams reduce over the ranks holding
+                # the same slices; one such rank reduces nothing
+                self.data_mesh = (self.mesh[DATA] if sizes[DATA] > 1
+                                  else None)
         self.device = resolve_device(str(self.device))
         if self.obs is None:
             self.obs = obs_mod.NULL
@@ -229,12 +258,30 @@ class KFACProgram:
         kind = quantize.precision_kind(self.kcfg.precision)
         return "fused_precond" if kind in ("fp32", "hilo") else "einsum"
 
+    @property
+    def model_parallel(self) -> int:
+        """The model axis's rank count (1 without tensor parallelism)."""
+        return 1 if self.shards is None else self.shards.mp
+
     def init_state(self) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         params = steps_mod.init_params(self.cfg, generator=gen,
                                        device=self.device)
+        if self.shards is not None:
+            params = sharding.local_params(params, self.shards)
         return TrainState(params, kfac.init(
-            params, steps_mod.kfac_specs(self.cfg), self.kcfg))
+            params, steps_mod.kfac_specs(self.cfg, self.shards), self.kcfg))
+
+    def full_state(self, state: TrainState) -> TrainState:
+        """The full model's state from every model rank's slices (every
+        rank calls; the state itself without tensor parallelism): what a
+        checkpoint holds, whatever the mesh."""
+        return steps_mod.full_state(state, self.shards)
+
+    def local_state(self, state: TrainState) -> TrainState:
+        """A full state (a restored checkpoint) cut to this rank's
+        slices."""
+        return steps_mod.local_state(state, self.shards)
 
     def make_step(self, state: TrainState):
         """``step_fn(state, batch) -> (state, metrics)``; metrics carry
@@ -247,16 +294,21 @@ class KFACProgram:
         phase_s: dict = {}
         timed = _phase_timer(self.device, self.obs, phase_s,
                              async_inv=self.async_inv)
-        wu_plan = (steps_mod.make_wu_plan_for(self.cfg, state)
+        shards = self.shards
+        wu_plan = (steps_mod.make_wu_plan_for(self.cfg, state,
+                                              shards=shards)
                    if self.fused_wu else None)
         mesh = self.mesh
         train = steps_mod.make_train_step(
             self.cfg, kcfg, wu_plan=wu_plan,
             use_kernel=self.wu_route == "fused_precond", timer=timed,
-            data_mesh=mesh)
-        stats = steps_mod.make_stats_step(self.cfg, kcfg, data_mesh=mesh)
+            data_mesh=self.data_mesh, shards=shards)
+        stats = steps_mod.make_stats_step(self.cfg, kcfg,
+                                          data_mesh=self.data_mesh,
+                                          shards=shards)
         refresh = steps_mod.make_inv_refresh(self.cfg, kcfg, mesh=mesh,
-                                             distributed=self.dist_inv)
+                                             distributed=self.dist_inv,
+                                             shards=shards)
         shard, n_shards = batch_shard(mesh) if mesh is not None else (0, 1)
 
         self._refresher = None
@@ -422,6 +474,7 @@ def run(program: KFACProgram | SGDProgram, ds: SyntheticTokens,
                "phase_s": m["phase_s"]}
         if "grad_norm" in m:
             rec["grad_norm"] = float(m["grad_norm"])
+            rec["nu"] = float(m["nu"])
         if "smw_drift" in m:
             rec["smw_drift"] = float(m["smw_drift"])
             rec["smw_fallback"] = m["smw_fallback"]
@@ -461,11 +514,14 @@ def main(argv=None):
                          "blocks; on one device the replicated refresh")
     ap.add_argument("--dist-backend", default=None,
                     help="process-group backend under torchrun "
-                         "(WORLD_SIZE > 1); default nccl on --device "
-                         "cuda, gloo on --device cpu")
+                         "(WORLD_SIZE > 1); default nccl when each rank "
+                         "has a card of its own, gloo on --device cpu "
+                         "or when ranks share cards")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="tensor-parallel ranks; only 1 is ported "
-                         "(ROADMAP Queue 1 item 8)")
+                    help="tensor-parallel ranks a model group under "
+                         "torchrun: attention and MLP sliced "
+                         "megatron-style, each rank's factor blocks "
+                         "following its slice")
     ap.add_argument("--pp", type=int, default=1,
                     help="pipeline stages; only 1 is ported (ROADMAP "
                          "Queue 1 item 8)")
@@ -520,15 +576,19 @@ def main(argv=None):
                          "every span")
     args = ap.parse_args(argv)
 
-    if args.model_parallel > 1 or args.pp > 1:
+    if args.pp > 1:
         raise NotImplementedError(
-            f"--model-parallel {args.model_parallel} / --pp {args.pp}: "
-            f"tensor and pipeline parallelism are not ported yet "
+            f"--pp {args.pp}: pipeline parallelism is not ported yet "
             f"({MULTI_GPU_ITEM})")
     world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.model_parallel > 1 and world % args.model_parallel:
+        raise ValueError(
+            f"--model-parallel {args.model_parallel} needs a multiple of "
+            f"{args.model_parallel} ranks (torchrun), not {world}")
     mesh = None
     if world > 1:
-        mesh, device = init_ranks(args.device, args.dist_backend)
+        mesh, device = init_ranks(args.device, args.dist_backend,
+                                  model=args.model_parallel)
         if args.optimizer != "kfac" or args.smw or args.async_inv:
             raise NotImplementedError(
                 f"data parallelism runs K-FAC without --smw and "
@@ -555,25 +615,28 @@ def params_digest(params) -> str:
     return h.hexdigest()[:16]
 
 
-def init_ranks(device: str, backend: str | None = None):
-    """Under torchrun: the process group (``backend``, default NCCL for a
-    CUDA ``device``, gloo for the CPU) from the environment torchrun sets,
-    this rank's device (``cuda:{LOCAL_RANK}``) and the ``(data, model)``
-    dev mesh over the world: ``(mesh, device)``."""
+def init_ranks(device: str, backend: str | None = None, model: int = 1):
+    """Under torchrun: the process group (``backend``, default
+    ``dist.spawn.backend_for``'s: NCCL when every rank has a card of its
+    own, gloo on the CPU or when ranks share cards) from the environment
+    torchrun sets, this rank's device (``cuda:{LOCAL_RANK % cards}``) and
+    the ``(data, model)`` dev mesh over the world, ``model`` ranks a model
+    group: ``(mesh, device)``."""
     import torch.distributed as dist
 
+    from repro_torch.dist.spawn import backend_for, rank_device
     from repro_torch.launch.mesh import make_dev_mesh
 
     dev = resolve_device(device)
+    world = int(os.environ["WORLD_SIZE"])
     if dev.type == "cuda":
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        dev = rank_device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend or ("nccl" if dev.type == "cuda"
-                                        else "gloo"))
+    dist.init_process_group(backend or backend_for(dev.type, world))
     if dev.type == "cpu":
         torch.set_num_threads(max(1, torch.get_num_threads()
                                   // dist.get_world_size()))
-    return make_dev_mesh(), dev
+    return make_dev_mesh(model), dev
 
 
 def _main(args, device, mesh):
@@ -620,13 +683,16 @@ def _main(args, device, mesh):
     loop = TrainLoop(
         LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                    ckpt_every=args.ckpt_every,
+                   model_parallel=args.model_parallel,
                    hang_factor=10.0 if device.type == "cuda" else None),
         program, ds,
         inject=inject if args.inject_failure_at >= 0 else None, obs=obs)
     result = loop.run()
     history = result["history"]
-    digest = params_digest(loop.final_state.params if args.optimizer ==
-                           "kfac" else loop.final_state[0])
+    # the full model's params (gathered over the model ranks)
+    digest = params_digest(program.full_state(loop.final_state).params
+                           if args.optimizer == "kfac"
+                           else loop.final_state[0])
     digests = [digest]
     if mesh is not None:
         digests = [None] * mesh_ndev(mesh)

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import soi
+from repro_torch.dist.api import fwd_psum
 
 #: far-future sentinel position: the causal mask (q_pos >= kv_pos)
 #: excludes cache columns carrying it
@@ -45,22 +46,34 @@ class Ctx:
 
 def dense(x: torch.Tensor, w: torch.Tensor, name: str,
           ctx: Optional[Ctx] = None, bias: Optional[torch.Tensor] = None,
-          collect_gram: bool = True) -> torch.Tensor:
+          collect_gram: bool = True, group=None,
+          block: int = 0) -> torch.Tensor:
     """Tapped linear ``y = x @ w (+ b) (+ tap[name])`` in ``x.dtype``.
 
     With ``ctx.collect`` the input's blocked Gram, or with
     ``collect="cols"`` its blocked tokens, is recorded (skipped with
-    ``collect_gram=False`` for linears sharing a sibling's A)."""
+    ``collect_gram=False`` for linears sharing a sibling's A), in blocks
+    of ``block`` when given (a model-sliced input keeps its full
+    width's blocks).
+
+    ``group``: the model submesh of a row-parallel ``w`` (rows a slice
+    of the full weight): the fp32 partial product is summed over its
+    ranks (``dist.api.fwd_psum``) before the bias, the tap and the one
+    cast to ``x.dtype``, so the output rounds once, as one rank's
+    does."""
     dt = x.dtype
     y = torch.matmul(x.to(torch.float32), w.to(dt).to(torch.float32))
+    if group is not None:
+        y = fwd_psum(y, group)
     if bias is not None:
         y = y + bias.to(torch.float32)
     if ctx is not None:
         if ctx.collect and collect_gram:
             a = x.detach().to(torch.float32).reshape(-1, x.shape[-1])
-            ctx.stats[name] = (soi.blocked_tokens(a, ctx.soi_block)
-                               if ctx.collect == "cols"
-                               else soi.blocked_gram(a, ctx.soi_block))
+            ctx.stats[name] = (
+                soi.blocked_tokens(a, ctx.soi_block, block)
+                if ctx.collect == "cols"
+                else soi.blocked_gram(a, ctx.soi_block, block))
         if ctx.taps is not None and name in ctx.taps:
             y = y + ctx.taps[name].reshape(y.shape)
     return y.to(dt)

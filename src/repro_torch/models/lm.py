@@ -26,6 +26,16 @@ their gradients are the per-token output gradients; with ``collect``
 the input-side blocked Grams (or, with ``collect="cols"``, blocked
 tokens) come back stacked like the taps.
 
+Tensor parallelism (``--model-parallel``): the attention and MLP blocks
+take their head and width counts from the projections' shapes, so they
+run on a model rank's slices (``dist.sharding.model_spec_dim``). Where
+the q/k/v (or ``wg``/``wu``) columns are a slice, the block's input
+passes ``dist.api.bwd_psum_if_bound`` (its cotangent summed over the
+model ranks), and ``wo`` (``wd``) sums its fp32 partials over them
+inside ``layers.dense`` before the cast, collecting its A statistic in
+the full width's blocks. Outside a ``hint_guard`` binding the model axis
+both are the identity, as in the reference.
+
 Serving: :func:`init_cache` makes a decode cache, a flat dict keyed like
 the parameters: ``layers/k``, ``layers/v`` (L, B, S, kv, hd) and
 ``layers/pos`` (L, B, S) for attention layers (the hybrid's windowed
@@ -50,7 +60,9 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import soi
 from repro_torch.core.soi import LinearSpec
+from repro_torch.dist.api import MODEL, bound_mesh, bwd_psum_if_bound
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
@@ -215,6 +227,13 @@ def _attn_block(cfg, p, x, positions, ctx, prefix, *, window=0,
     B, T, _ = x.shape
     hd = cfg.hd
     xin = rms_norm(x, p["ln1"], cfg.norm_eps)
+    # head counts come from the projections' widths: a model rank holds
+    # a slice of the heads (dist.sharding.model_spec_dim)
+    width = cfg.n_heads * hd
+    sliced = p["attn/wq"].shape[-1] < width
+    if sliced:
+        # the q/k/v slices' partial input cotangents, summed (megatron f)
+        xin = bwd_psum_if_bound(xin, MODEL)
     q = dense(xin, p["attn/wq"], f"{prefix}/attn/wq", ctx,
               bias=p.get("attn/bq"))
     k = dense(xin, p["attn/wk"], f"{prefix}/attn/wk", ctx,
@@ -267,15 +286,29 @@ def _attn_block(cfg, p, x, positions, ctx, prefix, *, window=0,
                     chunk=cfg.attn_chunk if T > cfg.attn_chunk else 0,
                     window=window)
     out = dense(out.reshape(B, T, -1), p["attn/wo"], f"{prefix}/attn/wo",
-                ctx)
+                ctx, **_row_parallel(sliced, width, ctx))
     return x + out
+
+
+def _row_parallel(sliced: bool, width: int, ctx) -> dict:
+    """``dense``'s arguments for a row-parallel product whose input is a
+    model slice of ``width``: the model submesh its partials are summed
+    over (megatron g), and the A-side block of the full width."""
+    if not sliced:
+        return {}
+    return {"group": bound_mesh(MODEL),
+            "block": soi.block_size_for(width, ctx.soi_block) if ctx else 0}
 
 
 def _mlp_block(cfg, p, x, ctx, prefix):
     xin = rms_norm(x, p["ln2"], cfg.norm_eps)
+    sliced = p["mlp/wg"].shape[-1] < cfg.d_ff
+    if sliced:
+        xin = bwd_psum_if_bound(xin, MODEL)
     g = dense(xin, p["mlp/wg"], f"{prefix}/mlp/wg", ctx)
     u = dense(xin, p["mlp/wu"], f"{prefix}/mlp/wu", ctx, collect_gram=False)
-    return x + dense(swiglu(g, u), p["mlp/wd"], f"{prefix}/mlp/wd", ctx)
+    return x + dense(swiglu(g, u), p["mlp/wd"], f"{prefix}/mlp/wd", ctx,
+                     **_row_parallel(sliced, cfg.d_ff, ctx))
 
 
 def _write_state(cache, new) -> None:

@@ -24,11 +24,16 @@ Recovery policy:
      (deterministic pipeline => exactly-once optimizer updates);
 * after ``max_failures`` consecutive failures the loop re-raises.
 
-On a program with a ``mesh`` (data parallelism) each rank's batch is its
-rows of the global batch (``data.make_global_batch``); rank 0 alone
-writes the checkpoints, and a recovery waits for its writes, then a
-barrier, then every rank restores the same files, so that every rank
-resumes alike. The ranks agree on failure twice a step, where none has
+On a program with a ``mesh`` each rank's batch is its rows of the global
+batch (``data.make_global_batch``); rank 0 alone writes the
+checkpoints, and a recovery waits for its writes, then a barrier, then
+every rank restores the same files, so that every rank resumes alike.
+Under tensor parallelism a checkpoint holds the full model's state: at
+each save every rank takes part in the program's ``full_state`` (the
+slices gathered over the model ranks), and a restore is cut back to the
+rank's slices by its ``local_state``, so a checkpoint does not depend
+on the mesh. ``LoopConfig.model_parallel`` must match the program's
+model axis, as the reference's loop builds its mesh from it. The ranks agree on failure twice a step, where none has
 a collective in flight: after the ``inject`` hook and after the step's
 watchdog (:meth:`TrainLoop._agree`). A recoverable failure on any rank
 there is a recovery on every rank. One raised inside a rank's step, in
@@ -67,7 +72,10 @@ class Program(Protocol):
     (state) -> state`` folds in-flight background work into the state
     before a checkpoint; ``reset_async()`` drops it on recovery; a true
     ``async_inv`` says that work runs on a side stream, so the step
-    fence waits for the current stream only."""
+    fence waits for the current stream only; ``full_state(state)`` and
+    ``local_state(state)`` carry a state to and from the layout a
+    checkpoint holds; ``model_parallel`` is the model axis's rank
+    count."""
 
     device: Any
 
@@ -83,6 +91,7 @@ class LoopConfig:
     ckpt_every: int = 50
     keep: int = 3
     max_failures: int = 3
+    model_parallel: int = 1
     log_every: int = 10
     straggler_factor: float = 2.0
     # the step deadline is hang_factor x the median healthy step (after
@@ -112,6 +121,11 @@ class TrainLoop:
         self.obs = obs if obs is not None else NULL_OBS
         self.inject = inject
         self.mesh = getattr(program, "mesh", None)
+        mp = getattr(program, "model_parallel", 1)
+        if mp != cfg.model_parallel:
+            raise ValueError(
+                f"LoopConfig.model_parallel={cfg.model_parallel} but the "
+                f"program's mesh has {mp} model ranks")
         writer = self.mesh is None or torch.distributed.get_rank() == 0
         self.ckpt = (CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
                      if cfg.ckpt_dir is not None and writer else None)
@@ -156,6 +170,9 @@ class TrainLoop:
         like = self.program.init_state()      # structure donor
         with self.obs.span("ckpt_restore", fence=self._fence_target()):
             state, manifest = restore(self.cfg.ckpt_dir, like)
+            local = getattr(self.program, "local_state", None)
+            if local is not None:
+                state = local(state)
         cursor = DataCursor.from_json(manifest["meta"]["cursor"])
         log.info("restored step %d onto %s", manifest["step"], self.device)
         return state, cursor
@@ -303,21 +320,27 @@ class TrainLoop:
                     log.info("step %d %s", last["step"],
                              {k: v for k, v in last.items()
                               if k != "step"})
-            if self.ckpt is not None and (
+            if self.cfg.ckpt_dir is not None and (
                     cursor.step % self.cfg.ckpt_every == 0
                     or cursor.step == self.cfg.total_steps):
                 # snapshot with in-flight background work folded in,
                 # without rebinding the live state (the trajectory must
-                # not depend on the checkpoint cadence)
+                # not depend on the checkpoint cadence); the full
+                # model's state, gathered by every rank
                 flush = getattr(self.program, "flush_async", None)
                 save_state = flush(state) if flush is not None else state
-                with self.obs.span("ckpt_save_dispatch",
-                                   args={"step": cursor.step}):
-                    self.ckpt.save_async(
-                        cursor.step, save_state,
-                        meta={"cursor": cursor.to_json()})
-                if self.obs.enabled:
-                    self._c_ckpt.inc()
+                full = getattr(self.program, "full_state", None)
+                if full is not None:
+                    save_state = full(save_state)
+                if self.ckpt is not None:
+                    with self.obs.span("ckpt_save_dispatch",
+                                       args={"step": cursor.step}):
+                        self.ckpt.save_async(
+                            cursor.step, save_state,
+                            meta={"cursor": cursor.to_json()})
+                    if self.obs.enabled:
+                        self._c_ckpt.inc()
+                del save_state
 
         self._drain_taps()   # tail of the last (partial) window
         if self.ckpt is not None:
@@ -327,6 +350,7 @@ class TrainLoop:
             "steps": cursor.step,
             "wall_s": time.monotonic() - t_start,
             "recoveries": self.n_recoveries,
+            "model_parallel": self.cfg.model_parallel,
             "stragglers": self.watchdog.n_stragglers,
             **({"ckpt_write_s": list(self.ckpt.write_s)}
                if self.ckpt is not None else {}),

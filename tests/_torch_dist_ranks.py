@@ -70,6 +70,8 @@ def numpy_tree(tree):
 def bitwise(a, b) -> bool:
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(bitwise(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(bitwise, a, b))
     return bool(torch.equal(a, b))
 
 
@@ -195,15 +197,21 @@ def rules_rank(rank, world, arch, g_np):
             "pool": sharding.solve_pool_sharding(mesh)}
     dev_mesh = make_dev_mesh(model=2)
     res["dev_mesh"] = (api.mesh_axes(dev_mesh), api.axis_sizes(dev_mesh))
-    # a trainer on a mesh with a model axis of several ranks refuses it
+    # a trainer on a mesh with a model axis of several ranks takes it
+    # (tensor parallelism), except for moe, whose expert parallelism is
+    # not ported
     from repro_torch.core.kfac import KFACConfig
     from repro_torch.launch.train import KFACProgram
+    program = KFACProgram(get_smoke_config(arch), KFACConfig(block_size=32),
+                          device="cpu", mesh=dev_mesh)
+    res["model_axis"] = (program.model_parallel, program.shards.rank,
+                         api.mesh_ndev(program.data_mesh))
     try:
-        KFACProgram(get_smoke_config(arch), KFACConfig(), device="cpu",
-                    mesh=dev_mesh)
-        res["model_axis_refused"] = False
+        KFACProgram(get_smoke_config("moonshot-v1-16b-a3b"), KFACConfig(),
+                    device="cpu", mesh=dev_mesh)
+        res["moe_refused"] = False
     except NotImplementedError as e:
-        res["model_axis_refused"] = "item 8" in str(e)
+        res["moe_refused"] = "item 8" in str(e)
     # compressed means of each rank's own gradient, with error feedback
     mesh = make_mesh((world,))
     g = torch.from_numpy(g_np[rank])
@@ -328,6 +336,250 @@ def recovery_rank(rank, world, arch, ckpt_dir, common, n_steps, fail_rank,
 
 
 # ---------------------------------------------------------------------------
+# tests/test_torch_dist_tp.py
+# ---------------------------------------------------------------------------
+
+#: the tensor-parallel tests' K-FAC block: at 32 the smoke configs take
+#: every case of the slicing rule (tests/test_torch_dist_tp.py)
+TP_BLOCK = 32
+
+
+def seams_rank(rank, world):
+    """The seams on a (1, world) mesh: ``fwd_psum`` sums forward and
+    passes the cotangent through, ``bwd_psum`` passes forward and sums
+    the cotangent; the ``*_if_bound`` forms only inside a guard that
+    bound the axis; the guard's binding dropped after a raise."""
+    from repro_torch.dist import api
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    mesh = make_dev_mesh(world)
+    sub = mesh["model"]
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) * (rank + 1)
+    ct = torch.full((2, 3), float(rank + 1))
+    base = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    total = sum(range(1, world + 1))
+    flags = {}
+    api.SEAM_TRAFFIC.update(reductions=0, bytes=0)
+    xr = x.clone().requires_grad_()
+    y = api.fwd_psum(xr, sub)
+    (g,) = torch.autograd.grad(y, xr, ct)
+    flags["fwd_value"] = torch.equal(y, base * total)
+    flags["fwd_grad"] = torch.equal(g, ct)
+    xr = x.clone().requires_grad_()
+    y = api.bwd_psum(xr, sub)
+    (g,) = torch.autograd.grad(y, xr, ct)
+    flags["bwd_value"] = torch.equal(y, x)
+    flags["bwd_grad"] = torch.equal(g, torch.full((2, 3), float(total)))
+    xb = x.to(torch.bfloat16).requires_grad_()
+    (g,) = torch.autograd.grad(api.bwd_psum(xb, sub), xb,
+                               ct.to(torch.bfloat16))
+    flags["bwd_bf16"] = g.dtype == torch.bfloat16 and torch.equal(
+        g.float(), torch.full((2, 3), float(total)))
+    flags["traffic"] = api.SEAM_TRAFFIC == {"reductions": 3,
+                                            "bytes": 3 * 6 * 4}
+    flags["unbound"] = (api.psum_if_bound(x, "model") is x
+                        and api.bwd_psum_if_bound(x, "model") is x
+                        and api.bound_axes() == {})
+    with api.hint_guard({"model": sub}):
+        flags["bound"] = (api.bound_axes() == {"model": world}
+                          and torch.equal(api.psum_if_bound(x, "model"),
+                                          base * total)
+                          and api.bound_mesh("data") is None)
+        with api.hint_guard():
+            flags["inner_unbound"] = api.psum_if_bound(x, "model") is x
+    try:
+        with api.hint_guard({"model": sub}):
+            raise KeyError("inside")
+    except KeyError:
+        pass
+    flags["dropped_after_raise"] = api.bound_axes() == {}
+    return flags
+
+
+def tp_model_rank(rank, world, mesh_shape, cases):
+    """Loss and gradients of each case ``(arch, params, batch)`` (fp32
+    compute, the full numpy weights and batch) on a ``(data, model)``
+    mesh of ``mesh_shape``: the rank's slices of the weights, its rows of
+    the batch, the model under the guard, the loss and gradients reduced
+    over the data ranks, the gradients gathered over the model ranks.
+    Returns each case's loss and gathered gradients (rank 0), the
+    sliced dims, and whether every sliced leaf lives only as its slice
+    (its shape the full one divided by ``mp`` along that dim)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import batch_shard
+    from repro_torch.dist import sharding
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    data, mp = mesh_shape
+    mesh = make_dev_mesh(mp)
+    data_mesh = mesh["data"] if data > 1 else None
+    out = []
+    for arch, params_np, batch_np in cases:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        full = {k: torch.from_numpy(v) for k, v in params_np.items()}
+        shards = sharding.model_shards(cfg, mesh, full, TP_BLOCK)
+        local = sharding.local_params(full, shards)
+        shard, n = batch_shard(mesh)
+        b = batch_np["tokens"].shape[0] // n
+        rows = steps_mod.batch_rows(
+            {k: torch.from_numpy(v) for k, v in batch_np.items()},
+            shard * b, (shard + 1) * b)
+        with steps_mod.bound(shards):
+            loss, grads = steps_mod._grads(cfg, local, rows)
+        order = sorted(grads)
+        if data_mesh is not None:
+            red = steps_mod.reduce_shares([grads[k] for k in order] + [loss],
+                                          data_mesh, [1.0 / n] * (len(order)
+                                                                  + 1))
+            grads, loss = dict(zip(order, red[:-1])), red[-1]
+        gathered = sharding.full_params(grads, shards)
+        sliced_only = all(
+            local[k].shape[d] * mp == full[k].shape[d]
+            and local[k].shape[:d] + local[k].shape[d + 1:]
+            == full[k].shape[:d] + full[k].shape[d + 1:]
+            for k, d in shards.dims.items() if d is not None)
+        out.append({"loss": float(loss),
+                    "grads": ({k: v.numpy() for k, v in gathered.items()}
+                              if rank == 0 else None),
+                    "dims": {k: d for k, d in shards.dims.items()
+                             if d is not None},
+                    "sliced_only": sliced_only})
+    return out
+
+
+def tp_train_rank(rank, world, mesh_shape, arch, n_steps, common,
+                  ckpt_dir):
+    """``runtime.TrainLoop`` over ``KFACProgram`` on a ``(data, model)``
+    mesh of ``mesh_shape`` (seed-0 weights, fp32 compute, ``--dist-inv``)
+    for ``n_steps``, writing its last checkpoint into ``ckpt_dir``: the
+    losses and trust-region ``nu`` of every step, digests of the
+    replicated leaves at every step, rank 0's full final state (gathered),
+    and whether the ``--dist-inv`` refresh of the final factors is bitwise
+    the one-rank refresh's blocks, and the trust-region ``nu`` of one
+    update on seeded gradients, on one rank's full state and on this
+    rank's slices. At (2, 2) also ``solve.fused_wu`` in both modes over
+    the data submesh against the local call, and the compressed
+    reduction of a seeded gradient over ``data``, against the one-axis
+    call on the data submesh, and over (pod, data) of a (1, 2, 2) mesh."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import kfac
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.dist import compression, sharding
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+    from repro_torch.solve import make_wu_plan
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    mesh = make_dev_mesh(mesh_shape[1])
+    program = train_mod.KFACProgram(cfg, kfac.KFACConfig(**common),
+                                    device="cpu", mesh=mesh, dist_inv=True)
+    ds = SyntheticTokens(cfg.vocab, common["stats_seq"],
+                         common["stats_batch"], seed=0)
+    digests = []
+    make_step = program.make_step
+
+    def digesting(state):
+        step_fn = make_step(state)
+
+        def step(state, batch):
+            state, m = step_fn(state, batch)
+            digests.append(train_mod.params_digest(
+                {k: v for k, v in state.params.items()
+                 if program.shards.dims.get(k) is None}))
+            return state, m
+
+        return step
+
+    program.make_step = digesting
+    loop = TrainLoop(LoopConfig(n_steps, ckpt_dir=ckpt_dir,
+                                ckpt_every=n_steps, hang_factor=None,
+                                model_parallel=mesh_shape[1]), program, ds)
+    res = loop.run()
+    full = program.full_state(loop.final_state)
+    # the split refresh of the final factors: each rank's inverse blocks
+    # bitwise the matching blocks of the one-rank refresh
+    refresh = steps_mod.make_inv_refresh(cfg, program.kcfg, mesh=mesh,
+                                         distributed=True,
+                                         shards=program.shards)
+    one = sharding.local_factors(
+        kfac.invert_factors(full.kfac.factors, program.kcfg),
+        program.shards)
+    # the trust-region scale on the same seeded gradients: one rank's
+    # on the full state against this rank's on its slices
+    g = {k: torch.from_numpy(np.random.default_rng(7).standard_normal(
+        tuple(v.shape)).astype(np.float32)) for k, v in full.params.items()}
+    nus = []
+    for st, grads, shards in ((full, g, None),
+                              (loop.final_state,
+                               sharding.local_params(g, program.shards),
+                               program.shards)):
+        specs = steps_mod.kfac_specs(cfg, shards)
+        info: dict = {}
+        kfac.apply_updates(st.params, grads, st.kfac, specs, program.kcfg,
+                           wu_plan=make_wu_plan(specs, st.kfac.factors),
+                           use_kernel=True, shards=shards, info=info)
+        nus.append(float(info["nu"]))
+    out = {"losses": [h["loss"] for h in res["history"]],
+           "nu_same_inputs": nus,
+           "refresh_bitwise": bitwise(
+               refresh(loop.final_state.kfac.factors), one),
+           "nu": [h["nu"] for h in res["history"]],
+           "replicated_digests": digests,
+           "digest": train_mod.params_digest(full.params),
+           "local_shapes": {k: tuple(v.shape) for k, v in
+                            loop.final_state.params.items()},
+           "state": ({"params": {k: v.numpy() for k, v in
+                                 full.params.items()},
+                      "factors": numpy_tree(full.kfac.factors),
+                      "inverses": numpy_tree(full.kfac.inverses)}
+                     if rank == 0 else None)}
+    if mesh_shape == (2, 2):
+        # fused INV->VMM over the data submesh, on this rank's slices
+        from repro_torch.solve import refresh_and_precondition
+
+        local, specs = loop.final_state, steps_mod.kfac_specs(
+            cfg, program.shards)
+        lg = sharding.local_params(g, program.shards)
+        lg = {k: v for k, v in lg.items() if k in specs}
+        inv1, pre1 = refresh_and_precondition(
+            local.kfac.factors, lg, program.kcfg,
+            make_wu_plan(specs, local.kfac.factors))
+        wu2 = make_wu_plan(specs, local.kfac.factors, ndev=2)
+        out["fused_wu_data_submesh"] = {
+            mode: bitwise(refresh_and_precondition(
+                local.kfac.factors, lg, program.kcfg, wu2,
+                mesh=mesh["data"], mode=mode), (inv1, pre1))
+            for mode in ("owner", "gather")}
+        g = {"w": torch.from_numpy(np.random.default_rng(rank).standard_normal(
+            (8, 16)).astype(np.float32))}
+        e = {"w": torch.zeros(8, 16)}
+        got, err = compression.compressed_allreduce_tree(
+            g, e, mesh, ("pod", "data"))
+        want, werr = compression.compressed_allreduce_tree(
+            g, e, mesh["data"], ("data",))
+        from torch.distributed.device_mesh import init_device_mesh
+        mesh3 = init_device_mesh("cpu", (1, 2, 2),
+                                 mesh_dim_names=("pod", "data", "model"))
+        got3, err3 = compression.compressed_allreduce_tree(
+            g, e, mesh3, ("pod", "data"))
+        out["compressed"] = {"data_axis": bitwise(got, want)
+                             and bitwise(err, werr),
+                             "pod_data_axes": bitwise(got3, want)
+                             and bitwise(err3, werr)}
+    return out
+
+
+def tp_world2_rank(rank, world, cases):
+    """World 2's body: :func:`seams_rank`, then :func:`tp_model_rank` at
+    (1, 2)."""
+    return {"seams": seams_rank(rank, world),
+            "models": tp_model_rank(rank, world, (1, world), cases)}
+
+
+# ---------------------------------------------------------------------------
 # tests/test_torch_cuda.py
 # ---------------------------------------------------------------------------
 
@@ -365,3 +617,57 @@ def cuda_refresh_rank(rank, world, leaves):
             "expected": nv_mod.expected_launches(
                 {g.bs: [g.per_device] for g in plan.groups}, **kw),
             "per_device": {g.bs: g.per_device for g in plan.groups}}
+
+
+#: tests/test_torch_cuda.py's tensor-parallel run: dense smoke at fp32
+CUDA_TP = dict(arch="qwen1.5-0.5b", steps=4,
+               kcfg=dict(stats_every=2, inv_every=2, block_size=TP_BLOCK,
+                         stats_batch=4, stats_seq=32))
+
+
+def _cuda_tp_run(device, mesh):
+    """``CUDA_TP``'s K-FAC run on ``device`` (``mesh``: a (1, 2) mesh, or
+    None for one rank): losses, launches, blocks inverted, gathered
+    params digest."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import kfac
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import fused_precond as fp_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(CUDA_TP["arch"]),
+                              dtype="float32")
+    kc = CUDA_TP["kcfg"]
+    program = train_mod.KFACProgram(cfg, kfac.KFACConfig(**kc),
+                                    device=device, mesh=mesh, dist_inv=True)
+    ops.reset_launch_counts()
+    state, hist = train_mod.run(program, SyntheticTokens(
+        cfg.vocab, kc["stats_seq"], kc["stats_batch"], seed=0),
+        CUDA_TP["steps"])
+    torch.cuda.synchronize(device)
+    wu = steps_mod.make_wu_plan_for(cfg, state, shards=program.shards)
+    return {"losses": [h["loss"] for h in hist],
+            "fused_precond": ops.launch_counts()["fused_precond"],
+            "fused_precond_expected": CUDA_TP["steps"] * sum(
+                fp_mod.expected_launches(g.n_tiles, g.bi, g.bo,
+                                         shared=g.bi == g.bo)
+                for g in wu.groups),
+            "blocks": ops.launch_items()["neumann_inv"],
+            "digest": train_mod.params_digest(
+                program.full_state(state).params)}
+
+
+def cuda_tp_rank(rank, world):
+    """One rank of ``CUDA_TP`` on its card, on a (1, 2) mesh."""
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    return _cuda_tp_run(torch.device("cuda", torch.cuda.current_device()),
+                        make_dev_mesh(world))
+
+
+def cuda_tp_one_rank(device):
+    """``CUDA_TP`` on one rank (the test process)."""
+    return _cuda_tp_run(device, None)

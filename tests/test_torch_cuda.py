@@ -1443,3 +1443,29 @@ def test_distributed_refresh_two_ranks_on_one_card(cuda_device, leaves):
         # the rank's pool rows, not every block
         assert r["items"] == {f"n{bs}": n
                               for bs, n in r["per_device"].items()}, r
+
+
+@pytest.mark.cuda
+def test_model_parallel_two_ranks_on_one_card(cuda_device):
+    """``--model-parallel 2 --dist-inv`` on two gloo ranks (on ``cuda:0``
+    when the machine has one card): 4 K-FAC steps of dense smoke at fp32
+    and block 32, each step's loss within 1e-5 of one rank's on the card
+    (only fp32 summation orders differ), the gathered params equal on
+    both ranks, ``fused_precond`` once a WU group a step on each rank, and
+    the blocks ``neumann_inv`` inverted over both ranks each block of the
+    one-rank refresh once a refresh."""
+    import _torch_dist_ranks as ranks_mod
+    from repro_torch.dist.spawn import run_ranks
+
+    ops.build_all()
+    torch.cuda.empty_cache()
+    res = run_ranks(ranks_mod.cuda_tp_rank, 2, device="cuda", timeout=600)
+    one = ranks_mod.cuda_tp_one_rank(cuda_device)
+    assert res[0]["digest"] == res[1]["digest"]
+    blocks = {}
+    for r in res:
+        np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-5)
+        assert r["fused_precond"] == r["fused_precond_expected"] > 0, r
+        for k, n in r["blocks"].items():
+            blocks[k] = blocks.get(k, 0) + n
+    assert blocks == one["blocks"]

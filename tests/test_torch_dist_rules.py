@@ -188,7 +188,11 @@ def test_mesh_helpers_and_specs_on_device_meshes(ranks):
             assert got["pool"] == sharding.solve_pool_sharding(sizes)
     assert all(r["dev_mesh"] == (("data", "model"), {"data": 2, "model": 2})
                for r in res)
-    assert all(r["model_axis_refused"] for r in res)
+    # the trainer takes the model axis: each rank its position in its
+    # model group, a data group of 2 (rank r at mesh (r // 2, r % 2))
+    assert [r["model_axis"] for r in res] == [(2, r % 2, 2)
+                                              for r in range(WORLD)]
+    assert all(r["moe_refused"] for r in res)
 
 
 def test_compressed_mean_across_ranks(ranks):

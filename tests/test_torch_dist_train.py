@@ -156,9 +156,11 @@ def test_failure_inside_one_ranks_step_is_not_recovered(tmp_path):
 
 
 def test_torchrun_refuses_what_is_not_ported():
-    for extra in (["--model-parallel", "2"], ["--pp", "2"]):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ttrain.main(CLI + extra)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ttrain.main(CLI + ["--pp", "2"])
+    # --model-parallel is ported: one rank cannot fill a model group
+    with pytest.raises(ValueError, match="--model-parallel 2"):
+        ttrain.main(CLI + ["--model-parallel", "2"])
     cfg = t_get_smoke_config(ARCH)
     for kw in (dict(smw=True), dict(async_inv=True)):
         with pytest.raises(NotImplementedError, match="item 8"):
