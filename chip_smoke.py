@@ -297,7 +297,33 @@ Phases, each printed as a JSON line:
                  gradient of (d)'s last batch: within s / 127 of the
                  exact mean, 8 steps of error feedback within one step;
                  each rank's peak memory
-  20. trace      the main path's four steps again, the fourth under
+  20. tp         the main path's model split megatron-style over two
+                 model ranks (``--model-parallel 2 --dist-inv``) on the
+                 same two ranks, mesh (1, 2): 4 steps at fp32 (against
+                 one rank) and bf16 (steps 0-1 against the main path),
+                 the split refresh bitwise the one-rank refresh's blocks,
+                 the replicated leaves bitwise across ranks, a checkpoint
+                 of the gathered state restored bitwise
+  21. ep         moonshot-v1-16b-a3b at published widths, 1 of 48 layers,
+                 on the main path's traffic (``train_accum`` 4): one rank
+                 alone at fp32, then its 64 experts split over two model
+                 ranks sharing the card (mesh (1, 2), 32 experts a rank,
+                 the router replicated): (a) fp32 steps 0-1 within 1e-5
+                 of the one rank (the rest and a bf16 run printed); (b)
+                 each rank's expert factor stacks and WU tiles those of
+                 its 32 experts, every block inverted once over the two
+                 ranks, ``neumann_inv`` as the split refresh plans and
+                 ``fused_precond`` once a WU group a step on each rank;
+                 (c) each rank's inverses, largest refresh and one
+                 ``fused_precond`` call against their plain versions;
+                 (d) the router bitwise equal across ranks after every
+                 step; (e) rank 0's checkpoint of the gathered state
+                 restored bitwise; (f) on the same inputs (the initial
+                 params, step 0's batch) the loss within 1e-6 and each
+                 gathered gradient leaf within 1e-5 of one rank's, every
+                 routing decision equal, pairs dropped; the routing
+                 decisions the two fp32 trajectories differ in, by step
+  22. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
                  so that the profiler session cannot perturb the phases
@@ -306,7 +332,7 @@ Phases, each printed as a JSON line:
 Then the script's seconds, a JSON line of per-kernel results (with
 whisper's launches, the serve and paged phases' (none), the paper
 phase's and the tooling phase's, the large routes' at block 256, and
-the dist phase's summed over its ranks),
+the dist, tp and ep phases' summed over their ranks),
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 without the ``ok`` line; so does a machine without CUDA, or a directory
@@ -465,6 +491,15 @@ DIST = dict(block_256=256, ef_steps=8, pre_tol=1e-6, loss_tol=2e-3,
 # input cotangents differs; the data-parallel fp32 witness landed 5.0e-5),
 # and at bf16 steps 0-1 against the main path
 TP = dict(fp32_tol=1e-4, bf16_tol=2e-3)
+# phase ep: moonshot-v1-16b-a3b's experts over two model ranks, at its
+# published widths and one of its 48 layers (two ranks, each with the
+# embedding, the head and half the experts, share the card); fp32 steps
+# 0-1 against one rank (only the fp32 summation order of the experts'
+# partial outputs and of the row-parallel attention differs); on the same
+# inputs the loss and each gradient leaf (of its largest entry) against
+# one rank, at the summation-order tolerances of the CPU tests
+EP = dict(arch="moonshot-v1-16b-a3b", layers=1, published_layers=48,
+          fp32_tol=1e-5, same_tol=1e-6, grad_tol=1e-5)
 # a kernel agrees with its plain version when max|kernel - plain| is at
 # most this share of max|plain| (rounding-level: the tensor cores sum the
 # exact bf16 partial products in another order than the plain matmuls)
@@ -3075,6 +3110,503 @@ def tp_phase(torch, dev, check, main_losses, fp32_losses):
                 for r in ranks]}
 
 
+@contextlib.contextmanager
+def logged_routes(torch, step):
+    """Inside: each ``models.moe.route`` call records, under the step
+    ``step[0]``, its pairs' global expert ids and whether this rank
+    kept each (a pair of another rank's expert: not kept), on the host
+    as numpy arrays. Yields ``{step: [(eid, keep), ...]}``."""
+    from repro_torch.models import moe
+
+    orig = moe.route
+    log = {}
+
+    def spy(cfg, router, xf, *rest):
+        out = orig(cfg, router, xf, *rest)
+        with torch.no_grad():
+            eid = moe._top_k(cfg, router, xf)[1]
+        log.setdefault(step[0], []).append(
+            (eid.to(torch.int16).cpu().numpy(), out[2].cpu().numpy()))
+        return out
+
+    moe.route = spy
+    try:
+        yield log
+    finally:
+        moe.route = orig
+
+
+def route_diffs(one, ranks):
+    """Routing decisions of one rank (``one``, a :func:`logged_routes`
+    log) against the model ranks' (``ranks``, one log each, a pair kept
+    on the rank that owns its expert), step by step: the pairs, the
+    pairs sent to another expert, the pairs kept on one side only, the
+    pairs one rank dropped; None where the calls do not line up."""
+    out = {}
+    for s in sorted(one):
+        calls = [one[s]] + [r.get(s, []) for r in ranks]
+        if len({len(c) for c in calls}) != 1 or any(
+                len({c[i][0].shape for c in calls}) != 1
+                for i in range(len(one[s]))):
+            out[s] = None
+            continue
+        row = dict(pairs=0, expert_differs=0, keep_differs=0, dropped=0)
+        for i, (eid, keep) in enumerate(one[s]):
+            kept = ranks[0][s][i][1].copy()
+            for r in ranks[1:]:
+                kept |= r[s][i][1]
+            row["pairs"] += int(eid.size)
+            row["expert_differs"] += int((eid != ranks[0][s][i][0]).sum())
+            row["keep_differs"] += int((keep != kept).sum())
+            row["dropped"] += int((~keep).sum())
+        out[s] = row
+    return out
+
+
+def ep_same_input(torch, cfg, ds, dev, shards, rank):
+    """Gate (f)'s run: the seeded initial params and step 0's batch, in
+    the train step's microbatches, through the ``(1, 2)`` layout (every
+    rank) and, on rank 0, through one rank: the losses, each gathered
+    gradient leaf's largest difference over its largest entry, and both
+    sides' routing logs (rank 0's one-rank log under ``"one"``)."""
+    from repro_torch.data.pipeline import DataCursor
+    from repro_torch.dist import sharding
+    from repro_torch.launch import steps as steps_mod
+
+    gen = torch.Generator(device=dev).manual_seed(MAIN["seed"])
+    full = steps_mod.init_params(cfg, generator=gen, device=dev)
+    local = sharding.local_params(full, shards)
+    if rank:
+        del full
+    batch = ds.batch(DataCursor(), device=dev)
+    accum = cfg.train_accum
+    mb = batch["tokens"].shape[0] // accum
+
+    def loss_grads(params, on):
+        loss, grads = 0.0, None
+        with steps_mod.bound(on):
+            for i in range(accum):
+                l_i, g_i = steps_mod._grads(cfg, params, steps_mod.batch_rows(
+                    batch, i * mb, (i + 1) * mb))
+                loss += float(l_i) / accum
+                grads = ({k: g / accum for k, g in g_i.items()}
+                         if grads is None else
+                         {k: grads[k] + g_i[k] / accum for k in grads})
+        return loss, grads
+
+    step = [0]
+    with logged_routes(torch, step) as log:
+        loss, grads = loss_grads(local, shards)
+    grads = sharding.full_params(grads, shards)
+    out = {"loss": loss, "log": log}
+    del local
+    if rank == 0:
+        with logged_routes(torch, step) as one_log:
+            one_loss, one_grads = loss_grads(full, None)
+        out.update(one_loss=one_loss, one=one_log, grad_rel={
+            k: float((grads[k] - g).abs().max() / g.abs().max())
+            for k, g in one_grads.items() if float(g.abs().max()) > 0})
+        del full, one_grads
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_rank(rank, world, ckpt_dir):
+    """One rank of phase ``ep`` (run by ``dist.spawn.run_ranks``; see
+    :func:`ep_phase`): moonshot at published widths over a ``(1, 2)``
+    mesh, its experts split over the two model ranks. Returns every gate's inputs and this rank's timings, launches and
+    peak memory; ``fails`` lists the kernel checks that failed."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.checkpoint import CheckpointManager, restore
+    from repro_torch.core import kfac
+    from repro_torch.dist import api
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    train_mod.fp32_matmuls()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_dev_mesh(2)
+    cfg, kcfg, ds = ep_setup()
+    fails = []
+
+    def check(ok, what):
+        if not ok:
+            fails.append(f"ep rank {rank}: {what}")
+
+    def program(dtype, on=mesh):
+        return train_mod.KFACProgram(
+            dataclasses.replace(cfg, dtype=dtype), kcfg, seed=MAIN["seed"],
+            device=dev, mesh=on, dist_inv=True)
+
+    def traced_run(prog, steps, log_routes=False):
+        """``steps`` steps of ``run`` with the launch counts zeroed just
+        before and read just after: the history, each step's router
+        digest, the launches and blocks, the wall seconds; with
+        ``log_routes`` each step's routing decisions."""
+        routers = []
+        step = [0]
+
+        def on_step(state, rec):
+            routers.append(train_mod.params_digest(
+                {k: v for k, v in state.params.items()
+                 if k.endswith("moe/router")}))
+            step[0] += 1
+
+        ops.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with (logged_routes(torch, step) if log_routes
+              else contextlib.nullcontext({})) as log:
+            state, hist = train_mod.run(prog, ds, steps, on_step=on_step)
+        torch.cuda.synchronize(dev)
+        return state, {
+            "routes": log,
+            "losses": [h["loss"] for h in hist],
+            "phase_s": [h["phase_s"] for h in hist],
+            "wall_s": time.perf_counter() - t0, "routers": routers,
+            "launches": ops.launch_counts(),
+            "blocks_inverted": ops.launch_items()["neumann_inv"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+    out = {"rank": rank, "backend": tdist.get_backend(),
+           "mesh": api.axis_sizes(mesh), "layers": cfg.n_layers}
+    sec = out["seconds"] = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        sec[name] = now - clock[0]
+        clock[0] = now
+
+    lap("start")
+    prog = program("float32")
+    shards = prog.shards
+    # (f) the same inputs through both layouts, before any step
+    out["same_input"] = ep_same_input(
+        torch, dataclasses.replace(cfg, dtype="float32"), ds, dev, shards,
+        rank)
+    lap("same_input")
+    # (a) 4 --dist-inv steps at fp32 compute, the routing logged
+    state, out["fp32"] = traced_run(prog, MAIN["steps"], log_routes=True)
+    lap("fp32_run")
+    # (b) the expert leaves' factor stacks, and one refresh's launches
+    out["expert_stacks"] = sorted({
+        int(t.shape[1]) for n, d in state.kfac.factors.items()
+        if "/moe/" in n for t in d.values()})
+    refresh = steps_mod.make_inv_refresh(cfg, kcfg, mesh=mesh,
+                                         distributed=True, shards=shards)
+    refresh(state.kfac.factors)                     # plans built
+    ops.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    refresh(state.kfac.factors)
+    torch.cuda.synchronize(dev)
+    wu = steps_mod.make_wu_plan_for(cfg, state, shards=shards)
+    out["refresh"] = {
+        "ms": (time.perf_counter() - t0) * 1e3,
+        "launches": ops.launch_counts()["neumann_inv"],
+        "blocks": ops.launch_items()["neumann_inv"],
+        "expert_blocks": sum(
+            math.prod(t.shape[:-2]) for n, d in state.kfac.factors.items()
+            if "/moe/" in n for t in d.values()),
+        "fused_precond_per_step": sum(
+            fp_expected(g) for g in wu.groups),
+        "wu_tiles": wu.total_tiles,
+        "expert_wu_stacks": sorted({
+            tuple(leaf.stack) for g in wu.groups for leaf in g.leaves
+            if "/moe/" in leaf.name})}
+    lap("refresh")
+    # (e) the gathered state (rank 0 keeps a host copy), written by rank
+    # 0 beside the kernel checks and the bf16 run
+    full = prog.full_state(state)
+    meta = steps_mod.init_params(cfg, generator=None, device="meta")
+    out["full_shapes_one_rank"] = all(
+        tuple(full.params[k].shape) == tuple(v.shape)
+        for k, v in meta.items()) and set(full.params) == set(meta)
+    writer = None
+    if rank == 0:
+        full = host_state(torch, full)
+        writer = CheckpointManager(ckpt_dir)
+        writer.save_async(MAIN["steps"], full)
+    else:
+        del full
+    torch.cuda.empty_cache()
+    lap("gather_snapshot")
+    # (c) the run's inverses, its largest refresh and one fused_precond
+    # call on this rank's WU plan against their plain versions, timed
+    box = {"state": state}
+    del state
+    worst, refresh_row, precond_row = kfac_kernel_checks(
+        torch, dev, check, f"ep rank {rank}", box, kcfg, wu)
+    out["c"] = {"worst_inverse": worst, "refresh": refresh_row,
+                "fused_precond": precond_row}
+    del box, prog
+    torch.cuda.empty_cache()
+    lap("c")
+    # (a) the same 4 steps at the config's bf16 compute, printed
+    torch.cuda.reset_peak_memory_stats(dev)
+    prog16 = program(cfg.dtype)
+    state16, out["bf16"] = traced_run(prog16, MAIN["steps"])
+    del state16, prog16
+    torch.cuda.empty_cache()
+    lap("bf16_run")
+    # (e) rank 0's checkpoint restored bitwise (the gathered state's host
+    # copy its template: the one-rank layout, checked above)
+    if writer is not None:
+        writer.wait()
+        out["write_s"] = writer.write_s[-1]
+        restored, _ = restore(ckpt_dir, full)
+        out["restored_bitwise"] = (
+            all(torch.equal(restored.params[k], full.params[k])
+                for k in full.params)
+            and all(torch.equal(restored.kfac.factors[n][s],
+                                full.kfac.factors[n][s])
+                    and torch.equal(restored.kfac.inverses[n][s + "_inv"],
+                                    full.kfac.inverses[n][s + "_inv"])
+                    for n in full.kfac.factors for s in full.kfac.factors[n])
+            and all(torch.equal(getattr(restored.kfac, m)[k],
+                                getattr(full.kfac, m)[k])
+                    for m in ("momentum", "adam_mu", "adam_nu")
+                    for k in getattr(full.kfac, m)))
+        del restored, full
+    tdist.barrier()
+    lap("restore")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["fails"] = fails
+    return out
+
+
+def host_state(torch, state):
+    """A TrainState with every tensor copied to the host."""
+    def host(tree):
+        return {k: (host(v) if isinstance(v, dict) else v.cpu())
+                for k, v in tree.items()}
+
+    k = state.kfac
+    return type(state)(host(state.params), dataclasses.replace(
+        k, factors=host(k.factors), inverses=host(k.inverses),
+        momentum=host(k.momentum), adam_mu=host(k.adam_mu),
+        adam_nu=host(k.adam_nu)))
+
+
+def fp_expected(g) -> int:
+    """``fused_precond``'s launches for one WU group."""
+    from repro_torch.kernels import fused_precond as fp_mod
+
+    return fp_mod.expected_launches(g.n_tiles, g.bi, g.bo,
+                                    shared=g.bi == g.bo)
+
+
+def ep_setup():
+    """Phase ``ep``'s model, K-FAC config and data: :data:`EP`'s arch at
+    its published widths, depth cut, on the main path's traffic."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import kfac
+    from repro_torch.data.pipeline import SyntheticTokens
+
+    cfg = dataclasses.replace(get_config(EP["arch"]), n_layers=EP["layers"])
+    kcfg = kfac.KFACConfig(
+        stats_every=MAIN["stats_every"], inv_every=MAIN["inv_every"],
+        block_size=min(MAIN["block_size"], cfg.soi_block),
+        stats_batch=MAIN["batch"], stats_seq=MAIN["seq"])
+    ds = SyntheticTokens(vocab=cfg.vocab, seq_len=MAIN["seq"],
+                         global_batch=MAIN["batch"], seed=MAIN["seed"])
+    return cfg, kcfg, ds
+
+
+def ep_phase(torch, dev, check):
+    """Phase ``ep``: :data:`EP`'s MoE model (moonshot-v1-16b-a3b at
+    published widths, depth cut) with its experts split over the
+    ``model`` axis (``--model-parallel 2 --dist-inv``): first one rank
+    alone in this process at fp32 compute, then two gloo ranks sharing
+    ``cuda:0`` on a (1, 2) mesh, :func:`ep_rank` on each. Checks: (a)
+    the fp32 losses of steps 0-1 within ``EP["fp32_tol"]`` of the one
+    rank's (steps 2-3 and the bf16 run printed); (b) each rank's expert
+    factors stacks of ``n_experts / 2``, every block of the one-rank
+    tree inverted once over the two ranks, and on each rank
+    ``neumann_inv`` as its refresh plans and ``fused_precond`` once a
+    WU group a step, in the fp32 and the bf16 run; (c) on each rank the
+    run's inverses, its largest refresh and one ``fused_precond`` call
+    on its WU plan against their plain versions; (d) the router bitwise
+    equal across ranks after every step; (e) rank 0's checkpoint of the
+    gathered state (the one-rank layout) restored bitwise; (f) on the
+    same inputs (the initial params, step 0's batch) the loss within
+    ``EP["same_tol"]`` of one rank's, each gathered gradient leaf
+    within ``EP["grad_tol"]`` of its largest entry, every routing
+    decision equal and capacity binding. The routing decisions that
+    differ between the two fp32 trajectories are printed step by step.
+    The data-parallel MoE path is not run here: two ranks each holding
+    the whole model do not fit the card. A failed rank fails the
+    phase."""
+    from repro_torch.core import soi
+    from repro_torch.dist.spawn import backend_for, run_ranks
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+
+    import gc
+
+    t0 = time.perf_counter()
+    cfg, kcfg, ds = ep_setup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = [0]
+
+    def next_step(state, rec):
+        step[0] += 1
+
+    with logged_routes(torch, step) as one_routes:
+        one_state, one_hist = train_mod.run(train_mod.KFACProgram(
+            dataclasses.replace(cfg, dtype="float32"), kcfg,
+            seed=MAIN["seed"], device=dev), ds, MAIN["steps"],
+            on_step=next_step)
+    one_losses = [h["loss"] for h in one_hist]
+    one_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del one_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    reserved_gb = torch.cuda.memory_reserved(dev) / 1e9
+    backend = backend_for("cuda", 2)
+    emit({"phase": "ep_setup", "ranks": 2, "backend": backend,
+          "mesh": {"data": 1, "model": 2}, "arch": cfg.name,
+          "layers": cfg.n_layers, "published_layers": EP["published_layers"],
+          "experts": cfg.n_experts, "one_rank_peak_gb": one_peak,
+          "held_by_parent_gb": held_gb,
+          "reserved_by_parent_gb": reserved_gb,
+          "free_gb": torch.cuda.mem_get_info(dev)[0] / 1e9,
+          "card_gb": card_gb,
+          "placement": "two ranks share cuda:0 over gloo"})
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+    t1 = time.perf_counter()
+    # two ranks' allocators share the card: segments that grow in place
+    # leave less of it stranded between them
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_ranks(ep_rank, 2, device="cuda", args=(ckpt,),
+                          timeout=600)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    spawn_s = time.perf_counter() - t1
+    steps = MAIN["steps"]
+    r0 = ranks[0]
+    e_loc = cfg.n_experts // 2
+    for r in ranks:
+        tag = f"ep rank {r['rank']}"
+        for what in r["fails"]:
+            check(False, what)
+        f32 = r["fp32"]
+        check(len(f32["losses"]) == steps and all(
+            abs(x - y) <= EP["fp32_tol"] * abs(y)
+            for x, y in zip(f32["losses"][:2], one_losses[:2])),
+              f"{tag} (a): fp32 steps 0-1 within {EP['fp32_tol']} of one "
+              f"rank")
+        check(all(math.isfinite(x) for x in f32["losses"]
+                  + r["bf16"]["losses"]), f"{tag} (a): finite losses")
+        check(r["expert_stacks"] == [e_loc]
+              and r["refresh"]["expert_wu_stacks"] == [(cfg.n_layers, e_loc)],
+              f"{tag} (b): expert factors and WU tiles of {e_loc} experts")
+        c = r["refresh"]
+        for run in ("fp32", "bf16"):
+            refreshes = sum("inv" in p for p in r[run]["phase_s"])
+            check(refreshes > 0 and r[run]["launches"]["neumann_inv"]
+                  == refreshes * c["launches"]
+                  and r[run]["blocks_inverted"]
+                  == {k: refreshes * n for k, n in c["blocks"].items()},
+                  f"{tag} (b) {run}: neumann_inv as its refresh plans")
+            check(r[run]["launches"]["fused_precond"]
+                  == steps * c["fused_precond_per_step"] > 0,
+                  f"{tag} (b) {run}: fused_precond once a WU group a step")
+            check(r[run]["routers"] == r0[run]["routers"]
+                  and len(r[run]["routers"]) == steps
+                  and r[run]["losses"] == r0[run]["losses"],
+                  f"{tag} (d) {run}: router bitwise and losses equal "
+                  f"across ranks at every step")
+        check(r["full_shapes_one_rank"],
+              f"{tag} (e): the gathered params in the one-rank layout")
+    check(r0.get("restored_bitwise") is True,
+          "ep (e): rank 0's checkpoint restored bitwise")
+    same = r0["same_input"]
+    same_routes = route_diffs(same["one"],
+                              [r["same_input"]["log"] for r in ranks])[0]
+    same_rel = abs(same["loss"] - same["one_loss"]) / abs(same["one_loss"])
+    grad_rel = max(same["grad_rel"].values())
+    check(all(r["same_input"]["loss"] == same["loss"] for r in ranks)
+          and same_rel <= EP["same_tol"],
+          f"ep (f): the same inputs' loss within {EP['same_tol']} of one "
+          f"rank's ({same_rel:.3g})")
+    check(grad_rel <= EP["grad_tol"],
+          f"ep (f): every gradient leaf within {EP['grad_tol']} of its "
+          f"largest entry ({grad_rel:.3g})")
+    check(same_routes is not None and same_routes["expert_differs"] == 0
+          and same_routes["keep_differs"] == 0
+          and same_routes["dropped"] > 0,
+          f"ep (f): routing decisions equal and capacity binding "
+          f"({same_routes})")
+    trajectory_routes = route_diffs(
+        one_routes, [r["fp32"]["routes"] for r in ranks])
+    blocks = sum(sum(r["refresh"]["blocks"].values()) for r in ranks)
+    one_blocks = sum(math.prod(shape[:-2])
+                     for spec in train_mod.steps_mod.kfac_specs(cfg).values()
+                     for shape in soi.factor_shapes(
+                         spec, kcfg.block_size).values())
+    check(blocks == one_blocks,
+          f"ep (b): neumann_inv covered each block once over the ranks "
+          f"({blocks} of {one_blocks})")
+    launches = {name: sum(r["bf16"]["launches"][name]
+                          + r["fp32"]["launches"][name] for r in ranks)
+                for name in ops.launch_counts()}
+
+    def rel(xs, ys):
+        return [abs(x - y) / abs(y) for x, y in zip(xs, ys)]
+
+    return {"ranks": 2, "backend": backend,
+            "seconds": time.perf_counter() - t0, "one_rank_s": one_s,
+            "spawn_s": spawn_s, "layers": cfg.n_layers,
+            "published_layers": EP["published_layers"],
+            "one_rank_peak_gb": one_peak,
+            "fp32_losses": r0["fp32"]["losses"],
+            "fp32_one_rank_losses": one_losses,
+            "fp32_rel_to_one_rank": rel(r0["fp32"]["losses"], one_losses),
+            "fp32_routing_differs_by_step": trajectory_routes,
+            "same_input": {"loss": same["loss"],
+                           "one_rank_loss": same["one_loss"],
+                           "loss_rel": same_rel, "grad_rel_max": grad_rel,
+                           "grad_rel": same["grad_rel"],
+                           "routing": same_routes},
+            "bf16_losses": r0["bf16"]["losses"],
+            "launches": launches,
+            "per_rank": [{
+                "rank": r["rank"], "mesh": r["mesh"],
+                "phase_s": r["bf16"]["phase_s"],
+                "fp32_phase_s": r["fp32"]["phase_s"],
+                "wall_s": r["bf16"]["wall_s"],
+                "refresh_ms": r["refresh"]["ms"],
+                "neumann_inv_blocks": r["refresh"]["blocks"],
+                "expert_blocks": r["refresh"]["expert_blocks"],
+                "wu_tiles": r["refresh"]["wu_tiles"],
+                "kernel_checks": r["c"],
+                "seconds": r["seconds"], "write_s": r.get("write_s"),
+                "peak_mem_gb": r["peak_mem_gb"],
+                "fp32_peak_mem_gb": r["fp32"]["peak_mem_gb"],
+                "bf16_peak_mem_gb": r["bf16"]["peak_mem_gb"]}
+                for r in ranks]}
+
+
 def large_blocks_phase(torch, dev, check):
     """Phase ``large_blocks``: the kernels' route for sides of 129..1024
     (``csrc/hilo_tma.cuh``). (a) ``neumann_inv``
@@ -4644,7 +5176,15 @@ def main() -> int:
                       dist_row["fp32_one_rank_losses"])
     emit({"phase": "tp", "nvidia_smi": smi, **tp_row})
 
-    # 21. trace: the main path's fourth step (FP, BP and WU only) under
+    # 21. ep: the MoE family's experts split over two model ranks
+    # (--model-parallel 2 --dist-inv) at published widths, against one
+    # rank; its refresh and WU on each rank's own experts, the router
+    # across ranks, a checkpoint of the gathered state
+    torch.cuda.empty_cache()
+    ep_row = ep_phase(torch, dev, check)
+    emit({"phase": "ep", "nvidia_smi": smi, **ep_row})
+
+    # 22. trace: the main path's fourth step (FP, BP and WU only) under
     # torch.profiler, kernels only, last, so that the profiler session
     # cannot perturb the phases timed before it: the device's busy time
     # (the union of the kernels' intervals) against the step's host wall
@@ -4694,6 +5234,7 @@ def main() -> int:
     emit({"phase": "timing", "script_seconds": time.perf_counter() - t_script,
           "dist_seconds": dist_row["seconds"],
           "tp_seconds": tp_row["seconds"],
+          "ep_seconds": ep_row["seconds"],
           "tooling_seconds": tooling_row["phase_seconds"],
           "large_blocks_seconds": large_row["phase_seconds"]})
     if failures:
@@ -4764,7 +5305,8 @@ def main() -> int:
                                c[name] for c in
                                tooling_row["launches"].values()),
                            dist_launches=dist_row["launches"][name],
-                           tp_launches=tp_row["launches"][name])
+                           tp_launches=tp_row["launches"][name],
+                           ep_launches=ep_row["launches"][name])
                       for name, r in results.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

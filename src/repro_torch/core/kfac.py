@@ -482,12 +482,15 @@ def apply_updates(params: Mapping[str, torch.Tensor],
             new_p[k] = p - upd
             new_m[k] = m2
         else:
-            mu2 = cfg.adam_b1 * state.adam_mu[k] + (1 - cfg.adam_b1) * g
-            nu2 = cfg.adam_b2 * state.adam_nu[k] \
-                + (1 - cfg.adam_b2) * g * g
-            mhat = mu2 / bc1
-            nhat = nu2 / bc2
-            new_p[k] = p - cfg.lr * mhat / (torch.sqrt(nhat) + cfg.adam_eps)
+            # the reference's expressions, their temporaries written in
+            # place (the same operations in the same order: the same
+            # bits) so that a vocab-sized leaf holds fewer copies at once
+            mu2 = (cfg.adam_b1 * state.adam_mu[k]).add_(
+                (1 - cfg.adam_b1) * g)
+            nu2 = (cfg.adam_b2 * state.adam_nu[k]).add_(
+                ((1 - cfg.adam_b2) * g).mul_(g))
+            den = torch.sqrt(nu2 / bc2).add_(cfg.adam_eps)
+            new_p[k] = p - (mu2 / bc1).mul_(cfg.lr).div_(den)
             new_mu[k] = mu2
             new_nu[k] = nu2
     state2 = dataclasses.replace(state, step=step, momentum=new_m,

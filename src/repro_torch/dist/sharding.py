@@ -25,10 +25,12 @@ reference's explicit program, where the collectives are written by hand
 (``repro.pipeline.schedule._model_spec_dim``): :func:`model_spec_dim`
 slices q/k/v (and their biases) by columns and ``wo`` by rows when both
 head counts divide the model ranks, the MLP's ``wg``/``wu`` by columns
-and ``wd`` by rows when ``d_ff`` does, and replicates everything else,
-with one more gate: a slice must hold whole K-FAC blocks of the full
-leaf, so that every factor block, its inverse and its WU tiles live on
-one rank. :class:`ModelShards` is one rank's layout;
+and ``wd`` by rows when ``d_ff`` does, the MoE experts on their expert
+dim when ``n_experts`` does (expert parallelism), and replicates
+everything else, with one more gate: a slice must hold whole K-FAC
+blocks of the full leaf, so that every factor block, its inverse and
+its WU tiles live on one rank. (An expert slice holds whole experts,
+and so whole factor stacks.) :class:`ModelShards` is one rank's layout;
 :func:`local_specs`, :func:`local_params`/:func:`full_params` and
 :func:`local_factors`/:func:`full_factors` carry specs, parameter-shaped
 trees and factor trees between the full model and a rank's slices. The
@@ -47,7 +49,6 @@ from repro_torch.dist.api import (
     BATCH_AXES,
     DATA,
     MODEL,
-    MULTI_GPU_ITEM,
     STAGE,
     all_gather_rows,
     all_reduce,
@@ -183,7 +184,8 @@ def model_spec_dim(cfg, path: str, ndim: int, mp: int,
     * MLP ``wg``/``wu`` columns and ``wd`` rows, when ``d_ff`` divides
       ``mp`` and each share is whole blocks of ``d_ff``'s;
     * MoE experts on their expert dim when ``n_experts`` divides ``mp``
-      (the rule; the trainer refuses moe under ``--model-parallel``);
+      (``models.moe`` dispatches to this rank's experts); the router
+      replicated;
     * the audio family, norms, embeddings, head, and the ssm and
       RG-LRU mixers: replicated.
 
@@ -231,11 +233,15 @@ class ModelShards:
     dims: Dict[str, Optional[int]]
 
     def factor_dim(self, name: str, side: str, ndim: int) -> Optional[int]:
-        """The block dim (-3) of factor or inverse leaf ``side`` ("A",
-        "G", "A_inv", "G_inv"; ``ndim`` dims) of linear ``name`` when the
-        side it preconditions is sliced, else None."""
+        """The sliced dim of factor or inverse leaf ``side`` ("A", "G",
+        "A_inv", "G_inv"; ``ndim`` dims) of linear ``name``: the block
+        dim (-3) when the side it preconditions is sliced, the stack dim
+        the weight's is (the experts', -4) on both sides when a stack
+        dim is, else None."""
         d = self.dims.get(name)
         w = ndim - 1                      # the weight's ndim
+        if d is not None and d < w - 2:
+            return d - ndim
         if d is not None and d == (w - 2 if side[0] == "A" else w - 1):
             return -3
         return None
@@ -245,15 +251,10 @@ def model_shards(cfg, mesh, shapes: Mapping[str, Any],
                  block_size: int) -> Optional[ModelShards]:
     """This rank's :class:`ModelShards` on a ``(data, model)`` mesh for
     parameters of ``shapes`` (``{path: tensor or shape holder}``), or
-    None when the model axis holds one rank. The moe family raises:
-    expert parallelism is not ported."""
+    None when the model axis holds one rank."""
     mp = axis_sizes(mesh).get(MODEL, 1)
     if mp <= 1:
         return None
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"moe under --model-parallel {mp}: expert parallelism is not "
-            f"ported yet ({MULTI_GPU_ITEM})")
     sub = mesh[MODEL]
     return ModelShards(
         mesh=sub, mp=mp, rank=mesh_position(sub), block_size=block_size,
@@ -264,13 +265,18 @@ def model_shards(cfg, mesh, shapes: Mapping[str, Any],
 def local_specs(specs: Mapping[str, soi.LinearSpec],
                 shards: ModelShards) -> Dict[str, soi.LinearSpec]:
     """Each factored linear's spec on this rank: a sliced side's width
-    divided by ``mp``, its block size that of the full width."""
+    divided by ``mp``, its block size that of the full width; a sliced
+    stack dim (the experts') divided by ``mp``, the widths whole."""
     out = {}
     for name, s in specs.items():
         d = shards.dims.get(name)
         w = len(s.stack) + 2
         bi, bo = soi.spec_blocks(s, shards.block_size)
-        if d == w - 1:
+        if d is not None and d < w - 2:
+            stack = list(s.stack)
+            stack[d] //= shards.mp
+            s = dataclasses.replace(s, stack=tuple(stack))
+        elif d == w - 1:
             s = soi.SlicedSpec(**{**dataclasses.asdict(s),
                                   "d_out": s.d_out // shards.mp},
                                bs_out=bo)

@@ -23,8 +23,19 @@ subsample may split unevenly) and all-reduces once, so that every rank
 holds the global batch's loss and gradients (averaged), and the global
 batch's A and G Grams: A is a mean over tokens (scaled by the share), G
 a sum over tokens of the global mean loss's tap gradients, which are the
-local ones times the share (so G is scaled by its square). The reduced
-values are the same on every rank, so the ranks' updates are too.
+local ones times the share (so G is scaled by its square). The MoE
+experts' A is the exception: their queues span the global subsample
+(``models.moe``), each rank's buffer holds its tokens at their global
+slots, and its A-Gram over the ``C`` slots is already its part of the
+global one, summed with weight 1. The reduced values are the same on
+every rank, so the ranks' updates are too. The steps bind ``data_mesh``
+to the ``data`` axis (:func:`bound`), where the MoE layers read it.
+With ``train_accum > 1`` each rank splits its own rows into contiguous
+microbatches of ``q = B / (n accum)`` rows. The reference splits the
+global batch instead, and its data shard ``d`` of microbatch ``i`` holds
+rows ``[i mb + d q, i mb + (d + 1) q)``: the same partition of the rows
+into blocks of ``q``, each block one MoE queue of ``c_loc`` slots in
+both, computed on another rank and summed in another order.
 
 Tensor parallelism: the steps take ``shards``
 (``dist.sharding.ModelShards``), whose params are this rank's model
@@ -72,10 +83,14 @@ def kfac_specs(cfg, shards=None):
     return specs if shards is None else sharding.local_specs(specs, shards)
 
 
-def bound(shards):
+def bound(shards, data_mesh=None):
     """The ``hint_guard`` a step runs its model calls in: binding the
-    model submesh under ``shards``, nothing otherwise."""
-    return hint_guard(None if shards is None else {MODEL: shards.mesh})
+    model submesh under ``shards`` and ``data_mesh`` (the ranks holding
+    other rows of the batch) to ``data``, each where given."""
+    axes = {} if shards is None else {MODEL: shards.mesh}
+    if data_mesh is not None:
+        axes[DATA] = data_mesh
+    return hint_guard(axes)
 
 
 def full_state(state: TrainState, shards) -> TrainState:
@@ -144,8 +159,10 @@ def reduce_shares(tensors, data_mesh, scales) -> list:
     return out
 
 
-def build_taps(cfg, specs, batch) -> Dict[str, torch.Tensor]:
-    """Zero taps for one stats batch, ready to take gradients. The audio
+def build_taps(cfg, specs, batch, rows=None) -> Dict[str, torch.Tensor]:
+    """Zero taps for one stats batch, ready to take gradients; ``rows``:
+    the whole subsample's rows across the data ranks (default the
+    batch's), which size the MoE experts' taps. The audio
     family counts rows per name: the encoder's taps and the
     cross-attention's ``wk``/``wv`` (their outputs are over the encoder's
     frames) see ``b x t_enc`` rows, the decoder's other taps ``b x t``.
@@ -154,7 +171,8 @@ def build_taps(cfg, specs, batch) -> Dict[str, torch.Tensor]:
     b, t = batch["tokens"].shape
     device = batch["tokens"].device
     if cfg.family != "audio":
-        return lm.build_taps(cfg, specs, b * t, device=device)
+        return lm.build_taps(cfg, specs, b * t, device=device,
+                             n_global=None if rows is None else rows * t)
     te = batch["enc_embeds"].shape[1]
     frames = ("enc/", "dec/cross/wk", "dec/cross/wv")
     return {name: torch.zeros(
@@ -207,7 +225,7 @@ def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
     timer = timer or (lambda name, fn: fn())
 
     def train_step(state: TrainState, batch):
-        with bound(shards):
+        with bound(shards, data_mesh):
             return step(state, batch)
 
     def step(state: TrainState, batch):
@@ -227,8 +245,9 @@ def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
             for i in range(accum):
                 part = batch_rows(batch, i * mb, (i + 1) * mb)
                 l_i, g_i = _grads(cfg, state.params, part)
-                grads = {k: grads[k] + g_i[k].to(torch.float32) / accum
-                         for k in grads}
+                for k in grads:             # in place: no second tree
+                    grads[k].add_(g_i[k].to(torch.float32) / accum)
+                del g_i
                 loss = loss + l_i / accum
         if data_mesh is not None:
             w = 1.0 / mesh_ndev(data_mesh)
@@ -252,7 +271,7 @@ def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
 def make_stats_step(cfg, kcfg: KFACConfig, data_mesh=None,
                     shards=None) -> Callable:
     """SU: factor Grams from one tapped fwd+bwd, EMA'd into the state:
-    ``(state, batch, weight=None) -> (state, metrics)``.
+    ``(state, batch, weight=None, rows=None) -> (state, metrics)``.
 
     The model collects its A-Grams at ``kcfg.block_size``, the factors'
     block size. (The reference collects at ``cfg.soi_block`` and so
@@ -260,40 +279,49 @@ def make_stats_step(cfg, kcfg: KFACConfig, data_mesh=None,
     size, e.g. the full qwen1.5-0.5b at ``--block-size 128``.)
     ``data_mesh``: the Grams and the loss are the global subsample's,
     reduced over its ranks; ``weight`` is this rank's share of the
-    subsample's rows (default an even split), and a rank holding none of
-    them (``weight`` 0, no rows) adds zeros. ``shards``: tensor
-    parallelism (see the module's docstring)."""
+    subsample's rows (default an even split) and ``rows`` the whole
+    subsample's (default this rank's times the data ranks); a rank
+    holding none of them (``weight`` 0, no rows) adds zeros, and its
+    zero counts to the MoE queues. ``shards``: tensor parallelism (see
+    the module's docstring)."""
     specs = kfac_specs(cfg, shards)
     mod = model_module(cfg)
 
-    def local_grams(state: TrainState, batch):
-        taps = build_taps(cfg, specs, batch)
+    def local_grams(state: TrainState, batch, rows):
+        taps = build_taps(cfg, specs, batch, rows)
 
         def loss_with_taps(p, tp, bt):
             return mod.loss_fn(cfg, p, bt, taps=tp, collect=True,
                                soi_block=kcfg.block_size)
 
-        with bound(shards):
+        with bound(shards, data_mesh):
             return kfac.stats_grams(loss_with_taps, state.params, taps,
                                     batch, specs, kcfg.block_size)
 
-    def stats_step(state: TrainState, batch, weight=None):
+    def stats_step(state: TrainState, batch, weight=None, rows=None):
         if data_mesh is None:
-            a_grams, g_grams, loss = local_grams(state, batch)
+            a_grams, g_grams, loss = local_grams(state, batch, None)
         else:
-            w = 1.0 / mesh_ndev(data_mesh) if weight is None else weight
+            n_data = mesh_ndev(data_mesh)
+            w = 1.0 / n_data if weight is None else weight
+            if rows is None:
+                rows = batch["tokens"].shape[0] * n_data
             fac = state.kfac.factors
             a_names = [n for n in specs if specs[n].share_a_with is None]
             if batch["tokens"].shape[0]:
-                a_grams, g_grams, loss = local_grams(state, batch)
+                a_grams, g_grams, loss = local_grams(state, batch, rows)
             else:
+                if mod is lm:
+                    lm.join_moe_queues(cfg, state.params, data_mesh)
                 a_grams = {n: torch.zeros_like(fac[n]["A"]) for n in a_names}
                 g_grams = {n: torch.zeros_like(fac[n]["G"]) for n in specs}
                 loss = torch.zeros((), device=fac[a_names[0]]["A"].device)
+            # the experts' A parts are over the global queue's slots
             red = reduce_shares(
                 [a_grams[n] for n in a_names] + [g_grams[n] for n in specs]
                 + [loss], data_mesh,
-                [w] * len(a_names) + [w * w] * len(specs) + [w])
+                [1.0 if specs[n].cap_tokens else w for n in a_names]
+                + [w * w] * len(specs) + [w])
             a_grams = dict(zip(a_names, red[:len(a_names)]))
             g_grams = dict(zip(specs, red[len(a_names):-1]))
             loss = red[-1]

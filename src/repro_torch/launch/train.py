@@ -39,15 +39,17 @@ prints the JSON and writes the checkpoints::
 
 ``--model-parallel N`` splits each model group of ``N`` ranks of the
 ``(data, model)`` mesh megatron-style (``dist.sharding.model_spec_dim``):
-attention and MLP weights are sliced, each rank's K-FAC factor blocks
-follow its weight slice, and with ``--dist-inv`` each block of the full
-factor tree is inverted on exactly one rank::
+attention and MLP weights are sliced, and the MoE experts on their
+expert dim (expert parallelism: each rank routes to its ``E / N``
+experts, the router replicated), each rank's K-FAC factor blocks (and
+expert factor stacks) follow its weight slice, and with ``--dist-inv``
+each block of the full factor tree is inverted on exactly one rank::
 
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
       --arch qwen1.5-0.5b --model-parallel 2 --dist-inv --steps 4
 
-``--pp``, moe under ``--model-parallel``, and ``--async-inv``, ``--smw``
-or ``--optimizer sgd`` across ranks raise (ROADMAP Queue 1 item 8).
+``--pp``, and ``--async-inv``, ``--smw`` or ``--optimizer sgd`` across
+ranks raise (ROADMAP Queue 1 item 8).
 
 ``--smw`` replaces the stats/inv cadence with the incremental SOI path:
 every step runs one rank-k program (SU with column factors, factor EMA,
@@ -192,9 +194,9 @@ class KFACProgram:
     state holds this rank's slices (the params made whole from the seed
     and sliced), the model reduces through its seams, and
     :meth:`full_state`/:meth:`local_state` carry a state to and from
-    the full model's, the layout of a checkpoint. ``smw`` and
-    ``async_inv`` across ranks, and moe under tensor parallelism, wait
-    for ROADMAP Queue 1 item 8.
+    the full model's, the layout of a checkpoint; the moe family's
+    experts are sliced over the model ranks (expert parallelism). ``smw``
+    and ``async_inv`` across ranks wait for ROADMAP Queue 1 item 8.
 
     ``obs``: phase spans and the ``train_phase_s`` histogram."""
 
@@ -339,7 +341,7 @@ class KFACProgram:
             # whisper's frames (all of them) and M-RoPE positions with
             # them: the global batch's rows [:stats_batch], of which a
             # rank holds those in its own rows; with the share of the
-            # subsample's rows they are
+            # subsample's rows they are, and the subsample's rows
             b = batch["tokens"].shape[0]
             lo = shard * b
             total = min(b * n_shards, kcfg.stats_batch)
@@ -351,7 +353,7 @@ class KFACProgram:
                     out[k] = batch[k][:sb]
             if "positions" in batch:
                 out["positions"] = batch["positions"][:, :sb, :ss]
-            return out, sb / total
+            return out, sb / total, total
 
         def step_fn(state: TrainState, batch):
             i = state.kfac.step
@@ -520,8 +522,8 @@ def main(argv=None):
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="tensor-parallel ranks a model group under "
                          "torchrun: attention and MLP sliced "
-                         "megatron-style, each rank's factor blocks "
-                         "following its slice")
+                         "megatron-style, MoE experts over the ranks, "
+                         "each rank's factor blocks following its slice")
     ap.add_argument("--pp", type=int, default=1,
                     help="pipeline stages; only 1 is ported (ROADMAP "
                          "Queue 1 item 8)")

@@ -113,6 +113,16 @@ def layer_plan(cfg) -> Tuple[str, ...]:
     raise ValueError(cfg.family)
 
 
+def join_moe_queues(cfg, params: Params, mesh) -> None:
+    """A rank that holds no rows of a statistics pass: its zero part of
+    the queue gather of every MoE layer of :func:`layer_plan` (one
+    ``moe_ffn`` call each) over the data submesh ``mesh``."""
+    n = layer_plan(cfg).count("moe")
+    if n:
+        wg = next(v for k, v in params.items() if k.endswith("moe/wg"))
+        moe_mod.join_queues(n, wg.shape[-3], mesh, wg.device)
+
+
 def _hybrid_split(cfg) -> Tuple[int, Tuple[str, ...]]:
     """``(n_units, tail kinds)`` of the hybrid pattern."""
     unit = tuple(cfg.pattern)
@@ -641,12 +651,17 @@ def kfac_specs(cfg) -> Dict[str, LinearSpec]:
 
 
 def build_taps(cfg, specs: Dict[str, LinearSpec], n_tokens: int, *,
-               device) -> Dict[str, torch.Tensor]:
-    """Zero taps for a stats pass over ``n_tokens`` tokens (the expert
-    capacity for ``cap_tokens`` linears), ready to take gradients."""
+               device, n_global: Optional[int] = None
+               ) -> Dict[str, torch.Tensor]:
+    """Zero taps for a stats pass over ``n_tokens`` tokens, ready to take
+    gradients. ``cap_tokens`` linears (the experts) take the capacity of
+    the whole subsample's ``n_global`` tokens (default ``n_tokens``):
+    under data parallelism one queue spans every rank's tokens
+    (``models.moe``)."""
     out = {}
+    n_cap = n_tokens if n_global is None else n_global
     for name, s in specs.items():
-        t = moe_mod.capacity(cfg, n_tokens) if s.cap_tokens else n_tokens
+        t = moe_mod.capacity(cfg, n_cap) if s.cap_tokens else n_tokens
         out[name] = torch.zeros(s.stack + (t, s.d_out), dtype=torch.float32,
                                 device=device, requires_grad=True)
     return out

@@ -198,20 +198,19 @@ def rules_rank(rank, world, arch, g_np):
     dev_mesh = make_dev_mesh(model=2)
     res["dev_mesh"] = (api.mesh_axes(dev_mesh), api.axis_sizes(dev_mesh))
     # a trainer on a mesh with a model axis of several ranks takes it
-    # (tensor parallelism), except for moe, whose expert parallelism is
-    # not ported
+    # (tensor parallelism), moe too (expert parallelism: the experts'
+    # leaves sliced on their expert dim)
     from repro_torch.core.kfac import KFACConfig
     from repro_torch.launch.train import KFACProgram
     program = KFACProgram(get_smoke_config(arch), KFACConfig(block_size=32),
                           device="cpu", mesh=dev_mesh)
     res["model_axis"] = (program.model_parallel, program.shards.rank,
                          api.mesh_ndev(program.data_mesh))
-    try:
-        KFACProgram(get_smoke_config("moonshot-v1-16b-a3b"), KFACConfig(),
-                    device="cpu", mesh=dev_mesh)
-        res["moe_refused"] = False
-    except NotImplementedError as e:
-        res["moe_refused"] = "item 8" in str(e)
+    moe = KFACProgram(get_smoke_config("moonshot-v1-16b-a3b"),
+                      KFACConfig(block_size=32), device="cpu", mesh=dev_mesh)
+    res["moe_axis"] = (moe.model_parallel, sorted(
+        {d for k, d in moe.shards.dims.items() if "/moe/" in k},
+        key=str))
     # compressed means of each rank's own gradient, with error feedback
     mesh = make_mesh((world,))
     g = torch.from_numpy(g_np[rank])
@@ -671,3 +670,197 @@ def cuda_tp_rank(rank, world):
 def cuda_tp_one_rank(device):
     """``CUDA_TP`` on one rank (the test process)."""
     return _cuda_tp_run(device, None)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_dist_ep.py
+# ---------------------------------------------------------------------------
+
+#: the expert-parallel tests' K-FAC config (moonshot smoke at fp32): a
+#: stats step and a refresh every 2 steps, block 32, global batch 4 x 16
+EP_KCFG = dict(stats_every=2, inv_every=2, block_size=TP_BLOCK,
+               stats_batch=4, stats_seq=16)
+#: the trajectory's data seed: every step's batch drops pairs at the
+#: capacity of one rank and of each of two data shards (at seeds 0-3
+#: some step's shard drops none)
+EP_DATA_SEED = 4
+
+
+def _ep_cfg(arch, **kw):
+    from repro_torch.configs import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw)
+
+
+def _ep_program(cfg, mesh, **kw):
+    from repro_torch.core import kfac
+    from repro_torch.launch import train as train_mod
+
+    return train_mod.KFACProgram(cfg, kfac.KFACConfig(**{**EP_KCFG, **kw}),
+                                 device="cpu", mesh=mesh, dist_inv=True)
+
+
+def _ep_state(program, params_np):
+    """The program's state on the given full weights: this rank's
+    slices."""
+    from repro_torch.core import kfac
+    from repro_torch.launch import steps as steps_mod
+
+    params = {k: torch.from_numpy(v) for k, v in params_np.items()}
+    return program.local_state(steps_mod.TrainState(params, kfac.init(
+        params, steps_mod.kfac_specs(program.cfg), program.kcfg)))
+
+
+def _rows(batch_np, mesh):
+    """This rank's contiguous rows of a global batch."""
+    from repro_torch.data.pipeline import batch_rows_of
+
+    lo, hi = batch_rows_of(batch_np["tokens"].shape[0], mesh)
+    return {k: torch.from_numpy(v[lo:hi]) for k, v in batch_np.items()}
+
+
+def ep_grads(cfg, mesh, params_np, batch_np):
+    """One train step of ``KFACProgram`` on ``mesh`` from the given full
+    weights and global batch: its loss and the gradients it hands the
+    WU (reduced over the data ranks), gathered over the model ranks."""
+    from repro_torch.core import kfac
+    from repro_torch.dist import sharding
+    from repro_torch.launch import steps as steps_mod
+
+    program = _ep_program(cfg, mesh)
+    state = _ep_state(program, params_np)
+    seen = {}
+    orig = kfac.apply_updates
+
+    def spy(params, grads, *a, **k):
+        seen["grads"] = grads
+        return orig(params, grads, *a, **k)
+
+    kfac.apply_updates = spy
+    try:
+        train = steps_mod.make_train_step(
+            cfg, program.kcfg, data_mesh=program.data_mesh,
+            shards=program.shards)
+        _, m = train(state, _rows(batch_np, mesh))
+    finally:
+        kfac.apply_updates = orig
+    grads = seen["grads"]
+    if program.shards is not None:
+        grads = sharding.full_params(grads, program.shards)
+    return {"loss": float(m["loss"]),
+            "grads": {k: v.numpy() for k, v in grads.items()}}
+
+
+def ep_grams(cfg, mesh, params_np, batch_np, stats_batch):
+    """The factors after step 0 of ``KFACProgram`` on ``mesh`` at EMA
+    decay 0 (so the Grams of the subsample, the global batch's rows
+    ``[:stats_batch]``), gathered over the model ranks; the
+    ``--dist-inv`` refresh of them ran too."""
+    from repro_torch.dist import sharding
+
+    program = _ep_program(cfg, mesh, ema_decay=0.0, stats_batch=stats_batch)
+    state = _ep_state(program, params_np)
+    state, _ = program.make_step(state)(state, _rows(batch_np, mesh))
+    fac = state.kfac.factors
+    if program.shards is not None:
+        fac = sharding.full_factors(fac, program.shards)
+    return numpy_tree(fac)
+
+
+def ep_train(cfg, mesh, n_steps, ckpt_dir):
+    """``runtime.TrainLoop`` over ``KFACProgram`` on ``mesh`` (seed-0
+    weights, data seed :data:`EP_DATA_SEED`, ``--dist-inv``) for
+    ``n_steps``, its last checkpoint in
+    ``ckpt_dir``: the losses, a digest of the router (and of every
+    replicated leaf) after each step, the expert leaves' local factor,
+    inverse and WU stacks, whether the split refresh of the final
+    factors is bitwise the one-rank refresh's blocks, and rank 0's full
+    final state."""
+    from repro_torch.core import kfac
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.dist import sharding
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+
+    program = _ep_program(cfg, mesh)
+    shards = program.shards
+    ds = SyntheticTokens(cfg.vocab, EP_KCFG["stats_seq"],
+                         EP_KCFG["stats_batch"], seed=EP_DATA_SEED)
+    routers, replicated = [], []
+    make_step = program.make_step
+
+    def digesting(state):
+        step_fn = make_step(state)
+
+        def step(state, batch):
+            state, m = step_fn(state, batch)
+            routers.append(train_mod.params_digest(
+                {k: v for k, v in state.params.items()
+                 if k.endswith("moe/router")}))
+            replicated.append(train_mod.params_digest(
+                {k: v for k, v in state.params.items()
+                 if shards is None or shards.dims.get(k) is None}))
+            return state, m
+
+        return step
+
+    program.make_step = digesting
+    mp = 1 if shards is None else shards.mp
+    loop = TrainLoop(LoopConfig(n_steps, ckpt_dir=ckpt_dir,
+                                ckpt_every=n_steps, hang_factor=None,
+                                model_parallel=mp), program, ds)
+    res = loop.run()
+    local = loop.final_state
+    full = program.full_state(local)
+    experts = [n for n in local.kfac.factors if "/moe/" in n]
+    out = {"losses": [h["loss"] for h in res["history"]],
+           "routers": routers, "replicated": replicated,
+           "digest": train_mod.params_digest(full.params),
+           "factor_shapes": {n: {s: tuple(t.shape) for s, t in
+                                 local.kfac.factors[n].items()}
+                             for n in experts},
+           "inverse_shapes": {n: {s: tuple(t.shape) for s, t in
+                                  local.kfac.inverses[n].items()}
+                              for n in experts},
+           "wu_stacks": {leaf.name: tuple(leaf.stack) for g in
+                         steps_mod.make_wu_plan_for(cfg, local,
+                                                    shards=shards).groups
+                         for leaf in g.leaves if leaf.name in experts},
+           "state": ({"params": {k: v.numpy() for k, v in
+                                 full.params.items()},
+                      "factors": numpy_tree(full.kfac.factors),
+                      "inverses": numpy_tree(full.kfac.inverses),
+                      "adam_mu": {k: v.numpy() for k, v in
+                                  full.kfac.adam_mu.items()}}
+                     if torch.distributed.get_rank() == 0 else None)}
+    if shards is not None:
+        refresh = steps_mod.make_inv_refresh(cfg, program.kcfg, mesh=mesh,
+                                             distributed=True, shards=shards)
+        one = sharding.local_factors(
+            kfac.invert_factors(full.kfac.factors, program.kcfg), shards)
+        out["refresh_bitwise"] = bitwise(refresh(local.kfac.factors), one)
+    return out
+
+
+def ep_rank(rank, world, cases):
+    """Every case ``(key, kind, arch, cfg overrides, mesh shape, args)``
+    of this world, in order: ``kind`` "grads" (:func:`ep_grads`, args
+    the weights and the batch), "grams" (:func:`ep_grams`, plus the
+    subsample's rows) or "train" (:func:`ep_train`, args the step count
+    and the checkpoint dir). Returns ``{key: result}``, the gathered
+    arrays on rank 0 only."""
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    out = {}
+    for key, kind, arch, over, shape, args in cases:
+        cfg = _ep_cfg(arch, **over)
+        mesh = make_dev_mesh(shape[1])
+        fn = {"grads": ep_grads, "grams": ep_grams, "train": ep_train}[kind]
+        got = fn(cfg, mesh, *args)
+        if rank and kind == "grads":
+            got["grads"] = None
+        elif rank and kind == "grams":
+            got = None
+        out[key] = got
+    return out

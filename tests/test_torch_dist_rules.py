@@ -192,7 +192,9 @@ def test_mesh_helpers_and_specs_on_device_meshes(ranks):
     # model group, a data group of 2 (rank r at mesh (r // 2, r % 2))
     assert [r["model_axis"] for r in res] == [(2, r % 2, 2)
                                               for r in range(WORLD)]
-    assert all(r["moe_refused"] for r in res)
+    # moe is taken too: the router replicated, the experts on dim 1 of
+    # (L, E, ...)
+    assert all(r["moe_axis"] == (2, [1, None]) for r in res)
 
 
 def test_compressed_mean_across_ranks(ranks):

@@ -53,6 +53,7 @@ import pytest
 import torch
 
 import _torch_dist_ranks as ranks_mod
+from _torch_families import one_thread  # noqa: F401 (autouse)
 from repro.configs import get_smoke_config
 from repro.core import kfac as jkfac
 from repro.core.kfac import KFACConfig as JKFACConfig
@@ -253,14 +254,18 @@ def test_cli_model_parallel_recovers_every_rank(tmp_path):
 
 
 def test_refusals_name_the_roadmap_item():
-    """moe under --model-parallel, --pp, and a model axis without ranks
-    to fill it."""
+    """--pp, and a model axis without ranks to fill it; moe under
+    --model-parallel is taken (expert parallelism): it meets the same
+    mesh check as the dense family, and the slicing rule puts its experts
+    on their expert dim (``tests/test_torch_dist_ep.py`` trains it)."""
     from repro_torch.dist import sharding
 
     cfg = t_get_smoke_config("moonshot-v1-16b-a3b")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sharding.model_shards(cfg, {"data": 1, "model": 2}, {}, 32)
+    assert sharding.model_spec_dim(cfg, "layers/moe/wg", 4, 2, 32) == 1
+    assert sharding.model_spec_dim(cfg, "layers/moe/router", 3, 2, 32) \
+        is None
     with pytest.raises(NotImplementedError, match="item 8"):
         ttrain.main(CLI + ["--pp", "2"])
-    with pytest.raises(ValueError, match="--model-parallel 2"):
-        ttrain.main(CLI + ["--model-parallel", "2"])
+    for cli in (CLI, ["--arch", "moonshot-v1-16b-a3b"] + CLI[2:]):
+        with pytest.raises(ValueError, match="--model-parallel 2"):
+            ttrain.main(cli + ["--model-parallel", "2"])

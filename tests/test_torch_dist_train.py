@@ -47,6 +47,7 @@ import pytest
 import torch
 
 import _torch_dist_ranks as ranks_mod
+from _torch_families import one_thread  # noqa: F401 (autouse)
 from repro.configs import get_smoke_config
 from repro.core import kfac as jkfac
 from repro.core.kfac import KFACConfig as JKFACConfig

@@ -33,6 +33,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_families import one_thread  # noqa: F401 (autouse)
+
 from repro.core import precision_inv as jpi
 from repro.kernels import bitslice_mm as j_bitslice_mm
 from repro.kernels import fused_gram_inv as j_fused_gram_inv

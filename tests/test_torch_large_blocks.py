@@ -64,6 +64,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import lm as tlm
 
 from _torch_families import ConvertedProgram, narrow
+from _torch_families import one_thread  # noqa: F401 (autouse)
 
 KW = dict(ns_iters=20, taylor_terms=4, refine_steps=2)   # KFACConfig counts
 

@@ -17,6 +17,8 @@ import pytest
 import scipy.linalg as sla
 import torch
 
+from _torch_families import one_thread  # noqa: F401 (autouse)
+
 from repro.core import precision_inv as jpi
 from repro.core import quantize as jq
 from repro_torch.core import precision_inv as tpi

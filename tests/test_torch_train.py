@@ -48,6 +48,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_families import one_thread  # noqa: F401 (autouse)
+
 from repro.configs import get_smoke_config
 from repro.core import kfac as jkfac
 from repro.core.kfac import KFACConfig as JKFACConfig

@@ -40,6 +40,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_families import one_thread  # noqa: F401 (autouse)
+
 from repro.kernels import ops as jops
 from repro_torch.core.quantize import split_hi_lo_bf16
 from repro_torch.kernels import fused_precond as kf
