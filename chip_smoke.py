@@ -323,7 +323,22 @@ Phases, each printed as a JSON line:
                  gathered gradient leaf within 1e-5 of one rank's, every
                  routing decision equal, pairs dropped; the routing
                  decisions the two fp32 trajectories differ in, by step
-  22. trace      the main path's four steps again, the fourth under
+  22. pp         the main path's model cut into two pipeline stages
+                 (``--pp 2 --dist-inv``, the free partition: 18 and 6
+                 layers, 2 microbatches) over two ranks sharing the
+                 card, against one rank at ``train_accum`` 2 (fp32):
+                 (a) on the same inputs the loss within 1e-6, each
+                 stage's gradient leaves within 1e-5 of their largest
+                 entry, its statistics within 1e-5 of the one rank's
+                 for the same layers, its refresh bitwise the one-rank
+                 refresh of the same factors; (b) 4 steps under 1F1B,
+                 steps 0-1 within 1e-5 of the one rank; (c) GPipe's
+                 losses and params bitwise 1F1B's; (d) the ranks'
+                 blocks and WU tiles summing to the one-rank program's,
+                 both kernels launched on both ranks and held to their
+                 plain versions; (e) each stage's peak stashed inputs
+                 the schedule's stash plan
+  23. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
                  so that the profiler session cannot perturb the phases
@@ -332,7 +347,7 @@ Phases, each printed as a JSON line:
 Then the script's seconds, a JSON line of per-kernel results (with
 whisper's launches, the serve and paged phases' (none), the paper
 phase's and the tooling phase's, the large routes' at block 256, and
-the dist, tp and ep phases' summed over their ranks),
+the dist, tp, ep and pp phases' summed over their ranks),
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 without the ``ok`` line; so does a machine without CUDA, or a directory
@@ -500,6 +515,9 @@ TP = dict(fp32_tol=1e-4, bf16_tol=2e-3)
 # one rank, at the summation-order tolerances of the CPU tests
 EP = dict(arch="moonshot-v1-16b-a3b", layers=1, published_layers=48,
           fp32_tol=1e-5, same_tol=1e-6, grad_tol=1e-5)
+# phase pp: the main path's model over 2 pipeline stages, 2 microbatches
+PP = dict(stages=2, micro=2, same_tol=1e-6, grad_tol=1e-5, gram_tol=1e-5,
+          fp32_tol=1e-5)
 # a kernel agrees with its plain version when max|kernel - plain| is at
 # most this share of max|plain| (rounding-level: the tensor cores sum the
 # exact bf16 partial products in another order than the plain matmuls)
@@ -3607,6 +3625,333 @@ def ep_phase(torch, dev, check):
                 for r in ranks]}
 
 
+def pp_setup():
+    """Phase ``pp``'s model (the main path's, at fp32), K-FAC config and
+    data."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import kfac
+    from repro_torch.data.pipeline import SyntheticTokens
+
+    cfg = dataclasses.replace(get_config(MAIN["arch"]), dtype="float32")
+    kcfg = kfac.KFACConfig(
+        stats_every=MAIN["stats_every"], inv_every=MAIN["inv_every"],
+        block_size=min(MAIN["block_size"], cfg.soi_block),
+        stats_batch=MAIN["batch"], stats_seq=MAIN["seq"])
+    ds = SyntheticTokens(vocab=cfg.vocab, seq_len=MAIN["seq"],
+                         global_batch=MAIN["batch"], seed=MAIN["seed"])
+    return cfg, kcfg, ds
+
+
+def pp_same_input(torch, cfg, kcfg, ds, prog, dev):
+    """Gate (a) on one stage rank: the initial params and step 0's batch
+    through the pipeline (loss, this stage's gradients, its statistics
+    and its refresh) against one rank's on the same inputs (the full
+    model, ``train_accum`` 2), each compared on this stage's leaves."""
+    from repro_torch.core import kfac
+    from repro_torch.data.pipeline import DataCursor, make_global_batch
+    from repro_torch.dist import sharding
+    from repro_torch.dist.api import DATA, MODEL
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.pipeline import split_microbatches
+
+    shards = prog.shards
+    batch = make_global_batch(ds, DataCursor(0), prog.mesh, device=dev)
+    state = prog.init_state()
+    step = steps_mod.make_pipeline_step(cfg, kcfg, mesh=prog.mesh,
+                                        pp=PP["stages"], shards=shards)
+    micro = split_microbatches(batch, PP["micro"])
+    loss, grads = step.grads_fn(state.params, micro)
+    stats = steps_mod.make_stats_step(cfg, kcfg, shards=shards)
+    sub = {"tokens": batch["tokens"][:kcfg.stats_batch, :kcfg.stats_seq]}
+    factors = stats(state, sub)[0].kfac.factors
+    refresh = steps_mod.make_inv_refresh(
+        cfg, kcfg, mesh=prog.mesh[DATA, MODEL], distributed=True)
+    inv = refresh(factors)
+    one_inv = steps_mod.make_inv_refresh(cfg, kcfg)(factors)
+    bitwise = all(torch.equal(inv[n][k], one_inv[n][k])
+                  for n in inv for k in inv[n])
+    del state, inv, one_inv
+    # one rank on the same inputs: the full model, its rows in two
+    # microbatches, and its statistics step
+    gen = torch.Generator(device=dev).manual_seed(MAIN["seed"])
+    full = steps_mod.init_params(cfg, generator=gen, device=dev)
+    one_loss = torch.zeros((), device=dev)
+    one = {k: torch.zeros_like(v) for k, v in full.items()}
+    for mb in range(PP["micro"]):
+        l_i, g_i = steps_mod._grads(cfg, full,
+                                    {k: v[mb] for k, v in micro.items()})
+        one_loss = one_loss + l_i / PP["micro"]
+        for k in one:
+            one[k].add_(g_i[k] / PP["micro"])
+        del g_i
+    one = sharding.stage_local_params(one, shards)
+    grad_rel = {k: float((grads[k] - one[k]).abs().max()
+                         / one[k].abs().max()) for k in grads}
+    del one, grads
+    one_state = steps_mod.TrainState(full, kfac.init(
+        full, steps_mod.kfac_specs(cfg), kcfg))
+    one_fac = sharding.stage_local_factors(
+        steps_mod.make_stats_step(cfg, kcfg)(one_state, sub)[0]
+        .kfac.factors, shards)
+    gram_rel = {f"{n}/{k}": float(torch.linalg.norm(factors[n][k]
+                                                    - one_fac[n][k])
+                                  / torch.linalg.norm(one_fac[n][k]))
+                for n in factors for k in factors[n]}
+    return {"loss": float(loss), "one_loss": float(one_loss),
+            "grad_rel": grad_rel, "gram_rel": gram_rel,
+            "refresh_bitwise": bitwise, "leaves": len(grad_rel),
+            "factor_leaves": len(gram_rel)}
+
+
+def pp_rank(rank, world):
+    """One rank of phase ``pp`` (run by ``dist.spawn.run_ranks``; see
+    :func:`pp_phase`): the main path's model at fp32 over a ``(2, 1, 1)``
+    pipeline mesh. Returns every gate's inputs and this rank's timings,
+    launches and memory; ``fails`` lists the kernel checks that
+    failed."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.core import soi
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_pipeline_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    train_mod.fp32_matmuls()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_pipeline_mesh(PP["stages"])
+    cfg, kcfg, ds = pp_setup()
+    fails = []
+
+    def check(ok, what):
+        if not ok:
+            fails.append(f"pp rank {rank}: {what}")
+
+    def program(schedule):
+        return train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"],
+                                     device=dev, mesh=mesh, pp=PP["stages"],
+                                     pp_schedule=schedule, dist_inv=True)
+
+    out = {"rank": rank, "backend": tdist.get_backend()}
+    sec = out["seconds"] = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        sec[name] = now - clock[0]
+        clock[0] = now
+
+    prog = program("1f1b")
+    shards = prog.shards
+    out["stage"] = shards.stage
+    out["layers"] = list(shards.part.layer_counts())
+    lap("start")
+    out["same_input"] = pp_same_input(torch, cfg, kcfg, ds, prog, dev)
+    torch.cuda.empty_cache()
+    lap("same_input")
+    runs = {}
+    for schedule in ("1f1b", "gpipe"):
+        p = prog if schedule == "1f1b" else program(schedule)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, hist = train_mod.run(p, ds, MAIN["steps"])
+        torch.cuda.synchronize(dev)
+        runs[schedule] = {
+            "losses": [h["loss"] for h in hist],
+            "phase_s": [h["phase_s"] for h in hist],
+            "wall_s": time.perf_counter() - t0,
+            "digest": train_mod.params_digest(state.params),
+            "peak_stash": p.train_fn.grads_fn.peak_stash,
+            "launches": ops.launch_counts(),
+            "launch_keys": ops.launch_keys(),
+            "blocks_inverted": ops.launch_items()["neumann_inv"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        if schedule == "1f1b":
+            kept = state
+        del state
+        lap(schedule)
+    out["runs"] = runs
+    # (d) this stage's blocks and WU tiles, its state's bytes, and its
+    # kernels against their plain versions
+    specs = steps_mod.kfac_specs(cfg, shards)
+    wu = steps_mod.make_wu_plan_for(cfg, kept, shards=shards)
+    out["blocks"] = sum(math.prod(shape[:-2]) for spec in specs.values()
+                        for shape in soi.factor_shapes(
+                            spec, kcfg.block_size).values())
+    out["wu_tiles"] = wu.total_tiles
+    out["fused_precond_per_step"] = sum(fp_expected(g) for g in wu.groups)
+    out["state_gb"] = tensor_bytes(kept) / 1e9
+    box = {"state": kept}
+    del kept
+    worst, refresh_row, precond_row = kfac_kernel_checks(
+        torch, dev, check, f"pp rank {rank}", box, kcfg, wu)
+    out["c"] = {"worst_inverse": worst, "refresh": refresh_row,
+                "fused_precond": precond_row}
+    lap("kernel_checks")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["fails"] = fails
+    return out
+
+
+def pp_phase(torch, dev, check):
+    """Phase ``pp``: the main path's model (qwen1.5-0.5b at published
+    widths, fp32 compute) cut into :data:`PP`'s two pipeline stages
+    (``--pp 2 --dist-inv``, the free partition, 2 microbatches): first
+    one rank alone in this process at ``train_accum`` 2, then two gloo
+    ranks sharing ``cuda:0`` on a ``(2, 1, 1)`` mesh, :func:`pp_rank` on
+    each. Gates (a)-(e) as the module's docstring lists them; each
+    rank's state bytes and peak memory beside one rank's, printed. The
+    checkpoint of the gathered state is held on the CPU only
+    (``tests/test_torch_dist_pp.py``). A failed rank fails the phase."""
+    from repro_torch.core import soi
+    from repro_torch.dist.spawn import backend_for, run_ranks
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.pipeline import make_schedule
+
+    import gc
+
+    t0 = time.perf_counter()
+    cfg, kcfg, ds = pp_setup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    one_prog = train_mod.KFACProgram(
+        dataclasses.replace(cfg, train_accum=PP["micro"]), kcfg,
+        seed=MAIN["seed"], device=dev)
+    one_state, one_hist = train_mod.run(one_prog, ds, MAIN["steps"])
+    one_losses = [h["loss"] for h in one_hist]
+    one_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    one_state_gb = tensor_bytes(one_state) / 1e9
+    one_wu = steps_mod.make_wu_plan_for(cfg, one_state)
+    one_tiles = one_wu.total_tiles
+    one_blocks = sum(math.prod(shape[:-2])
+                     for spec in steps_mod.kfac_specs(cfg).values()
+                     for shape in soi.factor_shapes(
+                         spec, kcfg.block_size).values())
+    del one_state, one_wu
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    backend = backend_for("cuda", 2)
+    t1 = time.perf_counter()
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_ranks(pp_rank, 2, device="cuda", timeout=600)
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    spawn_s = time.perf_counter() - t1
+    steps = MAIN["steps"]
+    r0 = ranks[0]
+    for r in ranks:
+        tag = f"pp rank {r['rank']} (stage {r['stage']})"
+        for what in r["fails"]:
+            check(False, what)
+        same = r["same_input"]
+        rel = abs(same["loss"] - same["one_loss"]) / abs(same["one_loss"])
+        check(rel <= PP["same_tol"],
+              f"{tag} (a): the same inputs' loss within {PP['same_tol']} "
+              f"of one rank's ({rel:.3g})")
+        check(max(same["grad_rel"].values()) <= PP["grad_tol"],
+              f"{tag} (a): every gradient leaf within {PP['grad_tol']} of "
+              f"its largest entry ({max(same['grad_rel'].values()):.3g})")
+        check(max(same["gram_rel"].values()) <= PP["gram_tol"],
+              f"{tag} (a): the stage's statistics within {PP['gram_tol']} "
+              f"of one rank's ({max(same['gram_rel'].values()):.3g})")
+        check(same["refresh_bitwise"],
+              f"{tag} (a): the stage's refresh bitwise the one-rank "
+              f"refresh of its factors")
+        f1, gp = r["runs"]["1f1b"], r["runs"]["gpipe"]
+        check(len(f1["losses"]) == steps and all(
+            abs(x - y) <= PP["fp32_tol"] * abs(y)
+            for x, y in zip(f1["losses"][:2], one_losses[:2])),
+              f"{tag} (b): 1f1b steps 0-1 within {PP['fp32_tol']} of one "
+              f"rank")
+        check(all(math.isfinite(x) for x in f1["losses"] + gp["losses"]),
+              f"{tag} (b): finite losses")
+        check(f1["losses"] == r0["runs"]["1f1b"]["losses"],
+              f"{tag} (b): the ranks' losses equal")
+        check(gp["losses"] == f1["losses"] and gp["digest"] == f1["digest"],
+              f"{tag} (c): gpipe's losses and params bitwise 1f1b's")
+        for kind, run in r["runs"].items():
+            refreshes = sum("inv" in p for p in run["phase_s"])
+            check(run["launches"]["neumann_inv"] > 0 and refreshes > 0
+                  and sum(run["blocks_inverted"].values())
+                  == refreshes * r["blocks"],
+                  f"{tag} (d) {kind}: neumann_inv on this stage's "
+                  f"{r['blocks']} blocks a refresh")
+            check(run["launches"]["fused_precond"]
+                  == steps * r["fused_precond_per_step"] > 0,
+                  f"{tag} (d) {kind}: fused_precond once a WU group a step")
+            want = make_schedule(kind, PP["stages"], PP["micro"]) \
+                .stash_plan.act_depth[r["stage"]]
+            check(run["peak_stash"] == want,
+                  f"{tag} (e) {kind}: peak stash {run['peak_stash']}, the "
+                  f"plan's {want}")
+    blocks = sum(r["blocks"] for r in ranks)
+    tiles = sum(r["wu_tiles"] for r in ranks)
+    check(blocks == one_blocks and tiles == one_tiles,
+          f"pp (d): the stages' blocks and tiles ({blocks}, {tiles}) sum "
+          f"to one rank's ({one_blocks}, {one_tiles})")
+    launches = {name: sum(run["launches"][name] for r in ranks
+                          for run in r["runs"].values())
+                for name in ops.launch_counts()}
+
+    def rel(xs, ys):
+        return [abs(x - y) / abs(y) for x, y in zip(xs, ys)]
+
+    f1 = r0["runs"]["1f1b"]
+    return {"ranks": 2, "backend": backend, "mesh": [PP["stages"], 1, 1],
+            "layers": [r["layers"][r["stage"]] for r in ranks],
+            "micro": PP["micro"],
+            "seconds": time.perf_counter() - t0, "one_rank_s": one_s,
+            "spawn_s": spawn_s,
+            "fp32_losses": f1["losses"],
+            "fp32_one_rank_losses": one_losses,
+            "fp32_rel_to_one_rank": rel(f1["losses"], one_losses),
+            "gpipe_bitwise": all(
+                r["runs"]["gpipe"]["losses"] == r["runs"]["1f1b"]["losses"]
+                and r["runs"]["gpipe"]["digest"]
+                == r["runs"]["1f1b"]["digest"] for r in ranks),
+            "blocks": [r["blocks"] for r in ranks], "one_rank_blocks":
+            one_blocks, "wu_tiles": [r["wu_tiles"] for r in ranks],
+            "one_rank_wu_tiles": one_tiles,
+            "one_rank_state_gb": one_state_gb,
+            "one_rank_peak_gb": one_peak,
+            "launches": launches,
+            "per_rank": [{
+                "rank": r["rank"], "stage": r["stage"],
+                "same_input": {
+                    "loss": r["same_input"]["loss"],
+                    "one_rank_loss": r["same_input"]["one_loss"],
+                    "grad_rel_max": max(r["same_input"]["grad_rel"]
+                                        .values()),
+                    "gram_rel_max": max(r["same_input"]["gram_rel"]
+                                        .values()),
+                    "refresh_bitwise": r["same_input"]["refresh_bitwise"]},
+                "peak_stash": {k: v["peak_stash"]
+                               for k, v in r["runs"].items()},
+                "launch_keys": {k: v["launch_keys"]
+                                for k, v in r["runs"].items()},
+                "phase_s": r["runs"]["1f1b"]["phase_s"],
+                "wall_s": {k: v["wall_s"] for k, v in r["runs"].items()},
+                "kernel_checks": r["c"], "state_gb": r["state_gb"],
+                "peak_mem_gb": r["peak_mem_gb"],
+                "run_peak_mem_gb": {k: v["peak_mem_gb"]
+                                    for k, v in r["runs"].items()},
+                "seconds": r["seconds"]} for r in ranks]}
+
+
 def large_blocks_phase(torch, dev, check):
     """Phase ``large_blocks``: the kernels' route for sides of 129..1024
     (``csrc/hilo_tma.cuh``). (a) ``neumann_inv``
@@ -5184,7 +5529,16 @@ def main() -> int:
     ep_row = ep_phase(torch, dev, check)
     emit({"phase": "ep", "nvidia_smi": smi, **ep_row})
 
-    # 22. trace: the main path's fourth step (FP, BP and WU only) under
+    # 22. pp: the main path's model over two pipeline stages (--pp 2
+    # --dist-inv) on two ranks sharing the card, against one rank at
+    # train_accum 2: the same inputs' loss, gradients, statistics and
+    # refresh, 4 steps under 1F1B and GPipe, each stage's kernels, blocks,
+    # tiles and stash
+    torch.cuda.empty_cache()
+    pp_row = pp_phase(torch, dev, check)
+    emit({"phase": "pp", "nvidia_smi": smi, **pp_row})
+
+    # 23. trace: the main path's fourth step (FP, BP and WU only) under
     # torch.profiler, kernels only, last, so that the profiler session
     # cannot perturb the phases timed before it: the device's busy time
     # (the union of the kernels' intervals) against the step's host wall
@@ -5235,6 +5589,7 @@ def main() -> int:
           "dist_seconds": dist_row["seconds"],
           "tp_seconds": tp_row["seconds"],
           "ep_seconds": ep_row["seconds"],
+          "pp_seconds": pp_row["seconds"],
           "tooling_seconds": tooling_row["phase_seconds"],
           "large_blocks_seconds": large_row["phase_seconds"]})
     if failures:
@@ -5306,7 +5661,8 @@ def main() -> int:
                                tooling_row["launches"].values()),
                            dist_launches=dist_row["launches"][name],
                            tp_launches=tp_row["launches"][name],
-                           ep_launches=ep_row["launches"][name])
+                           ep_launches=ep_row["launches"][name],
+                           pp_launches=pp_row["launches"][name])
                       for name, r in results.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

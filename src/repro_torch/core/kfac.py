@@ -120,6 +120,14 @@ def stats_grams(loss_with_taps: Callable, params, taps: Dict[str, torch.Tensor],
     already blocked Gram (*stack, nb, bs, bs). ``taps`` require grad."""
     loss, acts, tap_grads = _stats_pass(loss_with_taps, params, taps,
                                         batch)
+    a_grams, g_grams = grams_of(acts, tap_grads, specs, bs)
+    return a_grams, g_grams, loss
+
+
+def grams_of(acts, tap_grads, specs: Mapping[str, LinearSpec], bs: int):
+    """``(A_grams, G_grams)`` of one SU pass's ``acts`` and tap gradients
+    (:func:`stats_grams`; the pipeline's statistics pass gives its
+    stage's)."""
     a_grams, g_grams = {}, {}
     for name, spec in specs.items():
         bi, bo = soi.spec_blocks(spec, bs)
@@ -133,7 +141,7 @@ def stats_grams(loss_with_taps: Callable, params, taps: Dict[str, torch.Tensor],
                 a_grams[name] = a                  # already a blocked Gram
             else:
                 a_grams[name] = soi.blocked_gram(a, bs, bi)
-    return a_grams, g_grams, loss
+    return a_grams, g_grams
 
 
 def stats_rank_k(loss_with_taps: Callable, params,

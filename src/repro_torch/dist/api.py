@@ -15,7 +15,9 @@ initialised process group, under the reference's axis names:
   every axis combined;
 * :func:`all_gather_rows` and :func:`all_reduce` are the collectives
   the port's mesh paths use: ``all_gather`` and ``all_reduce``, which
-  both NCCL and gloo take on CUDA tensors. A gather puts each rank's
+  both NCCL and gloo take on CUDA tensors (gloo's ``send``/``recv`` are
+  documented for CPU tensors only, so the pipeline's
+  :func:`stage_transfer` is an ``all_gather`` too). A gather puts each rank's
   shard at its flat-mesh position, not at its group rank (``new_group``
   sorts its ranks). A collective that refuses a tensor raises; nothing
   falls back to the CPU;
@@ -31,7 +33,8 @@ initialised process group, under the reference's axis names:
   submesh of several ranks, and are the identity elsewhere. The program
   enters the guard around its model calls (no global mesh, which a
   raise would leave bound). Both seams reduce in fp32 and count their
-  traffic in :data:`SEAM_TRAFFIC`.
+  traffic in :data:`SEAM_TRAFFIC`; :func:`in_hint_guard` says the
+  guard is the pipeline's stage program (it bound ``stage``).
 
 The spec functions also take a plain ``{axis: size}`` mapping for the
 mesh, so layouts can be planned without a process group. The
@@ -96,16 +99,36 @@ def mesh_position(mesh) -> int:
     return mesh_ranks(mesh).index(dist.get_rank())
 
 
+# process groups over the ranks of submeshes of several axes, by their
+# sorted ranks (register_group)
+_GROUPS: dict = {}
+
+
+def register_group(ranks, group) -> None:
+    """Record ``group`` as the process group over ``ranks`` (every rank
+    made it with ``dist.new_group``), for :func:`mesh_group`'s submeshes
+    of several axes."""
+    _GROUPS[tuple(sorted(int(r) for r in ranks))] = group
+
+
 def mesh_group(mesh):
     """The process group over every rank of ``mesh``: None (the default
-    group) when the mesh spans the world, else a one-axis submesh's own
-    group (``mesh["data"]``, made with the mesh by every rank)."""
-    if sorted(mesh_ranks(mesh)) == list(range(dist.get_world_size())):
+    group) when the mesh spans the world, a one-axis submesh's own group
+    (``mesh["data"]``, made with the mesh by every rank), or for a
+    submesh of several axes the group :func:`register_group` recorded for
+    its ranks (``launch.mesh.make_pipeline_mesh`` makes one for each
+    stage's ``(data, model)`` ranks)."""
+    ranks = tuple(sorted(mesh_ranks(mesh)))
+    if ranks == tuple(range(dist.get_world_size())):
         return None
-    if mesh.mesh.ndim != 1:
-        raise ValueError("a mesh of several axes must span the world; "
-                         "reduce over a one-axis submesh instead")
-    return mesh.get_group()
+    if mesh.mesh.ndim == 1:
+        return mesh.get_group()
+    if ranks in _GROUPS:
+        return _GROUPS[ranks]
+    raise ValueError(
+        f"no process group for the ranks {ranks} of a submesh of several "
+        f"axes; make one with dist.new_group on every rank and "
+        f"register_group it, or reduce over a one-axis submesh")
 
 
 def all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -117,6 +140,22 @@ def all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
     dist.all_gather(parts, t.contiguous(), group=mesh_group(mesh))
     by_rank = dict(zip(sorted(ranks), parts))     # group rank order
     return torch.cat([by_rank[r] for r in ranks])
+
+
+def stage_transfer(fwd: torch.Tensor, bwd: torch.Tensor, mesh):
+    """One tick's pipeline transfers over the one-axis ``stage`` submesh
+    (the reference's ``lax.ppermute`` pair): every stage rank sends
+    ``fwd`` (an activation, to the next stage) and ``bwd`` (a cotangent,
+    to the previous one), zeros where it has none; returns ``(fwd from
+    the previous stage, bwd from the next)``, None at the ends. One
+    :func:`all_gather_rows` of both (the collective gloo and NCCL take on
+    CUDA tensors); every stage rank takes part."""
+    ranks = mesh_ranks(mesh)
+    s = ranks.index(dist.get_rank())
+    got = all_gather_rows(torch.stack([fwd, bwd]), mesh)
+    prev = got[2 * (s - 1)] if s > 0 else None
+    nxt = got[2 * (s + 1) + 1] if s + 1 < len(ranks) else None
+    return prev, nxt
 
 
 def all_reduce(t: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
@@ -147,6 +186,14 @@ def hint_guard(axes: Optional[Mapping[str, Any]] = None):
         yield
     finally:
         _BOUND.pop()
+
+
+def in_hint_guard() -> bool:
+    """True inside a :func:`hint_guard` that bound the ``stage`` axis:
+    the pipeline executor's stage program (``pipeline.schedule``), the
+    counterpart of the reference's manual ``shard_map`` region, where the
+    MoE layers route by its in-stage capacity rule (``models.moe``)."""
+    return bool(_BOUND) and STAGE in _BOUND[-1]
 
 
 def bound_axes() -> dict:

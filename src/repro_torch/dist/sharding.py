@@ -33,7 +33,14 @@ its WU tiles live on one rank. (An expert slice holds whole experts,
 and so whole factor stacks.) :class:`ModelShards` is one rank's layout;
 :func:`local_specs`, :func:`local_params`/:func:`full_params` and
 :func:`local_factors`/:func:`full_factors` carry specs, parameter-shaped
-trees and factor trees between the full model and a rank's slices. The
+trees and factor trees between the full model and a rank's slices.
+Pipeline parallelism (``--pp``) follows the reference's stage program:
+:class:`StageShards` is a stage rank's layout (its atoms of each scanned
+stack, with the model slices inside the stage), and
+:func:`stage_local_params`/:func:`stage_full_params` and
+:func:`stage_local_factors`/:func:`stage_full_factors` cut and gather
+over the stage ranks, the uneven atom counts padded for the gather.
+:func:`leaf_sum` totals per-leaf scalars under either layout. The
 reference's cache and pool shardings wait for serving on a mesh.
 """
 
@@ -328,16 +335,199 @@ def full_factors(tree, shards: ModelShards) -> dict:
                 for s, t in d.items()} for n, d in tree.items()}
 
 
-def leaf_sum(terms, shards: Optional[ModelShards] = None):
-    """``sum`` of per-leaf scalars ``[(path, t)]`` in order. Under
-    ``shards`` a sliced leaf's scalar is this rank's part: those parts
-    are summed over the model ranks and added once, after the
-    replicated leaves' sum, so every rank holds the same full total."""
+def leaf_sum(terms, shards=None):
+    """``sum`` of per-leaf scalars ``[(path, t)]`` in order, the same
+    full total on every rank. Under ``shards`` (:class:`ModelShards`) a
+    sliced leaf's scalar is this rank's part: those parts are summed
+    over the model ranks and added once, after the replicated leaves'
+    sum. Under a :class:`StageShards` a stage-local leaf's scalar (its
+    stacked atoms', or the hybrid tail's) is this stage's part, summed
+    over the stage ranks, and the shared leaves' (the embedding, the
+    head, the final norms: the same on every stage) are added once; the
+    model slices within a stage as above."""
     if shards is None:
         return sum(t for _, t in terms)
+    if isinstance(shards, StageShards):
+        return _stage_leaf_sum(terms, shards)
     sliced = [t for k, t in terms if shards.dims.get(k) is not None]
     total = sum(t for k, t in terms if shards.dims.get(k) is None)
     if sliced:
         part = sum(sliced).reshape(1).clone()
         total = total + all_reduce(part, shards.mesh)[0]
     return total
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism: each stage rank holds its own atoms
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StageShards:
+    """One rank's pipeline layout (``--pp``): stage ``stage`` of
+    ``n_stages`` (``mesh``, the one-axis ``stage`` submesh: this rank's
+    pipeline), the free partition ``part`` (``pipeline.partition_stages``)
+    and ``model``, the tensor-parallel layout inside the stage (None with
+    one model rank).
+
+    Leaves, as in the reference's stage program (``_param_specs``):
+      * **stacked** (``layers/``, hybrid ``units/``, whisper ``enc/`` and
+        ``dec/``): cut on dim 0 to this stage's atoms, ``ranges[key]``
+        = ``[lo, hi)``; a stage holding none of a stack (a pure-encoder
+        stage's ``dec/``) holds no such leaf. So are their K-FAC
+        factors, inverses and WU tiles (``pipeline.kfac_glue.
+        stage_specs``), momentum and Adam moments;
+      * the hybrid **tail** (``tail/``): on the last stage only, which
+        alone runs it. (The reference replicates the tail's params on
+        every stage and sums the others' zero gradients over ``stage``;
+        its factors are on the last stage only, where alone their update
+        can be computed, so the port keeps the params with them.);
+      * **shared**: everything else (the embedding, ``img_proj``,
+        ``final_norm``, ``lm_head``, whisper's ``enc_ln_f``/``dec_ln_f``),
+        whole on every stage; their gradients are summed over ``stage``.
+    """
+
+    mesh: Any
+    n_stages: int
+    stage: int
+    part: Any
+    ranges: Dict[str, Tuple[int, int]]
+    counts: Dict[str, Tuple[int, ...]]
+    model: Optional[ModelShards] = None
+
+    @property
+    def last(self) -> bool:
+        return self.stage == self.n_stages - 1
+
+    def kind(self, path: str) -> str:
+        """``"stacked"``, ``"tail"`` or ``"shared"``."""
+        key = path.split("/", 1)[0]
+        if key in self.ranges:
+            return "stacked"
+        return "tail" if key == "tail" else "shared"
+
+    def holds(self, path: str) -> bool:
+        """Whether this stage holds leaf ``path``."""
+        kind = self.kind(path)
+        if kind == "stacked":
+            lo, hi = self.ranges[path.split("/", 1)[0]]
+            return hi > lo
+        return self.last if kind == "tail" else True
+
+    def local(self, path: str) -> bool:
+        """A leaf held by one stage (its part of the model), not shared."""
+        return self.kind(path) != "shared"
+
+    @property
+    def mp(self) -> int:
+        return 1 if self.model is None else self.model.mp
+
+
+def stage_layout(cfg, part, stage: int, mesh=None,
+                 model: Optional[ModelShards] = None) -> StageShards:
+    """Stage ``stage``'s :class:`StageShards` for the partition ``part``
+    (``mesh``: the stage submesh, needed only to gather)."""
+    if part.atom == "encdec":
+        ne = [part.enc_dec_counts(i)[0] for i in range(part.n_stages)]
+        nd = [part.enc_dec_counts(i)[1] for i in range(part.n_stages)]
+        counts = {"enc": tuple(ne), "dec": tuple(nd)}
+    else:
+        key = "units" if cfg.family == "hybrid" else "layers"
+        counts = {key: part.layer_counts()}
+    ranges = {k: (sum(c[:stage]), sum(c[:stage + 1]))
+              for k, c in counts.items()}
+    return StageShards(mesh=mesh, n_stages=part.n_stages, stage=stage,
+                       part=part, ranges=ranges, counts=counts, model=model)
+
+
+def stage_shards(cfg, mesh, part, model: Optional[ModelShards] = None
+                 ) -> StageShards:
+    """This rank's :class:`StageShards` on a ``(stage, data, model)``
+    mesh (``launch.mesh.make_pipeline_mesh``) for the partition
+    ``part``."""
+    sub = mesh[STAGE]
+    return stage_layout(cfg, part, mesh_position(sub), sub, model)
+
+
+def _cut(t: torch.Tensor, path: str, st: StageShards) -> torch.Tensor:
+    if st.kind(path) != "stacked":
+        return t
+    lo, hi = st.ranges[path.split("/", 1)[0]]
+    return t[lo:hi].contiguous()
+
+
+def stage_local_params(params: Mapping[str, torch.Tensor],
+                       st: StageShards) -> Dict[str, torch.Tensor]:
+    """A full parameter-shaped dict (params, momentum, Adam moments) cut
+    to the leaves and atoms this stage holds."""
+    return {k: _cut(v, k, st) for k, v in params.items() if st.holds(k)}
+
+
+def stage_local_factors(tree, st: StageShards) -> dict:
+    """A full factor or inverse tree cut to this stage's linears (their
+    stack dim to its atoms)."""
+    return {n: {s: _cut(t, n, st) for s, t in d.items()}
+            for n, d in tree.items() if st.holds(n)}
+
+
+def _stage_gather(t: Optional[torch.Tensor], path: str, like,
+                  st: StageShards, device) -> torch.Tensor:
+    """Leaf ``path`` whole (shape and dtype of ``like``) from the stage
+    that holds each part: a stacked leaf's uneven parts padded to the
+    largest count, gathered over ``stage`` and cut back; the tail's from
+    the last stage; a shared leaf as it is."""
+    kind = st.kind(path)
+    if kind == "shared":
+        return t
+    if kind == "tail":
+        counts = (0,) * (st.n_stages - 1) + (1,)
+        part = None if t is None else t[None]
+    else:
+        counts = st.counts[path.split("/", 1)[0]]
+        part = t
+    top = max(counts)
+    buf = torch.zeros((top,) + tuple(like.shape[1 if kind == "stacked"
+                                                else 0:]),
+                      dtype=like.dtype, device=device)
+    if part is not None:
+        buf[:part.shape[0]] = part
+    got = all_gather_rows(buf, st.mesh).reshape((st.n_stages, top)
+                                                + buf.shape[1:])
+    out = torch.cat([got[i, :c] for i, c in enumerate(counts)])
+    return out[0] if kind == "tail" else out
+
+
+def stage_full_params(local: Mapping[str, torch.Tensor], like,
+                      st: StageShards, device) -> Dict[str, torch.Tensor]:
+    """The full dict of the leaves of ``like`` (``{path: tensor or meta
+    tensor}`` of the full model, in its order) from every stage's parts
+    (every rank of the stage submesh calls, one gather a local leaf)."""
+    return {k: _stage_gather(local.get(k), k, v, st, device)
+            for k, v in like.items()}
+
+
+def stage_full_factors(local, like, st: StageShards, device) -> dict:
+    """The full factor or inverse tree of the shapes of ``like`` (``{name:
+    {side: tensor or meta tensor}}``) from every stage's parts."""
+    return {n: {s: _stage_gather(local.get(n, {}).get(s), n, v, st, device)
+                for s, v in d.items()} for n, d in like.items()}
+
+
+def _stage_leaf_sum(terms, st: StageShards):
+    """:func:`leaf_sum` under a :class:`StageShards`."""
+    sliced = (lambda k: False) if st.model is None else (
+        lambda k: st.model.dims.get(k) is not None)
+    shared = [t for k, t in terms if not st.local(k) and not sliced(k)]
+    shared_sl = [t for k, t in terms if not st.local(k) and sliced(k)]
+    own = [t for k, t in terms if st.local(k) and not sliced(k)]
+    own_sl = [t for k, t in terms if st.local(k) and sliced(k)]
+    dev = terms[0][1].device if terms else None
+
+    def total(ts):
+        return (sum(ts) if ts else torch.zeros((), device=dev)).reshape(1)
+
+    shared, own = total(shared), total(own)
+    if st.model is not None:
+        m = all_reduce(torch.cat([total(shared_sl), total(own_sl)]),
+                       st.model.mesh)
+        shared, own = shared + m[:1], own + m[1:]
+    return shared[0] + all_reduce(own.clone(), st.mesh)[0]

@@ -46,6 +46,16 @@ local ones (:func:`kfac_specs`), so factors, inverses and WU tiles are
 the rank's own blocks, and the WU of a sliced leaf needs no collective.
 With ``distributed`` the refresh inverts each block of the full factor
 tree on exactly one rank (:func:`make_inv_refresh`).
+
+Pipeline parallelism: ``shards`` may be a ``dist.sharding.StageShards``
+(:func:`pipeline_shards`), whose state holds one stage's leaves.
+:func:`make_pipeline_step` streams microbatches through the stages
+(``repro_torch.pipeline``) and ends in the same WU as
+:func:`make_train_step`; the statistics step passes its subsample
+through the stages, each stage getting its own layers' Grams;
+:func:`full_state`/:func:`local_state` gather and cut over the stage
+ranks too. Gradient accumulation and the pipeline share one splitter
+(``pipeline.microbatch.split_microbatches``).
 """
 
 from __future__ import annotations
@@ -58,9 +68,10 @@ import torch
 from repro_torch.core import kfac
 from repro_torch.core.kfac import KFACConfig, KFACState
 from repro_torch.dist import sharding
-from repro_torch.dist.api import DATA, MODEL, all_reduce, hint_guard, \
-    mesh_ndev
+from repro_torch.dist.api import DATA, MODEL, all_reduce, axis_sizes, \
+    hint_guard, mesh_ndev
 from repro_torch.models import lm, whisper
+from repro_torch.pipeline.microbatch import batch_axis, split_microbatches
 from repro_torch.solve import smw as smw_mod
 from repro_torch.solve.block_solver import invert_factor_tree
 from repro_torch.solve.partition import Plan, make_plan, make_wu_plan
@@ -76,26 +87,89 @@ def model_module(cfg):
     return whisper if cfg.family == "audio" else lm
 
 
+def _model_shards(shards):
+    """The tensor-parallel layout inside ``shards`` (a stage's, under
+    pipeline parallelism)."""
+    return shards.model if isinstance(shards, sharding.StageShards) \
+        else shards
+
+
 def kfac_specs(cfg, shards=None):
-    """Every factored linear's spec; under ``shards`` this rank's
+    """Every factored linear's spec; under ``shards`` this rank's: a
+    pipeline stage's (``pipeline.kfac_glue.stage_specs``), model slices
     (``dist.sharding.local_specs``)."""
     specs = model_module(cfg).kfac_specs(cfg)
-    return specs if shards is None else sharding.local_specs(specs, shards)
+    if isinstance(shards, sharding.StageShards):
+        from repro_torch.pipeline import kfac_glue
+
+        specs = kfac_glue.stage_specs(specs, shards.part)[shards.stage]
+    model = _model_shards(shards)
+    return specs if model is None else sharding.local_specs(specs, model)
+
+
+def pipeline_shards(cfg, mesh, pp: int, block_size: int):
+    """This rank's ``dist.sharding.StageShards`` on a ``(stage, data,
+    model)`` mesh: the free partition of ``pp`` stages
+    (``pipeline.partition_stages``, as ``make_pipeline_step`` cuts), and
+    the model slices inside the stage at K-FAC block ``block_size``."""
+    from repro_torch.pipeline import partition_stages
+
+    shapes = init_params(cfg, generator=None, device="meta")
+    return sharding.stage_shards(
+        cfg, mesh, partition_stages(cfg, pp),
+        sharding.model_shards(cfg, mesh, shapes, block_size))
 
 
 def bound(shards, data_mesh=None):
     """The ``hint_guard`` a step runs its model calls in: binding the
     model submesh under ``shards`` and ``data_mesh`` (the ranks holding
     other rows of the batch) to ``data``, each where given."""
-    axes = {} if shards is None else {MODEL: shards.mesh}
+    model = _model_shards(shards)
+    axes = {} if model is None else {MODEL: model.mesh}
     if data_mesh is not None:
         axes[DATA] = data_mesh
     return hint_guard(axes)
 
 
-def full_state(state: TrainState, shards) -> TrainState:
-    """The full model's state from every model rank's slices (collective
-    over the model submesh; the state itself without ``shards``)."""
+def local_params(params, shards):
+    """A full parameter-shaped dict cut to this rank's leaves: its stage's
+    (``dist.sharding.stage_local_params``), then its model slices."""
+    if isinstance(shards, sharding.StageShards):
+        params = sharding.stage_local_params(params, shards)
+    model = _model_shards(shards)
+    return params if model is None else sharding.local_params(params, model)
+
+
+def state_like(cfg, kcfg: KFACConfig) -> TrainState:
+    """The one-rank state's shapes and dtypes, on the meta device: the
+    template a pipeline stage's parts are gathered into."""
+    params = init_params(cfg, generator=None, device="meta")
+    return TrainState(params, kfac.init(params, kfac_specs(cfg), kcfg))
+
+
+def full_state(state: TrainState, shards, like: TrainState = None
+               ) -> TrainState:
+    """The full model's state from every rank's parts (collective over
+    the model submesh, then under pipeline parallelism over the stage
+    submesh, into the shapes of ``like``, :func:`state_like`); the state
+    itself without ``shards``."""
+    if isinstance(shards, sharding.StageShards):
+        state = full_state(state, shards.model)
+        k, lk = state.kfac, like.kfac
+        dev = next(iter(state.params.values())).device
+
+        def par(local, tmpl):
+            return sharding.stage_full_params(local, tmpl, shards, dev)
+
+        def fac(local, tmpl):
+            return sharding.stage_full_factors(local, tmpl, shards, dev)
+
+        return TrainState(par(state.params, like.params), dataclasses.replace(
+            k, factors=fac(k.factors, lk.factors),
+            inverses=fac(k.inverses, lk.inverses),
+            momentum=par(k.momentum, lk.momentum),
+            adam_mu=par(k.adam_mu, lk.adam_mu),
+            adam_nu=par(k.adam_nu, lk.adam_nu)))
     if shards is None:
         return state
     k = state.kfac
@@ -109,8 +183,17 @@ def full_state(state: TrainState, shards) -> TrainState:
 
 
 def local_state(state: TrainState, shards) -> TrainState:
-    """A full state cut to this rank's slices (:func:`full_state`'s
+    """A full state cut to this rank's parts (:func:`full_state`'s
     inverse)."""
+    if isinstance(shards, sharding.StageShards):
+        k = state.kfac
+        cut = sharding.stage_local_params
+        state = TrainState(cut(state.params, shards), dataclasses.replace(
+            k, factors=sharding.stage_local_factors(k.factors, shards),
+            inverses=sharding.stage_local_factors(k.inverses, shards),
+            momentum=cut(k.momentum, shards),
+            adam_mu=cut(k.adam_mu, shards), adam_nu=cut(k.adam_nu, shards)))
+        return local_state(state, shards.model)
     if shards is None:
         return state
     k = state.kfac
@@ -196,11 +279,11 @@ def _grads(cfg, params, batch) -> Tuple[torch.Tensor, dict]:
 
 
 def batch_rows(batch: dict, lo: int, hi: int) -> dict:
-    """Rows ``lo:hi`` of every batch leaf: the batch dim is the first
-    one, except for M-RoPE ``positions`` (3, B, T), where it is the
-    second."""
-    return {k: (v[:, lo:hi] if k == "positions" and v.ndim == 3
-                else v[lo:hi]) for k, v in batch.items()}
+    """Rows ``lo:hi`` of every batch leaf, on its batch dim
+    (``pipeline.microbatch.batch_axis``: the first one, except for
+    M-RoPE ``positions`` (3, B, T), where it is the second)."""
+    return {k: v.narrow(batch_axis(k, v.ndim), lo, hi - lo)
+            for k, v in batch.items()}
 
 
 def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
@@ -232,18 +315,14 @@ def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
         if accum == 1:
             loss, grads = _grads(cfg, state.params, batch)
         else:
-            b = batch["tokens"].shape[0]
-            if b % accum:
-                raise ValueError(f"batch {b} does not split into "
-                                 f"train_accum={accum} microbatches")
-            mb = b // accum
+            micro = split_microbatches(batch, accum)
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             grads = {k: torch.zeros(p.shape, dtype=torch.float32,
                                     device=p.device)
                      for k, p in state.params.items()}
             for i in range(accum):
-                part = batch_rows(batch, i * mb, (i + 1) * mb)
+                part = {k: v[i] for k, v in micro.items()}
                 l_i, g_i = _grads(cfg, state.params, part)
                 for k in grads:             # in place: no second tree
                     grads[k].add_(g_i[k].to(torch.float32) / accum)
@@ -255,16 +334,94 @@ def make_train_step(cfg, kcfg: KFACConfig, wu_plan=None,
             red = reduce_shares([grads[k] for k in order] + [loss],
                                 data_mesh, [w] * (len(order) + 1))
             grads, loss = dict(zip(order, red[:-1])), red[-1]
-        info: dict = {}
-        params2, kstate2 = timer("wu", lambda: kfac.apply_updates(
-            state.params, grads, state.kfac, specs, kcfg, wu_plan=wu_plan,
-            use_kernel=use_kernel, shards=shards, info=info))
-        gnorm = torch.sqrt(sharding.leaf_sum(
-            [(k, torch.sum(torch.square(grads[k].to(torch.float32))))
-             for k in kfac.tree_order(grads)], shards))
-        return TrainState(params2, kstate2), {
-            "loss": loss, "grad_norm": gnorm, "nu": info["nu"]}
+        return _wu_tail(state, loss, grads, specs, kcfg, wu_plan,
+                        use_kernel, timer, shards)
 
+    return train_step
+
+
+def _wu_tail(state: TrainState, loss, grads, specs, kcfg: KFACConfig,
+             wu_plan, use_kernel: bool, timer: Callable, shards):
+    """The WU every train step ends with: K-FAC precondition and update
+    of the reduced gradients, the gradient norm, the metrics (one
+    definition, so the monolithic and the pipelined steps report and
+    update alike)."""
+    info: dict = {}
+    params2, kstate2 = timer("wu", lambda: kfac.apply_updates(
+        state.params, grads, state.kfac, specs, kcfg, wu_plan=wu_plan,
+        use_kernel=use_kernel, shards=shards, info=info))
+    gnorm = torch.sqrt(sharding.leaf_sum(
+        [(k, torch.sum(torch.square(grads[k].to(torch.float32))))
+         for k in kfac.tree_order(grads)], shards))
+    return TrainState(params2, kstate2), {
+        "loss": loss, "grad_norm": gnorm, "nu": info["nu"]}
+
+
+def make_pipeline_step(cfg, kcfg: KFACConfig, *, mesh=None, pp: int = 1,
+                       schedule="1f1b", n_micro: int | None = None,
+                       wu_plan=None, use_kernel: bool = False,
+                       timer: Callable | None = None,
+                       shards=None) -> Callable:
+    """Pipeline-parallel FP+BP+WU step over the ``stage`` mesh axis
+    (``--pp``).
+
+    The layer stack is cut into ``pp`` contiguous stages (the free
+    partition, ``pipeline.partition_stages``), each rank's rows into
+    microbatches (``n_micro``, default ``max(train_accum, pp)``), and
+    the ``schedule`` ("gpipe" | "1f1b", or a built ``pipeline.Schedule``)
+    runs on each stage rank (``pipeline.make_pipeline_grads_fn``). The
+    loss and gradients keep the gradient-accumulation semantics, and the
+    WU (K-FAC precondition and update of this stage's leaves, through
+    ``wu_plan`` and the ``fused_precond`` kernel with ``use_kernel``) is
+    the monolithic step's. ``shards``: this rank's
+    ``dist.sharding.StageShards`` (:func:`pipeline_shards` by default);
+    the state holds its leaves. The step function's ``grads_fn`` is the
+    executor (its ``peak_stash``).
+
+    ``pp=1`` returns :func:`make_train_step` itself.
+    """
+    if pp <= 1:
+        return make_train_step(cfg, kcfg, wu_plan=wu_plan,
+                               use_kernel=use_kernel, timer=timer)
+    from repro_torch import pipeline
+
+    if mesh is None:
+        raise ValueError("pp > 1 needs a mesh with a 'stage' axis "
+                         "(launch.mesh.make_pipeline_mesh)")
+    if shards is None:
+        shards = pipeline_shards(cfg, mesh, pp, kcfg.block_size)
+    part = shards.part
+    m = n_micro or max(cfg.train_accum, pp)
+    if isinstance(schedule, pipeline.Schedule):
+        sched = schedule
+        if (sched.n_stages, sched.n_micro) != (pp, m):
+            raise ValueError(
+                f"schedule was built for (S={sched.n_stages}, "
+                f"M={sched.n_micro}), step wants (S={pp}, M={m})")
+    else:
+        sched = pipeline.make_schedule(schedule, pp, m)
+    grads_fn = pipeline.make_pipeline_grads_fn(cfg, part, sched, mesh,
+                                               shards)
+    specs = kfac_specs(cfg, shards)
+    timer = timer or (lambda name, fn: fn())
+    data_shards = 1
+    for ax in ("pod", "data"):
+        data_shards *= axis_sizes(mesh).get(ax, 1)
+
+    def train_step(state: TrainState, batch):
+        b = batch["tokens"].shape[0] * data_shards
+        if b % (m * data_shards):
+            raise ValueError(
+                f"global batch {b} must divide into n_micro={m} "
+                f"microbatches x {data_shards} data shard(s); pick a "
+                f"batch that is a multiple of {m * data_shards}")
+        micro = pipeline.split_microbatches(batch, m)
+        loss, grads = grads_fn(state.params, micro)
+        return _wu_tail(state, loss, grads, specs, kcfg, wu_plan,
+                        use_kernel, timer, shards)
+
+    train_step.grads_fn = grads_fn
+    train_step.schedule = sched
     return train_step
 
 
@@ -295,8 +452,15 @@ def make_stats_step(cfg, kcfg: KFACConfig, data_mesh=None,
                                soi_block=kcfg.block_size)
 
         with bound(shards, data_mesh):
-            return kfac.stats_grams(loss_with_taps, state.params, taps,
-                                    batch, specs, kcfg.block_size)
+            if not isinstance(shards, sharding.StageShards):
+                return kfac.stats_grams(loss_with_taps, state.params, taps,
+                                        batch, specs, kcfg.block_size)
+            from repro_torch.pipeline.schedule import stats_pass
+
+            loss, acts, tap_grads = stats_pass(
+                cfg, shards, state.params, taps, batch, kcfg.block_size)
+            return (*kfac.grams_of(acts, tap_grads, specs, kcfg.block_size),
+                    loss)
 
     def stats_step(state: TrainState, batch, weight=None, rows=None):
         if data_mesh is None:

@@ -48,8 +48,18 @@ each block of the full factor tree is inverted on exactly one rank::
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
       --arch qwen1.5-0.5b --model-parallel 2 --dist-inv --steps 4
 
-``--pp``, and ``--async-inv``, ``--smw`` or ``--optimizer sgd`` across
-ranks raise (ROADMAP Queue 1 item 8).
+``--pp N`` cuts the layer stack into ``N`` contiguous stages over the
+``stage`` axis of a ``(stage, data, model)`` mesh
+(``launch.mesh.make_pipeline_mesh``; ``--model-parallel`` then works
+inside a stage) and streams each rank's rows through ``--pp-schedule``'s
+microbatch schedule (``repro_torch.pipeline``); each stage rank holds
+only its own layers' params, K-FAC factors, inverses and WU tiles::
+
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+      --arch qwen1.5-0.5b --pp 2 --pp-schedule 1f1b --dist-inv --steps 4
+
+``--async-inv`` and ``--smw`` across ranks raise (ROADMAP Queue 1 item
+8.4), and ``--optimizer sgd`` across ranks or under ``--pp`` too.
 
 ``--smw`` replaces the stats/inv cadence with the incremental SOI path:
 every step runs one rank-k program (SU with column factors, factor EMA,
@@ -83,8 +93,8 @@ from repro_torch.core.kfac import KFACConfig
 from repro_torch.data.pipeline import (DataCursor, SyntheticTokens,
                                        batch_shard, make_global_batch)
 from repro_torch.dist import sharding
-from repro_torch.dist.api import (DATA, MODEL, MULTI_GPU_ITEM, axis_sizes,
-                                  mesh_ndev)
+from repro_torch.dist.api import (DATA, MODEL, MULTI_GPU_ITEM, STAGE,
+                                  axis_sizes, mesh_ndev)
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.steps import TrainState
@@ -198,6 +208,17 @@ class KFACProgram:
     experts are sliced over the model ranks (expert parallelism). ``smw``
     and ``async_inv`` across ranks wait for ROADMAP Queue 1 item 8.
 
+    ``pp`` > 1 (a ``(stage, data, model)`` ``mesh`` of ``pp`` stages,
+    ``launch.mesh.make_pipeline_mesh``): pipeline parallelism. The
+    free partition cuts the layer stack into ``pp`` stages and
+    :attr:`shards` is this rank's ``dist.sharding.StageShards`` (with
+    the model slices inside the stage): the state holds the stage's
+    leaves, each train step streams ``n_micro = max(train_accum, pp)``
+    microbatches of this rank's rows through ``pp_schedule``
+    (``steps.make_pipeline_step``), the statistics pass goes through the
+    stages, and with ``dist_inv`` each stage's ``(data, model)`` ranks
+    invert its blocks between them.
+
     ``obs``: phase spans and the ``train_phase_s`` histogram."""
 
     cfg: Any
@@ -212,6 +233,8 @@ class KFACProgram:
     dist_inv: bool = False
     obs: Any = None
     mesh: Any = None
+    pp: int = 1
+    pp_schedule: str = "1f1b"
 
     def __post_init__(self):
         if self.smw and self.async_inv:
@@ -221,23 +244,36 @@ class KFACProgram:
         if self.mesh is not None and (self.smw or self.async_inv):
             raise NotImplementedError(
                 f"--{'smw' if self.smw else 'async-inv'} across ranks is "
-                f"not ported yet ({MULTI_GPU_ITEM})")
-        #: tensor parallelism: this rank's layout (None without it)
+                f"not ported yet ({MULTI_GPU_ITEM}.4)")
+        #: this rank's layout: tensor parallelism's ModelShards, pipeline
+        #: parallelism's StageShards (None without either)
         self.shards = None
         self.data_mesh = self.mesh
+        if self.pp > 1 and self.mesh is None:
+            raise ValueError("pp > 1 needs a mesh with a 'stage' axis "
+                             "(launch.mesh.make_pipeline_mesh)")
         if self.mesh is not None:
             sizes = axis_sizes(self.mesh)
             mp = sizes.get(MODEL, 1)
-            if batch_shard(self.mesh)[1] * mp != mesh_ndev(self.mesh) \
-                    or (mp > 1 and set(sizes) != {DATA, MODEL}):
+            pp = sizes.get(STAGE, 1)
+            if pp != self.pp:
+                raise ValueError(f"pp={self.pp} but the mesh has {pp} "
+                                 f"stages")
+            if batch_shard(self.mesh)[1] * mp * pp != mesh_ndev(self.mesh) \
+                    or ((mp > 1 or pp > 1)
+                        and not set(sizes) <= {STAGE, DATA, MODEL}):
                 raise NotImplementedError(
-                    f"a mesh {sizes} with axes other than data and model "
-                    f"holding several ranks: only data and tensor "
-                    f"parallelism are ported ({MULTI_GPU_ITEM})")
-            shapes = steps_mod.init_params(self.cfg, generator=None,
-                                           device="meta")
-            self.shards = sharding.model_shards(
-                self.cfg, self.mesh, shapes, self.kcfg.block_size)
+                    f"a mesh {sizes} with axes other than stage, data and "
+                    f"model holding several ranks: only pipeline, data "
+                    f"and tensor parallelism are ported ({MULTI_GPU_ITEM})")
+            if pp > 1:
+                self.shards = steps_mod.pipeline_shards(
+                    self.cfg, self.mesh, pp, self.kcfg.block_size)
+            else:
+                shapes = steps_mod.init_params(self.cfg, generator=None,
+                                               device="meta")
+                self.shards = sharding.model_shards(
+                    self.cfg, self.mesh, shapes, self.kcfg.block_size)
             if self.shards is not None:
                 # the gradients and Grams reduce over the ranks holding
                 # the same slices; one such rank reduces nothing
@@ -270,19 +306,21 @@ class KFACProgram:
         params = steps_mod.init_params(self.cfg, generator=gen,
                                        device=self.device)
         if self.shards is not None:
-            params = sharding.local_params(params, self.shards)
+            params = steps_mod.local_params(params, self.shards)
         return TrainState(params, kfac.init(
             params, steps_mod.kfac_specs(self.cfg, self.shards), self.kcfg))
 
     def full_state(self, state: TrainState) -> TrainState:
-        """The full model's state from every model rank's slices (every
-        rank calls; the state itself without tensor parallelism): what a
-        checkpoint holds, whatever the mesh."""
-        return steps_mod.full_state(state, self.shards)
+        """The full model's state from every rank's parts (every rank
+        calls; the state itself without tensor or pipeline parallelism):
+        what a checkpoint holds, whatever the mesh."""
+        like = (steps_mod.state_like(self.cfg, self.kcfg) if self.pp > 1
+                else None)
+        return steps_mod.full_state(state, self.shards, like)
 
     def local_state(self, state: TrainState) -> TrainState:
         """A full state (a restored checkpoint) cut to this rank's
-        slices."""
+        parts."""
         return steps_mod.local_state(state, self.shards)
 
     def make_step(self, state: TrainState):
@@ -301,16 +339,30 @@ class KFACProgram:
                                               shards=shards)
                    if self.fused_wu else None)
         mesh = self.mesh
-        train = steps_mod.make_train_step(
-            self.cfg, kcfg, wu_plan=wu_plan,
-            use_kernel=self.wu_route == "fused_precond", timer=timed,
-            data_mesh=self.data_mesh, shards=shards)
+        use_kernel = self.wu_route == "fused_precond"
+        if self.pp > 1:
+            train = steps_mod.make_pipeline_step(
+                self.cfg, kcfg, mesh=mesh, pp=self.pp,
+                schedule=self.pp_schedule, wu_plan=wu_plan,
+                use_kernel=use_kernel, timer=timed, shards=shards)
+            # each stage inverts its own blocks over its (data, model)
+            # ranks
+            refresh = steps_mod.make_inv_refresh(
+                self.cfg, kcfg, mesh=mesh[DATA, MODEL],
+                distributed=self.dist_inv, shards=shards.model)
+        else:
+            train = steps_mod.make_train_step(
+                self.cfg, kcfg, wu_plan=wu_plan, use_kernel=use_kernel,
+                timer=timed, data_mesh=self.data_mesh, shards=shards)
+            refresh = steps_mod.make_inv_refresh(
+                self.cfg, kcfg, mesh=mesh, distributed=self.dist_inv,
+                shards=shards)
+        #: the train step function (under ``pp``, its ``grads_fn`` is the
+        #: executor, whose ``peak_stash`` a caller may read)
+        self.train_fn = train
         stats = steps_mod.make_stats_step(self.cfg, kcfg,
                                           data_mesh=self.data_mesh,
                                           shards=shards)
-        refresh = steps_mod.make_inv_refresh(self.cfg, kcfg, mesh=mesh,
-                                             distributed=self.dist_inv,
-                                             shards=shards)
         shard, n_shards = batch_shard(mesh) if mesh is not None else (0, 1)
 
         self._refresher = None
@@ -525,8 +577,15 @@ def main(argv=None):
                          "megatron-style, MoE experts over the ranks, "
                          "each rank's factor blocks following its slice")
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline stages; only 1 is ported (ROADMAP "
-                         "Queue 1 item 8)")
+                    help="pipeline-parallel stages: the layer stack is "
+                         "partitioned over a 'stage' mesh axis and "
+                         "microbatches stream through a static "
+                         "schedule (repro_torch.pipeline); 1 = "
+                         "monolithic")
+    ap.add_argument("--pp-schedule", choices=("gpipe", "1f1b"),
+                    default="1f1b",
+                    help="microbatch schedule: gpipe (fill then "
+                         "drain) or 1f1b (same bubble, min stash)")
     ap.add_argument("--async-inv", action=argparse.BooleanOptionalAction,
                     default=False,
                     help="staleness-tolerant double-buffered inverse "
@@ -578,24 +637,29 @@ def main(argv=None):
                          "every span")
     args = ap.parse_args(argv)
 
-    if args.pp > 1:
-        raise NotImplementedError(
-            f"--pp {args.pp}: pipeline parallelism is not ported yet "
-            f"({MULTI_GPU_ITEM})")
+    if args.pp > 1 and args.optimizer != "kfac":
+        raise SystemExit("--pp > 1 is a KFACProgram feature; the "
+                         "SGD baseline runs monolithic")
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.model_parallel > 1 and world % args.model_parallel:
-        raise ValueError(
-            f"--model-parallel {args.model_parallel} needs a multiple of "
-            f"{args.model_parallel} ranks (torchrun), not {world}")
+    group = args.pp * args.model_parallel
+    if world % group:
+        flags = [f"{f} {n}" for f, n in (("--pp", args.pp),
+                                          ("--model-parallel",
+                                           args.model_parallel)) if n > 1]
+        raise ValueError(f"{' x '.join(flags)} needs a multiple of {group} "
+                         f"ranks (torchrun), not {world}")
     mesh = None
     if world > 1:
         mesh, device = init_ranks(args.device, args.dist_backend,
-                                  model=args.model_parallel)
-        if args.optimizer != "kfac" or args.smw or args.async_inv:
+                                  model=args.model_parallel, pp=args.pp)
+        if args.optimizer != "kfac":
             raise NotImplementedError(
-                f"data parallelism runs K-FAC without --smw and "
-                f"--async-inv; the rest is not ported yet "
+                f"--optimizer sgd across ranks is not ported yet "
                 f"({MULTI_GPU_ITEM})")
+        if args.smw or args.async_inv:
+            raise NotImplementedError(
+                f"--{'smw' if args.smw else 'async-inv'} across ranks is "
+                f"not ported yet ({MULTI_GPU_ITEM}.4)")
     else:
         device = resolve_device(args.device)
     try:
@@ -617,17 +681,19 @@ def params_digest(params) -> str:
     return h.hexdigest()[:16]
 
 
-def init_ranks(device: str, backend: str | None = None, model: int = 1):
+def init_ranks(device: str, backend: str | None = None, model: int = 1,
+               pp: int = 1):
     """Under torchrun: the process group (``backend``, default
     ``dist.spawn.backend_for``'s: NCCL when every rank has a card of its
     own, gloo on the CPU or when ranks share cards) from the environment
     torchrun sets, this rank's device (``cuda:{LOCAL_RANK % cards}``) and
     the ``(data, model)`` dev mesh over the world, ``model`` ranks a model
-    group: ``(mesh, device)``."""
+    group, or with ``pp`` > 1 the ``(stage, data, model)`` pipeline mesh:
+    ``(mesh, device)``."""
     import torch.distributed as dist
 
     from repro_torch.dist.spawn import backend_for, rank_device
-    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.mesh import make_dev_mesh, make_pipeline_mesh
 
     dev = resolve_device(device)
     world = int(os.environ["WORLD_SIZE"])
@@ -638,6 +704,8 @@ def init_ranks(device: str, backend: str | None = None, model: int = 1):
     if dev.type == "cpu":
         torch.set_num_threads(max(1, torch.get_num_threads()
                                   // dist.get_world_size()))
+    if pp > 1:
+        return make_pipeline_mesh(pp, model), dev
     return make_dev_mesh(model), dev
 
 
@@ -665,7 +733,8 @@ def _main(args, device, mesh):
                               smw_rank=args.smw_rank,
                               fused_wu=args.fused_wu,
                               async_inv=args.async_inv,
-                              dist_inv=args.dist_inv, obs=obs, mesh=mesh)
+                              dist_inv=args.dist_inv, obs=obs, mesh=mesh,
+                              pp=args.pp, pp_schedule=args.pp_schedule)
     else:
         program = SGDProgram(cfg, lr=args.lr, seed=args.seed,
                              device=device, obs=obs)
@@ -686,12 +755,13 @@ def _main(args, device, mesh):
         LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                    ckpt_every=args.ckpt_every,
                    model_parallel=args.model_parallel,
+                   pipeline_parallel=args.pp,
                    hang_factor=10.0 if device.type == "cuda" else None),
         program, ds,
         inject=inject if args.inject_failure_at >= 0 else None, obs=obs)
     result = loop.run()
     history = result["history"]
-    # the full model's params (gathered over the model ranks)
+    # the full model's params (gathered over the model and stage ranks)
     digest = params_digest(program.full_state(loop.final_state).params
                            if args.optimizer == "kfac"
                            else loop.final_state[0])
@@ -706,6 +776,7 @@ def _main(args, device, mesh):
                         if device.type == "cuda" else "cpu"),
         "batch": args.batch, "seq": args.seq,
         "ranks": 1 if mesh is None else mesh_ndev(mesh),
+        "pp": args.pp, "pp_schedule": args.pp_schedule,
         "block_size": kcfg.block_size, "precision": args.precision,
         **({"wu_route": program.wu_route, "smw": args.smw,
             "async_inv": args.async_inv, "dist_inv": args.dist_inv}

@@ -36,6 +36,13 @@ inside ``layers.dense`` before the cast, collecting its A statistic in
 the full width's blocks. Outside a ``hint_guard`` binding the model axis
 both are the identity, as in the reference.
 
+Pipeline parallelism (``repro_torch.pipeline``): :func:`forward` is
+built of the pieces a stage runs, in order: :func:`embed_inputs` (the
+first stage), :func:`stage_slice_forward` (the stacked layers a stage
+holds), :func:`tail_forward` (the hybrid's tail, on the last stage) and
+:func:`head_loss`; so a pipelined step runs the monolithic step's
+operations.
+
 Serving: :func:`init_cache` makes a decode cache, a flat dict keyed like
 the parameters: ``layers/k``, ``layers/v`` (L, B, S, kv, hd) and
 ``layers/pos`` (L, B, S) for attention layers (the hybrid's windowed
@@ -115,12 +122,12 @@ def layer_plan(cfg) -> Tuple[str, ...]:
 
 def join_moe_queues(cfg, params: Params, mesh) -> None:
     """A rank that holds no rows of a statistics pass: its zero part of
-    the queue gather of every MoE layer of :func:`layer_plan` (one
-    ``moe_ffn`` call each) over the data submesh ``mesh``."""
-    n = layer_plan(cfg).count("moe")
-    if n:
+    the queue gather of every MoE layer ``params`` holds (one ``moe_ffn``
+    call each: the layers of :func:`layer_plan`, or a pipeline stage's
+    slice of them) over the data submesh ``mesh``."""
+    if "moe" in layer_plan(cfg):
         wg = next(v for k, v in params.items() if k.endswith("moe/wg"))
-        moe_mod.join_queues(n, wg.shape[-3], mesh, wg.device)
+        moe_mod.join_queues(wg.shape[0], wg.shape[-3], mesh, wg.device)
 
 
 def _hybrid_split(cfg) -> Tuple[int, Tuple[str, ...]]:
@@ -407,6 +414,95 @@ def _logits(cfg, params, x):
     return logits
 
 
+def batch_positions(batch, idx=None) -> torch.Tensor:
+    """The batch's ``positions`` (M-RoPE's (3, B, T)), or (B, T) int32
+    ``0..T-1`` offset by a serving cache's ``idx`` (an int, or (B,) per
+    row)."""
+    positions = batch.get("positions")
+    if positions is not None:
+        return positions
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=tokens.device)[None]
+    if idx is not None:
+        positions = positions + (idx[:, None] if torch.is_tensor(idx)
+                                 and idx.ndim == 1 else idx)
+    return positions.expand(B, T).to(torch.int32)
+
+
+def embed_inputs(cfg, params: Params, batch) -> torch.Tensor:
+    """The front of the forward, on the first pipeline stage: the token
+    embedding (and the VLM's image projection) in the compute dtype."""
+    return _embed(cfg, params, batch, compute_dtype(cfg))
+
+
+def stage_slice_forward(cfg, params: Params, x: torch.Tensor,
+                        positions: torch.Tensor, *, taps=None,
+                        collect: Union[bool, str] = False,
+                        soi_block: Optional[int] = None, cache=None,
+                        idx=None, state_len=None, table=None
+                        ) -> Tuple[torch.Tensor, dict]:
+    """The stacked layers ``params`` holds (``layers/``, or the hybrid's
+    ``units/``, whatever their count: the whole model's, or one pipeline
+    stage's contiguous slice) over ``x``: ``(x, stats)``, the statistics
+    stacked like the taps (see :func:`forward`). ``cache``, ``idx``,
+    ``state_len`` and ``table`` are :func:`forward`'s serving
+    arguments."""
+    _check_family(cfg)
+    block = soi_block or cfg.soi_block
+    stats: Dict[str, list] = {}
+    stacked = [(pfx, kind) for pfx, kind, st in _stacks(cfg) if st]
+    group = stacked[0][0].split("/")[0]         # "layers" or "units"
+    unb = {k: v.unbind(0) for k, v in params.items()
+           if k.startswith(group + "/")}
+    tap_l = {k: v.unbind(0) for k, v in (taps or {}).items()
+             if k.startswith(group + "/")}
+    n = len(next(iter(unb.values())))
+    for i in range(n):
+        for pfx, kind in stacked:
+            ctx = Ctx(taps={k: v[i] for k, v in tap_l.items()} or None,
+                      collect=collect, soi_block=block)
+            p_l = {k[len(pfx) + 1:]: v[i] for k, v in unb.items()
+                   if k.startswith(pfx + "/")}
+            x = _layer_apply(cfg, kind, p_l, x, positions, ctx, pfx,
+                             cache=_layer_cache(cache, pfx, kind, i),
+                             idx=idx, state_len=state_len, table=table)
+            for name, s in ctx.stats.items():
+                stats.setdefault(name, []).append(s)
+    return x, {k: torch.stack(v) for k, v in stats.items()}
+
+
+def tail_forward(cfg, params: Params, x: torch.Tensor,
+                 positions: torch.Tensor, *, taps=None,
+                 collect: Union[bool, str] = False,
+                 soi_block: Optional[int] = None, cache=None, idx=None,
+                 state_len=None) -> Tuple[torch.Tensor, dict]:
+    """The hybrid's tail, the ``n_layers % len(pattern)`` sub-layers
+    after the last whole unit (unstacked parameters, taps and
+    statistics), on the last pipeline stage: ``(x, stats)``; the identity
+    for the other families."""
+    block = soi_block or cfg.soi_block
+    stats: dict = {}
+    for pfx, kind, st in _stacks(cfg):
+        if st:
+            continue
+        ctx = Ctx(taps=taps or None, collect=collect, soi_block=block)
+        x = _layer_apply(cfg, kind, _sub(params, pfx), x, positions, ctx,
+                         pfx, cache=_layer_cache(cache, pfx, kind),
+                         idx=idx, state_len=state_len)
+        stats.update(ctx.stats)
+    return x, stats
+
+
+def head_loss(cfg, params: Params, x: torch.Tensor, batch) -> torch.Tensor:
+    """The last pipeline stage's head: the final norm, the vocabulary
+    projection and :func:`loss_from_logits`, the operations
+    :func:`loss_fn` runs after the layers."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return loss_from_logits(cfg, _logits(cfg, params, x), batch)
+
+
 def forward(cfg, params: Params, batch, taps=None,
             collect: Union[bool, str] = False,
             soi_block: Optional[int] = None, cache=None,
@@ -424,6 +520,10 @@ def forward(cfg, params: Params, batch, taps=None,
     ``img_embeds`` (B, n_img, vision_dim) and M-RoPE ``positions``
     (3, B, T).
 
+    The body is the pipeline's pieces in order (:func:`embed_inputs`,
+    :func:`stage_slice_forward` over every layer, :func:`tail_forward`,
+    the head), so a pipelined step runs the same operations.
+
     Serving: ``cache`` (:func:`init_cache`) is written in place at its
     ``idx``, which also offsets the positions; the caller advances
     ``idx``. ``cache["table"]``, if present, switches attention to the
@@ -432,62 +532,27 @@ def forward(cfg, params: Params, batch, taps=None,
     own (a right-padded prefill, whose recurrent mixers then take their
     state there)."""
     _check_family(cfg)
-    tokens = batch["tokens"]
-    B, T = tokens.shape
-    dt = compute_dtype(cfg)
+    B, T = batch["tokens"].shape
     idx = cache["idx"] if cache is not None else None
     table = cache.get("table") if cache is not None else None
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(T, dtype=torch.int32,
-                                 device=tokens.device)[None]
-        if idx is not None:
-            positions = positions + (idx[:, None] if torch.is_tensor(idx)
-                                     and idx.ndim == 1 else idx)
-        positions = positions.expand(B, T).to(torch.int32)
+    positions = batch_positions(batch, idx)
     state_len = (last_pos + 1 if cache is not None and last_pos is not None
                  and T > 1 else None)
-    x = _embed(cfg, params, batch, dt)
-    block = soi_block or cfg.soi_block
-    taps = taps or {}
-    stats: Dict[str, list] = {}
-    out_stats: Dict[str, torch.Tensor] = {}
-    stacks = _stacks(cfg)
-    stacked = [(pfx, kind) for pfx, kind, st in stacks if st]
-    if stacked:
-        n = stacks[0][2][0]
-        group = stacked[0][0].split("/")[0]     # "layers" or "units"
-        unb = {k: v.unbind(0) for k, v in params.items()
-               if k.startswith(group + "/")}
-        tap_l = {k: v.unbind(0) for k, v in taps.items()
-                 if k.startswith(group + "/")}
-        for i in range(n):
-            for pfx, kind in stacked:
-                ctx = Ctx(taps={k: v[i] for k, v in tap_l.items()} or None,
-                          collect=collect, soi_block=block)
-                p_l = {k[len(pfx) + 1:]: v[i] for k, v in unb.items()
-                       if k.startswith(pfx + "/")}
-                x = _layer_apply(cfg, kind, p_l, x, positions, ctx, pfx,
-                                 cache=_layer_cache(cache, pfx, kind, i),
-                                 idx=idx, state_len=state_len, table=table)
-                for name, s in ctx.stats.items():
-                    stats.setdefault(name, []).append(s)
-    for pfx, kind, st in stacks:
-        if st:
-            continue
-        # the hybrid tail: unstacked parameters, taps and statistics
-        ctx = Ctx(taps=taps or None, collect=collect, soi_block=block)
-        x = _layer_apply(cfg, kind, _sub(params, pfx), x, positions, ctx,
-                         pfx, cache=_layer_cache(cache, pfx, kind),
-                         idx=idx, state_len=state_len)
-        out_stats.update(ctx.stats)
+    x = embed_inputs(cfg, params, batch)
+    serving = dict(cache=cache, idx=idx, state_len=state_len)
+    x, stats = stage_slice_forward(cfg, params, x, positions, taps=taps,
+                                   collect=collect, soi_block=soi_block,
+                                   table=table, **serving)
+    x, out_stats = tail_forward(cfg, params, x, positions, taps=taps,
+                                collect=collect, soi_block=soi_block,
+                                **serving)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
     elif last_pos is not None:
         x = x[torch.arange(B, device=x.device), last_pos.long()][:, None]
     logits = _logits(cfg, params, x)
-    out_stats.update({k: torch.stack(v) for k, v in stats.items()})
+    out_stats.update(stats)
     return logits, out_stats
 
 

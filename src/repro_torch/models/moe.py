@@ -16,6 +16,12 @@ Which capacity a call takes follows the reference's two datapaths:
     data shard is the submesh a ``dist.api.hint_guard`` bound to
     ``data`` (the program binds it, ``launch.steps.bound``); without one
     ``n_data`` is 1 and ``c_loc`` the global capacity;
+  * **the pipeline's stage program** (``dist.api.in_hint_guard``, the
+    reference's manual region, where its fast path is off): experts
+    sliced over ``model`` route as above, against ``c_loc`` (its
+    ``_local_moe`` called directly); whole experts take the reference's
+    portable path, ``C = capacity(nt_local)``, the capacity of this data
+    shard's own tokens, whatever the data ranks;
   * **statistics** (taps or ``collect``): one queue per expert over the
     whole subsample, ``C = capacity(nt_global)``, as the reference's
     global scatter path. Under a bound data submesh each rank's pairs
@@ -61,8 +67,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.api import (DATA, MODEL, all_gather_rows, bound_mesh,
-                                  bwd_psum, fwd_psum, mesh_ndev,
-                                  mesh_position)
+                                  bwd_psum, fwd_psum, in_hint_guard,
+                                  mesh_ndev, mesh_position)
 from repro_torch.models.layers import Ctx, dense_stacked, swiglu
 
 
@@ -197,6 +203,10 @@ def moe_ffn(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
     e0 = 0 if model is None else mesh_position(model) * e_loc
     if stats:       # one queue over every data rank's tokens
         C, queue = None, data
+    elif in_hint_guard() and model is None:
+        # the pipeline's stage program, experts whole: the reference's
+        # portable path there, the capacity of this shard's own tokens
+        C, queue = capacity(cfg, nt), None
     else:
         C = shard_capacity(cfg, nt, 1 if data is None else mesh_ndev(data))
         queue = None

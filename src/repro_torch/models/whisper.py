@@ -18,6 +18,11 @@ cross-attention ``dec/cross/wk`` takes its A factor over the encoder's
 frames, which ``dec/cross/wv`` shares, so their taps carry one row a
 frame (``launch.steps`` sizes them).
 
+Pipeline parallelism: :func:`stage_channel_init`,
+:func:`stage_slice_forward` and :func:`head_loss` are a stage's pieces
+over the concatenated ``[encoder | decoder]`` channel, on the layer
+loops :func:`encode` and :func:`decode` run.
+
 Serving: :func:`init_cache` is ``layers/self/k``, ``layers/self/v``
 (L, B, S, h, hd), ``layers/self/pos`` (L, B, S), the precomputed
 cross-attention ``layers/cross_k``/``layers/cross_v`` (L, B, enc_len, h,
@@ -166,17 +171,20 @@ def _stack_stats(per_layer):
     return {k: torch.stack(v) for k, v in out.items()}
 
 
-def encode(cfg, params: Params, enc_embeds: torch.Tensor, taps=None,
-           collect: Union[bool, str] = False,
-           soi_block: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
-    """enc_embeds (B, T, D) stubbed frame embeddings -> ``(out (B, T,
-    D), stats)``: the bidirectional encoder and its final LayerNorm."""
+def _frames(cfg, enc_embeds: torch.Tensor):
+    """The encoder's input in the compute dtype: the frame embeddings
+    plus sinusoidal positions; and the positions."""
     B, T, D = enc_embeds.shape
-    dt = compute_dtype(cfg)
     pos = torch.arange(T, dtype=torch.int32,
                        device=enc_embeds.device)[None].expand(B, T)
-    x = (enc_embeds.to(torch.float32) + _sinusoid(pos, D)).to(dt)
-    block = soi_block or cfg.soi_block
+    x = (enc_embeds.to(torch.float32) + _sinusoid(pos, D)).to(
+        compute_dtype(cfg))
+    return x, pos
+
+
+def _enc_layers(cfg, params: Params, x, pos, taps, collect, block):
+    """The encoder layers ``params`` holds over ``x``: ``(x, per-layer
+    stats)``."""
     stats = []
     for p_l, taps_l in _stack(params, "enc", taps):
         ctx = Ctx(taps=taps_l, collect=collect, soi_block=block)
@@ -184,6 +192,17 @@ def encode(cfg, params: Params, enc_embeds: torch.Tensor, taps=None,
                      False, pos, pos)
         x = x + _mlp(p_l, _ln(x, p_l, "ln2"), ctx, "enc/mlp")
         stats.append(ctx.stats)
+    return x, stats
+
+
+def encode(cfg, params: Params, enc_embeds: torch.Tensor, taps=None,
+           collect: Union[bool, str] = False,
+           soi_block: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
+    """enc_embeds (B, T, D) stubbed frame embeddings -> ``(out (B, T,
+    D), stats)``: the bidirectional encoder and its final LayerNorm."""
+    x, pos = _frames(cfg, enc_embeds)
+    x, stats = _enc_layers(cfg, params, x, pos, taps, collect,
+                           soi_block or cfg.soi_block)
     return _ln(x, params, "enc_ln_f"), _stack_stats(stats)
 
 
@@ -226,37 +245,18 @@ def loss_from_logits(cfg, logits: torch.Tensor, batch) -> torch.Tensor:
     return torch.mean(logz - gold)
 
 
-def decode(cfg, params: Params, tokens: torch.Tensor,
-           enc_out: Optional[torch.Tensor], taps=None,
-           collect: Union[bool, str] = False,
-           soi_block: Optional[int] = None, cache=None,
-           last_only: bool = False,
-           last_pos: Optional[torch.Tensor] = None
-           ) -> Tuple[torch.Tensor, dict]:
-    """The decoder over ``tokens`` (B, T): ``(logits, stats)``.
-
-    Without ``cache`` the cross-attention's keys and values come from
-    ``enc_out`` (B, T_enc, D). With ``cache`` they come from its
-    ``cross_k``/``cross_v`` (``enc_out`` is not read and may be None),
-    the self-attention writes the cache in place at its ``idx`` and the
-    caller advances ``idx``. ``last_only``/``last_pos`` as in
-    ``models.lm.forward``."""
-    B, T = tokens.shape
-    D = cfg.d_model
+def _tokens_in(cfg, params: Params, tokens, pos):
+    """The decoder's input in the compute dtype: the token embedding plus
+    sinusoidal positions."""
     dt = compute_dtype(cfg)
-    idx = cache["idx"] if cache is not None else None
-    pos = torch.arange(T, dtype=torch.int32, device=tokens.device)[None]
-    if idx is not None:
-        pos = pos + (idx[:, None] if torch.is_tensor(idx) and idx.ndim == 1
-                     else idx)
-    pos = pos.expand(B, T).to(torch.int32)
-    x = (params["embed"].to(dt)[tokens].to(torch.float32)
-         + _sinusoid(pos, D)).to(dt)
-    enc_len = (cache["layers/cross_k"].shape[2] if cache is not None
-               else enc_out.shape[1])
-    enc_pos = torch.arange(enc_len, dtype=torch.int32,
-                           device=tokens.device)[None].expand(B, enc_len)
-    block = soi_block or cfg.soi_block
+    return (params["embed"].to(dt)[tokens].to(torch.float32)
+            + _sinusoid(pos, cfg.d_model)).to(dt)
+
+
+def _dec_layers(cfg, params: Params, x, pos, enc_out, enc_pos, taps,
+                collect, block, cache=None, idx=None):
+    """The decoder layers ``params`` holds over ``x``, cross-attending to
+    ``enc_out`` (or the cache's cross K/V): ``(x, per-layer stats)``."""
     stats = []
     for i, (p_l, taps_l) in enumerate(_stack(params, "dec", taps)):
         ctx = Ctx(taps=taps_l, collect=collect, soi_block=block)
@@ -274,6 +274,38 @@ def decode(cfg, params: Params, tokens: torch.Tensor,
                      enc_pos, shared_kv=kv)
         x = x + _mlp(p_l, _ln(x, p_l, "ln2"), ctx, "dec/mlp")
         stats.append(ctx.stats)
+    return x, stats
+
+
+def decode(cfg, params: Params, tokens: torch.Tensor,
+           enc_out: Optional[torch.Tensor], taps=None,
+           collect: Union[bool, str] = False,
+           soi_block: Optional[int] = None, cache=None,
+           last_only: bool = False,
+           last_pos: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, dict]:
+    """The decoder over ``tokens`` (B, T): ``(logits, stats)``.
+
+    Without ``cache`` the cross-attention's keys and values come from
+    ``enc_out`` (B, T_enc, D). With ``cache`` they come from its
+    ``cross_k``/``cross_v`` (``enc_out`` is not read and may be None),
+    the self-attention writes the cache in place at its ``idx`` and the
+    caller advances ``idx``. ``last_only``/``last_pos`` as in
+    ``models.lm.forward``."""
+    B, T = tokens.shape
+    idx = cache["idx"] if cache is not None else None
+    pos = torch.arange(T, dtype=torch.int32, device=tokens.device)[None]
+    if idx is not None:
+        pos = pos + (idx[:, None] if torch.is_tensor(idx) and idx.ndim == 1
+                     else idx)
+    pos = pos.expand(B, T).to(torch.int32)
+    x = _tokens_in(cfg, params, tokens, pos)
+    enc_len = (cache["layers/cross_k"].shape[2] if cache is not None
+               else enc_out.shape[1])
+    enc_pos = torch.arange(enc_len, dtype=torch.int32,
+                           device=tokens.device)[None].expand(B, enc_len)
+    x, stats = _dec_layers(cfg, params, x, pos, enc_out, enc_pos, taps,
+                           collect, soi_block or cfg.soi_block, cache, idx)
     x = _ln(x, params, "dec_ln_f")
     if last_only:
         x = x[:, -1:]
@@ -293,6 +325,87 @@ def loss_fn(cfg, params: Params, batch, taps=None,
     logits, stats_d = decode(cfg, params, batch["tokens"], enc_out,
                              taps=taps, collect=collect, soi_block=soi_block)
     return loss_from_logits(cfg, logits, batch), {**stats_e, **stats_d}
+
+
+# ---------------------------------------------------------------------------
+# Per-stage slices (pipeline parallelism, repro_torch.pipeline)
+# ---------------------------------------------------------------------------
+#
+# The pipeline's channel for the encoder-decoder is the concatenation
+# [enc_seg | dec_seg] along time, width T_enc + T_dec: the contiguous
+# stage partition over the [enc..., dec...] atoms puts the encoder layers
+# on leading stages and the decoder layers on trailing ones, and the one
+# channel carries the final encoder output forward to every decoder stage
+# and the encoder cotangents backward. A stage that runs decoder layers
+# recomputes ``enc_out = layer_norm(enc_seg, enc_ln_f)`` itself
+# (``enc_ln_f`` is on every stage); by contiguity its enc segment is
+# final.
+
+
+def stage_channel_init(cfg, params: Params, batch) -> torch.Tensor:
+    """The first stage's front: both frontends (frame embeddings plus
+    sinusoid for the encoder segment, token embedding plus sinusoid for
+    the decoder segment), concatenated along time."""
+    enc_x, _ = _frames(cfg, batch["enc_embeds"])
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    pos = torch.arange(T, dtype=torch.int32,
+                       device=tokens.device)[None].expand(B, T)
+    return torch.cat([enc_x, _tokens_in(cfg, params, tokens, pos)], dim=1)
+
+
+def stage_slice_forward(cfg, params: Params, ch: torch.Tensor, t_enc: int,
+                        *, taps=None, collect: Union[bool, str] = False,
+                        soi_block: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, dict]:
+    """One stage's encoder layers over the channel's encoder segment,
+    then its decoder layers over the decoder segment (either may be
+    none): ``(channel, stats)``."""
+    B = ch.shape[0]
+    block = soi_block or cfg.soi_block
+    # each segment contiguous, as the monolithic path's activations are
+    # (a strided view takes other kernels, with other rounding)
+    enc, dec = ch[:, :t_enc].contiguous(), ch[:, t_enc:].contiguous()
+    epos = torch.arange(t_enc, dtype=torch.int32,
+                        device=ch.device)[None].expand(B, t_enc)
+    stats = []
+    if any(k.startswith("enc/") for k in params):
+        enc, stats = _enc_layers(cfg, params, enc, epos, taps, collect,
+                                 block)
+    if any(k.startswith("dec/") for k in params):
+        T = dec.shape[1]
+        dpos = torch.arange(T, dtype=torch.int32,
+                            device=ch.device)[None].expand(B, T)
+        dec, st = _dec_layers(cfg, params, dec, dpos,
+                              _ln(enc, params, "enc_ln_f"), epos, taps,
+                              collect, block)
+        stats = stats + st
+    return (torch.cat([_DenseGrad.apply(enc), _DenseGrad.apply(dec)], dim=1),
+            _stack_stats(stats))
+
+
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose cotangent is made contiguous: a segment of the
+    concatenated channel gets a strided slice of the channel's cotangent,
+    and the layers' reductions over a strided cotangent (a bias's sum)
+    round otherwise than the monolithic path's over a dense one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.contiguous()
+
+
+def head_loss(cfg, params: Params, ch: torch.Tensor, batch) -> torch.Tensor:
+    """The last stage's head on the channel's decoder segment: the final
+    LayerNorm, the tied vocabulary head and :func:`loss_from_logits`,
+    the operations :func:`loss_fn` runs after the decoder."""
+    x = _ln(ch[:, batch["enc_embeds"].shape[1]:].contiguous(), params,
+            "dec_ln_f")
+    return loss_from_logits(cfg, _head_logits(cfg, params, x), batch)
 
 
 # ---------------------------------------------------------------------------

@@ -28,12 +28,14 @@ On a program with a ``mesh`` each rank's batch is its rows of the global
 batch (``data.make_global_batch``); rank 0 alone writes the
 checkpoints, and a recovery waits for its writes, then a barrier, then
 every rank restores the same files, so that every rank resumes alike.
-Under tensor parallelism a checkpoint holds the full model's state: at
-each save every rank takes part in the program's ``full_state`` (the
-slices gathered over the model ranks), and a restore is cut back to the
-rank's slices by its ``local_state``, so a checkpoint does not depend
-on the mesh. ``LoopConfig.model_parallel`` must match the program's
-model axis, as the reference's loop builds its mesh from it. The ranks agree on failure twice a step, where none has
+Under tensor or pipeline parallelism a checkpoint holds the full model's
+state: at each save every rank takes part in the program's
+``full_state`` (the slices gathered over the model ranks, the stages'
+parts over the stage ranks), and a restore is cut back to the rank's
+parts by its ``local_state``, so a checkpoint does not depend on the
+mesh. ``LoopConfig.model_parallel`` and ``pipeline_parallel`` must match
+the program's model and stage axes, as the reference's loop builds its
+mesh from them. The ranks agree on failure twice a step, where none has
 a collective in flight: after the ``inject`` hook and after the step's
 watchdog (:meth:`TrainLoop._agree`). A recoverable failure on any rank
 there is a recovery on every rank. One raised inside a rank's step, in
@@ -74,8 +76,8 @@ class Program(Protocol):
     ``async_inv`` says that work runs on a side stream, so the step
     fence waits for the current stream only; ``full_state(state)`` and
     ``local_state(state)`` carry a state to and from the layout a
-    checkpoint holds; ``model_parallel`` is the model axis's rank
-    count."""
+    checkpoint holds; ``model_parallel`` and ``pp`` are the model and
+    stage axes' rank counts."""
 
     device: Any
 
@@ -92,6 +94,11 @@ class LoopConfig:
     keep: int = 3
     max_failures: int = 3
     model_parallel: int = 1
+    # pipeline (stage) degree: must match the program's stage axis, as
+    # model_parallel its model axis (a recovery restores every rank from
+    # the checkpoint onto the same mesh; re-meshing is ROADMAP Queue 1
+    # item 8.3)
+    pipeline_parallel: int = 1
     log_every: int = 10
     straggler_factor: float = 2.0
     # the step deadline is hang_factor x the median healthy step (after
@@ -126,6 +133,11 @@ class TrainLoop:
             raise ValueError(
                 f"LoopConfig.model_parallel={cfg.model_parallel} but the "
                 f"program's mesh has {mp} model ranks")
+        pp = getattr(program, "pp", 1)
+        if pp != cfg.pipeline_parallel:
+            raise ValueError(
+                f"LoopConfig.pipeline_parallel={cfg.pipeline_parallel} but "
+                f"the program's mesh has {pp} stages")
         writer = self.mesh is None or torch.distributed.get_rank() == 0
         self.ckpt = (CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
                      if cfg.ckpt_dir is not None and writer else None)
@@ -351,6 +363,7 @@ class TrainLoop:
             "wall_s": time.monotonic() - t_start,
             "recoveries": self.n_recoveries,
             "model_parallel": self.cfg.model_parallel,
+            "pipeline_parallel": self.cfg.pipeline_parallel,
             "stragglers": self.watchdog.n_stragglers,
             **({"ckpt_write_s": list(self.ckpt.write_s)}
                if self.ckpt is not None else {}),

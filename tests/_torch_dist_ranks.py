@@ -11,6 +11,7 @@ either.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -863,4 +864,215 @@ def ep_rank(rank, world, cases):
         elif rank and kind == "grams":
             got = None
         out[key] = got
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_dist_pp.py
+# ---------------------------------------------------------------------------
+
+#: the pipeline tests' K-FAC config (smoke widths, block 32)
+PP_KCFG = dict(block_size=32, stats_batch=8, stats_seq=16, stats_every=2,
+               inv_every=2)
+#: the trajectory's data seed
+PP_DATA_SEED = 3
+
+
+def _pp_program(cfg, mesh, **kw):
+    from repro_torch.core import kfac
+    from repro_torch.dist.api import axis_sizes
+    from repro_torch.launch import train as train_mod
+
+    return train_mod.KFACProgram(
+        cfg, kfac.KFACConfig(**{**PP_KCFG, **kw}), device="cpu", mesh=mesh,
+        pp=axis_sizes(mesh)["stage"], dist_inv=True)
+
+
+def _pp_rows(batch_np, mesh):
+    """This rank's rows of a global batch (M-RoPE positions on their
+    batch dim)."""
+    from repro_torch.data.pipeline import batch_rows_of
+    from repro_torch.pipeline.microbatch import batch_axis
+
+    lo, hi = batch_rows_of(batch_np["tokens"].shape[0], mesh)
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        np.take(v, range(lo, hi), axis=batch_axis(k, v.ndim))))
+        for k, v in batch_np.items()}
+
+
+def _gather_params(tree, shards, cfg):
+    """A parameter-shaped dict of this rank's leaves, whole (every rank
+    calls)."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch import steps as steps_mod
+
+    if shards.model is not None:
+        tree = sharding.full_params(tree, shards.model)
+    like = steps_mod.init_params(cfg, generator=None, device="meta")
+    return sharding.stage_full_params(tree, like, shards, "cpu")
+
+
+def pp_grads(cfg, mesh, params_np, batch_np, uniform=False):
+    """One pipelined train step of ``KFACProgram`` on ``mesh`` from the
+    given full weights and global batch, under each schedule: the loss,
+    the gradients the WU takes (gathered whole), each schedule's peak
+    stash on this rank, whether GPipe's loss and gradients are bitwise
+    1F1B's, and this rank's leaves. ``uniform``: the uniform partition
+    instead of the free one."""
+    from repro_torch.core import kfac
+    from repro_torch.dist import sharding
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.pipeline import partition_stages
+
+    program = _pp_program(cfg, mesh)
+    shards = program.shards
+    if uniform:
+        shards = sharding.stage_shards(
+            cfg, mesh, partition_stages(cfg, shards.n_stages,
+                                        require_uniform=True),
+            shards.model)
+    params = {k: torch.from_numpy(v) for k, v in params_np.items()}
+    state = steps_mod.local_state(steps_mod.TrainState(params, kfac.init(
+        params, steps_mod.kfac_specs(cfg), program.kcfg)), shards)
+    rows = _pp_rows(batch_np, mesh)
+    out = {"leaves": sorted(state.params), "peak_stash": {}}
+    seen = {}
+    orig = kfac.apply_updates
+
+    def spy(params, grads, *a, **k):
+        seen["grads"] = grads
+        return orig(params, grads, *a, **k)
+
+    kfac.apply_updates = spy
+    try:
+        for kind in ("1f1b", "gpipe"):
+            step = steps_mod.make_pipeline_step(
+                cfg, program.kcfg, mesh=mesh, pp=shards.n_stages,
+                schedule=kind, shards=shards)
+            _, m = step(state, rows)
+            out["peak_stash"][kind] = step.grads_fn.peak_stash
+            out[kind] = (m["loss"], seen.pop("grads"))
+    finally:
+        kfac.apply_updates = orig
+    (l1, g1), (lg, gg) = out.pop("1f1b"), out.pop("gpipe")
+    out["gpipe_bitwise"] = bool(torch.equal(l1, lg)) and all(
+        torch.equal(g1[k], gg[k]) for k in g1)
+    out["loss"] = float(l1)
+    full = _gather_params(g1, shards, cfg)
+    out["grads"] = ({k: v.numpy() for k, v in full.items()}
+                    if torch.distributed.get_rank() == 0 else None)
+    return out
+
+
+def pp_grams(cfg, mesh, params_np, batch_np):
+    """The factors after the statistics step of ``KFACProgram`` on
+    ``mesh`` at EMA decay 0 (the Grams of the whole batch, passed
+    through the stages), this rank's names and shapes, whether the
+    stage's ``--dist-inv`` refresh over its ``(data, model)`` ranks is
+    bitwise the local refresh of its factors, and the factors gathered
+    whole (rank 0)."""
+    from repro_torch.core import kfac
+    from repro_torch.dist import sharding
+    from repro_torch.launch import steps as steps_mod
+
+    program = _pp_program(cfg, mesh, ema_decay=0.0)
+    shards = program.shards
+    params = {k: torch.from_numpy(v) for k, v in params_np.items()}
+    state = steps_mod.local_state(steps_mod.TrainState(params, kfac.init(
+        params, steps_mod.kfac_specs(cfg), program.kcfg)), shards)
+    stats = steps_mod.make_stats_step(cfg, program.kcfg,
+                                      data_mesh=program.data_mesh,
+                                      shards=shards)
+    state, _ = stats(state, _pp_rows(batch_np, mesh))
+    fac = state.kfac.factors
+    # the stage's distributed refresh over its (data, model) ranks
+    refresh = steps_mod.make_inv_refresh(
+        cfg, program.kcfg, mesh=mesh["data", "model"], distributed=True,
+        shards=shards.model)
+    out = {"shapes": {n: {s: tuple(t.shape) for s, t in d.items()}
+                      for n, d in fac.items()},
+           "refresh_bitwise": bitwise(refresh(fac), kfac.invert_factors(
+               fac, program.kcfg))}
+    if shards.model is not None:
+        fac = sharding.full_factors(fac, shards.model)
+    like = steps_mod.state_like(cfg, program.kcfg).kfac.factors
+    full = sharding.stage_full_factors(fac, like, shards, "cpu")
+    out["factors"] = (numpy_tree(full) if torch.distributed.get_rank() == 0
+                      else None)
+    return out
+
+
+def pp_train(cfg, mesh, n_steps, ckpt_dir):
+    """``runtime.TrainLoop`` over the pipelined ``KFACProgram`` on
+    ``mesh`` (seed-0 weights, data seed :data:`PP_DATA_SEED`,
+    ``--dist-inv``) for ``n_steps``, its last checkpoint in ``ckpt_dir``:
+    the losses, this rank's leaves, factor and inverse shapes, its WU
+    tiles and factor blocks, whether its refresh of the final factors is
+    bitwise the one-rank refresh's blocks, the gathered params' digest,
+    and rank 0's full final state."""
+    from repro_torch.core import kfac, soi
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+
+    program = _pp_program(cfg, mesh)
+    shards = program.shards
+    ds = SyntheticTokens(cfg.vocab, PP_KCFG["stats_seq"],
+                         PP_KCFG["stats_batch"], seed=PP_DATA_SEED)
+    loop = TrainLoop(LoopConfig(n_steps, ckpt_dir=ckpt_dir,
+                                ckpt_every=n_steps, hang_factor=None,
+                                model_parallel=shards.mp,
+                                pipeline_parallel=shards.n_stages),
+                     program, ds)
+    res = loop.run()
+    local = loop.final_state
+    full = program.full_state(local)
+    specs = steps_mod.kfac_specs(cfg, shards)
+    refresh = steps_mod.make_inv_refresh(
+        cfg, program.kcfg, mesh=mesh["data", "model"], distributed=True,
+        shards=shards.model)
+    one = steps_mod.local_state(steps_mod.TrainState(
+        full.params, dataclasses.replace(
+            full.kfac, inverses=kfac.invert_factors(full.kfac.factors,
+                                                    program.kcfg))),
+        shards).kfac.inverses
+    return {
+        "losses": [h["loss"] for h in res["history"]],
+        "leaves": sorted(local.params),
+        "factor_shapes": {n: {s: tuple(t.shape) for s, t in d.items()}
+                          for n, d in local.kfac.factors.items()},
+        "inverse_shapes": {n: {s: tuple(t.shape) for s, t in d.items()}
+                           for n, d in local.kfac.inverses.items()},
+        "blocks": sum(math.prod(shape[:-2]) for s in specs.values()
+                      for shape in soi.factor_shapes(
+                          s, program.kcfg.block_size).values()),
+        "wu_tiles": steps_mod.make_wu_plan_for(
+            cfg, local, shards=shards).total_tiles,
+        "refresh_bitwise": bitwise(refresh(local.kfac.factors), one),
+        "digest": train_mod.params_digest(full.params),
+        "state": ({"params": {k: v.numpy() for k, v in
+                              full.params.items()},
+                   "factors": numpy_tree(full.kfac.factors),
+                   "inverses": numpy_tree(full.kfac.inverses),
+                   "adam_mu": {k: v.numpy() for k, v in
+                               full.kfac.adam_mu.items()},
+                   "momentum": {k: v.numpy() for k, v in
+                                full.kfac.momentum.items()}}
+                  if torch.distributed.get_rank() == 0 else None)}
+
+
+def pp_rank(rank, world, cases):
+    """Every case ``(key, kind, arch, cfg overrides, mesh shape (stage,
+    data, model), args)`` of this world, in order: ``kind`` "grads"
+    (:func:`pp_grads`), "grams" (:func:`pp_grams`) or "train"
+    (:func:`pp_train`). Returns ``{key: result}``."""
+    from repro_torch.launch.mesh import make_pipeline_mesh
+
+    out = {}
+    for key, kind, arch, over, shape, args in cases:
+        cfg = _ep_cfg(arch, **over)
+        mesh = make_pipeline_mesh(shape[0], shape[2])
+        fn = {"grads": pp_grads, "grams": pp_grams, "train": pp_train}[kind]
+        out[key] = fn(cfg, mesh, *args)
     return out

@@ -253,8 +253,9 @@ def test_cli_model_parallel_recovers_every_rank(tmp_path):
     np.testing.assert_allclose(got, one, rtol=1e-2)
 
 
-def test_refusals_name_the_roadmap_item():
-    """--pp, and a model axis without ranks to fill it; moe under
+def test_refusals_name_the_roadmap_item(monkeypatch):
+    """--pp and a model axis without ranks to fill them, and --pp with
+    a model axis that does not divide the stage's ranks; moe under
     --model-parallel is taken (expert parallelism): it meets the same
     mesh check as the dense family, and the slicing rule puts its experts
     on their expert dim (``tests/test_torch_dist_ep.py`` trains it)."""
@@ -264,8 +265,12 @@ def test_refusals_name_the_roadmap_item():
     assert sharding.model_spec_dim(cfg, "layers/moe/wg", 4, 2, 32) == 1
     assert sharding.model_spec_dim(cfg, "layers/moe/router", 3, 2, 32) \
         is None
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="--pp 2"):
         ttrain.main(CLI + ["--pp", "2"])
+    with monkeypatch.context() as m:      # each divides 2 ranks, not both
+        m.setenv("WORLD_SIZE", "2")
+        with pytest.raises(ValueError, match="--pp 2 x --model-parallel 2"):
+            ttrain.main(CLI + ["--pp", "2", "--model-parallel", "2"])
     for cli in (CLI, ["--arch", "moonshot-v1-16b-a3b"] + CLI[2:]):
         with pytest.raises(ValueError, match="--model-parallel 2"):
             ttrain.main(cli + ["--model-parallel", "2"])

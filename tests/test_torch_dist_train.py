@@ -157,14 +157,17 @@ def test_failure_inside_one_ranks_step_is_not_recovered(tmp_path):
 
 
 def test_torchrun_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # --pp and --model-parallel are ported: one rank cannot fill their
+    # groups; the SGD baseline never pipelines (the reference's message)
+    with pytest.raises(ValueError, match="--pp 2"):
         ttrain.main(CLI + ["--pp", "2"])
-    # --model-parallel is ported: one rank cannot fill a model group
+    with pytest.raises(SystemExit, match="KFACProgram feature"):
+        ttrain.main(CLI + ["--pp", "2", "--optimizer", "sgd"])
     with pytest.raises(ValueError, match="--model-parallel 2"):
         ttrain.main(CLI + ["--model-parallel", "2"])
     cfg = t_get_smoke_config(ARCH)
     for kw in (dict(smw=True), dict(async_inv=True)):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="item 8.4"):
             ttrain.KFACProgram(cfg, tkfac.KFACConfig(), device="cpu",
                                mesh=object(), **kw)
 
