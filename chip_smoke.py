@@ -338,7 +338,27 @@ Phases, each printed as a JSON line:
                  both kernels launched on both ranks and held to their
                  plain versions; (e) each stage's peak stashed inputs
                  the schedule's stash plan
-  23. trace      the main path's four steps again, the fourth under
+  23. elastic    the loss drill of ``runtime.elastic`` on the main path's
+                 model at fp32 with ``--dist-inv``: two ranks sharing the
+                 card on a (2, 1) mesh, a checkpoint every 2 steps, rank
+                 1 losing a device at step 3; rank 0 re-forms (1, 1),
+                 restores the checkpoint of step 2 and ends 5 steps: one
+                 recovery, two remesh events and the counter at 2, rank
+                 1's summary saying it was excluded, every loss within
+                 0.2% of one rank's, after the re-mesh every block
+                 inverted and every WU tile on rank 0, its kernels held
+                 to their plain versions; the restore's seconds
+  24. ranks_solvers  ``--smw``, ``--async-inv --dist-inv`` and the SGD
+                 baseline on the same two ranks at (2, 1), fp32, against
+                 one rank: (a) 4 SMW steps, the fallback steps the same
+                 on both ranks and one rank, ``smw_update`` launched on
+                 each rank, the inverses bitwise equal across the ranks,
+                 rank 0's first SMW-only update through the kernel held
+                 to its plain version; (b) 4 async steps, every
+                 ``neumann_inv`` launch on the side stream, losses within
+                 0.2% of one rank's, the refresh's overlap with the main
+                 stream (gloo's) printed; (c) 2 SGD steps within 0.2%
+  25. trace      the main path's four steps again, the fourth under
                  torch.profiler (kernels only): the device's busy time
                  against the step's wall time, and the top kernels; last,
                  so that the profiler session cannot perturb the phases
@@ -347,7 +367,8 @@ Phases, each printed as a JSON line:
 Then the script's seconds, a JSON line of per-kernel results (with
 whisper's launches, the serve and paged phases' (none), the paper
 phase's and the tooling phase's, the large routes' at block 256, and
-the dist, tp, ep and pp phases' summed over their ranks),
+the dist, tp, ep, pp, elastic and ranks_solvers phases' summed over
+their ranks),
 the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 without the ``ok`` line; so does a machine without CUDA, or a directory
@@ -518,6 +539,15 @@ EP = dict(arch="moonshot-v1-16b-a3b", layers=1, published_layers=48,
 # phase pp: the main path's model over 2 pipeline stages, 2 microbatches
 PP = dict(stages=2, micro=2, same_tol=1e-6, grad_tol=1e-5, gram_tol=1e-5,
           fp32_tol=1e-5)
+# phases elastic and ranks_solvers: the main path's model at fp32 on two
+# gloo ranks sharing the card. elastic: 5 steps, a checkpoint every 2, one
+# rank lost at step 3; ranks_solvers: --smw, --async-inv --dist-inv and
+# the SGD baseline. Their losses within 0.2% of one rank's at fp32 (the
+# main path's steps 3-4 move that much with summation order, "Rounding
+# on the card", ROADMAP.md)
+ELASTIC = dict(steps=5, ckpt_every=2, fail_at=3, lost=1, loss_tol=2e-3)
+SOLVERS = dict(smw_steps=4, async_steps=4, sgd_steps=2, sgd_lr=1e-2,
+               loss_tol=2e-3)
 # a kernel agrees with its plain version when max|kernel - plain| is at
 # most this share of max|plain| (rounding-level: the tensor cores sum the
 # exact bf16 partial products in another order than the plain matmuls)
@@ -3952,6 +3982,495 @@ def pp_phase(torch, dev, check):
                 "seconds": r["seconds"]} for r in ranks]}
 
 
+def elastic_rank(rank, world, ckpt_dir):
+    """One rank of phase ``elastic`` (run by ``dist.spawn.run_ranks``; see
+    :func:`elastic_phase`): ``runtime.TrainLoop`` over the main path's
+    model at fp32 on a ``(2, 1)`` mesh with ``--dist-inv``, a checkpoint
+    every :data:`ELASTIC`'s steps, rank 1 raising ``DeviceLoss(1)`` from
+    the ``inject`` hook. Returns the loop's summary and losses, the
+    launches before and after the re-mesh, and on the survivor its
+    remesh events and counter, the restore's seconds, its blocks and WU
+    tiles after the re-mesh, and its kernels held to their plain
+    versions; ``fails`` lists the kernel checks that failed."""
+    import torch
+
+    from repro_torch import obs as obs_mod
+    from repro_torch.core import soi
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.runtime import DeviceLoss, LoopConfig, TrainLoop
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    train_mod.fp32_matmuls()
+    cfg, kcfg, ds = pp_setup()
+    fails = []
+
+    def check(ok, what):
+        if not ok:
+            fails.append(f"elastic rank {rank}: {what}")
+
+    obs = obs_mod.Observability() if rank == 0 else obs_mod.NULL
+    program = train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"],
+                                    device=dev, mesh=make_dev_mesh(obs=obs),
+                                    dist_inv=True)
+    before = {}
+    remesh = program.remesh
+
+    def remesh_counted(mesh):
+        # the launches of the first mesh's steps, then the re-formed one's
+        before.update(launches=ops.launch_counts(),
+                      blocks=ops.launch_items()["neumann_inv"])
+        ops.reset_launch_counts()
+        return remesh(mesh)
+
+    program.remesh = remesh_counted
+    fired = []
+
+    def inject(step):
+        if rank == 1 and step == ELASTIC["fail_at"] and not fired:
+            fired.append(step)
+            raise DeviceLoss(ELASTIC["lost"], "elastic drill on rank 1")
+
+    loop = TrainLoop(LoopConfig(ELASTIC["steps"], ckpt_dir=ckpt_dir,
+                                ckpt_every=ELASTIC["ckpt_every"], keep=1,
+                                hang_factor=None),
+                     program, ds, inject=inject, obs=obs)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = loop.run()
+    torch.cuda.synchronize(dev)
+    out = {"rank": rank, "wall_s": time.perf_counter() - t0,
+           "summary": {k: v for k, v in res.items() if k != "history"},
+           "history": [(h["step"], h["loss"]) for h in res["history"]],
+           "phase_s": [h["phase_s"] for h in res["history"]],
+           "launches_before": before.get("launches"),
+           "blocks_before": before.get("blocks"),
+           "launches_after": ops.launch_counts(),
+           "blocks_after": ops.launch_items()["neumann_inv"],
+           "fails": fails}
+    if res.get("excluded"):
+        return out
+    events = obs.tracer.to_chrome()["traceEvents"]
+    out["remesh"] = [e["args"] for e in events if e["name"] == "remesh"]
+    out["remesh_total"] = obs.counter("runtime_remesh_total").snapshot()[
+        "samples"]
+    out["restore_s"] = [e["dur"] / 1e6 for e in events
+                        if e["name"] == "ckpt_restore"]
+    state = loop.final_state
+    specs = steps_mod.kfac_specs(cfg, loop.program.shards)
+    out["blocks"] = sum(math.prod(shape[:-2]) for spec in specs.values()
+                        for shape in soi.factor_shapes(
+                            spec, kcfg.block_size).values())
+    wu = steps_mod.make_wu_plan_for(cfg, state, shards=loop.program.shards)
+    out["wu_tiles"] = wu.total_tiles
+    out["fused_precond_per_step"] = sum(fp_expected(g) for g in wu.groups)
+    box = {"state": state}
+    del state
+    loop.final_state = None
+    worst, refresh_row, precond_row = kfac_kernel_checks(
+        torch, dev, check, f"elastic rank {rank}", box, kcfg, wu, reps=3)
+    out["kernel_checks"] = {"worst_inverse": worst, "refresh": refresh_row,
+                            "fused_precond": precond_row}
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def elastic_phase(torch, dev, check):
+    """Phase ``elastic``: the loss drill of ``runtime.elastic`` on the
+    main path's model at fp32 with ``--dist-inv``: first one rank alone
+    in this process (:data:`ELASTIC`'s steps), then two gloo ranks
+    sharing ``cuda:0`` on a ``(2, 1)`` mesh, :func:`elastic_rank` on
+    each: rank 1 loses a device at step 3, rank 0 re-forms ``(1, 1)``,
+    restores the checkpoint of step 2 and ends the run. Gates: one
+    recovery; on rank 0 two remesh events, ``(2, 1)`` then ``(1, 1)``,
+    and the counter at 2; rank 1's summary saying it was excluded at
+    step 3; every loss within :data:`ELASTIC`'s ``loss_tol`` of the one
+    rank's; after the re-mesh rank 0 inverts every block a refresh
+    (``neumann_inv``'s blocks the one-rank plan's) and its WU plan holds
+    every tile (``fused_precond`` once a WU group a step); its kernels
+    against their plain versions; the restore's seconds printed. A
+    failed rank fails the phase."""
+    from repro_torch.core import soi
+    from repro_torch.dist.spawn import backend_for, run_ranks
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+
+    import gc
+
+    t0 = time.perf_counter()
+    cfg, kcfg, ds = pp_setup()
+    torch.cuda.empty_cache()
+    one_state, one_hist = train_mod.run(
+        train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"], device=dev),
+        ds, ELASTIC["steps"])
+    one_losses = [h["loss"] for h in one_hist]
+    one_tiles = steps_mod.make_wu_plan_for(cfg, one_state).total_tiles
+    one_blocks = sum(math.prod(shape[:-2])
+                     for spec in steps_mod.kfac_specs(cfg).values()
+                     for shape in soi.factor_shapes(
+                         spec, kcfg.block_size).values())
+    del one_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    t1 = time.perf_counter()
+    try:
+        ranks = run_ranks(elastic_rank, 2, device="cuda", timeout=600,
+                          args=(tmp,))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    spawn_s = time.perf_counter() - t1
+    r0, r1 = ranks
+    for r in ranks:
+        for what in r["fails"]:
+            check(False, what)
+        check(r["summary"]["recoveries"] == 1,
+              f"elastic rank {r['rank']}: one recovery")
+        check(r["summary"]["mesh"] == {"data": 1, "model": 1},
+              f"elastic rank {r['rank']}: the re-formed mesh (1, 1)")
+    s1 = r1["summary"]
+    check(s1.get("excluded") is True and s1.get("excluded_at_step")
+          == ELASTIC["fail_at"],
+          "elastic: rank 1's summary says it was excluded at step "
+          f"{ELASTIC['fail_at']}")
+    check([e["shape"] for e in r0["remesh"]]
+          == [{"data": 2, "model": 1}, {"data": 1, "model": 1}]
+          and [e["excluded"] for e in r0["remesh"]] == [0, 1],
+          "elastic: rank 0 recorded two remesh events, (2, 1) then (1, 1)")
+    check([row["value"] for row in r0["remesh_total"]] == [2],
+          "elastic: runtime_remesh_total is 2")
+    steps = [s for s, _ in r0["history"]]
+    want = list(range(ELASTIC["fail_at"]))
+    want += list(range(ELASTIC["fail_at"] - ELASTIC["fail_at"]
+                       % ELASTIC["ckpt_every"], ELASTIC["steps"]))
+    check(steps == want and r0["summary"]["steps"] == ELASTIC["steps"],
+          f"elastic: rank 0 ran steps {want}")
+    rel = [abs(x - one_losses[s]) / abs(one_losses[s])
+           for s, x in r0["history"]]
+    check(max(rel) <= ELASTIC["loss_tol"] and all(
+        math.isfinite(x) for _, x in r0["history"]),
+          f"elastic: every loss within {ELASTIC['loss_tol']} of one "
+          f"rank's at fp32 (worst {max(rel):.3g})")
+    # the steps before the loss on the first mesh, the replay on (1, 1)
+    first = r0["phase_s"][:ELASTIC["fail_at"]]
+    replay = r0["phase_s"][ELASTIC["fail_at"]:]
+    refreshes = sum("inv" in p for p in replay)
+    after = r0["launches_after"]
+    check(refreshes > 0 and sum(r0["blocks_after"].values())
+          == refreshes * one_blocks == refreshes * r0["blocks"],
+          f"elastic: after the re-mesh each refresh inverted all "
+          f"{one_blocks} blocks on rank 0")
+    check(r0["wu_tiles"] == one_tiles
+          and after["fused_precond"] == len(replay)
+          * r0["fused_precond_per_step"] > 0,
+          f"elastic: after the re-mesh rank 0's WU holds all {one_tiles} "
+          f"tiles, fused_precond once a WU group a step")
+    check(0 < sum(r0["blocks_before"].values())
+          < sum("inv" in p for p in first) * one_blocks,
+          "elastic: before the re-mesh rank 0 inverted its share only")
+    check(bool(r0["restore_s"]), "elastic: the restore was timed")
+    launches = {name: sum((r["launches_before"] or {}).get(name, 0)
+                          + r["launches_after"][name] for r in ranks)
+                for name in ops.launch_counts()}
+    return {"ranks": 2, "backend": backend_for("cuda", 2),
+            "mesh": [[2, 1], [1, 1]], "seconds": time.perf_counter() - t0,
+            "one_rank_s": one_s, "spawn_s": spawn_s,
+            "history": r0["history"], "one_rank_losses": one_losses,
+            "rel_to_one_rank": rel, "restore_s": r0["restore_s"],
+            "remesh": r0["remesh"], "excluded": s1,
+            "blocks_after": r0["blocks_after"], "one_rank_blocks":
+            one_blocks, "wu_tiles": r0["wu_tiles"],
+            "one_rank_wu_tiles": one_tiles,
+            "launches_before": [r["launches_before"] for r in ranks],
+            "launches_after": [r["launches_after"] for r in ranks],
+            "launches": launches, "phase_s": r0["phase_s"],
+            "wall_s": [r["wall_s"] for r in ranks],
+            "ckpt_write_s": r0["summary"].get("ckpt_write_s"),
+            "kernel_checks": r0["kernel_checks"],
+            "peak_mem_gb": r0["peak_mem_gb"]}
+
+
+def solvers_rank(rank, world):
+    """One rank of phase ``ranks_solvers`` (run by
+    ``dist.spawn.run_ranks``; see :func:`ranks_solvers_phase`): on a
+    ``(2, 1)`` mesh at fp32, (a) ``--smw --dist-inv``, (b) ``--async-inv
+    --dist-inv``, (c) the SGD baseline. Returns each run's losses, its
+    launches (by stream for (b)), digests, (a)'s fallback flags and first
+    SMW-only update through the kernel against the plain version (rank
+    0), (b)'s refresh intervals against the main stream's."""
+    import torch
+
+    from repro_torch.data.pipeline import DataCursor, make_global_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    train_mod.fp32_matmuls()
+    cfg, kcfg, ds = pp_setup()
+    mesh = make_dev_mesh()
+    out = {"rank": rank}
+
+    def digest(tree):
+        return train_mod.params_digest({f"{n}/{s}": t for n, d in
+                                        tree.items() for s, t in d.items()})
+
+    # (a) --smw: the first SMW-only update's inputs kept (rank 0)
+    seen = []
+    smw_refresh = steps_mod.smw_mod.smw_refresh
+
+    def keeping(inverses, factors, cols, cfg_, scfg, ks=None):
+        if rank == 0 and len(seen) == 1:
+            seen.append({n: {s: (inverses[n][s + "_inv"].clone(),
+                                 v.clone(), (ks or {}).get(n, {}).get(s))
+                             for s, v in c.items()}
+                         for n, c in cols.items()})
+        elif len(seen) == 0:
+            seen.append(None)
+        return smw_refresh(inverses, factors, cols, cfg_, scfg, ks=ks)
+
+    steps_mod.smw_mod.smw_refresh = keeping
+    try:
+        prog = train_mod.KFACProgram(
+            cfg, kcfg, seed=MAIN["seed"], device=dev, mesh=mesh,
+            dist_inv=True, smw=True, smw_rank=SMW["rank"],
+            smw_drift_budget=SMW["drift_budget"])
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = train_mod.run(prog, ds, SOLVERS["smw_steps"])
+        torch.cuda.synchronize(dev)
+    finally:
+        steps_mod.smw_mod.smw_refresh = smw_refresh
+    out["smw"] = {"losses": [h["loss"] for h in hist],
+                  "fallbacks": [h["smw_fallback"] for h in hist],
+                  "drifts": [h["smw_drift"] for h in hist],
+                  "phase_s": [h["phase_s"] for h in hist],
+                  "wall_s": time.perf_counter() - t0,
+                  "launches": ops.launch_counts(),
+                  "inverses_digest": digest(state.kfac.inverses)}
+    del state, prog
+    if rank == 0 and len(seen) == 2:
+        rows = []
+        for n, d in seen[1].items():
+            for s, (inv, v, k) in d.items():
+                w = 1.0 / (k or v.shape[-2]) if s == "A" else 1.0
+                bs = inv.shape[-1]
+                inv, v = inv.reshape(-1, bs, bs), v.reshape(
+                    (-1,) + tuple(v.shape[-2:])).contiguous()
+                args = dict(decay=kcfg.ema_decay,
+                            cscale=(1.0 - kcfg.ema_decay) * w)
+                mine = ops.smw_update(inv, v, **args)
+                plain = ref.smw_update_ref(inv, v, **args)
+                rows.append(dict(leaf=f"{n}/{s}", k=v.shape[-2],
+                                 rel_err=float((mine - plain).abs().max()
+                                               / plain.abs().max())))
+                del mine, plain
+        out["smw"]["update_vs_plain"] = rows
+    seen.clear()
+    torch.cuda.empty_cache()
+
+    # (b) --async-inv --dist-inv, stepped here: each refresh's interval
+    # on its side stream (CUDA events) against the main stream's
+    # interval from the dispatch's return to the step's end
+    prog = train_mod.KFACProgram(cfg, kcfg, seed=MAIN["seed"], device=dev,
+                                 mesh=mesh, dist_inv=True, async_inv=True)
+    state = prog.init_state()
+    step_fn = prog.make_step(state)
+    refresher = prog.refresher
+    into = refresher.refresh_into
+    marks = []
+
+    def timed_into(factors, buf):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()                        # on the side stream
+        res = into(factors, buf)
+        ev[1].record()
+        ev[2].record(torch.cuda.default_stream(dev))
+        marks.append(ev)
+        return res
+
+    refresher.refresh_into = timed_into
+    ops.reset_launch_counts()
+    losses, rows = [], []
+    t0 = time.perf_counter()
+    for i in range(SOLVERS["async_steps"]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        n_marks = len(marks)
+        state, m = step_fn(state, make_global_batch(ds, DataCursor(i), mesh,
+                                                    device=dev))
+        end.record()
+        torch.cuda.synchronize(dev)
+        losses.append(float(m["loss"]))
+        if len(marks) > n_marks:
+            s0, s1, ret = marks[-1]
+            t = {k: start.elapsed_time(e) for k, e in
+                 (("s0", s0), ("s1", s1), ("ret", ret), ("end", end))}
+            rows.append(dict(step=i, refresh_ms=t["s1"] - t["s0"],
+                             main_after_dispatch_ms=t["end"] - t["ret"],
+                             overlap_ms=max(0.0, min(t["s1"], t["end"])
+                                            - max(t["s0"], t["ret"])),
+                             inv_dispatch_s=m["phase_s"]["inv"],
+                             train_s=m["phase_s"]["train"]))
+    streams = ops.launch_streams()["neumann_inv"]
+    out["async"] = {"losses": losses, "wall_s": time.perf_counter() - t0,
+                    "launches": ops.launch_counts(),
+                    "neumann_inv_streams": {str(k): v
+                                            for k, v in streams.items()},
+                    "side_stream": refresher.stream.cuda_stream,
+                    "main_stream": torch.cuda.default_stream(
+                        dev).cuda_stream,
+                    "dispatched": refresher.n_dispatched,
+                    "swapped": refresher.n_swapped,
+                    "overlap": rows,
+                    "params_digest": train_mod.params_digest(state.params)}
+    del state, step_fn, prog, refresher
+    torch.cuda.empty_cache()
+
+    # (c) the SGD baseline
+    prog = train_mod.SGDProgram(cfg, lr=SOLVERS["sgd_lr"], seed=MAIN["seed"],
+                                device=dev, mesh=mesh)
+    ops.reset_launch_counts()
+    state, hist = train_mod.run(prog, ds, SOLVERS["sgd_steps"])
+    out["sgd"] = {"losses": [h["loss"] for h in hist],
+                  "launches": ops.launch_counts(),
+                  "params_digest": train_mod.params_digest(state[0])}
+    del state, prog
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def ranks_solvers_phase(torch, dev, check):
+    """Phase ``ranks_solvers``: ``--smw``, ``--async-inv`` and the SGD
+    baseline across two gloo ranks sharing ``cuda:0`` on a ``(2, 1)``
+    mesh, the main path's model at fp32 (:func:`solvers_rank` on each),
+    against the same runs on one rank in this process first. Gates: (a)
+    ``--smw``: the fallback steps the same on both ranks and on one
+    rank, ``smw_update`` launched on each rank, the inverses bitwise
+    equal across the ranks, rank 0's first SMW-only update through the
+    kernel within :data:`REL_TOL_RUN` of the plain version on every
+    leaf, the losses within :data:`SOLVERS`' ``loss_tol`` of one rank's;
+    (b) ``--async-inv --dist-inv``: every ``neumann_inv`` launch on the
+    refresher's side stream (counted by stream), 2 dispatched and 1
+    swapped, the losses within ``loss_tol`` of one rank's
+    ``--async-inv``; the refresh's overlap with the main stream printed
+    (gloo's: its collectives copy through the host); (c) SGD: the losses
+    within ``loss_tol`` of one rank's, no kernel launched. A failed rank
+    fails the phase."""
+    from repro_torch.dist.spawn import backend_for, run_ranks
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+
+    t0 = time.perf_counter()
+    cfg, kcfg, ds = pp_setup()
+    torch.cuda.empty_cache()
+    one = {}
+    _, hist = train_mod.run(train_mod.KFACProgram(
+        cfg, kcfg, seed=MAIN["seed"], device=dev, smw=True,
+        smw_rank=SMW["rank"], smw_drift_budget=SMW["drift_budget"]), ds,
+        SOLVERS["smw_steps"])
+    one["smw"] = ([h["loss"] for h in hist],
+                  [h["smw_fallback"] for h in hist])
+    _, hist = train_mod.run(train_mod.KFACProgram(
+        cfg, kcfg, seed=MAIN["seed"], device=dev, async_inv=True), ds,
+        SOLVERS["async_steps"])
+    one["async"] = [h["loss"] for h in hist]
+    _, hist = train_mod.run(train_mod.SGDProgram(
+        cfg, lr=SOLVERS["sgd_lr"], seed=MAIN["seed"], device=dev), ds,
+        SOLVERS["sgd_steps"])
+    one["sgd"] = [h["loss"] for h in hist]
+    del hist
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ranks = run_ranks(solvers_rank, 2, device="cuda", timeout=600)
+    spawn_s = time.perf_counter() - t1
+    tol = SOLVERS["loss_tol"]
+
+    def within(xs, ys):
+        return len(xs) == len(ys) and all(
+            math.isfinite(x) and abs(x - y) <= tol * abs(y)
+            for x, y in zip(xs, ys))
+
+    def rel(xs, ys):
+        return [abs(x - y) / abs(y) for x, y in zip(xs, ys)]
+
+    r0 = ranks[0]
+    for r in ranks:
+        tag = f"ranks_solvers rank {r['rank']}"
+        a, b, c = r["smw"], r["async"], r["sgd"]
+        check(a["fallbacks"] == r0["smw"]["fallbacks"] == one["smw"][1],
+              f"{tag} (a): the fallback steps the same on both ranks and "
+              f"on one rank")
+        check(a["launches"]["smw_update"] > 0,
+              f"{tag} (a): smw_update launched")
+        check(a["inverses_digest"] == r0["smw"]["inverses_digest"],
+              f"{tag} (a): the inverses bitwise equal across the ranks")
+        check(within(a["losses"], one["smw"][0]),
+              f"{tag} (a): losses within {tol} of one rank's")
+        check(set(b["neumann_inv_streams"]) == {str(b["side_stream"])}
+              and b["side_stream"] != b["main_stream"]
+              and sum(b["neumann_inv_streams"].values())
+              == b["launches"]["neumann_inv"] > 0,
+              f"{tag} (b): every neumann_inv launch on the side stream")
+        check((b["dispatched"], b["swapped"]) == (2, 1),
+              f"{tag} (b): 2 refreshes dispatched, 1 swapped in")
+        check(within(b["losses"], one["async"])
+              and b["params_digest"] == r0["async"]["params_digest"],
+              f"{tag} (b): losses within {tol} of one rank's --async-inv, "
+              f"params bitwise equal across the ranks")
+        check(within(c["losses"], one["sgd"])
+              and c["params_digest"] == r0["sgd"]["params_digest"]
+              and not any(c["launches"].values()),
+              f"{tag} (c): SGD losses within {tol} of one rank's, no "
+              f"kernel launched")
+    upd = r0["smw"].get("update_vs_plain", [])
+    check(bool(upd) and max(u["rel_err"] for u in upd) <= REL_TOL_RUN,
+          f"ranks_solvers (a): rank 0's first SMW-only update through the "
+          f"kernel within {REL_TOL_RUN} of the plain version on every leaf")
+    launches = {name: sum(r[run]["launches"][name] for r in ranks
+                          for run in ("smw", "async", "sgd"))
+                for name in ops.launch_counts()}
+    return {"ranks": 2, "backend": backend_for("cuda", 2), "mesh": [2, 1],
+            "seconds": time.perf_counter() - t0, "one_rank_s": one_s,
+            "spawn_s": spawn_s,
+            "smw": {"losses": r0["smw"]["losses"],
+                    "one_rank_losses": one["smw"][0],
+                    "rel_to_one_rank": rel(r0["smw"]["losses"],
+                                           one["smw"][0]),
+                    "fallbacks": r0["smw"]["fallbacks"],
+                    "drifts": r0["smw"]["drifts"],
+                    "phase_s": r0["smw"]["phase_s"],
+                    "wall_s": [r["smw"]["wall_s"] for r in ranks],
+                    "launches": [r["smw"]["launches"] for r in ranks],
+                    "update_vs_plain_worst": max(
+                        (u["rel_err"] for u in upd), default=None),
+                    "update_leaves": len(upd)},
+            "async": {"losses": r0["async"]["losses"],
+                      "one_rank_losses": one["async"],
+                      "rel_to_one_rank": rel(r0["async"]["losses"],
+                                             one["async"]),
+                      "launches": [r["async"]["launches"] for r in ranks],
+                      "neumann_inv_streams": [
+                          r["async"]["neumann_inv_streams"] for r in ranks],
+                      "overlap_gloo": [r["async"]["overlap"]
+                                       for r in ranks],
+                      "wall_s": [r["async"]["wall_s"] for r in ranks]},
+            "sgd": {"losses": r0["sgd"]["losses"],
+                    "one_rank_losses": one["sgd"],
+                    "rel_to_one_rank": rel(r0["sgd"]["losses"],
+                                           one["sgd"])},
+            "launches": launches,
+            "peak_mem_gb": [r["peak_mem_gb"] for r in ranks]}
+
+
 def large_blocks_phase(torch, dev, check):
     """Phase ``large_blocks``: the kernels' route for sides of 129..1024
     (``csrc/hilo_tma.cuh``). (a) ``neumann_inv``
@@ -5538,7 +6057,20 @@ def main() -> int:
     pp_row = pp_phase(torch, dev, check)
     emit({"phase": "pp", "nvidia_smi": smi, **pp_row})
 
-    # 23. trace: the main path's fourth step (FP, BP and WU only) under
+    # 23. elastic: the main path's model at fp32 on two ranks with
+    # --dist-inv, a device lost at step 3; the survivor re-forms (1, 1),
+    # restores and ends the run
+    torch.cuda.empty_cache()
+    elastic_row = elastic_phase(torch, dev, check)
+    emit({"phase": "elastic", "nvidia_smi": smi, **elastic_row})
+
+    # 24. ranks_solvers: --smw, --async-inv --dist-inv and the SGD
+    # baseline on the same two ranks, against one rank
+    torch.cuda.empty_cache()
+    solvers_row = ranks_solvers_phase(torch, dev, check)
+    emit({"phase": "ranks_solvers", "nvidia_smi": smi, **solvers_row})
+
+    # 25. trace: the main path's fourth step (FP, BP and WU only) under
     # torch.profiler, kernels only, last, so that the profiler session
     # cannot perturb the phases timed before it: the device's busy time
     # (the union of the kernels' intervals) against the step's host wall
@@ -5590,6 +6122,8 @@ def main() -> int:
           "tp_seconds": tp_row["seconds"],
           "ep_seconds": ep_row["seconds"],
           "pp_seconds": pp_row["seconds"],
+          "elastic_seconds": elastic_row["seconds"],
+          "ranks_solvers_seconds": solvers_row["seconds"],
           "tooling_seconds": tooling_row["phase_seconds"],
           "large_blocks_seconds": large_row["phase_seconds"]})
     if failures:
@@ -5662,7 +6196,10 @@ def main() -> int:
                            dist_launches=dist_row["launches"][name],
                            tp_launches=tp_row["launches"][name],
                            ep_launches=ep_row["launches"][name],
-                           pp_launches=pp_row["launches"][name])
+                           pp_launches=pp_row["launches"][name],
+                           elastic_launches=elastic_row["launches"][name],
+                           ranks_solvers_launches=solvers_row[
+                               "launches"][name])
                       for name, r in results.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

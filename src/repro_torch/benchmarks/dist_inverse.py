@@ -17,9 +17,16 @@ sharing the one card over gloo. Every rank checks that the distributed
 refresh is bitwise the replicated one and that the plan's per-rank block
 count is within its bound; on the card each rank's ``neumann_inv``
 launches are counted. The factors inverted have the shapes of
-``ARCH``'s smoke config (random SPD factors from seed 0, block 64). The
-reference's ``--smw`` probe (SMW refresh against a full re-inversion,
-pdiv across the mesh) is not ported; it raises (ROADMAP Queue 1 item 8).
+``ARCH``'s smoke config (random SPD factors from seed 0, block 64).
+
+``--smw`` adds the reference's incremental-SOI probe on the same ranks
+(:func:`smw_probe`): the SMW refresh of four 256-blocks against a full
+re-inversion (asserted at least 3x apart, as the reference does), the
+drift over a simulated EMA trajectory with the fallback gate, each
+step's columns split over the ranks and gathered (``solve.smw.
+gather_cols``, every rank's update bitwise the one-rank update) and its
+drift reduced over the mesh; then ``solve.pdiv_invert`` of a block twice
+one rank's share across the mesh, bitwise the local call.
 """
 
 from __future__ import annotations
@@ -68,7 +75,116 @@ def probe_mesh(world: int):
                          else 1)
 
 
-def _rank(rank: int, world: int, arch: str, device: str) -> dict:
+#: the SMW probe's block, columns a step and steps (the reference's)
+SMW_BS, SMW_K, SMW_STEPS = 256, 32, 15
+
+
+def smw_probe(rank: int, world: int, device: str) -> dict:
+    """The reference's ``_SMW_CHILD`` on this rank of a spawn: see the
+    module's docstring. On the card the update goes through the
+    ``smw_update`` kernel, whose launches are counted."""
+    from repro_torch.core.kfac import KFACConfig
+    from repro_torch.kernels import ops
+    from repro_torch.solve import pdiv_invert
+    from repro_torch.solve.block_solver import invert_factor_tree
+    from repro_torch.solve.smw import (SMWConfig, gather_cols, probe_drift,
+                                       reduce_drift, smw_refresh)
+
+    dev = rank_device(device, rank)
+    bs, k, steps = SMW_BS, SMW_K, SMW_STEPS
+    kcfg = KFACConfig(block_size=bs, ns_iters=12, taylor_terms=4,
+                      refine_steps=2)
+    scfg = SMWConfig(drift_budget=0.05, rank=k,
+                     use_kernel=dev.type == "cuda")
+    mesh = probe_mesh(world)
+    r = np.random.default_rng(0)
+
+    def spd(shape):
+        a = r.standard_normal(shape[:-1] + (2 * shape[-1],)).astype(
+            np.float32)
+        return torch.from_numpy(np.einsum("...ij,...kj->...ik", a, a)
+                                / (2 * shape[-1])).to(dev)
+
+    # four bs-blocks over two leaves, one layer's output factor's
+    # geometry at soi_block 256
+    factors = {"lin0": {"G": spd((2, bs, bs))},
+               "lin1": {"G": spd((2, bs, bs))}}
+
+    def cols_like(seed):
+        rr = np.random.default_rng(seed)
+        return {n: {"G": torch.from_numpy(
+            rr.standard_normal((2, k, bs)).astype(np.float32)
+            / np.sqrt(k, dtype=np.float32)).to(dev)} for n in factors}
+
+    def share(cols):
+        # this rank's columns of the step's k (its tokens)
+        lo, hi = rank * k // world, (rank + 1) * k // world
+        return {n: {"G": c["G"][:, lo:hi]} for n, c in cols.items()}
+
+    def ema(f, c):
+        d = kcfg.ema_decay
+        return {n: {"G": d * f[n]["G"] + (1.0 - d) * torch.einsum(
+            "nkb,nkc->nbc", c[n]["G"], c[n]["G"])} for n in f}
+
+    def smw_step(inv, f, c):
+        # the columns gathered over the ranks in their order (weight 1:
+        # the split columns are the global ones)
+        got, ks = gather_cols(share(c), mesh, 1.0, scfg.rank)
+        new, drift = smw_refresh(inv, f, got, kcfg, scfg, ks=ks)
+        return new, reduce_drift(drift, mesh)
+
+    def full(f):
+        return invert_factor_tree(f, kcfg)
+
+    inv = full(factors)
+    drift_base = float(probe_drift(factors, inv, kcfg))
+    assert drift_base <= scfg.drift_budget, drift_base
+    _, us_full = timed(full, factors)
+    c0 = cols_like(1)
+    f1 = ema(factors, c0)
+    (one, _), us_smw = timed(smw_step, inv, f1, c0)
+    local, _ = smw_refresh(inv, f1, c0, kcfg, scfg)
+    bitwise = all(torch.equal(one[n]["G_inv"], local[n]["G_inv"])
+                  for n in one)
+    assert bitwise, f"rank {rank}: the gathered update != the local one"
+    assert us_smw * 3 <= us_full, (
+        f"SMW refresh {us_smw:.0f}us not >=3x below full re-inversion "
+        f"{us_full:.0f}us")
+    ops.reset_launch_counts()
+    n_fallbacks, drift_max = 0, 0.0
+    for t in range(steps):
+        c = cols_like(100 + t)
+        factors = ema(factors, c)
+        inv, drift = smw_step(inv, factors, c)
+        d = float(drift)
+        drift_max = max(drift_max, d)
+        if not d <= scfg.drift_budget:
+            inv = full(factors)
+            n_fallbacks += 1
+    launches = ops.launch_counts()
+    drift_final = float(probe_drift(factors, inv, kcfg))
+    assert drift_final <= scfg.drift_budget, drift_final
+    # pdiv: one block twice a rank's pool share, across the mesh
+    blk = spd((2 * bs, 2 * bs))
+    out_loc, us_ploc = timed(lambda: pdiv_invert(blk, 0.03, kcfg, depth=1))
+    out_dst, us_pdst = timed(lambda: pdiv_invert(blk, 0.03, kcfg, depth=1,
+                                                 mesh=mesh))
+    pdiv_bitwise = bool(torch.equal(out_loc, out_dst))
+    assert pdiv_bitwise, f"rank {rank}: pdiv distributed != local"
+    return {"bs": bs, "k": k, "ndev": world, "rank": rank, "steps": steps,
+            "ms_full_reinversion": us_full / 1e3, "ms_smw_step": us_smw / 1e3,
+            "smw_speedup": us_full / us_smw,
+            "drift_budget": scfg.drift_budget, "drift_base": drift_base,
+            "drift_max": drift_max, "drift_final": drift_final,
+            "n_fallbacks": n_fallbacks, "smw_bitwise_local": bitwise,
+            "smw_update_launches": launches["smw_update"],
+            "neumann_inv_launches": launches["neumann_inv"],
+            "ms_pdiv_local": us_ploc / 1e3, "ms_pdiv_dist": us_pdst / 1e3,
+            "pdiv_block": 2 * bs, "pdiv_bitwise": pdiv_bitwise}
+
+
+def _rank(rank: int, world: int, arch: str, device: str,
+          smw: bool = False) -> dict:
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.kfac import KFACConfig
     from repro_torch.kernels import ops
@@ -105,19 +221,21 @@ def _rank(rank: int, world: int, arch: str, device: str) -> dict:
             "device_gflops": s["device_gflops"], "count_bound": bound,
             "uniform_bs": uniform, "ms_replicated": us_rep / 1e3,
             "ms_distributed": us_dist / 1e3, "bitwise_equal": bitwise,
-            "neumann_inv_launches": launches}
+            "neumann_inv_launches": launches,
+            **({"smw": smw_probe(rank, world, device)} if smw else {})}
 
 
-def probe(device: str = "cpu") -> list:
+def probe(device: str = "cpu", smw: bool = False) -> list:
     """Every rank's record (see :func:`_rank`), in rank order."""
     return run_ranks(_rank, default_world(device, 4), device=device,
-                     args=(ARCH, device))
+                     args=(ARCH, device, smw))
 
 
-def rows(payload=None, *, device: str = "cpu", ranks=None):
+def rows(payload=None, *, device: str = "cpu", ranks=None,
+         smw: bool = False):
     """The table from every rank's record: ``ranks``, or a :func:`probe`
     of its own."""
-    ranks = ranks or probe(device)
+    ranks = ranks or probe(device, smw)
     d = ranks[0]
     if payload is not None:
         payload["dist"] = d
@@ -144,26 +262,64 @@ def rows(payload=None, *, device: str = "cpu", ranks=None):
     }]
 
 
+def smw_rows(ranks, payload=None):
+    """The incremental-SOI table from every rank's ``smw`` record: the
+    reference's rows (each wall the slowest rank's)."""
+    d = ranks[0]["smw"]
+    if payload is not None:
+        payload["smw"] = d
+        payload["smw_ranks"] = [r["smw"] for r in ranks]
+    assert all(r["smw"]["smw_bitwise_local"] and r["smw"]["pdiv_bitwise"]
+               for r in ranks)
+    slowest = {key: max(r["smw"][key] for r in ranks)
+               for key in ("ms_full_reinversion", "ms_smw_step",
+                           "ms_pdiv_local", "ms_pdiv_dist")}
+    return [{
+        "variant": "full_reinversion (dispatched per inv cadence)",
+        "wall_ms": slowest["ms_full_reinversion"],
+        "drift": d["drift_base"],
+        "note": f"bs={d['bs']} composed",
+    }, {
+        "variant": "smw_step (every step)",
+        "wall_ms": slowest["ms_smw_step"],
+        "drift": d["drift_max"],
+        "note": f"k={d['k']} over {d['ndev']} ranks "
+                f"{d['smw_speedup']:.1f}x faster, "
+                f"{d['n_fallbacks']}/{d['steps']} fallbacks, "
+                f"final drift {d['drift_final']:.4f} <= "
+                f"{d['drift_budget']}",
+    }, {
+        "variant": f"pdiv_local (block {d['pdiv_block']})",
+        "wall_ms": slowest["ms_pdiv_local"],
+        "drift": "",
+        "note": "2x one rank's pool share",
+    }, {
+        "variant": f"pdiv_distributed (block {d['pdiv_block']})",
+        "wall_ms": slowest["ms_pdiv_dist"],
+        "drift": "",
+        "note": f"ndev={d['ndev']} bitwise == local",
+    }]
+
+
 def main(argv=None, ranks=None):
     """The CLI; ``ranks``: the ranks' records of a spawn shared with
     another benchmark (``benchmarks.run``), else a probe of its own."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--smw", action="store_true",
-                    help="the incremental-SOI probe (not ported)")
+                    help="also the incremental-SOI (SMW + pdiv) probe")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without CUDA) or cpu")
     ap.add_argument("--out", default=out_path("dist_inverse"))
     args = ap.parse_args(argv)
-    if args.smw:
-        raise NotImplementedError(
-            "dist_inverse --smw (the SMW refresh and pdiv across ranks) is "
-            "not ported yet (ROADMAP Queue 1 item 8)")
     from repro_torch.launch.train import resolve_device
 
     device = str(resolve_device(args.device))
     payload = {"device": device}
+    ranks = ranks or probe(device, args.smw)
     r = rows(payload, device=device, ranks=ranks)
     print_csv("dist_inverse", r)
+    if args.smw:
+        print_csv("dist_inverse_smw", smw_rows(ranks, payload))
     write_json(args.out, payload)
     print(f"# wrote {args.out}")
     return payload

@@ -45,7 +45,7 @@ from repro_torch.dist.spawn import default_world, start_ranks
 SUMMARY_SCHEMA = 1
 
 #: the reference's modules not yet ported -> the ROADMAP item porting them
-UNPORTED = {"pipeline_bench": "8", "roofline": "9b"}
+UNPORTED = {"pipeline_bench": "8.6", "roofline": "9b"}
 
 
 def _wall_values(obj, key=""):
@@ -100,13 +100,16 @@ def write_summary(directory):
     return rows
 
 
-def multi_rank(rank: int, world: int, device: str) -> dict:
-    """One rank of both multi-rank benchmarks (``dist_inverse``,
-    ``grad_compression``), on one spawn of ranks."""
+def multi_rank(rank: int, world: int, device: str,
+               smw: bool = False) -> dict:
+    """One rank of both multi-rank benchmarks (``dist_inverse``, with its
+    ``--smw`` probe when ``smw``, and ``grad_compression``), on one spawn
+    of ranks."""
     from repro_torch.benchmarks import dist_inverse, grad_compression
 
     return {"dist_inverse": dist_inverse._rank(rank, world,
-                                               dist_inverse.ARCH, device),
+                                               dist_inverse.ARCH, device,
+                                               smw),
             "grad_compression": grad_compression._rank(
                 rank, world, grad_compression.ARCH, device)}
 
@@ -193,8 +196,10 @@ def main(argv=None):
     # the two multi-rank benchmarks share one spawn of ranks, which runs
     # beside the host-side studies and is waited for before the first
     # module with a wall-clock guard, which the ranks' load would perturb
+    # (the full run adds dist_inverse's --smw probe, as the reference's)
     shared = start_ranks(multi_rank, default_world(str(device), 4),
-                         device=str(device), args=(str(device),))
+                         device=str(device),
+                         args=(str(device), not args.fast))
     fig4b: dict = {}
     run("fig4b_inv_convergence",
         lambda: fig4b.update(rows=inv_convergence.main()))
@@ -236,7 +241,7 @@ def main(argv=None):
     # the distributed refresh against the replicated one, on spawned
     # ranks; BENCH_dist_inverse.json
     run("dist_inverse", lambda: dist_inverse.main(
-        dev + out("dist_inverse"),
+        dev + out("dist_inverse") + ([] if args.fast else ["--smw"]),
         ranks=[r["dist_inverse"] for r in shared.results()]))
     unported("pipeline_bench")
     # fp32 against int8 error-feedback gradient reduction over spawned

@@ -160,6 +160,13 @@ def stats_rank_k(loss_with_taps: Callable, params,
     not depend on which stats path ran."""
     loss, acts, tap_grads = _stats_pass(loss_with_taps, params, taps,
                                         batch)
+    return (*rank_k_of(acts, tap_grads, specs, bs), loss)
+
+
+def rank_k_of(acts, tap_grads, specs: Mapping[str, LinearSpec], bs: int):
+    """``(A_grams, G_grams, cols)`` of one SU pass that collected the
+    blocked token columns (:func:`stats_rank_k`; the pipeline's
+    statistics pass gives its stage's)."""
     a_grams, g_grams, cols = {}, {}, {}
     for name, spec in specs.items():
         g = soi.blocked_tokens(tap_grads[name], bs,
@@ -171,7 +178,7 @@ def stats_rank_k(loss_with_taps: Callable, params,
             a_grams[name] = soi.gram_from_tokens(a)
             entry["A"] = soi.cols_from_tokens(a)
         cols[name] = entry
-    return a_grams, g_grams, cols, loss
+    return a_grams, g_grams, cols
 
 
 def update_factors(state: KFACState, a_grams: dict, g_grams: dict,

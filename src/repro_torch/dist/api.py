@@ -53,8 +53,9 @@ from typing import Any, Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-#: what the multi-rank paths still lack raises naming this
-MULTI_GPU_ITEM = "ROADMAP Queue 1 item 8"
+#: what the multi-rank paths still lack raises naming this (meshes with
+#: other axes than stage, data and model: the production mesh's pod axis)
+MULTI_GPU_ITEM = "ROADMAP Queue 1 item 9b"
 
 POD = "pod"
 STAGE = "stage"
@@ -100,8 +101,11 @@ def mesh_position(mesh) -> int:
 
 
 # process groups over the ranks of submeshes of several axes, by their
-# sorted ranks (register_group)
+# sorted ranks (register_group); the side lane's, likewise
+# (make_side_groups), and whether a side_lane block is being run
 _GROUPS: dict = {}
+_SIDE_GROUPS: dict = {}
+_IN_SIDE: list = []
 
 
 def register_group(ranks, group) -> None:
@@ -111,14 +115,55 @@ def register_group(ranks, group) -> None:
     _GROUPS[tuple(sorted(int(r) for r in ranks))] = group
 
 
+def make_side_groups(grid: torch.Tensor) -> None:
+    """Make the side lane's groups for a mesh whose ranks are ``grid``
+    (its last two axes ``data`` and ``model``; every rank of the world
+    calls, in one order): over the whole mesh, each ``(data, model)``
+    slice of a leading ``stage`` axis, and each ``data`` column, the
+    rank sets the distributed refresh gathers over. The side lane is
+    the inverse refresh's on a side stream (``--async-inv``): groups of
+    its own, so that its collectives never queue with the step's on one
+    communicator."""
+    subsets = [grid.flatten().tolist()]
+    if grid.ndim == 3:
+        subsets += [grid[s].flatten().tolist() for s in range(grid.shape[0])]
+    cols = grid.reshape(-1, grid.shape[-2], grid.shape[-1])
+    subsets += [cols[s, :, j].tolist() for s in range(cols.shape[0])
+                for j in range(cols.shape[2])]
+    seen = set()
+    for sub in subsets:
+        key = tuple(sorted(sub))
+        if key not in seen:
+            seen.add(key)
+            _SIDE_GROUPS[key] = dist.new_group(sub)
+
+
+@contextlib.contextmanager
+def side_lane():
+    """Inside the ``with`` body every collective of :func:`mesh_group`
+    runs on the side lane's groups (:func:`make_side_groups`); a rank set
+    it has no group for raises."""
+    _IN_SIDE.append(True)
+    try:
+        yield
+    finally:
+        _IN_SIDE.pop()
+
+
 def mesh_group(mesh):
     """The process group over every rank of ``mesh``: None (the default
     group) when the mesh spans the world, a one-axis submesh's own group
     (``mesh["data"]``, made with the mesh by every rank), or for a
     submesh of several axes the group :func:`register_group` recorded for
-    its ranks (``launch.mesh.make_pipeline_mesh`` makes one for each
-    stage's ``(data, model)`` ranks)."""
+    its ranks (``runtime.elastic.elastic_mesh`` makes one for a mesh over
+    part of the world and for each stage's ``(data, model)`` ranks).
+    Inside :func:`side_lane`, the side lane's group over the ranks."""
     ranks = tuple(sorted(mesh_ranks(mesh)))
+    if _IN_SIDE:
+        if ranks not in _SIDE_GROUPS:
+            raise ValueError(f"the side lane has no group over the ranks "
+                             f"{ranks}")
+        return _SIDE_GROUPS[ranks]
     if ranks == tuple(range(dist.get_world_size())):
         return None
     if mesh.mesh.ndim == 1:

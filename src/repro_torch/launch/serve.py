@@ -31,8 +31,8 @@ cache stays bf16).
 Both paths sample on the device (greedy by default; ``--no-greedy``
 samples with ``--temperature``/``--top-k`` from a generator seeded by
 ``--seed``) and run once before the timed run (``--warmup``). Weights
-are random, from ``--seed``. ``--model-parallel`` above 1 (multi-GPU,
-ROADMAP Queue 1 item 8) is refused.
+are random, from ``--seed``. ``--model-parallel`` above 1 (serving on a
+mesh, ROADMAP Queue 1 item 8.5) is refused.
 """
 
 from __future__ import annotations
@@ -124,7 +124,7 @@ def check_ported(args) -> None:
     if args.model_parallel > 1:
         raise NotImplementedError(
             "--model-parallel > 1 needs several GPUs: ROADMAP Queue 1 "
-            "item 8")
+            "item 8.5")
 
 
 def sampling_args(args) -> dict:

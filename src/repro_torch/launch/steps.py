@@ -466,39 +466,64 @@ def make_stats_step(cfg, kcfg: KFACConfig, data_mesh=None,
         if data_mesh is None:
             a_grams, g_grams, loss = local_grams(state, batch, None)
         else:
-            n_data = mesh_ndev(data_mesh)
-            w = 1.0 / n_data if weight is None else weight
-            if rows is None:
-                rows = batch["tokens"].shape[0] * n_data
-            fac = state.kfac.factors
-            a_names = [n for n in specs if specs[n].share_a_with is None]
+            w, rows = _share(batch, data_mesh, weight, rows)
             if batch["tokens"].shape[0]:
                 a_grams, g_grams, loss = local_grams(state, batch, rows)
             else:
-                if mod is lm:
-                    lm.join_moe_queues(cfg, state.params, data_mesh)
-                a_grams = {n: torch.zeros_like(fac[n]["A"]) for n in a_names}
-                g_grams = {n: torch.zeros_like(fac[n]["G"]) for n in specs}
-                loss = torch.zeros((), device=fac[a_names[0]]["A"].device)
-            # the experts' A parts are over the global queue's slots
-            red = reduce_shares(
-                [a_grams[n] for n in a_names] + [g_grams[n] for n in specs]
-                + [loss], data_mesh,
-                [1.0 if specs[n].cap_tokens else w for n in a_names]
-                + [w * w] * len(specs) + [w])
-            a_grams = dict(zip(a_names, red[:len(a_names)]))
-            g_grams = dict(zip(specs, red[len(a_names):-1]))
-            loss = red[-1]
+                a_grams, g_grams, loss = _no_rows(cfg, specs, state,
+                                                  data_mesh)
+            a_grams, g_grams, loss = _reduce_grams(a_grams, g_grams, loss,
+                                                   specs, data_mesh, w)
         kstate2 = kfac.update_factors(state.kfac, a_grams, g_grams, kcfg)
         return dataclasses.replace(state, kfac=kstate2), {"stats_loss": loss}
 
     return stats_step
 
 
+def _share(batch, data_mesh, weight, rows):
+    """``(weight, rows)`` of a statistics pass on ``data_mesh``: this
+    rank's share of the subsample's rows (default an even split) and the
+    whole subsample's rows (default this rank's times the data ranks)."""
+    n_data = mesh_ndev(data_mesh)
+    w = 1.0 / n_data if weight is None else weight
+    if rows is None:
+        rows = batch["tokens"].shape[0] * n_data
+    return w, rows
+
+
+def _no_rows(cfg, specs, state: TrainState, data_mesh):
+    """A rank holding none of a statistics pass's rows: zero Grams and
+    loss, and its zero part of the MoE queues' gathers."""
+    fac = state.kfac.factors
+    if model_module(cfg) is lm:
+        lm.join_moe_queues(cfg, state.params, data_mesh)
+    a_names = [n for n in specs if specs[n].share_a_with is None]
+    return ({n: torch.zeros_like(fac[n]["A"]) for n in a_names},
+            {n: torch.zeros_like(fac[n]["G"]) for n in specs},
+            torch.zeros((), device=fac[a_names[0]]["A"].device))
+
+
+def _reduce_grams(a_grams, g_grams, loss, specs, data_mesh, w: float):
+    """The global subsample's Grams and loss from this rank's, at its
+    share ``w``: A at ``w`` (the experts' A parts, over the global
+    queue's slots, at 1), G at ``w * w``, the loss at ``w``; one
+    reduction."""
+    a_names = [n for n in specs if specs[n].share_a_with is None]
+    red = reduce_shares(
+        [a_grams[n] for n in a_names] + [g_grams[n] for n in specs]
+        + [loss], data_mesh,
+        [1.0 if specs[n].cap_tokens else w for n in a_names]
+        + [w * w] * len(specs) + [w])
+    return (dict(zip(a_names, red[:len(a_names)])),
+            dict(zip(specs, red[len(a_names):-1])), red[-1])
+
+
 def make_smw_step(cfg, kcfg: KFACConfig,
-                  scfg: smw_mod.SMWConfig | None = None) -> Callable:
+                  scfg: smw_mod.SMWConfig | None = None, *, data_mesh=None,
+                  shards=None, mesh=None) -> Callable:
     """SU + incremental INV in one step: rank-k stats, factor EMA, SMW
-    inverse update and the drift probe.
+    inverse update and the drift probe: ``(state, batch, weight=None,
+    rows=None) -> (state, metrics)``.
 
     The taps are those of :func:`make_stats_step`, but the model
     collects the blocked token columns (``collect="cols"``);
@@ -508,24 +533,70 @@ def make_smw_step(cfg, kcfg: KFACConfig,
     ``kcfg.block_size`` (the reference collects at ``cfg.soi_block``
     and so fails on the full qwen1.5-0.5b at ``--block-size 128``).
     Metrics carry ``smw_drift`` for the host gate
-    (``solve.async_refresh.SMWRefresher``)."""
-    scfg = scfg or smw_mod.SMWConfig()
-    specs = kfac_specs(cfg)
-    mod = model_module(cfg)
+    (``solve.async_refresh.SMWRefresher``).
 
-    def smw_step(state: TrainState, batch):
-        taps = build_taps(cfg, specs, batch)
+    ``data_mesh``, ``weight``, ``rows`` and ``shards`` as in
+    :func:`make_stats_step` (under pipeline parallelism the columns come
+    from the statistics pass through the stages): the Grams are reduced
+    as there, and the columns made the global subsample's
+    (``solve.smw.gather_cols``), so that every data rank's update is the
+    one-device update of its blocks. ``mesh``: the whole mesh, over which
+    the drift is MAX-reduced (``solve.smw.reduce_drift``), so that every
+    rank's gate falls back on the same steps."""
+    scfg = scfg or smw_mod.SMWConfig()
+    specs = kfac_specs(cfg, shards)
+    mod = model_module(cfg)
+    queued = {n for n, sp in specs.items() if sp.cap_tokens}
+
+    def local_cols(state: TrainState, batch, rows):
+        taps = build_taps(cfg, specs, batch, rows)
 
         def loss_with_taps(p, tp, bt):
             return mod.loss_fn(cfg, p, bt, taps=tp, collect="cols",
                                soi_block=kcfg.block_size)
 
-        a_grams, g_grams, cols, loss = kfac.stats_rank_k(
-            loss_with_taps, state.params, taps, batch, specs,
-            kcfg.block_size)
+        with bound(shards, data_mesh):
+            if not isinstance(shards, sharding.StageShards):
+                return kfac.stats_rank_k(loss_with_taps, state.params, taps,
+                                         batch, specs, kcfg.block_size)
+            from repro_torch.pipeline.schedule import stats_pass
+
+            loss, acts, tap_grads = stats_pass(
+                cfg, shards, state.params, taps, batch, kcfg.block_size,
+                collect="cols")
+            return (*kfac.rank_k_of(acts, tap_grads, specs,
+                                    kcfg.block_size), loss)
+
+    def no_cols(state: TrainState, batch, rows):
+        # a rank holding none of the rows: zero Grams, and columns of its
+        # zero tokens (the queues' slots, of the whole subsample)
+        a_grams, g_grams, loss = _no_rows(cfg, specs, state, data_mesh)
+        taps = build_taps(cfg, specs, batch, rows)
+        cols = {}
+        for n in specs:
+            k = taps[n].shape[-2]
+            cols[n] = {side: f.new_zeros(f.shape[:-2] + (k, f.shape[-1]))
+                       for side, f in state.kfac.factors[n].items()}
+        return a_grams, g_grams, cols, loss
+
+    def smw_step(state: TrainState, batch, weight=None, rows=None):
+        ks = None
+        if data_mesh is None:
+            a_grams, g_grams, cols, loss = local_cols(state, batch, None)
+        else:
+            w, rows = _share(batch, data_mesh, weight, rows)
+            a_grams, g_grams, cols, loss = (
+                local_cols if batch["tokens"].shape[0] else no_cols)(
+                    state, batch, rows)
+            a_grams, g_grams, loss = _reduce_grams(a_grams, g_grams, loss,
+                                                   specs, data_mesh, w)
+            cols, ks = smw_mod.gather_cols(cols, data_mesh, w, scfg.rank,
+                                           queued)
         kstate2 = kfac.update_factors(state.kfac, a_grams, g_grams, kcfg)
         new_inv, drift = smw_mod.smw_refresh(
-            kstate2.inverses, kstate2.factors, cols, kcfg, scfg)
+            kstate2.inverses, kstate2.factors, cols, kcfg, scfg, ks=ks)
+        if mesh is not None and mesh_ndev(mesh) > 1:
+            drift = smw_mod.reduce_drift(drift, mesh)
         kstate2 = dataclasses.replace(kstate2, inverses=new_inv)
         return (dataclasses.replace(state, kfac=kstate2),
                 {"stats_loss": loss, "smw_drift": drift})
@@ -627,14 +698,25 @@ def make_inv_step(cfg, kcfg: KFACConfig, *, mesh=None,
     return inv_step
 
 
-def make_sgd_step(cfg, lr: float = 1e-2, momentum: float = 0.9) -> Callable:
+def make_sgd_step(cfg, lr: float = 1e-2, momentum: float = 0.9, *,
+                  data_mesh=None, shards=None) -> Callable:
     """First-order baseline (the paper's GPU-1st / PipeLayer side):
     heavy-ball SGD on the whole batch, ``state = (params, momentum)``,
-    ``m <- momentum m + g`` and ``p <- p - lr m``."""
+    ``m <- momentum m + g`` and ``p <- p - lr m``. ``data_mesh`` and
+    ``shards`` as in :func:`make_train_step`: the loss and gradients
+    are the global batch's, reduced over the data ranks, and the params
+    this rank's model slices."""
 
     def sgd_step(state, batch):
         params, mom = state
-        loss, grads = _grads(cfg, params, batch)
+        with bound(shards, data_mesh):
+            loss, grads = _grads(cfg, params, batch)
+        if data_mesh is not None:
+            w = 1.0 / mesh_ndev(data_mesh)
+            order = kfac.tree_order(grads)
+            red = reduce_shares([grads[k] for k in order] + [loss],
+                                data_mesh, [w] * (len(order) + 1))
+            grads, loss = dict(zip(order, red[:-1])), red[-1]
         mom2 = {k: momentum * mom[k] + grads[k] for k in params}
         params2 = {k: params[k] - lr * mom2[k] for k in params}
         return (params2, mom2), {"loss": loss}

@@ -58,8 +58,25 @@ only its own layers' params, K-FAC factors, inverses and WU tiles::
   torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
       --arch qwen1.5-0.5b --pp 2 --pp-schedule 1f1b --dist-inv --steps 4
 
-``--async-inv`` and ``--smw`` across ranks raise (ROADMAP Queue 1 item
-8.4), and ``--optimizer sgd`` across ranks or under ``--pp`` too.
+``--smw``, ``--async-inv`` and ``--optimizer sgd`` run on every mesh
+above: ``--smw``'s columns are gathered over the data ranks and its drift
+reduced over the mesh, so that every rank's gate falls back alike;
+``--async-inv``'s refresh runs its collectives on groups of its own
+(``dist.api.side_lane``), and under ``--pp`` is dispatched just before the
+pipeline step (``pipeline.kfac_glue.bubble_refresh``); the SGD baseline
+reduces its gradients over the data ranks and slices the model as K-FAC
+does. ``--optimizer sgd`` under ``--pp`` raises (the reference's
+message).
+
+A world that is not a multiple of the model x stage group trains on its
+largest mesh (``runtime.elastic.largest_mesh``: a power-of-two data
+axis); the ranks left over print a line and exit 0. ``--inject-failure-at
+N --inject-lost K`` drills a loss of ``K`` ranks: the survivors re-form
+the largest mesh without the last ``K`` ranks, restore the last
+checkpoint onto it and replay (``runtime.TrainLoop``), and the ranks left
+out exit 0. A real lost process is recovered by ``torchrun
+--max-restarts``: the restarted group resumes from the last checkpoint on
+the largest mesh of its world.
 
 ``--smw`` replaces the stats/inv cadence with the incremental SOI path:
 every step runs one rank-k program (SU with column factors, factor EMA,
@@ -94,11 +111,14 @@ from repro_torch.data.pipeline import (DataCursor, SyntheticTokens,
                                        batch_shard, make_global_batch)
 from repro_torch.dist import sharding
 from repro_torch.dist.api import (DATA, MODEL, MULTI_GPU_ITEM, STAGE,
-                                  axis_sizes, mesh_ndev)
+                                  axis_sizes, mesh_group, mesh_ndev,
+                                  side_lane)
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.steps import TrainState
+from repro_torch.pipeline import kfac_glue
 from repro_torch.runtime import DeviceLoss, LoopConfig, TrainLoop
+from repro_torch.runtime.elastic import in_mesh
 from repro_torch.solve.async_refresh import (AsyncInverseRefresher,
                                              SMWRefresher)
 from repro_torch.solve.smw import SMWConfig
@@ -205,8 +225,12 @@ class KFACProgram:
     and sliced), the model reduces through its seams, and
     :meth:`full_state`/:meth:`local_state` carry a state to and from
     the full model's, the layout of a checkpoint; the moe family's
-    experts are sliced over the model ranks (expert parallelism). ``smw``
-    and ``async_inv`` across ranks wait for ROADMAP Queue 1 item 8.
+    experts are sliced over the model ranks (expert parallelism). With
+    ``smw`` each rank updates its blocks from the global subsample's
+    columns (``steps.make_smw_step``), and the drift is reduced over the
+    mesh; with ``async_inv`` the refresh's collectives run on the side
+    lane's groups (``dist.api.side_lane``). :meth:`remesh`
+    rebuilds the program on a re-formed mesh (``runtime.elastic``).
 
     ``pp`` > 1 (a ``(stage, data, model)`` ``mesh`` of ``pp`` stages,
     ``launch.mesh.make_pipeline_mesh``): pipeline parallelism. The
@@ -217,7 +241,11 @@ class KFACProgram:
     microbatches of this rank's rows through ``pp_schedule``
     (``steps.make_pipeline_step``), the statistics pass goes through the
     stages, and with ``dist_inv`` each stage's ``(data, model)`` ranks
-    invert its blocks between them.
+    invert its blocks between them. With ``async_inv`` each refresh is
+    dispatched just before the pipeline step
+    (``pipeline.kfac_glue.bubble_refresh``), whose ``pp_bubble_ticks``
+    and ``pp_bubble_fraction`` join the metrics; with ``smw`` the columns
+    come from the statistics pass through the stages.
 
     ``obs``: phase spans and the ``train_phase_s`` histogram."""
 
@@ -241,10 +269,6 @@ class KFACProgram:
             raise ValueError(
                 "--smw refreshes the inverses inside every step; there "
                 "is no inv cadence left for --async-inv to overlap")
-        if self.mesh is not None and (self.smw or self.async_inv):
-            raise NotImplementedError(
-                f"--{'smw' if self.smw else 'async-inv'} across ranks is "
-                f"not ported yet ({MULTI_GPU_ITEM}.4)")
         #: this rank's layout: tensor parallelism's ModelShards, pipeline
         #: parallelism's StageShards (None without either)
         self.shards = None
@@ -300,6 +324,12 @@ class KFACProgram:
     def model_parallel(self) -> int:
         """The model axis's rank count (1 without tensor parallelism)."""
         return 1 if self.shards is None else self.shards.mp
+
+    def remesh(self, mesh) -> "KFACProgram":
+        """This program rebuilt on a re-formed ``mesh`` (a recovery's,
+        ``runtime.elastic``): this rank's layout, groups and step
+        functions anew; the state comes from the checkpoint."""
+        return dataclasses.replace(self, mesh=mesh)
 
     def init_state(self) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -372,18 +402,28 @@ class KFACProgram:
             # buffers it is given, as every later one does
             spare = {n: {k: torch.zeros_like(t) for k, t in d.items()}
                      for n, d in state.kfac.inverses.items()}
+
+            def refresh_into(factors, buf):
+                # on a mesh the refresh's collectives run on groups of
+                # their own, beside the step's on the main stream
+                with side_lane():
+                    return refresh(factors, out=buf)
+
             self._refresher = AsyncInverseRefresher(
-                refresh_into=lambda factors, buf: refresh(factors, out=buf),
-                spare_buffers=spare, obs=self.obs)
+                refresh_into=refresh_into, spare_buffers=spare,
+                obs=self.obs)
         refresher = self._refresher
+        sched = getattr(train, "schedule", None)
 
         self._smw = None
         if self.smw:
             scfg = SMWConfig(drift_budget=self.smw_drift_budget,
                              rank=self.smw_rank, use_kernel=True)
-            smw_step = steps_mod.make_smw_step(self.cfg, kcfg, scfg)
+            smw_step = steps_mod.make_smw_step(
+                self.cfg, kcfg, scfg, data_mesh=self.data_mesh,
+                shards=shards, mesh=mesh)
             self._smw = SMWRefresher(
-                lambda st, b: timed("smw", lambda: smw_step(st, b)),
+                lambda st, b: timed("smw", lambda: smw_step(st, *b)),
                 lambda factors: timed("inv", lambda: refresh(factors)),
                 drift_budget=self.smw_drift_budget, obs=self.obs)
         smw_ref = self._smw
@@ -412,14 +452,22 @@ class KFACProgram:
             phase_s.clear()
             metrics: dict = {}
             if smw_ref is not None:
-                state, m = smw_ref.step(state, subsample(batch)[0])
+                state, m = smw_ref.step(state, subsample(batch))
                 metrics.update(m)
             else:
                 if i % kcfg.stats_every == 0:
                     state, m = timed("stats", lambda: stats(
                         state, *subsample(batch)))
                     metrics.update(m)
-                if i % kcfg.inv_every == 0 and refresher is not None:
+                if i % kcfg.inv_every == 0 and sched is not None \
+                        and refresher is not None:
+                    # pipelined: dispatched just before the pipeline step,
+                    # so that the refresh runs beside its bubbles
+                    kst, info = timed("inv", lambda: kfac_glue.bubble_refresh(
+                        refresher, state.kfac, sched))
+                    state = dataclasses.replace(state, kfac=kst)
+                    metrics.update(info)
+                elif i % kcfg.inv_every == 0 and refresher is not None:
                     state = dataclasses.replace(state, kfac=timed(
                         "inv", lambda: refresher.step(state.kfac)))
                 elif i % kcfg.inv_every == 0:
@@ -467,31 +515,85 @@ class SGDProgram:
     """First-order baseline (the paper's GPU-1st / PipeLayer side):
     heavy-ball SGD on the whole model, state ``(params, momentum)``,
     the same initial weights as :class:`KFACProgram` for a seed. Its
-    ``phase_s`` has the one phase ``train``."""
+    ``phase_s`` has the one phase ``train``.
+
+    ``mesh``: a ``(data, model)`` DeviceMesh, as :class:`KFACProgram`'s:
+    each rank takes its rows of the global batch and the gradients are
+    reduced over the data ranks; a model axis of several ranks slices
+    the model megatron-style (:attr:`shards`, at the slicing rule's
+    divisibility alone: the baseline has no K-FAC blocks to keep
+    whole), with :meth:`full_state`/:meth:`local_state` for
+    checkpoints. The baseline never pipelines (a ``stage`` axis of
+    several ranks raises, as the reference's CLI refuses ``--pp``)."""
 
     cfg: Any
     lr: float = 1e-2
     seed: int = 0
     device: str = "cuda"
     obs: Any = None
+    mesh: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(str(self.device))
         if self.obs is None:
             self.obs = obs_mod.NULL
         fp32_matmuls()
+        #: this rank's model slices (None without tensor parallelism)
+        self.shards = None
+        self.data_mesh = self.mesh
+        if self.mesh is not None:
+            sizes = axis_sizes(self.mesh)
+            if sizes.get(STAGE, 1) > 1:
+                raise SystemExit("--pp > 1 is a KFACProgram feature; the "
+                                 "SGD baseline runs monolithic")
+            if not set(sizes) <= {DATA, MODEL}:
+                raise NotImplementedError(
+                    f"a mesh {sizes} with axes other than data and model: "
+                    f"only data and tensor parallelism are ported for the "
+                    f"SGD baseline ({MULTI_GPU_ITEM})")
+            shapes = steps_mod.init_params(self.cfg, generator=None,
+                                           device="meta")
+            self.shards = sharding.model_shards(self.cfg, self.mesh, shapes,
+                                                block_size=1)
+            if self.shards is not None:
+                self.data_mesh = (self.mesh[DATA] if sizes[DATA] > 1
+                                  else None)
+
+    @property
+    def model_parallel(self) -> int:
+        return 1 if self.shards is None else self.shards.mp
+
+    def remesh(self, mesh) -> "SGDProgram":
+        """This program rebuilt on a re-formed ``mesh``."""
+        return dataclasses.replace(self, mesh=mesh)
 
     def init_state(self):
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         params = steps_mod.init_params(self.cfg, generator=gen,
                                        device=self.device)
+        if self.shards is not None:
+            params = sharding.local_params(params, self.shards)
         return params, {k: torch.zeros_like(p) for k, p in params.items()}
+
+    def full_state(self, state):
+        """The full model's ``(params, momentum)`` (every rank calls)."""
+        if self.shards is None:
+            return state
+        return tuple(sharding.full_params(t, self.shards) for t in state)
+
+    def local_state(self, state):
+        """A full state cut to this rank's slices."""
+        if self.shards is None:
+            return state
+        return tuple(sharding.local_params(t, self.shards) for t in state)
 
     def make_step(self, state):
         del state
         phase_s: dict = {}
         timed = _phase_timer(self.device, self.obs, phase_s)
-        sgd = steps_mod.make_sgd_step(self.cfg, self.lr)
+        sgd = steps_mod.make_sgd_step(self.cfg, self.lr,
+                                      data_mesh=self.data_mesh,
+                                      shards=self.shards)
 
         def step_fn(state, batch):
             phase_s.clear()
@@ -622,6 +724,11 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--inject-failure-at", type=int, default=-1,
                     help="fault drill: raise DeviceLoss at this step")
+    ap.add_argument("--inject-lost", type=int, default=0,
+                    help="the drill's lost ranks: under torchrun the "
+                         "survivors re-form the largest mesh without "
+                         "that many ranks from the tail of the world "
+                         "(runtime.elastic); 0 restores on the same mesh")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="write the run summary JSON (with the per-step "
@@ -642,28 +749,32 @@ def main(argv=None):
                          "SGD baseline runs monolithic")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     group = args.pp * args.model_parallel
-    if world % group:
+    if world < group:
         flags = [f"{f} {n}" for f, n in (("--pp", args.pp),
                                           ("--model-parallel",
                                            args.model_parallel)) if n > 1]
-        raise ValueError(f"{' x '.join(flags)} needs a multiple of {group} "
+        raise ValueError(f"{' x '.join(flags)} needs at least {group} "
                          f"ranks (torchrun), not {world}")
+    # the telemetry spine on rank 0 only (the ranks' steps are the same)
+    rank0 = int(os.environ.get("RANK", "0")) == 0
+    obs = obs_mod.from_args(args) if rank0 else obs_mod.NULL
     mesh = None
     if world > 1:
         mesh, device = init_ranks(args.device, args.dist_backend,
-                                  model=args.model_parallel, pp=args.pp)
-        if args.optimizer != "kfac":
-            raise NotImplementedError(
-                f"--optimizer sgd across ranks is not ported yet "
-                f"({MULTI_GPU_ITEM})")
-        if args.smw or args.async_inv:
-            raise NotImplementedError(
-                f"--{'smw' if args.smw else 'async-inv'} across ranks is "
-                f"not ported yet ({MULTI_GPU_ITEM}.4)")
+                                  model=args.model_parallel, pp=args.pp,
+                                  obs=obs)
     else:
         device = resolve_device(args.device)
     try:
-        return _main(args, device, mesh)
+        if mesh is not None and not in_mesh(mesh):
+            # a world that is not a multiple of the model x stage group
+            # trains on its largest mesh; the ranks left over leave
+            shape = dict(zip(mesh.mesh_dim_names,
+                             (int(n) for n in mesh.mesh.shape)))
+            print(f"rank {torch.distributed.get_rank()} of {world}: outside "
+                  f"the largest mesh {shape}; exiting", flush=True)
+            return {"excluded": True, "mesh": shape}
+        return _main(args, device, mesh, obs)
     finally:
         if mesh is not None:
             torch.distributed.destroy_process_group()
@@ -682,14 +793,15 @@ def params_digest(params) -> str:
 
 
 def init_ranks(device: str, backend: str | None = None, model: int = 1,
-               pp: int = 1):
+               pp: int = 1, obs=None):
     """Under torchrun: the process group (``backend``, default
     ``dist.spawn.backend_for``'s: NCCL when every rank has a card of its
     own, gloo on the CPU or when ranks share cards) from the environment
     torchrun sets, this rank's device (``cuda:{LOCAL_RANK % cards}``) and
-    the ``(data, model)`` dev mesh over the world, ``model`` ranks a model
-    group, or with ``pp`` > 1 the ``(stage, data, model)`` pipeline mesh:
-    ``(mesh, device)``."""
+    the largest ``(data, model)`` dev mesh over the world, ``model`` ranks
+    a model group, or with ``pp`` > 1 the ``(stage, data, model)``
+    pipeline mesh (``obs`` records it): ``(mesh, device)``. A rank the
+    mesh leaves out gets no coordinate."""
     import torch.distributed as dist
 
     from repro_torch.dist.spawn import backend_for, rank_device
@@ -705,11 +817,11 @@ def init_ranks(device: str, backend: str | None = None, model: int = 1,
         torch.set_num_threads(max(1, torch.get_num_threads()
                                   // dist.get_world_size()))
     if pp > 1:
-        return make_pipeline_mesh(pp, model), dev
-    return make_dev_mesh(model), dev
+        return make_pipeline_mesh(pp, model, obs=obs), dev
+    return make_dev_mesh(model, obs=obs), dev
 
 
-def _main(args, device, mesh):
+def _main(args, device, mesh, obs):
     rank0 = mesh is None or torch.distributed.get_rank() == 0
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if cfg.family == "audio":
@@ -718,8 +830,6 @@ def _main(args, device, mesh):
             f"the CLI's synthetic token stream does not make (nor does "
             f"the reference's); drive launch.train.run with a dataset "
             f"that adds them")
-    # the telemetry spine on rank 0 only (the ranks' steps are the same)
-    obs = obs_mod.from_args(args) if rank0 else obs_mod.NULL
     kcfg = KFACConfig(
         lr=args.lr, damping=args.damping,
         stats_every=args.stats_every, inv_every=args.inv_every,
@@ -737,7 +847,7 @@ def _main(args, device, mesh):
                               pp=args.pp, pp_schedule=args.pp_schedule)
     else:
         program = SGDProgram(cfg, lr=args.lr, seed=args.seed,
-                             device=device, obs=obs)
+                             device=device, obs=obs, mesh=mesh)
     ds = SyntheticTokens(vocab=cfg.vocab, seq_len=args.seq,
                          global_batch=args.batch, seed=args.seed)
 
@@ -746,7 +856,7 @@ def _main(args, device, mesh):
     def inject(step):
         if step == args.inject_failure_at and not fired:
             fired.append(step)
-            raise DeviceLoss(0, "injected failure drill")
+            raise DeviceLoss(args.inject_lost, "injected failure drill")
 
     # On the CPU the kernels' plain versions make a refresh step tens of
     # times slower than a plain one, on cores other processes share: a
@@ -761,14 +871,23 @@ def _main(args, device, mesh):
         inject=inject if args.inject_failure_at >= 0 else None, obs=obs)
     result = loop.run()
     history = result["history"]
-    # the full model's params (gathered over the model and stage ranks)
-    digest = params_digest(program.full_state(loop.final_state).params
-                           if args.optimizer == "kfac"
-                           else loop.final_state[0])
+    if result.get("excluded"):
+        # left out of a mesh re-formed after a loss
+        print(f"rank {torch.distributed.get_rank()}: excluded at step "
+              f"{result['excluded_at_step']} by the re-formed mesh "
+              f"{result['mesh']}", flush=True)
+        return result
+    # the full model's params (gathered over the model and stage ranks),
+    # on the program of the last mesh
+    program, mesh = loop.program, loop.mesh
+    full = program.full_state(loop.final_state)
+    digest = params_digest(full.params if args.optimizer == "kfac"
+                           else full[0])
     digests = [digest]
     if mesh is not None:
         digests = [None] * mesh_ndev(mesh)
-        torch.distributed.all_gather_object(digests, digest)
+        torch.distributed.all_gather_object(digests, digest,
+                                            group=mesh_group(mesh))
     summary = {
         "arch": cfg.name, "optimizer": args.optimizer,
         "device": str(device),

@@ -24,7 +24,7 @@ axis:
   stalled in fill/drain, so — whenever the INV work fits the bubble
   budget (:func:`inv_fits_bubbles`) — the refresh rides for free.
   :func:`bubble_refresh` is that dispatch policy (the training CLI's
-  ``--async-inv`` under ``--pp`` waits for ROADMAP Queue 1 item 8.4).
+  ``--async-inv`` under ``--pp``, ``launch.train.KFACProgram``).
 """
 
 from __future__ import annotations

@@ -498,10 +498,12 @@ def make_pipeline_grads_fn(cfg, part: StagePartition, sched: Schedule,
     return pipeline_grads
 
 
-def stats_pass(cfg, st, params, taps, batch, soi_block=None):
+def stats_pass(cfg, st, params, taps, batch, soi_block=None,
+               collect=True):
     """The K-FAC statistics pass through the stages: ``batch`` (this
     rank's subsample rows, one microbatch) forward through every stage
-    with each stage's ``taps`` and its A statistics collected, then
+    with each stage's ``taps`` and its A statistics collected (the
+    blocked Grams, or with ``collect="cols"`` the blocked tokens), then
     backward from the last stage's loss; returns ``(loss, acts,
     tap_grads)`` for this stage's linears (``kfac.stats_grams``'s pass),
     the loss summed over the stage ranks (the last stage's). Every stage
@@ -520,7 +522,7 @@ def stats_pass(cfg, st, params, taps, batch, soi_block=None):
                 if x_in is not None:
                     x_in = x_in.detach().requires_grad_(True)
                 y, acts = stage.forward(params, x_in, batch, taps=taps,
-                                        collect=True, block=soi_block)
+                                        collect=collect, block=soi_block)
             if t < S - 1:
                 prev, _ = stage_transfer(
                     y.detach().to(stage.dtype) if s == t else zeros, zeros,

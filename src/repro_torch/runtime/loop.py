@@ -25,9 +25,10 @@ Recovery policy:
 * after ``max_failures`` consecutive failures the loop re-raises.
 
 On a program with a ``mesh`` each rank's batch is its rows of the global
-batch (``data.make_global_batch``); rank 0 alone writes the
-checkpoints, and a recovery waits for its writes, then a barrier, then
-every rank restores the same files, so that every rank resumes alike.
+batch (``data.make_global_batch``); the mesh's first rank alone writes
+the checkpoints, and a recovery waits for its writes, then a barrier
+over the mesh, then every rank restores the same files, so that every
+rank resumes alike.
 Under tensor or pipeline parallelism a checkpoint holds the full model's
 state: at each save every rank takes part in the program's
 ``full_state`` (the slices gathered over the model ranks, the stages'
@@ -39,9 +40,25 @@ mesh from them. The ranks agree on failure twice a step, where none has
 a collective in flight: after the ``inject`` hook and after the step's
 watchdog (:meth:`TrainLoop._agree`). A recoverable failure on any rank
 there is a recovery on every rank. One raised inside a rank's step, in
-the middle of its collectives, is not recoverable across ranks (its
+the middle of its collectives, is not recoverable in the process (its
 peers wait in the step's reductions) and re-raises as a
-``RuntimeError``.
+``RuntimeError``; a restart of the group under ``torchrun
+--max-restarts`` recovers it from the last checkpoint.
+
+Elastic re-meshing (the reference's): the ranks also agree on the
+failure's ``lost`` count (a ``DeviceLoss``'s, MAX-reduced with the
+flag). When it is not 0, ``exclude += lost`` and every rank calls
+``mesh_fn(exclude=exclude)`` (default ``runtime.elastic.elastic_mesh``
+at the config's model and stage degrees), which re-forms the largest
+mesh over the surviving ranks. A rank left out leaves :meth:`run` with
+a summary saying so (``excluded``, the step, the new shape). Every other
+rank rebuilds the program on the new mesh (its ``remesh(mesh)`` hook)
+and restores the last checkpoint, which its ``local_state`` cuts to the
+rank's new layout: a rank's place, and under pipeline parallelism its
+stage, may change, so nothing of the old layout's state is carried
+over. Re-forming a mesh needs every rank of the world (``DeviceMesh``
+makes its groups on each): once ranks have left, a further loss raises
+``DeviceLoss``.
 
 Every other exception re-raises at once, a kernel's launch or build
 error included: a CUDA error that poisons the context cannot be
@@ -54,16 +71,16 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Any, Callable, Dict, Optional, Protocol
+from typing import Any, Callable, Dict, Optional, Protocol, Tuple
 
 import torch
 
 from repro_torch.checkpoint import CheckpointManager, latest_step, restore
 from repro_torch.data import DataCursor, SyntheticTokens, make_global_batch
-from repro_torch.dist.api import all_reduce
+from repro_torch.dist.api import all_reduce, mesh_ndev, mesh_ranks
 from repro_torch.obs import NULL as NULL_OBS, Observability, TapBuffer
 from repro_torch.obs.trace import wait_for
-from repro_torch.runtime.elastic import DeviceLoss
+from repro_torch.runtime.elastic import DeviceLoss, elastic_mesh, in_mesh
 from repro_torch.runtime.watchdog import StepDeadlineExceeded, StepWatchdog
 
 log = logging.getLogger("repro_torch.runtime")
@@ -77,7 +94,8 @@ class Program(Protocol):
     fence waits for the current stream only; ``full_state(state)`` and
     ``local_state(state)`` carry a state to and from the layout a
     checkpoint holds; ``model_parallel`` and ``pp`` are the model and
-    stage axes' rank counts."""
+    stage axes' rank counts; ``remesh(mesh)`` returns the program
+    rebuilt on a re-formed mesh."""
 
     device: Any
 
@@ -95,9 +113,7 @@ class LoopConfig:
     max_failures: int = 3
     model_parallel: int = 1
     # pipeline (stage) degree: must match the program's stage axis, as
-    # model_parallel its model axis (a recovery restores every rank from
-    # the checkpoint onto the same mesh; re-meshing is ROADMAP Queue 1
-    # item 8.3)
+    # model_parallel its model axis; both are kept across re-meshes
     pipeline_parallel: int = 1
     log_every: int = 10
     straggler_factor: float = 2.0
@@ -117,10 +133,14 @@ class TrainLoop:
         *,
         inject: Optional[Callable[[int], None]] = None,
         obs: Optional[Observability] = None,
+        mesh_fn: Optional[Callable[..., Any]] = None,
     ):
         """``inject(step)`` is the fault-drill hook: tests and the CLI's
         ``--inject-failure-at`` raise DeviceLoss/StepDeadlineExceeded
-        from it to exercise recovery."""
+        from it to exercise recovery. ``mesh_fn(exclude=)`` re-forms the
+        mesh after a loss (every rank calls it; default
+        ``elastic_mesh`` at the config's degrees, on the program's mesh's
+        device type)."""
         self.cfg = cfg
         self.program = program
         self.dataset = dataset
@@ -128,19 +148,21 @@ class TrainLoop:
         self.obs = obs if obs is not None else NULL_OBS
         self.inject = inject
         self.mesh = getattr(program, "mesh", None)
-        mp = getattr(program, "model_parallel", 1)
-        if mp != cfg.model_parallel:
-            raise ValueError(
-                f"LoopConfig.model_parallel={cfg.model_parallel} but the "
-                f"program's mesh has {mp} model ranks")
-        pp = getattr(program, "pp", 1)
-        if pp != cfg.pipeline_parallel:
-            raise ValueError(
-                f"LoopConfig.pipeline_parallel={cfg.pipeline_parallel} but "
-                f"the program's mesh has {pp} stages")
-        writer = self.mesh is None or torch.distributed.get_rank() == 0
-        self.ckpt = (CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
-                     if cfg.ckpt_dir is not None and writer else None)
+        if mesh_fn is None and self.mesh is not None:
+            device_type = self.mesh.device_type
+
+            def mesh_fn(exclude=0):
+                return elastic_mesh(cfg.model_parallel,
+                                    pp=cfg.pipeline_parallel,
+                                    exclude=exclude, obs=self.obs,
+                                    device_type=device_type)
+        self.mesh_fn = mesh_fn
+        #: ranks dropped from the tail of the world by re-meshes, and the
+        #: last re-formed mesh's shape
+        self.exclude = 0
+        self._remeshed = None
+        self._check_program()
+        self.ckpt = self._checkpointer()
         #: the state after the last step of :meth:`run`
         self.final_state = None
         self.watchdog = StepWatchdog(
@@ -160,6 +182,27 @@ class TrainLoop:
                 "train_recoveries_total", "checkpoint-restores")
             self._c_ckpt = self.obs.counter(
                 "train_checkpoints_total", "async checkpoint snapshots")
+
+    def _check_program(self):
+        cfg, program = self.cfg, self.program
+        mp = getattr(program, "model_parallel", 1)
+        if mp != cfg.model_parallel:
+            raise ValueError(
+                f"LoopConfig.model_parallel={cfg.model_parallel} but the "
+                f"program's mesh has {mp} model ranks")
+        pp = getattr(program, "pp", 1)
+        if pp != cfg.pipeline_parallel:
+            raise ValueError(
+                f"LoopConfig.pipeline_parallel={cfg.pipeline_parallel} but "
+                f"the program's mesh has {pp} stages")
+
+    def _checkpointer(self):
+        """The checkpoint writer on the mesh's first rank (every rank
+        without a mesh), else None."""
+        writer = self.mesh is None \
+            or torch.distributed.get_rank() == mesh_ranks(self.mesh)[0]
+        return (CheckpointManager(self.cfg.ckpt_dir, keep=self.cfg.keep)
+                if self.cfg.ckpt_dir is not None and writer else None)
 
     def _drain_taps(self):
         """One batched transfer for every buffered step; record ALL of
@@ -223,25 +266,77 @@ class TrainLoop:
                 raise RuntimeError(
                     f"rank {torch.distributed.get_rank()}: "
                     f"{type(e).__name__} inside a data-parallel step is not "
-                    f"recoverable across ranks (elastic recovery: ROADMAP "
-                    f"Queue 1 item 8)") from e
+                    f"recoverable across ranks in the process (its peers "
+                    f"wait in the step's collectives); restart the group "
+                    f"under torchrun --max-restarts to resume from the "
+                    f"last checkpoint") from e
             raise
 
-    def _agree(self, failure: Optional[BaseException], step: int):
-        """Under a mesh: every rank's ``failure`` flag, MAX-reduced, so
+    def _agree(self, failure: Optional[BaseException], step: int
+               ) -> Tuple[Optional[BaseException], int]:
+        """``(failure, lost)``. Under a mesh every rank's ``failure`` flag
+        and its ``lost`` count (a DeviceLoss's), MAX-reduced together, so
         that a recoverable failure on one rank is a recovery on every
-        rank (a rank that did not fail gets a :class:`PeerFailure`).
-        Called where no rank has a collective in flight."""
+        rank (a rank that did not fail gets a :class:`PeerFailure`) and
+        every rank excludes the same count. Called where no rank has a
+        collective in flight."""
+        lost = int(getattr(failure, "lost", 0) or 0)
         if self.mesh is None:
-            return failure
-        flag = torch.tensor([int(failure is not None)], dtype=torch.int32,
-                            device=self.device)
+            return failure, lost
+        flag = torch.tensor([int(failure is not None), lost],
+                            dtype=torch.int32, device=self.device)
         all_reduce(flag, self.mesh, "max")
-        if failure is None and int(flag.item()):
+        failed, lost = (int(v) for v in flag.tolist())
+        if failure is None and failed:
             failure = PeerFailure(f"another rank failed at step {step}")
-        return failure
+        return failure, lost
+
+    def _remesh(self, lost: int, step: int) -> bool:
+        """Re-form the mesh without ``lost`` more ranks (every rank
+        calls) and rebuild the program on it; False when this rank is
+        left out."""
+        world = torch.distributed.get_world_size()
+        if mesh_ndev(self.mesh) < world:
+            raise DeviceLoss(lost, (
+                f"cannot re-form the mesh at step {step}: it needs every "
+                f"rank of the world, and {world - mesh_ndev(self.mesh)} "
+                f"have left; restart the group under torchrun "
+                f"--max-restarts to resume from the last checkpoint"))
+        remesh = getattr(self.program, "remesh", None)
+        if remesh is None:
+            raise DeviceLoss(lost, "the program has no remesh hook")
+        self.exclude += lost
+        mesh = self.mesh_fn(exclude=self.exclude)
+        self._remeshed = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        if not in_mesh(mesh):
+            return False
+        self.program = remesh(mesh)
+        self.mesh = mesh
+        self._check_program()
+        self.ckpt = self._checkpointer()
+        log.warning("re-meshed onto %s after losing %d ranks",
+                    self._remeshed, lost)
+        return True
 
     # -- main --------------------------------------------------------------
+
+    def _summary(self, cursor, t_start) -> Dict[str, Any]:
+        out = {
+            "steps": cursor.step,
+            "wall_s": time.monotonic() - t_start,
+            "recoveries": self.n_recoveries,
+            "model_parallel": self.cfg.model_parallel,
+            "pipeline_parallel": self.cfg.pipeline_parallel,
+            "stragglers": self.watchdog.n_stragglers,
+        }
+        if self.mesh is not None:
+            out["mesh"] = dict(zip(self.mesh.mesh_dim_names,
+                                   (int(n) for n in self.mesh.mesh.shape)))
+            out["excluded_ranks"] = self.exclude
+        if self.ckpt is not None:
+            out["ckpt_write_s"] = list(self.ckpt.write_s)
+        out["history"] = self.metrics_history
+        return out
 
     def run(self) -> Dict[str, Any]:
         failures = 0
@@ -258,7 +353,7 @@ class TrainLoop:
                 if not _recoverable(e):
                     raise
                 failure = e
-            failure = self._agree(failure, step)
+            failure, lost = self._agree(failure, step)
             if failure is None:
                 try:
                     batch = (self.dataset.batch(cursor, device=self.device)
@@ -272,7 +367,7 @@ class TrainLoop:
                     if not _recoverable(e):
                         raise
                     failure = e
-                failure = self._agree(failure, step)
+                failure, lost = self._agree(failure, step)
             if failure is not None:
                 e = failure
                 failures += 1
@@ -284,8 +379,7 @@ class TrainLoop:
                 if self.obs.enabled:
                     self._c_recov.inc()
                     self.obs.event("recovery", step=step,
-                                   error=type(e).__name__,
-                                   lost=getattr(e, "lost", 0))
+                                   error=type(e).__name__, lost=lost)
                 log.warning("step %d failed (%s); recovery %d/%d",
                             step, type(e).__name__, failures,
                             self.cfg.max_failures)
@@ -294,8 +388,10 @@ class TrainLoop:
                 if self.ckpt is not None:
                     self.ckpt.wait()
                 if self.mesh is not None:
-                    # rank 0's files are on disk before any rank reads
-                    torch.distributed.barrier()
+                    # the writer's files are on disk before any rank
+                    # reads
+                    all_reduce(torch.zeros(1, device=self.device),
+                               self.mesh)
                 if self.cfg.ckpt_dir is None \
                         or latest_step(self.cfg.ckpt_dir) is None:
                     log.warning(
@@ -307,6 +403,14 @@ class TrainLoop:
                 # release the failed run's tensors before the restore
                 # allocates the new ones
                 state = step_fn = None
+                if lost and self.mesh is not None \
+                        and not self._remesh(lost, step):
+                    log.warning("rank %d left out of the re-formed mesh %s",
+                                torch.distributed.get_rank(),
+                                self._remeshed)
+                    return {**self._summary(cursor, t_start),
+                            "excluded": True, "excluded_at_step": step,
+                            "mesh": self._remeshed}
                 state, cursor, step_fn = self._start()
                 # fresh timing window: the first post-restore step must
                 # not trip the hang deadline; the cumulative counters
@@ -358,17 +462,7 @@ class TrainLoop:
         if self.ckpt is not None:
             self.ckpt.wait()
         self.final_state = state
-        return {
-            "steps": cursor.step,
-            "wall_s": time.monotonic() - t_start,
-            "recoveries": self.n_recoveries,
-            "model_parallel": self.cfg.model_parallel,
-            "pipeline_parallel": self.cfg.pipeline_parallel,
-            "stragglers": self.watchdog.n_stragglers,
-            **({"ckpt_write_s": list(self.ckpt.write_s)}
-               if self.ckpt is not None else {}),
-            "history": self.metrics_history,
-        }
+        return self._summary(cursor, t_start)
 
 
 class PeerFailure(RuntimeError):

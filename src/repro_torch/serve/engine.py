@@ -238,7 +238,7 @@ class ServeEngine:
                              "one of ('none', 'int8')")
         if mesh is not None:
             raise NotImplementedError(
-                "a serving mesh is multi-GPU work: ROADMAP Queue 1 item 8")
+                "a serving mesh is multi-GPU work: ROADMAP Queue 1 item 8.5")
         from repro_torch.launch import steps as steps_mod
 
         self.cfg = cfg

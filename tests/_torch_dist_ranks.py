@@ -1076,3 +1076,254 @@ def pp_rank(rank, world, cases):
         fn = {"grads": pp_grads, "grams": pp_grams, "train": pp_train}[kind]
         out[key] = fn(cfg, mesh, *args)
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_elastic.py
+# ---------------------------------------------------------------------------
+
+#: the drills' K-FAC config (block 32: the smoke model's attention and MLP
+#: slice whole blocks over 2 model ranks) and run: a checkpoint every 2
+#: steps, the loss at step 3, 4 steps
+ELASTIC_KCFG = dict(stats_every=2, inv_every=2, block_size=32,
+                    stats_batch=4, stats_seq=16)
+ELASTIC_STEPS, ELASTIC_FAIL_AT = 4, 3
+
+
+def _elastic_program(cfg, mesh, pp):
+    from repro_torch.core import kfac
+    from repro_torch.launch import train as train_mod
+
+    return train_mod.KFACProgram(cfg, kfac.KFACConfig(**ELASTIC_KCFG),
+                                 device="cpu", mesh=mesh, pp=pp,
+                                 dist_inv=True)
+
+
+def elastic_drill(rank, shape, lost, fail_rank, root):
+    """The loss drill on a mesh of ``shape`` (``(data, model)`` or
+    ``(stage, data, model)``): ``runtime.TrainLoop`` over ``KFACProgram``
+    (seed-0 weights, fp32 compute, ``--dist-inv``), rank ``fail_rank``
+    raising ``DeviceLoss(lost)`` from the ``inject`` hook at step
+    :data:`ELASTIC_FAIL_AT`; then, on the mesh re-formed without ``lost``
+    ranks, a failure-free run restored from the drill's own checkpoint of
+    step 2. Returns the drill's summary and losses, the remesh events and
+    counter (rank 0), and on the survivors the reference run's losses,
+    both runs' gathered params' digests and rank 0's gathered params."""
+    import json
+    import os
+    import shutil
+
+    import torch.distributed as tdist
+
+    from repro_torch import obs as obs_mod
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_dev_mesh, make_pipeline_mesh
+    from repro_torch.runtime.elastic import DeviceLoss, elastic_mesh, in_mesh
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+
+    cfg = dataclasses.replace(get_smoke_config("qwen1.5-0.5b"),
+                              dtype="float32")
+    pp, mp = (shape[0] if len(shape) == 3 else 1), shape[-1]
+    obs = obs_mod.Observability(out_dir=os.path.join(root, f"obs{rank}"))
+    mesh = (make_pipeline_mesh(pp, mp, obs=obs) if pp > 1
+            else make_dev_mesh(mp, obs=obs))
+    ds = SyntheticTokens(cfg.vocab, ELASTIC_KCFG["stats_seq"],
+                         ELASTIC_KCFG["stats_batch"], seed=0)
+    lcfg = dict(ckpt_every=2, hang_factor=None, model_parallel=mp,
+                pipeline_parallel=pp)
+    fired = []
+
+    def fail(step):
+        if rank == fail_rank and step == ELASTIC_FAIL_AT and not fired:
+            fired.append(step)
+            raise DeviceLoss(lost, f"injected on rank {rank}")
+
+    drill_dir, ref_dir = os.path.join(root, "drill"), os.path.join(root,
+                                                                   "ref")
+    loop = TrainLoop(LoopConfig(ELASTIC_STEPS, ckpt_dir=drill_dir, **lcfg),
+                     _elastic_program(cfg, mesh, pp), ds, inject=fail,
+                     obs=obs)
+    res = loop.run()
+    out = {"summary": {k: v for k, v in res.items() if k != "history"},
+           "history": [(h["step"], float(h["loss"]))
+                       for h in res["history"]]}
+    if rank == 0:
+        obs.flush()
+        with open(os.path.join(root, "obs0", obs_mod.JSONL_NAME)) as f:
+            out["events"] = [json.loads(line) for line in f]
+        out["remesh_total"] = obs.counter(
+            "runtime_remesh_total").snapshot()["samples"]
+        step = os.path.join(ref_dir, "step_0000000002")
+        shutil.copytree(os.path.join(drill_dir, "step_0000000002"), step)
+    tdist.barrier()
+    new = elastic_mesh(mp, pp=pp, exclude=lost)
+    if not in_mesh(new):
+        return out
+    ref_prog = _elastic_program(cfg, new, pp)
+    ref = TrainLoop(LoopConfig(ELASTIC_STEPS, ckpt_dir=ref_dir, **lcfg),
+                    ref_prog, ds)
+    rres = ref.run()
+    full = ref_prog.full_state(ref.final_state).params
+    drill_full = loop.program.full_state(loop.final_state).params
+    out.update(
+        ref_history=[(h["step"], float(h["loss"]))
+                     for h in rres["history"]],
+        ref_digest=train_mod.params_digest(full),
+        digest=train_mod.params_digest(drill_full),
+        stage=(loop.program.shards.stage if pp > 1 else None),
+        params=({k: v.numpy() for k, v in drill_full.items()}
+                if rank == 0 else None))
+    return out
+
+
+def elastic_rank(rank, world, cases, root):
+    """Every drill ``(key, shape, lost, fail_rank)`` of this world, in
+    order (:func:`elastic_drill`): ``{key: result}``."""
+    import os
+
+    return {key: elastic_drill(rank, shape, lost, fail_rank,
+                               os.path.join(root, key))
+            for key, shape, lost, fail_rank in cases}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_dist_solvers.py
+# ---------------------------------------------------------------------------
+
+def solvers_program(cfg, kcfg_kw, mesh=None, pp=1, **kw):
+    """The program of one case of the solver tests: SGD when ``kw`` has
+    ``lr`` alone, else ``KFACProgram`` with ``kw``."""
+    from repro_torch.core import kfac
+    from repro_torch.launch import train as train_mod
+
+    if kcfg_kw is None:
+        return train_mod.SGDProgram(cfg, device="cpu", mesh=mesh, **kw)
+    return train_mod.KFACProgram(cfg, kfac.KFACConfig(**kcfg_kw),
+                                 device="cpu", mesh=mesh, pp=pp, **kw)
+
+
+def solvers_run(program, params_np, ds_kw, n_steps):
+    """``n_steps`` of ``program`` from the given full weights (its
+    mesh's rows of each batch): the losses, the SMW drifts and fallback
+    flags, the phases, the gathered params, a digest of this rank's
+    inverses and, for K-FAC, the gathered inverses."""
+    from repro_torch.core import kfac
+    from repro_torch.data import DataCursor, SyntheticTokens
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+
+    params = {k: torch.from_numpy(v) for k, v in params_np.items()}
+    if isinstance(program, train_mod.SGDProgram):
+        state = program.local_state(
+            (params, {k: torch.zeros_like(v) for k, v in params.items()}))
+    else:
+        state = steps_mod.TrainState(params, kfac.init(
+            params, steps_mod.kfac_specs(program.cfg), program.kcfg))
+        state = program.local_state(state)
+    step_fn = program.make_step(state)
+    ds = SyntheticTokens(program.cfg.vocab, **ds_kw)
+    hist, cursor = [], DataCursor()
+    for _ in range(n_steps):
+        batch = (ds.batch(cursor, device="cpu") if program.mesh is None
+                 else make_global_batch(ds, cursor, program.mesh,
+                                        device="cpu"))
+        state, m = step_fn(state, batch)
+        cursor = cursor.advance()
+        hist.append({"loss": float(m["loss"]),
+                     "phases": sorted(m["phase_s"]),
+                     **{k: float(m[k]) for k in ("smw_drift",
+                                                 "smw_fallback",
+                                                 "pp_bubble_ticks",
+                                                 "pp_bubble_fraction")
+                        if k in m}})
+    full = program.full_state(state)
+    out = {"hist": hist}
+    if isinstance(program, train_mod.SGDProgram):
+        out["params"] = {k: v.numpy() for k, v in full[0].items()}
+        return out
+    out["params"] = {k: v.numpy() for k, v in full.params.items()}
+    out["inverses"] = numpy_tree(full.kfac.inverses)
+    out["local_inverses"] = train_mod.params_digest(
+        {f"{n}/{s}": v for n, d in state.kfac.inverses.items()
+         for s, v in d.items()})
+    if program.refresher is not None:
+        r = program.refresher
+        out["refresher"] = (r.n_dispatched, r.n_swapped)
+    return out
+
+
+def smw_no_rows(rank, world, mesh, params_np, ds_kw):
+    """One ``--smw`` step on ``mesh`` from the same state, with a
+    subsample of one row: the ranks after the first hold none of it
+    (zero Grams and columns, ``steps.make_smw_step``'s no-rows path).
+    Returns whether this rank's updated inverses and drift are bitwise
+    one rank's step on the same row."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import kfac
+    from repro_torch.data import DataCursor, SyntheticTokens
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.solve.smw import SMWConfig
+
+    cfg = dataclasses.replace(get_smoke_config("qwen1.5-0.5b"),
+                              dtype="float32")
+    kcfg = kfac.KFACConfig(block_size=32, stats_batch=1,
+                           stats_seq=ds_kw["seq_len"])
+    params = {k: torch.from_numpy(v) for k, v in params_np.items()}
+    state = steps_mod.TrainState(params, kfac.init(
+        params, steps_mod.kfac_specs(cfg), kcfg))
+    ds = SyntheticTokens(cfg.vocab, **ds_kw)
+    scfg = SMWConfig(rank=16)
+    rows = make_global_batch(ds, DataCursor(0), mesh, device="cpu")
+    held = {"tokens": rows["tokens"][:1 if rank == 0 else 0]}
+    got, m = steps_mod.make_smw_step(cfg, kcfg, scfg, data_mesh=mesh,
+                                     mesh=mesh)(
+        state, held, weight=1.0 if rank == 0 else 0.0, rows=1)
+    one, m1 = steps_mod.make_smw_step(cfg, kcfg, scfg)(
+        state, {"tokens": ds.batch(DataCursor(0), device="cpu")["tokens"]
+                [:1]})
+    return {"rows": held["tokens"].shape[0],
+            "inverses": bitwise(got.kfac.inverses, one.kfac.inverses),
+            "factors": bitwise(got.kfac.factors, one.kfac.factors),
+            "drift": float(m["smw_drift"]) == float(m1["smw_drift"])}
+
+
+def solvers_rank(rank, world, cases, probe=False):
+    """Every case ``(key, arch, cfg overrides, mesh shape, kcfg kwargs or
+    None, program kwargs, weights, dataset kwargs, steps)`` on this
+    world's gloo ranks, in order: ``{key: solvers_run's result}``, rank
+    0's gathered params and inverses only; with ``probe``, also
+    ``benchmarks.dist_inverse``'s ``--smw`` probe (``"dist_inverse_smw"``)."""
+    from repro_torch.benchmarks import dist_inverse
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_dev_mesh, make_pipeline_mesh
+
+    from repro_torch.solve.smw import reduce_drift
+
+    out = {}
+    if probe:
+        out["dist_inverse_smw"] = dist_inverse.smw_probe(rank, world, "cpu")
+        # the drift every gate reads: the max, and NaN if any rank's is
+        mesh = make_dev_mesh()
+        out["drift_max"] = float(reduce_drift(
+            torch.tensor(0.25 * (rank + 1)), mesh))
+        out["drift_nan"] = float(reduce_drift(torch.tensor(
+            float("nan") if rank == world - 1 else 0.5), mesh))
+        out["smw_no_rows"] = smw_no_rows(rank, world, mesh,
+                                         cases[0][6], cases[0][7])
+    for key, arch, over, shape, kcfg_kw, kw, params_np, ds_kw, n in cases:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                                  **over)
+        pp = shape[0] if len(shape) == 3 else 1
+        mesh = (make_pipeline_mesh(pp, shape[-1]) if pp > 1
+                else make_dev_mesh(shape[-1]))
+        res = solvers_run(solvers_program(cfg, kcfg_kw, mesh, pp, **kw),
+                          params_np, ds_kw, n)
+        if rank:
+            res.pop("params")
+            res.pop("inverses", None)
+        out[key] = res
+    return out

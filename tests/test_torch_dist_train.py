@@ -158,7 +158,8 @@ def test_failure_inside_one_ranks_step_is_not_recovered(tmp_path):
 
 def test_torchrun_refuses_what_is_not_ported():
     # --pp and --model-parallel are ported: one rank cannot fill their
-    # groups; the SGD baseline never pipelines (the reference's message)
+    # groups; the SGD baseline never pipelines (the reference's message),
+    # on the CLI and on a mesh with a stage axis
     with pytest.raises(ValueError, match="--pp 2"):
         ttrain.main(CLI + ["--pp", "2"])
     with pytest.raises(SystemExit, match="KFACProgram feature"):
@@ -166,10 +167,9 @@ def test_torchrun_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="--model-parallel 2"):
         ttrain.main(CLI + ["--model-parallel", "2"])
     cfg = t_get_smoke_config(ARCH)
-    for kw in (dict(smw=True), dict(async_inv=True)):
-        with pytest.raises(NotImplementedError, match="item 8.4"):
-            ttrain.KFACProgram(cfg, tkfac.KFACConfig(), device="cpu",
-                               mesh=object(), **kw)
+    with pytest.raises(SystemExit, match="KFACProgram feature"):
+        ttrain.SGDProgram(cfg, device="cpu",
+                          mesh={"stage": 2, "data": 1, "model": 1})
 
 
 def _reference_run(cfg, kcfg, params, ds, n_steps):

@@ -235,7 +235,7 @@ def test_package_imports_neither_jax_nor_repro():
         "'launch.mesh', 'benchmarks.dist_inverse', "
         "'benchmarks.grad_compression', 'pipeline.stash', "
         "'pipeline.schedule', 'pipeline.stages', 'pipeline.microbatch', "
-        "'pipeline.kfac_glue'):\n"
+        "'pipeline.kfac_glue', 'runtime.elastic'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=SRC)
